@@ -1,0 +1,204 @@
+"""The port's serving slice (tensorforth_tpu_torch: tiny_lm -> generate)
+held against the JAX package.  CPU only: the same numpy weights are
+loaded into the port model with weights.load_jax_params and handed to
+the JAX serving code, and the same numpy inputs go through both
+packages."""
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from tensorforth_tpu.nn import serve as jserve
+from tensorforth_tpu_torch.nn import serve as tserve
+from tensorforth_tpu_torch.weights import load_jax_params
+
+LM = dict(batch=2, seq=24, vocab=32, dim=32, heads=4, layers=2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """tiny CPU matmuls: one thread, so the suite's other workers keep
+    their cores"""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _pair(rope, seed=0):
+    """(a stand-in for the JAX model, a port tiny_lm) holding the same
+    weights.  JAX's generate() reads a model through _program() and
+    _params() alone; the two packages' programs are equal
+    (test_tiny_lm_program_matches_jax).  The weights are drawn wider than
+    the init's (matrices at 8/sqrt(fan-in), norm gains near 1) so that
+    greedy decode walks through many tokens instead of settling on one."""
+    from tensorforth_tpu_torch.models import tiny_lm
+    mt = tiny_lm(**LM, rope=rope, device="cpu")
+    rs = np.random.RandomState(seed)
+    params = []
+    for lp in mt._params():
+        layer = []
+        for i, a in enumerate(lp):
+            w = rs.randn(*a.shape).astype(np.float32)
+            if a.dim() == 2:
+                w *= 8.0 / np.sqrt(a.shape[1])
+            else:
+                w = w * 0.1 + (1.0 if i == 0 and lp[0].dim() == 1 else 0.0)
+            layer.append(w)
+        params.append(tuple(layer))
+    load_jax_params(mt, params)
+    jparams = tuple(tuple(jnp.asarray(a) for a in lp) for lp in params)
+    mj = SimpleNamespace(_program=mt._program, _params=lambda: jparams)
+    return mj, mt
+
+
+@pytest.mark.parametrize("rope", [False, True])
+def test_tiny_lm_program_matches_jax(t4, rope):
+    """the port's tiny_lm has the JAX package's program and parameter
+    shapes"""
+    from tensorforth_tpu.models import tiny_lm as jax_lm
+    from tensorforth_tpu_torch.models import tiny_lm as torch_lm
+    mj = jax_lm(**LM, rope=rope)
+    mt = torch_lm(**LM, rope=rope, device="cpu")
+    assert mt._program() == mj._program()
+    assert ([[tuple(a.shape) for a in lp] for lp in mt._params()]
+            == [[tuple(a.shape) for a in lp] for lp in mj._params()])
+
+
+def test_quant8_matches_jax():
+    """identical int8 codes (both round half to even); scales within
+    1e-7 relative error"""
+    rs = np.random.RandomState(1)
+    v = rs.randn(3, 4, 9, 16).astype(np.float32)
+    v[0, 0, 0] = 0.0                          # the 1e-8 scale floor
+    v[1, 2, 3, :2] = [127.0 / 2, -127.0 / 2]  # exact .5 after scaling
+    qj, sj = jserve._quant8(jnp.asarray(v))
+    qt, st = tserve._quant8(torch.from_numpy(v))
+    assert qt.dtype == torch.int8
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=1e-7)
+
+
+@pytest.mark.parametrize("k", [1, 3, 7])
+def test_filter_top_k_matches_jax(k):
+    lg = np.random.RandomState(k).randn(4, 16).astype(np.float32)
+    want = np.asarray(jserve._filter_top_k(jnp.asarray(lg), k))
+    got = tserve._filter_top_k(torch.from_numpy(lg), k).numpy()
+    np.testing.assert_array_equal(got == -1.0e30, want == -1.0e30)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("p", [0.3, 0.8, 0.95])
+def test_filter_top_p_matches_jax(p):
+    lg = (np.random.RandomState(int(p * 100)).randn(4, 16) * 2
+          ).astype(np.float32)
+    want = np.asarray(jserve._filter_top_p(jnp.asarray(lg), p))
+    got = tserve._filter_top_p(torch.from_numpy(lg), p).numpy()
+    np.testing.assert_array_equal(got == -1.0e30, want == -1.0e30)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("rope", [False, True])
+def test_generate_greedy_tokens_match_jax(rope):
+    """f32 cache, greedy: identical tokens to the JAX package for the
+    batched prefill and the sequential replay, with and without
+    windowed decode (win=4 runs the segment loop)"""
+    from tensorforth_tpu.nn.serve import generate as jax_generate
+    from tensorforth_tpu_torch.nn.serve import generate as torch_generate
+    mj, mt = _pair(rope)
+    prompt = np.random.RandomState(2).randint(0, 32, (2, 5))
+    outs = []
+    for prefill in (True, False):
+        for win in (0, 4):
+            kw = dict(temp=0.0, kv_dtype="float32", win=win,
+                      prefill=prefill)
+            want = jax_generate(mj, prompt, 19, **kw)
+            got = torch_generate(mt, prompt, 19, **kw)
+            assert got.shape == (2, 24) and got.dtype == np.int32
+            np.testing.assert_array_equal(
+                got, want, f"rope={rope} prefill={prefill} win={win}")
+            outs.append(got)
+    assert len(np.unique(outs[0][:, 5:])) > 3      # decode is not stuck
+
+
+@pytest.mark.parametrize("kv,tol", [("bfloat16", 2e-2), ("int8", 3e-2)])
+def test_step_token_low_precision_cache_matches_jax(kv, tol):
+    """bf16 and int8 caches: _step_token logits for identical inputs
+    (2e-2 bf16, 3e-2 int8 — the packages round to bf16/int8 at other
+    places); the stored K/V agree too"""
+    mj, mt = _pair(rope=True, seed=3)
+    program = mj._program()
+    rs = np.random.RandomState(4)
+    n, s_max, t = 2, 24, 9
+    h, dh = 4, 8
+    kv_prefix = rs.randn(2, n, h, s_max, dh).astype(np.float32)
+    kv_prefix[:, :, :, t:] = 0.0
+    tok = rs.randint(0, 32, (n,))
+
+    def jax_caches():
+        if kv == "int8":
+            out = []
+            for _ in range(2):
+                qk, sk = jserve._quant8(jnp.asarray(kv_prefix[0]))
+                qv, sv = jserve._quant8(jnp.asarray(kv_prefix[1]))
+                out.append((qk, qv, sk, sv))
+            return tuple(out)
+        c = jnp.asarray(kv_prefix).astype(jnp.bfloat16)
+        return tuple((c[0], c[1], None, None) for _ in range(2))
+
+    def torch_caches():
+        if kv == "int8":
+            out = []
+            for _ in range(2):
+                qk, sk = tserve._quant8(torch.from_numpy(kv_prefix[0]))
+                qv, sv = tserve._quant8(torch.from_numpy(kv_prefix[1]))
+                out.append((qk, qv, sk, sv))
+            return out
+        c = torch.from_numpy(kv_prefix).to(torch.bfloat16)
+        return [(c[0].clone(), c[1].clone(), None, None) for _ in range(2)]
+
+    for w in (0, 16):
+        lj, cj = jserve._step_token(program, mj._params(), jax_caches(),
+                                    jnp.asarray(tok, jnp.int32), t, s_max,
+                                    w=w)
+        lt, ct = tserve._step_token(program, mt._params(), torch_caches(),
+                                    torch.from_numpy(tok), t, s_max, w=w)
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj),
+                                   rtol=tol, atol=tol)
+        for a, b in zip(ct[1], cj[1]):
+            if a is not None:
+                np.testing.assert_allclose(a.float().numpy(),
+                                           np.asarray(b, np.float32),
+                                           rtol=tol, atol=tol)
+
+
+def test_load_jax_params_rejects_mismatch(t4):
+    from tensorforth_tpu.models import tiny_lm as jax_lm
+    from tensorforth_tpu_torch.models import tiny_lm as torch_lm
+    mj = jax_lm(**LM)
+    params = [tuple(np.asarray(a) for a in lp) for lp in mj._params()]
+    wide = torch_lm(**dict(LM, dim=64), device="cpu")
+    with pytest.raises(ValueError):
+        load_jax_params(wide, params)
+    deep = torch_lm(**dict(LM, layers=3), device="cpu")
+    with pytest.raises(ValueError):
+        load_jax_params(deep, params)
+    roped = torch_lm(**LM, rope=True, device="cpu")
+    with pytest.raises(ValueError):
+        load_jax_params(roped, params, program=mj._program())
+
+
+def test_entry_points_raise_without_gpu():
+    """device=None means the CUDA card: with no card the entry points
+    raise instead of falling back to the CPU"""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from tensorforth_tpu_torch.models import tiny_lm
+    from tensorforth_tpu_torch.mu.mmu import MMU
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tiny_lm(**LM)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MMU.get_mmu().tensor(2, 3)
