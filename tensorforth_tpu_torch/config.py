@@ -1,5 +1,5 @@
 """Global configuration of the PyTorch/CUDA port (the port's own copy of
-tensorforth_tpu/config.py, limited to what the serving slice reads).
+tensorforth_tpu/config.py, limited to what the ported slices read).
 """
 import os
 
@@ -16,6 +16,8 @@ class Config:
     # prefix), on by default at 512; T4_DECODE_WIN=0 disables.
     KV_DTYPE = os.environ.get("T4_KV_DTYPE", "float32")
     DECODE_WIN = int(os.environ.get("T4_DECODE_WIN", "512"))
+
+    DU_EPS = 1.0e-6        # epsilon compare (reference ten4_types.h:85)
 
     # --- deterministic init for QA (reference ten4_config.h MM_DEBUG)
     MM_DEBUG = bool(int(os.environ.get("T4_MM_DEBUG", "0")))

@@ -33,8 +33,10 @@ class Tensor:
         # layer-tensor extensions (reference tensor.h:53-57)
         self.grad_fn = None                # t4_layer tag when part of a model
         self.grad = [None] * 5             # w, b, dw, db, extra(mask/xhat)
+        self.mtum = [None] * 5             # momentum/velocity (+tmp)
         self.xparm = 0.0
         self.iparm = 0
+        self.train = 1
 
     # --- dimensional accessors (reference NHWC) ---------------------------
     @property
@@ -63,6 +65,9 @@ class Tensor:
 
     def C(self) -> int:
         return self.shape[3] if self.rank == 4 else 1
+
+    def HWC(self) -> int:
+        return self.numel // self.N()
 
     # --- payload management ------------------------------------------------
     def ensure_data(self) -> torch.Tensor:

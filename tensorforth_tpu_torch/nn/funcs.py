@@ -1,12 +1,14 @@
-"""NN compute on torch tensors — the layer forwards the LM serving path
-runs (the port of tensorforth_tpu/nn/funcs.py, forward only).
+"""NN compute on torch tensors — the layer forwards, the per-layer
+backward, the optimizer steps and the loss functions of the LM path (the
+port of tensorforth_tpu/nn/funcs.py).
 
 Layouts are the JAX package's: activations [N, S, E, 1], attention cores
 [B*h, S, dh], wqkv [3E, E].  Every dot is strict f32 (TF32 is off, see
-the package __init__).  The attention core routes long aligned causal
-prompts on the card through the hand-written flash kernel
-(ops/attn.py); everything else uses the exact einsum path.  Backward
-passes, dropout, MoE and the conv/pool tier come with later slices.
+the package __init__).  The attention core routes long aligned sequences
+on the card through the hand-written flash kernels, forward and backward
+(ops/attn.py); everything else uses the exact einsum path and PyTorch's
+own autograd.  Dropout, MoE, the conv/pool tier and the fused training
+cycle come with later slices.
 """
 from __future__ import annotations
 
@@ -15,11 +17,13 @@ import os
 
 import torch
 
+from ..ops import attn as _attn
 from .ntypes import Layer
 
 SELU_L = 1.0507009873554805
 SELU_LA = SELU_L * 1.6732632423543772
 NEG_INF = -1.0e30
+LN_CLAMP = 1.0e-12        # floor inside log(): CE of a zero probability
 
 _ACTS = (Layer.RELU, Layer.TANH, Layer.SIGMOID, Layer.SELU,
          Layer.LEAKYRL, Layer.ELU)
@@ -75,11 +79,17 @@ def rope_apply(x, pos):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
+def _flash_shape_ok(s: int, dh: int) -> bool:
+    """shapes the flash kernels take: long, aligned sequences at a head
+    dim they are compiled for.  (The JAX gate admits any dh % 128 == 0,
+    funcs.py:163-165; other head dims take the einsum path here.)"""
+    return s >= 512 and s % 256 == 0 and dh in _attn.KERNEL_DH
+
+
 def _flash_ok(q) -> bool:
-    """the flash kernel's gate: a CUDA tensor of a long, aligned shape.
-    (The JAX gate tests for a TPU backend instead, funcs.py:163-165.)"""
-    _, s, dh = q.shape
-    return q.is_cuda and s >= 512 and s % 256 == 0 and dh % 128 == 0
+    """the flash kernels' gate: a CUDA tensor of an eligible shape.  (The
+    JAX gate tests for a TPU backend instead.)"""
+    return q.is_cuda and _flash_shape_ok(q.shape[1], q.shape[2])
 
 
 def _attn_hybrid() -> bool:
@@ -99,16 +109,22 @@ def _sdpa_ref(q, k, v, causal):
     return torch.einsum("nqk,nkd->nqd", w, v)
 
 
+def _sdpa_flash(q, k, v, causal: bool = False):
+    """the flash branch of sdpa: the autograd Function that pairs the
+    forward kernel with the two backward kernels (it saves q, k, v, o and
+    lse in between), with its lse output dropped"""
+    return _attn.flash_attention_lse(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), causal,
+                                     _attn_hybrid())[0]
+
+
 def sdpa(q, k, v, causal: bool = False):
-    """softmax-attention core, forward: the flash kernel for long aligned
-    sequences on the card (S x S never reaches device memory), the exact
-    einsum path otherwise"""
+    """softmax-attention core with the flash forward AND backward kernels
+    for long aligned sequences on the card (S x S never reaches device
+    memory in either direction); other shapes take the exact einsum path
+    and PyTorch's own autograd"""
     if _flash_ok(q):
-        from ..ops.attn import flash_attention
-        o, _lse = flash_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), causal=causal,
-                                  hybrid=_attn_hybrid())
-        return o
+        return _sdpa_flash(q, k, v, causal)
     return _sdpa_ref(q, k, v, causal)
 
 
@@ -131,6 +147,41 @@ def _mha_fwd(x, wqkv, wo, heads: int, flash: bool = True,
              v.reshape(n * heads, s, dh), causal)
     o = o.reshape(n, heads, s, dh).transpose(1, 2).reshape(n, s, e)
     return (o @ wo.T).reshape(n, s, e, 1)
+
+
+def _vjp(fn, inputs, dy):
+    """cotangents of `inputs` for the cotangent dy of fn(*inputs).  fn is
+    run again, on detached inputs with grad enabled: the eager counterpart
+    of taking jax.vjp at backprop time."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        out = fn(*leaves)
+        return torch.autograd.grad(out, leaves, dy.reshape(out.shape))
+
+
+class _AttnOp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, wqkv, wo, heads, causal, rope):
+        ctx.save_for_backward(x, wqkv, wo)
+        ctx.opts = (heads, causal, rope)
+        return _mha_fwd(x, wqkv, wo, heads, flash=True, causal=causal,
+                        rope=rope)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        heads, causal, rope = ctx.opts
+        return (*_vjp(lambda x, w1, w2: _mha_fwd(
+            x, w1, w2, heads, flash=True, causal=causal, rope=rope),
+            ctx.saved_tensors, g), None, None, None)
+
+
+def attn_op(x, wqkv, wo, heads: int, causal: bool = False,
+            rope: bool = False):
+    """differentiable MHA that keeps only its inputs: the forward runs
+    without a graph, the backward runs the layer again with one (the
+    sdpa core supplies the flash backward kernels for eligible shapes)"""
+    return _AttnOp.apply(x, wqkv, wo, heads, causal, rope)
 
 
 def _embed_fwd(x, table, b):
@@ -161,6 +212,12 @@ def _lnorm_fwd(x, gamma, beta, eps: float):
 # ===========================================================================
 # whole-network forward
 # ===========================================================================
+def _attn_opts(opts):
+    """(heads, causal, rope) of an ATTN layer's program options"""
+    return (opts[0], bool(opts[1]) if len(opts) > 1 else False,
+            bool(opts[2]) if len(opts) > 2 else False)
+
+
 def _apply_layer(spec, x, p):
     kind, opts, _out_shape = spec
     if kind in _ACTS:
@@ -168,9 +225,7 @@ def _apply_layer(spec, x, p):
     if kind == Layer.SOFTMAX:
         return _softmax_fwd(x), None
     if kind == Layer.ATTN:
-        return _mha_fwd(x, p[0], p[1], opts[0], flash=True,
-                        causal=bool(opts[1]) if len(opts) > 1 else False,
-                        rope=bool(opts[2]) if len(opts) > 2 else False), None
+        return attn_op(x, p[0], p[1], *_attn_opts(opts)), None
     if kind == Layer.LNORM:
         return _lnorm_fwd(x, p[0], p[1], opts[0]), None
     if kind == Layer.EMBED:
@@ -193,3 +248,168 @@ def forward_pure(program, x, params):
         outs.append(x)
         masks.append(m)
     return tuple(outs), tuple(masks)
+
+
+# ===========================================================================
+# whole-network backward
+# ===========================================================================
+_PASS_THRU = (Layer.SIGMOID, Layer.SOFTMAX)
+_MASKED = (Layer.RELU, Layer.TANH, Layer.SELU, Layer.LEAKYRL, Layer.ELU)
+
+
+def _acc(a, g):
+    """accumulate a gradient into an accumulator of any equal-numel shape
+    (the model hands over its rank-4 storage tensors); returns a new
+    tensor and leaves the accumulator as it was"""
+    return a + g.reshape(a.shape)
+
+
+@torch.no_grad()
+def backward_pure(program, train, tgt, x0, outs, params, masks, dws, dbs,
+                  flash: bool = True):
+    """whole-network backward with the reference quirks (pass-through
+    sigmoid/softmax, masked activations): (dout, dxs, dws', dbs').
+    flash=False sends the attention layers through the einsum path, as a
+    check of the kernels.  (The JAX package's _bwd_body: with no jit
+    wrapper to share it with, the body lives here.)"""
+    # dLoss prep (reference _bprep, backprop.cu:75-109): the fused
+    # final-activation+loss pairs become out-tgt; any other final layer
+    # means tgt already IS dLoss
+    if program[-1][0] in _PASS_THRU:
+        dy = outs[-1] - tgt.reshape(outs[-1].shape)
+    else:
+        dy = tgt.reshape(outs[-1].shape)
+    _, dxs, ndws, ndbs = backward_segment(
+        program, train, dy, x0, outs, params, masks, dws, dbs, flash=flash)
+    return dy, dxs, ndws, ndbs
+
+
+@torch.no_grad()
+def backward_segment(program, train, dy, x0, outs, params, masks, dws, dbs,
+                     flash: bool = True):
+    """per-layer backward over a program segment given the cotangent dy at
+    the segment's output (no dLoss prep): (dx0, dxs, dws', dbs').  With
+    train false only the input gradients are taken."""
+    L = len(program)
+    dxs = [None] * L
+    ndws, ndbs = list(dws), list(dbs)
+    for j in range(L - 1, -1, -1):
+        kind, opts, out_shape = program[j]
+        x_in = outs[j - 1] if j > 0 else x0
+        dw = db = None
+        if kind in _PASS_THRU:
+            dx = dy
+        elif kind in _MASKED:
+            # masks may carry a stale header shape if the user reshaped a
+            # layer view between forward and backprop
+            dx = dy * masks[j].reshape(dy.shape)
+        elif kind == Layer.ATTN:
+            heads, causal, rope = _attn_opts(opts)
+            dx, dw, db = _vjp(
+                lambda x_, w1, w2: _mha_fwd(x_, w1, w2, heads, flash=flash,
+                                            causal=causal, rope=rope),
+                (x_in, *params[j]), dy.reshape(out_shape))
+        elif kind == Layer.LNORM:
+            dx, dw, db = _vjp(
+                lambda x_, g_, b_: _lnorm_fwd(x_, g_, b_, opts[0]),
+                (x_in, *params[j]), dy.reshape(out_shape))
+        elif kind == Layer.EMBED:
+            # token ids get no input gradient; the table's gradient is
+            # the scatter-add of dy over the looked-up rows.  On the card
+            # index_add_ sums with atomics, so this one gradient may
+            # differ in its last bits from run to run.
+            table = params[j][0]
+            dyf = dy.reshape(-1, table.shape[1])
+            dw = torch.zeros_like(table).index_add_(
+                0, x_in.reshape(-1).to(torch.int64), dyf)
+            db = dyf.sum(dim=0)
+            dx = torch.zeros_like(x_in)
+        elif kind == Layer.PROJ:
+            n, s, e, _ = x_in.shape
+            dyf = dy.reshape(n * s, -1)
+            dw = dyf.T @ x_in.reshape(n * s, e)
+            db = dyf.sum(dim=0)
+            dx = dyf @ params[j][0]
+        else:
+            raise NotImplementedError(
+                f"backprop: layer '{Layer.NAMES[kind].strip()}' is not "
+                f"ported yet")
+        if train and dw is not None:
+            ndws[j] = _acc(ndws[j], dw)
+            ndbs[j] = _acc(ndbs[j], db)
+        dy = dxs[j] = dx.reshape(x_in.shape)
+    return dy, tuple(dxs), tuple(ndws), tuple(ndbs)
+
+
+# ===========================================================================
+# optimizers (reference k_sgd / k_adam / k_adamw semantics)
+# ===========================================================================
+@torch.no_grad()
+def sgd_step(ws, dws, ms, ndivs, momentum: bool, lr: float, b: float):
+    """one SGD step over lists of tensors, IN PLACE (the JAX version
+    returns new arrays; updating where the state lies saves a copy of
+    every weight, gradient and momentum per step).  The gradient is
+    divided by its weight tensor's batch divisor; with momentum
+    m = b*m + (1-b)*g and w -= lr*m.  Gradients are zeroed."""
+    for w, dw, m, nd in zip(ws, dws, ms, ndivs):
+        dg = dw / nd
+        if momentum:
+            m.mul_(b).add_(dg, alpha=1.0 - b)
+            w.sub_(m, alpha=lr)
+        else:
+            w.sub_(dg, alpha=lr)
+        dw.zero_()
+
+
+@torch.no_grad()
+def adam_step(ws, dws, ms, vs, adamw: bool, lr: float, b1: float,
+              b2: float, wd: float):
+    """one Adam or AdamW step over lists of tensors, IN PLACE (see
+    sgd_step).  The reference's form: no bias correction, eps = 1e-6
+    outside the square root; AdamW's decay is decoupled (added to the
+    update, not to the gradient).  Gradients are zeroed."""
+    for w, dg, m, v in zip(ws, dws, ms, vs):
+        m.mul_(b1).add_(dg, alpha=1.0 - b1)
+        v.mul_(b2).addcmul_(dg, dg, value=1.0 - b2)
+        upd = m / (torch.sqrt(v) + 1.0e-6)
+        if adamw:
+            upd.add_(w, alpha=wd)
+        w.sub_(upd, alpha=lr)
+        dg.zero_()
+
+
+# ===========================================================================
+# loss / metrics (reference Tensor::loss, Model::hit)
+# ===========================================================================
+@torch.no_grad()
+def loss_fn(op: str, out, tgt):
+    """summed loss over all elements divided by the batch N (not by N*S)"""
+    n = out.shape[0] if out.dim() > 1 else 1
+    o = out.reshape(-1)
+    t = tgt.reshape(-1)
+    if op == "mse":
+        z = torch.sum((o - t) ** 2)
+    elif op == "bce":
+        z = -torch.sum(t * torch.log(o + 1.0e-6)
+                       + (1.0 - t) * torch.log(1.0 - o + 1.0e-6))
+    elif op == "ce":
+        z = -torch.sum(t * torch.log(torch.clamp(o, min=LN_CLAMP)))
+    elif op == "nll":
+        z = -torch.sum(o * t)
+    else:
+        raise ValueError(op)
+    return z / n
+
+
+@torch.no_grad()
+def hit_fn(out, hot):
+    """how many samples' argmax (over all of a sample's outputs) falls on
+    a one of the one-hot target"""
+    n = out.shape[0]
+    idx = torch.argmax(out.reshape(n, -1), dim=-1)
+    return torch.sum(torch.gather(hot.reshape(n, -1), 1, idx[:, None]))
+
+
+def onehot_fn(labels, classes: int):
+    return torch.nn.functional.one_hot(labels.to(torch.int64),
+                                       classes).to(torch.float32)

@@ -12,3 +12,12 @@ class Layer:
              "dropout", "softmax", "logsmax", "avgpool", "maxpool",
              "minpool", "batchnm", "upsampl", "dconv2d", "attn   ",
              "moe    ", "lnorm  ", "embed  ", "proj   "]
+
+
+class Loss:
+    MSE, BCE, CE, NLL = range(4)
+    NAMES = ["MSE", "BCE", "CE", "NLL"]
+
+
+class Optimizer:
+    SGD, SGDM, ADAM, ADAMW = range(4)

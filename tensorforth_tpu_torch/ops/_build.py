@@ -3,9 +3,9 @@
 Each ``ops/csrc/<name>.cu`` exports plain C functions.  At first use it
 is compiled by ``nvcc`` for sm_90a into ``build/torch_kernels/`` at the
 root of the checkout and loaded with ctypes (no PyTorch headers, so a
-build takes seconds).  The library file carries a hash of its source, so
-an edited kernel is never served from a stale build.  Nothing here runs
-at import time.
+build takes seconds).  The library file carries a hash of its source and
+of the shared headers (``csrc/*.cuh``), so an edited kernel is never
+served from a stale build.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -37,7 +37,10 @@ def _nvcc() -> str:
 def build(name: str) -> Path:
     """compile csrc/<name>.cu unless its library is already built; the
     compiler's register/spill report goes to <library>.log"""
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()
     out = BUILD_DIR / f"lib{name}-{digest[:12]}.so"
     if out.exists():
         return out

@@ -33,45 +33,12 @@
 // and P is rounded to bf16 before the PV product, as the Pallas kernel's
 // bf16 multiplicands are; products and sums stay f32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_tile.cuh"
 
 namespace {
 
 constexpr int BM = 64;    // query rows per block
 constexpr int BN = 64;    // key/value rows per tile
-constexpr int NT = 256;   // threads: 16 row groups x 16 column lanes
-constexpr float NEG_INF = -1.0e30f;     // attn_pallas.py:25
-constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(p2[0]);
-  const float2 b = __bfloat1622float2(p2[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// rows x D elements of src (row-major, D per row) -> dst (ld floats per
-// row), each value times `scale`
-template <int D, typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          int rows, float scale) {
-  constexpr int V = D / 4;
-  for (int i = threadIdx.x; i < rows * V; i += NT) {
-    const int row = i / V, col = (i % V) * 4;
-    float4 x = load4(src + (size_t)row * D + col);
-    x.x *= scale;
-    x.y *= scale;
-    x.z *= scale;
-    x.w *= scale;
-    *reinterpret_cast<float4*>(dst + row * ld + col) = x;
-  }
-}
 
 template <int D, typename T>
 __global__ void __launch_bounds__(NT, D <= 128 ? 2 : 1)
@@ -124,25 +91,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < D; kk += 4) {
-      float4 a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(Qs + (4 * r + i) * LDQ + kk);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        b[j] = *reinterpret_cast<const float4*>(Ks + (c + 16 * j) * LDQ + kk);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
-          s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
-          s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
-          s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
-        }
-    }
+    dot_rows<D, 4>(s, Qs, Ks, LDQ, r, c);
     if (causal && kt == qt) {  // the diagonal tile: k0 == q0
 #pragma unroll
       for (int i = 0; i < 4; ++i)
