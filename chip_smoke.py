@@ -5,12 +5,13 @@ and check it.  Run from the root of a checkout:
     python3 chip_smoke.py [--seed N]
 
 Phases, one JSON line each:
-  build   compile every kernel of the two paths with nvcc for sm_90a
+  build   compile every kernel of the three paths with nvcc for sm_90a
           into build/torch_kernels/ (one nvcc per source, all at once)
-  kernel  each kernel (flash forward, flash backward dK/dV and dQ)
-          against its plain PyTorch version on the card, on inputs from
-          a numpy seed; kernel, plain and library times and the card's
-          least time for the same work (the bound)
+  kernel  each kernel (flash forward, flash backward dK/dV and dQ, and
+          the four GEMM kernels of the tensor tier) against its plain
+          PyTorch version on the card, on inputs from a numpy seed;
+          kernel, plain and library times and the card's least time for
+          the same work (the bound)
   serve   tiny_lm at bench_prefill's full width (dim 1024, 8 heads,
           4 layers, vocab 2048, batch 8, 2048-token prompt, 64 new
           tokens) through generate(), f32 and int8 KV caches: kernel
@@ -21,6 +22,12 @@ Phases, one JSON line each:
           kernel launches counted in one step, the step's weight
           gradients held against the same step taken through the plain
           attention path, the loss sequence, step timings and a profile
+  tensor  the port's Forth REPL on the card, fed from strings:
+          examples/t4_20a.4th whole (its verify lines, the inverse
+          round trip, msec/cycle of its 1000-product loop), the larger
+          1000-product loop with a profile, the words gemm..gemm4 at
+          4096^3 and 2048^3 under both precision settings with exact
+          launch counts, and inverse/plu/det/solve at 1024 x 1024
 Then one `kernels` JSON line, the card's name and power limit as
 nvidia-smi reports them, and last {"ok": true, "device": {...}}.
 
@@ -31,8 +38,11 @@ any check fails.  Nothing is caught and turned into a pass.
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -43,8 +53,9 @@ import numpy as np
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 PEAK_F32_FLOPS = 67e12        # f32 on the CUDA cores (no tensor cores)
+PEAK_BF16_FLOPS = 989e12      # bf16 on the tensor cores, dense
 PEAK_BYTES = 3.35e12          # HBM3
-KERNELS = ("flash_fwd", "flash_bwd")   # ops/csrc/<name>.cu, both paths
+KERNELS = ("flash_fwd", "flash_bwd", "gemm")   # ops/csrc/<name>.cu
 LM = dict(batch=8, vocab=2048, dim=1024, heads=8, layers=4, rope=True)
 N_PROMPT, N_NEW = 2048, 64
 TOL_F32 = 1e-4     # f32 sums in another order than the plain version's
@@ -61,6 +72,30 @@ TRAIN_LR = 1e-4    # Adam.  The reference's Adam has no bias correction,
 #                    so its first steps move every weight by about 3 lr;
 #                    at dim 1024 the small tests' 1e-2 and 1e-3 overshoot
 FLASH_NAMES = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+GEMM_NAMES = ("mm_f32io", "mm_bf16", "mm_v8", "mm_db")
+# GEMM tolerances, of the largest value of an f64 product of the same
+# operands.  The bf16 classes against their plain version: only the order
+# of the f32 sums differs.  3pass and highest against f64: the classes'
+# own accuracy (tests/test_gemm_prec.py of the JAX package).
+TOL_GEMM_BF16 = 1e-5
+TOL_GEMM_3PASS = 2e-5
+TOL_GEMM_HIGHEST = 5e-6
+# a word of the bf16 class against the f32 `gemm` word: each multiplicand
+# is rounded to 8 bits of mantissa (relative 2^-9), and `rand` operands
+# are all positive, so the rounding errors of a sum do not cancel to
+# nothing: 2 * 2^-9 bounds it
+TOL_WORD_BF16 = 4e-3
+# a gemm2..4 word against its kernel's plain version on the same `rand`
+# operands.  The tensor cores add into their f32 accumulator without
+# rounding to nearest; on all-positive sums that error has one sign and
+# grows with K (1.5e-5 at K = 4096), where random signs (the kernel
+# phase's operands) keep it under 1e-5.
+TOL_WORD_PLAIN = 2e-5
+GEMM_SHAPES = ((1024, 1024, 1024), (2048, 2048, 2048), (4096, 4096, 4096),
+               (1024, 2048, 512), (1000, 1500, 700), (2, 3, 2))   # m, k, n
+GEMM_MAIN = (4096, 4096, 4096)   # the shape of the `kernels` line
+TOL_LINALG = 1e-4  # the tensor phase: residuals at 1024 x 1024
+WORD_REPS = 3      # runs of each gemm word: the median time is kept
 
 
 def emit(obj):
@@ -108,8 +143,8 @@ def attn_bwd_work(which, b, s, dh, causal, elem_bytes):
     return ops, nbytes
 
 
-def bound_ms(ops, nbytes):
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(ops, nbytes, peak_flops=PEAK_F32_FLOPS):
+    t_ops, t_bytes = ops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -293,6 +328,372 @@ def phase_kernel(seed: int):
     return main
 
 
+def gemm_cases(m, k, n):
+    """(case, kernel name, wrapper call, plain call, held against f64?,
+    tolerance, peak rate, operand bytes per element) for one shape"""
+    from tensorforth_tpu_torch.ops import gemm
+    scale = 1.0 / max(m, k, n)
+    return [
+        ("default", "mm_f32io", lambda a, b: gemm._mm(a, b, prec="default"),
+         lambda a, b: gemm._mm_ref(a, b, prec="default"), False,
+         TOL_GEMM_BF16, PEAK_BF16_FLOPS, 4),
+        ("3pass", "mm_f32io", lambda a, b: gemm._mm(a, b, prec="3pass"),
+         lambda a, b: gemm._mm_ref(a, b, prec="3pass"), True,
+         TOL_GEMM_3PASS, PEAK_BF16_FLOPS / 3, 4),
+        ("highest", "mm_f32io", lambda a, b: gemm._mm(a, b, prec="highest"),
+         lambda a, b: gemm._mm_ref(a, b, prec="highest"), True,
+         TOL_GEMM_HIGHEST, PEAK_F32_FLOPS, 4),
+        ("bf16", "mm_bf16", lambda a, b: gemm._mm(a, b, bf16=True),
+         lambda a, b: gemm._mm_ref(a, b, bf16=True), False,
+         TOL_GEMM_BF16, PEAK_BF16_FLOPS, 4),
+        ("v8", "mm_v8", lambda a, b: gemm._mm_v8(a, b, scale),
+         lambda a, b: gemm._mm_v8_ref(a, b, scale), False,
+         TOL_GEMM_BF16, PEAK_BF16_FLOPS, 2),
+        ("db", "mm_db", gemm._mm_db, gemm._mm_db_ref, False,
+         TOL_GEMM_BF16, PEAK_BF16_FLOPS, 4),
+    ]
+
+
+def bf16_library():
+    """the one PyTorch call that multiplies bf16 operands: with an f32
+    result where this PyTorch has it, else with a bf16 result"""
+    import torch
+    x = torch.ones(16, 16, dtype=torch.bfloat16, device="cuda")
+    try:
+        torch.mm(x, x, out_dtype=torch.float32)
+    except (TypeError, RuntimeError):
+        return "torch.matmul (bf16 result)", torch.matmul
+    return ("torch.mm(out_dtype=float32)",
+            lambda a, b: torch.mm(a, b, out_dtype=torch.float32))
+
+
+def phase_kernel_gemm(seed: int):
+    """the four GEMM kernels (K5a in its three classes) against their
+    plain versions at the words' shapes; returns each kernel's record at
+    4096^3 (K5a: class default)"""
+    import torch
+    from tensorforth_tpu_torch.ops import gemm
+    lib_name, lib_bf16 = bf16_library()
+    gemm.reset_launches()
+    rows, failed, main = [], [], {}
+    for i, (m, k, n) in enumerate(GEMM_SHAPES):
+        rs = np.random.RandomState(seed + 100 + i)
+        a = torch.from_numpy(rs.standard_normal((m, k)).astype(
+            np.float32)).cuda()
+        b = torch.from_numpy(rs.standard_normal((k, n)).astype(
+            np.float32)).cuda()
+        ref64 = a.double() @ b.double()
+        top = ref64.abs().max().item()
+        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        lib_ms = {4: time_ms(lambda: torch.matmul(a, b)),
+                  2: time_ms(lambda: lib_bf16(a16, b16))}
+        for (case, name, run, plain, vs_f64, tol, peak,
+             elem) in gemm_cases(m, k, n):
+            got = run(a, b)
+            torch.cuda.synchronize()
+            want = plain(a, b)
+            err_plain = (got - want).abs().max().item()
+            scale = 1.0 / max(m, k, n) if case == "v8" else 1.0
+            err_f64 = (got.double() - ref64 * scale).abs().max().item()
+            held = err_f64 / scale if vs_f64 else err_plain / scale
+            ok = (held <= tol * top and bool(torch.isfinite(got).all())
+                  and tuple(got.shape) == (m, n))
+            ms = time_ms(lambda: run(a, b))
+            ops = 2 * m * n * k
+            nbytes = (m * k + k * n) * elem + m * n * 4
+            bms, by = bound_ms(ops, nbytes, peak)
+            row = {"kernel": name, "case": case, "shape": [m, k, n],
+                   "max_abs_err": err_plain, "max_abs_err_vs_f64": err_f64,
+                   "largest_f64_value": top, "tol": tol,
+                   "held_against": "f64" if vs_f64 else "plain version",
+                   "ok": ok, "ms": ms, "plain_ms": time_ms(
+                       lambda: plain(a, b), reps=10),
+                   "library_ms": lib_ms[2 if case in ("bf16", "v8", "db",
+                                                      "default") else 4],
+                   "tflops": ops / ms / 1e9, "bound_ms": bms,
+                   "bound_by": by}
+            rows.append(row)
+            if not ok:
+                failed.append(f"{name} {case} {m}x{k}x{n}")
+            if (m, k, n) == GEMM_MAIN and case not in ("3pass", "highest"):
+                main[name] = dict(row)
+        del a, b, a16, b16, ref64
+        torch.cuda.empty_cache()
+    # transposed operands (the words' ta / tb) and the alpha/beta epilogue
+    rs = np.random.RandomState(seed + 99)
+    at, bt, c = (torch.from_numpy(rs.standard_normal(sh).astype(
+        np.float32)).cuda() for sh in ((300, 200), (260, 300), (200, 260)))
+    for variant in (2, 3, 4):
+        got = gemm.gemm(at, bt, c, 0.5, 2.0, ta=True, tb=True,
+                        variant=variant)
+        want = 0.5 * gemm._mm_ref(at.T, bt.T) + 2.0 * c
+        if (got - want).abs().max().item() > TOL_GEMM_BF16 * \
+                want.abs().max().item():
+            failed.append(f"gemm variant {variant} with ta, tb")
+    emit({"phase": "kernel", "kernel": "gemm (mm_f32io, mm_bf16, mm_v8, "
+          "mm_db)", "peak_bf16_tflops": PEAK_BF16_FLOPS / 1e12,
+          "peak_f32_tflops": PEAK_F32_FLOPS / 1e12,
+          "peak_tb_s": PEAK_BYTES / 1e12,
+          "bound": "2mnk over the dense bf16 tensor-core rate (3pass: "
+                   "three products; highest: the f32 CUDA-core rate), or "
+                   "the bytes over the memory rate",
+          "library": {"f32 classes": "torch.matmul, TF32 off",
+                      "bf16 classes": lib_name},
+          "cases": rows, "launches": dict(gemm.launches)})
+    if failed:
+        raise RuntimeError(f"GEMM kernels disagree: {failed}")
+    return main
+
+
+def repl(device=None, seed=0):
+    """a fresh REPL of the port writing to a buffer: (instance, run)"""
+    from tensorforth_tpu_torch.cli import TensorForth
+    from tensorforth_tpu_torch.debug import Debug
+    from tensorforth_tpu_torch.io.aio import AIO
+    from tensorforth_tpu_torch.mu.mmu import MMU
+    from tensorforth_tpu_torch.system import System
+    for free in (System.free_sys, MMU.free_mmu, Debug.free_db, AIO.free_io):
+        free()
+    buf = io.StringIO()
+    inst = TensorForth(fin=io.StringIO(""), fout=buf, device=device)
+    inst.sys.seed(seed)
+
+    def run(script: str) -> str:
+        start = buf.tell()
+        for line in script.split("\n"):
+            inst.run_line(line)
+        return buf.getvalue()[start:]
+
+    return inst, run
+
+
+def matrices_after(out: str, marker: str):
+    """rows of numbers of the first matrix printed after `marker`"""
+    body = out[out.index(marker) + len(marker):]
+    body = body[body.index("] = {") + 5:]
+    body = body[:body.index("} }")]
+    return [[float(x) for x in re.findall(r"[-+]\d+\.\d+", ln)]
+            for ln in body.strip().splitlines()]
+
+
+def phase_tensor(seed: int, device=None, big=(4096, 2048), n_linalg=1024,
+                 cycles=999, script_dir="examples"):
+    """the tensor tier through the REPL: returns the GEMM kernels'
+    launches on this path"""
+    import torch
+    from tensorforth_tpu_torch.config import Config
+    from tensorforth_tpu_torch.ops import gemm
+    on_card = device is None or torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    checks, transcripts = {}, []
+    gemm.reset_launches()        # every count to 0 just before the path
+
+    # --- (a) examples/t4_20a.4th, whole
+    inst, run = repl(device, seed)
+    with open(os.path.join(script_dir, "t4_20a.4th")) as f:
+        lines = [ln.rstrip("\n").replace("999 mx", f"{cycles} mx")
+                 for ln in f]
+    out = []
+    for ln in lines:
+        out.append(run(ln))
+        if not inst.more_job():
+            break
+    out = "".join(out)
+    transcripts.append(out)
+    checks["t4_20a_ran_to_bye"] = not inst.more_job()
+    checks["t4_20a_verify_lines"] = all(
+        matrices_after(out, marker) == want for marker, want in (
+            ("verify { { 6 6 } { 15 15 } }", [[6.0, 6.0], [15.0, 15.0]]),
+            ("= {{2 3 4}{5 6 7}}", [[2.0, 3.0, 4.0], [5.0, 6.0, 7.0]]),
+            ("= {{0 1 2}{3 4 5}}", [[0.0, 1.0, 2.0], [3.0, 4.0, 5.0]]),
+            ("verify = { { 6 6 } { 9 9 } }", [[6.0, 6.0], [9.0, 9.0]]),
+            ("verify = { { 3 3 } { 4.5 4.5 } }", [[3.0, 3.0], [4.5, 4.5]])))
+    checks["t4_20a_inverse_round_trip_prints_identity"] = (
+        matrices_after(out, "### verify M*M^-1 = I")
+        == [[float(i == j) for j in range(4)] for i in range(4)])
+    mx_ms = float(re.search(r"=> (\S+)  msec/cycle", out).group(1))
+    inst.teardown()
+
+    # --- (b) the larger word loop, 1000 x [1024,2048] @ [2048,512], and
+    #     t4_20a's own loop once more after a warm-up (its first run pays
+    #     for the allocator's first 1000 results)
+    inst, run = repl(device, seed)
+    transcripts.append(run(
+        "0 trace\n"
+        ': mxl dup >r clock >r for @ drop next clock r> - r> 1+ / '
+        '." => " . ."  msec/cycle" cr ;'))
+    loops = {}
+    for name, operands in (
+            ("mx_warm", "512 1024 matrix rand 1024 256 matrix ones"),
+            ("mxl", "1024 2048 matrix rand 2048 512 matrix ones")):
+        transcripts.append(run(f"{operands}\n99 mxl"))
+        loops[name] = []
+        for _ in range(3):
+            out = run(f"{cycles} mxl")
+            transcripts.append(out)
+            loops[name].append(float(re.search(r"=> (\S+) ", out).group(1)))
+        if name != "mxl":
+            transcripts.append(run("drop drop"))
+    samples = loops["mxl"]
+    mxl_ms = statistics.median(samples)
+    prof = profile_run(lambda: run("99 mxl"), "cuda" if on_card else "cpu",
+                       mxl_ms * 100)
+    inst.teardown()
+
+    # --- (c) gemm .. gemm4 at 4096^3 and 2048^3, fast and strict
+    words, wrappers = [], []
+    expect = {name: 0 for name in GEMM_NAMES}
+    keep_precision = Config.PRECISION
+    for size in big:
+        inst, run = repl(device, seed)
+        transcripts.append(run(
+            f"1.0 0.0 {size} {size} matrix rand {size} {size} matrix rand "
+            f"{size} {size} matrix zeros"))
+        A, B = (inst.sys.mu.du2obj(inst.vm.ss[i]).ensure_data()
+                for i in (-2, -1))
+        for precision in ("fast", "strict"):
+            Config.PRECISION = precision
+            base = None
+            for variant in range(5):
+                word = "gemm" + (str(variant) if variant else "")
+                before = dict(gemm.launches)
+                times = []
+                for _ in range(WORD_REPS):
+                    sync()
+                    t0 = time.perf_counter()
+                    transcripts.append(run(word))
+                    sync()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    got = inst.vm.TTOS().ensure_data().clone()
+                    transcripts.append(run("drop"))
+                ms = statistics.median(times)
+                delta = {nm: gemm.launches[nm] - before[nm]
+                         for nm in GEMM_NAMES}
+                want_delta = {nm: 0 for nm in GEMM_NAMES}
+                if variant in (2, 3) and on_card:    # the CPU launches none
+                    want_delta["mm_f32io"] = WORD_REPS
+                elif variant == 4 and on_card:
+                    want_delta["mm_v8"] = WORD_REPS
+                for nm in GEMM_NAMES:
+                    expect[nm] += want_delta[nm]
+                if variant == 0:
+                    base, top = got, got.abs().max().item()
+                    err, tol, err_plain = 0.0, 0.0, None
+                else:
+                    err = (got - base).abs().max().item() / top
+                    bf16_class = variant == 4 or (variant >= 2
+                                                  and precision == "fast")
+                    tol = (TOL_WORD_BF16 if bf16_class else
+                           TOL_GEMM_3PASS if variant >= 2 else 1e-6)
+                    err_plain = None
+                    if variant >= 2:     # and against its plain version
+                        plain = (gemm._mm_v8_ref(A, B, 1.0) if variant == 4
+                                 else gemm._mm_ref(A, B, prec=gemm.prec_class()))
+                        err_plain = (got - plain).abs().max().item() / top
+                        del plain
+                ok = (delta == want_delta and err <= tol and (
+                    err_plain is None or err_plain <= TOL_WORD_PLAIN))
+                words.append({"word": word, "size": size,
+                              "precision": precision, "ms": ms,
+                              "ms_samples": times,
+                              "launches": delta,
+                              "rel_err_vs_gemm": err, "tol": tol,
+                              "rel_err_vs_plain_version": err_plain,
+                              "tol_vs_plain_version": TOL_WORD_PLAIN,
+                              "ok": ok})
+                del got
+            del base
+        Config.PRECISION = keep_precision
+        # K5b and K7 through their wrappers, on the words' operands: no
+        # word reaches them in either package
+        base = gemm._mm_ref(A, B)
+        top = base.abs().max().item()
+        for nm, call in (("mm_bf16", lambda: gemm._mm(A, B, bf16=True)),
+                         ("mm_db", lambda: gemm._mm_db(A, B))):
+            before = gemm.launches[nm]
+            sync()
+            t0 = time.perf_counter()
+            got = call()
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            err = (got - base).abs().max().item() / top
+            n_launched = gemm.launches[nm] - before
+            expect[nm] += 1 if on_card else 0
+            wrappers.append({"wrapper": nm, "size": size, "ms": ms,
+                             "launches": n_launched,
+                             "rel_err_vs_plain_version": err,
+                             "tol": TOL_WORD_PLAIN,
+                             "ok": err <= TOL_WORD_PLAIN and n_launched == (
+                                 1 if on_card else 0)})
+            del got
+        del A, B, base
+        inst.teardown()
+        if on_card:
+            torch.cuda.empty_cache()
+    checks["gemm_words"] = all(w["ok"] for w in words)
+    checks["gemm_wrappers_no_word_reaches"] = all(w["ok"] for w in wrappers)
+
+    # --- (d) inverse, plu, det, solve on a well-conditioned matrix
+    n = n_linalg
+    inst, run = repl(device, seed)
+    transcripts.append(run(
+        f"{n} {n} matrix randn 0.001 *= {n} {n} matrix eye +="))
+    A = inst.vm.TTOS().ensure_data().clone()
+    eye = torch.eye(n, device=A.device)
+    transcripts.append(run("inverse"))                 # ( A A' )
+    inv = inst.vm.TTOS().ensure_data().clone()
+    transcripts.append(run("@"))                       # ( A A' A@A' )
+    inv_err = (inst.vm.TTOS().ensure_data() - eye).abs().max().item()
+    transcripts.append(run("drop drop plu"))           # ( A P LU )
+    lu = inst.vm.TTOS().ensure_data().clone()
+    P = inst.vm.TNOS().ensure_data().clone()
+    plu_err = (P @ (torch.tril(lu, -1) + eye) @ torch.triu(lu)
+               - A).abs().max().item()
+    out = run("drop drop det .")
+    transcripts.append(out)
+    det = float(out.split()[0])
+    sign, logdet = torch.linalg.slogdet(A.double())
+    det64 = (sign * torch.exp(logdet)).item()
+    transcripts.append(run(f"{n} vector rand swap solve"))   # ( B A X )
+    X = inst.vm.TTOS().ensure_data()
+    Bv = inst.sys.mu.du2obj(inst.vm.ss[-2]).ensure_data()
+    solve_err = (A @ X - Bv).abs().max().item()
+    checks["inverse_residual"] = inv_err <= TOL_LINALG
+    checks["plu_reconstructs"] = plu_err <= TOL_LINALG
+    checks["det_matches_f64"] = abs(det - det64) <= 1e-3 * abs(det64)
+    checks["solve_residual"] = solve_err <= TOL_LINALG
+    del inv
+    inst.teardown()
+
+    launches = dict(gemm.launches)   # read just after the path
+    checks["launch_counts_exact"] = launches == expect
+    noisy = [ln for t in transcripts for ln in t.splitlines()
+             if "ERROR" in ln or "WARN" in ln]
+    checks["no_ERROR_or_WARN_in_a_transcript"] = not noisy
+    emit({"phase": "tensor", "sizes": {"gemm_words": list(big),
+                                       "linalg": n, "cycles": cycles + 1},
+          "mx_msec_per_cycle": mx_ms,
+          "mx_warm_msec_per_cycle": statistics.median(loops["mx_warm"]),
+          "mx_warm_samples": loops["mx_warm"],
+          "mxl_msec_per_cycle": mxl_ms, "mxl_samples": samples,
+          "mxl_profile_100_cycles": prof, "words": words,
+          "wrappers_no_word_reaches": wrappers,
+          "linalg": {"inverse_max_abs_residual": inv_err,
+                     "plu_max_abs_residual": plu_err, "det": det,
+                     "det_f64": det64, "solve_max_abs_residual": solve_err,
+                     "tol": TOL_LINALG},
+          "launches": launches, "expected_launches": expect,
+          "noisy_lines": noisy[:5], "checks": checks})
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise RuntimeError(f"tensor checks failed: {bad}")
+    return launches
+
+
 def replay_check(m, out, device, lm, n_prompt):
     """teacher-forced replay: the argmax of the full forward over the
     generated sequence at each decoded position must be the token that
@@ -371,6 +772,8 @@ def phase_serve(seed: int, device="cuda", lm=LM, n_prompt=N_PROMPT,
             torch.cuda.synchronize()
 
     System.get_sys().seed(seed)
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     m = tiny_lm(seq=n_prompt, device=device, **lm)
     n = lm["batch"]
     prompt = np.random.RandomState(seed).randint(0, lm["vocab"],
@@ -570,6 +973,7 @@ def main(argv=None) -> int:
     import tensorforth_tpu_torch  # noqa: F401  (TF32 off)
     phase_build()
     rec = phase_kernel(args.seed)
+    gemm_rec = phase_kernel_gemm(args.seed)
     layers = LM["layers"]
     ran = {"flash_fwd": phase_serve(args.seed, expect_launches=layers)}
     # a step launches the forward kernel twice per attention layer (the
@@ -580,22 +984,42 @@ def main(argv=None) -> int:
         "flash_bwd_dq": layers})
     for name, n in per_step.items():
         ran[name] = ran.get(name, 0) + n
-    never = [name for name in FLASH_NAMES if not ran.get(name)]
+    on_tensor_path = phase_tensor(args.seed)
+    # no word of either package reaches K5b or K7: the tensor phase calls
+    # their wrappers on the words' operands
+    launched_by = {"flash_fwd": "generate and the train step",
+                   "flash_bwd_dkv": "the train step",
+                   "flash_bwd_dq": "the train step",
+                   "mm_f32io": "the gemm2 and gemm3 words",
+                   "mm_v8": "the gemm4 word",
+                   "mm_bf16": "its wrapper only: no word reaches this "
+                              "kernel in either package",
+                   "mm_db": "its wrapper only: no word reaches this "
+                            "kernel in either package"}
+    ran.update(on_tensor_path)
+    never = [name for name in FLASH_NAMES + GEMM_NAMES if not ran.get(name)]
     if never:
         raise RuntimeError(f"no path launched {never}")
-    replaces = {"flash_fwd": ("flash_fwd.cu", 74),
-                "flash_bwd_dkv": ("flash_bwd.cu", 172),
-                "flash_bwd_dq": ("flash_bwd.cu", 226)}
+    rec.update(gemm_rec)
+    replaces = {"flash_fwd": ("flash_fwd.cu", "attn_pallas.py:74"),
+                "flash_bwd_dkv": ("flash_bwd.cu", "attn_pallas.py:172"),
+                "flash_bwd_dq": ("flash_bwd.cu", "attn_pallas.py:226"),
+                "mm_f32io": ("gemm.cu", "gemm_pallas.py:94"),
+                "mm_bf16": ("gemm.cu", "gemm_pallas.py:106"),
+                "mm_v8": ("gemm.cu", "gemm_pallas.py:249"),
+                "mm_db": ("gemm.cu", "gemm_pallas.py:161")}
     emit({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"tensorforth_tpu_torch/ops/csrc/{replaces[name][0]}",
-        "replaces": f"tensorforth_tpu/ops/attn_pallas.py:{replaces[name][1]}",
+        "replaces": f"tensorforth_tpu/ops/{replaces[name][1]}",
         "launches": ran[name],
         "max_abs_err": rec[name]["max_abs_err"],
         "ms": rec[name]["ms"], "plain_ms": rec[name]["plain_ms"],
         "bound_ms": rec[name]["bound_ms"],
         "bound_by": rec[name]["bound_by"],
-        "library_ms": rec[name]["library_ms"]} for name in FLASH_NAMES]})
+        "library_ms": rec[name]["library_ms"],
+        "launched_by": launched_by[name]}
+        for name in FLASH_NAMES + GEMM_NAMES]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,11 @@
 tensor on an explicit device (the port of tensorforth_tpu/mu/tensor.py;
 the HBM-arena fields come with the arena slice).
 
-The header (shape/rank/grad slots/params) lives on the host; the payload
-is a ``torch.Tensor`` of the logical shape, made lazily on first read.
+The header (shape/rank/grad slots/stride/params) lives on the host; the
+payload is a ``torch.Tensor`` of the logical shape, made lazily on first
+read.  "Destructive" reference semantics are realized by swapping the
+payload in place, so stack views (which alias the same Tensor object)
+observe mutations exactly like the reference's shared-pointer views.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ class Tensor:
         self.grad_fn = None                # t4_layer tag when part of a model
         self.grad = [None] * 5             # w, b, dw, db, extra(mask/xhat)
         self.mtum = [None] * 5             # momentum/velocity (+tmp)
+        self.stride = [1, 1, 1, 1]         # conv stride/padding storage
         self.xparm = 0.0
         self.iparm = 0
         self.train = 1
@@ -69,6 +73,21 @@ class Tensor:
     def HWC(self) -> int:
         return self.numel // self.N()
 
+    def is_tensor(self) -> bool:
+        return self.ttype == T4Type.TENSOR
+
+    def is_model(self) -> bool:
+        return self.ttype == T4Type.MODEL
+
+    def is_dataset(self) -> bool:
+        return self.ttype == T4Type.DATASET
+
+    def is_future(self) -> bool:
+        return False
+
+    def is_same_shape(self, other: "Tensor") -> bool:
+        return self.shape == other.shape
+
     # --- payload management ------------------------------------------------
     def ensure_data(self) -> torch.Tensor:
         if self.data is None:
@@ -90,11 +109,30 @@ class Tensor:
         self.data = arr.reshape(self.shape)
         return self
 
+    def numpy(self) -> np.ndarray:
+        """host copy of the payload (never an alias: the optimizers
+        update payloads in place, so no host mirror is kept)"""
+        return self.ensure_data().detach().cpu().numpy().copy()
+
     def set_numpy(self, a) -> "Tensor":
         a = np.ascontiguousarray(a, dtype=np.float32)
         if a.size != self.numel:
             raise ValueError(f"set_numpy: {a.size} values for {self.shape}")
         return self.replace_data(torch.from_numpy(a))
+
+    # --- reshape (header and payload view; no copy) --------------------------
+    def reshape(self, *dims) -> "Tensor":
+        dims = tuple(int(d) for d in dims)
+        n = 1
+        for d in dims:
+            n *= d
+        if n != self.numel:
+            raise ValueError(f"reshape {self.shape} -> {dims} numel mismatch")
+        if self.data is not None:
+            self.data = self.data.reshape(dims)
+        self.shape = dims
+        self.rank = len(dims)
+        return self
 
     def __repr__(self):
         t = "TND?"[self.ttype]

@@ -44,6 +44,18 @@ class Model:
     def numel(self) -> int:
         return len(self.data)
 
+    def is_tensor(self) -> bool:
+        return False
+
+    def is_model(self) -> bool:
+        return True
+
+    def is_dataset(self) -> bool:
+        return False
+
+    def is_future(self) -> bool:
+        return False
+
     def __getitem__(self, i: int) -> Tensor:
         return self.data[i if i >= 0 else self.numel + i]
 
