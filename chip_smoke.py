@@ -5,13 +5,16 @@ and check it.  Run from the root of a checkout:
     python3 chip_smoke.py [--seed N]
 
 Phases, one JSON line each:
-  build   compile every kernel of the three paths with nvcc for sm_90a
-          into build/torch_kernels/ (one nvcc per source, all at once)
-  kernel  each kernel (flash forward, flash backward dK/dV and dQ, and
-          the four GEMM kernels of the tensor tier) against its plain
-          PyTorch version on the card, on inputs from a numpy seed;
-          kernel, plain and library times and the card's least time for
-          the same work (the bound)
+  build   compile every kernel of the four paths with nvcc for sm_90a
+          into build/torch_kernels/ (one nvcc per source, all at once:
+          flash_fwd, flash_bwd, flash_bwd_fused, attn_dots, gemm)
+  kernel  each kernel (flash forward, flash backward dK/dV and dQ, the
+          fused single-kernel backward, the dots-only probe, and the four
+          GEMM kernels of the tensor tier) against its plain PyTorch
+          version on the card, on inputs from a numpy seed; the fused
+          backward also against the two-kernel split, against f64 and
+          against itself run twice; kernel, plain and library times and
+          the card's least time for the same work (the bound)
   serve   tiny_lm at bench_prefill's full width (dim 1024, 8 heads,
           4 layers, vocab 2048, batch 8, 2048-token prompt, 64 new
           tokens) through generate(), f32 and int8 KV caches: kernel
@@ -28,6 +31,16 @@ Phases, one JSON line each:
           1000-product loop with a profile, the words gemm..gemm4 at
           4096^3 and 2048^3 under both precision settings with exact
           launch counts, and inverse/plu/det/solve at 1024 x 1024
+  attn_bench  the attention measurement path at full width (16 heads,
+          S 2048, dh 128; the sweep at B x S = 16 x 2048, 4 x 4096,
+          1 x 8192): bench_attention, bench_attention_bwd,
+          bench_attention_oracle with its dots-only probe, and
+          sweep_bwd_fused, with exact launch counts; prints the rates,
+          the within-rep ratios fused / split and library / ours, the
+          forward's time over the probe's, and each candidate's blocks
+          and partial bytes.  Then, uncounted, the fused backward at
+          every (shape, mask, Q block) the sweep launched it at, against
+          its plain version and the split.  It asserts no speed.
 Then one `kernels` JSON line, the card's name and power limit as
 nvidia-smi reports them, and last {"ok": true, "device": {...}}.
 
@@ -55,7 +68,8 @@ import numpy as np
 PEAK_F32_FLOPS = 67e12        # f32 on the CUDA cores (no tensor cores)
 PEAK_BF16_FLOPS = 989e12      # bf16 on the tensor cores, dense
 PEAK_BYTES = 3.35e12          # HBM3
-KERNELS = ("flash_fwd", "flash_bwd", "gemm")   # ops/csrc/<name>.cu
+KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_fused", "attn_dots",
+           "gemm")            # ops/csrc/<name>.cu
 LM = dict(batch=8, vocab=2048, dim=1024, heads=8, layers=4, rope=True)
 N_PROMPT, N_NEW = 2048, 64
 TOL_F32 = 1e-4     # f32 sums in another order than the plain version's
@@ -64,6 +78,13 @@ TOL_HYBRID = 3e-2  # the JAX package's hybrid tolerance: P rounds to bf16
 #                    in the plain version
 TOL_BWD_F32 = 2e-4     # dq, dk, dv: the JAX package's own tolerance
 TOL_BWD_HYBRID = 0.05  # of the largest reference value (bf16 p and ds)
+TOL_FUSED_SPLIT = 1e-5  # the fused backward against the two-kernel split,
+#                    absolute plus relative (the JAX package's own test):
+#                    the same p and ds, dq and the partials summed in
+#                    another order
+TOL_DOTS = 1e-4    # the probe against its plain version, of the largest
+#                    value: two f32 sums of a score that differ in the last
+#                    bit can round to neighbouring bf16 values (2^-8 apart)
 TOL_GRAD = 1e-3    # train: dw, db against the plain attention path, of
 #                    each tensor's largest value
 MARGIN = 1e-4      # top-2 logit gap below which a replay flip is a tie
@@ -72,6 +93,9 @@ TRAIN_LR = 1e-4    # Adam.  The reference's Adam has no bias correction,
 #                    so its first steps move every weight by about 3 lr;
 #                    at dim 1024 the small tests' 1e-2 and 1e-3 overshoot
 FLASH_NAMES = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+PROBE_NAMES = ("flash_bwd_fused", "attn_dots")   # the measurement path's own
+BENCH = dict(nh=16, s=2048, dh=128)   # bench.py's attention shape
+BENCH_ITERS, BENCH_REPS = 4, 7        # calls per chain, timed chains
 GEMM_NAMES = ("mm_f32io", "mm_bf16", "mm_v8", "mm_db")
 # GEMM tolerances, of the largest value of an f64 product of the same
 # operands.  The bf16 classes against their plain version: only the order
@@ -143,6 +167,26 @@ def attn_bwd_work(which, b, s, dh, causal, elem_bytes):
     return ops, nbytes
 
 
+def attn_bwd_fused_work(b, s, dh, bq, causal, elem_bytes):
+    """(operations, bytes) of the fused backward with its sums: 5 products
+    per visited pair (s2, dp, ds k, p^T do, ds^T q); q, k, v, do, lse and
+    delta read once, dq written once, the 2 * n_q partial slabs written by
+    the kernel and read by the sums, dk and dv written once"""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    ops = 5 * 2 * dh * b * pairs
+    slab = b * s * dh * 4
+    nbytes = (4 * b * s * dh * elem_bytes + 2 * b * s * 4 + slab
+              + 2 * 2 * (s // bq) * slab + 2 * slab)
+    return ops, nbytes
+
+
+def attn_dots_work(b, s, dh):
+    """(operations, bytes) of the dots-only probe: 2 products of 2*dh
+    operations per (query, key) pair; bf16 q, k, v read once, f32 o
+    written once"""
+    return 4 * dh * b * s * s, 3 * b * s * dh * 2 + b * s * dh * 4
+
+
 def bound_ms(ops, nbytes, peak_flops=PEAK_F32_FLOPS):
     t_ops, t_bytes = ops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
@@ -192,22 +236,155 @@ def f64_grads(q, k, v, do, dlse, causal):
                                (do.double(), dlse.double()))
 
 
+def fused_equals_split(got, want) -> bool:
+    """(dq, dk, dv) of the fused backward within TOL_FUSED_SPLIT, absolute
+    plus relative, of the two-kernel split's"""
+    return all(bool(((g - w).abs() <= TOL_FUSED_SPLIT
+                     + TOL_FUSED_SPLIT * w.abs()).all())
+               for g, w in zip(got, want))
+
+
+def fused_case(args, split, bq, f64, sdpa_bwd, timed=True):
+    """the fused backward kernel on one case's operands (q, k, v, o, lse,
+    do, causal, hybrid, dlse): against its plain version (dq and both
+    partials, the never-visited blocks included), against the two-kernel
+    split's (dq, dk, dv), against f64 where given, and against itself run
+    again; its times unless `timed` is false, and the library backward's
+    where given"""
+    import torch
+    from tensorforth_tpu_torch.ops import attn
+    q, k, v, o, lse, do, causal, hybrid, dlse = args
+    b, s, dh = q.shape
+    call = (q, k, v, o, lse, do, bq, causal, hybrid, dlse)
+    dq, dkp, dvp = attn.flash_attention_bwd_fused_parts(*call)
+    if q.is_cuda:
+        torch.cuda.synchronize()
+    want = attn.flash_attention_bwd_fused_parts_ref(*call)
+    names = ("dq", "dk_parts", "dv_parts")
+    errs = {nm: (g - w).abs().max().item()
+            for nm, g, w in zip(names, (dq, dkp, dvp), want)}
+    tops = {nm: w.abs().max().item() for nm, w in zip(names, want)}
+    ok = all(bool(torch.isfinite(g).all()) and (
+        errs[nm] <= TOL_BWD_HYBRID * tops[nm] if hybrid
+        else errs[nm] <= TOL_BWD_F32)
+        for nm, g in zip(names, (dq, dkp, dvp)))
+    del want
+    n_q = s // bq
+    never = [part[:, qi, (qi + 1) * bq:] for part in (dkp, dvp)
+             for qi in range(n_q - 1)] if causal else []
+    zeros_ok = (tuple(dkp.shape) == tuple(dvp.shape) == (b, n_q, s, dh)
+                and all(not bool(x.any()) for x in never))
+    got = (dq, dkp.sum(dim=1), dvp.sum(dim=1))
+    vs_split = {nm: (g - w).abs().max().item()
+                for nm, g, w in zip(("dq", "dk", "dv"), got, split)}
+    split_ok = fused_equals_split(got, split)
+    again = attn.flash_attention_bwd_fused(*call)
+    repeats = all(torch.equal(g, a) for g, a in zip(got, again))
+    row = {"bq": bq, "n_q": n_q, "blocks": b * n_q, "max_abs_err": errs,
+           "largest_reference_value": tops,
+           "partials_shape_and_zero_blocks_ok": zeros_ok,
+           "never_visited_blocks": len(never) // 2,
+           "max_abs_err_vs_split": vs_split, "tol_vs_split":
+           f"{TOL_FUSED_SPLIT} absolute plus {TOL_FUSED_SPLIT} relative",
+           "two_runs_bit_equal": repeats}
+    if f64 is not None:
+        row["max_abs_err_vs_f64"] = max(
+            (g.double() - w).abs().max().item() for g, w in zip(got, f64))
+        ok = ok and row["max_abs_err_vs_f64"] <= TOL_BWD_F32
+    del got, again, dq, dkp, dvp
+    row["ok"] = ok and zeros_ok and split_ok and repeats
+    if not timed:
+        return row
+    row["ms"] = time_ms(lambda: attn.flash_attention_bwd_fused(*call))
+    row["ms_before_the_sums"] = time_ms(
+        lambda: attn.flash_attention_bwd_fused_parts(*call))
+    ops, nbytes = attn_bwd_fused_work(b, s, dh, bq, causal,
+                                      2 if hybrid else 4)
+    row["bound_ms"], row["bound_by"] = bound_ms(ops, nbytes)
+    row.update(gflop=ops / 1e9, mbytes=nbytes / 1e6,
+               tflops=ops / row["ms"] / 1e9)
+    if sdpa_bwd is not None:
+        row["plain_ms"] = time_ms(
+            lambda: attn.flash_attention_bwd_fused_ref(*call), reps=10)
+        row["library_ms"] = time_ms(sdpa_bwd)
+        # what bq trades: blocks in the grid against partial traffic
+        row["ms_by_bq"] = {str(x): time_ms(
+            lambda: attn.flash_attention_bwd_fused(
+                q, k, v, o, lse, do, x, causal, hybrid, dlse))
+            for x in (128, 256, 512, 1024, 2048)}
+    return row
+
+
+def phase_kernel_dots(seed: int):
+    """the dots-only probe against its plain version; returns its record
+    at the bench shape"""
+    import torch
+    from tensorforth_tpu_torch.ops import attn
+    rows, main = [], None
+    for i, (b, s, dh) in enumerate(((BENCH["nh"], BENCH["s"], BENCH["dh"]),
+                                    (64, 2048, 128), (8, 1024, 256))):
+        rs = np.random.RandomState(seed + 200 + i)
+        q, k, v = (torch.from_numpy(rs.randn(b, s, dh).astype(
+            np.float32)).cuda().to(torch.bfloat16) for _ in range(3))
+        o = attn.attn_dots(q, k, v)
+        torch.cuda.synchronize()
+        want = attn.attn_dots_ref(q, k, v)
+        err, top = (o - want).abs().max().item(), want.abs().max().item()
+        ops, nbytes = attn_dots_work(b, s, dh)
+        bms, by = bound_ms(ops, nbytes)
+        ms = time_ms(lambda: attn.attn_dots(q, k, v))
+        # the forward kernel alone on the same bf16 operands, q scaled as
+        # it is loaded: what the softmax adds to the two products
+        fwd_ms = time_ms(lambda: attn._launch_fwd(
+            q, k, v, False, True, attn.LOG2E / math.sqrt(dh)))
+        rows.append({
+            "flash_fwd_ms_on_the_same_operands": fwd_ms,
+            "flash_fwd_over_attn_dots": fwd_ms / ms,
+            "shape": [b, s, dh], "max_abs_err": err,
+            "largest_reference_value": top, "tol": TOL_DOTS,
+            "ok": (err <= TOL_DOTS * top and bool(torch.isfinite(o).all())
+                   and tuple(o.shape) == (b, s, dh)
+                   and o.dtype == torch.float32),
+            "ms": ms, "plain_ms": time_ms(
+                lambda: attn.attn_dots_ref(q, k, v), reps=5),
+            "library_ms": None, "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
+            "tflops": ops / ms / 1e9, "bound_ms": bms, "bound_by": by,
+            "bound_ms_on_the_bf16_tensor_cores": bound_ms(
+                ops, nbytes, PEAK_BF16_FLOPS)[0]})
+        main = main or rows[-1]
+        del q, k, v, o, want
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel", "kernel": "attn_dots", "cases": rows,
+          "tol": f"{TOL_DOTS} of the largest reference value",
+          "library": "no one PyTorch call computes bf16(q k^T) v"})
+    if not all(r["ok"] for r in rows):
+        raise RuntimeError("attn_dots disagrees with its plain version")
+    return main
+
+
 def phase_kernel(seed: int):
-    """the three flash kernels against their plain versions; returns the
-    slice shape's record of each, by kernel name"""
+    """the four flash kernels against their plain versions; returns each
+    one's record by kernel name: at the serving and training slices' shape
+    for the forward and the two-kernel backward, at the measurement path's
+    for the fused backward"""
     import torch
     import torch.nn.functional as F
     from tensorforth_tpu_torch.ops import attn
-    cases = [  # name, B*h, S, dh, causal, hybrid, with a non-zero dlse
-        ("slice_causal", 64, 2048, 128, True, False, False),
-        ("slice_noncausal", 64, 2048, 128, False, False, False),
-        ("odd_s_causal", 16, 1536, 128, True, False, False),
-        ("slice_causal_hybrid", 64, 2048, 128, True, True, False),
-        ("dh256_causal", 8, 1024, 256, True, False, False),
-        ("odd_s_causal_dlse", 16, 1536, 128, True, False, True),
+    cases = [  # name, B*h, S, dh, causal, hybrid, with a non-zero dlse,
+        #        rows of a Q block of the fused backward
+        ("slice_causal", 64, 2048, 128, True, False, False, 1024),
+        ("slice_noncausal", 64, 2048, 128, False, False, False, 512),
+        ("odd_s_causal", 16, 1536, 128, True, False, False, 768),
+        ("slice_causal_hybrid", 64, 2048, 128, True, True, False, 1024),
+        ("dh256_causal", 8, 1024, 256, True, False, False, 512),
+        ("odd_s_causal_dlse", 16, 1536, 128, True, False, True, 192),
+        ("s2560_hybrid_dlse", 4, 2560, 128, False, True, True, 640),
+        ("bench_causal_hybrid", BENCH["nh"], BENCH["s"], BENCH["dh"], True,
+         True, False, 1024),
     ]
     rows, bwd_rows, failed, main = [], [], [], {}
-    for i, (name, b, s, dh, causal, hybrid, with_dlse) in enumerate(cases):
+    for i, (name, b, s, dh, causal, hybrid, with_dlse,
+            bq) in enumerate(cases):
         rs = np.random.RandomState(seed + i)
         q, k, v, do = (torch.from_numpy(rs.randn(b, s, dh).astype(
             np.float32)).cuda() for _ in range(4))
@@ -252,7 +429,8 @@ def phase_kernel(seed: int):
                 "largest_reference_value": tops, "ok": bok,
                 "tol": (f"{TOL_BWD_HYBRID} of the largest reference value"
                         if hybrid else TOL_BWD_F32)}
-        if with_dlse:
+        w64 = None
+        if with_dlse and not hybrid:
             # the kernels and their plain version sum in the same order
             # (one FMA chain per output, as the library's f32 GEMM), so
             # they can agree to the bit: hold both against f64 as well
@@ -263,8 +441,12 @@ def phase_kernel(seed: int):
                     for g, w in zip(gs, w64))
             if brow["max_abs_err_kernel_vs_f64"] > TOL_BWD_F32:
                 brow["ok"] = bok = False
-            del w64
-        del want, dq, dk, dv
+        del want
+        timed = name in ("slice_causal", "bench_causal_hybrid")
+        brow["fused"] = fused_case(
+            (q, k, v, o, lse, do, causal, hybrid, dlse), (dq, dk, dv), bq,
+            w64, sdpa_grads(q, k, v, do, causal) if timed else None)
+        del w64, dq, dk, dv
         for which in ("dkv", "dq"):
             kms = time_ms(lambda: attn.flash_attention_bwd(
                 q, k, v, o, lse, do, causal, hybrid, dlse=dlse, only=which))
@@ -290,16 +472,24 @@ def phase_kernel(seed: int):
                 row, max_abs_err=max(err_o, err_l))
             main["flash_bwd_dkv"] = dict(
                 brow["dkv"], max_abs_err=max(errs["dk"], errs["dv"]),
-                plain_ms=brow["plain_ms"], library_ms=brow["library_ms"])
+                plain_ms=brow["plain_ms"], library_ms=brow["library_ms"],
+                shape=[b, s, dh])
             main["flash_bwd_dq"] = dict(
                 brow["dq"], max_abs_err=errs["dq"],
-                plain_ms=brow["plain_ms"], library_ms=brow["library_ms"])
+                plain_ms=brow["plain_ms"], library_ms=brow["library_ms"],
+                shape=[b, s, dh])
+        if name == "bench_causal_hybrid":
+            main["flash_bwd_fused"] = dict(
+                brow["fused"], shape=[b, s, dh],
+                max_abs_err=max(brow["fused"]["max_abs_err"].values()))
         rows.append(row)
         bwd_rows.append(brow)
         if not ok:
             failed.append("flash_fwd " + name)
         if not bok:
             failed.append("flash_bwd " + name)
+        if not brow["fused"]["ok"]:
+            failed.append("flash_bwd_fused " + name)
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
     # the gate: a head dim the kernels are not compiled for takes the
@@ -319,9 +509,11 @@ def phase_kernel(seed: int):
                            "f32 FMA)"}
     emit(dict(common, kernel="flash_fwd", cases=rows,
               dh384_takes_the_einsum_path=gate_ok))
-    emit(dict(common, kernel="flash_bwd (dkv, dq)", cases=bwd_rows,
+    emit(dict(common, kernel="flash_bwd (dkv, dq) and flash_bwd_fused",
+              cases=bwd_rows,
               plain_and_library_ms="one pass that gives dq, dk and dv: "
-                                   "both kernels' work"))
+                                   "both kernels' work, and the fused "
+                                   "kernel's with its sums"))
     if failed:
         raise RuntimeError(f"kernels disagree with their plain versions: "
                            f"{failed}")
@@ -847,10 +1039,18 @@ def flash_counts():
             "flash_bwd_dq": attn.flash_attention_bwd.launches["dq"]}
 
 
+def probe_counts():
+    from tensorforth_tpu_torch.ops import attn
+    return {"flash_bwd_fused": attn.flash_attention_bwd_fused.launches,
+            "attn_dots": attn.attn_dots.launches}
+
+
 def reset_flash_counts():
     from tensorforth_tpu_torch.ops import attn
     attn.flash_attention.launches = 0
     attn.flash_attention_bwd.launches = {"dkv": 0, "dq": 0}
+    attn.flash_attention_bwd_fused.launches = 0
+    attn.attn_dots.launches = 0
 
 
 def phase_train(seed: int, device="cuda", lm=LM, seq=N_PROMPT,
@@ -955,6 +1155,106 @@ def phase_train(seed: int, device="cuda", lm=LM, seq=N_PROMPT,
     return launches
 
 
+def phase_attn_bench(seed: int, device=None, n_iter=BENCH_ITERS,
+                     reps=BENCH_REPS, shapes=None, **size):
+    """the attention measurement path through its four entry points;
+    returns the five attention kernels' launches on it"""
+    import torch
+    from tensorforth_tpu_torch import attn_bench as ab
+    from tensorforth_tpu_torch.ops import attn
+    size = size or BENCH
+    shapes = ab.SWEEP_SHAPES if shapes is None else shapes
+    on_card = device is None or torch.device(device).type == "cuda"
+    depth = dict(n_iter=n_iter, reps=reps, device=device)
+
+    # --- the main path, counted: every count to 0 just before, read after
+    reset_flash_counts()
+    fwd = ab.bench_attention(**size, **depth)
+    bwd = ab.bench_attention_bwd(**size, **depth)
+    oracle = ab.bench_attention_oracle(**size, **depth)
+    sweeps = ab.sweep_bwd_fused("all", shapes=shapes, dh=size["dh"], **depth)
+    launches = dict(flash_counts(), **probe_counts())
+
+    # a chain is n_iter calls; each candidate runs one warm chain and
+    # `reps` timed ones.  bench_attention: K1 in two chains.
+    # bench_attention_bwd: K1 once for (o, lse), then one split chain.
+    # The oracle: a forward chain and a forward-plus-backward chain,
+    # causal and not, then the probe's chain beside one more K1 chain.
+    # The sweep, per record: K1 once, one split chain, one fused chain per
+    # candidate.
+    runs = (reps + 1) * n_iter
+    n_fused = sum(len(r["blocks"]) for r in sweeps)
+    expect = {"flash_fwd": 7 * runs + 1 + len(sweeps),
+              "flash_bwd_dkv": (3 + len(sweeps)) * runs,
+              "flash_bwd_dq": (3 + len(sweeps)) * runs,
+              "flash_bwd_fused": n_fused * runs, "attn_dots": runs}
+    if not on_card:
+        expect = dict.fromkeys(expect, 0)     # the CPU launches none
+    rates = ([x for d in (fwd, bwd) for xs in d.values() for x in xs]
+             + [x for xs in oracle.values() for x in xs]
+             + [x for r in sweeps for part in ("tflops", "vs_control")
+                for xs in r[part].values() for x in xs])
+    checks = {"launch_counts_exact": launches == expect,
+              "rates_finite_and_positive": all(
+                  math.isfinite(x) and x > 0 for x in rates),
+              "sweep_records": len(sweeps) == 2 * len(shapes)}
+
+    # --- not counted: the fused kernel at every (shape, causal, bq) that
+    #     the sweep launched it at, against its plain version (dq, both
+    #     partials, the never-visited blocks), the split and itself again
+    held = []
+    for r in sweeps:
+        b, s, causal = r["b"], r["s"], r["causal"]
+        rs = np.random.RandomState(seed + s + causal)
+        q, k, v, do = (torch.from_numpy(rs.randn(b, s, size["dh"]).astype(
+            np.float32)).to(device or "cuda") for _ in range(4))
+        o, lse = attn.flash_attention(q, k, v, causal=causal, hybrid=True)
+        split = attn.flash_attention_bwd(q, k, v, o, lse, do, causal, True)
+        for tag in r["blocks"]:
+            row = fused_case((q, k, v, o, lse, do, causal, True, None), split,
+                             int(tag.rsplit("=", 1)[1]), None, None,
+                             timed=on_card)
+            held.append(dict(row, b=b, s=s, causal=causal))
+        del q, k, v, do, o, lse, split
+    checks["fused_equals_plain_and_split_at_every_sweep_case"] = (
+        len(held) == n_fused and all(h["ok"] for h in held))
+
+    def med(d):
+        return {k: statistics.median(v) for k, v in d.items()}
+
+    emit({"phase": "attn_bench", "size": dict(size, n_iter=n_iter,
+                                               reps=reps),
+          "bench_attention_tflops": fwd, "bench_attention_bwd_tflops": bwd,
+          "bench_attention_oracle": oracle,
+          "sweep_bwd_fused": sweeps,
+          "medians": {
+              "bench_attention_tflops": med(fwd),
+              "bench_attention_bwd_tflops": med(bwd),
+              "library_over_ours_time": med(
+                  {k: v for k, v in oracle.items()
+                   if k.startswith(("fwd", "bwd"))}),
+              "dots_only_tflops": statistics.median(
+                  oracle["dots_only_tflops"]),
+              "full_vs_dots_time_ratio": statistics.median(
+                  oracle["full_vs_dots_time_ratio"]),
+              "sweep": [{"b": r["b"], "s": r["s"], "causal": r["causal"],
+                         "tflops": med(r["tflops"]),
+                         "fused_over_split_rate": med(r["vs_control"]),
+                         "blocks": r["blocks"],
+                         "partial_bytes_written_and_read":
+                             r["partial_bytes_written_and_read"]}
+                        for r in sweeps]},
+          "fused_vs_plain_and_split": held,
+          "tol_fused_vs_plain": f"{TOL_BWD_HYBRID} of the largest reference "
+                                "value",
+          "launches": launches, "expected_launches": expect,
+          "checks": checks})
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise RuntimeError(f"attn_bench checks failed: {bad}")
+    return launches
+
+
 def card_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"],
@@ -973,6 +1273,7 @@ def main(argv=None) -> int:
     import tensorforth_tpu_torch  # noqa: F401  (TF32 off)
     phase_build()
     rec = phase_kernel(args.seed)
+    rec["attn_dots"] = phase_kernel_dots(args.seed)
     gemm_rec = phase_kernel_gemm(args.seed)
     layers = LM["layers"]
     ran = {"flash_fwd": phase_serve(args.seed, expect_launches=layers)}
@@ -985,11 +1286,16 @@ def main(argv=None) -> int:
     for name, n in per_step.items():
         ran[name] = ran.get(name, 0) + n
     on_tensor_path = phase_tensor(args.seed)
+    for name, n in phase_attn_bench(args.seed).items():
+        ran[name] = ran.get(name, 0) + n
     # no word of either package reaches K5b or K7: the tensor phase calls
     # their wrappers on the words' operands
-    launched_by = {"flash_fwd": "generate and the train step",
-                   "flash_bwd_dkv": "the train step",
-                   "flash_bwd_dq": "the train step",
+    launched_by = {"flash_fwd": "generate, the train step and attn_bench",
+                   "flash_bwd_dkv": "the train step and attn_bench",
+                   "flash_bwd_dq": "the train step and attn_bench",
+                   "flash_bwd_fused": "attn_bench.sweep_bwd_fused",
+                   "attn_dots": "attn_bench.bench_attention_oracle (its "
+                                "dots-only probe)",
                    "mm_f32io": "the gemm2 and gemm3 words",
                    "mm_v8": "the gemm4 word",
                    "mm_bf16": "its wrapper only: no word reaches this "
@@ -997,29 +1303,36 @@ def main(argv=None) -> int:
                    "mm_db": "its wrapper only: no word reaches this "
                             "kernel in either package"}
     ran.update(on_tensor_path)
-    never = [name for name in FLASH_NAMES + GEMM_NAMES if not ran.get(name)]
+    names = FLASH_NAMES + PROBE_NAMES + GEMM_NAMES
+    never = [name for name in names if not ran.get(name)]
     if never:
         raise RuntimeError(f"no path launched {never}")
     rec.update(gemm_rec)
-    replaces = {"flash_fwd": ("flash_fwd.cu", "attn_pallas.py:74"),
-                "flash_bwd_dkv": ("flash_bwd.cu", "attn_pallas.py:172"),
-                "flash_bwd_dq": ("flash_bwd.cu", "attn_pallas.py:226"),
-                "mm_f32io": ("gemm.cu", "gemm_pallas.py:94"),
-                "mm_bf16": ("gemm.cu", "gemm_pallas.py:106"),
-                "mm_v8": ("gemm.cu", "gemm_pallas.py:249"),
-                "mm_db": ("gemm.cu", "gemm_pallas.py:161")}
+    ops_dir = "tensorforth_tpu/ops/"
+    replaces = {"flash_fwd": ("flash_fwd.cu", ops_dir + "attn_pallas.py:74"),
+                "flash_bwd_dkv": ("flash_bwd.cu",
+                                  ops_dir + "attn_pallas.py:172"),
+                "flash_bwd_dq": ("flash_bwd.cu",
+                                 ops_dir + "attn_pallas.py:226"),
+                "flash_bwd_fused": ("flash_bwd_fused.cu",
+                                    ops_dir + "attn_pallas.py:475"),
+                "attn_dots": ("attn_dots.cu", "bench.py:692"),
+                "mm_f32io": ("gemm.cu", ops_dir + "gemm_pallas.py:94"),
+                "mm_bf16": ("gemm.cu", ops_dir + "gemm_pallas.py:106"),
+                "mm_v8": ("gemm.cu", ops_dir + "gemm_pallas.py:249"),
+                "mm_db": ("gemm.cu", ops_dir + "gemm_pallas.py:161")}
     emit({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"tensorforth_tpu_torch/ops/csrc/{replaces[name][0]}",
-        "replaces": f"tensorforth_tpu/ops/{replaces[name][1]}",
+        "replaces": replaces[name][1],
         "launches": ran[name],
         "max_abs_err": rec[name]["max_abs_err"],
         "ms": rec[name]["ms"], "plain_ms": rec[name]["plain_ms"],
         "bound_ms": rec[name]["bound_ms"],
         "bound_by": rec[name]["bound_by"],
         "library_ms": rec[name]["library_ms"],
-        "launched_by": launched_by[name]}
-        for name in FLASH_NAMES + GEMM_NAMES]})
+        "launched_by": launched_by[name], "shape": rec[name]["shape"]}
+        for name in names]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -34,14 +34,20 @@ def _nvcc() -> str:
     return path
 
 
-def build(name: str) -> Path:
-    """compile csrc/<name>.cu unless its library is already built; the
-    compiler's register/spill report goes to <library>.log"""
+def library_path(name: str) -> Path:
+    """where the library of csrc/<name>.cu goes: its file name carries a
+    hash of the source and of every shared header, so a change to either
+    gives a new library"""
     h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    digest = h.hexdigest()
-    out = BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(name: str) -> Path:
+    """compile csrc/<name>.cu unless its library is already built; the
+    compiler's register/spill report goes to <library>.log"""
+    out = library_path(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

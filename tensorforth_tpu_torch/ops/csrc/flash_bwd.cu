@@ -45,50 +45,9 @@
 // multiplicands are; ds itself is formed from the unrounded p.  Products
 // and sums stay f32.
 
-#include "flash_tile.cuh"
+#include "flash_bwd_tile.cuh"
 
 namespace {
-
-constexpr int BQ = 64;    // query rows per tile
-
-// N (2 or 4) consecutive floats, one vector load
-template <int N>
-__device__ __forceinline__ void loadv(float (&dst)[N], const float* p) {
-  if constexpr (N == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    dst[0] = t.x;
-    dst[1] = t.y;
-    dst[2] = t.z;
-    dst[3] = t.w;
-  } else {
-    static_assert(N == 2, "loadv takes 2 or 4 floats");
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    dst[0] = t.x;
-    dst[1] = t.y;
-  }
-}
-
-// p (in s) and ds (in dp) of rows 4r+i against keys c+16j: s holds the
-// base-2 scores and dp holds do v^T on entry
-template <int CJ>
-__device__ __forceinline__ void softmax_grad(float (&s)[4][CJ],
-                                             float (&dp)[4][CJ],
-                                             const float* lse2,
-                                             const float* delta, int q0,
-                                             int k0, bool diag, int r,
-                                             int c) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float l2 = lse2[4 * r + i], de = delta[4 * r + i];
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) {
-      float x = s[i][j];
-      if (diag && k0 + c + 16 * j > q0 + 4 * r + i) x = NEG_INF;
-      s[i][j] = exp2f(x - l2);
-      dp[i][j] = s[i][j] * (dp[i][j] - de);
-    }
-  }
-}
 
 // dK and dV of one KV tile: K and V stay in shared memory, Q and dO tiles
 // stream through it
@@ -139,77 +98,15 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int qt = causal ? k0 / BQ : 0; qt < n_q; ++qt) {
     const int q0 = qt * BQ;
     __syncthreads();  // the previous tile's Q, dO, p and ds are consumed
-    load_tile<D>(Qs, LD, q + head + (size_t)q0 * D, BQ, qscale);
-    load_tile<D>(Os, LD, dout + head + (size_t)q0 * D, BQ, 1.f);
-    if (threadIdx.x < BQ) {
-      Ls[threadIdx.x] = lse[rows + q0 + threadIdx.x] * LOG2E;
-      Es[threadIdx.x] = delta[rows + q0 + threadIdx.x];
-    }
+    load_q_side<D>(Qs, Os, Ls, Es, q + head, dout + head, lse + rows,
+                   delta + rows, q0, qscale);
     __syncthreads();
-
-    // phase 1: the p and ds tiles, [BQ, BK], into shared memory
-    float s[4][CJ], dp[4][CJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) s[i][j] = dp[i][j] = 0.f;
-    dot_rows<D, CJ>(s, Qs, Ks, LD, r, c);
-    dot_rows<D, CJ>(dp, Os, Vs, LD, r, c);
-    softmax_grad<CJ>(s, dp, Ls, Es, q0, k0,
-                     causal && k0 + BK - 1 > q0, r, c);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        Ps[(4 * r + i) * LDP + c + 16 * j] = round_bf16(s[i][j], round_p);
-        Ds[(4 * r + i) * LDP + c + 16 * j] = round_bf16(dp[i][j], round_p);
-      }
+    pds_tiles<D, BK, true>(Qs, Os, Ks, Vs, Ls, Es, Ps, Ds, q0, k0,
+                           causal && k0 + BK - 1 > q0, round_p, r, c);
     __syncthreads();
-
-    // phase 2: dv += p^T dO, dk += ds^T Q, one query row at a time
-#pragma unroll 2
-    for (int n = 0; n < BQ; ++n) {
-      float pv[CJ], dsv[CJ];
-      loadv<CJ>(pv, Ps + n * LDP + CJ * r);
-      loadv<CJ>(dsv, Ds + n * LDP + CJ * r);
-      float4 ov[DJ], qv[DJ];
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) {
-        ov[jj] = *reinterpret_cast<const float4*>(Os + n * LD + 64 * jj +
-                                                  4 * c);
-        qv[jj] = *reinterpret_cast<const float4*>(Qs + n * LD + 64 * jj +
-                                                  4 * c);
-      }
-#pragma unroll
-      for (int i = 0; i < CJ; ++i)
-#pragma unroll
-        for (int jj = 0; jj < DJ; ++jj) {
-          dva[i][jj][0] = fmaf(pv[i], ov[jj].x, dva[i][jj][0]);
-          dva[i][jj][1] = fmaf(pv[i], ov[jj].y, dva[i][jj][1]);
-          dva[i][jj][2] = fmaf(pv[i], ov[jj].z, dva[i][jj][2]);
-          dva[i][jj][3] = fmaf(pv[i], ov[jj].w, dva[i][jj][3]);
-          dka[i][jj][0] = fmaf(dsv[i], qv[jj].x, dka[i][jj][0]);
-          dka[i][jj][1] = fmaf(dsv[i], qv[jj].y, dka[i][jj][1]);
-          dka[i][jj][2] = fmaf(dsv[i], qv[jj].z, dka[i][jj][2]);
-          dka[i][jj][3] = fmaf(dsv[i], qv[jj].w, dka[i][jj][3]);
-        }
-    }
+    accum_dkv<D, BK>(dka, dva, Ps, Ds, Os, Qs, r, c);
   }
-
-  // flush.  ds^T q2 = (scale*log2e) ds^T q, so ln2 restores scale ds^T q
-#pragma unroll
-  for (int i = 0; i < CJ; ++i) {
-    const size_t at = head + (size_t)(k0 + CJ * r + i) * D;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) {
-      *reinterpret_cast<float4*>(dk + at + 64 * jj + 4 * c) =
-          make_float4(dka[i][jj][0] * LN2, dka[i][jj][1] * LN2,
-                      dka[i][jj][2] * LN2, dka[i][jj][3] * LN2);
-      *reinterpret_cast<float4*>(dv + at + 64 * jj + 4 * c) =
-          make_float4(dva[i][jj][0], dva[i][jj][1], dva[i][jj][2],
-                      dva[i][jj][3]);
-    }
-  }
+  store_dkv<D, BK>(dka, dva, dk + head, dv + head, k0, r, c);
 }
 
 // dQ of one Q tile: Q and dO stay in shared memory, K and V tiles stream
@@ -224,7 +121,6 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     float oscale) {
   constexpr int LD = D + 4;
   constexpr int LDP = BK + 4;
-  constexpr int CJ = BK / 16;
   constexpr int DJ = D / 64;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
@@ -246,12 +142,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int c = threadIdx.x & 15;  // phase 1: key columns c+16j;
                                    // phase 2: output columns 64jj+4c..+3
 
-  load_tile<D>(Qs, LD, q + head + (size_t)q0 * D, BQ, qscale);
-  load_tile<D>(Os, LD, dout + head + (size_t)q0 * D, BQ, 1.f);
-  if (threadIdx.x < BQ) {
-    Ls[threadIdx.x] = lse[rows + q0 + threadIdx.x] * LOG2E;
-    Es[threadIdx.x] = delta[rows + q0 + threadIdx.x];
-  }
+  load_q_side<D>(Qs, Os, Ls, Es, q + head, dout + head, lse + rows,
+                 delta + rows, q0, qscale);
 
   float acc[4][DJ][4];
 #pragma unroll
@@ -268,48 +160,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_tile<D>(Ks, LD, k + head + (size_t)k0 * D, BK, 1.f);
     load_tile<D>(Vs, LD, v + head + (size_t)k0 * D, BK, 1.f);
     __syncthreads();
-
-    // phase 1: the ds tile, [BQ, BK], into shared memory
-    float s[4][CJ], dp[4][CJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) s[i][j] = dp[i][j] = 0.f;
-    dot_rows<D, CJ>(s, Qs, Ks, LD, r, c);
-    dot_rows<D, CJ>(dp, Os, Vs, LD, r, c);
-    softmax_grad<CJ>(s, dp, Ls, Es, q0, k0,
-                     causal && k0 + BK - 1 > q0, r, c);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j)
-        Ds[(4 * r + i) * LDP + c + 16 * j] = round_bf16(dp[i][j], round_p);
+    pds_tiles<D, BK, false>(Qs, Os, Ks, Vs, Ls, Es, nullptr, Ds, q0, k0,
+                            causal && k0 + BK - 1 > q0, round_p, r, c);
     __syncthreads();
-
-    // phase 2: acc += ds K
-#pragma unroll 2
-    for (int n = 0; n < BK; n += 4) {
-      float d[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) loadv<4>(d[i], Ds + (4 * r + i) * LDP + n);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float4 kv[DJ];
-#pragma unroll
-        for (int jj = 0; jj < DJ; ++jj)
-          kv[jj] = *reinterpret_cast<const float4*>(
-              Ks + (n + u) * LD + 64 * jj + 4 * c);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int jj = 0; jj < DJ; ++jj) {
-            acc[i][jj][0] = fmaf(d[i][u], kv[jj].x, acc[i][jj][0]);
-            acc[i][jj][1] = fmaf(d[i][u], kv[jj].y, acc[i][jj][1]);
-            acc[i][jj][2] = fmaf(d[i][u], kv[jj].z, acc[i][jj][2]);
-            acc[i][jj][3] = fmaf(d[i][u], kv[jj].w, acc[i][jj][3]);
-          }
-      }
-    }
+    accum_rows<D, BK>(acc, Ds, LDP, Ks, LD, r, c);  // acc += ds K
   }
 
   // flush: dq = scale * ds k
@@ -324,19 +178,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-struct Args {
-  const void *q, *k, *v, *dout;
-  const float *lse, *delta;
-  int bh, s, causal;
-  float qscale;
-  cudaStream_t stream;
-};
-
 template <int D, int BK, typename T>
-cudaError_t launch_dkv(const Args& a, float* dk, float* dv) {
-  constexpr int smem =
-      ((2 * BK + 2 * BQ) * (D + 4) + 2 * BQ * (BK + 4) + 2 * BQ) *
-      sizeof(float);
+cudaError_t launch_dkv(const BwdArgs& a, float* dk, float* dv) {
+  constexpr int smem = bwd_smem_floats(D, BK, true) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<D, BK, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -351,9 +195,8 @@ cudaError_t launch_dkv(const Args& a, float* dk, float* dv) {
 }
 
 template <int D, int BK, typename T>
-cudaError_t launch_dq(const Args& a, float* dq, float oscale) {
-  constexpr int smem =
-      ((2 * BK + 2 * BQ) * (D + 4) + BQ * (BK + 4) + 2 * BQ) * sizeof(float);
+cudaError_t launch_dq(const BwdArgs& a, float* dq, float oscale) {
+  constexpr int smem = bwd_smem_floats(D, BK, false) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<D, BK, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -383,7 +226,7 @@ extern "C" int t4_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 int s, int dh, int causal, int bf16,
                                 float qscale, void* stream) {
   if (bad_shape(bh, s, dh)) return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, dout, static_cast<const float*>(lse),
+  const BwdArgs a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), bh, s, causal, qscale,
                static_cast<cudaStream_t>(stream)};
   float* dkf = static_cast<float*>(dk);
@@ -402,7 +245,7 @@ extern "C" int t4_flash_bwd_dq(const void* q, const void* k, const void* v,
                                int dh, int causal, int bf16, float qscale,
                                float oscale, void* stream) {
   if (bad_shape(bh, s, dh)) return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, dout, static_cast<const float*>(lse),
+  const BwdArgs a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), bh, s, causal, qscale,
                static_cast<cudaStream_t>(stream)};
   float* dqf = static_cast<float*>(dq);

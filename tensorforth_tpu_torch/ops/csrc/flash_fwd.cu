@@ -134,37 +134,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             round_p ? __bfloat162float(__float2bfloat16(s[i][j])) : s[i][j];
     __syncthreads();
 
-    // acc += P V
-#pragma unroll 2
-    for (int n = 0; n < BN; n += 4) {
-      float p[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 t = *reinterpret_cast<const float4*>(
-            Ps + (4 * r + i) * LDP + n);
-        p[i][0] = t.x;
-        p[i][1] = t.y;
-        p[i][2] = t.z;
-        p[i][3] = t.w;
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float4 vv[DJ];
-#pragma unroll
-        for (int jj = 0; jj < DJ; ++jj)
-          vv[jj] = *reinterpret_cast<const float4*>(
-              Vs + (n + u) * D + 64 * jj + 4 * c);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int jj = 0; jj < DJ; ++jj) {
-            acc[i][jj][0] = fmaf(p[i][u], vv[jj].x, acc[i][jj][0]);
-            acc[i][jj][1] = fmaf(p[i][u], vv[jj].y, acc[i][jj][1]);
-            acc[i][jj][2] = fmaf(p[i][u], vv[jj].z, acc[i][jj][2]);
-            acc[i][jj][3] = fmaf(p[i][u], vv[jj].w, acc[i][jj][3]);
-          }
-      }
-    }
+    accum_rows<D, BN>(acc, Ps, LDP, Vs, D, r, c);  // acc += P V
   }
 
   // flush: the row sum is spread over the 16 lanes of the row group

@@ -1,6 +1,7 @@
 // Shared-memory tile helpers of the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): 256-thread blocks laid out as 16 row groups x 16 column
-// lanes, f32 tiles whose rows are padded by 4 floats.
+// attn_dots.cu, flash_bwd.cu, flash_bwd_fused.cu): 256-thread blocks laid
+// out as 16 row groups x 16 column lanes, f32 tiles whose rows are padded
+// by 4 floats.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -73,6 +74,47 @@ __device__ __forceinline__ void dot_rows(float (&acc)[4][CJ], const float* A,
         acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
         acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
       }
+  }
+}
+
+// acc[i][jj][0..3] += sum over n < BK of P[4r+i][n] * B[n][64jj+4c..+3]:
+// thread (r, c) holds a 4 x D/16 block of the 64 x D product P B, P with
+// row stride ldp and B with row stride ldb
+template <int D, int BK>
+__device__ __forceinline__ void accum_rows(float (&acc)[4][D / 64][4],
+                                           const float* P, int ldp,
+                                           const float* B, int ldb, int r,
+                                           int c) {
+  constexpr int DJ = D / 64;
+#pragma unroll 2
+  for (int n = 0; n < BK; n += 4) {
+    float p[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 t =
+          *reinterpret_cast<const float4*>(P + (4 * r + i) * ldp + n);
+      p[i][0] = t.x;
+      p[i][1] = t.y;
+      p[i][2] = t.z;
+      p[i][3] = t.w;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float4 b[DJ];
+#pragma unroll
+      for (int jj = 0; jj < DJ; ++jj)
+        b[jj] = *reinterpret_cast<const float4*>(B + (n + u) * ldb + 64 * jj +
+                                                 4 * c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < DJ; ++jj) {
+          acc[i][jj][0] = fmaf(p[i][u], b[jj].x, acc[i][jj][0]);
+          acc[i][jj][1] = fmaf(p[i][u], b[jj].y, acc[i][jj][1]);
+          acc[i][jj][2] = fmaf(p[i][u], b[jj].z, acc[i][jj][2]);
+          acc[i][jj][3] = fmaf(p[i][u], b[jj].w, acc[i][jj][3]);
+        }
+    }
   }
 }
 
