@@ -7,14 +7,19 @@ and check it.  Run from the root of a checkout:
 Phases, one JSON line each:
   build   compile every kernel of the four paths with nvcc for sm_90a
           into build/torch_kernels/ (one nvcc per source, all at once:
-          flash_fwd, flash_bwd, flash_bwd_fused, attn_dots, gemm)
+          flash_fwd, flash_bwd, flash_bwd_fused, attn_dots, gemm,
+          gemm_sm90); each wgmma kernel's registers, shared memory and
+          spills from ptxas
   kernel  each kernel (flash forward, flash backward dK/dV and dQ, the
-          fused single-kernel backward, the dots-only probe, and the four
-          GEMM kernels of the tensor tier) against its plain PyTorch
-          version on the card, on inputs from a numpy seed; the fused
-          backward also against the two-kernel split, against f64 and
-          against itself run twice; kernel, plain and library times and
-          the card's least time for the same work (the bound)
+          fused single-kernel backward, the dots-only probe, and the GEMM
+          kernels of the tensor tier: K5a on the wgmma kernel with its
+          rounding pass, K5b, K6 on the wgmma kernel, K7) against its plain
+          PyTorch version on the card, on inputs from a numpy seed; the
+          fused backward also against the two-kernel split, against f64
+          and against itself run twice; the rounding pass bit for bit; K5a
+          and K6 also against K5b (the first design) at 4096^3; kernel,
+          plain and library times and the card's least time for the same
+          work (the bound)
   serve   tiny_lm at bench_prefill's full width (dim 1024, 8 heads,
           4 layers, vocab 2048, batch 8, 2048-token prompt, 64 new
           tokens) through generate(), f32 and int8 KV caches: kernel
@@ -41,8 +46,9 @@ Phases, one JSON line each:
           and partial bytes.  Then, uncounted, the fused backward at
           every (shape, mask, Q block) the sweep launched it at, against
           its plain version and the split.  It asserts no speed.
-Then one `kernels` JSON line, the card's name and power limit as
-nvidia-smi reports them, and last {"ok": true, "device": {...}}.
+Then the seconds each phase took (`phase_seconds`), one `kernels` JSON
+line, the card's name and power limit as nvidia-smi reports them, and
+last {"ok": true, "device": {...}}.
 
 Exits non-zero, before printing any result, when there is no CUDA
 device; and non-zero when a kernel does not build, launch or agree, or
@@ -69,7 +75,7 @@ PEAK_F32_FLOPS = 67e12        # f32 on the CUDA cores (no tensor cores)
 PEAK_BF16_FLOPS = 989e12      # bf16 on the tensor cores, dense
 PEAK_BYTES = 3.35e12          # HBM3
 KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_fused", "attn_dots",
-           "gemm")            # ops/csrc/<name>.cu
+           "gemm", "gemm_sm90")   # ops/csrc/<name>.cu
 LM = dict(batch=8, vocab=2048, dim=1024, heads=8, layers=4, rope=True)
 N_PROMPT, N_NEW = 2048, 64
 TOL_F32 = 1e-4     # f32 sums in another order than the plain version's
@@ -96,7 +102,7 @@ FLASH_NAMES = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 PROBE_NAMES = ("flash_bwd_fused", "attn_dots")   # the measurement path's own
 BENCH = dict(nh=16, s=2048, dh=128)   # bench.py's attention shape
 BENCH_ITERS, BENCH_REPS = 4, 7        # calls per chain, timed chains
-GEMM_NAMES = ("mm_f32io", "mm_bf16", "mm_v8", "mm_db")
+GEMM_NAMES = ("mm_f32io", "mm_bf16", "mm_v8", "mm_db", "mm_round")
 # GEMM tolerances, of the largest value of an f64 product of the same
 # operands.  The bf16 classes against their plain version: only the order
 # of the f32 sums differs.  3pass and highest against f64: the classes'
@@ -115,8 +121,11 @@ TOL_WORD_BF16 = 4e-3
 # grows with K (1.5e-5 at K = 4096), where random signs (the kernel
 # phase's operands) keep it under 1e-5.
 TOL_WORD_PLAIN = 2e-5
+# m, k, n.  (1030, 1000, 1290): m and n no tile multiples, k no multiple
+# of the wgmma kernel's 64-deep slab
 GEMM_SHAPES = ((1024, 1024, 1024), (2048, 2048, 2048), (4096, 4096, 4096),
-               (1024, 2048, 512), (1000, 1500, 700), (2, 3, 2))   # m, k, n
+               (1024, 2048, 512), (1000, 1500, 700), (2, 3, 2),
+               (1030, 1000, 1290))
 GEMM_MAIN = (4096, 4096, 4096)   # the shape of the `kernels` line
 TOL_LINALG = 1e-4  # the tensor phase: residuals at 1024 x 1024
 WORD_REPS = 3      # runs of each gemm word: the median time is kept
@@ -193,20 +202,59 @@ def bound_ms(ops, nbytes, peak_flops=PEAK_F32_FLOPS):
                                        else "bytes")
 
 
+def ptxas_by_kernel(log: str):
+    """each entry function of an nvcc -Xptxas -v log: its name (template
+    arguments kept), registers, static shared memory and spill bytes"""
+    out, cur = [], None
+    for ln in log.splitlines():
+        hit = re.search(r"Compiling entry function '(\w+)'", ln)
+        if hit:
+            mangled = name = hit.group(1)
+            for mt in re.finditer(r"(?=(\d+)([A-Za-z_]\w*?kernel))", mangled):
+                digits, ident = mt.groups()   # <length><identifier>
+                if any(int(digits[i:]) == len(ident)
+                       for i in range(len(digits))):
+                    name = ident
+                    break
+            args = re.findall(r"Li(\d+)E", mangled)
+            cur = {"kernel": name + (f"<{','.join(args)}>" if args else "")}
+            out.append(cur)
+        elif cur is not None:
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", ln)
+            if sp:
+                cur["spill_stores"], cur["spill_loads"] = map(int,
+                                                               sp.groups())
+            rg = re.search(r"Used (\d+) registers", ln)
+            if rg:
+                cur["registers"] = int(rg.group(1))
+                sm = re.search(r"(\d+) bytes smem", ln)
+                cur["static_smem"] = int(sm.group(1)) if sm else 0
+    return out
+
+
 def phase_build():
     from tensorforth_tpu_torch.ops import _build
+    from tensorforth_tpu_torch.ops import gemm
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as ex:
         libs = list(ex.map(_build.build, KERNELS))
     secs = time.perf_counter() - t0
-    ptxas = []
-    for lib in libs:
+    ptxas, wgmma = [], []
+    for name, lib in zip(KERNELS, libs):
         log = lib.with_suffix(".log").read_text() if lib.with_suffix(
             ".log").exists() else ""
         ptxas += [ln.strip() for ln in log.splitlines()
                   if "registers" in ln or "spill" in ln]
+        if name == "gemm_sm90":
+            wgmma = ptxas_by_kernel(log)
+    plans = {cls: gemm.sm90_plan(4096, 4096, nprod)._asdict()
+             for cls, nprod in (("default and v8", 1), ("3pass", 3))}
     emit({"phase": "build", "seconds": secs, "kernels": list(KERNELS),
-          "ptxas": ptxas})
+          "ptxas": ptxas, "gemm_sm90_kernels": wgmma,
+          "gemm_sm90_plans_at_4096": plans})
+    if not any("gemm_sm90_kernel" in k["kernel"] for k in wgmma):
+        raise RuntimeError("gemm_sm90: no ptxas record of its kernels")
 
 
 def sdpa_grads(q, k, v, do, causal):
@@ -559,15 +607,83 @@ def bf16_library():
             lambda a, b: torch.mm(a, b, out_dtype=torch.float32))
 
 
+def round_case(a, b, split: bool, timed: bool):
+    """K5a's rounding pass against its plain version, bit for bit (the
+    same rounding to nearest even of the same f32 values, zeros in the
+    padding); with its times when `timed`"""
+    import torch
+    from tensorforth_tpu_torch.ops import gemm
+    got = gemm._round(a, b, split)
+    torch.cuda.synchronize()
+    want = gemm._round_ref(a, b, split)
+    same = all(g.shape == w.shape and torch.equal(
+        g.view(torch.int16), w.view(torch.int16)) for g, w in zip(got, want))
+    err = max(torch.where(g.view(torch.int16) == w.view(torch.int16), 0.0,
+                          (g.float() - w.float()).abs()).max().item()
+              for g, w in zip(got, want) if g.shape == w.shape)
+    (m, k), n = a.shape, b.shape[1]
+    parts = 2 if split else 1
+    nbytes = (m * k + k * n) * 4 + sum(g.numel() for g in got) * 2
+    row = {"split": split, "shape": [m, k, n], "bit_equal": same,
+           "max_abs_err": err, "mbytes": nbytes / 1e6, "parts": parts}
+    if timed:
+        row["ms"] = time_ms(lambda: gemm._round(a, b, split))
+        row["plain_ms"] = time_ms(lambda: gemm._round_ref(a, b, split),
+                                  reps=10)
+        row["bound_ms"], row["bound_by"] = bound_ms(0, nbytes)
+        row["library_ms"] = None
+    return row
+
+
+ROUNDING_CORNERS = ("ties", "signed_zeros", "subnormals", "large", "random")
+
+
+def rounding_corners(kind: str, shape, seed: int = 0) -> np.ndarray:
+    """f32 values at one family of corners of rounding to bf16 (the tests
+    of the rounding pass's plain version take them too): exact ties of
+    either parity, signed zeros, f32 subnormals, values up to f32's
+    largest (some round to inf), every exponent f32 has; or "mixed", all
+    of them"""
+    rs = np.random.RandomState(seed)
+    size = int(np.prod(shape))
+    sign = np.where(rs.rand(size) < 0.5, -1.0, 1.0).astype(np.float32)
+    if kind == "mixed":
+        every = [rounding_corners(k, (size,), seed + i)
+                 for i, k in enumerate(ROUNDING_CORNERS)]
+        return np.choose(rs.randint(0, len(every), size),
+                         every).reshape(shape)
+    if kind == "ties":
+        top = rs.randint(0x0080, 0x7F00, size).astype(np.uint32)
+        x = ((top << 16) | 0x8000).view(np.float32) * sign
+    elif kind == "signed_zeros":
+        x = np.where(rs.rand(size) < 0.5, -0.0, 0.0).astype(np.float32)
+        x[::3] = 1.0
+    elif kind == "subnormals":       # and the smallest normals
+        bits = rs.randint(1, 0x00800000, size).astype(np.uint32)
+        x = bits.view(np.float32) * sign
+        x[::4] = np.float32(1.1754944e-38) * sign[::4]
+    elif kind == "large":
+        big = np.finfo(np.float32).max
+        x = (big * rs.uniform(0.9, 1.0, size)).astype(np.float32) * sign
+    elif kind == "random":
+        x = (rs.standard_normal(size) * 10.0 ** rs.uniform(-37, 37, size)
+             ).astype(np.float32)
+    else:
+        raise ValueError(kind)
+    return x.astype(np.float32).reshape(shape)
+
+
 def phase_kernel_gemm(seed: int):
-    """the four GEMM kernels (K5a in its three classes) against their
-    plain versions at the words' shapes; returns each kernel's record at
-    4096^3 (K5a: class default)"""
+    """the GEMM kernels (K5a in its three classes, with its rounding pass)
+    against their plain versions at the words' shapes, and K5a and K6
+    against K5b at 4096^3; returns each kernel's record at 4096^3 (K5a:
+    class default, its time with its rounding pass)"""
     import torch
     from tensorforth_tpu_torch.ops import gemm
     lib_name, lib_bf16 = bf16_library()
     gemm.reset_launches()
-    rows, failed, main = [], [], {}
+    rows, rounds, failed, main = [], [], [], {}
+    vs_k5b = {}
     for i, (m, k, n) in enumerate(GEMM_SHAPES):
         rs = np.random.RandomState(seed + 100 + i)
         a = torch.from_numpy(rs.standard_normal((m, k)).astype(
@@ -609,8 +725,37 @@ def phase_kernel_gemm(seed: int):
                 failed.append(f"{name} {case} {m}x{k}x{n}")
             if (m, k, n) == GEMM_MAIN and case not in ("3pass", "highest"):
                 main[name] = dict(row)
+            if (m, k, n) == GEMM_MAIN and case in ("default", "v8", "bf16"):
+                vs_k5b[case] = got / scale
+            del got
+        for split in (False, True):
+            rounds.append(round_case(a, b, split, (m, k, n) == GEMM_MAIN))
+            if not rounds[-1]["bit_equal"]:
+                failed.append(f"mm_round split={split} {m}x{k}x{n}")
+        if (m, k, n) == GEMM_MAIN:
+            # the first design (K5b) computes the same function as K5a
+            # default and K6 (scale undone): the two designs agree
+            for case in ("default", "v8"):
+                err = (vs_k5b[case] - vs_k5b["bf16"]).abs().max().item()
+                vs_k5b[case] = {"max_abs_err": err, "tol": TOL_GEMM_BF16,
+                                "largest_f64_value": top,
+                                "ok": err <= TOL_GEMM_BF16 * top}
+                if not vs_k5b[case]["ok"]:
+                    failed.append(f"{case} against K5b at 4096^3")
+            del vs_k5b["bf16"]
+            r0, r1 = rounds[-2:]
+            main["mm_round"] = dict(r0, split_ms=r1["ms"])
+            main["mm_f32io"]["rounding_pass_ms"] = r0["ms"]
+            main["mm_f32io"]["ms_includes_rounding_pass"] = True
         del a, b, a16, b16, ref64
         torch.cuda.empty_cache()
+    # the rounding pass on the corners of rounding, bit for bit
+    a, b = (torch.from_numpy(rounding_corners("mixed", sh, seed + i)).cuda()
+            for i, sh in enumerate(((300, 260), (260, 203))))
+    for split in (False, True):
+        rounds.append(dict(round_case(a, b, split, False), corners=True))
+        if not rounds[-1]["bit_equal"]:
+            failed.append(f"mm_round split={split} on rounding corners")
     # transposed operands (the words' ta / tb) and the alpha/beta epilogue
     rs = np.random.RandomState(seed + 99)
     at, bt, c = (torch.from_numpy(rs.standard_normal(sh).astype(
@@ -623,7 +768,7 @@ def phase_kernel_gemm(seed: int):
                 want.abs().max().item():
             failed.append(f"gemm variant {variant} with ta, tb")
     emit({"phase": "kernel", "kernel": "gemm (mm_f32io, mm_bf16, mm_v8, "
-          "mm_db)", "peak_bf16_tflops": PEAK_BF16_FLOPS / 1e12,
+          "mm_db, mm_round)", "peak_bf16_tflops": PEAK_BF16_FLOPS / 1e12,
           "peak_f32_tflops": PEAK_F32_FLOPS / 1e12,
           "peak_tb_s": PEAK_BYTES / 1e12,
           "bound": "2mnk over the dense bf16 tensor-core rate (3pass: "
@@ -631,7 +776,9 @@ def phase_kernel_gemm(seed: int):
                    "the bytes over the memory rate",
           "library": {"f32 classes": "torch.matmul, TF32 off",
                       "bf16 classes": lib_name},
-          "cases": rows, "launches": dict(gemm.launches)})
+          "cases": rows, "rounding_pass": rounds,
+          "against_k5b_at_4096": vs_k5b,
+          "launches": dict(gemm.launches)})
     if failed:
         raise RuntimeError(f"GEMM kernels disagree: {failed}")
     return main
@@ -767,7 +914,8 @@ def phase_tensor(seed: int, device=None, big=(4096, 2048), n_linalg=1024,
                          for nm in GEMM_NAMES}
                 want_delta = {nm: 0 for nm in GEMM_NAMES}
                 if variant in (2, 3) and on_card:    # the CPU launches none
-                    want_delta["mm_f32io"] = WORD_REPS
+                    want_delta["mm_f32io"] = WORD_REPS  # and its rounding
+                    want_delta["mm_round"] = WORD_REPS  # pass, each time
                 elif variant == 4 and on_card:
                     want_delta["mm_v8"] = WORD_REPS
                 for nm in GEMM_NAMES:
@@ -1271,23 +1419,33 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import tensorforth_tpu_torch  # noqa: F401  (TF32 off)
-    phase_build()
-    rec = phase_kernel(args.seed)
-    rec["attn_dots"] = phase_kernel_dots(args.seed)
-    gemm_rec = phase_kernel_gemm(args.seed)
+    seconds = {}
+
+    def timed(phase, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        seconds[phase] = time.perf_counter() - t0
+        return out
+
+    timed("build", phase_build)
+    rec = timed("kernel_flash", phase_kernel, args.seed)
+    rec["attn_dots"] = timed("kernel_dots", phase_kernel_dots, args.seed)
+    gemm_rec = timed("kernel_gemm", phase_kernel_gemm, args.seed)
     layers = LM["layers"]
-    ran = {"flash_fwd": phase_serve(args.seed, expect_launches=layers)}
+    ran = {"flash_fwd": timed("serve", phase_serve, args.seed,
+                              expect_launches=layers)}
     # a step launches the forward kernel twice per attention layer (the
     # layer backward runs the layer forward again) and each backward
     # kernel once
-    per_step = phase_train(args.seed, expect_launches={
+    per_step = timed("train", phase_train, args.seed, expect_launches={
         "flash_fwd": 2 * layers, "flash_bwd_dkv": layers,
         "flash_bwd_dq": layers})
     for name, n in per_step.items():
         ran[name] = ran.get(name, 0) + n
-    on_tensor_path = phase_tensor(args.seed)
-    for name, n in phase_attn_bench(args.seed).items():
+    on_tensor_path = timed("tensor", phase_tensor, args.seed)
+    for name, n in timed("attn_bench", phase_attn_bench, args.seed).items():
         ran[name] = ran.get(name, 0) + n
+    emit({"phase_seconds": seconds})
     # no word of either package reaches K5b or K7: the tensor phase calls
     # their wrappers on the words' operands
     launched_by = {"flash_fwd": "generate, the train step and attn_bench",
@@ -1297,6 +1455,8 @@ def main(argv=None) -> int:
                    "attn_dots": "attn_bench.bench_attention_oracle (its "
                                 "dots-only probe)",
                    "mm_f32io": "the gemm2 and gemm3 words",
+                   "mm_round": "the gemm2 and gemm3 words (K5a's rounding "
+                               "pass, once before each K5a launch)",
                    "mm_v8": "the gemm4 word",
                    "mm_bf16": "its wrapper only: no word reaches this "
                               "kernel in either package",
@@ -1317,10 +1477,16 @@ def main(argv=None) -> int:
                 "flash_bwd_fused": ("flash_bwd_fused.cu",
                                     ops_dir + "attn_pallas.py:475"),
                 "attn_dots": ("attn_dots.cu", "bench.py:692"),
-                "mm_f32io": ("gemm.cu", ops_dir + "gemm_pallas.py:94"),
+                "mm_f32io": ("gemm_sm90.cu", ops_dir + "gemm_pallas.py:94"),
                 "mm_bf16": ("gemm.cu", ops_dir + "gemm_pallas.py:106"),
-                "mm_v8": ("gemm.cu", ops_dir + "gemm_pallas.py:249"),
-                "mm_db": ("gemm.cu", ops_dir + "gemm_pallas.py:161")}
+                "mm_v8": ("gemm_sm90.cu", ops_dir + "gemm_pallas.py:249"),
+                "mm_db": ("gemm.cu", ops_dir + "gemm_pallas.py:161"),
+                # the operand rounding that _mm_kernel's dot does in its
+                # body (_kdot, its 3pass split at 80-83)
+                "mm_round": ("gemm_sm90.cu",
+                             ops_dir + "gemm_pallas.py:76")}
+    extra = {"mm_f32io": ("rounding_pass_ms", "ms_includes_rounding_pass"),
+             "mm_round": ("split_ms",)}
     emit({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"tensorforth_tpu_torch/ops/csrc/{replaces[name][0]}",
@@ -1331,7 +1497,8 @@ def main(argv=None) -> int:
         "bound_ms": rec[name]["bound_ms"],
         "bound_by": rec[name]["bound_by"],
         "library_ms": rec[name]["library_ms"],
-        "launched_by": launched_by[name], "shape": rec[name]["shape"]}
+        "launched_by": launched_by[name], "shape": rec[name]["shape"],
+        **{key: rec[name][key] for key in extra.get(name, ())}}
         for name in names]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,32 +1,26 @@
-// GEMM kernels of the tensor tier (the gemm2 / gemm3 / gemm4 words) for
-// sm_90a.  They replace the four Pallas TPU kernels of
+// GEMM kernels of the tensor tier that no word's bf16 path reaches, for
+// sm_90a: the first design of the port, with bf16 wmma fragments.  The
+// words' bf16 paths (K5a classes default and 3pass, K6) run on the wgmma
+// kernel of gemm_sm90.cu.  Here, replacing Pallas TPU kernels of
 // tensorforth_tpu/ops/gemm_pallas.py:
 //
-//   t4_mm_f32io  _mm_kernel       f32 in, f32 out, K-blocked, class
-//                                 default | 3pass | highest
-//   t4_mm_bf16   _mm_kernel_bf16  the same product, bf16 rounding explicit
-//   t4_mm_v8     _v8_kernel       bf16 in, f32 out, scale fused at the flush
-//   t4_mm_db     _mm_kernel_db    f32 K-slabs streamed through two
-//                                 shared-memory stages with cp.async
+//   t4_mm_bf16   K5b  _mm_kernel_bf16  f32 in, bf16 multiplicands, f32 out
+//   t4_mm_f32    K5a  _mm_kernel, class highest: true f32 FMAs
+//   t4_mm_db     K7   _mm_kernel_db    f32 K-slabs streamed through two
+//                                      shared-memory stages with cp.async
 //
-// What bounds them on this card: operations.  At the sizes the words run
-// (1024^3 and up) a product does hundreds of operations per byte it must
-// move, so the tensor cores (the CUDA cores for class highest) are the
-// limit and the design keeps operands on chip: a block owns a 128 x 128
-// (3pass: 64 x 128) tile of C, walks K in slabs of 32 held in shared memory
-// as bf16, and each of its 8 warps multiplies 16 x 16 x 16 bf16 fragments
-// (nvcuda::wmma) into f32 accumulators in registers.  The next slab's
-// global loads are issued before the current slab is multiplied.  Ragged
-// edges are predicated in the kernel: no padded copies (t4_mm_db keeps the
-// zero padding of its TPU counterpart, because cp.async needs aligned,
-// in-bounds sources).  wgmma, TMA and deeper pipelines are the next step.
-//
-// Class 3pass: a = ah + al with ah = bf16(a), al = bf16(a - f32(ah)), the
-// same for b, split at the shared-memory store; ah bh + ah bl + al bh go
-// through the tensor cores into one fragment per K slab, and that fragment
-// is added to the running sum on the CUDA cores, whose f32 add rounds to
-// nearest (the tensor cores' own accumulation truncates, which over
-// thousands of K steps would cost the class its 2e-5).
+// What bounds them on this card: operations (the tensor cores, the CUDA
+// cores for class highest).  What the design does: a block owns a
+// 128 x 128 tile of C, walks K in slabs of 32 held in shared memory as
+// bf16, and each of its 8 warps multiplies 16 x 16 x 16 bf16 fragments
+// (nvcuda::wmma) into f32 accumulators in registers; the next slab's global
+// loads are issued before the current slab is multiplied.  That keeps one
+// slab of loads in flight, staged through registers, with two block
+// barriers a slab: at 4096^3 it runs at 12% of the bf16 peak, waiting on
+// memory most of the time (PERF.md).  gemm_sm90.cu is the redesign; K5b and
+// K7 move onto it next.  Ragged edges are predicated in the kernel: no
+// padded copies (t4_mm_db keeps the zero padding of its TPU counterpart,
+// because cp.async needs aligned, in-bounds sources).
 // Class highest: f32 FMAs on the CUDA cores, an 8 x 8 register tile per
 // thread, as the flash-attention kernels do.
 //
@@ -72,36 +66,6 @@ __device__ __forceinline__ float4 ld4(const float* p, int row, int col,
   return v;
 }
 
-// the bf16 overload keeps the 4 values as loaded (2 x 32 bits): nothing may
-// depend on a prefetched value before the slab it belongs to is stored
-__device__ __forceinline__ uint2 ld4(const bf16* p, int row, int col,
-                                     int rows, int cols, int ld, bool vec) {
-  uint2 v = make_uint2(0u, 0u);
-  if (row < rows && col < cols) {
-    const bf16* q = p + (size_t)row * ld + col;
-    if (vec && col + 3 < cols) {
-      v = *reinterpret_cast<const uint2*>(q);
-    } else {
-      const unsigned short* s = reinterpret_cast<const unsigned short*>(q);
-      const uint32_t e0 = s[0];
-      const uint32_t e1 = col + 1 < cols ? s[1] : 0;
-      const uint32_t e2 = col + 2 < cols ? s[2] : 0;
-      const uint32_t e3 = col + 3 < cols ? s[3] : 0;
-      v.x = e0 | (e1 << 16);
-      v.y = e2 | (e3 << 16);
-    }
-  }
-  return v;
-}
-
-template <typename T> struct Raw;
-template <> struct Raw<float> { typedef float4 type; };
-template <> struct Raw<bf16> { typedef uint2 type; };
-
-__device__ __forceinline__ void st4_bf16(bf16* dst, uint2 v) {
-  *reinterpret_cast<uint2*>(dst) = v;
-}
-
 // 4 floats -> 4 bf16 (round to nearest even) at dst (8-byte aligned)
 __device__ __forceinline__ void st4_bf16(bf16* dst, float4 v) {
   const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
@@ -112,42 +76,26 @@ __device__ __forceinline__ void st4_bf16(bf16* dst, float4 v) {
   *reinterpret_cast<uint2*>(dst) = raw;
 }
 
-// the 3pass split: hi = bf16(v), lo = bf16(v - f32(hi))
-__device__ __forceinline__ void st4_split(bf16* hi, bf16* lo, float4 v) {
-  const __nv_bfloat162 h0 = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 h1 = __floats2bfloat162_rn(v.z, v.w);
-  const float2 f0 = __bfloat1622float2(h0);
-  const float2 f1 = __bfloat1622float2(h1);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const uint32_t*>(&h0);
-  raw.y = *reinterpret_cast<const uint32_t*>(&h1);
-  *reinterpret_cast<uint2*>(hi) = raw;
-  st4_bf16(lo, make_float4(v.x - f0.x, v.y - f0.y, v.z - f1.x, v.w - f1.y));
-}
-
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
     FragA;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
     FragB;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
-// ---- the tensor-core body --------------------------------------------------
-// C[m,n] = scale * (A[m,k] @ B[k,n]), A and B row-major of type T (f32 or
-// bf16), multiplicands rounded to bf16, f32 sums.  WMF: 16-row fragments per
-// warp (block tile 32*WMF x 128).  SPLIT: the 3pass class.
-template <typename T, int WMF, bool SPLIT>
-__device__ __forceinline__ void mm_tc_body(const T* __restrict__ A,
-                                           const T* __restrict__ B,
-                                           float* __restrict__ C, int m,
-                                           int n, int k, int lda, int ldb,
-                                           int ldc, float scale, bool vec_a,
-                                           bool vec_b, bool vec_c) {
-  constexpr int BM = 32 * WMF;
+// ---- K5b: the tensor-core body -------------------------------------------
+// C[m,n] = A[m,k] @ B[k,n], A and B row-major f32, multiplicands rounded to
+// bf16 at the shared-memory store, f32 sums.  Block tile 128 x 128.
+constexpr int BM = 128;
+
+__global__ void __launch_bounds__(NT)
+    mm_bf16_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                   float* __restrict__ C, int m, int n, int k, int lda,
+                   int ldb, int ldc, int vec_a, int vec_b, int vec_c) {
+  constexpr int WMF = BM / 32;          // 16-row fragments per warp
   constexpr int NA = BM * BK / 4 / NT;  // 4-element groups per thread, A
   constexpr int NB = BK * BN / 4 / NT;  // and B
-  constexpr int NP = SPLIT ? 2 : 1;     // hi (and lo) tiles
-  __shared__ __align__(32) bf16 As[NP][BM * LDA_S];
-  __shared__ __align__(32) bf16 Bs[NP][BK * LDB_S];
+  __shared__ __align__(32) bf16 As[BM * LDA_S];
+  __shared__ __align__(32) bf16 Bs[BK * LDB_S];
   __shared__ __align__(32) float stage[NT / 32][16 * 16];
 
   const int tid = threadIdx.x;
@@ -161,7 +109,7 @@ __device__ __forceinline__ void mm_tc_body(const T* __restrict__ A,
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
-  typename Raw<T>::type ra[NA], rb[NB];
+  float4 ra[NA], rb[NB];
 #pragma unroll
   for (int i = 0; i < NA; ++i) {
     const int idx = tid + i * NT;
@@ -176,24 +124,16 @@ __device__ __forceinline__ void mm_tc_body(const T* __restrict__ A,
   }
 
   for (int k0 = 0; k0 < k; k0 += BK) {
-    // registers -> shared memory, rounding (or splitting) to bf16
+    // registers -> shared memory, rounding to bf16
 #pragma unroll
     for (int i = 0; i < NA; ++i) {
       const int idx = tid + i * NT;
-      const int off = (idx / (BK / 4)) * LDA_S + (idx % (BK / 4)) * 4;
-      if constexpr (SPLIT)
-        st4_split(&As[0][off], &As[NP - 1][off], ra[i]);
-      else
-        st4_bf16(&As[0][off], ra[i]);
+      st4_bf16(&As[(idx / (BK / 4)) * LDA_S + (idx % (BK / 4)) * 4], ra[i]);
     }
 #pragma unroll
     for (int i = 0; i < NB; ++i) {
       const int idx = tid + i * NT;
-      const int off = (idx / (BN / 4)) * LDB_S + (idx % (BN / 4)) * 4;
-      if constexpr (SPLIT)
-        st4_split(&Bs[0][off], &Bs[NP - 1][off], rb[i]);
-      else
-        st4_bf16(&Bs[0][off], rb[i]);
+      st4_bf16(&Bs[(idx / (BN / 4)) * LDB_S + (idx % (BN / 4)) * 4], rb[i]);
     }
     __syncthreads();
     // the next slab's loads fly while this one is multiplied
@@ -211,69 +151,29 @@ __device__ __forceinline__ void mm_tc_body(const T* __restrict__ A,
                     n0 + (idx % (BN / 4)) * 4, k, n, ldb, vec_b);
       }
     }
-    if constexpr (SPLIT) {
-      FragC part[WMF][2];
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      FragA a[WMF];
+      FragB b[2];
 #pragma unroll
       for (int i = 0; i < WMF; ++i)
+        wmma::load_matrix_sync(
+            a[i], &As[(wr * WMF * 16 + i * 16) * LDA_S + kk], LDA_S);
 #pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(part[i][j], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        FragA ah[WMF], al[WMF];
-        FragB bh[2], bl[2];
-#pragma unroll
-        for (int i = 0; i < WMF; ++i) {
-          const int off = (wr * WMF * 16 + i * 16) * LDA_S + kk;
-          wmma::load_matrix_sync(ah[i], &As[0][off], LDA_S);
-          wmma::load_matrix_sync(al[i], &As[NP - 1][off], LDA_S);
-        }
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int off = kk * LDB_S + wc * 32 + j * 16;
-          wmma::load_matrix_sync(bh[j], &Bs[0][off], LDB_S);
-          wmma::load_matrix_sync(bl[j], &Bs[NP - 1][off], LDB_S);
-        }
-#pragma unroll
-        for (int i = 0; i < WMF; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            wmma::mma_sync(part[i][j], ah[i], bh[j], part[i][j]);
-            wmma::mma_sync(part[i][j], ah[i], bl[j], part[i][j]);
-            wmma::mma_sync(part[i][j], al[i], bh[j], part[i][j]);
-          }
-      }
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(b[j], &Bs[kk * LDB_S + wc * 32 + j * 16],
+                               LDB_S);
 #pragma unroll
       for (int i = 0; i < WMF; ++i)
 #pragma unroll
         for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int e = 0; e < acc[i][j].num_elements; ++e)
-            acc[i][j].x[e] += part[i][j].x[e];
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        FragA a[WMF];
-        FragB b[2];
-#pragma unroll
-        for (int i = 0; i < WMF; ++i)
-          wmma::load_matrix_sync(
-              a[i], &As[0][(wr * WMF * 16 + i * 16) * LDA_S + kk], LDA_S);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(
-              b[j], &Bs[0][kk * LDB_S + wc * 32 + j * 16], LDB_S);
-#pragma unroll
-        for (int i = 0; i < WMF; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-      }
+          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
     }
     __syncthreads();
   }
 
-  // the flush: scale, then store.  A full, aligned tile goes straight from
-  // the fragments; an edge tile goes through the warp's staging square.
+  // the flush: a full, aligned tile goes straight from the fragments; an
+  // edge tile goes through the warp's staging square
   const bool direct = vec_c && m0 + BM <= m && n0 + BN <= n;
 #pragma unroll
   for (int i = 0; i < WMF; ++i)
@@ -281,9 +181,6 @@ __device__ __forceinline__ void mm_tc_body(const T* __restrict__ A,
     for (int j = 0; j < 2; ++j) {
       const int r0 = m0 + wr * WMF * 16 + i * 16;
       const int c0 = n0 + wc * 32 + j * 16;
-#pragma unroll
-      for (int e = 0; e < acc[i][j].num_elements; ++e)
-        acc[i][j].x[e] *= scale;
       if (direct) {
         wmma::store_matrix_sync(C + (size_t)r0 * ldc + c0, acc[i][j], ldc,
                                 wmma::mem_row_major);
@@ -298,34 +195,6 @@ __device__ __forceinline__ void mm_tc_body(const T* __restrict__ A,
         __syncwarp();
       }
     }
-}
-
-// K5a, classes default and 3pass
-template <int WMF, bool SPLIT>
-__global__ void __launch_bounds__(NT)
-    mm_f32io_kernel(const float* A, const float* B, float* C, int m, int n,
-                    int k, int lda, int ldb, int ldc, int vec_a, int vec_b,
-                    int vec_c) {
-  mm_tc_body<float, WMF, SPLIT>(A, B, C, m, n, k, lda, ldb, ldc, 1.0f, vec_a,
-                                vec_b, vec_c);
-}
-
-// K5b: the bf16 rounding of both tiles is the body's own shared-memory store
-__global__ void __launch_bounds__(NT)
-    mm_bf16_kernel(const float* A, const float* B, float* C, int m, int n,
-                   int k, int lda, int ldb, int ldc, int vec_a, int vec_b,
-                   int vec_c) {
-  mm_tc_body<float, 4, false>(A, B, C, m, n, k, lda, ldb, ldc, 1.0f, vec_a,
-                              vec_b, vec_c);
-}
-
-// K6: bf16 operands, the scale fused at the flush
-__global__ void __launch_bounds__(NT)
-    mm_v8_kernel(const bf16* A, const bf16* B, float* C, int m, int n, int k,
-                 int lda, int ldb, int ldc, float scale, int vec_a, int vec_b,
-                 int vec_c) {
-  mm_tc_body<bf16, 4, false>(A, B, C, m, n, k, lda, ldb, ldc, scale, vec_a,
-                             vec_b, vec_c);
 }
 
 // ---- K5a, class highest: f32 FMAs on the CUDA cores ------------------------
@@ -519,25 +388,15 @@ inline dim3 grid_for(int m, int n, int bm) {
 
 }  // namespace
 
-// prec: 0 default, 1 3pass, 2 highest
-extern "C" int t4_mm_f32io(const float* a, const float* b, float* c, int m,
-                           int n, int k, int lda, int ldb, int ldc, int prec,
-                           void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// K5a, class highest
+extern "C" int t4_mm_f32(const float* a, const float* b, float* c, int m,
+                         int n, int k, int lda, int ldb, int ldc,
+                         void* stream) {
   const int va = lda % 4 == 0 && aligned(a, 16);
   const int vb = ldb % 4 == 0 && aligned(b, 16);
-  const int vc = ldc % 4 == 0 && aligned(c, 32);
-  if (prec == 0)
-    mm_f32io_kernel<4, false><<<grid_for(m, n, 128), NT, 0, st>>>(
-        a, b, c, m, n, k, lda, ldb, ldc, va, vb, vc);
-  else if (prec == 1)
-    mm_f32io_kernel<2, true><<<grid_for(m, n, 64), NT, 0, st>>>(
-        a, b, c, m, n, k, lda, ldb, ldc, va, vb, vc);
-  else if (prec == 2)
-    mm_f32_kernel<<<grid_for(m, n, 128), NT, 0, st>>>(a, b, c, m, n, k, lda,
-                                                      ldb, ldc, va, vb);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+  mm_f32_kernel<<<grid_for(m, n, 128), NT, 0,
+                  static_cast<cudaStream_t>(stream)>>>(a, b, c, m, n, k, lda,
+                                                       ldb, ldc, va, vb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -550,19 +409,6 @@ extern "C" int t4_mm_bf16(const float* a, const float* b, float* c, int m,
   const int vc = ldc % 4 == 0 && aligned(c, 32);
   mm_bf16_kernel<<<grid_for(m, n, 128), NT, 0, st>>>(a, b, c, m, n, k, lda,
                                                      ldb, ldc, va, vb, vc);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int t4_mm_v8(const void* a, const void* b, float* c, int m, int n,
-                        int k, int lda, int ldb, int ldc, float scale,
-                        void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int va = lda % 4 == 0 && aligned(a, 8);
-  const int vb = ldb % 4 == 0 && aligned(b, 8);
-  const int vc = ldc % 4 == 0 && aligned(c, 32);
-  mm_v8_kernel<<<grid_for(m, n, 128), NT, 0, st>>>(
-      static_cast<const bf16*>(a), static_cast<const bf16*>(b), c, m, n, k,
-      lda, ldb, ldc, scale, va, vb, vc);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,37 +1,48 @@
 """GEMM kernels of the tensor tier: the CUDA kernels' wrappers and their
 plain PyTorch versions (the port of tensorforth_tpu/ops/gemm_pallas.py).
 
-Four kernels in ``csrc/gemm.cu`` replace the four Pallas TPU kernels:
+Two designs replace the four Pallas TPU kernels.  ``csrc/gemm_sm90.cu``
+carries the words' paths on Hopper's own machinery (bf16 wgmma reading
+swizzled shared memory, fed by a ring of TMA loads):
 
   ``_mm``           K5a  gemm_pallas.py:_mm_kernel (via _mm_pallas): f32 in,
                          f32 out, class ``default`` (multiplicands rounded
-                         to bf16), ``3pass`` (ah bh + ah bl + al bh) or
-                         ``highest`` (true f32)
-  ``_mm(bf16=True)``  K5b  gemm_pallas.py:_mm_kernel_bf16: the same product
-                         with the bf16 rounding explicit in the body
+                         to bf16) or ``3pass`` (ah bh + ah bl + al bh).  A
+                         rounding pass of the same source (``_round``) first
+                         rounds or splits both operands to bf16.
   ``_mm_v8``        K6   gemm_pallas.py:_v8_kernel (via _mm_pallas_v8): bf16
                          operands (cast out here), the scale fused at the
                          flush
+
+``csrc/gemm.cu`` keeps the first design (bf16 ``wmma`` fragments from
+operands staged through registers) for what no word reaches, and for the
+class that is not a bf16 product:
+
+  ``_mm(prec="highest")``  K5a's class ``highest`` (true f32 FMAs)
+  ``_mm(bf16=True)``  K5b  gemm_pallas.py:_mm_kernel_bf16: the same product
+                         as class ``default``, the rounding in the body
   ``_mm_db``        K7   gemm_pallas.py:_mm_kernel_db (via _mm_pallas_db):
-                         K-slabs streamed through two buffers, the copy of
-                         slab i+1 overlapped with the product of slab i
+                         K-slabs streamed through two ``cp.async`` buffers
 
 ``mm`` maps the ``gemm2..4`` words' variants onto them and ``gemm`` adds
 the alpha/beta/transpose epilogue, as gemm_pallas.py:312-401 does.  The
-TPU tile tables of ``mm_pallas`` are VMEM tuning and do not come across.
-Variants 2 and 3 both resolve to K5a: on the TPU variant 2 is K5a with a
-whole-K panel resident, and a 256 x 2048 f32 panel does not fit an SM's
-shared memory, so the port keeps the one K-blocked kernel.
+TPU tile tables of ``mm_pallas`` are VMEM tuning and do not come across;
+``sm90_plan`` is this card's tile plan.  Variants 2 and 3 both resolve to
+K5a: on the TPU variant 2 is K5a with a whole-K panel resident, and a
+256 x 2048 f32 panel does not fit an SM's shared memory.
 
-All four are bound by operations on this card (the source's header says
-what the design does about it).  Every wrapper launches its kernel for
-CUDA tensors and takes the plain version only for CPU tensors; anything
-else raises.  There is no fallback on the card.  ``launches`` counts the
-launches of each kernel since ``reset_launches()``.
+All of them are bound by operations on this card (each source's header
+says what its design does about it).  Every wrapper launches its kernel
+for CUDA tensors and takes the plain version only for CPU tensors;
+anything else raises.  There is no fallback on the card.  ``launches``
+counts the launches of each kernel since ``reset_launches()``: K5a in any
+class counts as ``mm_f32io``, its rounding pass as ``mm_round``.
 """
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -40,8 +51,10 @@ from ..config import Config
 
 PREC_CLASSES = ("default", "3pass", "highest")
 DB_TILE = (128, 128, 32)        # K7 pads m, n, k to these (csrc/gemm.cu)
+TMA_ROW = 8                     # bf16 per 16 bytes: TMA's row-pitch unit
 
-launches = {"mm_f32io": 0, "mm_bf16": 0, "mm_v8": 0, "mm_db": 0}
+launches = {"mm_f32io": 0, "mm_bf16": 0, "mm_v8": 0, "mm_db": 0,
+            "mm_round": 0}
 
 
 def reset_launches():
@@ -58,11 +71,71 @@ def prec_class() -> str:
 
 
 # ===========================================================================
+# the wgmma kernel's tile plan (csrc/gemm_sm90.cu)
+# ===========================================================================
+SM90_BM, SM90_BK, SM90_ALIGN = 128, 64, 1024
+SM90_SMEM_LIMIT = 232448        # a block's dynamic shared memory on sm_90
+# products per K slab -> (tile columns, ring stages): the instances
+# t4_gemm_sm90 is built with (nprod 3 holds hi and lo tiles of both
+# operands, so its stages are twice the size)
+SM90_TILES = {1: (256, 4), 3: (128, 3)}
+
+
+class Sm90Plan(NamedTuple):
+    nprod: int          # 1: one product; 3: the 3pass split
+    bm: int             # block tile rows
+    bn: int             # block tile columns
+    bk: int             # K slab
+    stages: int         # ring depth
+    smem: int           # dynamic shared memory, bytes
+    a_box: tuple        # TMA box of A: (inner k elements, rows)
+    b_box: tuple        # TMA box of B: (inner n elements, rows of k)
+    grid: tuple         # (tiles over n, tiles over m)
+
+
+def sm90_plan(m: int, n: int, nprod: int) -> Sm90Plan:
+    """the tile plan t4_gemm_sm90 launches for C [m, n] (the kernel refuses
+    any other): a ring of `stages` stages of bf16 tiles, each A box
+    [64 k x 128 rows] and each B box [64 n x 64 k] 128 bytes wide on its
+    inner dimension (the 128-byte swizzle), 1024 bytes of alignment slack
+    and two 8-byte barriers a stage"""
+    bn, stages = SM90_TILES[nprod]
+    parts = 2 if nprod == 3 else 1
+    stage = parts * (SM90_BM * SM90_BK + (bn // 64) * 64 * SM90_BK) * 2
+    return Sm90Plan(nprod, SM90_BM, bn, SM90_BK, stages,
+                    SM90_ALIGN + stages * stage + 2 * stages * 8,
+                    (SM90_BK, SM90_BM), (64, SM90_BK),
+                    (math.ceil(n / bn), math.ceil(m / SM90_BM)))
+
+
+def _pad_inner(x):
+    """x with its rows zero-padded to a multiple of TMA_ROW elements (TMA
+    wants 16-byte row pitches of bf16); x itself when they are"""
+    p = (-x.shape[-1]) % TMA_ROW
+    return F.pad(x, (0, p)) if p else x
+
+
+# ===========================================================================
 # plain versions (CPU tensors, and what the kernels are held against)
 # ===========================================================================
 def _bf(x):
     """x rounded to bf16 (nearest even), as f32"""
     return x.to(torch.bfloat16).float()
+
+
+def _flush(x):
+    """x with its f32 subnormals replaced by zeros of the same sign"""
+    return torch.where(x.abs() < torch.finfo(torch.float32).tiny, x * 0, x)
+
+
+def _split(x):
+    """the 3pass split of gemm_pallas.py:80-83 as the reference computes
+    it: hi = bf16(x), lo = bf16(x - f32(hi)), bf16 tensors.  The TPU, and
+    XLA on the CPU, take subnormal inputs of an f32 subtraction as zero and
+    flush a subnormal result to zero; the rounding to bf16 keeps
+    subnormals.  So does the rounding pass's kernel (sub.rn.ftz.f32)."""
+    hi = x.to(torch.bfloat16)
+    return hi, _flush(_flush(x) - _flush(hi.float())).to(torch.bfloat16)
 
 
 def _mm_ref(a, b, bf16: bool = False, prec: str = "default"):
@@ -72,12 +145,26 @@ def _mm_ref(a, b, bf16: bool = False, prec: str = "default"):
     if bf16 or prec == "default":
         return _bf(a) @ _bf(b)
     if prec == "3pass":
-        ah, bh = _bf(a), _bf(b)
-        al, bl = _bf(a - ah), _bf(b - bh)
+        (ah, al), (bh, bl) = ([p.float() for p in _split(x)] for x in (a, b))
         return ah @ bh + ah @ bl + al @ bh
     if prec == "highest":
         return a @ b
     raise ValueError(f"precision class {prec}?")
+
+
+def _split_ref(x, split: bool):
+    """[parts, rows, cols padded to TMA_ROW] bf16: hi = bf16(x) and, when
+    split, lo (`_split`); zeros in the padding"""
+    x = _pad_inner(x)
+    if not split:
+        return x.to(torch.bfloat16)[None]
+    return torch.stack(_split(x))
+
+
+def _round_ref(a, b, split: bool = False):
+    """plain version of K5a's rounding pass: both operands' parts, laid
+    out as the kernel writes them"""
+    return _split_ref(a, split), _split_ref(b, split)
 
 
 def _mm_v8_ref(a, b, scale: float = 1.0):
@@ -94,24 +181,31 @@ def _mm_db_ref(a, b):
 # kernel wrappers
 # ===========================================================================
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = {
-    "t4_mm_f32io": [_P] * 3 + [_I] * 7 + [_P],
-    "t4_mm_bf16": [_P] * 3 + [_I] * 6 + [_P],
-    "t4_mm_v8": [_P] * 3 + [_I] * 6 + [_F, _P],
-    "t4_mm_db": [_P] * 3 + [_I] * 3 + [_P],
+_ARGTYPES = {   # source -> exported function -> argtypes
+    "gemm": {"t4_mm_f32": [_P] * 3 + [_I] * 6 + [_P],
+             "t4_mm_bf16": [_P] * 3 + [_I] * 6 + [_P],
+             "t4_mm_db": [_P] * 3 + [_I] * 3 + [_P]},
+    "gemm_sm90": {"t4_gemm_sm90": [_P] * 3 + [_I] * 6 + [_F] + [_I] * 4
+                  + [_P],
+                  "t4_round_bf16": [_P] * 4 + [_I] * 6 + [_P]},
 }
+_SOURCE = {fname: src for src, fns in _ARGTYPES.items() for fname in fns}
 
 
-def _lib():
-    """the built library csrc/gemm.cu, its functions' argtypes set"""
-    from . import _build
-    lib = _build.load("gemm")
-    for fname, argtypes in _ARGTYPES.items():
-        fn = getattr(lib, fname)
-        if fn.argtypes is None:
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-    return lib
+_FUNCS = {}    # exported function name -> its ctypes function
+
+
+def _fn(fname: str):
+    """the exported function of a built library csrc/<source>.cu, its
+    argtypes set (the library is built on first use)"""
+    fn = _FUNCS.get(fname)
+    if fn is None:
+        from . import _build
+        fn = getattr(_build.load(_SOURCE[fname]), fname)
+        fn.argtypes = _ARGTYPES[_SOURCE[fname]][fname]
+        fn.restype = ctypes.c_int
+        _FUNCS[fname] = fn
+    return fn
 
 
 def _on_cpu(*tensors) -> bool:
@@ -137,13 +231,48 @@ def _check(what: str, a, b, dtype=torch.float32):
 def _launch(name: str, fname: str, a, *args):
     """call one exported function on a's device and current stream, raise
     on a refused launch, count the launch"""
-    lib = _lib()
+    fn = _fn(fname)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = getattr(lib, fname)(*args, stream)
+        err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     launches[name] += 1
+
+
+def _round(a, b, split: bool = False):
+    """K5a's rounding pass: (a parts [P, m, kp], b parts [P, k, np]) bf16,
+    P = 2 (hi, lo) when split, rows zero-padded to TMA_ROW; one launch for
+    both operands"""
+    if _on_cpu(a, b):
+        return _round_ref(a, b, split)
+    return _round_launch(*_check("_round", a, b), split)
+
+
+def _round_launch(a, b, split: bool):
+    """the rounding pass on operands that passed _check"""
+    (m, k), n = a.shape, b.shape[1]
+    kp, np_ = k + (-k) % TMA_ROW, n + (-n) % TMA_ROW
+    parts = 2 if split else 1
+    ap = torch.empty((parts, m, kp), dtype=torch.bfloat16, device=a.device)
+    bp = torch.empty((parts, k, np_), dtype=torch.bfloat16, device=a.device)
+    _launch("mm_round", "t4_round_bf16", a, a.data_ptr(), b.data_ptr(),
+            ap.data_ptr(), bp.data_ptr(), m, n, k, kp, np_, int(split))
+    return ap, bp
+
+
+def _gemm_sm90(name: str, ap, bp, n: int, k: int, scale: float):
+    """scale * (A @ B) [m, n] by the wgmma kernel, from bf16 parts
+    [P, m, lda] and [P, k, ldb] (P = 2: the 3pass split) whose row pitches
+    are multiples of TMA_ROW; counted as `name`"""
+    parts, m, lda = ap.shape
+    nprod = 3 if parts == 2 else 1
+    plan = sm90_plan(m, n, nprod)
+    c = torch.empty((m, n), dtype=torch.float32, device=ap.device)
+    _launch(name, "t4_gemm_sm90", ap, ap.data_ptr(), bp.data_ptr(),
+            c.data_ptr(), m, n, k, lda, bp.shape[2], n, float(scale), nprod,
+            plan.bn, plan.stages, plan.smem)
+    return c
 
 
 def _mm(a, b, bf16: bool = False, prec: str | None = None):
@@ -156,30 +285,30 @@ def _mm(a, b, bf16: bool = False, prec: str | None = None):
         return _mm_ref(a, b, bf16, prec)
     a, b = _check("_mm", a, b)
     (m, k), n = a.shape, b.shape[1]
+    if not bf16 and prec != "highest":
+        ap, bp = _round_launch(a, b, split=prec == "3pass")
+        return _gemm_sm90("mm_f32io", ap, bp, n, k, 1.0)
     c = torch.empty((m, n), dtype=torch.float32, device=a.device)
     dims = (m, n, k, k, n, n)        # sizes and the leading dimensions
     if bf16:
         _launch("mm_bf16", "t4_mm_bf16", a, a.data_ptr(), b.data_ptr(),
                 c.data_ptr(), *dims)
     else:
-        _launch("mm_f32io", "t4_mm_f32io", a, a.data_ptr(), b.data_ptr(),
-                c.data_ptr(), *dims, PREC_CLASSES.index(prec))
+        _launch("mm_f32io", "t4_mm_f32", a, a.data_ptr(), b.data_ptr(),
+                c.data_ptr(), *dims)
     return c
 
 
 def _mm_v8(a, b, scale: float = 1.0):
     """scale * (bf16(A) @ bf16(B)), f32 sums and output: K6.  The bf16
-    cast is out here, as gemm_pallas.py:277-278 casts outside its
-    kernel."""
+    cast is out here, as gemm_pallas.py:277-278 casts outside its kernel,
+    and pads the rows to TMA_ROW where they are not."""
     if _on_cpu(a, b):
         return _mm_v8_ref(a, b, scale)
     a, b = _check("_mm_v8", a.to(torch.bfloat16), b.to(torch.bfloat16),
                   torch.bfloat16)
-    (m, k), n = a.shape, b.shape[1]
-    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    _launch("mm_v8", "t4_mm_v8", a, a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            m, n, k, k, n, n, float(scale))
-    return c
+    return _gemm_sm90("mm_v8", _pad_inner(a)[None], _pad_inner(b)[None],
+                      b.shape[1], a.shape[1], scale)
 
 
 def _pad_to(x, m0: int, m1: int):

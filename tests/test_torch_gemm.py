@@ -150,7 +150,7 @@ def test_launch_counters_stay_zero_on_the_cpu():
     gemm._mm(a, a), gemm._mm(a, a, bf16=True), gemm._mm_v8(a, a)
     gemm._mm_db(a, a)
     assert gemm.launches == {"mm_f32io": 0, "mm_bf16": 0, "mm_v8": 0,
-                             "mm_db": 0}
+                             "mm_db": 0, "mm_round": 0}
 
 
 def test_pad_to_tile_multiples():
