@@ -8,18 +8,20 @@ Phases, one JSON line each:
   build   compile every kernel of the four paths with nvcc for sm_90a
           into build/torch_kernels/ (one nvcc per source, all at once:
           flash_fwd, flash_bwd, flash_bwd_fused, attn_dots, gemm,
-          gemm_sm90); each wgmma kernel's registers, shared memory and
-          spills from ptxas
+          gemm_sm90, gemm_sm90_f32); each wgmma kernel's registers, shared
+          memory and spills from ptxas
   kernel  each kernel (flash forward, flash backward dK/dV and dQ, the
           fused single-kernel backward, the dots-only probe, and the GEMM
           kernels of the tensor tier: K5a on the wgmma kernel with its
-          rounding pass, K5b, K6 on the wgmma kernel, K7) against its plain
-          PyTorch version on the card, on inputs from a numpy seed; the
-          fused backward also against the two-kernel split, against f64
-          and against itself run twice; the rounding pass bit for bit; K5a
-          and K6 also against K5b (the first design) at 4096^3; kernel,
-          plain and library times and the card's least time for the same
-          work (the bound)
+          rounding pass, K6 on the same kernel, K5b and K7 on f32 operands
+          rounded inside their one launch) against its plain PyTorch
+          version on the card, on inputs from a numpy seed; the fused
+          backward also against the two-kernel split, against f64 and
+          against itself run twice; the rounding pass bit for bit; K5b and
+          K7 also against K5a class default and K6 at 4096^3 (bit-equality
+          recorded); kernel, plain and library times (the bf16 library
+          also with the two f32 -> bf16 casts) and the card's least time
+          for the same work (the bound)
   serve   tiny_lm at bench_prefill's full width (dim 1024, 8 heads,
           4 layers, vocab 2048, batch 8, 2048-token prompt, 64 new
           tokens) through generate(), f32 and int8 KV caches: kernel
@@ -75,7 +77,7 @@ PEAK_F32_FLOPS = 67e12        # f32 on the CUDA cores (no tensor cores)
 PEAK_BF16_FLOPS = 989e12      # bf16 on the tensor cores, dense
 PEAK_BYTES = 3.35e12          # HBM3
 KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_fused", "attn_dots",
-           "gemm", "gemm_sm90")   # ops/csrc/<name>.cu
+           "gemm", "gemm_sm90", "gemm_sm90_f32")   # ops/csrc/<name>.cu
 LM = dict(batch=8, vocab=2048, dim=1024, heads=8, layers=4, rope=True)
 N_PROMPT, N_NEW = 2048, 64
 TOL_F32 = 1e-4     # f32 sums in another order than the plain version's
@@ -122,7 +124,8 @@ TOL_WORD_BF16 = 4e-3
 # phase's operands) keep it under 1e-5.
 TOL_WORD_PLAIN = 2e-5
 # m, k, n.  (1030, 1000, 1290): m and n no tile multiples, k no multiple
-# of the wgmma kernel's 64-deep slab
+# of the wgmma kernels' slabs (64 bf16, K7's 32 f32), n no multiple of 4
+# (K7's wrapper pads B's rows); (1000, 1500, 700): k no multiple of either
 GEMM_SHAPES = ((1024, 1024, 1024), (2048, 2048, 2048), (4096, 4096, 4096),
                (1024, 2048, 512), (1000, 1500, 700), (2, 3, 2),
                (1030, 1000, 1290))
@@ -204,7 +207,8 @@ def bound_ms(ops, nbytes, peak_flops=PEAK_F32_FLOPS):
 
 def ptxas_by_kernel(log: str):
     """each entry function of an nvcc -Xptxas -v log: its name (template
-    arguments kept), registers, static shared memory and spill bytes"""
+    arguments kept), registers, static shared memory, stack frame and
+    spill bytes"""
     out, cur = [], None
     for ln in log.splitlines():
         hit = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -225,6 +229,9 @@ def ptxas_by_kernel(log: str):
             if sp:
                 cur["spill_stores"], cur["spill_loads"] = map(int,
                                                                sp.groups())
+            fr = re.search(r"(\d+) bytes stack frame", ln)
+            if fr:
+                cur["stack_frame"] = int(fr.group(1))
             rg = re.search(r"Used (\d+) registers", ln)
             if rg:
                 cur["registers"] = int(rg.group(1))
@@ -240,21 +247,28 @@ def phase_build():
     with ThreadPoolExecutor(len(KERNELS)) as ex:
         libs = list(ex.map(_build.build, KERNELS))
     secs = time.perf_counter() - t0
-    ptxas, wgmma = [], []
+    ptxas, by_source = [], {}
     for name, lib in zip(KERNELS, libs):
         log = lib.with_suffix(".log").read_text() if lib.with_suffix(
             ".log").exists() else ""
         ptxas += [ln.strip() for ln in log.splitlines()
                   if "registers" in ln or "spill" in ln]
-        if name == "gemm_sm90":
-            wgmma = ptxas_by_kernel(log)
+        if name.startswith("gemm_sm90"):
+            by_source[name] = ptxas_by_kernel(log)
     plans = {cls: gemm.sm90_plan(4096, 4096, nprod)._asdict()
              for cls, nprod in (("default and v8", 1), ("3pass", 3))}
+    f32in = {kern: gemm.f32in_plan(kern, 4096, 4096, 4096)._asdict()
+             for kern in ("mm_bf16", "mm_db")}
     emit({"phase": "build", "seconds": secs, "kernels": list(KERNELS),
-          "ptxas": ptxas, "gemm_sm90_kernels": wgmma,
-          "gemm_sm90_plans_at_4096": plans})
-    if not any("gemm_sm90_kernel" in k["kernel"] for k in wgmma):
-        raise RuntimeError("gemm_sm90: no ptxas record of its kernels")
+          "ptxas": ptxas, "gemm_sm90_kernels": by_source["gemm_sm90"],
+          "gemm_sm90_f32_kernels": by_source["gemm_sm90_f32"],
+          "gemm_sm90_plans_at_4096": plans,
+          "gemm_sm90_f32_plans_at_4096": f32in})
+    for name, want in (("gemm_sm90", ("gemm_sm90_kernel",)),
+                       ("gemm_sm90_f32", ("mm_bf16_kernel", "mm_db_kernel"))):
+        for kern in want:
+            if not any(kern in k["kernel"] for k in by_source[name]):
+                raise RuntimeError(f"{name}: no ptxas record of {kern}")
 
 
 def sdpa_grads(q, k, v, do, causal):
@@ -675,15 +689,16 @@ def rounding_corners(kind: str, shape, seed: int = 0) -> np.ndarray:
 
 def phase_kernel_gemm(seed: int):
     """the GEMM kernels (K5a in its three classes, with its rounding pass)
-    against their plain versions at the words' shapes, and K5a and K6
-    against K5b at 4096^3; returns each kernel's record at 4096^3 (K5a:
-    class default, its time with its rounding pass)"""
+    against their plain versions at the words' shapes, and K5b and K7
+    against K5a class default and K6 at 4096^3; returns each kernel's
+    record at 4096^3 (K5a: class default, its time with its rounding
+    pass)"""
     import torch
     from tensorforth_tpu_torch.ops import gemm
     lib_name, lib_bf16 = bf16_library()
     gemm.reset_launches()
     rows, rounds, failed, main = [], [], [], {}
-    vs_k5b = {}
+    same_fn = {}        # class default, K6 (scale undone), K5b, K7 at 4096^3
     for i, (m, k, n) in enumerate(GEMM_SHAPES):
         rs = np.random.RandomState(seed + 100 + i)
         a = torch.from_numpy(rs.standard_normal((m, k)).astype(
@@ -695,6 +710,10 @@ def phase_kernel_gemm(seed: int):
         a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
         lib_ms = {4: time_ms(lambda: torch.matmul(a, b)),
                   2: time_ms(lambda: lib_bf16(a16, b16))}
+        # the same function from the f32 operands: the two casts and the
+        # bf16 product
+        lib_cast_ms = time_ms(lambda: lib_bf16(a.to(torch.bfloat16),
+                                               b.to(torch.bfloat16)))
         for (case, name, run, plain, vs_f64, tol, peak,
              elem) in gemm_cases(m, k, n):
             got = run(a, b)
@@ -720,33 +739,47 @@ def phase_kernel_gemm(seed: int):
                                                       "default") else 4],
                    "tflops": ops / ms / 1e9, "bound_ms": bms,
                    "bound_by": by}
+            if elem == 4 and case in ("default", "bf16", "db"):
+                row["library_ms_with_casts"] = lib_cast_ms
             rows.append(row)
             if not ok:
                 failed.append(f"{name} {case} {m}x{k}x{n}")
             if (m, k, n) == GEMM_MAIN and case not in ("3pass", "highest"):
                 main[name] = dict(row)
-            if (m, k, n) == GEMM_MAIN and case in ("default", "v8", "bf16"):
-                vs_k5b[case] = got / scale
+            if (m, k, n) == GEMM_MAIN and case in ("default", "v8", "bf16",
+                                                   "db"):
+                same_fn[case] = got / scale
             del got
         for split in (False, True):
             rounds.append(round_case(a, b, split, (m, k, n) == GEMM_MAIN))
             if not rounds[-1]["bit_equal"]:
                 failed.append(f"mm_round split={split} {m}x{k}x{n}")
         if (m, k, n) == GEMM_MAIN:
-            # the first design (K5b) computes the same function as K5a
-            # default and K6 (scale undone): the two designs agree
-            for case in ("default", "v8"):
-                err = (vs_k5b[case] - vs_k5b["bf16"]).abs().max().item()
-                vs_k5b[case] = {"max_abs_err": err, "tol": TOL_GEMM_BF16,
-                                "largest_f64_value": top,
-                                "ok": err <= TOL_GEMM_BF16 * top}
-                if not vs_k5b[case]["ok"]:
-                    failed.append(f"{case} against K5b at 4096^3")
-            del vs_k5b["bf16"]
+            # K5b and K7 round inside one launch what K5a class default
+            # rounds in its pass and K6's wrapper casts: the same bf16
+            # values through wgmma in the same k order, so the same sums
+            for case in ("bf16", "db"):
+                for other in ("default", "v8"):
+                    diff = same_fn[case] - same_fn[other]
+                    err = diff.abs().max().item()
+                    rec = {"max_abs_err": err, "tol": TOL_GEMM_BF16,
+                           "largest_f64_value": top,
+                           "bit_equal": bool(torch.equal(same_fn[case],
+                                                         same_fn[other])),
+                           "elements_that_differ": int((diff != 0).sum()),
+                           "ok": err <= TOL_GEMM_BF16 * top}
+                    same_fn[f"{case}_vs_{other}"] = rec
+                    if not rec["ok"]:
+                        failed.append(f"{case} against {other} at 4096^3")
+            for case in ("default", "v8", "bf16", "db"):
+                del same_fn[case]
             r0, r1 = rounds[-2:]
             main["mm_round"] = dict(r0, split_ms=r1["ms"])
             main["mm_f32io"]["rounding_pass_ms"] = r0["ms"]
             main["mm_f32io"]["ms_includes_rounding_pass"] = True
+            for name in ("mm_bf16", "mm_db"):    # the placement they replace
+                main[name]["k5a_default_with_pass_ms"] = main["mm_f32io"][
+                    "ms"]
         del a, b, a16, b16, ref64
         torch.cuda.empty_cache()
     # the rounding pass on the corners of rounding, bit for bit
@@ -775,9 +808,11 @@ def phase_kernel_gemm(seed: int):
                    "three products; highest: the f32 CUDA-core rate), or "
                    "the bytes over the memory rate",
           "library": {"f32 classes": "torch.matmul, TF32 off",
-                      "bf16 classes": lib_name},
+                      "bf16 classes": lib_name,
+                      "with_casts": "the same call after x.to(bfloat16) of "
+                                    "both f32 operands (f32-operand cases)"},
           "cases": rows, "rounding_pass": rounds,
-          "against_k5b_at_4096": vs_k5b,
+          "k5b_and_k7_against_k5a_default_and_k6_at_4096": same_fn,
           "launches": dict(gemm.launches)})
     if failed:
         raise RuntimeError(f"GEMM kernels disagree: {failed}")
@@ -1478,14 +1513,18 @@ def main(argv=None) -> int:
                                     ops_dir + "attn_pallas.py:475"),
                 "attn_dots": ("attn_dots.cu", "bench.py:692"),
                 "mm_f32io": ("gemm_sm90.cu", ops_dir + "gemm_pallas.py:94"),
-                "mm_bf16": ("gemm.cu", ops_dir + "gemm_pallas.py:106"),
+                "mm_bf16": ("gemm_sm90_f32.cu",
+                            ops_dir + "gemm_pallas.py:106"),
                 "mm_v8": ("gemm_sm90.cu", ops_dir + "gemm_pallas.py:249"),
-                "mm_db": ("gemm.cu", ops_dir + "gemm_pallas.py:161"),
+                "mm_db": ("gemm_sm90_f32.cu", ops_dir + "gemm_pallas.py:161"),
                 # the operand rounding that _mm_kernel's dot does in its
                 # body (_kdot, its 3pass split at 80-83)
                 "mm_round": ("gemm_sm90.cu",
                              ops_dir + "gemm_pallas.py:76")}
-    extra = {"mm_f32io": ("rounding_pass_ms", "ms_includes_rounding_pass"),
+    extra = {"mm_f32io": ("rounding_pass_ms", "ms_includes_rounding_pass",
+                          "library_ms_with_casts"),
+             "mm_bf16": ("k5a_default_with_pass_ms", "library_ms_with_casts"),
+             "mm_db": ("k5a_default_with_pass_ms", "library_ms_with_casts"),
              "mm_round": ("split_ms",)}
     emit({"kernels": [{
         "name": name, "route": "cuda",

@@ -11,13 +11,19 @@ Ported so far:
     ``ten4_torch``): the eForth interpreter (vm/eforth.py) and the
     tensor words (vm/tenvm.py) over ops/engine.py, ops/linalg.py and a
     threefry generator that draws ``jax.random``'s numbers (ops/rng.py);
-    the gemm2..4 words run the four GEMM kernels of ops/csrc/gemm.cu
-    (wrappers and plain versions in ops/gemm.py);
+    the gemm2..4 words run the wgmma GEMM kernel of ops/csrc/gemm_sm90.cu
+    (K5a with its rounding pass, K6), and ops/gemm.py also wraps K5b and
+    K7 (ops/csrc/gemm_sm90_f32.cu: f32 operands rounded inside one
+    launch) and K5a's class highest (ops/csrc/gemm.cu), with the plain
+    versions of all of them;
   * on the LM tier, serving (``models.tiny_lm`` ->
     ``nn.serve.generate``) and training through the word path
     (``Model.forward / loss / backprop / sgd | adam | adamw``), with the
     causal flash attention as CUDA kernels in both directions
-    (ops/csrc/flash_fwd.cu, ops/csrc/flash_bwd.cu).
+    (ops/csrc/flash_fwd.cu, ops/csrc/flash_bwd.cu);
+  * the attention measurement path (attn_bench.py), which also runs the
+    single-kernel backward (ops/csrc/flash_bwd_fused.cu) and the
+    dots-only probe (ops/csrc/attn_dots.cu).
 Not ported yet: the NN words (vm/netvm.py), the native inner
 interpreter, the VM pool and task words, deferred scalars, TensorBoard.
 """

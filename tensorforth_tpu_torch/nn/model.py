@@ -98,7 +98,14 @@ class Model:
         t_in.grad_fn = fn
         return self
 
+    def _err(self, msg: str):
+        """the reference's layer-factory error: printed through
+        System.perr, and the layer is not added"""
+        from ..system import System
+        System.get_sys().perr("", msg + " ")
+
     def _isoftmax(self, t_in: Tensor):
+        t_in.grad[4] = self._T4(1, t_in.H(), t_in.W(), t_in.C())
         self.npush(self._T4(t_in.N(), t_in.H(), t_in.W(), t_in.C()))
 
     def _iactivate(self, t_in: Tensor, alpha: float):
@@ -113,9 +120,11 @@ class Model:
         N1, S = t_in.N(), t_in.H()
         E = t_in.W() * t_in.C()
         if heads < 1 or E % heads:
-            raise ValueError(f"attn E={E} not divisible by heads={heads}")
+            self._err(f"attn E={E} not divisible by heads={heads}")
+            return
         if (flags & 2) and (E // heads) % 2:
-            raise ValueError(f"attn rope needs even head dim, got {E // heads}")
+            self._err(f"attn rope needs even head dim, got {E // heads}")
+            return
         wqkv = self._T4(1, 3 * E, E, 1)
         wo = self._T4(1, E, E, 1)
         t_in.grad[0], t_in.grad[1] = wqkv, wo
@@ -151,7 +160,8 @@ class Model:
         N1, S = t_in.N(), t_in.H()
         E = int(dim)
         if vocab < 2 or E < 1:
-            raise ValueError(f"embed V={vocab} E={E}?")
+            self._err(f"embed V={vocab} E={E}?")
+            return
         w = self._T4(1, vocab, E, 1)
         b = self._T4(E)
         t_in.grad[0], t_in.grad[1] = w, b

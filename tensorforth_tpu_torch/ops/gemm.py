@@ -1,7 +1,7 @@
 """GEMM kernels of the tensor tier: the CUDA kernels' wrappers and their
 plain PyTorch versions (the port of tensorforth_tpu/ops/gemm_pallas.py).
 
-Two designs replace the four Pallas TPU kernels.  ``csrc/gemm_sm90.cu``
+Three sources replace the four Pallas TPU kernels.  ``csrc/gemm_sm90.cu``
 carries the words' paths on Hopper's own machinery (bf16 wgmma reading
 swizzled shared memory, fed by a ring of TMA loads):
 
@@ -14,22 +14,26 @@ swizzled shared memory, fed by a ring of TMA loads):
                          operands (cast out here), the scale fused at the
                          flush
 
-``csrc/gemm.cu`` keeps the first design (bf16 ``wmma`` fragments from
-operands staged through registers) for what no word reaches, and for the
-class that is not a bf16 product:
+``csrc/gemm_sm90_f32.cu`` takes f32 operands and rounds them inside its
+one launch, on the same wgmma products, as the two TPU kernels that round
+in their bodies do.  Both stream f32 K-slabs through a ring of TMA stages
+and round them in shared memory; no word reaches either:
 
-  ``_mm(prec="highest")``  K5a's class ``highest`` (true f32 FMAs)
   ``_mm(bf16=True)``  K5b  gemm_pallas.py:_mm_kernel_bf16: the same product
-                         as class ``default``, the rounding in the body
+                         as class ``default``; a converter warpgroup
+                         rounds B while the consumers round A
   ``_mm_db``        K7   gemm_pallas.py:_mm_kernel_db (via _mm_pallas_db):
-                         K-slabs streamed through two ``cp.async`` buffers
+                         the consumers round both operands
+
+``csrc/gemm.cu`` keeps the class that is not a bf16 product:
+``_mm(prec="highest")``, K5a's class ``highest`` (true f32 FMAs).
 
 ``mm`` maps the ``gemm2..4`` words' variants onto them and ``gemm`` adds
 the alpha/beta/transpose epilogue, as gemm_pallas.py:312-401 does.  The
 TPU tile tables of ``mm_pallas`` are VMEM tuning and do not come across;
-``sm90_plan`` is this card's tile plan.  Variants 2 and 3 both resolve to
-K5a: on the TPU variant 2 is K5a with a whole-K panel resident, and a
-256 x 2048 f32 panel does not fit an SM's shared memory.
+``sm90_plan`` and ``f32in_plan`` are this card's tile plans.  Variants 2
+and 3 both resolve to K5a: on the TPU variant 2 is K5a with a whole-K panel
+resident, and a 256 x 2048 f32 panel does not fit an SM's shared memory.
 
 All of them are bound by operations on this card (each source's header
 says what its design does about it).  Every wrapper launches its kernel
@@ -50,8 +54,8 @@ import torch.nn.functional as F
 from ..config import Config
 
 PREC_CLASSES = ("default", "3pass", "highest")
-DB_TILE = (128, 128, 32)        # K7 pads m, n, k to these (csrc/gemm.cu)
 TMA_ROW = 8                     # bf16 per 16 bytes: TMA's row-pitch unit
+TMA_ROW_F32 = 4                 # f32 per 16 bytes
 
 launches = {"mm_f32io": 0, "mm_bf16": 0, "mm_v8": 0, "mm_db": 0,
             "mm_round": 0}
@@ -113,6 +117,44 @@ def _pad_inner(x):
     wants 16-byte row pitches of bf16); x itself when they are"""
     p = (-x.shape[-1]) % TMA_ROW
     return F.pad(x, (0, p)) if p else x
+
+
+# ===========================================================================
+# the f32-operand kernels' tile plans (csrc/gemm_sm90_f32.cu)
+# ===========================================================================
+class F32InPlan(NamedTuple):
+    kernel: str         # "mm_bf16" (K5b) or "mm_db" (K7)
+    bm: int             # block tile rows
+    bn: int             # block tile columns
+    bk: int             # K slab: 32 f32, one 128-byte row
+    stages: int         # ring of f32 stages, filled by TMA
+    b_tiles: int        # bf16 B tiles the slabs are rounded into
+    barriers: int       # 8-byte mbarriers
+    smem: int           # dynamic shared memory, bytes
+    a_box: tuple        # TMA box of A: (inner k elements, rows)
+    b_box: tuple        # TMA box of B: (inner n elements, rows of k)
+    grid: tuple         # (tiles over n, tiles over m)
+    pad: tuple          # zeros the wrapper adds to A's rows, to B's rows
+
+
+def f32in_plan(kernel: str, m: int, k: int, n: int) -> F32InPlan:
+    """the tile plan of K5b or K7 for A [m, k] @ B [k, n] (the kernels
+    refuse another): 128 x 256 tiles of C; f32 slabs of 32 k by TMA into 3
+    stages (A one [32 k x 128] box, B 8 boxes [32 n x 32 k], each row 128
+    bytes: the swizzle's width), rounded into 3 bf16 B tiles of 16 KB; rows
+    padded to 16-byte pitches.  K7: a `full` barrier a stage; K5b: `full`
+    and `empty` barriers a stage and a tile.  1024 bytes of alignment
+    slack."""
+    bm, bn, bk, stages, tiles = 128, 256, 32, 3, 3
+    barriers = stages if kernel == "mm_db" else 2 * (stages + tiles)
+    if kernel not in ("mm_bf16", "mm_db"):
+        raise ValueError(f"f32-operand kernel {kernel}?")
+    smem = (SM90_ALIGN + stages * (bm + bn) * bk * 4 + tiles * bk * bn * 2
+            + barriers * 8)
+    return F32InPlan(kernel, bm, bn, bk, stages, tiles, barriers, smem,
+                     (bk, bm), (32, bk),
+                     (math.ceil(n / bn), math.ceil(m / bm)),
+                     ((-k) % TMA_ROW_F32, (-n) % TMA_ROW_F32))
 
 
 # ===========================================================================
@@ -182,12 +224,12 @@ def _mm_db_ref(a, b):
 # ===========================================================================
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {   # source -> exported function -> argtypes
-    "gemm": {"t4_mm_f32": [_P] * 3 + [_I] * 6 + [_P],
-             "t4_mm_bf16": [_P] * 3 + [_I] * 6 + [_P],
-             "t4_mm_db": [_P] * 3 + [_I] * 3 + [_P]},
+    "gemm": {"t4_mm_f32": [_P] * 3 + [_I] * 6 + [_P]},
     "gemm_sm90": {"t4_gemm_sm90": [_P] * 3 + [_I] * 6 + [_F] + [_I] * 4
                   + [_P],
                   "t4_round_bf16": [_P] * 4 + [_I] * 6 + [_P]},
+    "gemm_sm90_f32": {"t4_mm_bf16": [_P] * 3 + [_I] * 7 + [_P],
+                      "t4_mm_db": [_P] * 3 + [_I] * 7 + [_P]},
 }
 _SOURCE = {fname: src for src, fns in _ARGTYPES.items() for fname in fns}
 
@@ -288,14 +330,11 @@ def _mm(a, b, bf16: bool = False, prec: str | None = None):
     if not bf16 and prec != "highest":
         ap, bp = _round_launch(a, b, split=prec == "3pass")
         return _gemm_sm90("mm_f32io", ap, bp, n, k, 1.0)
-    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    dims = (m, n, k, k, n, n)        # sizes and the leading dimensions
     if bf16:
-        _launch("mm_bf16", "t4_mm_bf16", a, a.data_ptr(), b.data_ptr(),
-                c.data_ptr(), *dims)
-    else:
-        _launch("mm_f32io", "t4_mm_f32", a, a.data_ptr(), b.data_ptr(),
-                c.data_ptr(), *dims)
+        return _mm_f32in("mm_bf16", a, b)
+    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    _launch("mm_f32io", "t4_mm_f32", a, a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), m, n, k, k, n, n)
     return c
 
 
@@ -317,22 +356,34 @@ def _pad_to(x, m0: int, m1: int):
     return F.pad(x, (0, p1, 0, p0)) if p0 or p1 else x
 
 
+def _tma_ready(x, pad: int):
+    """x with `pad` zeros added to its rows, in storage TMA can read (a
+    16-byte aligned base)"""
+    if pad:
+        return F.pad(x, (0, pad))
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _mm_f32in(name: str, a, b):
+    """K5b or K7 on operands that passed _check.  TMA reads the f32
+    operands with 16-byte row pitches: rows whose length is not a multiple
+    of 4 are zero-padded (the kernels never read the padding: their tensor
+    maps have the true m, n, k, and TMA fills what lies beyond with
+    zeros).  No other padding, and the result needs no slicing."""
+    (m, k), n = a.shape, b.shape[1]
+    plan = f32in_plan(name, m, k, n)
+    a, b = _tma_ready(a, plan.pad[0]), _tma_ready(b, plan.pad[1])
+    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    _launch(name, "t4_" + name, a, a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            m, n, k, a.shape[1], b.shape[1], n, plan.smem)
+    return c
+
+
 def _mm_db(a, b):
-    """A @ B, f32 in and out, class default: K7.  cp.async needs aligned,
-    in-bounds 16-byte sources, so the operands are zero-padded to tile
-    multiples and the result is sliced back, as gemm_pallas.py:212-234
-    does."""
+    """A @ B, f32 in and out, class default: K7"""
     if _on_cpu(a, b):
         return _mm_db_ref(a, b)
-    a, b = _check("_mm_db", a, b)
-    m, n = a.shape[0], b.shape[1]
-    bm, bn, bk = DB_TILE
-    a, b = _pad_to(a, bm, bk), _pad_to(b, bk, bn)
-    (mp, kp), np_ = a.shape, b.shape[1]
-    c = torch.empty((mp, np_), dtype=torch.float32, device=a.device)
-    _launch("mm_db", "t4_mm_db", a, a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            mp, np_, kp)
-    return c[:m, :n]
+    return _mm_f32in("mm_db", *_check("_mm_db", a, b))
 
 
 def mm(a, b, variant: int = 3, scale: float = 1.0):
