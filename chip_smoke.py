@@ -9,7 +9,8 @@ Phases, one JSON line each:
           into build/torch_kernels/ (one nvcc per source, all at once:
           flash_fwd, flash_bwd, flash_bwd_fused, attn_dots, gemm,
           gemm_sm90, gemm_sm90_f32); each wgmma kernel's registers, shared
-          memory and spills from ptxas
+          memory and spills from ptxas (the fused backward's instances
+          must show no spill and no stack frame)
   kernel  each kernel (flash forward, flash backward dK/dV and dQ, the
           fused single-kernel backward, the dots-only probe, and the GEMM
           kernels of the tensor tier: K5a on the wgmma kernel with its
@@ -17,7 +18,8 @@ Phases, one JSON line each:
           rounded inside their one launch) against its plain PyTorch
           version on the card, on inputs from a numpy seed; the fused
           backward also against the two-kernel split, against f64 and
-          against itself run twice; the rounding pass bit for bit; K5b and
+          against itself run twice, with its grid (CTAs, KV chunk, dq
+          partials); the rounding pass bit for bit; K5b and
           K7 also against K5a class default and K6 at 4096^3 (bit-equality
           recorded); kernel, plain and library times (the bf16 library
           also with the two f32 -> bf16 casts) and the card's least time
@@ -87,9 +89,15 @@ TOL_HYBRID = 3e-2  # the JAX package's hybrid tolerance: P rounds to bf16
 TOL_BWD_F32 = 2e-4     # dq, dk, dv: the JAX package's own tolerance
 TOL_BWD_HYBRID = 0.05  # of the largest reference value (bf16 p and ds)
 TOL_FUSED_SPLIT = 1e-5  # the fused backward against the two-kernel split,
-#                    absolute plus relative (the JAX package's own test):
-#                    the same p and ds, dq and the partials summed in
+#                    f32, absolute plus relative (the JAX package's own
+#                    test): the same p and ds, dq and the partials summed in
 #                    another order
+TOL_FUSED_SPLIT_HYBRID = 2.0 ** -7  # hybrid, of each gradient's largest
+#                    value in the split: the fused kernel forms s2 and dp on
+#                    the tensor cores, in another order than the split, so
+#                    a p or ds can round to the neighbouring bf16 value (a
+#                    relative step of 2^-8); that is the spacing of one
+#                    term, with room for two such flips
 TOL_DOTS = 1e-4    # the probe against its plain version, of the largest
 #                    value: two f32 sums of a score that differ in the last
 #                    bit can round to neighbouring bf16 values (2^-8 apart)
@@ -253,7 +261,7 @@ def phase_build():
             ".log").exists() else ""
         ptxas += [ln.strip() for ln in log.splitlines()
                   if "registers" in ln or "spill" in ln]
-        if name.startswith("gemm_sm90"):
+        if name.startswith("gemm_sm90") or name == "flash_bwd_fused":
             by_source[name] = ptxas_by_kernel(log)
     plans = {cls: gemm.sm90_plan(4096, 4096, nprod)._asdict()
              for cls, nprod in (("default and v8", 1), ("3pass", 3))}
@@ -262,13 +270,21 @@ def phase_build():
     emit({"phase": "build", "seconds": secs, "kernels": list(KERNELS),
           "ptxas": ptxas, "gemm_sm90_kernels": by_source["gemm_sm90"],
           "gemm_sm90_f32_kernels": by_source["gemm_sm90_f32"],
+          "flash_bwd_fused_kernels": by_source["flash_bwd_fused"],
           "gemm_sm90_plans_at_4096": plans,
           "gemm_sm90_f32_plans_at_4096": f32in})
     for name, want in (("gemm_sm90", ("gemm_sm90_kernel",)),
-                       ("gemm_sm90_f32", ("mm_bf16_kernel", "mm_db_kernel"))):
+                       ("gemm_sm90_f32", ("mm_bf16_kernel", "mm_db_kernel")),
+                       ("flash_bwd_fused", ("fused_sm90_kernel",
+                                            "fused_f32_kernel"))):
         for kern in want:
             if not any(kern in k["kernel"] for k in by_source[name]):
                 raise RuntimeError(f"{name}: no ptxas record of {kern}")
+    spilled = [k for k in by_source["flash_bwd_fused"]
+               if k.get("spill_stores") or k.get("spill_loads")
+               or k.get("stack_frame")]
+    if spilled:
+        raise RuntimeError(f"flash_bwd_fused spills: {spilled}")
 
 
 def sdpa_grads(q, k, v, do, causal):
@@ -298,9 +314,13 @@ def f64_grads(q, k, v, do, dlse, causal):
                                (do.double(), dlse.double()))
 
 
-def fused_equals_split(got, want) -> bool:
-    """(dq, dk, dv) of the fused backward within TOL_FUSED_SPLIT, absolute
-    plus relative, of the two-kernel split's"""
+def fused_equals_split(got, want, hybrid: bool) -> bool:
+    """(dq, dk, dv) of the fused backward against the two-kernel split's:
+    f32 within TOL_FUSED_SPLIT, absolute plus relative; hybrid within
+    TOL_FUSED_SPLIT_HYBRID of each gradient's largest value"""
+    if hybrid:
+        return all(bool(((g - w).abs() <= TOL_FUSED_SPLIT_HYBRID
+                         * w.abs().max()).all()) for g, w in zip(got, want))
     return all(bool(((g - w).abs() <= TOL_FUSED_SPLIT
                      + TOL_FUSED_SPLIT * w.abs()).all())
                for g, w in zip(got, want))
@@ -311,8 +331,8 @@ def fused_case(args, split, bq, f64, sdpa_bwd, timed=True):
     do, causal, hybrid, dlse): against its plain version (dq and both
     partials, the never-visited blocks included), against the two-kernel
     split's (dq, dk, dv), against f64 where given, and against itself run
-    again; its times unless `timed` is false, and the library backward's
-    where given"""
+    again; its grid; its times unless `timed` is false, and the library
+    backward's where given (for hybrid cases also on bf16 operands)"""
     import torch
     from tensorforth_tpu_torch.ops import attn
     q, k, v, o, lse, do, causal, hybrid, dlse = args
@@ -339,16 +359,28 @@ def fused_case(args, split, bq, f64, sdpa_bwd, timed=True):
     got = (dq, dkp.sum(dim=1), dvp.sum(dim=1))
     vs_split = {nm: (g - w).abs().max().item()
                 for nm, g, w in zip(("dq", "dk", "dv"), got, split)}
-    split_ok = fused_equals_split(got, split)
+    split_tops = {nm: w.abs().max().item()
+                  for nm, w in zip(("dq", "dk", "dv"), split)}
+    split_ok = fused_equals_split(got, split, hybrid)
     again = attn.flash_attention_bwd_fused(*call)
     repeats = all(torch.equal(g, a) for g, a in zip(got, again))
-    row = {"bq": bq, "n_q": n_q, "blocks": b * n_q, "max_abs_err": errs,
-           "largest_reference_value": tops,
+    plan = attn.fused_plan(b, s, bq, causal, hybrid, dh,
+                           attn.sm_count(q.device))
+    row = {"bq": bq, "n_q": n_q, "blocks": plan.ctas,
+           "grid": {"ctas": plan.ctas, "ctas_with_work": b * sum(
+               1 for x in plan.work if x), "kv_tile_rows": plan.kv_tile,
+               "kv_tiles_per_cta": plan.chunk, "dq_partials": plan.n_slots,
+               "most_pairs_of_a_cta": plan.work[0],
+               "route": "bf16 wgmma" if hybrid else "f32 FMA"},
+           "max_abs_err": errs, "largest_reference_value": tops,
            "partials_shape_and_zero_blocks_ok": zeros_ok,
            "never_visited_blocks": len(never) // 2,
-           "max_abs_err_vs_split": vs_split, "tol_vs_split":
-           f"{TOL_FUSED_SPLIT} absolute plus {TOL_FUSED_SPLIT} relative",
-           "two_runs_bit_equal": repeats}
+           "max_abs_err_vs_split": vs_split,
+           "largest_split_value": split_tops, "tol_vs_split":
+           (f"{TOL_FUSED_SPLIT_HYBRID} of the largest split value" if hybrid
+            else f"{TOL_FUSED_SPLIT} absolute plus {TOL_FUSED_SPLIT} "
+                 "relative"),
+           "fused_equals_split": split_ok, "two_runs_bit_equal": repeats}
     if f64 is not None:
         row["max_abs_err_vs_f64"] = max(
             (g.double() - w).abs().max().item() for g, w in zip(got, f64))
@@ -360,15 +392,34 @@ def fused_case(args, split, bq, f64, sdpa_bwd, timed=True):
     row["ms"] = time_ms(lambda: attn.flash_attention_bwd_fused(*call))
     row["ms_before_the_sums"] = time_ms(
         lambda: attn.flash_attention_bwd_fused_parts(*call))
+    # the kernel alone, on the wrapper's prepared operands: the rest of
+    # `ms` is the wrapper's (casts and delta, the dq partials' sum, then
+    # the dK/dV sums)
+    q2, kk, vv, dd, delta, qscale = attn._bwd_operands(q, k, v, o, lse, do,
+                                                       hybrid, dlse)
+    row["kernel_ms"] = time_ms(lambda: attn._launch_fused(
+        q2, kk, vv, dd, lse.contiguous(), delta.contiguous(), bq, causal,
+        hybrid, qscale))
+    del q2, kk, vv, dd, delta
     ops, nbytes = attn_bwd_fused_work(b, s, dh, bq, causal,
                                       2 if hybrid else 4)
-    row["bound_ms"], row["bound_by"] = bound_ms(ops, nbytes)
+    # the rate of the class's route: bf16 wgmma, or f32 on the CUDA cores
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        ops, nbytes, PEAK_BF16_FLOPS if hybrid else PEAK_F32_FLOPS)
     row.update(gflop=ops / 1e9, mbytes=nbytes / 1e6,
                tflops=ops / row["ms"] / 1e9)
     if sdpa_bwd is not None:
         row["plain_ms"] = time_ms(
             lambda: attn.flash_attention_bwd_fused_ref(*call), reps=10)
         row["library_ms"] = time_ms(sdpa_bwd)
+        if hybrid:
+            # the library on the operands' bf16 class, as [1, B*h, S, dh]:
+            # a 3-d call keeps the library off its bf16 flash kernel
+            bf = torch.bfloat16
+            row["library_bf16_ms"] = time_ms(sdpa_grads(
+                *(x.to(bf)[None] for x in (q, k, v, do)), causal))
+            row["library_ms_4d"] = time_ms(sdpa_grads(
+                *(x[None] for x in (q, k, v, do)), causal))
         # what bq trades: blocks in the grid against partial traffic
         row["ms_by_bq"] = {str(x): time_ms(
             lambda: attn.flash_attention_bwd_fused(
@@ -443,6 +494,7 @@ def phase_kernel(seed: int):
         ("s2560_hybrid_dlse", 4, 2560, 128, False, True, True, 640),
         ("bench_causal_hybrid", BENCH["nh"], BENCH["s"], BENCH["dh"], True,
          True, False, 1024),
+        ("dh256_causal_hybrid", 8, 1024, 256, True, True, False, 512),
     ]
     rows, bwd_rows, failed, main = [], [], [], {}
     for i, (name, b, s, dh, causal, hybrid, with_dlse,
@@ -572,7 +624,9 @@ def phase_kernel(seed: int):
     emit(dict(common, kernel="flash_fwd", cases=rows,
               dh384_takes_the_einsum_path=gate_ok))
     emit(dict(common, kernel="flash_bwd (dkv, dq) and flash_bwd_fused",
-              cases=bwd_rows,
+              cases=bwd_rows, peak_bf16_tflops=PEAK_BF16_FLOPS / 1e12,
+              fused_precision="hybrid: bf16 wgmma, f32 sums (bound at the "
+                              "bf16 rate); f32: f32 FMA on CUDA cores",
               plain_and_library_ms="one pass that gives dq, dk and dv: "
                                    "both kernels' work, and the fused "
                                    "kernel's with its sums"))
@@ -1521,7 +1575,10 @@ def main(argv=None) -> int:
                 # body (_kdot, its 3pass split at 80-83)
                 "mm_round": ("gemm_sm90.cu",
                              ops_dir + "gemm_pallas.py:76")}
-    extra = {"mm_f32io": ("rounding_pass_ms", "ms_includes_rounding_pass",
+    extra = {"flash_bwd_fused": ("kernel_ms", "ms_before_the_sums",
+                                 "library_bf16_ms", "library_ms_4d",
+                                 "blocks", "grid"),
+             "mm_f32io": ("rounding_pass_ms", "ms_includes_rounding_pass",
                           "library_ms_with_casts"),
              "mm_bf16": ("k5a_default_with_pass_ms", "library_ms_with_casts"),
              "mm_db": ("k5a_default_with_pass_ms", "library_ms_with_casts"),

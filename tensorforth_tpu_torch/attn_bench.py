@@ -37,10 +37,11 @@ from .ops import attn
 SWEEP_SHAPES = {"2048": (16, 2048), "4096": (4, 4096), "8192": (1, 8192)}
 # rows of a Q block of the fused backward: the JAX sweep's three candidates
 SWEEP_BQ = (2048, 1024, 512)
-# a candidate of the port's own, beyond the JAX sweep: the port's kernel
-# runs one block per (head, Q block), so its grid is B * S / bq blocks,
-# and 256 rows is where the sweep's shapes first come near the card's 132
-# SMs (128 blocks at 16 x 2048)
+# a candidate of the port's own, beyond the JAX sweep.  The port's grid
+# (attn.fused_plan: one CTA per head, Q block and KV chunk) fills the card
+# at any bq, so bq trades the dK/dV partials' traffic, which doubles each
+# time bq halves, against the length of a CTA's work; 256 rows is the
+# small end of that trade
 EXTRA_BQ = (256,)
 # --tiny: one small shape, one call a chain, one timed chain
 TINY = dict(nh=2, s=128, n_iter=1, reps=1)
@@ -266,7 +267,10 @@ def sweep_bwd_fused(which: str = "all", n_iter: int = 24, reps: int = 9,
                 hybrid=True)) for bq in cand]
             rec = sweep(tag_fns, b, s, dh, causal, n_iter, reps, device)
             rec.update(b=b, s=s, dh=dh, causal=causal, blocks={
-                f"fused bq={bq}": b * (s // bq) for bq in cand},
+                f"fused bq={bq}": attn.fused_plan(
+                    b, s, bq, causal, True, dh,
+                    attn.sm_count(resolve_device(device))).ctas
+                for bq in cand},
                 partial_bytes_written_and_read={
                     f"fused bq={bq}": 2 * 2 * (s // bq) * b * s * dh * 4
                     for bq in cand})

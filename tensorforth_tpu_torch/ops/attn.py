@@ -26,8 +26,12 @@ attn_pallas.py:_flash_bwd_fused_kernel (launched by that module's
 ``flash_attention_bwd_fused``): dQ, dK and dV in one launch with five
 products per tile pair where the split has seven, dK and dV leaving as
 per-Q-block partials [B*h, n_q, S, dh] that one ``sum(dim=1)`` reduces.
-It is a measurement path (``attn_bench``): ``flash_attention_lse`` keeps
-the two-kernel backward, as in the JAX package.
+Its grid is planned here (``fused_plan``): a CTA owns a (head, Q block,
+KV chunk) item, so the grid fills the card whatever bq is, and dq leaves
+as one partial per KV chunk that the wrapper sums.  Hybrid mode runs on
+bf16 ``wgmma``, f32 on the CUDA cores.  It is a measurement path
+(``attn_bench``): ``flash_attention_lse`` keeps the two-kernel backward,
+as in the JAX package.
 
 The dots-only probe, ``csrc/attn_dots.cu``, replaces the Pallas kernel
 inside bench.py:_attn_dots_probe: the forward kernel's two products with
@@ -40,7 +44,9 @@ fallback on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -85,7 +91,7 @@ _ARGTYPES = {   # library -> exported function -> ctypes signature
     "flash_fwd": {"t4_flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _P]},
     "flash_bwd": {"t4_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F, _P],
                   "t4_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_F, _F, _P]},
-    "flash_bwd_fused": {"t4_flash_bwd_fused": [_P] * 9 + [_I] * 6
+    "flash_bwd_fused": {"t4_flash_bwd_fused": [_P] * 10 + [_I] * 9
                         + [_F, _F, _P]},
     "attn_dots": {"t4_attn_dots": [_P] * 4 + [_I] * 3 + [_P]},
 }
@@ -349,6 +355,137 @@ def flash_attention_bwd_fused_parts_ref(q, k, v, o, lse, do, bq=None,
     return dq, dkp, dvp
 
 
+# --- the fused kernel's grid ------------------------------------------------
+N_SM = 132   # SMs of an H100 SXM: what a plan is made for off the card
+# KV tile rows of the kernel by (hybrid, dh): the wgmma kernel's and the
+# FMA kernel's (csrc/flash_bwd_fused.cu: kv_tile)
+FUSED_KV_TILE = {(True, 128): 128, (True, 256): 64,
+                 (False, 128): 64, (False, 256): 32}
+
+
+class FusedPlan(NamedTuple):
+    """the fused kernel's grid for one shape: a CTA per (head, item), an
+    item = (Q block, KV chunk) of `chunk` KV tiles of `kv_tile` rows,
+    listed heaviest first; `work` = the (Q tile, KV tile) pairs of each
+    item; dq leaves as `n_slots` partials, one per KV chunk"""
+    kv_tile: int
+    chunk: int
+    n_slots: int
+    items: tuple
+    work: tuple
+    ctas: int
+
+
+def _q_tiles_seeing(qi: int, j: int, bq: int, kv_tile: int, s: int,
+                    causal: bool) -> int:
+    """the 64-row Q tiles of Q block qi that see KV tile j: under the
+    causal mask, tile q0 sees key kv0 when kv0 <= q0 + 63"""
+    kv0 = j * kv_tile
+    if kv0 >= s:
+        return 0
+    if not causal:
+        return bq // TILE
+    first = max(qi * bq, kv0 // TILE * TILE)
+    return max(0, ((qi + 1) * bq - first) // TILE)
+
+
+def _chunk_works(s: int, bq: int, causal: bool, kv_tile: int,
+                 chunk: int) -> dict:
+    """{(Q block, KV chunk): the (Q tile, KV tile) pairs it computes} for
+    chunks of `chunk` KV tiles"""
+    n_kv = -(-s // kv_tile)
+    return {(qi, c): sum(_q_tiles_seeing(qi, j, bq, kv_tile, s, causal)
+                         for j in range(c * chunk, min((c + 1) * chunk, n_kv)))
+            for qi in range(s // bq) for c in range(-(-n_kv // chunk))}
+
+
+@functools.lru_cache(maxsize=256)
+def fused_plan(bh: int, s: int, bq: int, causal: bool, hybrid: bool,
+               dh: int, sms: int = N_SM) -> FusedPlan:
+    """the fused kernel's grid.  The chunk is the largest power of two of
+    KV tiles that still gives every SM a CTA with work (one tile if none
+    does): a longer chunk means fewer dq partials to write and sum, a
+    shorter one more CTAs to even out the causal load (PERF.md, section
+    6).  Items with no work (KV chunks that a causal Q block never sees)
+    stay in the grid: their CTAs write the zeros of those rows.  Plans are
+    kept: a shape's plan is made once."""
+    kv_tile = FUSED_KV_TILE[(bool(hybrid), dh)]
+    n_kv = -(-s // kv_tile)
+    chunk = 1
+    while chunk * 2 <= n_kv:
+        w = _chunk_works(s, bq, causal, kv_tile, chunk * 2)
+        if bh * sum(1 for x in w.values() if x) < sms:
+            break
+        chunk *= 2
+    w = _chunk_works(s, bq, causal, kv_tile, chunk)
+    items = sorted(w, key=lambda it: (-w[it], -it[0], it[1]))
+    return FusedPlan(kv_tile, chunk, -(-n_kv // chunk), tuple(items),
+                     tuple(w[it] for it in items), len(items) * bh)
+
+
+@functools.lru_cache(maxsize=256)
+def _items_on(items: tuple, device: str):
+    """a plan's items as the kernel reads them, int32 [n_items, 2] on
+    `device`, made once"""
+    return torch.tensor(items, dtype=torch.int32, device=device)
+
+
+def sm_count(device) -> int:
+    """SMs of the CUDA device `device`; N_SM for any other"""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return N_SM
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def flash_attention_bwd_fused_slots_ref(q, k, v, o, lse, do, bq=None,
+                                        causal: bool = False,
+                                        hybrid: bool = False, dlse=None,
+                                        sms: int = N_SM):
+    """plain PyTorch model of the fused kernel's decomposition: (dq_slots
+    [n_slots, B, S, dh], dk_parts, dv_parts [B, n_q, S, dh]).  Item by item
+    of fused_plan, as the CTAs compute them: each (Q block, KV chunk) item
+    gives its chunk's rows of the block's partials and its block's rows of
+    the chunk's dq slot; rows that no item computes are zeros.  dq is
+    dq_slots summed over the slots, in order."""
+    b, s, dh = q.shape
+    bq = _fused_bq("flash_attention_bwd_fused_slots_ref", s, bq)
+    plan = fused_plan(b, s, bq, causal, hybrid, dh, sms)
+    q2, k, v, do, delta, qscale = _bwd_operands(q, k, v, o, lse, do,
+                                                hybrid, dlse)
+    q2 = q2.float() * qscale
+    k, v, do = k.float(), v.float(), do.float()
+    lse2 = lse * LOG2E
+
+    def rnd(x):
+        return x.to(torch.bfloat16).float() if hybrid else x
+
+    n_q, rows = s // bq, plan.chunk * plan.kv_tile
+    slots = torch.zeros((plan.n_slots, b, s, dh), dtype=torch.float32,
+                        device=q.device)
+    dkp = torch.zeros((b, n_q, s, dh), dtype=torch.float32, device=q.device)
+    dvp = torch.zeros_like(dkp)
+    for (qi, c), work in zip(plan.items, plan.work):
+        if not work:
+            continue
+        qr = slice(qi * bq, (qi + 1) * bq)
+        kr = slice(c * rows, min((c + 1) * rows, s))
+        s2 = torch.einsum("nqd,nkd->nqk", q2[:, qr], k[:, kr])
+        if causal:
+            keep = (torch.arange(kr.start, kr.stop, device=q.device)[None, :]
+                    <= torch.arange(qr.start, qr.stop,
+                                    device=q.device)[:, None])
+            s2 = torch.where(keep, s2, torch.full_like(s2, NEG_INF))
+        p = torch.exp2(s2 - lse2[:, qr, None])
+        dp = torch.einsum("nqd,nkd->nqk", do[:, qr], v[:, kr])
+        ds = rnd(p * (dp - delta[:, qr, None]))
+        slots[c, :, qr] = torch.einsum("nqk,nkd->nqd", ds,
+                                       k[:, kr]) / math.sqrt(dh)
+        dvp[:, qi, kr] = torch.einsum("nqk,nqd->nkd", rnd(p), do[:, qr])
+        dkp[:, qi, kr] = torch.einsum("nqk,nqd->nkd", ds, q2[:, qr]) * LN2
+    return slots, dkp, dvp
+
+
 def flash_attention_bwd_fused_ref(q, k, v, o, lse, do, bq=None,
                                   causal: bool = False, hybrid: bool = False,
                                   dlse=None):
@@ -356,6 +493,35 @@ def flash_attention_bwd_fused_ref(q, k, v, o, lse, do, bq=None,
     dq, dkp, dvp = flash_attention_bwd_fused_parts_ref(
         q, k, v, o, lse, do, bq, causal, hybrid, dlse)
     return dq, dkp.sum(dim=1), dvp.sum(dim=1)
+
+
+def _launch_fused(q2, k, v, do, lse, delta, bq: int, causal: bool,
+                  hybrid: bool, qscale: float):
+    """launch the fused kernel on _bwd_operands' prepared operands (lse
+    and delta contiguous): (dq partials [n_slots, B*h, S, dh], dk_parts,
+    dv_parts [B*h, S / bq, S, dh]), f32"""
+    b, s, dh = q2.shape
+    plan = fused_plan(b, s, bq, causal, hybrid, dh, sm_count(q2.device))
+    items = _items_on(plan.items, str(q2.device))
+    lib = _lib("flash_bwd_fused")
+    slots = torch.empty((plan.n_slots, b, s, dh), dtype=torch.float32,
+                        device=q2.device)
+    dkp = torch.empty((b, s // bq, s, dh), dtype=torch.float32,
+                      device=q2.device)
+    dvp = torch.empty_like(dkp)
+    ptrs = [t.data_ptr() for t in (q2, k, v, do, lse, delta, slots, dkp,
+                                   dvp, items)]
+    with torch.cuda.device(q2.device):
+        stream = torch.cuda.current_stream(q2.device).cuda_stream
+        err = lib.t4_flash_bwd_fused(*ptrs, len(plan.items), b, s, dh, bq,
+                                     plan.kv_tile, plan.chunk, int(causal),
+                                     int(hybrid), qscale,
+                                     1.0 / math.sqrt(dh), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_fused kernel launch failed: "
+                           f"cudaError {err}")
+    flash_attention_bwd_fused.launches += 1
+    return slots, dkp, dvp
 
 
 def flash_attention_bwd_fused_parts(q, k, v, o, lse, do, bq=None,
@@ -374,25 +540,13 @@ def flash_attention_bwd_fused_parts(q, k, v, o, lse, do, bq=None,
                                                    causal, hybrid, dlse)
     _check_cuda(what, (q, k, v, o, do))
     _check_rows(what, q, extra)
-    b, s, dh = q.shape
     q2, kk, vv, dd, delta, qscale = _bwd_operands(q, k, v, o, lse, do,
                                                   hybrid, dlse)
-    lse, delta = lse.contiguous(), delta.contiguous()
-    lib = _lib("flash_bwd_fused")
-    dq = torch.empty((b, s, dh), dtype=torch.float32, device=q.device)
-    dkp = torch.empty((b, s // bq, s, dh), dtype=torch.float32,
-                      device=q.device)
-    dvp = torch.empty_like(dkp)
-    ptrs = [t.data_ptr() for t in (q2, kk, vv, dd, lse, delta, dq, dkp, dvp)]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.t4_flash_bwd_fused(*ptrs, b, s, dh, bq, int(causal),
-                                     int(hybrid), qscale,
-                                     1.0 / math.sqrt(dh), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_bwd_fused kernel launch failed: "
-                           f"cudaError {err}")
-    flash_attention_bwd_fused.launches += 1
+    slots, dkp, dvp = _launch_fused(q2, kk, vv, dd, lse.contiguous(),
+                                    delta.contiguous(), bq, causal, hybrid,
+                                    qscale)
+    # the dq partials, summed in one fixed order
+    dq = slots[0] if len(slots) == 1 else slots.sum(dim=0)
     return dq, dkp, dvp
 
 
@@ -403,8 +557,8 @@ def flash_attention_bwd_fused(q, k, v, o, lse, do, bq=None,
     single-kernel backward: one launch, then one sum over the n_q = S / bq
     partials of dK and of dV.  bq, the rows of a Q block, defaults to the
     JAX package's _fit_block(S, 1024); it fixes n_q and with it the
-    partial traffic and the number of blocks in the grid.  The kernel's
-    KV tile is its own and is no parameter."""
+    partial traffic.  The kernel's KV tile is its own and is no
+    parameter; fused_plan sizes the grid to the card."""
     dq, dkp, dvp = flash_attention_bwd_fused_parts(q, k, v, o, lse, do, bq,
                                                    causal, hybrid, dlse)
     return dq, dkp.sum(dim=1), dvp.sum(dim=1)

@@ -1,9 +1,11 @@
-// The Hopper GEMM machinery that gemm_sm90.cu (K5a, K6) and
-// gemm_sm90_f32.cu (K5b, K7) share: mbarriers with a trapping wait, TMA
-// loads, wgmma's shared-memory descriptors and its two operand forms, the
-// grouped raster of output tiles, the predicated epilogue store, and on
-// the host the tensor maps.  Everything is in an anonymous namespace: each
-// source that includes it is a library of its own.
+// The Hopper machinery that gemm_sm90.cu (K5a, K6), gemm_sm90_f32.cu (K5b,
+// K7) and flash_bwd_fused.cu (K3) share: mbarriers with a trapping wait,
+// TMA loads (tiles and plain bulk copies), wgmma's shared-memory
+// descriptors and its operand forms (m64n128 and m64n64, A from shared
+// memory or registers, either operand transposed), the grouped raster of
+// output tiles, the predicated epilogue store, and on the host the tensor
+// maps.  Everything is in an anonymous namespace: each source that includes
+// it is a library of its own.
 //
 // Tiles are 128 x 256 (or 128 x 128): warpgroups 0 and 1 are consumers
 // that own 64 rows each and hold WN m64n128 accumulators.
@@ -89,6 +91,24 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` (a multiple of 16) of contiguous global memory at src (16-byte
+// aligned) into shared memory at dst; the bytes complete a transaction on
+// `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// the `threads` threads (whole warps) that name barrier `id` (1..15; 0 is
+// __syncthreads') wait for each other
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---- wgmma -----------------------------------------------------------------
 // shared-memory matrix descriptor of a 128-byte-swizzled tile: start
 // address, leading and stride byte offsets (16-byte units), swizzle mode 1
@@ -127,9 +147,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // keeps the compiler from moving reads or writes of an accumulator across
 // the asynchronous products (wgmma's results are final only after a wait)
-__device__ __forceinline__ void pin(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // the 64 f32 accumulator registers of an m64n128 product, as asm operands
@@ -158,6 +179,41 @@ __device__ __forceinline__ void pin(float (&d)[64]) {
   "%40, %41, %42, %43, %44, %45, %46, %47, "                                 \
   "%48, %49, %50, %51, %52, %53, %54, %55, "                                 \
   "%56, %57, %58, %59, %60, %61, %62, %63}"
+
+// the 32 f32 accumulator registers of an m64n64 product, as asm operands
+// %0..%31
+#define T4_ACC32(d)                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+      "+f"(d[31])
+
+#define T4_D32                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "                                        \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "                                   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "                                 \
+  "%24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], bf16 in, f32 sums, both from
+// shared memory.  TA 0: A K-major (desc_a); 1: A MN-major, read transposed
+// (desc_b's form).  TB likewise for B: 0 K-major (rows of N, desc_a's
+// form), 1 MN-major (rows of K, desc_b).  scale_d 0 overwrites d.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_64(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " T4_D32
+      ", %32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : T4_ACC32(d)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
 
 // d[64 x 128] (+)= A[64 x 16] B[16 x 128], bf16 in, f32 sums; both from
 // shared memory, B transposed (MN-major).  scale_d 0 overwrites d.

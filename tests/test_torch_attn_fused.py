@@ -274,7 +274,8 @@ def test_sweep_bwd_fused_on_cpu():
         assert all(_finite_positive(xs, 2) for part in ("tflops", "vs_control")
                    for xs in r[part].values())
         bq = int(fused[-1].split("=")[1])
-        assert r["blocks"][fused[-1]] == r["b"] * r["s"] // bq
+        assert r["blocks"][fused[-1]] == attn.fused_plan(
+            r["b"], r["s"], bq, r["causal"], True, 128).ctas
         assert r["partial_bytes_written_and_read"][fused[-1]] == (
             4 * (r["s"] // bq) * r["b"] * r["s"] * 128 * 4)
     only = attn_bench.sweep_bwd_fused(
