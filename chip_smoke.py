@@ -7,23 +7,26 @@ and check it.  Run from the root of a checkout:
 Phases, one JSON line each:
   build   compile every kernel of the four paths with nvcc for sm_90a
           into build/torch_kernels/ (one nvcc per source, all at once:
-          flash_fwd, flash_bwd, flash_bwd_fused, attn_dots, gemm,
-          gemm_sm90, gemm_sm90_f32); each wgmma kernel's registers, shared
-          memory and spills from ptxas (the fused backward's instances
-          must show no spill and no stack frame)
-  kernel  each kernel (flash forward, flash backward dK/dV and dQ, the
-          fused single-kernel backward, the dots-only probe, and the GEMM
-          kernels of the tensor tier: K5a on the wgmma kernel with its
-          rounding pass, K6 on the same kernel, K5b and K7 on f32 operands
-          rounded inside their one launch) against its plain PyTorch
-          version on the card, on inputs from a numpy seed; the fused
-          backward also against the two-kernel split, against f64 and
-          against itself run twice, with its grid (CTAs, KV chunk, dq
-          partials); the rounding pass bit for bit; K5b and
-          K7 also against K5a class default and K6 at 4096^3 (bit-equality
-          recorded); kernel, plain and library times (the bf16 library
-          also with the two f32 -> bf16 casts) and the card's least time
-          for the same work (the bound)
+          flash_fwd, flash_bwd, flash_bwd_fused, attn_dots, gemm_sm90,
+          gemm_sm90_f32); each wgmma kernel's registers, shared memory and
+          spills from ptxas (every instance of the flash forward, the
+          fused backward and gemm_sm90, split passes included, must show
+          no spill and no stack frame)
+  kernel  each kernel (flash forward with its split, flash backward dK/dV
+          and dQ, the fused single-kernel backward, the dots-only probe,
+          and the GEMM kernels of the tensor tier: K5a on the wgmma kernel
+          with its rounding pass in all three classes, K6 on the same
+          kernel, K5b and K7 on f32 operands rounded inside their one
+          launch) against its plain PyTorch version on the card, on inputs
+          from a numpy seed; the f32 forward and K5a highest also against
+          f64 (the classes' own accuracy); the fused backward also against
+          the two-kernel split, against f64 and against itself run twice,
+          with its grid (CTAs, KV chunk, dq partials); the rounding pass
+          and the forward's split bit for bit; K5b and K7 also against K5a
+          class default and K6 at 4096^3 (bit-equality recorded); kernel,
+          plain and library times (the bf16 library also with the two
+          f32 -> bf16 casts; the library attention also through a 4-d
+          call) and the card's least time for the same work (the bound)
   serve   tiny_lm at bench_prefill's full width (dim 1024, 8 heads,
           4 layers, vocab 2048, batch 8, 2048-token prompt, 64 new
           tokens) through generate(), f32 and int8 KV caches: kernel
@@ -79,10 +82,15 @@ PEAK_F32_FLOPS = 67e12        # f32 on the CUDA cores (no tensor cores)
 PEAK_BF16_FLOPS = 989e12      # bf16 on the tensor cores, dense
 PEAK_BYTES = 3.35e12          # HBM3
 KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_fused", "attn_dots",
-           "gemm", "gemm_sm90", "gemm_sm90_f32")   # ops/csrc/<name>.cu
+           "gemm_sm90", "gemm_sm90_f32")   # ops/csrc/<name>.cu
+# sources whose every kernel instance must show no spill and no stack frame
+NO_SPILL = ("flash_fwd", "flash_bwd_fused", "gemm_sm90")
 LM = dict(batch=8, vocab=2048, dim=1024, heads=8, layers=4, rope=True)
 N_PROMPT, N_NEW = 2048, 64
 TOL_F32 = 1e-4     # f32 sums in another order than the plain version's
+# the f32 forward against f64, absolute plus relative: the JAX package's
+# own tolerance for its flash forward in f32 (tests/test_attention.py)
+TOL_F32_F64 = 2e-5
 TOL_HYBRID = 3e-2  # the JAX package's hybrid tolerance: P rounds to bf16
 #                    against the running max in the kernel, the row max
 #                    in the plain version
@@ -164,14 +172,18 @@ def time_ms(fn, reps: int = 15, warm: int = 2) -> float:
     return statistics.median(ts)
 
 
-def attn_work(b, s, dh, causal, elem_bytes):
-    """(operations, bytes) the attention forward needs: 2 products of
-    2*dh operations per visited (query, key) pair, causal visiting
-    S(S+1)/2 pairs; q, k, v read once, o and lse written once"""
+def attn_work(b, s, dh, causal, hybrid):
+    """(operations, bytes, split bytes) of the attention forward: 2
+    products of 2*dh operations per visited (query, key) pair, causal
+    visiting S(S+1)/2 pairs; f32 q, k, v read once, o and lse written
+    once.  The f32 class's split pass reads q, k, v and writes three bf16
+    parts of each (the split bytes, its own bound); hybrid's casts are the
+    wrapper's"""
     pairs = s * (s + 1) // 2 if causal else s * s
     ops = 4 * dh * b * pairs
-    nbytes = 3 * b * s * dh * elem_bytes + b * s * dh * 4 + b * s * 4
-    return ops, nbytes
+    nbytes = 3 * b * s * dh * 4 + b * s * dh * 4 + b * s * 4
+    split = 0 if hybrid else 3 * b * s * dh * (4 + 3 * 2)
+    return ops, nbytes, split
 
 
 def attn_bwd_work(which, b, s, dh, causal, elem_bytes):
@@ -205,6 +217,12 @@ def attn_dots_work(b, s, dh):
     operations per (query, key) pair; bf16 q, k, v read once, f32 o
     written once"""
     return 4 * dh * b * s * s, 3 * b * s * dh * 2 + b * s * dh * 4
+
+
+def fwd_peak(hybrid: bool) -> float:
+    """the rate of the forward's route: one bf16 product on the tensor
+    cores (hybrid), or six (the f32 class's split)"""
+    return PEAK_BF16_FLOPS if hybrid else PEAK_BF16_FLOPS / 6
 
 
 def bound_ms(ops, nbytes, peak_flops=PEAK_F32_FLOPS):
@@ -249,8 +267,7 @@ def ptxas_by_kernel(log: str):
 
 
 def phase_build():
-    from tensorforth_tpu_torch.ops import _build
-    from tensorforth_tpu_torch.ops import gemm
+    from tensorforth_tpu_torch.ops import _build, attn, gemm
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as ex:
         libs = list(ex.map(_build.build, KERNELS))
@@ -261,30 +278,46 @@ def phase_build():
             ".log").exists() else ""
         ptxas += [ln.strip() for ln in log.splitlines()
                   if "registers" in ln or "spill" in ln]
-        if name.startswith("gemm_sm90") or name == "flash_bwd_fused":
+        if name.startswith("gemm_sm90") or name in NO_SPILL:
             by_source[name] = ptxas_by_kernel(log)
     plans = {cls: gemm.sm90_plan(4096, 4096, nprod)._asdict()
-             for cls, nprod in (("default and v8", 1), ("3pass", 3))}
+             for cls, nprod in (("default and v8", 1), ("3pass", 3),
+                                ("highest", 6))}
+    fwd_plans = {f"dh{dh}_{'hybrid' if hy else 'f32'}": attn.fwd_plan(
+        64, 2048, dh, hy)._asdict() for dh in attn.KERNEL_DH
+        for hy in (False, True)}
     f32in = {kern: gemm.f32in_plan(kern, 4096, 4096, 4096)._asdict()
              for kern in ("mm_bf16", "mm_db")}
     emit({"phase": "build", "seconds": secs, "kernels": list(KERNELS),
           "ptxas": ptxas, "gemm_sm90_kernels": by_source["gemm_sm90"],
           "gemm_sm90_f32_kernels": by_source["gemm_sm90_f32"],
           "flash_bwd_fused_kernels": by_source["flash_bwd_fused"],
+          "flash_fwd_kernels": by_source["flash_fwd"],
           "gemm_sm90_plans_at_4096": plans,
-          "gemm_sm90_f32_plans_at_4096": f32in})
-    for name, want in (("gemm_sm90", ("gemm_sm90_kernel",)),
+          "gemm_sm90_f32_plans_at_4096": f32in,
+          "flash_fwd_plans_at_64x2048": fwd_plans})
+    for name, want in (("gemm_sm90", ("gemm_sm90_kernel<128,6,2>",
+                                      "gemm_sm90_kernel<128,3,3>",
+                                      "gemm_sm90_kernel<256,1,4>",
+                                      "split_kernel<3>", "split_kernel<2>",
+                                      "split_kernel<1>")),
                        ("gemm_sm90_f32", ("mm_bf16_kernel", "mm_db_kernel")),
                        ("flash_bwd_fused", ("fused_sm90_kernel",
-                                            "fused_f32_kernel"))):
+                                            "fused_f32_kernel")),
+                       ("flash_fwd", ("flash_fwd_kernel<128,3>",
+                                      "flash_fwd_kernel<128,1>",
+                                      "flash_fwd_kernel<256,3>",
+                                      "flash_fwd_kernel<256,1>",
+                                      "split_kernel<3>"))):
         for kern in want:
             if not any(kern in k["kernel"] for k in by_source[name]):
                 raise RuntimeError(f"{name}: no ptxas record of {kern}")
-    spilled = [k for k in by_source["flash_bwd_fused"]
+    spilled = [dict(k, source=name) for name in NO_SPILL
+               for k in by_source[name]
                if k.get("spill_stores") or k.get("spill_loads")
                or k.get("stack_frame")]
     if spilled:
-        raise RuntimeError(f"flash_bwd_fused spills: {spilled}")
+        raise RuntimeError(f"spills or stack frames: {spilled}")
 
 
 def sdpa_grads(q, k, v, do, causal):
@@ -312,6 +345,24 @@ def f64_grads(q, k, v, do, dlse, causal):
     o = torch.einsum("nqk,nkd->nqd", torch.softmax(sc, dim=-1), leaves[2])
     return torch.autograd.grad((o, torch.logsumexp(sc, dim=-1)), leaves,
                                (do.double(), dlse.double()))
+
+
+def f64_attention(q, k, v, causal, heads=8):
+    """(o, lse) of the exact attention in f64, `heads` heads at a time: a
+    reference that shares no arithmetic with the kernel"""
+    import torch
+    from tensorforth_tpu_torch.ops import attn
+    outs = [attn.flash_attention_ref(*(x[i:i + heads].double()
+                                       for x in (q, k, v)), causal)
+            for i in range(0, q.shape[0], heads)]
+    return (torch.cat([o for o, _ in outs]),
+            torch.cat([lse for _, lse in outs]))
+
+
+def f64_ratio(got, want, tol=TOL_F32_F64) -> float:
+    """the largest |got - want| over tol + tol |want|: at most 1 holds"""
+    return ((got.double() - want).abs() / (tol + tol * want.abs())).max(
+    ).item()
 
 
 def fused_equals_split(got, want, hybrid: bool) -> bool:
@@ -495,6 +546,8 @@ def phase_kernel(seed: int):
         ("bench_causal_hybrid", BENCH["nh"], BENCH["s"], BENCH["dh"], True,
          True, False, 1024),
         ("dh256_causal_hybrid", 8, 1024, 256, True, True, False, 512),
+        # S % 128 == 64: the forward's last 128-row Q tile is half past S
+        ("s576_causal", 8, 576, 128, True, False, False, 192),
     ]
     rows, bwd_rows, failed, main = [], [], [], {}
     for i, (name, b, s, dh, causal, hybrid, with_dlse,
@@ -514,16 +567,30 @@ def phase_kernel(seed: int):
         tol = TOL_HYBRID if hybrid else TOL_F32
         ok = (err_o <= tol and err_l <= tol
               and bool(torch.isfinite(o).all()))
+        del o_r, lse_r
         ms = time_ms(lambda: attn.flash_attention(q, k, v, causal=causal,
                                                   hybrid=hybrid))
-        ops, nbytes = attn_work(b, s, dh, causal, eb)
-        bms, by = bound_ms(ops, nbytes)
+        ops, nbytes, split_bytes = attn_work(b, s, dh, causal, hybrid)
+        # the rate of the class's route: one bf16 product, or six
+        bms, by = bound_ms(ops, nbytes, fwd_peak(hybrid))
         row = {"case": name, "shape": [b, s, dh], "causal": causal,
                "hybrid": hybrid, "max_abs_err_o": err_o,
-               "max_abs_err_lse": err_l, "tol": tol, "ok": ok, "ms": ms,
+               "max_abs_err_lse": err_l, "tol": tol, "ms": ms,
                "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
-               "tflops": ops / ms / 1e9, "bound_ms": bms, "bound_by": by}
-        del o_r, lse_r
+               "tflops": ops / ms / 1e9, "bound_ms": bms, "bound_by": by,
+               "route": "bf16 wgmma, one product" if hybrid else
+                        "bf16 wgmma, six products of a three-part split"}
+        if not hybrid:
+            # the class's own accuracy: against f64, 2e-5 + 2e-5 |x|
+            o64, l64 = f64_attention(q, k, v, causal)
+            row["f64_ratio_o"] = f64_ratio(o, o64)
+            row["f64_ratio_lse"] = f64_ratio(lse, l64)
+            row["tol_vs_f64"] = (f"{TOL_F32_F64} absolute plus "
+                                 f"{TOL_F32_F64} relative")
+            ok = ok and max(row["f64_ratio_o"], row["f64_ratio_lse"]) <= 1
+            row["split_bound_ms"] = split_bytes / PEAK_BYTES * 1e3
+            del o64, l64
+        row["ok"] = ok
         # --- backward, from the forward kernel's o and lse
         dq, dk, dv = attn.flash_attention_bwd(q, k, v, o, lse, do, causal,
                                               hybrid, dlse=dlse)
@@ -576,6 +643,22 @@ def phase_kernel(seed: int):
             row["library_ms"] = time_ms(
                 lambda: F.scaled_dot_product_attention(q, k, v,
                                                        is_causal=causal))
+            # the library through a 4-d [1, B*h, S, dh] call, forward and
+            # f32 backward (the 3-d call may take another kernel)
+            row["library_ms_4d"] = time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q[None], k[None], v[None], is_causal=causal))
+            brow["library_ms_4d"] = time_ms(sdpa_grads(
+                q[None], k[None], v[None], do[None], causal))
+            # the forward's two launches apart: the split, then the kernel
+            # on its parts
+            qscale = attn.LOG2E / math.sqrt(dh)
+            row["split_ms"] = time_ms(lambda: attn._split_qkv(q, k, v,
+                                                              qscale))
+            parts = attn._split_qkv(q, k, v, qscale)
+            row["kernel_ms"] = time_ms(lambda: attn._launch_fwd(
+                *parts, causal, False))
+            del parts
             # the plain backward and the library backward each give dq,
             # dk and dv in one pass: their times cover both kernels' work
             brow["plain_ms"] = time_ms(
@@ -587,12 +670,26 @@ def phase_kernel(seed: int):
             main["flash_bwd_dkv"] = dict(
                 brow["dkv"], max_abs_err=max(errs["dk"], errs["dv"]),
                 plain_ms=brow["plain_ms"], library_ms=brow["library_ms"],
-                shape=[b, s, dh])
+                library_ms_4d=brow["library_ms_4d"], shape=[b, s, dh])
             main["flash_bwd_dq"] = dict(
                 brow["dq"], max_abs_err=errs["dq"],
                 plain_ms=brow["plain_ms"], library_ms=brow["library_ms"],
-                shape=[b, s, dh])
+                library_ms_4d=brow["library_ms_4d"], shape=[b, s, dh])
         if name == "bench_causal_hybrid":
+            # the hybrid forward's kernel alone, on the wrapper's casts,
+            # and the library on bf16 operands through a 4-d call
+            bf = torch.bfloat16
+            qh, kh, vh = ((q * (attn.LOG2E / math.sqrt(dh))).to(bf),
+                          k.to(bf), v.to(bf))
+            row["kernel_ms"] = time_ms(lambda: attn._launch_fwd(
+                qh, kh, vh, causal, True))
+            row["library_bf16_ms_4d"] = time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    *(x.to(bf)[None] for x in (q, k, v)), is_causal=causal))
+            del qh, kh, vh
+            main["flash_fwd_hybrid"] = {key: row[key] for key in (
+                "shape", "ms", "kernel_ms", "bound_ms", "bound_by",
+                "library_bf16_ms_4d", "max_abs_err_o", "max_abs_err_lse")}
             main["flash_bwd_fused"] = dict(
                 brow["fused"], shape=[b, s, dh],
                 max_abs_err=max(brow["fused"]["max_abs_err"].values()))
@@ -618,13 +715,17 @@ def phase_kernel(seed: int):
     if not gate_ok:
         failed.append("sdpa gate at dh=384")
     common = {"phase": "kernel", "peak_f32_tflops": PEAK_F32_FLOPS / 1e12,
-              "peak_tb_s": PEAK_BYTES / 1e12,
-              "precision": "f32 FMA on CUDA cores (hybrid: bf16 loads, "
-                           "f32 FMA)"}
+              "peak_tb_s": PEAK_BYTES / 1e12}
     emit(dict(common, kernel="flash_fwd", cases=rows,
+              peak_bf16_tflops=PEAK_BF16_FLOPS / 1e12,
+              precision="bf16 wgmma, f32 sums: f32 class six products of a "
+                        "three-part split (bound at a sixth of the bf16 "
+                        "rate), hybrid one product",
               dh384_takes_the_einsum_path=gate_ok))
     emit(dict(common, kernel="flash_bwd (dkv, dq) and flash_bwd_fused",
               cases=bwd_rows, peak_bf16_tflops=PEAK_BF16_FLOPS / 1e12,
+              precision="dkv, dq: f32 FMA on CUDA cores (hybrid: bf16 "
+                        "loads, f32 FMA)",
               fused_precision="hybrid: bf16 wgmma, f32 sums (bound at the "
                               "bf16 rate); f32: f32 FMA on CUDA cores",
               plain_and_library_ms="one pass that gives dq, dk and dv: "
@@ -650,7 +751,7 @@ def gemm_cases(m, k, n):
          TOL_GEMM_3PASS, PEAK_BF16_FLOPS / 3, 4),
         ("highest", "mm_f32io", lambda a, b: gemm._mm(a, b, prec="highest"),
          lambda a, b: gemm._mm_ref(a, b, prec="highest"), True,
-         TOL_GEMM_HIGHEST, PEAK_F32_FLOPS, 4),
+         TOL_GEMM_HIGHEST, PEAK_BF16_FLOPS / 6, 4),
         ("bf16", "mm_bf16", lambda a, b: gemm._mm(a, b, bf16=True),
          lambda a, b: gemm._mm_ref(a, b, bf16=True), False,
          TOL_GEMM_BF16, PEAK_BF16_FLOPS, 4),
@@ -675,29 +776,29 @@ def bf16_library():
             lambda a, b: torch.mm(a, b, out_dtype=torch.float32))
 
 
-def round_case(a, b, split: bool, timed: bool):
+def round_case(a, b, parts: int, timed: bool):
     """K5a's rounding pass against its plain version, bit for bit (the
-    same rounding to nearest even of the same f32 values, zeros in the
-    padding); with its times when `timed`"""
+    same rounding to nearest even of the same f32 values, the same exact
+    or flushing subtractions, zeros in the padding): 1 part, 2 (3pass) or
+    3 (highest); with its times when `timed`"""
     import torch
     from tensorforth_tpu_torch.ops import gemm
-    got = gemm._round(a, b, split)
+    got = gemm._round(a, b, parts=parts)
     torch.cuda.synchronize()
-    want = gemm._round_ref(a, b, split)
+    want = gemm._round_ref(a, b, parts=parts)
     same = all(g.shape == w.shape and torch.equal(
         g.view(torch.int16), w.view(torch.int16)) for g, w in zip(got, want))
     err = max(torch.where(g.view(torch.int16) == w.view(torch.int16), 0.0,
                           (g.float() - w.float()).abs()).max().item()
               for g, w in zip(got, want) if g.shape == w.shape)
     (m, k), n = a.shape, b.shape[1]
-    parts = 2 if split else 1
     nbytes = (m * k + k * n) * 4 + sum(g.numel() for g in got) * 2
-    row = {"split": split, "shape": [m, k, n], "bit_equal": same,
-           "max_abs_err": err, "mbytes": nbytes / 1e6, "parts": parts}
+    row = {"parts": parts, "shape": [m, k, n], "bit_equal": same,
+           "max_abs_err": err, "mbytes": nbytes / 1e6}
     if timed:
-        row["ms"] = time_ms(lambda: gemm._round(a, b, split))
-        row["plain_ms"] = time_ms(lambda: gemm._round_ref(a, b, split),
-                                  reps=10)
+        row["ms"] = time_ms(lambda: gemm._round(a, b, parts=parts))
+        row["plain_ms"] = time_ms(
+            lambda: gemm._round_ref(a, b, parts=parts), reps=10)
         row["bound_ms"], row["bound_by"] = bound_ms(0, nbytes)
         row["library_ms"] = None
     return row
@@ -753,6 +854,7 @@ def phase_kernel_gemm(seed: int):
     gemm.reset_launches()
     rows, rounds, failed, main = [], [], [], {}
     same_fn = {}        # class default, K6 (scale undone), K5b, K7 at 4096^3
+    highest = {}        # class highest's record at 4096^3
     for i, (m, k, n) in enumerate(GEMM_SHAPES):
         rs = np.random.RandomState(seed + 100 + i)
         a = torch.from_numpy(rs.standard_normal((m, k)).astype(
@@ -800,14 +902,16 @@ def phase_kernel_gemm(seed: int):
                 failed.append(f"{name} {case} {m}x{k}x{n}")
             if (m, k, n) == GEMM_MAIN and case not in ("3pass", "highest"):
                 main[name] = dict(row)
+            if (m, k, n) == GEMM_MAIN and case == "highest":
+                highest = dict(row)
             if (m, k, n) == GEMM_MAIN and case in ("default", "v8", "bf16",
                                                    "db"):
                 same_fn[case] = got / scale
             del got
-        for split in (False, True):
-            rounds.append(round_case(a, b, split, (m, k, n) == GEMM_MAIN))
+        for parts in (1, 2, 3):
+            rounds.append(round_case(a, b, parts, (m, k, n) == GEMM_MAIN))
             if not rounds[-1]["bit_equal"]:
-                failed.append(f"mm_round split={split} {m}x{k}x{n}")
+                failed.append(f"mm_round parts={parts} {m}x{k}x{n}")
         if (m, k, n) == GEMM_MAIN:
             # K5b and K7 round inside one launch what K5a class default
             # rounds in its pass and K6's wrapper casts: the same bf16
@@ -827,9 +931,12 @@ def phase_kernel_gemm(seed: int):
                         failed.append(f"{case} against {other} at 4096^3")
             for case in ("default", "v8", "bf16", "db"):
                 del same_fn[case]
-            r0, r1 = rounds[-2:]
-            main["mm_round"] = dict(r0, split_ms=r1["ms"])
+            r0, r1, r2 = rounds[-3:]
+            main["mm_round"] = dict(r0, split_ms=r1["ms"],
+                                    split3_ms=r2["ms"],
+                                    split3_bound_ms=r2["bound_ms"])
             main["mm_f32io"]["rounding_pass_ms"] = r0["ms"]
+            highest["split3_pass_ms"] = r2["ms"]
             main["mm_f32io"]["ms_includes_rounding_pass"] = True
             for name in ("mm_bf16", "mm_db"):    # the placement they replace
                 main[name]["k5a_default_with_pass_ms"] = main["mm_f32io"][
@@ -839,10 +946,37 @@ def phase_kernel_gemm(seed: int):
     # the rounding pass on the corners of rounding, bit for bit
     a, b = (torch.from_numpy(rounding_corners("mixed", sh, seed + i)).cuda()
             for i, sh in enumerate(((300, 260), (260, 203))))
-    for split in (False, True):
-        rounds.append(dict(round_case(a, b, split, False), corners=True))
+    for parts in (1, 2, 3):
+        rounds.append(dict(round_case(a, b, parts, False), corners=True))
         if not rounds[-1]["bit_equal"]:
-            failed.append(f"mm_round split={split} on rounding corners")
+            failed.append(f"mm_round parts={parts} on rounding corners")
+    # class highest on the words' all-positive `rand` operands at K 4096,
+    # against f64 (on same-sign sums the tensor cores' truncation has one
+    # sign), and the launches of one call: its pass and its kernel
+    rs = np.random.RandomState(seed + 98)
+    a, b = (torch.from_numpy(rs.rand(*GEMM_MAIN[:2]).astype(
+        np.float32)).cuda() for _ in range(2))
+    before = dict(gemm.launches)
+    got = gemm._mm(a, b, prec="highest")
+    torch.cuda.synchronize()
+    one_call = {nm: gemm.launches[nm] - before[nm] for nm in GEMM_NAMES}
+    ref64 = a.double() @ b.double()
+    top = ref64.abs().max().item()
+    err = (got.double() - ref64).abs().max().item()
+    highest["rand_operands"] = {
+        "shape": list(GEMM_MAIN), "max_abs_err_vs_f64": err,
+        "largest_f64_value": top, "tol": TOL_GEMM_HIGHEST,
+        "ok": err <= TOL_GEMM_HIGHEST * top, "launches_of_one_call": one_call}
+    if not highest["rand_operands"]["ok"]:
+        failed.append("highest on all-positive rand at 4096^3")
+    if one_call != dict(dict.fromkeys(GEMM_NAMES, 0), mm_f32io=1,
+                        mm_round=1):
+        failed.append(f"highest launches {one_call}")
+    del a, b, got, ref64
+    main["mm_f32io"]["highest"] = {key: highest[key] for key in (
+        "ms", "split3_pass_ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_by", "tflops", "max_abs_err_vs_f64", "largest_f64_value",
+        "rand_operands")}
     # transposed operands (the words' ta / tb) and the alpha/beta epilogue
     rs = np.random.RandomState(seed + 99)
     at, bt, c = (torch.from_numpy(rs.standard_normal(sh).astype(
@@ -859,8 +993,8 @@ def phase_kernel_gemm(seed: int):
           "peak_f32_tflops": PEAK_F32_FLOPS / 1e12,
           "peak_tb_s": PEAK_BYTES / 1e12,
           "bound": "2mnk over the dense bf16 tensor-core rate (3pass: "
-                   "three products; highest: the f32 CUDA-core rate), or "
-                   "the bytes over the memory rate",
+                   "three products; highest: six), or the bytes over the "
+                   "memory rate",
           "library": {"f32 classes": "torch.matmul, TF32 off",
                       "bf16 classes": lib_name,
                       "with_casts": "the same call after x.to(bfloat16) of "
@@ -1189,7 +1323,8 @@ def profile_generate(m, prompt, n_new, device, wall_ms):
 
 def phase_serve(seed: int, device="cuda", lm=LM, n_prompt=N_PROMPT,
                 n_new=N_NEW, expect_launches=None):
-    """the main path: returns the flash kernel's launches in it"""
+    """the main path: returns the flash forward's launches in it, and its
+    split's (the f32 class splits before each launch)"""
     import torch
     from tensorforth_tpu_torch.models import tiny_lm
     from tensorforth_tpu_torch.nn.serve import generate
@@ -1217,6 +1352,7 @@ def phase_serve(seed: int, device="cuda", lm=LM, n_prompt=N_PROMPT,
     out8 = generate(m, prompt, n_new, temp=0.0, kv_dtype="int8")
     sync()
     launches = attn.flash_attention.launches
+    split = attn.flash_attention.split_launches
     l_int8 = launches - l_f32
 
     checks = {}
@@ -1228,6 +1364,7 @@ def phase_serve(seed: int, device="cuda", lm=LM, n_prompt=N_PROMPT,
     if expect_launches is not None:
         checks["launches_per_generate"] = (l_f32 == expect_launches
                                            and l_int8 == expect_launches)
+    checks["split_before_each_launch"] = split == launches
     checked, flips, ties = replay_check(m, out, device, lm, n_prompt)
     checks["replay_tokens"] = flips == 0
     int8_agree = float((out8[:, n_prompt:] == out[:, n_prompt:]).mean())
@@ -1251,6 +1388,7 @@ def phase_serve(seed: int, device="cuda", lm=LM, n_prompt=N_PROMPT,
     emit({"phase": "serve", "model": dict(lm, n_prompt=n_prompt,
                                           n_new=n_new),
           "launches_f32": l_f32, "launches_int8": l_int8,
+          "split_launches": split,
           "replay_checked": checked, "replay_flips": flips,
           "replay_ties_below_margin": ties, "margin": MARGIN,
           "int8_token_agreement": int8_agree,
@@ -1266,7 +1404,7 @@ def phase_serve(seed: int, device="cuda", lm=LM, n_prompt=N_PROMPT,
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise RuntimeError(f"serve checks failed: {bad}")
-    return launches
+    return {"flash_fwd": launches, "flash_fwd_split": split}
 
 
 def flash_counts():
@@ -1285,6 +1423,7 @@ def probe_counts():
 def reset_flash_counts():
     from tensorforth_tpu_torch.ops import attn
     attn.flash_attention.launches = 0
+    attn.flash_attention.split_launches = 0
     attn.flash_attention_bwd.launches = {"dkv": 0, "dq": 0}
     attn.flash_attention_bwd_fused.launches = 0
     attn.attn_dots.launches = 0
@@ -1300,6 +1439,7 @@ def phase_train(seed: int, device="cuda", lm=LM, seq=N_PROMPT,
     from tensorforth_tpu_torch.mu.mmu import MMU
     from tensorforth_tpu_torch.nn import funcs
     from tensorforth_tpu_torch.nn.ntypes import Loss
+    from tensorforth_tpu_torch.ops import attn
     from tensorforth_tpu_torch.system import System
     on_card = torch.device(device).type == "cuda"
 
@@ -1340,7 +1480,8 @@ def phase_train(seed: int, device="cuda", lm=LM, seq=N_PROMPT,
     m.adam(TRAIN_LR)
     sync()
     first_ms = (time.perf_counter() - t0) * 1e3
-    launches = flash_counts()
+    launches = dict(flash_counts(),
+                    flash_fwd_split=attn.flash_attention.split_launches)
 
     rel = [float(np.abs(g - w).max() / (np.abs(w).max() + 1e-30))
            for g, w in zip(got, want)]
@@ -1521,14 +1662,14 @@ def main(argv=None) -> int:
     rec["attn_dots"] = timed("kernel_dots", phase_kernel_dots, args.seed)
     gemm_rec = timed("kernel_gemm", phase_kernel_gemm, args.seed)
     layers = LM["layers"]
-    ran = {"flash_fwd": timed("serve", phase_serve, args.seed,
-                              expect_launches=layers)}
+    ran = dict(timed("serve", phase_serve, args.seed,
+                     expect_launches=layers))
     # a step launches the forward kernel twice per attention layer (the
-    # layer backward runs the layer forward again) and each backward
-    # kernel once
+    # layer backward runs the layer forward again), each after its split
+    # (the f32 class), and each backward kernel once
     per_step = timed("train", phase_train, args.seed, expect_launches={
-        "flash_fwd": 2 * layers, "flash_bwd_dkv": layers,
-        "flash_bwd_dq": layers})
+        "flash_fwd": 2 * layers, "flash_fwd_split": 2 * layers,
+        "flash_bwd_dkv": layers, "flash_bwd_dq": layers})
     for name, n in per_step.items():
         ran[name] = ran.get(name, 0) + n
     on_tensor_path = timed("tensor", phase_tensor, args.seed)
@@ -1537,13 +1678,18 @@ def main(argv=None) -> int:
     emit({"phase_seconds": seconds})
     # no word of either package reaches K5b or K7: the tensor phase calls
     # their wrappers on the words' operands
-    launched_by = {"flash_fwd": "generate, the train step and attn_bench",
+    launched_by = {"flash_fwd": "generate, the train step and attn_bench "
+                                "(in the f32 class after its split, "
+                                "split_launches on generate and the train "
+                                "step)",
                    "flash_bwd_dkv": "the train step and attn_bench",
                    "flash_bwd_dq": "the train step and attn_bench",
                    "flash_bwd_fused": "attn_bench.sweep_bwd_fused",
                    "attn_dots": "attn_bench.bench_attention_oracle (its "
                                 "dots-only probe)",
-                   "mm_f32io": "the gemm2 and gemm3 words",
+                   "mm_f32io": "the gemm2 and gemm3 words (classes default "
+                               "and 3pass; highest, which no word reaches, "
+                               "in the kernel phase)",
                    "mm_round": "the gemm2 and gemm3 words (K5a's rounding "
                                "pass, once before each K5a launch)",
                    "mm_v8": "the gemm4 word",
@@ -1553,7 +1699,8 @@ def main(argv=None) -> int:
                             "kernel in either package"}
     ran.update(on_tensor_path)
     names = FLASH_NAMES + PROBE_NAMES + GEMM_NAMES
-    never = [name for name in names if not ran.get(name)]
+    never = [name for name in names + ("flash_fwd_split",)
+             if not ran.get(name)]
     if never:
         raise RuntimeError(f"no path launched {never}")
     rec.update(gemm_rec)
@@ -1575,14 +1722,21 @@ def main(argv=None) -> int:
                 # body (_kdot, its 3pass split at 80-83)
                 "mm_round": ("gemm_sm90.cu",
                              ops_dir + "gemm_pallas.py:76")}
-    extra = {"flash_bwd_fused": ("kernel_ms", "ms_before_the_sums",
+    rec["flash_fwd"]["split_launches"] = ran["flash_fwd_split"]
+    rec["flash_fwd"]["hybrid"] = rec.pop("flash_fwd_hybrid")
+    extra = {"flash_fwd": ("kernel_ms", "split_ms", "split_bound_ms",
+                           "split_launches", "library_ms_4d", "route",
+                           "f64_ratio_o", "f64_ratio_lse", "hybrid"),
+             "flash_bwd_dkv": ("library_ms_4d",),
+             "flash_bwd_dq": ("library_ms_4d",),
+             "flash_bwd_fused": ("kernel_ms", "ms_before_the_sums",
                                  "library_bf16_ms", "library_ms_4d",
                                  "blocks", "grid"),
              "mm_f32io": ("rounding_pass_ms", "ms_includes_rounding_pass",
-                          "library_ms_with_casts"),
+                          "library_ms_with_casts", "highest"),
              "mm_bf16": ("k5a_default_with_pass_ms", "library_ms_with_casts"),
              "mm_db": ("k5a_default_with_pass_ms", "library_ms_with_casts"),
-             "mm_round": ("split_ms",)}
+             "mm_round": ("split_ms", "split3_ms", "split3_bound_ms")}
     emit({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"tensorforth_tpu_torch/ops/csrc/{replaces[name][0]}",

@@ -6,10 +6,12 @@ tensorforth_tpu/ops/attn_pallas.py:_flash_kernel (launched by that
 module's ``flash_attention``).  It computes o = softmax(q k^T/sqrt(dh)) v
 and the per-row log-sum-exp in nats over [B*h, S, dh], causal or not,
 with the S x S scores kept on chip.  On this card it is bound by
-operations: strict-f32 products run on the CUDA cores, so it keeps the
-FMA units fed from shared-memory tiles with register blocking (the
-source's header says how).  lse is stored [B*h, S]; the Pallas kernel's
-128-lane copy was a TPU layout artefact.
+operations, and both its products run on bf16 ``wgmma`` fed by TMA: in
+the f32 class as six products of a three-part split (q*scale*log2e, k and
+v split by one launch of the same source, ``_split_qkv``; p in registers),
+in the hybrid class as one product of the wrapper's casts.  Its tile plan
+is ``fwd_plan``.  lse is stored [B*h, S]; the Pallas kernel's 128-lane
+copy was a TPU layout artefact.
 
 The two backward kernels, ``csrc/flash_bwd.cu``, replace
 attn_pallas.py:_flash_bwd_dkv_kernel and :_flash_bwd_dq_kernel (launched
@@ -50,6 +52,8 @@ from typing import NamedTuple
 
 import torch
 
+from .gemm import SM90_ALIGN, _split3_ref
+
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 NEG_INF = -1.0e30          # the mask value of attn_pallas.py:25
@@ -86,9 +90,72 @@ def flash_attention_ref(q, k, v, causal: bool = False, hybrid: bool = False):
     return o, ((m + torch.log2(l)) * LN2)[..., 0]
 
 
+def flash_attention_split_ref(q, k, v, causal: bool = False,
+                              parts: int = 3):
+    """the f32 class's arithmetic with its products taken exactly, in f64:
+    q*scale*log2e (an f32 product), k and v split into the first `parts`
+    of the three-part split (gemm._split3_ref), s2 = the products of
+    parts (i, j) with i + j < parts (six for 3 parts: the kernel's; three
+    for 2: K5a 3pass's count) summed in f64, p = exp2(s2 - the row max)
+    rounded to f32 and split the same way, o = the products of p's and
+    v's parts over the row sum.  What it leaves out of the kernel: the
+    tensor cores' truncating sums, ex2.approx, the running max.  Returns
+    (o, lse in nats), f64."""
+    s, dh = q.shape[1], q.shape[2]
+    pairs = [(i, j) for i in range(parts) for j in range(parts)
+             if i + j < parts]
+
+    def prod(x, y, eq):
+        xs = [t.double() for t in _split3_ref(x)[:parts]]
+        ys = [t.double() for t in _split3_ref(y)[:parts]]
+        return sum(torch.einsum(eq, xs[i], ys[j]) for i, j in pairs)
+
+    s2 = prod(q * (LOG2E / math.sqrt(dh)), k, "nqd,nkd->nqk")
+    if causal:
+        keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        s2 = torch.where(keep, s2, torch.full_like(s2, NEG_INF))
+    m = s2.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s2 - m).float()
+    l = p.double().sum(dim=-1, keepdim=True)
+    o = prod(p, v, "nqk,nkd->nqd") / l
+    return o, ((m + torch.log2(l)) * LN2)[..., 0]
+
+
+# --- the forward kernel's tile plan -----------------------------------------
+FWD_TILES = {128: (128, 64), 256: (64, 32)}   # dh -> (query rows, KV rows)
+FWD_STAGES = {3: 1, 1: 2}        # parts -> stages of K and of V each
+
+
+class FwdPlan(NamedTuple):
+    """the forward kernel's plan for one shape (csrc/flash_fwd.cu: Fwd):
+    a CTA of two warpgroups per (head, `bq` query rows); K and V in tiles
+    of `bkv` rows, `stages` of each in flight; every operand in `parts`
+    bf16 parts (3: the f32 class's split; 1: the hybrid casts)"""
+    parts: int
+    bq: int
+    bkv: int
+    stages: int
+    smem: int           # dynamic shared memory, bytes
+    ctas: int
+
+
+def fwd_plan(bh: int, s: int, dh: int, hybrid: bool) -> FwdPlan:
+    """the plan t4_flash_fwd launches (it refuses any other): Q's parts
+    [bq, dh] stay for the CTA, K's and V's [bkv, dh] stream in `stages`
+    each, 1024 bytes of alignment slack, an 8-byte barrier for Q and for
+    each stage of K and of V"""
+    parts = 1 if hybrid else 3
+    bq, bkv = FWD_TILES[dh]
+    stages = FWD_STAGES[parts]
+    smem = (SM90_ALIGN + parts * bq * dh * 2 + 2 * stages * parts * bkv * dh
+            * 2 + (1 + 2 * stages) * 8)
+    return FwdPlan(parts, bq, bkv, stages, smem, bh * -(-s // bq))
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {   # library -> exported function -> ctypes signature
-    "flash_fwd": {"t4_flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _P]},
+    "flash_fwd": {"t4_flash_fwd": [_P] * 5 + [_I] * 9 + [_F, _P],
+                  "t4_split_qkv": [_P] * 4 + [_I] * 2 + [_F, _P]},
     "flash_bwd": {"t4_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F, _P],
                   "t4_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_F, _F, _P]},
     "flash_bwd_fused": {"t4_flash_bwd_fused": [_P] * 10 + [_I] * 9
@@ -145,10 +212,36 @@ def _check_rows(what: str, q, tensors):
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _launch_fwd(q, k, v, causal: bool, hybrid: bool, qscale: float):
-    """launch the forward kernel on prepared operands (f32, or bf16 when
-    hybrid), q multiplied by qscale as the kernel loads it: (o, lse)"""
+def _split_qkv(q, k, v, qscale: float):
+    """the f32 class's operands: one launch writes [3 (q, k, v), 3 (hi,
+    mid, lo), B*h, S, dh] bf16 from q*qscale, k and v (contiguous f32 on
+    one CUDA device): q's, k's and v's parts"""
     b, s, dh = q.shape
+    lib = _lib("flash_fwd")
+    out = torch.empty((3, 3, b, s, dh), dtype=torch.bfloat16,
+                      device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.t4_split_qkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               out.data_ptr(), b * s, dh, qscale, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_fwd split launch failed: cudaError {err}")
+    flash_attention.split_launches += 1
+    return out[0], out[1], out[2]
+
+
+def _launch_fwd(q, k, v, causal: bool, hybrid: bool, qscale: float = 1.0):
+    """launch the forward kernel on prepared operands: bf16 [B*h, S, dh]
+    when hybrid, else bf16 parts [3, B*h, S, dh] (_split_qkv); the scores
+    are qscale * (q k^T) (the wrappers fold the scale into q): (o, lse)"""
+    b, s, dh = q.shape[-3:]
+    plan = fwd_plan(b, s, dh, hybrid)
+    if any(t.dtype != torch.bfloat16 or not t.is_contiguous()
+           or t.shape[-3:] != q.shape[-3:]
+           or (t.dim() == 4) != (plan.parts == 3) for t in (q, k, v)):
+        raise ValueError("flash_fwd: operands must be contiguous bf16 "
+                         "[B*h, S, dh], or [3, B*h, S, dh] parts in the f32 "
+                         "class")
     lib = _lib("flash_fwd")
     o = torch.empty((b, s, dh), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, s), dtype=torch.float32, device=q.device)
@@ -156,7 +249,8 @@ def _launch_fwd(q, k, v, causal: bool, hybrid: bool, qscale: float):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.t4_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                o.data_ptr(), lse.data_ptr(), b, s, dh,
-                               int(causal), int(hybrid), qscale, stream)
+                               int(causal), plan.parts, plan.bq, plan.bkv,
+                               plan.stages, plan.smem, qscale, stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {err}")
     flash_attention.launches += 1
@@ -173,15 +267,16 @@ def flash_attention(q, k, v, causal: bool = False, hybrid: bool = False):
     scale = LOG2E / math.sqrt(q.shape[-1])
     if hybrid:
         # bf16 multiplicands: scale in f32, then round, as attn_pallas.py
-        # does outside its kernel; the kernel then loads Q unscaled
-        q = (q * scale).to(torch.bfloat16)
-        k = k.to(torch.bfloat16)
-        v = v.to(torch.bfloat16)
-        scale = 1.0
-    return _launch_fwd(q, k, v, causal, hybrid, scale)
+        # does outside its kernel
+        q, k, v = ((q * scale).to(torch.bfloat16), k.to(torch.bfloat16),
+                   v.to(torch.bfloat16))
+    else:
+        q, k, v = _split_qkv(q, k, v, scale)
+    return _launch_fwd(q, k, v, causal, hybrid)
 
 
 flash_attention.launches = 0   # kernel launches since the last reset
+flash_attention.split_launches = 0   # the f32 class's split launches
 
 
 # ===========================================================================

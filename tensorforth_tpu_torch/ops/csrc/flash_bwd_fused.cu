@@ -204,13 +204,6 @@ __device__ __forceinline__ void load_kv(uint32_t sK, uint32_t sV,
   }
 }
 
-// 2^x (ex2.approx: 2 ulp, subnormal results kept)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // p = exp2(s2 - lse2) and ds = p (dp - delta) in place of the s2^T and
 // dp^T accumulators of an m64n64 product: element 4 jn + 2 i + c is key
 // row kv + 8 i, query column q0 + 8 jn + 2 t + c.  MASK: keys past S, and

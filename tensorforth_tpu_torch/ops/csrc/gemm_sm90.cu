@@ -2,30 +2,27 @@
 // on the tensor cores through wgmma, fed by TMA.  It replaces two Pallas TPU
 // kernels of tensorforth_tpu/ops/gemm_pallas.py:
 //
-//   K5a  _mm_kernel, classes default and 3pass: t4_round_bf16 rounds (or
-//        splits) the f32 operands to bf16, then t4_gemm_sm90 multiplies
-//        with nprod 1 (default) or 3 (3pass)
+//   K5a  _mm_kernel, all three classes: t4_round_bf16 rounds (or splits)
+//        the f32 operands to bf16 parts, then t4_gemm_sm90 multiplies with
+//        nprod 1 (default), 3 (3pass) or 6 (highest)
 //   K6   _v8_kernel: t4_gemm_sm90 with nprod 1 on the wrapper's bf16 casts,
 //        the scale fused at the flush
 //
 // What bounds them on this card: operations.  At the words' sizes (1024^3
 // and up) a product does hundreds of operations per byte it must move, so
 // the tensor cores are the limit, and only wgmma reaches their full rate.
-// The kernel in gemm.cu that this one replaces on those paths staged each
-// K slab through registers, kept one slab of loads in flight and paid two
-// block barriers a slab: about 80% of its time went waiting on memory.
 //
 // The design: a block owns a BM x BN tile of C and walks K in slabs of 64
 // bf16 (one 128-byte row: the width of the 128-byte swizzle).  The slabs
 // pass through a ring of ST stages in dynamic shared memory.  Warpgroup 2
 // is the producer: one thread issues the TMA loads of a stage (A as one
-// [64 k x 128 rows] box, B as BN/64 boxes of [64 n x 64 k]) against the
-// stage's `full` barrier, after its `empty` barrier says that the
-// consumers are done with it.  Warpgroups 0 and 1 are the consumers: each
-// owns 64 rows of the tile and issues wgmma.m64n128k16 with both operands
-// read from the swizzled tiles (A K-major, B row-major [K, N], which is
-// MN-major: the transpose bit).  A stage goes back to the producer only
-// after wgmma.wait_group says that the products reading it are done.
+// [64 k x 128 rows] box, B as BN/64 boxes of [64 n x 64 k], for each part)
+// against the stage's `full` barrier, after its `empty` barrier says that
+// the consumers are done with it.  Warpgroups 0 and 1 are the consumers:
+// each owns 64 rows of the tile and issues wgmma.m64n128k16 with both
+// operands read from the swizzled tiles (A K-major, B row-major [K, N],
+// which is MN-major: the transpose bit).  A stage goes back to the producer
+// only after wgmma.wait_group says that the products reading it are done.
 // setmaxnreg moves registers from the producer to the consumers.  Blocks
 // are rastered in groups of GROUP_M tile rows, so that a wave's A and B
 // panels stay in the 50 MB L2.  TMA fills out-of-bounds rows and columns
@@ -36,7 +33,8 @@
 //
 // Tiles: one product (default, K6) takes 128 x 256, each consumer 64 x 256
 // as two m64n128 accumulators, with 4 stages of 48 KB; class 3pass 128 x
-// 128 with 3 stages of 64 KB (below).
+// 128 with 3 stages of 64 KB, class highest 128 x 128 with 2 stages of
+// 96 KB (below).
 //
 // Class 3pass: a = ah + al with ah = bf16(a), al = bf16(a - f32(ah)), the
 // same for b (the rounding pass writes both parts).  Each K slab's three
@@ -46,14 +44,26 @@
 // of K steps that would cost the class its 2e-5).  It needs the second
 // accumulator, so its tile is 128 x 128 and its stages hold four tiles.
 //
+// Class highest (the TPU's dot at precision HIGHEST, six bf16 products):
+// a = ah + am + al exactly (split_bf16.cuh), the same for b, and each K
+// slab's six products al bh, am bm, ah bl, am bh, ah bm, ah bh go into a
+// fresh accumulator in that order, smallest first and each over the whole
+// slab before the next: the tensor cores' adds truncate, so the small
+// terms land while the sum is still small, and ah bh's truncation is a few
+// units in the last place of the slab's sum.  The slab's sum is added on
+// the CUDA cores as in 3pass.  The products left out (am bl, al bm, al bl)
+// are below 2^-24 of the terms.  A stage holds three parts of each operand
+// (96 KB at 128 x 128), so the ring has two stages.  The bytes each
+// block's A and B panels take from L2 are 1.5 times 3pass's for twice its
+// products.
+//
 // The machinery (barriers, TMA, descriptors, the raster and the epilogue)
 // is in sm90_gemm.cuh, which gemm_sm90_f32.cu (K5b, K7 from f32 operands)
-// shares.  Every exported function launches on the given stream,
-// allocates nothing, does not synchronize, and returns a cudaError_t as
-// int.
-#include <algorithm>
-
+// and flash_fwd.cu share; the split is in split_bf16.cuh.  Every exported
+// function launches on the given stream, allocates nothing, does not
+// synchronize, and returns a cudaError_t as int.
 #include "sm90_gemm.cuh"
+#include "split_bf16.cuh"
 
 namespace {
 
@@ -64,7 +74,7 @@ constexpr int A_TILE = BM * BK * 2;   // bytes of one A box [64 k x 128 rows]
 constexpr int B_BOX = 64 * BK * 2;    // bytes of one B box [64 n x 64 k]
 
 __host__ __device__ constexpr int n_parts(int nprod) {
-  return nprod == 3 ? 2 : 1;          // hi (and lo) tiles of each operand
+  return nprod == 6 ? 3 : nprod == 3 ? 2 : 1;   // bf16 parts of an operand
 }
 
 __host__ __device__ constexpr int stage_bytes(int bn, int nprod) {
@@ -79,14 +89,18 @@ __host__ __device__ constexpr int smem_bytes(int bn, int nprod, int st) {
 
 // ---- the product kernel ----------------------------------------------------
 // C[m,n] = scale * sum over products of A_p[m,k] @ B_q[k,n].  NPROD 1: A, B
-// (ma, mb).  NPROD 3: ah bh + ah bl + al bh (ma, ma_lo, mb, mb_lo), each
-// slab's three into a fresh accumulator added on the CUDA cores.
+// (ma0, mb0).  NPROD 3: ah bh + ah bl + al bh (parts 0, 1 of each: hi,
+// lo).  NPROD 6: the six products of prod_a, prod_b (split_bf16.cuh;
+// parts 0, 1, 2: hi, mid, lo).  In both, each slab's products go into a
+// fresh accumulator added on the CUDA cores.
 template <int BN, int NPROD, int ST>
 __global__ void __launch_bounds__(NT, 1)
-    gemm_sm90_kernel(const __grid_constant__ CUtensorMap ma,
-                     const __grid_constant__ CUtensorMap ma_lo,
-                     const __grid_constant__ CUtensorMap mb,
-                     const __grid_constant__ CUtensorMap mb_lo,
+    gemm_sm90_kernel(const __grid_constant__ CUtensorMap ma0,
+                     const __grid_constant__ CUtensorMap ma1,
+                     const __grid_constant__ CUtensorMap ma2,
+                     const __grid_constant__ CUtensorMap mb0,
+                     const __grid_constant__ CUtensorMap mb1,
+                     const __grid_constant__ CUtensorMap mb2,
                      float* __restrict__ C, int m, int n, int k, int ldc,
                      float scale, int vec_c) {
   static_assert(BN % 128 == 0 && (NPROD == 1 || BN == 128), "tile");
@@ -120,16 +134,20 @@ __global__ void __launch_bounds__(NT, 1)
         const uint32_t full = full0 + 8 * st;
         if (s >= ST) mbar_wait(empty0 + 8 * st, (s / ST - 1) & 1);
         mbar_expect_tx(full, STAGE);
-        const uint32_t sa = ring + st * STAGE;
+        const uint32_t sa = ring + st * STAGE;   // A parts, then B parts
         const uint32_t sb = sa + NP * A_TILE;
         const int k0 = s * BK;
-        tma_load(sa, &ma, full, k0, m0);
-        if constexpr (NPROD == 3) tma_load(sa + A_TILE, &ma_lo, full, k0, m0);
+        tma_load(sa, &ma0, full, k0, m0);
+        if constexpr (NP > 1) tma_load(sa + A_TILE, &ma1, full, k0, m0);
+        if constexpr (NP > 2) tma_load(sa + 2 * A_TILE, &ma2, full, k0, m0);
 #pragma unroll
         for (int j = 0; j < BN / 64; ++j) {
-          tma_load(sb + j * B_BOX, &mb, full, n0 + 64 * j, k0);
-          if constexpr (NPROD == 3)
-            tma_load(sb + B_TILE + j * B_BOX, &mb_lo, full, n0 + 64 * j, k0);
+          const int nj = n0 + 64 * j;
+          tma_load(sb + j * B_BOX, &mb0, full, nj, k0);
+          if constexpr (NP > 1)
+            tma_load(sb + B_TILE + j * B_BOX, &mb1, full, nj, k0);
+          if constexpr (NP > 2)
+            tma_load(sb + 2 * B_TILE + j * B_BOX, &mb2, full, nj, k0);
         }
       }
     }
@@ -169,7 +187,7 @@ __global__ void __launch_bounds__(NT, 1)
       wgmma_wait<0>();
 #pragma unroll
       for (int h = 0; h < WN; ++h) pin(acc[h]);
-    } else {
+    } else if constexpr (NPROD == 3) {
       float part[64] = {};
       for (int s = 0; s < n_slabs; ++s) {
         const int st = s % ST;
@@ -195,76 +213,34 @@ __global__ void __launch_bounds__(NT, 1)
 #pragma unroll
         for (int i = 0; i < 64; ++i) acc[0][i] += part[i];
       }
+    } else {
+      float part[64] = {};
+      for (int s = 0; s < n_slabs; ++s) {
+        const int st = s % ST;
+        mbar_wait(full0 + 8 * st, (s / ST) & 1);
+        const uint32_t sa = ring + st * STAGE + a_rows;
+        const uint32_t sb = ring + st * STAGE + NP * A_TILE;
+        pin(part);
+        wgmma_fence();
+        // product by product, each over the whole slab, smallest first
+#pragma unroll
+        for (int p = 0; p < 6; ++p)
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            wgmma_128(part, desc_a(sa + prod_a(p) * A_TILE + 32 * kk),
+                      desc_b(sb + prod_b(p) * B_TILE + kk * 16 * 128,
+                             B_BOX),
+                      p > 0 || kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin(part);
+        mbar_arrive(empty0 + 8 * st);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[0][i] += part[i];
+      }
     }
     store_tile<WN>(acc, C, m0 + wg * 64, n0, m, n, ldc, scale, vec_c);
   }
-}
-
-// ---- the rounding pass of K5a ---------------------------------------------
-// x [rows, cols] f32, row-major and contiguous -> hi (and lo) [rows, ld]
-// bf16 with hi = bf16(x), lo = bf16(x - f32(hi)) (round to nearest even;
-// the subtraction flushes subnormals, as the reference's does), zeros in
-// columns cols..ld-1.  Bound by bytes: a block covers 1024
-// outputs of one row, a thread 8 of them (one 16-byte store a part).
-constexpr int RT = 128;         // threads of a rounding block
-
-struct RoundJob {
-  const float* x;
-  bf16* hi;
-  bf16* lo;       // null: round only
-  int rows, cols, ld, vec;   // vec: x 16-byte aligned and cols % 4 == 0
-};
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 v) {
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// a - b as the TPU (and XLA on the CPU) subtracts in the reference's split:
-// subnormal inputs taken as zero, a subnormal result flushed to zero, both
-// keeping their sign
-__device__ __forceinline__ float sub_ftz(float a, float b) {
-  float d;
-  asm("sub.rn.ftz.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
-
-// grid (rows, column blocks, 2): blockIdx.z picks the operand, field by
-// field (a reference to either job would copy both to the stack)
-__global__ void __launch_bounds__(RT) round_kernel(RoundJob ja, RoundJob jb) {
-  const bool second = blockIdx.z != 0;
-  const int rows = second ? jb.rows : ja.rows;
-  const int ld = second ? jb.ld : ja.ld;
-  const int row = blockIdx.x;
-  const int c0 = (blockIdx.y * RT + threadIdx.x) * 8;
-  if (row >= rows || c0 >= ld) return;
-  const int cols = second ? jb.cols : ja.cols;
-  const float* src =
-      (second ? jb.x : ja.x) + static_cast<size_t>(row) * cols + c0;
-  float v[8];
-  if ((second ? jb.vec : ja.vec) && c0 + 8 <= cols) {
-    const float4 p = *reinterpret_cast<const float4*>(src);
-    const float4 q = *reinterpret_cast<const float4*>(src + 4);
-    v[0] = p.x; v[1] = p.y; v[2] = p.z; v[3] = p.w;
-    v[4] = q.x; v[5] = q.y; v[6] = q.z; v[7] = q.w;
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = c0 + e < cols ? src[e] : 0.f;
-  }
-  uint4 hi, lo;
-  uint32_t* h = &hi.x;
-  uint32_t* l = &lo.x;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const __nv_bfloat162 hh = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
-    const float2 f = __bfloat1622float2(hh);
-    h[e] = pack_bf16(hh);
-    l[e] = pack_bf16(__floats2bfloat162_rn(sub_ftz(v[2 * e], f.x),
-                                           sub_ftz(v[2 * e + 1], f.y)));
-  }
-  const size_t off = static_cast<size_t>(row) * ld + c0;
-  *reinterpret_cast<uint4*>((second ? jb.hi : ja.hi) + off) = hi;
-  bf16* lo_out = second ? jb.lo : ja.lo;
-  if (lo_out) *reinterpret_cast<uint4*>(lo_out + off) = lo;
 }
 
 // ---- host side -------------------------------------------------------------
@@ -277,63 +253,64 @@ int launch_gemm(const CUtensorMap* maps, float* c, int m, int n, int k, int ldc,
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
   const int vec_c = ldc % 2 == 0 && aligned(c, 8);
   return launch(gemm_sm90_kernel<BN, NPROD, ST>, grid, NT, SMEM, stream,
-                maps[0], maps[1], maps[2], maps[3], c, m, n, k, ldc, scale,
-                vec_c);
+                maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], c, m, n,
+                k, ldc, scale, vec_c);
 }
 
 }  // namespace
 
-// C[m,n] (ldc) = scale * (A @ B), or in nprod 3 the 3pass sum, from bf16
-// operands laid out as the rounding pass writes them: a = A [m,k] with a
-// row pitch of lda (in nprod 3 its hi part, the lo part following at
-// a + m lda), b = B [k,n] with ldb (lo at b + k ldb); lda and ldb multiples
-// of 8, a and b 16-byte aligned.  (bn, stages, smem) name the tile plan;
-// one the library was not built with is refused.
+// C[m,n] (ldc) = scale * (A @ B), or in nprod 3 and 6 the split classes'
+// sums, from bf16 operands laid out as the rounding pass writes them: a =
+// A [m,k] with a row pitch of lda (in nprod 3 and 6 its hi part, the next
+// parts following at a + m lda, a + 2 m lda), b = B [k,n] with ldb (parts at
+// b + k ldb, b + 2 k ldb); lda and ldb multiples of 8, a and b 16-byte
+// aligned.  (bn, stages, smem) name the tile plan; one the library was not
+// built with is refused.
 extern "C" int t4_gemm_sm90(const void* a, const void* b, float* c, int m,
                             int n, int k, int lda, int ldb, int ldc,
                             float scale, int nprod, int bn, int stages,
                             int smem, void* stream) {
-  const bool split = nprod == 3;
   if (m < 1 || n < 1 || k < 1 || lda % 8 || ldb % 8 || lda < k || ldb < n ||
-      !aligned(a, 16) || !aligned(b, 16))
+      !aligned(a, 16) || !aligned(b, 16) ||
+      (nprod != 1 && nprod != 3 && nprod != 6))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bf16* a_hi = static_cast<const bf16*>(a);
-  const bf16* b_hi = static_cast<const bf16*>(b);
-  const bf16* a_lo = split ? a_hi + static_cast<size_t>(m) * lda : a_hi;
-  const bf16* b_lo = split ? b_hi + static_cast<size_t>(k) * ldb : b_hi;
+  const int np = n_parts(nprod);
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  CUtensorMap maps[4];
-  if (!make_map(&maps[0], fn, a_hi, m, k, lda, BK, BM) ||
-      !make_map(&maps[1], fn, a_lo, m, k, lda, BK, BM) ||
-      !make_map(&maps[2], fn, b_hi, k, n, ldb, 64, BK) ||
-      !make_map(&maps[3], fn, b_lo, k, n, ldb, 64, BK))
-    return static_cast<int>(cudaErrorInvalidValue);
+  // maps of A's parts, then B's; a part the class has not reuses the hi part
+  CUtensorMap maps[6];
+  for (int p = 0; p < 3; ++p) {
+    const bf16* ap = static_cast<const bf16*>(a) +
+                     static_cast<size_t>(p < np ? p : 0) * m * lda;
+    const bf16* bp = static_cast<const bf16*>(b) +
+                     static_cast<size_t>(p < np ? p : 0) * k * ldb;
+    if (!make_map(&maps[p], fn, ap, m, k, lda, BK, BM) ||
+        !make_map(&maps[3 + p], fn, bp, k, n, ldb, 64, BK))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (nprod == 1 && bn == 256 && stages == 4)
     return launch_gemm<256, 1, 4>(maps, c, m, n, k, ldc, scale, smem, st);
   if (nprod == 3 && bn == 128 && stages == 3)
     return launch_gemm<128, 3, 3>(maps, c, m, n, k, ldc, scale, smem, st);
+  if (nprod == 6 && bn == 128 && stages == 2)
+    return launch_gemm<128, 6, 2>(maps, c, m, n, k, ldc, scale, smem, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K5a's rounding pass: a [m,k] -> a_out [parts, m, lda], b [k,n] -> b_out
-// [parts, k, ldb] (parts 2 when split: hi, then lo), zero-padded rows
+// [parts, k, ldb], zero-padded rows, in one launch of split_bf16.cuh's
+// pass.  parts 1: hi; 2: hi, lo (3pass); 3: hi, mid, lo (highest).
 extern "C" int t4_round_bf16(const float* a, const float* b, void* a_out,
                              void* b_out, int m, int n, int k, int lda,
-                             int ldb, int split, void* stream) {
+                             int ldb, int parts, void* stream) {
   if (m < 1 || n < 1 || k < 1 || lda % 8 || ldb % 8 || lda < k || ldb < n ||
-      !aligned(a_out, 16) || !aligned(b_out, 16))
+      !aligned(a_out, 16) || !aligned(b_out, 16) || parts < 1 || parts > 3)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int col_blocks = (std::max(lda, ldb) / 8 + RT - 1) / RT;
-  if (col_blocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  bf16* ah = static_cast<bf16*>(a_out);
-  bf16* bh = static_cast<bf16*>(b_out);
-  bf16* al = split ? ah + static_cast<size_t>(m) * lda : nullptr;
-  bf16* bl = split ? bh + static_cast<size_t>(k) * ldb : nullptr;
-  const RoundJob ja = {a, ah, al, m, k, lda, k % 4 == 0 && aligned(a, 16)};
-  const RoundJob jb = {b, bh, bl, k, n, ldb, n % 4 == 0 && aligned(b, 16)};
-  round_kernel<<<dim3(std::max(m, k), col_blocks, 2), RT, 0,
-                 static_cast<cudaStream_t>(stream)>>>(ja, jb);
-  return static_cast<int>(cudaGetLastError());
+  const SplitJob jobs[2] = {
+      {a, static_cast<bf16*>(a_out), m, k, lda,
+       k % 4 == 0 && aligned(a, 16), 1.f},
+      {b, static_cast<bf16*>(b_out), k, n, ldb,
+       n % 4 == 0 && aligned(b, 16), 1.f}};
+  return launch_split(parts, jobs, 2, static_cast<cudaStream_t>(stream));
 }

@@ -1,11 +1,12 @@
 // The Hopper machinery that gemm_sm90.cu (K5a, K6), gemm_sm90_f32.cu (K5b,
-// K7) and flash_bwd_fused.cu (K3) share: mbarriers with a trapping wait,
-// TMA loads (tiles and plain bulk copies), wgmma's shared-memory
-// descriptors and its operand forms (m64n128 and m64n64, A from shared
-// memory or registers, either operand transposed), the grouped raster of
-// output tiles, the predicated epilogue store, and on the host the tensor
-// maps.  Everything is in an anonymous namespace: each source that includes
-// it is a library of its own.
+// K7), flash_bwd_fused.cu (K3) and flash_fwd.cu (K1) share: mbarriers with
+// a trapping wait, TMA loads (tiles and plain bulk copies), wgmma's
+// shared-memory descriptors and its operand forms (m64n128, m64n64 and
+// m64n32, A from shared memory or registers, either operand transposed),
+// the flash kernels' exp2, the grouped raster of output tiles, the
+// predicated epilogue store, and on the host the tensor maps.  Everything
+// is in an anonymous namespace: each source that includes it is a library
+// of its own.
 //
 // Tiles are 128 x 256 (or 128 x 128): warpgroups 0 and 1 are consumers
 // that own 64 rows each and hold WN m64n128 accumulators.
@@ -197,6 +198,32 @@ __device__ __forceinline__ void pin(float (&d)[N]) {
   "%16, %17, %18, %19, %20, %21, %22, %23, "                                 \
   "%24, %25, %26, %27, %28, %29, %30, %31}"
 
+// the 16 f32 accumulator registers of an m64n32 product, as asm operands
+// %0..%15
+#define T4_ACC16(d)                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+
+#define T4_D16                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "                                        \
+  "%8, %9, %10, %11, %12, %13, %14, %15}"
+
+// d[64 x 32] (+)= A[64 x 16] B[16 x 32]: wgmma_64's operand forms at N 32
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_32(float (&d)[16], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " T4_D16
+      ", %16, %17, p, 1, 1, %19, %20;\n"
+      "}\n"
+      : T4_ACC16(d)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 // d[64 x 64] (+)= A[64 x 16] B[16 x 64], bf16 in, f32 sums, both from
 // shared memory.  TA 0: A K-major (desc_a); 1: A MN-major, read transposed
 // (desc_b's form).  TB likewise for B: 0 K-major (rows of N, desc_a's
@@ -249,6 +276,13 @@ __device__ __forceinline__ void wgmma_128_rs(float (&d)[64], uint32_t a0,
       "}\n"
       : T4_ACC64(d)
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
+// 2^x (ex2.approx: 2 ulp, subnormal results kept)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // two f32 values rounded to nearest even into one register of two bf16,

@@ -1,15 +1,18 @@
 """GEMM kernels of the tensor tier: the CUDA kernels' wrappers and their
 plain PyTorch versions (the port of tensorforth_tpu/ops/gemm_pallas.py).
 
-Three sources replace the four Pallas TPU kernels.  ``csrc/gemm_sm90.cu``
+Two sources replace the four Pallas TPU kernels.  ``csrc/gemm_sm90.cu``
 carries the words' paths on Hopper's own machinery (bf16 wgmma reading
 swizzled shared memory, fed by a ring of TMA loads):
 
   ``_mm``           K5a  gemm_pallas.py:_mm_kernel (via _mm_pallas): f32 in,
                          f32 out, class ``default`` (multiplicands rounded
-                         to bf16) or ``3pass`` (ah bh + ah bl + al bh).  A
-                         rounding pass of the same source (``_round``) first
-                         rounds or splits both operands to bf16.
+                         to bf16), ``3pass`` (ah bh + ah bl + al bh) or
+                         ``highest`` (six products of a three-part split,
+                         x = hi + mid + lo exactly: the TPU's
+                         BF16_BF16_F32_X6).  A rounding pass of the same
+                         source (``_round``) first rounds or splits both
+                         operands to bf16 parts.
   ``_mm_v8``        K6   gemm_pallas.py:_v8_kernel (via _mm_pallas_v8): bf16
                          operands (cast out here), the scale fused at the
                          flush
@@ -24,9 +27,6 @@ and round them in shared memory; no word reaches either:
                          rounds B while the consumers round A
   ``_mm_db``        K7   gemm_pallas.py:_mm_kernel_db (via _mm_pallas_db):
                          the consumers round both operands
-
-``csrc/gemm.cu`` keeps the class that is not a bf16 product:
-``_mm(prec="highest")``, K5a's class ``highest`` (true f32 FMAs).
 
 ``mm`` maps the ``gemm2..4`` words' variants onto them and ``gemm`` adds
 the alpha/beta/transpose epilogue, as gemm_pallas.py:312-401 does.  The
@@ -81,12 +81,15 @@ SM90_BM, SM90_BK, SM90_ALIGN = 128, 64, 1024
 SM90_SMEM_LIMIT = 232448        # a block's dynamic shared memory on sm_90
 # products per K slab -> (tile columns, ring stages): the instances
 # t4_gemm_sm90 is built with (nprod 3 holds hi and lo tiles of both
-# operands, so its stages are twice the size)
-SM90_TILES = {1: (256, 4), 3: (128, 3)}
+# operands, so its stages are twice the size; nprod 6 holds hi, mid and
+# lo: three times, and two stages of 96 KB)
+SM90_TILES = {1: (256, 4), 3: (128, 3), 6: (128, 2)}
+SM90_PARTS = {1: 1, 3: 2, 6: 3}     # products per slab -> parts an operand
+PREC_NPROD = {"default": 1, "3pass": 3, "highest": 6}
 
 
 class Sm90Plan(NamedTuple):
-    nprod: int          # 1: one product; 3: the 3pass split
+    nprod: int          # 1: one product; 3: the 3pass split; 6: highest
     bm: int             # block tile rows
     bn: int             # block tile columns
     bk: int             # K slab
@@ -104,7 +107,7 @@ def sm90_plan(m: int, n: int, nprod: int) -> Sm90Plan:
     inner dimension (the 128-byte swizzle), 1024 bytes of alignment slack
     and two 8-byte barriers a stage"""
     bn, stages = SM90_TILES[nprod]
-    parts = 2 if nprod == 3 else 1
+    parts = SM90_PARTS[nprod]
     stage = parts * (SM90_BM * SM90_BK + (bn // 64) * 64 * SM90_BK) * 2
     return Sm90Plan(nprod, SM90_BM, bn, SM90_BK, stages,
                     SM90_ALIGN + stages * stage + 2 * stages * 8,
@@ -180,6 +183,17 @@ def _split(x):
     return hi, _flush(_flush(x) - _flush(hi.float())).to(torch.bfloat16)
 
 
+def _split3_ref(x):
+    """the three-part split of the class highest (csrc/split_bf16.cuh):
+    hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), bf16
+    tensors; the f32 subtractions are exact and keep subnormals, so
+    hi + mid + lo == x for every f32 with 2^-110 <= |x| < 0x1.FEp127"""
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
 def _mm_ref(a, b, bf16: bool = False, prec: str = "default"):
     """plain version of K5a / K5b.  Products of bf16 values are exact in
     f32, so an f32 product of the rounded operands is the kernel's
@@ -194,19 +208,39 @@ def _mm_ref(a, b, bf16: bool = False, prec: str = "default"):
     raise ValueError(f"precision class {prec}?")
 
 
+def _parts_ref(x, parts: int):
+    """[parts, rows, cols padded to TMA_ROW] bf16: hi = bf16(x); with 2
+    parts also lo (`_split`); with 3 mid and lo (`_split3_ref`); zeros in
+    the padding"""
+    x = _pad_inner(x)
+    if parts == 1:
+        return x.to(torch.bfloat16)[None]
+    return torch.stack(_split(x) if parts == 2 else _split3_ref(x))
+
+
 def _split_ref(x, split: bool):
     """[parts, rows, cols padded to TMA_ROW] bf16: hi = bf16(x) and, when
     split, lo (`_split`); zeros in the padding"""
-    x = _pad_inner(x)
-    if not split:
-        return x.to(torch.bfloat16)[None]
-    return torch.stack(_split(x))
+    return _parts_ref(x, 2 if split else 1)
 
 
-def _round_ref(a, b, split: bool = False):
-    """plain version of K5a's rounding pass: both operands' parts, laid
-    out as the kernel writes them"""
-    return _split_ref(a, split), _split_ref(b, split)
+def _round_ref(a, b, split: bool = False, parts: int | None = None):
+    """plain version of K5a's rounding pass: both operands' parts (1, or
+    2 when split, or `parts`), laid out as the kernel writes them"""
+    parts = parts or (2 if split else 1)
+    return _parts_ref(a, parts), _parts_ref(b, parts)
+
+
+def _split_products_f64(a, b, parts: int = 3):
+    """a @ b from the three-part split's first `parts` parts, each product
+    of parts exact in f64 and the pairs (i, j) with i + j < parts summed in
+    f64: six products for 3 parts (the class highest's arithmetic), three
+    for 2 (hi hi, hi mid, mid hi), without the tensor cores' truncating
+    sums.  f64 result."""
+    pa = [p.double() for p in _split3_ref(a)[:parts]]
+    pb = [p.double() for p in _split3_ref(b)[:parts]]
+    return sum(pa[i] @ pb[j] for i in range(parts) for j in range(parts)
+               if i + j < parts)
 
 
 def _mm_v8_ref(a, b, scale: float = 1.0):
@@ -224,7 +258,6 @@ def _mm_db_ref(a, b):
 # ===========================================================================
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {   # source -> exported function -> argtypes
-    "gemm": {"t4_mm_f32": [_P] * 3 + [_I] * 6 + [_P]},
     "gemm_sm90": {"t4_gemm_sm90": [_P] * 3 + [_I] * 6 + [_F] + [_I] * 4
                   + [_P],
                   "t4_round_bf16": [_P] * 4 + [_I] * 6 + [_P]},
@@ -282,33 +315,35 @@ def _launch(name: str, fname: str, a, *args):
     launches[name] += 1
 
 
-def _round(a, b, split: bool = False):
+def _round(a, b, split: bool = False, parts: int | None = None):
     """K5a's rounding pass: (a parts [P, m, kp], b parts [P, k, np]) bf16,
-    P = 2 (hi, lo) when split, rows zero-padded to TMA_ROW; one launch for
-    both operands"""
+    P = 2 (hi, lo) when split, or `parts` (3: hi, mid, lo), rows
+    zero-padded to TMA_ROW; one launch for both operands"""
+    parts = parts or (2 if split else 1)
     if _on_cpu(a, b):
-        return _round_ref(a, b, split)
-    return _round_launch(*_check("_round", a, b), split)
+        return _round_ref(a, b, parts=parts)
+    return _round_launch(*_check("_round", a, b), parts)
 
 
-def _round_launch(a, b, split: bool):
+def _round_launch(a, b, parts: int):
     """the rounding pass on operands that passed _check"""
+    if parts not in (1, 2, 3):
+        raise ValueError(f"_round: {parts} parts?")
     (m, k), n = a.shape, b.shape[1]
     kp, np_ = k + (-k) % TMA_ROW, n + (-n) % TMA_ROW
-    parts = 2 if split else 1
     ap = torch.empty((parts, m, kp), dtype=torch.bfloat16, device=a.device)
     bp = torch.empty((parts, k, np_), dtype=torch.bfloat16, device=a.device)
     _launch("mm_round", "t4_round_bf16", a, a.data_ptr(), b.data_ptr(),
-            ap.data_ptr(), bp.data_ptr(), m, n, k, kp, np_, int(split))
+            ap.data_ptr(), bp.data_ptr(), m, n, k, kp, np_, parts)
     return ap, bp
 
 
 def _gemm_sm90(name: str, ap, bp, n: int, k: int, scale: float):
     """scale * (A @ B) [m, n] by the wgmma kernel, from bf16 parts
-    [P, m, lda] and [P, k, ldb] (P = 2: the 3pass split) whose row pitches
-    are multiples of TMA_ROW; counted as `name`"""
+    [P, m, lda] and [P, k, ldb] (P = 2: the 3pass split; 3: highest's)
+    whose row pitches are multiples of TMA_ROW; counted as `name`"""
     parts, m, lda = ap.shape
-    nprod = 3 if parts == 2 else 1
+    nprod = {p: n for n, p in SM90_PARTS.items()}[parts]
     plan = sm90_plan(m, n, nprod)
     c = torch.empty((m, n), dtype=torch.float32, device=ap.device)
     _launch(name, "t4_gemm_sm90", ap, ap.data_ptr(), bp.data_ptr(),
@@ -326,16 +361,10 @@ def _mm(a, b, bf16: bool = False, prec: str | None = None):
     if _on_cpu(a, b):
         return _mm_ref(a, b, bf16, prec)
     a, b = _check("_mm", a, b)
-    (m, k), n = a.shape, b.shape[1]
-    if not bf16 and prec != "highest":
-        ap, bp = _round_launch(a, b, split=prec == "3pass")
-        return _gemm_sm90("mm_f32io", ap, bp, n, k, 1.0)
     if bf16:
         return _mm_f32in("mm_bf16", a, b)
-    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    _launch("mm_f32io", "t4_mm_f32", a, a.data_ptr(), b.data_ptr(),
-            c.data_ptr(), m, n, k, k, n, n)
-    return c
+    ap, bp = _round_launch(a, b, SM90_PARTS[PREC_NPROD[prec]])
+    return _gemm_sm90("mm_f32io", ap, bp, b.shape[1], a.shape[1], 1.0)
 
 
 def _mm_v8(a, b, scale: float = 1.0):

@@ -339,7 +339,7 @@ def test_measurement_path_imports_no_jax(rel):
 
 
 @pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd", "flash_bwd_fused",
-                                  "attn_dots", "gemm"])
+                                  "attn_dots", "gemm_sm90"])
 def test_a_changed_header_gives_a_new_library(name, tmp_path, monkeypatch):
     """the library's file name hashes the source and every shared header,
     so a kernel that includes an edited header is built again"""
