@@ -10,16 +10,18 @@ Phases, one JSON line each:
           flash_fwd, flash_bwd, flash_bwd_fused, attn_dots, gemm_sm90,
           gemm_sm90_f32); each wgmma kernel's registers, shared memory and
           spills from ptxas (every instance of the flash forward, the
-          fused backward and gemm_sm90, split passes included, must show
-          no spill and no stack frame)
+          two-kernel and the fused backward and gemm_sm90, split passes
+          included, must show no spill and no stack frame)
   kernel  each kernel (flash forward with its split, flash backward dK/dV
-          and dQ, the fused single-kernel backward, the dots-only probe,
+          and dQ with theirs, the fused single-kernel backward, the
+          dots-only probe,
           and the GEMM kernels of the tensor tier: K5a on the wgmma kernel
           with its rounding pass in all three classes, K6 on the same
           kernel, K5b and K7 on f32 operands rounded inside their one
           launch) against its plain PyTorch version on the card, on inputs
-          from a numpy seed; the f32 forward and K5a highest also against
-          f64 (the classes' own accuracy); the fused backward also against
+          from a numpy seed; the f32 forward and backward and K5a highest
+          also against f64 (the classes' own accuracy); the backward runs
+          twice to the bit; the fused backward also against
           the two-kernel split, against f64 and against itself run twice,
           with its grid (CTAs, KV chunk, dq partials); the rounding pass
           and the forward's split bit for bit; K5b and K7 also against K5a
@@ -84,7 +86,7 @@ PEAK_BYTES = 3.35e12          # HBM3
 KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_fused", "attn_dots",
            "gemm_sm90", "gemm_sm90_f32")   # ops/csrc/<name>.cu
 # sources whose every kernel instance must show no spill and no stack frame
-NO_SPILL = ("flash_fwd", "flash_bwd_fused", "gemm_sm90")
+NO_SPILL = ("flash_fwd", "flash_bwd", "flash_bwd_fused", "gemm_sm90")
 LM = dict(batch=8, vocab=2048, dim=1024, heads=8, layers=4, rope=True)
 N_PROMPT, N_NEW = 2048, 64
 TOL_F32 = 1e-4     # f32 sums in another order than the plain version's
@@ -186,17 +188,22 @@ def attn_work(b, s, dh, causal, hybrid):
     return ops, nbytes, split
 
 
-def attn_bwd_work(which, b, s, dh, causal, elem_bytes):
-    """(operations, bytes) of one backward kernel.  dK/dV does 4 products
-    per visited pair (s2, dp, p^T do, ds^T q), dQ does 3 (s2, dp, ds k);
-    each reads q, k, v, do, lse and delta once and writes its outputs
-    once"""
+def attn_bwd_work(which, b, s, dh, causal, parts):
+    """(operations, bytes, split bytes) of one backward kernel.  dK/dV does
+    4 products per visited pair (s2, dp, p^T do, ds^T q), dQ does 3 (s2,
+    dp, ds k); each reads q, k, v and do (`parts` bf16 parts each, or f32
+    on the FMA route, parts 0), lse and delta once and writes its outputs
+    once.  The f32 class's split (parts 3) reads q, k, v and do and writes
+    three bf16 parts of each (the split bytes, its own bound); hybrid's
+    casts are the wrapper's"""
     pairs = s * (s + 1) // 2 if causal else s * s
     n_prod, n_out = (4, 2) if which == "dkv" else (3, 1)
     ops = n_prod * 2 * dh * b * pairs
-    nbytes = (4 * b * s * dh * elem_bytes + 2 * b * s * 4
+    elem = 2 * parts if parts else 4
+    nbytes = (4 * b * s * dh * elem + 2 * b * s * 4
               + n_out * b * s * dh * 4)
-    return ops, nbytes
+    split = 4 * b * s * dh * (4 + 3 * 2) if parts == 3 else 0
+    return ops, nbytes, split
 
 
 def attn_bwd_fused_work(b, s, dh, bq, causal, elem_bytes):
@@ -225,6 +232,19 @@ def fwd_peak(hybrid: bool) -> float:
     return PEAK_BF16_FLOPS if hybrid else PEAK_BF16_FLOPS / 6
 
 
+def bwd_peak(parts: int) -> float:
+    """the rate of the backward's route (ops.attn.bwd_plan): one bf16
+    product on the tensor cores (parts 1), six (parts 3), or f32 FMAs on
+    the CUDA cores (parts 0: dh 256 in the f32 class)"""
+    return {1: PEAK_BF16_FLOPS, 3: PEAK_BF16_FLOPS / 6,
+            0: PEAK_F32_FLOPS}[parts]
+
+
+BWD_ROUTES = {1: "bf16 wgmma, one product",
+              3: "bf16 wgmma, six products of a three-part split",
+              0: "f32 FMA on the CUDA cores"}
+
+
 def bound_ms(ops, nbytes, peak_flops=PEAK_F32_FLOPS):
     t_ops, t_bytes = ops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
@@ -240,12 +260,14 @@ def ptxas_by_kernel(log: str):
         hit = re.search(r"Compiling entry function '(\w+)'", ln)
         if hit:
             mangled = name = hit.group(1)
+            # the last <length><identifier> ending in "kernel" is the
+            # function's own name: an earlier one can agree with its
+            # length by chance inside the namespace's hash
             for mt in re.finditer(r"(?=(\d+)([A-Za-z_]\w*?kernel))", mangled):
-                digits, ident = mt.groups()   # <length><identifier>
+                digits, ident = mt.groups()
                 if any(int(digits[i:]) == len(ident)
                        for i in range(len(digits))):
                     name = ident
-                    break
             args = re.findall(r"Li(\d+)E", mangled)
             cur = {"kernel": name + (f"<{','.join(args)}>" if args else "")}
             out.append(cur)
@@ -286,6 +308,10 @@ def phase_build():
     fwd_plans = {f"dh{dh}_{'hybrid' if hy else 'f32'}": attn.fwd_plan(
         64, 2048, dh, hy)._asdict() for dh in attn.KERNEL_DH
         for hy in (False, True)}
+    bwd_plans = {f"dh{dh}_{'hybrid' if hy else 'f32'}": {
+        key: (val._asdict() if hasattr(val, "_asdict") else val)
+        for key, val in attn.bwd_plan(64, 2048, dh, hy)._asdict().items()}
+        for dh in attn.KERNEL_DH for hy in (False, True)}
     f32in = {kern: gemm.f32in_plan(kern, 4096, 4096, 4096)._asdict()
              for kern in ("mm_bf16", "mm_db")}
     emit({"phase": "build", "seconds": secs, "kernels": list(KERNELS),
@@ -293,9 +319,11 @@ def phase_build():
           "gemm_sm90_f32_kernels": by_source["gemm_sm90_f32"],
           "flash_bwd_fused_kernels": by_source["flash_bwd_fused"],
           "flash_fwd_kernels": by_source["flash_fwd"],
+          "flash_bwd_kernels": by_source["flash_bwd"],
           "gemm_sm90_plans_at_4096": plans,
           "gemm_sm90_f32_plans_at_4096": f32in,
-          "flash_fwd_plans_at_64x2048": fwd_plans})
+          "flash_fwd_plans_at_64x2048": fwd_plans,
+          "flash_bwd_plans_at_64x2048": bwd_plans})
     for name, want in (("gemm_sm90", ("gemm_sm90_kernel<128,6,2>",
                                       "gemm_sm90_kernel<128,3,3>",
                                       "gemm_sm90_kernel<256,1,4>",
@@ -308,6 +336,15 @@ def phase_build():
                                       "flash_fwd_kernel<128,1>",
                                       "flash_fwd_kernel<256,3>",
                                       "flash_fwd_kernel<256,1>",
+                                      "split_kernel<3>")),
+                       ("flash_bwd", ("flash_bwd_dkv_sm90_kernel<128,3>",
+                                      "flash_bwd_dq_sm90_kernel<128,3>",
+                                      "flash_bwd_dkv_sm90_kernel<128,1>",
+                                      "flash_bwd_dq_sm90_kernel<128,1>",
+                                      "flash_bwd_dkv_sm90_kernel<256,1>",
+                                      "flash_bwd_dq_sm90_kernel<256,1>",
+                                      "flash_bwd_dkv_kernel<256,32>",
+                                      "flash_bwd_dq_kernel<256,32>",
                                       "split_kernel<3>"))):
         for kern in want:
             if not any(kern in k["kernel"] for k in by_source[name]):
@@ -331,20 +368,31 @@ def sdpa_grads(q, k, v, do, causal):
     return lambda: torch.autograd.grad(o, leaves, do, retain_graph=True)
 
 
-def f64_grads(q, k, v, do, dlse, causal):
+def f64_grads(q, k, v, do, dlse, causal, heads=8):
     """dq, dk, dv in f64 by PyTorch's autograd through the exact (o, lse)
-    attention: a reference that shares no arithmetic with the kernels or
-    their plain version"""
+    attention, `heads` heads at a time (dlse may be None): a reference
+    that shares no arithmetic with the kernels or their plain version"""
     import torch
     s, dh = q.shape[1], q.shape[2]
-    leaves = [t.double().requires_grad_(True) for t in (q, k, v)]
-    sc = torch.einsum("nqd,nkd->nqk", leaves[0], leaves[1]) / math.sqrt(dh)
-    if causal:
-        keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
-        sc = sc.masked_fill(~keep, -1.0e30)
-    o = torch.einsum("nqk,nkd->nqd", torch.softmax(sc, dim=-1), leaves[2])
-    return torch.autograd.grad((o, torch.logsumexp(sc, dim=-1)), leaves,
-                               (do.double(), dlse.double()))
+    keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    out = [[], [], []]
+    for i in range(0, q.shape[0], heads):
+        leaves = [t[i:i + heads].double().requires_grad_(True)
+                  for t in (q, k, v)]
+        sc = torch.einsum("nqd,nkd->nqk", leaves[0],
+                          leaves[1]) / math.sqrt(dh)
+        if causal:
+            sc = sc.masked_fill(~keep, -1.0e30)
+        outs = [torch.einsum("nqk,nkd->nqd", torch.softmax(sc, dim=-1),
+                             leaves[2])]
+        cots = [do[i:i + heads].double()]
+        if dlse is not None:
+            outs.append(torch.logsumexp(sc, dim=-1))
+            cots.append(dlse[i:i + heads].double())
+        for acc, g in zip(out, torch.autograd.grad(outs, leaves, cots)):
+            acc.append(g)
+        del leaves, sc, outs
+    return tuple(torch.cat(g) for g in out)
 
 
 def f64_attention(q, k, v, causal, heads=8):
@@ -557,7 +605,6 @@ def phase_kernel(seed: int):
             np.float32)).cuda() for _ in range(4))
         dlse = (torch.from_numpy(rs.randn(b, s).astype(np.float32)).cuda()
                 if with_dlse else None)
-        eb = 2 if hybrid else 4
         # --- forward
         o, lse = attn.flash_attention(q, k, v, causal=causal, hybrid=hybrid)
         torch.cuda.synchronize()
@@ -592,51 +639,83 @@ def phase_kernel(seed: int):
             del o64, l64
         row["ok"] = ok
         # --- backward, from the forward kernel's o and lse
-        dq, dk, dv = attn.flash_attention_bwd(q, k, v, o, lse, do, causal,
-                                              hybrid, dlse=dlse)
+        plan = attn.bwd_plan(b, s, dh, hybrid)
+        call = (q, k, v, o, lse, do, causal, hybrid)
+        dq, dk, dv = attn.flash_attention_bwd(*call, dlse=dlse)
         torch.cuda.synchronize()
-        want = attn.flash_attention_bwd_ref(q, k, v, o, lse, do, causal,
-                                            hybrid, dlse=dlse)
+        want = attn.flash_attention_bwd_ref(*call, dlse=dlse)
         errs = {nm: (g - w).abs().max().item()
                 for nm, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
         tops = {nm: w.abs().max().item()
                 for nm, w in zip(("dq", "dk", "dv"), want)}
-        bok = all(bool(torch.isfinite(g).all()) and (
+        again = attn.flash_attention_bwd(*call, dlse=dlse)
+        repeats = all(torch.equal(g, a) for g, a in zip((dq, dk, dv), again))
+        del again
+        bok = repeats and all(bool(torch.isfinite(g).all()) and (
             errs[nm] <= TOL_BWD_HYBRID * tops[nm] if hybrid
             else errs[nm] <= TOL_BWD_F32)
             for nm, g in zip(("dq", "dk", "dv"), (dq, dk, dv)))
         brow = {"case": name, "shape": [b, s, dh], "causal": causal,
-                "hybrid": hybrid, "dlse": with_dlse, "max_abs_err": errs,
-                "largest_reference_value": tops, "ok": bok,
+                "hybrid": hybrid, "dlse": with_dlse,
+                "route": BWD_ROUTES[plan.parts], "max_abs_err": errs,
+                "largest_reference_value": tops, "two_runs_bit_equal":
+                repeats, "ok": bok,
                 "tol": (f"{TOL_BWD_HYBRID} of the largest reference value"
                         if hybrid else TOL_BWD_F32)}
         w64 = None
-        if with_dlse and not hybrid:
-            # the kernels and their plain version sum in the same order
-            # (one FMA chain per output, as the library's f32 GEMM), so
-            # they can agree to the bit: hold both against f64 as well
+        if not hybrid:
+            # the class's own accuracy: the kernels (and, for the record,
+            # their plain version) against f64, within TOL_BWD_F32
             w64 = f64_grads(q, k, v, do, dlse, causal)
             for who, gs in (("kernel", (dq, dk, dv)), ("plain", want)):
                 brow[f"max_abs_err_{who}_vs_f64"] = max(
                     (g.double() - w).abs().max().item()
                     for g, w in zip(gs, w64))
+                brow[f"f64_ratio_{who}"] = max(
+                    f64_ratio(g, w, TOL_BWD_F32) for g, w in zip(gs, w64))
+            brow["tol_vs_f64"] = (f"{TOL_BWD_F32} absolute; the ratios "
+                                  f"are of {TOL_BWD_F32} absolute plus "
+                                  "relative")
             if brow["max_abs_err_kernel_vs_f64"] > TOL_BWD_F32:
                 brow["ok"] = bok = False
         del want
         timed = name in ("slice_causal", "bench_causal_hybrid")
         brow["fused"] = fused_case(
             (q, k, v, o, lse, do, causal, hybrid, dlse), (dq, dk, dv), bq,
-            w64, sdpa_grads(q, k, v, do, causal) if timed else None)
+            w64 if with_dlse else None,
+            sdpa_grads(q, k, v, do, causal) if timed else None)
         del w64, dq, dk, dv
         for which in ("dkv", "dq"):
             kms = time_ms(lambda: attn.flash_attention_bwd(
-                q, k, v, o, lse, do, causal, hybrid, dlse=dlse, only=which))
-            kops, kbytes = attn_bwd_work(which, b, s, dh, causal, eb)
-            kb, kby = bound_ms(kops, kbytes)
+                *call, dlse=dlse, only=which))
+            kops, kbytes, split_bytes = attn_bwd_work(which, b, s, dh,
+                                                      causal, plan.parts)
+            # the rate of the class's route
+            kb, kby = bound_ms(kops, kbytes, bwd_peak(plan.parts))
             brow[which] = {"ms": kms, "gflop": kops / 1e9,
                            "mbytes": kbytes / 1e6,
                            "tflops": kops / kms / 1e9, "bound_ms": kb,
                            "bound_by": kby}
+        if timed:
+            # the backward's launches apart: each kernel alone on prepared
+            # operands, the f32 class's split, and the whole call (delta,
+            # the split or the casts, both kernels)
+            args = attn._prepare_bwd(q, k, v, o, lse, do, causal, hybrid,
+                                     dlse)
+            for which in ("dkv", "dq"):
+                brow[which]["kernel_ms"] = time_ms(
+                    lambda: attn._launch_bwd(which, *args))
+            del args
+            brow["ms"] = time_ms(lambda: attn.flash_attention_bwd(
+                *call, dlse=dlse))
+            if plan.parts == 3:
+                qscale = attn.LOG2E / math.sqrt(dh)
+                brow["split_ms"] = time_ms(lambda: attn._split_bwd(
+                    q, k, v, do, qscale))
+                brow["split_bound_ms"] = split_bytes / PEAK_BYTES * 1e3
+            brow["kernels_and_split_ms"] = (brow["dkv"]["kernel_ms"]
+                                            + brow["dq"]["kernel_ms"]
+                                            + brow.get("split_ms", 0.0))
         if name == "slice_causal":
             row["plain_ms"] = time_ms(
                 lambda: attn.flash_attention_ref(q, k, v, causal), reps=10)
@@ -667,14 +746,16 @@ def phase_kernel(seed: int):
             brow["library_ms"] = time_ms(sdpa_grads(q, k, v, do, causal))
             main["flash_fwd"] = dict(
                 row, max_abs_err=max(err_o, err_l))
+            common_bwd = {key: brow[key] for key in (
+                "plain_ms", "library_ms", "library_ms_4d", "shape", "route",
+                "split_ms", "split_bound_ms", "f64_ratio_kernel",
+                "kernels_and_split_ms")}
+            common_bwd["ms_whole_backward"] = brow["ms"]
             main["flash_bwd_dkv"] = dict(
                 brow["dkv"], max_abs_err=max(errs["dk"], errs["dv"]),
-                plain_ms=brow["plain_ms"], library_ms=brow["library_ms"],
-                library_ms_4d=brow["library_ms_4d"], shape=[b, s, dh])
+                **common_bwd)
             main["flash_bwd_dq"] = dict(
-                brow["dq"], max_abs_err=errs["dq"],
-                plain_ms=brow["plain_ms"], library_ms=brow["library_ms"],
-                library_ms_4d=brow["library_ms_4d"], shape=[b, s, dh])
+                brow["dq"], max_abs_err=errs["dq"], **common_bwd)
         if name == "bench_causal_hybrid":
             # the hybrid forward's kernel alone, on the wrapper's casts,
             # and the library on bf16 operands through a 4-d call
@@ -693,6 +774,14 @@ def phase_kernel(seed: int):
             main["flash_bwd_fused"] = dict(
                 brow["fused"], shape=[b, s, dh],
                 max_abs_err=max(brow["fused"]["max_abs_err"].values()))
+            # the hybrid backward beside the library's bf16 backward
+            # through a 4-d call (timed by the fused case)
+            main["flash_bwd_hybrid"] = {
+                which: dict(brow[which], shape=[b, s, dh],
+                            ms_whole_backward=brow["ms"],
+                            library_bf16_ms_4d=brow["fused"][
+                                "library_bf16_ms"])
+                for which in ("dkv", "dq")}
         rows.append(row)
         bwd_rows.append(brow)
         if not ok:
@@ -724,8 +813,10 @@ def phase_kernel(seed: int):
               dh384_takes_the_einsum_path=gate_ok))
     emit(dict(common, kernel="flash_bwd (dkv, dq) and flash_bwd_fused",
               cases=bwd_rows, peak_bf16_tflops=PEAK_BF16_FLOPS / 1e12,
-              precision="dkv, dq: f32 FMA on CUDA cores (hybrid: bf16 "
-                        "loads, f32 FMA)",
+              precision="dkv, dq: bf16 wgmma, f32 sums: f32 class six "
+                        "products of a three-part split (bound at a sixth "
+                        "of the bf16 rate), hybrid one product; dh 256 in "
+                        "the f32 class f32 FMA on the CUDA cores",
               fused_precision="hybrid: bf16 wgmma, f32 sums (bound at the "
                               "bf16 rate); f32: f32 FMA on CUDA cores",
               plain_and_library_ms="one pass that gives dq, dk and dv: "
@@ -1425,6 +1516,7 @@ def reset_flash_counts():
     attn.flash_attention.launches = 0
     attn.flash_attention.split_launches = 0
     attn.flash_attention_bwd.launches = {"dkv": 0, "dq": 0}
+    attn.flash_attention_bwd.split_launches = 0
     attn.flash_attention_bwd_fused.launches = 0
     attn.attn_dots.launches = 0
 
@@ -1481,7 +1573,8 @@ def phase_train(seed: int, device="cuda", lm=LM, seq=N_PROMPT,
     sync()
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(flash_counts(),
-                    flash_fwd_split=attn.flash_attention.split_launches)
+                    flash_fwd_split=attn.flash_attention.split_launches,
+                    flash_bwd_split=attn.flash_attention_bwd.split_launches)
 
     rel = [float(np.abs(g - w).max() / (np.abs(w).max() + 1e-30))
            for g, w in zip(got, want)]
@@ -1572,7 +1665,10 @@ def phase_attn_bench(seed: int, device=None, n_iter=BENCH_ITERS,
              + [x for xs in oracle.values() for x in xs]
              + [x for r in sweeps for part in ("tflops", "vs_control")
                 for xs in r[part].values() for x in xs])
+    # every backward there is hybrid: no backward split
+    bwd_splits = attn.flash_attention_bwd.split_launches
     checks = {"launch_counts_exact": launches == expect,
+              "no_backward_split": bwd_splits == 0,
               "rates_finite_and_positive": all(
                   math.isfinite(x) and x > 0 for x in rates),
               "sweep_records": len(sweeps) == 2 * len(shapes)}
@@ -1626,7 +1722,7 @@ def phase_attn_bench(seed: int, device=None, n_iter=BENCH_ITERS,
           "tol_fused_vs_plain": f"{TOL_BWD_HYBRID} of the largest reference "
                                 "value",
           "launches": launches, "expected_launches": expect,
-          "checks": checks})
+          "backward_split_launches": bwd_splits, "checks": checks})
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise RuntimeError(f"attn_bench checks failed: {bad}")
@@ -1666,10 +1762,11 @@ def main(argv=None) -> int:
                      expect_launches=layers))
     # a step launches the forward kernel twice per attention layer (the
     # layer backward runs the layer forward again), each after its split
-    # (the f32 class), and each backward kernel once
+    # (the f32 class), and each backward kernel once, both after one split
     per_step = timed("train", phase_train, args.seed, expect_launches={
         "flash_fwd": 2 * layers, "flash_fwd_split": 2 * layers,
-        "flash_bwd_dkv": layers, "flash_bwd_dq": layers})
+        "flash_bwd_dkv": layers, "flash_bwd_dq": layers,
+        "flash_bwd_split": layers})
     for name, n in per_step.items():
         ran[name] = ran.get(name, 0) + n
     on_tensor_path = timed("tensor", phase_tensor, args.seed)
@@ -1682,8 +1779,12 @@ def main(argv=None) -> int:
                                 "(in the f32 class after its split, "
                                 "split_launches on generate and the train "
                                 "step)",
-                   "flash_bwd_dkv": "the train step and attn_bench",
-                   "flash_bwd_dq": "the train step and attn_bench",
+                   "flash_bwd_dkv": "the train step and attn_bench (in "
+                                    "the f32 class after the backward's "
+                                    "split, split_launches on the train "
+                                    "step)",
+                   "flash_bwd_dq": "the train step and attn_bench (after "
+                                   "the same split)",
                    "flash_bwd_fused": "attn_bench.sweep_bwd_fused",
                    "attn_dots": "attn_bench.bench_attention_oracle (its "
                                 "dots-only probe)",
@@ -1699,7 +1800,7 @@ def main(argv=None) -> int:
                             "kernel in either package"}
     ran.update(on_tensor_path)
     names = FLASH_NAMES + PROBE_NAMES + GEMM_NAMES
-    never = [name for name in names + ("flash_fwd_split",)
+    never = [name for name in names + ("flash_fwd_split", "flash_bwd_split")
              if not ran.get(name)]
     if never:
         raise RuntimeError(f"no path launched {never}")
@@ -1724,11 +1825,20 @@ def main(argv=None) -> int:
                              ops_dir + "gemm_pallas.py:76")}
     rec["flash_fwd"]["split_launches"] = ran["flash_fwd_split"]
     rec["flash_fwd"]["hybrid"] = rec.pop("flash_fwd_hybrid")
+    for which, hy in rec.pop("flash_bwd_hybrid").items():
+        rec[f"flash_bwd_{which}"].update(
+            hybrid=hy, split_launches=ran["flash_bwd_split"])
     extra = {"flash_fwd": ("kernel_ms", "split_ms", "split_bound_ms",
                            "split_launches", "library_ms_4d", "route",
                            "f64_ratio_o", "f64_ratio_lse", "hybrid"),
-             "flash_bwd_dkv": ("library_ms_4d",),
-             "flash_bwd_dq": ("library_ms_4d",),
+             "flash_bwd_dkv": ("kernel_ms", "split_ms", "split_bound_ms",
+                               "split_launches", "kernels_and_split_ms",
+                               "ms_whole_backward", "library_ms_4d", "route",
+                               "f64_ratio_kernel", "hybrid"),
+             "flash_bwd_dq": ("kernel_ms", "split_ms", "split_bound_ms",
+                              "split_launches", "kernels_and_split_ms",
+                              "ms_whole_backward", "library_ms_4d", "route",
+                              "f64_ratio_kernel", "hybrid"),
              "flash_bwd_fused": ("kernel_ms", "ms_before_the_sums",
                                  "library_bf16_ms", "library_ms_4d",
                                  "blocks", "grid"),
@@ -1748,7 +1858,10 @@ def main(argv=None) -> int:
         "bound_by": rec[name]["bound_by"],
         "library_ms": rec[name]["library_ms"],
         "launched_by": launched_by[name], "shape": rec[name]["shape"],
-        **{key: rec[name][key] for key in extra.get(name, ())}}
+        # a kernel's own design goes by another name than the contract's
+        # "route" (cuda or triton)
+        **{("design" if key == "route" else key): rec[name][key]
+           for key in extra.get(name, ())}}
         for name in names]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

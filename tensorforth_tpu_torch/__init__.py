@@ -14,8 +14,8 @@ Ported so far:
     the gemm2..4 words run the wgmma GEMM kernel of ops/csrc/gemm_sm90.cu
     (K5a with its rounding pass, K6), and ops/gemm.py also wraps K5b and
     K7 (ops/csrc/gemm_sm90_f32.cu: f32 operands rounded inside one
-    launch) and K5a's class highest (ops/csrc/gemm.cu), with the plain
-    versions of all of them;
+    launch) and K5a's class highest (ops/csrc/gemm_sm90.cu), with the
+    plain versions of all of them;
   * on the LM tier, serving (``models.tiny_lm`` ->
     ``nn.serve.generate``) and training through the word path
     (``Model.forward / loss / backprop / sgd | adam | adamw``), with the

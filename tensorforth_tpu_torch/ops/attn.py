@@ -15,13 +15,18 @@ copy was a TPU layout artefact.
 
 The two backward kernels, ``csrc/flash_bwd.cu``, replace
 attn_pallas.py:_flash_bwd_dkv_kernel and :_flash_bwd_dq_kernel (launched
-by that module's ``flash_attention_bwd``): dK/dV with the KV tile
-stationary and dQ with the Q tile stationary, each recomputing its
+by that module's ``flash_attention_bwd``): dK/dV with the KV rows
+stationary and dQ with the Q rows stationary, each recomputing its
 probability tile from the saved log-sum-exp.  They too are bound by
-operations (4 and 3 strict-f32 products per visited tile).
-``flash_attention_lse`` pairs forward and backward as a
-``torch.autograd.Function`` that returns (o, lse), differentiable in both
-(attn_pallas.py:flash_attention_lse).
+operations (4 and 3 products per visited tile pair), and run on bf16
+``wgmma`` fed by TMA: in the f32 class as six products of a three-part
+split (q*scale*log2e, k, v and do split by one launch of the same source,
+``_split_bwd``; p and ds in registers), in the hybrid class as one
+product of the wrapper's casts.  dh 256 in the f32 class keeps
+strict-f32 FMA kernels (three parts of its tiles do not fit an SM).
+Their plan is ``bwd_plan``.  ``flash_attention_lse`` pairs forward and
+backward as a ``torch.autograd.Function`` that returns (o, lse),
+differentiable in both (attn_pallas.py:flash_attention_lse).
 
 The fused backward kernel, ``csrc/flash_bwd_fused.cu``, replaces
 attn_pallas.py:_flash_bwd_fused_kernel (launched by that module's
@@ -156,8 +161,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {   # library -> exported function -> ctypes signature
     "flash_fwd": {"t4_flash_fwd": [_P] * 5 + [_I] * 9 + [_F, _P],
                   "t4_split_qkv": [_P] * 4 + [_I] * 2 + [_F, _P]},
-    "flash_bwd": {"t4_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F, _P],
-                  "t4_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_F, _F, _P]},
+    "flash_bwd": {"t4_flash_bwd_dkv": [_P] * 8 + [_I] * 9 + [_F, _P],
+                  "t4_flash_bwd_dq": [_P] * 7 + [_I] * 9 + [_F, _F, _P],
+                  "t4_split_bwd": [_P] * 5 + [_I] * 2 + [_F, _P]},
     "flash_bwd_fused": {"t4_flash_bwd_fused": [_P] * 10 + [_I] * 9
                         + [_F, _F, _P]},
     "attn_dots": {"t4_attn_dots": [_P] * 4 + [_I] * 3 + [_P]},
@@ -329,25 +335,150 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = False,
     return dq, dk, dv
 
 
-def _launch_bwd(which: str, ops, lse, delta, qscale, causal, hybrid):
-    """launch one backward kernel on prepared operands: "dkv" -> (dk, dv),
-    "dq" -> (dq,)"""
-    q, k, v, do = ops
+def flash_attention_bwd_split_ref(q, k, v, o, lse, do, causal: bool = False,
+                                  parts: int = 3, dlse=None):
+    """the f32 class's backward arithmetic with its products taken exactly,
+    in f64: delta and q*scale*log2e as _bwd_operands forms them (f32),
+    q2, k, v and do split into the first `parts` of the three-part split
+    (gemm._split3_ref), each product the sum of the products of parts
+    (i, j) with i + j < parts (six for 3 parts: the kernels'; three for 2)
+    in f64; s2 and dp rounded to f32 as the accumulators hold them, p =
+    exp2(s2 - lse*log2e) and ds = p (dp - delta) in f32 and split the same
+    way.  What it leaves out of the kernels: the tensor cores' truncating
+    sums and ex2.approx.  Returns (dq, dk, dv), f64."""
+    s, dh = q.shape[1], q.shape[2]
+    q, k, v, do, delta, qscale = _bwd_operands(q, k, v, o, lse, do, False,
+                                               dlse)
+    pairs = [(i, j) for i in range(parts) for j in range(parts)
+             if i + j < parts]
+
+    def prod(x, y, eq):
+        xs = [t.double() for t in _split3_ref(x)[:parts]]
+        ys = [t.double() for t in _split3_ref(y)[:parts]]
+        return sum(torch.einsum(eq, xs[i], ys[j]) for i, j in pairs)
+
+    q2 = q * qscale
+    s2 = prod(q2, k, "nqd,nkd->nqk").float()
+    if causal:
+        keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        s2 = torch.where(keep, s2, torch.full_like(s2, NEG_INF))
+    p = torch.exp2(s2 - (lse * LOG2E)[..., None])
+    ds = p * (prod(do, v, "nqd,nkd->nqk").float() - delta[..., None])
+    dv = prod(p, do, "nqk,nqd->nkd")
+    dk = prod(ds, q2, "nqk,nqd->nkd") * LN2
+    dq = prod(ds, k, "nqk,nkd->nqd") / math.sqrt(dh)
+    return dq, dk, dv
+
+
+# --- the backward kernels' plan ----------------------------------------------
+BWD_ROWS = 64                    # stationary rows of a CTA (wgmma route)
+BWD_TILES = {128: 64, 256: 32}   # dh -> rows of a streamed tile
+BWD_STAGES = {3: 1, 1: 2}        # parts -> stages of each streamed operand
+# the FMA route (dh 256, f32 class): 64-row Q tiles, 32-row KV tiles
+# (csrc/flash_bwd_tile.cuh: BQ; csrc/flash_bwd.cu: FMA_BK)
+FMA_Q, FMA_KV = 64, 32
+
+
+class BwdTiles(NamedTuple):
+    """one backward kernel's plan: a CTA holds `rows` stationary rows of
+    one head (dK/dV: key rows; dQ: query rows) and streams the other side
+    in tiles of `tile` rows, `stages` of each streamed operand in flight"""
+    rows: int
+    tile: int
+    stages: int
+    smem: int           # dynamic shared memory, bytes
+    ctas: int
+
+
+class BwdPlan(NamedTuple):
+    """the two backward kernels' plan for one shape (csrc/flash_bwd.cu):
+    on bf16 wgmma every operand in `parts` bf16 parts (3: the f32 class's
+    split; 1: the hybrid casts); parts 0 is the FMA route (dh 256 in the
+    f32 class: f32 operands)"""
+    parts: int
+    dkv: BwdTiles
+    dq: BwdTiles
+
+
+def _fma_smem(dh: int, bk: int, with_p: bool) -> int:
+    """csrc/flash_bwd_tile.cuh: bwd_smem_floats, in bytes: K, V, Q and dO
+    tiles with rows padded by 4 floats, the ds tile (and p's), the Q
+    tile's lse and delta"""
+    return 4 * ((2 * bk + 2 * FMA_Q) * (dh + 4)
+                + (2 if with_p else 1) * FMA_Q * (bk + 4) + 2 * FMA_Q)
+
+
+def bwd_plan(bh: int, s: int, dh: int, hybrid: bool) -> BwdPlan:
+    """the plan t4_flash_bwd_dkv and t4_flash_bwd_dq launch (they refuse
+    any other).  wgmma: both stationary operands' parts [rows, dh] stay
+    for the CTA, both streamed operands' [tile, dh] come in `stages` each,
+    1024 bytes of alignment slack, an 8-byte barrier for the stationary
+    operands and for each stage of each streamed one; dK/dV also holds
+    its streamed rows' lse and delta.  The route is picked by dh and the
+    class alone: dh 256 in the f32 class takes the FMA kernels."""
+    if dh == 256 and not hybrid:
+        return BwdPlan(0,
+                       BwdTiles(FMA_KV, FMA_Q, 1, _fma_smem(dh, FMA_KV, True),
+                                bh * (s // FMA_KV)),
+                       BwdTiles(FMA_Q, FMA_KV, 1,
+                                _fma_smem(dh, FMA_KV, False),
+                                bh * (s // FMA_Q)))
+    parts = 1 if hybrid else 3
+    tile, stages = BWD_TILES[dh], BWD_STAGES[parts]
+    smem = (SM90_ALIGN + 2 * parts * BWD_ROWS * dh * 2
+            + 2 * stages * parts * tile * dh * 2 + (1 + 2 * stages) * 8)
+    dq = BwdTiles(BWD_ROWS, tile, stages, smem, bh * (s // BWD_ROWS))
+    return BwdPlan(parts, dq._replace(smem=smem + 2 * stages * tile * 4), dq)
+
+
+def _split_bwd(q, k, v, do, qscale: float):
+    """the f32 class's backward operands: one launch writes [4 (q, k, v,
+    do), 3 (hi, mid, lo), B*h, S, dh] bf16 from q*qscale, k, v and do
+    (contiguous f32 on one CUDA device)"""
     b, s, dh = q.shape
     lib = _lib("flash_bwd")
-    outs = tuple(torch.empty((b, s, dh), dtype=torch.float32,
-                             device=q.device)
-                 for _ in range(2 if which == "dkv" else 1))
-    ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta) + outs]
+    out = torch.empty((4, 3, b, s, dh), dtype=torch.bfloat16,
+                      device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.t4_split_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               do.data_ptr(), out.data_ptr(), b * s, dh,
+                               qscale, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd split launch failed: cudaError {err}")
+    flash_attention_bwd.split_launches += 1
+    return tuple(out)
+
+
+def _launch_bwd(which: str, ops, lse, delta, qscale, causal, plan: BwdPlan):
+    """launch one backward kernel on prepared operands (q, k, v, do: bf16
+    parts [3, B*h, S, dh] from _split_bwd when plan.parts is 3, bf16
+    [B*h, S, dh] when 1, f32 [B*h, S, dh] when 0; q times qscale in the
+    kernel): "dkv" -> (dk, dv), "dq" -> (dq,)"""
+    b, s, dh = ops[0].shape[-3:]
+    dtype = torch.float32 if plan.parts == 0 else torch.bfloat16
+    if any(t.dtype != dtype or not t.is_contiguous()
+           or t.shape[-3:] != ops[0].shape[-3:]
+           or (t.dim() == 4) != (plan.parts == 3)
+           or (t.dim() == 4 and t.shape[0] != 3) for t in ops):
+        raise ValueError(f"flash_bwd_{which}: operands must be contiguous "
+                         f"{dtype} [B*h, S, dh], [3, B*h, S, dh] parts in "
+                         "the f32 class")
+    tiles = plan.dkv if which == "dkv" else plan.dq
+    lib = _lib("flash_bwd")
+    outs = tuple(torch.empty((b, s, dh), dtype=torch.float32,
+                             device=lse.device)
+                 for _ in range(2 if which == "dkv" else 1))
+    ptrs = [t.data_ptr() for t in (*ops, lse, delta) + outs]
+    cfg = (b, s, dh, int(causal), plan.parts, tiles.rows, tiles.tile,
+           tiles.stages, tiles.smem, qscale)
+    with torch.cuda.device(lse.device):
+        stream = torch.cuda.current_stream(lse.device).cuda_stream
         if which == "dkv":
-            err = lib.t4_flash_bwd_dkv(*ptrs, b, s, dh, int(causal),
-                                       int(hybrid), qscale, stream)
+            err = lib.t4_flash_bwd_dkv(*ptrs, *cfg, stream)
         else:
-            err = lib.t4_flash_bwd_dq(*ptrs, b, s, dh, int(causal),
-                                      int(hybrid), qscale,
-                                      1.0 / math.sqrt(dh), stream)
+            err = lib.t4_flash_bwd_dq(*ptrs, *cfg, 1.0 / math.sqrt(dh),
+                                      stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd_{which} kernel launch failed: "
                            f"cudaError {err}")
@@ -355,23 +486,32 @@ def _launch_bwd(which: str, ops, lse, delta, qscale, causal, hybrid):
     return outs
 
 
+def _prepare_bwd(q, k, v, o, lse, do, causal, hybrid, dlse):
+    """what both backward kernels take, from CUDA tensors: (ops, lse,
+    delta, qscale, causal, plan), with the f32 class's split launched"""
+    plan = bwd_plan(*q.shape, hybrid)
+    *ops, delta, qscale = _bwd_operands(q, k, v, o, lse, do, hybrid, dlse)
+    if plan.parts == 3:
+        ops, qscale = _split_bwd(*ops, qscale), 1.0
+    return ops, lse.contiguous(), delta.contiguous(), qscale, causal, plan
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
                         hybrid: bool = False, dlse=None, only=None):
     """(dq, dk, dv) [B*h, S, dh] f32 from q, k, v, the forward's o and
     lse [B*h, S] (nats), the output cotangent do and, optionally, the lse
     cotangent dlse [B*h, S], which folds into delta.  CUDA tensors launch
-    the dK/dV kernel and the dQ kernel; CPU tensors take the plain
-    version; anything else raises.  only="dkv" or "dq" launches that one
-    kernel alone and returns its outputs (for timing each by itself)."""
+    the f32 class's split (once), then the dK/dV kernel and the dQ kernel;
+    CPU tensors take the plain version; anything else raises.  only="dkv"
+    or "dq" launches that one kernel alone after the split and returns its
+    outputs (for timing each by itself)."""
     extra = (lse,) if dlse is None else (lse, dlse)
     if all(t.device.type == "cpu" for t in (q, k, v, o, do) + extra):
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal, hybrid,
                                        dlse)
     _check_cuda("flash_attention_bwd", (q, k, v, o, do))
     _check_rows("flash_attention_bwd", q, extra)
-    *ops, delta, qscale = _bwd_operands(q, k, v, o, lse, do, hybrid, dlse)
-    args = (ops, lse.contiguous(), delta.contiguous(), qscale, causal,
-            hybrid)
+    args = _prepare_bwd(q, k, v, o, lse, do, causal, hybrid, dlse)
     if only is not None:
         return _launch_bwd(only, *args)
     dk, dv = _launch_bwd("dkv", *args)
@@ -379,8 +519,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
     return dq, dk, dv
 
 
-# launches of each kernel since the last reset
+# launches of each kernel since the last reset, and of the f32 class's split
 flash_attention_bwd.launches = {"dkv": 0, "dq": 0}
+flash_attention_bwd.split_launches = 0
 
 
 # ===========================================================================

@@ -25,12 +25,14 @@
 //     operands, the dK/dV partials written and read by the sums, dq, dk,
 //     dv) are 218 MB, 0.065 ms at 3.35 TB/s.  The bytes bound it, and the
 //     partials are 134 MB of them.
-//   f32 (strict f32, the class of the split): operations at the CUDA
-//     cores' 67 TFLOP/s, 0.64 ms there and 2.57 ms at [64, 2048, 128].  A
-//     three-product bf16 split on the tensor cores (K5a 3pass's) cannot hold
-//     this class's checks: its products alone, summed exactly, miss the
-//     fused-equals-split bound of 1e-5 + 1e-5 |x| by up to 2.8 times
-//     (tests/test_torch_attn_fused_sm90.py).  So f32 keeps FMA phases.
+//   f32 (the f32 class, which the split now takes as six bf16 products
+//     of a three-part split on the tensor cores, flash_bwd.cu): here still
+//     strict-f32 FMAs, operations at the CUDA cores' 67 TFLOP/s, 0.64 ms
+//     there and 2.57 ms at [64, 2048, 128].  Three bf16 products (K5a
+//     3pass's) cannot hold this class's checks: their products alone,
+//     summed exactly, miss the fused-equals-split bound of 1e-5 + 1e-5 |x|
+//     by up to 2.8 times (tests/test_torch_attn_fused_sm90.py); six keep
+//     it (tests/test_torch_bwd6.py), the route this kernel has yet to take.
 //
 // The design.  One CTA owns a work item (head, Q block, KV chunk): a run of
 // `chunk` KV tiles of one head, against the Q tiles of one Q block that see
@@ -541,7 +543,7 @@ __global__ void __launch_bounds__(NT, 1)
                      delta + rows, q0, qscale);
       __syncthreads();
       pds_tiles<D, BK, true>(Qs, Os, Ks, Vs, Ls, Es, Ps, Ds, q0, k0,
-                             causal && k0 + BK - 1 > q0, 0, r, c);
+                             causal && k0 + BK - 1 > q0, r, c);
       __syncthreads();
       accum_dkv<D, BK>(dka, dva, Ps, Ds, Os, Qs, r, c);
 

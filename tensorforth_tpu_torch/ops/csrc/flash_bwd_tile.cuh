@@ -1,5 +1,6 @@
-// The phases that the flash-attention backward kernels share (flash_bwd.cu:
-// dK/dV and dQ apart; flash_bwd_fused.cu: all three in one kernel).  A
+// The phases of the strict-f32 FMA backward kernels (flash_bwd.cu: dK/dV
+// and dQ apart at dh 256 in the f32 class; flash_bwd_fused.cu: all three in
+// one kernel, its f32 class).  A
 // block works on one 64-row query tile against one BK-row key/value tile:
 //   phase 1, pds_tiles:  p = exp2(s2 - lse2), ds = p * (dp - delta) as
 //            [64, BK] tiles in shared memory, from s2 = Q K^T, dp = dO V^T;
@@ -77,16 +78,14 @@ __device__ __forceinline__ void load_q_side(float* Qs, float* Os, float* Ls,
 }
 
 // phase 1: thread (r, c) computes query rows 4r..4r+3 against key columns
-// c+16j and stores ds (and p when WITH_P) into the [BQ, BK] tiles, rounded
-// to bf16 when round_p (ds is formed from the unrounded p).  `diag` says
-// that the tile pair crosses the causal diagonal.
+// c+16j and stores ds (and p when WITH_P) into the [BQ, BK] tiles.  `diag`
+// says that the tile pair crosses the causal diagonal.
 template <int D, int BK, bool WITH_P>
 __device__ __forceinline__ void pds_tiles(const float* Qs, const float* Os,
                                           const float* Ks, const float* Vs,
                                           const float* Ls, const float* Es,
                                           float* Ps, float* Ds, int q0,
-                                          int k0, bool diag, int round_p,
-                                          int r, int c) {
+                                          int k0, bool diag, int r, int c) {
   constexpr int LD = D + 4, LDP = BK + 4, CJ = BK / 16;
   float s[4][CJ], dp[4][CJ];
 #pragma unroll
@@ -100,9 +99,8 @@ __device__ __forceinline__ void pds_tiles(const float* Qs, const float* Os,
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < CJ; ++j) {
-      if constexpr (WITH_P)
-        Ps[(4 * r + i) * LDP + c + 16 * j] = round_bf16(s[i][j], round_p);
-      Ds[(4 * r + i) * LDP + c + 16 * j] = round_bf16(dp[i][j], round_p);
+      if constexpr (WITH_P) Ps[(4 * r + i) * LDP + c + 16 * j] = s[i][j];
+      Ds[(4 * r + i) * LDP + c + 16 * j] = dp[i][j];
     }
 }
 

@@ -1,12 +1,12 @@
 // The Hopper machinery that gemm_sm90.cu (K5a, K6), gemm_sm90_f32.cu (K5b,
-// K7), flash_bwd_fused.cu (K3) and flash_fwd.cu (K1) share: mbarriers with
-// a trapping wait, TMA loads (tiles and plain bulk copies), wgmma's
-// shared-memory descriptors and its operand forms (m64n128, m64n64 and
-// m64n32, A from shared memory or registers, either operand transposed),
-// the flash kernels' exp2, the grouped raster of output tiles, the
-// predicated epilogue store, and on the host the tensor maps.  Everything
-// is in an anonymous namespace: each source that includes it is a library
-// of its own.
+// K7), flash_bwd_fused.cu (K3), flash_fwd.cu (K1) and flash_bwd.cu (K2a,
+// K2b) share: mbarriers with a trapping wait, TMA loads (tiles and plain
+// bulk copies), wgmma's shared-memory descriptors and its operand forms
+// (m64n128, m64n64 and m64n32, A from shared memory or registers, either
+// operand transposed), the flash kernels' exp2, the grouped raster of
+// output tiles, the predicated epilogue store, and on the host the tensor
+// maps.  Everything is in an anonymous namespace: each source that
+// includes it is a library of its own.
 //
 // Tiles are 128 x 256 (or 128 x 128): warpgroups 0 and 1 are consumers
 // that own 64 rows each and hold WN m64n128 accumulators.
@@ -275,6 +275,23 @@ __device__ __forceinline__ void wgmma_128_rs(float (&d)[64], uint32_t a0,
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
       "}\n"
       : T4_ACC64(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64]: wgmma_128_rs's forms at N 64 (A
+// from registers as there, B MN-major from shared memory)
+__device__ __forceinline__ void wgmma_64_rs(float (&d)[32], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " T4_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : T4_ACC32(d)
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
 }
 

@@ -1,5 +1,6 @@
 // Splitting f32 values into bf16 parts: the device code that gemm_sm90.cu
-// (K5a's rounding pass) and flash_fwd.cu (K1's operand split, and its P
+// (K5a's rounding pass), flash_fwd.cu (K1's operand split, and its P split
+// in registers) and flash_bwd.cu (K2's operand split, and its p and ds
 // split in registers) share.  Everything is in an anonymous namespace: each
 // source that includes it is a library of its own.
 //
@@ -96,12 +97,13 @@ struct SplitJob {
 };
 
 // grid (blocks over the largest job, 1, jobs): blockIdx.z picks the job,
-// field by field (a reference to one job would copy all three to the stack)
+// field by field (a reference to one job would copy all four to the stack)
 template <int NP>
 __global__ void __launch_bounds__(RT)
-    split_kernel(SplitJob j0, SplitJob j1, SplitJob j2) {
+    split_kernel(SplitJob j0, SplitJob j1, SplitJob j2, SplitJob j3) {
   const int z = blockIdx.z;
-#define T4_PICK(f) (z == 0 ? j0.f : z == 1 ? j1.f : j2.f)
+#define T4_PICK(f) \
+  (z == 0 ? j0.f : z == 1 ? j1.f : z == 2 ? j2.f : j3.f)
   const int ld = T4_PICK(ld);
   const size_t total = static_cast<size_t>(T4_PICK(rows)) * ld;
   const size_t e = (static_cast<size_t>(blockIdx.x) * RT + threadIdx.x) * 8;
@@ -132,7 +134,7 @@ __global__ void __launch_bounds__(RT)
         make_uint4(w[0][p], w[1][p], w[2][p], w[3][p]);
 }
 
-// one launch of the pass over up to three jobs (n_jobs of j0, j1, j2) in NP
+// one launch of the pass over up to four jobs (n_jobs of jobs[0..3]) in NP
 // parts (1 to 3); cudaGetLastError() as int
 inline int launch_split(int np, const SplitJob* jobs, int n_jobs,
                         cudaStream_t stream) {
@@ -144,17 +146,18 @@ inline int launch_split(int np, const SplitJob* jobs, int n_jobs,
     most = std::max(most, static_cast<size_t>(jobs[i].rows) * jobs[i].ld);
   }
   const size_t blocks = (most / 8 + RT - 1) / RT;
-  if (n_jobs < 1 || n_jobs > 3 || blocks > 0x7FFFFFFF)
+  if (n_jobs < 1 || n_jobs > 4 || blocks > 0x7FFFFFFF)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(blocks), 1, n_jobs);
   const SplitJob& j1 = jobs[n_jobs > 1 ? 1 : 0];
   const SplitJob& j2 = jobs[n_jobs > 2 ? 2 : 0];
+  const SplitJob& j3 = jobs[n_jobs > 3 ? 3 : 0];
   if (np == 1)
-    split_kernel<1><<<grid, RT, 0, stream>>>(jobs[0], j1, j2);
+    split_kernel<1><<<grid, RT, 0, stream>>>(jobs[0], j1, j2, j3);
   else if (np == 2)
-    split_kernel<2><<<grid, RT, 0, stream>>>(jobs[0], j1, j2);
+    split_kernel<2><<<grid, RT, 0, stream>>>(jobs[0], j1, j2, j3);
   else if (np == 3)
-    split_kernel<3><<<grid, RT, 0, stream>>>(jobs[0], j1, j2);
+    split_kernel<3><<<grid, RT, 0, stream>>>(jobs[0], j1, j2, j3);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
