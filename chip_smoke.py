@@ -13,8 +13,10 @@ Phases, one JSON line each:
           two-kernel and the fused backward and gemm_sm90, split passes
           included, must show no spill and no stack frame)
   kernel  each kernel (flash forward with its split, flash backward dK/dV
-          and dQ with theirs, the fused single-kernel backward, the
-          dots-only probe,
+          and dQ with theirs, the fused single-kernel backward (its f32
+          class at dh 128 after its split, with the launches of a call
+          counted), the dots-only probe (the forward's body with the
+          softmax compiled out, beside two cuBLAS calls),
           and the GEMM kernels of the tensor tier: K5a on the wgmma kernel
           with its rounding pass in all three classes, K6 on the same
           kernel, K5b and K7 on f32 operands rounded inside their one
@@ -86,7 +88,8 @@ PEAK_BYTES = 3.35e12          # HBM3
 KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_fused", "attn_dots",
            "gemm_sm90", "gemm_sm90_f32")   # ops/csrc/<name>.cu
 # sources whose every kernel instance must show no spill and no stack frame
-NO_SPILL = ("flash_fwd", "flash_bwd", "flash_bwd_fused", "gemm_sm90")
+NO_SPILL = ("flash_fwd", "flash_bwd", "flash_bwd_fused", "attn_dots",
+            "gemm_sm90")
 LM = dict(batch=8, vocab=2048, dim=1024, heads=8, layers=4, rope=True)
 N_PROMPT, N_NEW = 2048, 64
 TOL_F32 = 1e-4     # f32 sums in another order than the plain version's
@@ -108,9 +111,20 @@ TOL_FUSED_SPLIT_HYBRID = 2.0 ** -7  # hybrid, of each gradient's largest
 #                    a p or ds can round to the neighbouring bf16 value (a
 #                    relative step of 2^-8); that is the spacing of one
 #                    term, with room for two such flips
-TOL_DOTS = 1e-4    # the probe against its plain version, of the largest
-#                    value: two f32 sums of a score that differ in the last
-#                    bit can round to neighbouring bf16 values (2^-8 apart)
+TOL_DOTS = 2.0 ** -6  # the probe against its plain version, of the largest
+#                    term |bf16(s2) v| (the largest |s2| times the largest
+#                    |v|).  The kernel's scores are the tensor cores' f32
+#                    sums, whose adds truncate; the plain version's round to
+#                    nearest (on bf16 values nearly always exactly).  Where
+#                    the two straddle a bf16 rounding point, the rounded
+#                    score moves by one bf16 step, at most 2^-7 of it, and
+#                    the output by at most 2^-7 of one term.  That is the
+#                    spacing of one term, with room for two such flips.
+#                    (Until the probe ran on the tensor cores it was held to
+#                    1e-4 of the largest output; one step of the largest
+#                    term is 6 to 7 times that on randn at the phase's
+#                    shapes, so any flip there broke it, and cuBLAS's bf16
+#                    GEMM misses it by as much as the kernel.)
 TOL_GRAD = 1e-3    # train: dw, db against the plain attention path, of
 #                    each tensor's largest value
 MARGIN = 1e-4      # top-2 logit gap below which a replay flip is a tie
@@ -308,6 +322,10 @@ def phase_build():
     fwd_plans = {f"dh{dh}_{'hybrid' if hy else 'f32'}": attn.fwd_plan(
         64, 2048, dh, hy)._asdict() for dh in attn.KERNEL_DH
         for hy in (False, True)}
+    fused_routes = {f"dh{dh}_{'hybrid' if hy else 'f32'}": {
+        "parts": attn.fused_parts(dh, hy), "kv_tile": attn.FUSED_KV_TILE[(
+            hy, dh)], "smem": attn.fused_smem(dh, attn.fused_parts(dh, hy))}
+        for dh in attn.KERNEL_DH for hy in (False, True)}
     bwd_plans = {f"dh{dh}_{'hybrid' if hy else 'f32'}": {
         key: (val._asdict() if hasattr(val, "_asdict") else val)
         for key, val in attn.bwd_plan(64, 2048, dh, hy)._asdict().items()}
@@ -320,6 +338,8 @@ def phase_build():
           "flash_bwd_fused_kernels": by_source["flash_bwd_fused"],
           "flash_fwd_kernels": by_source["flash_fwd"],
           "flash_bwd_kernels": by_source["flash_bwd"],
+          "attn_dots_kernels": by_source["attn_dots"],
+          "flash_bwd_fused_routes": fused_routes,
           "gemm_sm90_plans_at_4096": plans,
           "gemm_sm90_f32_plans_at_4096": f32in,
           "flash_fwd_plans_at_64x2048": fwd_plans,
@@ -330,8 +350,12 @@ def phase_build():
                                       "split_kernel<3>", "split_kernel<2>",
                                       "split_kernel<1>")),
                        ("gemm_sm90_f32", ("mm_bf16_kernel", "mm_db_kernel")),
-                       ("flash_bwd_fused", ("fused_sm90_kernel",
-                                            "fused_f32_kernel")),
+                       ("flash_bwd_fused", ("fused_sm90_kernel<128>",
+                                            "fused_sm90_kernel<256>",
+                                            "fused_f32_sm90_kernel",
+                                            "fused_f32_kernel<256,32>")),
+                       ("attn_dots", ("attn_dots_kernel<128>",
+                                      "attn_dots_kernel<256>")),
                        ("flash_fwd", ("flash_fwd_kernel<128,3>",
                                       "flash_fwd_kernel<128,1>",
                                       "flash_fwd_kernel<256,3>",
@@ -425,19 +449,33 @@ def fused_equals_split(got, want, hybrid: bool) -> bool:
                for g, w in zip(got, want))
 
 
+def fused_counts():
+    from tensorforth_tpu_torch.ops import attn
+    return {"kernel": attn.flash_attention_bwd_fused.launches,
+            "split": attn.flash_attention_bwd_fused.split_launches}
+
+
 def fused_case(args, split, bq, f64, sdpa_bwd, timed=True):
     """the fused backward kernel on one case's operands (q, k, v, o, lse,
     do, causal, hybrid, dlse): against its plain version (dq and both
     partials, the never-visited blocks included), against the two-kernel
     split's (dq, dk, dv), against f64 where given, and against itself run
-    again; its grid; its times unless `timed` is false, and the library
-    backward's where given (for hybrid cases also on bf16 operands)"""
+    again; its grid and the launches of one call (the kernel, and the f32
+    class's split at dh 128); its times unless `timed` is false, and the
+    library backward's where given (for hybrid cases also on bf16
+    operands)"""
     import torch
     from tensorforth_tpu_torch.ops import attn
     q, k, v, o, lse, do, causal, hybrid, dlse = args
     b, s, dh = q.shape
+    parts = attn.fused_parts(dh, hybrid)
     call = (q, k, v, o, lse, do, bq, causal, hybrid, dlse)
+    before = fused_counts()
     dq, dkp, dvp = attn.flash_attention_bwd_fused_parts(*call)
+    one_call = {key: n - before[key] for key, n in fused_counts().items()}
+    on_card = q.is_cuda
+    calls_ok = one_call == ({"kernel": 1, "split": int(parts == 3)}
+                            if on_card else {"kernel": 0, "split": 0})
     if q.is_cuda:
         torch.cuda.synchronize()
     want = attn.flash_attention_bwd_fused_parts_ref(*call)
@@ -469,8 +507,9 @@ def fused_case(args, split, bq, f64, sdpa_bwd, timed=True):
            "grid": {"ctas": plan.ctas, "ctas_with_work": b * sum(
                1 for x in plan.work if x), "kv_tile_rows": plan.kv_tile,
                "kv_tiles_per_cta": plan.chunk, "dq_partials": plan.n_slots,
-               "most_pairs_of_a_cta": plan.work[0],
-               "route": "bf16 wgmma" if hybrid else "f32 FMA"},
+               "most_pairs_of_a_cta": plan.work[0], "smem": plan.smem,
+               "route": BWD_ROUTES[parts]},
+           "launches_of_one_call": one_call,
            "max_abs_err": errs, "largest_reference_value": tops,
            "partials_shape_and_zero_blocks_ok": zeros_ok,
            "never_visited_blocks": len(never) // 2,
@@ -485,51 +524,77 @@ def fused_case(args, split, bq, f64, sdpa_bwd, timed=True):
             (g.double() - w).abs().max().item() for g, w in zip(got, f64))
         ok = ok and row["max_abs_err_vs_f64"] <= TOL_BWD_F32
     del got, again, dq, dkp, dvp
-    row["ok"] = ok and zeros_ok and split_ok and repeats
+    row["ok"] = ok and zeros_ok and split_ok and repeats and calls_ok
     if not timed:
         return row
     row["ms"] = time_ms(lambda: attn.flash_attention_bwd_fused(*call))
     row["ms_before_the_sums"] = time_ms(
         lambda: attn.flash_attention_bwd_fused_parts(*call))
     # the kernel alone, on the wrapper's prepared operands: the rest of
-    # `ms` is the wrapper's (casts and delta, the dq partials' sum, then
-    # the dK/dV sums)
-    q2, kk, vv, dd, delta, qscale = attn._bwd_operands(q, k, v, o, lse, do,
-                                                       hybrid, dlse)
+    # `ms` is the wrapper's (casts or the f32 class's split, delta, the dq
+    # partials' sum, then the dK/dV sums)
+    prep = attn._prepare_fused(q, k, v, o, lse, do, hybrid, dlse)
     row["kernel_ms"] = time_ms(lambda: attn._launch_fused(
-        q2, kk, vv, dd, lse.contiguous(), delta.contiguous(), bq, causal,
-        hybrid, qscale))
-    del q2, kk, vv, dd, delta
+        *prep, bq, causal, hybrid))
+    del prep
     ops, nbytes = attn_bwd_fused_work(b, s, dh, bq, causal,
-                                      2 if hybrid else 4)
-    # the rate of the class's route: bf16 wgmma, or f32 on the CUDA cores
-    row["bound_ms"], row["bound_by"] = bound_ms(
-        ops, nbytes, PEAK_BF16_FLOPS if hybrid else PEAK_F32_FLOPS)
+                                      {1: 2, 3: 6, 0: 4}[parts])
+    # the rate of the class's route (bwd_peak: one bf16 product, six, or
+    # f32 on the CUDA cores)
+    row["bound_ms"], row["bound_by"] = bound_ms(ops, nbytes, bwd_peak(parts))
     row.update(gflop=ops / 1e9, mbytes=nbytes / 1e6,
                tflops=ops / row["ms"] / 1e9)
+    if parts == 3:
+        # the f32 class's split of q*scale*log2e, k, v and do alone (its
+        # bytes bound it)
+        qscale = attn.LOG2E / math.sqrt(dh)
+        row["split_ms"] = time_ms(lambda: attn._split_bwd(
+            q, k, v, do, qscale, attn.flash_attention_bwd_fused))
+        row["split_bound_ms"] = 4 * b * s * dh * (4 + 3 * 2) / PEAK_BYTES \
+            * 1e3
     if sdpa_bwd is not None:
         row["plain_ms"] = time_ms(
             lambda: attn.flash_attention_bwd_fused_ref(*call), reps=10)
         row["library_ms"] = time_ms(sdpa_bwd)
+        # the library through a 4-d [1, B*h, S, dh] call, and in the
+        # hybrid class on the operands' bf16 values: a 3-d call keeps the
+        # library off its flash kernels
+        row["library_ms_4d"] = time_ms(sdpa_grads(
+            *(x[None] for x in (q, k, v, do)), causal))
         if hybrid:
-            # the library on the operands' bf16 class, as [1, B*h, S, dh]:
-            # a 3-d call keeps the library off its bf16 flash kernel
             bf = torch.bfloat16
             row["library_bf16_ms"] = time_ms(sdpa_grads(
                 *(x.to(bf)[None] for x in (q, k, v, do)), causal))
-            row["library_ms_4d"] = time_ms(sdpa_grads(
-                *(x[None] for x in (q, k, v, do)), causal))
-        # what bq trades: blocks in the grid against partial traffic
+        # what bq trades: blocks in the grid against partial traffic; at
+        # each bq (each its own KV chunk and dq partials) fused = split
+        # holds as at the case's own
+        by_bq = (128, 256, 512, 1024, 2048)
+        row["equals_split_by_bq"] = {str(x): fused_equals_split(
+            attn.flash_attention_bwd_fused(q, k, v, o, lse, do, x, causal,
+                                           hybrid, dlse), split, hybrid)
+            for x in by_bq}
+        row["ok"] = row["ok"] and all(row["equals_split_by_bq"].values())
         row["ms_by_bq"] = {str(x): time_ms(
             lambda: attn.flash_attention_bwd_fused(
                 q, k, v, o, lse, do, x, causal, hybrid, dlse))
-            for x in (128, 256, 512, 1024, 2048)}
+            for x in by_bq}
     return row
 
 
+def dots_library(q, k, v):
+    """the probe's function in two cuBLAS calls, a yardstick that the port
+    never calls: bf16(q k^T) with f32 sums, then its product with v in f32
+    sums (over all keys at once, where the kernel adds one key tile's
+    product after another)"""
+    import torch
+    s2 = torch.bmm(q, k.transpose(1, 2), out_dtype=torch.float32)
+    return torch.bmm(s2.to(torch.bfloat16), v, out_dtype=torch.float32)
+
+
 def phase_kernel_dots(seed: int):
-    """the dots-only probe against its plain version; returns its record
-    at the bench shape"""
+    """the dots-only probe (the forward's wgmma body with the softmax
+    compiled out) against its plain version; returns its record at the
+    bench shape"""
     import torch
     from tensorforth_tpu_torch.ops import attn
     rows, main = [], None
@@ -538,12 +603,20 @@ def phase_kernel_dots(seed: int):
         rs = np.random.RandomState(seed + 200 + i)
         q, k, v = (torch.from_numpy(rs.randn(b, s, dh).astype(
             np.float32)).cuda().to(torch.bfloat16) for _ in range(3))
+        before = attn.attn_dots.launches
         o = attn.attn_dots(q, k, v)
         torch.cuda.synchronize()
+        launched = attn.attn_dots.launches - before
         want = attn.attn_dots_ref(q, k, v)
         err, top = (o - want).abs().max().item(), want.abs().max().item()
+        # the largest term |s2| |v|, eight heads at a time
+        term = max(torch.einsum("nqd,nkd->nqk", q[i:i + 8].float(),
+                                k[i:i + 8].float()).abs().max().item()
+                   for i in range(0, b, 8)) * v.float().abs().max().item()
+        # the yardstick on the same operands, for the record
+        lib_err = (dots_library(q, k, v) - want).abs().max().item()
         ops, nbytes = attn_dots_work(b, s, dh)
-        bms, by = bound_ms(ops, nbytes)
+        bms, by = bound_ms(ops, nbytes, PEAK_BF16_FLOPS)
         ms = time_ms(lambda: attn.attn_dots(q, k, v))
         # the forward kernel alone on the same bf16 operands, q scaled as
         # it is loaded: what the softmax adds to the two products
@@ -553,22 +626,28 @@ def phase_kernel_dots(seed: int):
             "flash_fwd_ms_on_the_same_operands": fwd_ms,
             "flash_fwd_over_attn_dots": fwd_ms / ms,
             "shape": [b, s, dh], "max_abs_err": err,
-            "largest_reference_value": top, "tol": TOL_DOTS,
-            "ok": (err <= TOL_DOTS * top and bool(torch.isfinite(o).all())
+            "largest_reference_value": top, "largest_term": term,
+            "err_over_largest_value": err / top,
+            "err_over_largest_term": err / term, "tol": TOL_DOTS,
+            "launches_of_one_call": launched,
+            "ok": (err <= TOL_DOTS * term and bool(torch.isfinite(o).all())
                    and tuple(o.shape) == (b, s, dh)
-                   and o.dtype == torch.float32),
+                   and o.dtype == torch.float32 and launched == 1),
             "ms": ms, "plain_ms": time_ms(
                 lambda: attn.attn_dots_ref(q, k, v), reps=5),
-            "library_ms": None, "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
+            "library_ms": time_ms(lambda: dots_library(q, k, v)),
+            "library_max_abs_err": lib_err,
+            "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
             "tflops": ops / ms / 1e9, "bound_ms": bms, "bound_by": by,
-            "bound_ms_on_the_bf16_tensor_cores": bound_ms(
-                ops, nbytes, PEAK_BF16_FLOPS)[0]})
+            "route": "bf16 wgmma: the hybrid forward's body, softmax "
+                     "compiled out"})
         main = main or rows[-1]
         del q, k, v, o, want
         torch.cuda.empty_cache()
     emit({"phase": "kernel", "kernel": "attn_dots", "cases": rows,
-          "tol": f"{TOL_DOTS} of the largest reference value",
-          "library": "no one PyTorch call computes bf16(q k^T) v"})
+          "tol": f"{TOL_DOTS} of the largest term |s2| |v|",
+          "library": "two cuBLAS calls: torch.bmm(q, k^T, out_dtype=f32), "
+                     ".to(bf16), torch.bmm(., v, out_dtype=f32)"})
     if not all(r["ok"] for r in rows):
         raise RuntimeError("attn_dots disagrees with its plain version")
     return main
@@ -711,7 +790,7 @@ def phase_kernel(seed: int):
             if plan.parts == 3:
                 qscale = attn.LOG2E / math.sqrt(dh)
                 brow["split_ms"] = time_ms(lambda: attn._split_bwd(
-                    q, k, v, do, qscale))
+                    q, k, v, do, qscale, attn.flash_attention_bwd))
                 brow["split_bound_ms"] = split_bytes / PEAK_BYTES * 1e3
             brow["kernels_and_split_ms"] = (brow["dkv"]["kernel_ms"]
                                             + brow["dq"]["kernel_ms"]
@@ -756,6 +835,19 @@ def phase_kernel(seed: int):
                 **common_bwd)
             main["flash_bwd_dq"] = dict(
                 brow["dq"], max_abs_err=errs["dq"], **common_bwd)
+            # K3's f32 class at dh 128 (six products after its split),
+            # beside the split's kernels and the library's f32 backward
+            fused = brow["fused"]
+            main["flash_bwd_fused_f32"] = dict(
+                {key: fused[key] for key in (
+                    "ms", "ms_before_the_sums", "kernel_ms", "split_ms",
+                    "split_bound_ms", "bound_ms", "bound_by", "plain_ms",
+                    "library_ms", "library_ms_4d", "launches_of_one_call",
+                    "grid", "bq", "max_abs_err", "max_abs_err_vs_split",
+                    "max_abs_err_vs_f64", "equals_split_by_bq",
+                    "ms_by_bq") if key in fused},
+                shape=[b, s, dh], causal=causal,
+                split_kernels_and_split_ms=brow["kernels_and_split_ms"])
         if name == "bench_causal_hybrid":
             # the hybrid forward's kernel alone, on the wrapper's casts,
             # and the library on bf16 operands through a 4-d call
@@ -818,7 +910,10 @@ def phase_kernel(seed: int):
                         "of the bf16 rate), hybrid one product; dh 256 in "
                         "the f32 class f32 FMA on the CUDA cores",
               fused_precision="hybrid: bf16 wgmma, f32 sums (bound at the "
-                              "bf16 rate); f32: f32 FMA on CUDA cores",
+                              "bf16 rate); f32 at dh 128: six products of "
+                              "a three-part split after one split launch "
+                              "(bound at a sixth of the bf16 rate); f32 at "
+                              "dh 256: f32 FMA on the CUDA cores",
               plain_and_library_ms="one pass that gives dq, dk and dv: "
                                    "both kernels' work, and the fused "
                                    "kernel's with its sums"))
@@ -1518,6 +1613,7 @@ def reset_flash_counts():
     attn.flash_attention_bwd.launches = {"dkv": 0, "dq": 0}
     attn.flash_attention_bwd.split_launches = 0
     attn.flash_attention_bwd_fused.launches = 0
+    attn.flash_attention_bwd_fused.split_launches = 0
     attn.attn_dots.launches = 0
 
 
@@ -1665,8 +1761,10 @@ def phase_attn_bench(seed: int, device=None, n_iter=BENCH_ITERS,
              + [x for xs in oracle.values() for x in xs]
              + [x for r in sweeps for part in ("tflops", "vs_control")
                 for xs in r[part].values() for x in xs])
-    # every backward there is hybrid: no backward split
-    bwd_splits = attn.flash_attention_bwd.split_launches
+    # every backward there is hybrid: no backward split, neither the
+    # split's nor the fused kernel's
+    bwd_splits = (attn.flash_attention_bwd.split_launches
+                  + attn.flash_attention_bwd_fused.split_launches)
     checks = {"launch_counts_exact": launches == expect,
               "no_backward_split": bwd_splits == 0,
               "rates_finite_and_positive": all(
@@ -1785,7 +1883,10 @@ def main(argv=None) -> int:
                                     "step)",
                    "flash_bwd_dq": "the train step and attn_bench (after "
                                    "the same split)",
-                   "flash_bwd_fused": "attn_bench.sweep_bwd_fused",
+                   "flash_bwd_fused": "attn_bench.sweep_bwd_fused (the "
+                                      "hybrid class; the f32 class's "
+                                      "kernels and its split in the kernel "
+                                      "phase, `f32` here)",
                    "attn_dots": "attn_bench.bench_attention_oracle (its "
                                 "dots-only probe)",
                    "mm_f32io": "the gemm2 and gemm3 words (classes default "
@@ -1825,6 +1926,7 @@ def main(argv=None) -> int:
                              ops_dir + "gemm_pallas.py:76")}
     rec["flash_fwd"]["split_launches"] = ran["flash_fwd_split"]
     rec["flash_fwd"]["hybrid"] = rec.pop("flash_fwd_hybrid")
+    rec["flash_bwd_fused"]["f32"] = rec.pop("flash_bwd_fused_f32")
     for which, hy in rec.pop("flash_bwd_hybrid").items():
         rec[f"flash_bwd_{which}"].update(
             hybrid=hy, split_launches=ran["flash_bwd_split"])
@@ -1841,7 +1943,9 @@ def main(argv=None) -> int:
                               "f64_ratio_kernel", "hybrid"),
              "flash_bwd_fused": ("kernel_ms", "ms_before_the_sums",
                                  "library_bf16_ms", "library_ms_4d",
-                                 "blocks", "grid"),
+                                 "blocks", "grid", "f32"),
+             "attn_dots": ("route", "flash_fwd_ms_on_the_same_operands",
+                           "flash_fwd_over_attn_dots"),
              "mm_f32io": ("rounding_pass_ms", "ms_includes_rounding_pass",
                           "library_ms_with_casts", "highest"),
              "mm_bf16": ("k5a_default_with_pass_ms", "library_ms_with_casts"),

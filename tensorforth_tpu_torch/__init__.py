@@ -23,7 +23,8 @@ Ported so far:
     (ops/csrc/flash_fwd.cu, ops/csrc/flash_bwd.cu);
   * the attention measurement path (attn_bench.py), which also runs the
     single-kernel backward (ops/csrc/flash_bwd_fused.cu) and the
-    dots-only probe (ops/csrc/attn_dots.cu).
+    dots-only probe (ops/csrc/attn_dots.cu: the forward's body,
+    ops/csrc/flash_fwd.cuh, with the softmax compiled out).
 Not ported yet: the NN words (vm/netvm.py), the native inner
 interpreter, the VM pool and task words, deferred scalars, TensorBoard.
 """

@@ -36,13 +36,16 @@ per-Q-block partials [B*h, n_q, S, dh] that one ``sum(dim=1)`` reduces.
 Its grid is planned here (``fused_plan``): a CTA owns a (head, Q block,
 KV chunk) item, so the grid fills the card whatever bq is, and dq leaves
 as one partial per KV chunk that the wrapper sums.  Hybrid mode runs on
-bf16 ``wgmma``, f32 on the CUDA cores.  It is a measurement path
+bf16 ``wgmma``; the f32 class at dh 128 too, as six products of the
+backward's three-part split (``_split_bwd``, counted as the fused path's
+own), and at dh 256 on the CUDA cores.  It is a measurement path
 (``attn_bench``): ``flash_attention_lse`` keeps the two-kernel backward,
 as in the JAX package.
 
 The dots-only probe, ``csrc/attn_dots.cu``, replaces the Pallas kernel
-inside bench.py:_attn_dots_probe: the forward kernel's two products with
-the softmax taken out, on bf16 operands.
+inside bench.py:_attn_dots_probe: the forward kernel's own body at the
+hybrid plan (``csrc/flash_fwd.cuh``) with the softmax compiled out, on
+bf16 operands.
 
 Every wrapper launches its kernel for CUDA tensors and uses its plain
 version only for CPU tensors; anything else raises.  There is no
@@ -64,6 +67,7 @@ LN2 = 0.6931471805599453
 NEG_INF = -1.0e30          # the mask value of attn_pallas.py:25
 KERNEL_DH = (128, 256)     # head dims the kernel is compiled for
 TILE = 64                  # S must be a multiple of the kernel's tile
+N_SM = 132   # SMs of an H100 SXM: what a plan is made for off the card
 
 
 def flash_attention_ref(q, k, v, causal: bool = False, hybrid: bool = False):
@@ -164,7 +168,7 @@ _ARGTYPES = {   # library -> exported function -> ctypes signature
     "flash_bwd": {"t4_flash_bwd_dkv": [_P] * 8 + [_I] * 9 + [_F, _P],
                   "t4_flash_bwd_dq": [_P] * 7 + [_I] * 9 + [_F, _F, _P],
                   "t4_split_bwd": [_P] * 5 + [_I] * 2 + [_F, _P]},
-    "flash_bwd_fused": {"t4_flash_bwd_fused": [_P] * 10 + [_I] * 9
+    "flash_bwd_fused": {"t4_flash_bwd_fused": [_P] * 10 + [_I] * 10
                         + [_F, _F, _P]},
     "attn_dots": {"t4_attn_dots": [_P] * 4 + [_I] * 3 + [_P]},
 }
@@ -370,6 +374,75 @@ def flash_attention_bwd_split_ref(q, k, v, o, lse, do, causal: bool = False,
     return dq, dk, dv
 
 
+def flash_attention_bwd_fused_split_ref(q, k, v, o, lse, do, bq=None,
+                                        causal: bool = False, dlse=None,
+                                        sms: int = N_SM):
+    """a model of the fused kernel's f32 class at dh 128 (six products of
+    the three-part split): (dq [B, S, dh], dk_parts, dv_parts [B, n_q, S,
+    dh]), f32.  s2, p, dp and ds as flash_attention_bwd_split_ref forms
+    them (the products of parts exact in f64, rounded to f32; p and ds
+    split in turn); then the gradients as the kernel sums them: each
+    warpgroup's 32 queries of a (Q tile, KV tile) pair give one exact
+    product for the tile's 64 keys (dv = p^T do, dk = ds^T q2), rounded to
+    f32 and added in f32 one Q tile after another, the two warpgroups'
+    sums added at the KV tile's end, dk times ln2; dq one exact product
+    per pair over the tile's 64 keys, rounded to f32 and added in f32 one
+    KV tile after another within a chunk of fused_plan, times 1/sqrt(dh),
+    the chunks' slots added in f32 in order.  What it leaves out: the
+    tensor cores' truncating sums and ex2.approx."""
+    b, s, dh = q.shape
+    if fused_parts(dh, False) != 3:
+        raise ValueError(f"the six-product fused kernel takes dh 128, "
+                         f"got {dh}")
+    bq = _fused_bq("flash_attention_bwd_fused_split_ref", s, bq)
+    plan = fused_plan(b, s, bq, causal, False, dh, sms)
+    q, k, v, do, delta, qscale = _bwd_operands(q, k, v, o, lse, do, False,
+                                               dlse)
+    bkv, n_q, n_kv = plan.kv_tile, s // bq, s // plan.kv_tile
+    pairs = [(i, j) for i in range(3) for j in range(3) if i + j < 3]
+
+    def split(x):
+        return [t.double() for t in _split3_ref(x)]
+
+    def prod(xs, ys, eq):
+        return sum(torch.einsum(eq, xs[i], ys[j]) for i, j in pairs).float()
+
+    q2 = q * qscale
+    qs, ks, vs, dos = split(q2), split(k), split(v), split(do)
+    s2 = prod(qs, ks, "nqd,nkd->nqk")
+    if causal:
+        keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        s2 = torch.where(keep, s2, torch.full_like(s2, NEG_INF))
+    p = torch.exp2(s2 - (lse * LOG2E)[..., None])
+    ds = p * (prod(dos, vs, "nqd,nkd->nqk") - delta[..., None])
+
+    # [B, Q block, Q tile, warpgroup, 32 queries, KV tile, 64 keys]
+    grid = (b, n_q, bq // TILE, 2, TILE // 2, n_kv, bkv)
+
+    def partials(a, x):
+        """the warpgroups' f32 sums of a^T x over a Q block's tiles"""
+        prods = prod([t.view(grid) for t in split(a)],
+                     [t.view(grid[:5] + (dh,)) for t in split(x)],
+                     "nbtwqjk,nbtwqd->nbtwjkd")
+        acc = torch.zeros_like(prods[:, :, 0])
+        for t in range(grid[2]):
+            acc += prods[:, :, t]
+        return (acc[:, :, 0] + acc[:, :, 1]).reshape(b, n_q, s, dh)
+
+    dvp = partials(p, do)
+    dkp = partials(ds, q2) * LN2
+    fresh = prod([t.view(b, s, n_kv, bkv) for t in split(ds)],
+                 [t.view(b, n_kv, bkv, dh) for t in split(k)],
+                 "nqjk,njkd->nqjd")
+    dq = torch.zeros((b, s, dh), dtype=torch.float32, device=q.device)
+    for c in range(plan.n_slots):
+        slot = torch.zeros_like(dq)
+        for j in range(c * plan.chunk, min((c + 1) * plan.chunk, n_kv)):
+            slot += fresh[:, :, j]
+        dq += slot * (1.0 / math.sqrt(dh))
+    return dq, dkp, dvp
+
+
 # --- the backward kernels' plan ----------------------------------------------
 BWD_ROWS = 64                    # stationary rows of a CTA (wgmma route)
 BWD_TILES = {128: 64, 256: 32}   # dh -> rows of a streamed tile
@@ -431,10 +504,12 @@ def bwd_plan(bh: int, s: int, dh: int, hybrid: bool) -> BwdPlan:
     return BwdPlan(parts, dq._replace(smem=smem + 2 * stages * tile * 4), dq)
 
 
-def _split_bwd(q, k, v, do, qscale: float):
+def _split_bwd(q, k, v, do, qscale: float, owner):
     """the f32 class's backward operands: one launch writes [4 (q, k, v,
     do), 3 (hi, mid, lo), B*h, S, dh] bf16 from q*qscale, k, v and do
-    (contiguous f32 on one CUDA device)"""
+    (contiguous f32 on one CUDA device); counted in the split_launches of
+    `owner`, the wrapper that takes the parts (flash_attention_bwd or
+    flash_attention_bwd_fused)"""
     b, s, dh = q.shape
     lib = _lib("flash_bwd")
     out = torch.empty((4, 3, b, s, dh), dtype=torch.bfloat16,
@@ -446,7 +521,7 @@ def _split_bwd(q, k, v, do, qscale: float):
                                qscale, stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd split launch failed: cudaError {err}")
-    flash_attention_bwd.split_launches += 1
+    owner.split_launches += 1
     return tuple(out)
 
 
@@ -492,7 +567,7 @@ def _prepare_bwd(q, k, v, o, lse, do, causal, hybrid, dlse):
     plan = bwd_plan(*q.shape, hybrid)
     *ops, delta, qscale = _bwd_operands(q, k, v, o, lse, do, hybrid, dlse)
     if plan.parts == 3:
-        ops, qscale = _split_bwd(*ops, qscale), 1.0
+        ops, qscale = _split_bwd(*ops, qscale, flash_attention_bwd), 1.0
     return ops, lse.contiguous(), delta.contiguous(), qscale, causal, plan
 
 
@@ -592,24 +667,53 @@ def flash_attention_bwd_fused_parts_ref(q, k, v, o, lse, do, bq=None,
 
 
 # --- the fused kernel's grid ------------------------------------------------
-N_SM = 132   # SMs of an H100 SXM: what a plan is made for off the card
-# KV tile rows of the kernel by (hybrid, dh): the wgmma kernel's and the
-# FMA kernel's (csrc/flash_bwd_fused.cu: kv_tile)
+# KV tile rows of the kernel by (hybrid, dh) (csrc/flash_bwd_fused.cu:
+# route): hybrid's wgmma kernel, the f32 class's six-product wgmma kernel
+# at dh 128 and its FMA kernel at dh 256
 FUSED_KV_TILE = {(True, 128): 128, (True, 256): 64,
                  (False, 128): 64, (False, 256): 32}
+
+
+def fused_parts(dh: int, hybrid: bool) -> int:
+    """the fused kernel's route, from dh and the class alone: the parts of
+    each bf16 operand (1: the hybrid casts; 3: the f32 class's split at dh
+    128), or 0 for f32 operands on the FMA kernel (the f32 class at dh 256,
+    whose three parts do not fit an SM)"""
+    return 1 if hybrid else 3 if dh == 128 else 0
+
+
+def fused_smem(dh: int, parts: int) -> int:
+    """dynamic shared memory of the fused kernel of (dh, parts), bytes
+    (csrc/flash_bwd_fused.cu: Hy, F6, FMA_SMEM).  hybrid: K and V of a KV
+    tile, two ds^T tiles, a ring of Q-side stages (Q, dO, then lse and
+    delta in 1024 aligned bytes) and a barrier per stage and one for K and
+    V.  f32 at dh 128: the three parts of K, V, Q and dO (64 rows each),
+    of ds^T [64, 64], lse and delta of a Q tile, three barriers.  f32 at
+    dh 256: the FMA tiles (_fma_smem)."""
+    if parts == 0:
+        return _fma_smem(dh, FUSED_KV_TILE[(False, dh)], True)
+    if parts == 3:
+        return SM90_ALIGN + 4 * 3 * TILE * dh * 2 + 3 * TILE * TILE * 2 \
+            + 2 * TILE * 4 + 3 * 8
+    bkv, stages = FUSED_KV_TILE[(True, dh)], (3 if dh == 128 else 2)
+    return (SM90_ALIGN + 2 * bkv * dh * 2 + 2 * bkv * TILE * 2
+            + stages * (2 * TILE * dh * 2 + SM90_ALIGN) + (stages + 1) * 8)
 
 
 class FusedPlan(NamedTuple):
     """the fused kernel's grid for one shape: a CTA per (head, item), an
     item = (Q block, KV chunk) of `chunk` KV tiles of `kv_tile` rows,
     listed heaviest first; `work` = the (Q tile, KV tile) pairs of each
-    item; dq leaves as `n_slots` partials, one per KV chunk"""
+    item; dq leaves as `n_slots` partials, one per KV chunk.  The kernel:
+    `parts` (fused_parts) and its `smem` bytes (fused_smem)."""
     kv_tile: int
     chunk: int
     n_slots: int
     items: tuple
     work: tuple
     ctas: int
+    parts: int
+    smem: int
 
 
 def _q_tiles_seeing(qi: int, j: int, bq: int, kv_tile: int, s: int,
@@ -655,8 +759,10 @@ def fused_plan(bh: int, s: int, bq: int, causal: bool, hybrid: bool,
         chunk *= 2
     w = _chunk_works(s, bq, causal, kv_tile, chunk)
     items = sorted(w, key=lambda it: (-w[it], -it[0], it[1]))
+    parts = fused_parts(dh, hybrid)
     return FusedPlan(kv_tile, chunk, -(-n_kv // chunk), tuple(items),
-                     tuple(w[it] for it in items), len(items) * bh)
+                     tuple(w[it] for it in items), len(items) * bh, parts,
+                     fused_smem(dh, parts))
 
 
 @functools.lru_cache(maxsize=256)
@@ -731,27 +837,48 @@ def flash_attention_bwd_fused_ref(q, k, v, o, lse, do, bq=None,
     return dq, dkp.sum(dim=1), dvp.sum(dim=1)
 
 
-def _launch_fused(q2, k, v, do, lse, delta, bq: int, causal: bool,
-                  hybrid: bool, qscale: float):
-    """launch the fused kernel on _bwd_operands' prepared operands (lse
-    and delta contiguous): (dq partials [n_slots, B*h, S, dh], dk_parts,
-    dv_parts [B*h, S / bq, S, dh]), f32"""
-    b, s, dh = q2.shape
-    plan = fused_plan(b, s, bq, causal, hybrid, dh, sm_count(q2.device))
-    items = _items_on(plan.items, str(q2.device))
+def _prepare_fused(q, k, v, o, lse, do, hybrid, dlse):
+    """what the fused kernel takes, from CUDA tensors: (ops, lse, delta,
+    qscale), with the f32 class's split launched at dh 128"""
+    *ops, delta, qscale = _bwd_operands(q, k, v, o, lse, do, hybrid, dlse)
+    if fused_parts(q.shape[-1], hybrid) == 3:
+        ops = _split_bwd(*ops, qscale, flash_attention_bwd_fused)
+        qscale = 1.0
+    return ops, lse.contiguous(), delta.contiguous(), qscale
+
+
+def _launch_fused(ops, lse, delta, qscale: float, bq: int, causal: bool,
+                  hybrid: bool):
+    """launch the fused kernel on _prepare_fused's operands (q, k, v, do:
+    bf16 [B*h, S, dh] in the hybrid class, bf16 parts [3, B*h, S, dh] from
+    _split_bwd in the f32 class at dh 128, f32 [B*h, S, dh] at dh 256; q
+    times qscale in the kernel): (dq partials [n_slots, B*h, S, dh],
+    dk_parts, dv_parts [B*h, S / bq, S, dh]), f32"""
+    b, s, dh = ops[0].shape[-3:]
+    parts = fused_parts(dh, hybrid)
+    dtype = torch.float32 if parts == 0 else torch.bfloat16
+    if any(t.dtype != dtype or not t.is_contiguous()
+           or t.shape[-3:] != ops[0].shape[-3:]
+           or (t.dim() == 4) != (parts == 3)
+           or (t.dim() == 4 and t.shape[0] != 3) for t in ops):
+        raise ValueError(f"flash_bwd_fused: operands must be contiguous "
+                         f"{dtype} [B*h, S, dh], [3, B*h, S, dh] parts in "
+                         "the f32 class at dh 128")
+    plan = fused_plan(b, s, bq, causal, hybrid, dh, sm_count(lse.device))
+    items = _items_on(plan.items, str(lse.device))
     lib = _lib("flash_bwd_fused")
     slots = torch.empty((plan.n_slots, b, s, dh), dtype=torch.float32,
-                        device=q2.device)
+                        device=lse.device)
     dkp = torch.empty((b, s // bq, s, dh), dtype=torch.float32,
-                      device=q2.device)
+                      device=lse.device)
     dvp = torch.empty_like(dkp)
-    ptrs = [t.data_ptr() for t in (q2, k, v, do, lse, delta, slots, dkp,
-                                   dvp, items)]
-    with torch.cuda.device(q2.device):
-        stream = torch.cuda.current_stream(q2.device).cuda_stream
+    ptrs = [t.data_ptr() for t in (*ops, lse, delta, slots, dkp, dvp,
+                                   items)]
+    with torch.cuda.device(lse.device):
+        stream = torch.cuda.current_stream(lse.device).cuda_stream
         err = lib.t4_flash_bwd_fused(*ptrs, len(plan.items), b, s, dh, bq,
                                      plan.kv_tile, plan.chunk, int(causal),
-                                     int(hybrid), qscale,
+                                     plan.parts, plan.smem, qscale,
                                      1.0 / math.sqrt(dh), stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd_fused kernel launch failed: "
@@ -765,8 +892,9 @@ def flash_attention_bwd_fused_parts(q, k, v, o, lse, do, bq=None,
                                     hybrid: bool = False, dlse=None):
     """the fused backward before its sum: (dq [B*h, S, dh], dk_parts,
     dv_parts [B*h, n_q, S, dh]) f32, n_q = S / bq.  CUDA tensors launch
-    the one kernel; CPU tensors take the plain version; anything else
-    raises."""
+    the one kernel (in the f32 class at dh 128 after one split launch of
+    q*scale*log2e, k, v and do); CPU tensors take the plain version;
+    anything else raises."""
     what = "flash_attention_bwd_fused"
     _check_shape(what, (q, k, v, o, do))
     bq = _fused_bq(what, q.shape[1], bq)
@@ -776,11 +904,9 @@ def flash_attention_bwd_fused_parts(q, k, v, o, lse, do, bq=None,
                                                    causal, hybrid, dlse)
     _check_cuda(what, (q, k, v, o, do))
     _check_rows(what, q, extra)
-    q2, kk, vv, dd, delta, qscale = _bwd_operands(q, k, v, o, lse, do,
-                                                  hybrid, dlse)
-    slots, dkp, dvp = _launch_fused(q2, kk, vv, dd, lse.contiguous(),
-                                    delta.contiguous(), bq, causal, hybrid,
-                                    qscale)
+    slots, dkp, dvp = _launch_fused(
+        *_prepare_fused(q, k, v, o, lse, do, hybrid, dlse), bq, causal,
+        hybrid)
     # the dq partials, summed in one fixed order
     dq = slots[0] if len(slots) == 1 else slots.sum(dim=0)
     return dq, dkp, dvp
@@ -801,6 +927,7 @@ def flash_attention_bwd_fused(q, k, v, o, lse, do, bq=None,
 
 
 flash_attention_bwd_fused.launches = 0   # kernel launches since the reset
+flash_attention_bwd_fused.split_launches = 0   # its f32 class's splits
 
 
 # ===========================================================================
@@ -809,14 +936,39 @@ flash_attention_bwd_fused.launches = 0   # kernel launches since the reset
 def attn_dots_ref(q, k, v):
     """plain PyTorch version of the probe kernel: f32 products of the bf16
     values, the scores rounded to bf16 before the second product, the sum
-    over the keys taken one TILE of keys after another, as the kernel
-    takes it"""
+    over the keys taken one key tile after another, as the kernel takes
+    it: its tile is the hybrid forward plan's KV tile (fwd_plan(...,
+    hybrid=True).bkv: 64 keys at dh 128, 32 at dh 256), each tile's
+    product summed apart and added to o in f32"""
+    b, s, dh = q.shape
+    bkv = fwd_plan(b, s, dh, True).bkv
     qf, kf, vf = q.float(), k.float(), v.float()
     o = torch.zeros_like(qf)
-    for k0 in range(0, k.shape[1], TILE):
-        s2 = torch.einsum("nqd,nkd->nqk", qf, kf[:, k0:k0 + TILE])
+    for k0 in range(0, s, bkv):
+        s2 = torch.einsum("nqd,nkd->nqk", qf, kf[:, k0:k0 + bkv])
         o += torch.einsum("nqk,nkd->nqd", s2.to(torch.bfloat16).float(),
-                          vf[:, k0:k0 + TILE])
+                          vf[:, k0:k0 + bkv])
+    return o
+
+
+def _launch_dots(q, k, v):
+    """launch the probe kernel on contiguous bf16 [B*h, S, dh] operands of
+    one shape (S % TILE == 0, dh in KERNEL_DH): o [B*h, S, dh] f32"""
+    if any(t.dtype != torch.bfloat16 or not t.is_contiguous()
+           or t.shape != q.shape for t in (q, k, v)):
+        raise ValueError("attn_dots: operands must be contiguous bf16 of "
+                         "one shape [B*h, S, dh]")
+    _check_shape("attn_dots", (q, k, v))
+    b, s, dh = q.shape
+    lib = _lib("attn_dots")
+    o = torch.empty((b, s, dh), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.t4_attn_dots(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               o.data_ptr(), b, s, dh, stream)
+    if err != 0:
+        raise RuntimeError(f"attn_dots kernel launch failed: cudaError {err}")
+    attn_dots.launches += 1
     return o
 
 
@@ -832,17 +984,7 @@ def attn_dots(q, k, v):
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return attn_dots_ref(q, k, v)
     _check_cuda("attn_dots", (q, k, v), torch.bfloat16)
-    b, s, dh = q.shape
-    lib = _lib("attn_dots")
-    o = torch.empty((b, s, dh), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.t4_attn_dots(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               o.data_ptr(), b, s, dh, stream)
-    if err != 0:
-        raise RuntimeError(f"attn_dots kernel launch failed: cudaError {err}")
-    attn_dots.launches += 1
-    return o
+    return _launch_dots(q, k, v)
 
 
 attn_dots.launches = 0   # kernel launches since the last reset

@@ -14,25 +14,28 @@
 // into dK and dV.  Rows of a partial that its Q block never sees (the keys
 // after the block, under the causal mask) are zeros.
 //
-// Layout: q, k, v, do [B*h, S, dh] row-major (f32, or bf16 in hybrid
-// mode); lse, delta [B*h, S] f32; dq partials [n_slots, B*h, S, dh] f32;
-// dkp, dvp [B*h, n_q, S, dh] f32.  S % bq == 0, bq % 64 == 0, dh in {128,
-// 256}.
+// Layout: q, k, v, do [B*h, S, dh] row-major (bf16 casts in hybrid mode;
+// in the f32 class three bf16 parts [3, B*h, S, dh] of q*scale*log2e, k, v
+// and do at dh 128, f32 at dh 256); lse, delta [B*h, S] f32; dq partials
+// [n_slots, B*h, S, dh] f32; dkp, dvp [B*h, n_q, S, dh] f32.  S % bq == 0,
+// bq % 64 == 0, dh in {128, 256}.
 //
-// What bounds it on this card, at [16, 2048, 128] causal, bq 1024:
-//   hybrid (bf16 multiplicands, f32 sums): the five products are 42.97
-//     GFLOP, 0.043 ms at the 989 TFLOP/s of bf16 wgmma; the bytes (bf16
-//     operands, the dK/dV partials written and read by the sums, dq, dk,
-//     dv) are 218 MB, 0.065 ms at 3.35 TB/s.  The bytes bound it, and the
-//     partials are 134 MB of them.
-//   f32 (the f32 class, which the split now takes as six bf16 products
-//     of a three-part split on the tensor cores, flash_bwd.cu): here still
-//     strict-f32 FMAs, operations at the CUDA cores' 67 TFLOP/s, 0.64 ms
-//     there and 2.57 ms at [64, 2048, 128].  Three bf16 products (K5a
-//     3pass's) cannot hold this class's checks: their products alone,
-//     summed exactly, miss the fused-equals-split bound of 1e-5 + 1e-5 |x|
-//     by up to 2.8 times (tests/test_torch_attn_fused_sm90.py); six keep
-//     it (tests/test_torch_bwd6.py), the route this kernel has yet to take.
+// What bounds it on this card: operations, but for the partials' bytes.
+//   hybrid (bf16 multiplicands, f32 sums), at [16, 2048, 128] causal, bq
+//     1024: the five products are 42.97 GFLOP, 0.043 ms at the 989 TFLOP/s
+//     of bf16 wgmma; the bytes (bf16 operands, the dK/dV partials written
+//     and read by the sums, dq, dk, dv) are 218 MB, 0.065 ms at 3.35 TB/s.
+//     The bytes bound it, and the partials are 134 MB of them.
+//   f32, dh 128, at [64, 2048, 128] causal, bq 1024: six bf16 products of
+//     the three-part split (as the split's kernels, flash_bwd.cu), 6 x
+//     171.9 GFLOP, 1.04 ms at 989 TFLOP/s; the partials add 268 MB written
+//     and read, 0.16 ms.  Three bf16 products (K5a 3pass's) cannot hold
+//     this class's fused-equals-split bound of 1e-5 + 1e-5 |x|: their
+//     products alone, summed exactly, miss it by up to 2.8 times
+//     (tests/test_torch_attn_fused_sm90.py); six keep it
+//     (tests/test_torch_fused6.py).
+//   f32, dh 256: strict-f32 FMAs, operations at the CUDA cores' 67
+//     TFLOP/s: three parts of its tiles do not fit a block's 227 KB.
 //
 // The design.  One CTA owns a work item (head, Q block, KV chunk): a run of
 // `chunk` KV tiles of one head, against the Q tiles of one Q block that see
@@ -75,12 +78,19 @@
 // pair's stage is free for thread 0 to refill.  A pair's dq rows of an
 // earlier tile of the chunk are prefetched into L1 when the pair starts.
 //
-// f32, fused_f32_kernel: 256 threads, the FMA phases of flash_bwd_tile.cuh
-// (BK = 64 at dh 128, 32 at dh 256; 170 KB / 219 KB of shared memory), on
-// the same items and slots.
+// f32 at dh 128, fused_f32_sm90_kernel: the same data flow on the three
+// parts of each operand, six products each (its notes below).  Shared
+// memory: K's and V's parts 96 KB, one stage of Q's and dO's 96 KB, ds^T's
+// three parts 24 KB, lse and delta: 218 KB of a block's 227 KB.
+//
+// f32 at dh 256, fused_f32_kernel: 256 threads, the FMA phases of
+// flash_bwd_tile.cuh (BK = 32; 219 KB of shared memory), on the same items
+// and slots.  ops/attn.py:fused_plan picks the kernel from dh and the
+// class.
 
 #include "flash_bwd_tile.cuh"
 #include "sm90_gemm.cuh"
+#include "split_bf16.cuh"
 
 namespace {
 
@@ -207,18 +217,19 @@ __device__ __forceinline__ void load_kv(uint32_t sK, uint32_t sV,
 }
 
 // p = exp2(s2 - lse2) and ds = p (dp - delta) in place of the s2^T and
-// dp^T accumulators of an m64n64 product: element 4 jn + 2 i + c is key
-// row kv + 8 i, query column q0 + 8 jn + 2 t + c.  MASK: keys past S, and
-// under the causal mask keys after the query, give p = 0.
-template <bool MASK>
-__device__ __forceinline__ void softmax_grad_frag(float (&s)[32],
-                                                  float (&dp)[32],
+// dp^T accumulators of an m64nN product (N / 2 of them a thread): element
+// 4 jn + 2 i + c is key row kv + 8 i, query column q0 + 8 jn + 2 t + c,
+// whose lse and delta are Ls[8 jn + 2 t + c] and Es[...].  MASK: keys past
+// S, and under the causal mask keys after the query, give p = 0.
+template <bool MASK, int N>
+__device__ __forceinline__ void softmax_grad_frag(float (&s)[N],
+                                                  float (&dp)[N],
                                                   const float* Ls,
                                                   const float* Es, int kv,
                                                   int q0, int S, int causal,
                                                   int t) {
 #pragma unroll
-  for (int jn = 0; jn < 8; ++jn) {
+  for (int jn = 0; jn < N / 4; ++jn) {
     const int qc = 8 * jn + 2 * t;
     const float2 l = *reinterpret_cast<const float2*>(Ls + qc);
     const float2 e = *reinterpret_cast<const float2*>(Es + qc);
@@ -483,7 +494,352 @@ __global__ void __launch_bounds__(HT, 1)
 }
 
 // ===========================================================================
-// f32: the FMA phases of flash_bwd_tile.cuh on the same items
+// f32 at dh 128: six bf16 products of the three-part split on wgmma
+// ===========================================================================
+// q2, k, v and do arrive as three bf16 parts each (t4_split_bwd); every
+// product is six products of parts, smallest first (prod_a / prod_b of
+// split_bf16.cuh), each over its whole reduction before the next, into one
+// accumulator (the scores) or a fresh one that the CUDA cores add to the
+// running sum (the gradients).  The KV tile has 64 rows, all parts of K and
+// V stay for the tile; one stage of Q's and dO's parts streams per pair.
+struct F6 {
+  static constexpr int D = 128;
+  static constexpr int BKV = 64;            // KV tile rows
+  static constexpr int BOX = 64 * 128;      // a [64 d x 64 rows] box, 8 KB
+  static constexpr int PART = 2 * BOX;      // a part of a 64-row tile
+  static constexpr int TILE = 3 * PART;     // the three parts, 48 KB
+  static constexpr int DS_PART = BKV * 128; // a part of ds^T [64 kv x 64 q]
+  static constexpr int ROWS = QT * 4;       // lse (or delta) of a Q tile
+  // K, V, Q, dO, ds^T's parts, lse, delta, then kvfull, qfull, ofull
+  static constexpr int SMEM = ALIGN + 4 * TILE + 3 * DS_PART + 2 * ROWS +
+                              3 * 8;
+};
+static_assert(F6::SMEM <= SMEM_LIMIT, "shared memory");
+// warpgroup 1's dk and dv (64 KB) reach warpgroup 0 through K's and V's
+static_assert(2 * F6::TILE >= 2 * 64 * 128 * 4, "reduction");
+
+// one 64-row tile of an operand in its three parts by TMA (part p's rows
+// start p part_rows down the map), against `bar`, whose bytes the caller
+// expects; one thread
+__device__ __forceinline__ void tma_tile3(uint32_t dst, uint32_t bar,
+                                          const CUtensorMap* map,
+                                          int part_rows, int row) {
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+      tma_load(dst + p * F6::PART + b * F6::BOX, map, bar, 64 * b,
+               p * part_rows + row);
+}
+
+// a Q-side tile (Q's or dO's parts) and its rows of `rows_src` (lse or
+// delta), against `bar`; one thread
+__device__ __forceinline__ void load_side3(uint32_t dst, uint32_t rows_dst,
+                                           uint32_t bar,
+                                           const CUtensorMap* map,
+                                           const float* rows_src,
+                                           int part_rows, int row) {
+  mbar_expect_tx(bar, F6::TILE + F6::ROWS);
+  tma_tile3(dst, bar, map, part_rows, row);
+  bulk_load(rows_dst, rows_src + row, F6::ROWS, bar);
+}
+
+// s (=) A B^T over dh, m64n32, six products: A the 64 rows of a KV-side
+// tile at a (K or V), B 32 rows of a Q-side tile at b, both K-major
+__device__ __forceinline__ void score6(float (&s)[16], uint32_t a,
+                                       uint32_t b) {
+#pragma unroll
+  for (int p = 0; p < 6; ++p)
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t col = (kk / 4) * F6::BOX + (kk % 4) * 32;
+      wgmma_32<0, 0>(s, desc_a(a + prod_a(p) * F6::PART + col),
+                     desc_a(b + prod_b(p) * F6::PART + col), p > 0 || kk > 0);
+    }
+}
+
+// acc [64 kv x 128 d] += F B over 32 queries: F the three parts of a [64
+// x 32] A operand in registers, B those 32 rows of a Q-side tile at b,
+// MN-major; six products into a fresh m64n64 accumulator, 64 columns at a
+// time, which the CUDA cores add to acc
+__device__ __forceinline__ void grad6(float (&acc)[64], uint32_t (&f)[3][8],
+                                      uint32_t b) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint64_t bd = desc_b(b + h * F6::BOX, F6::BOX);
+    float fresh[32];
+    pin(fresh);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < 6; ++p)
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint32_t* a = f[prod_a(p)] + 4 * kk;
+        wgmma_64_rs(fresh, a[0], a[1], a[2], a[3],
+                    bd + ((prod_b(p) * F6::PART) >> 4) + kk * 128,
+                    p > 0 || kk > 0);
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(fresh);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) acc[32 * h + x] += fresh[x];
+  }
+  // the products that read f are done
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) asm volatile("" : "+r"(f[p][i])::"memory");
+}
+
+// two warpgroups and no producer warp, as fused_sm90_kernel: thread 0
+// issues the TMA loads.  The KV tile's 64 rows are wgmma's M in both
+// warpgroups; each takes 32 of a Q tile's 64 queries (m64n32 scores) and
+// keeps its own dk and dv over them, and warpgroup 1's reach warpgroup 0
+// through shared memory once a KV tile, added in one order.  Per pair:
+//   dp^T = V dO^T, s2^T = K Q^T     six products each over dh
+//   p, ds                           in the accumulators, then split into
+//                                   three bf16 A fragments each
+//   dv += p^T dO, dk += ds^T q2     six products over its 32 queries
+//   dq += ds K                      each warpgroup 64 of dq's columns over
+//                                   the 64 keys: ds^T's parts (written to
+//                                   a swizzled tile by both warpgroups)
+//                                   read transposed as A, K MN-major
+// dO's next tile loads once both warpgroups' dv products have read it,
+// during the dk and dq products, Q's once their dk products have, during
+// the dq products and the next pair's dp^T; K and V once warpgroup 0 has
+// taken warpgroup 1's sums out of their space.
+__global__ void __launch_bounds__(HT, 1)
+    fused_f32_sm90_kernel(const __grid_constant__ CUtensorMap mq,
+                          const __grid_constant__ CUtensorMap mk,
+                          const __grid_constant__ CUtensorMap mv,
+                          const __grid_constant__ CUtensorMap mo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dqp, float* __restrict__ dkp,
+                          float* __restrict__ dvp,
+                          const int* __restrict__ items, int S, int BH,
+                          int bq, int chunk, int causal, float oscale) {
+  using P = F6;
+  constexpr int D = P::D, BKV = P::BKV;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = aligned_base(smem_raw);
+  float* const fbase =
+      reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)));
+  const uint32_t sK = base, sV = sK + P::TILE, sQ = sV + P::TILE;
+  const uint32_t sO = sQ + P::TILE, sDS = sO + P::TILE;
+  const uint32_t sL = sDS + 3 * P::DS_PART, sE = sL + P::ROWS;
+  const uint32_t kvfull = sE + P::ROWS, qfull = kvfull + 8,
+                 ofull = qfull + 8;
+  const float* Lq = fbase + (sL - base) / 4;      // the pair's lse, delta
+  const float* Eq = fbase + (sE - base) / 4;
+
+  const Item w = item_of(items, BH);
+  const int n_q = S / bq, n_kv = (S + BKV - 1) / BKV;
+  const int qb0 = w.qi * bq, qb1 = qb0 + bq;
+  const int j0 = w.c * chunk, j1 = min(j0 + chunk, n_kv);
+  const int kv_vis = causal ? qb1 : S;
+  const int jv = max(j0, min(j1, (kv_vis + BKV - 1) / BKV));
+  const int row0 = w.bh * S, part_rows = BH * S;
+
+  // the loads' cursor (thread 0's): the next pair whose Q side is to load
+  Pairs ld{j0, q_first(qb0, j0 * BKV, causal), qb0, qb1, jv, BKV, causal};
+  if (threadIdx.x == 0) {
+    mbar_init(kvfull, 1);
+    mbar_init(qfull, 1);
+    mbar_init(ofull, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if (jv > j0) {
+      mbar_expect_tx(kvfull, 2 * P::TILE);
+      tma_tile3(sK, kvfull, &mk, part_rows, row0 + j0 * BKV);
+      tma_tile3(sV, kvfull, &mv, part_rows, row0 + j0 * BKV);
+      load_side3(sO, sE, ofull, &mo, delta, part_rows, row0 + ld.q0);
+      load_side3(sQ, sL, qfull, &mq, lse, part_rows, row0 + ld.q0);
+      ld.next();
+    }
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int tid = threadIdx.x % 128;
+  const int fr = warp * 16 + g;       // its fragment rows fr and fr + 8
+  const int qw = 32 * wg;             // its queries of a Q tile
+  const size_t part = ((size_t)w.bh * n_q + w.qi) * S;   // partial rows
+  float* dq_slot = dqp + ((size_t)w.c * BH + w.bh) * S * D;
+  // ds^T's parts, and the descriptors of dq's operands (step: 16 keys)
+  const uint64_t ds_mn = desc_b(sDS, P::DS_PART);
+  const uint64_t k_mn = desc_b(sK + wg * P::BOX, P::BOX);
+
+  float dk[64], dv[64], s[16], dp[16];
+  int it = 0;
+  for (int j = j0; j < jv; ++j) {
+    const int kv0 = j * BKV;
+    mbar_wait(kvfull, (j - j0) & 1);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+    for (int q0 = q_first(qb0, kv0, causal); q0 < qb1; q0 += QT, ++it) {
+      const uint32_t ph = it & 1;
+      if (j > j0) {
+        // this pair's dq rows, to be loaded after its other products: into
+        // L1 now, while those run
+        const float* rowp = dq_slot + (size_t)(q0 + fr) * D + 64 * wg;
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          asm volatile("prefetch.global.L1 [%0];" ::"l"(
+              rowp + (u / 2) * 8 * D + (u % 2) * 32));
+      }
+
+      // dp^T and s2^T [64 kv x 32 q] over dh
+      pin(dp);
+      pin(s);
+      mbar_wait(ofull, ph);
+      wgmma_fence();
+      score6(dp, sV, sO + qw * 128);
+      wgmma_commit();
+      mbar_wait(qfull, ph);
+      score6(s, sK, sQ + qw * 128);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(dp);
+      pin(s);
+
+      // p and ds in place; only a tile that crosses the diagonal masks
+      if (causal && kv0 + BKV - 1 > q0 + qw)
+        softmax_grad_frag<true>(s, dp, Lq + qw, Eq + qw, kv0 + fr, q0 + qw,
+                                S, causal, t);
+      else
+        softmax_grad_frag<false>(s, dp, Lq + qw, Eq + qw, kv0 + fr,
+                                 q0 + qw, S, causal, t);
+      uint32_t pf[3][8], df[3][8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        uint32_t a[3], b[3];
+        split_pair<3>(s[2 * i], s[2 * i + 1], a);
+        split_pair<3>(dp[2 * i], dp[2 * i + 1], b);
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+          pf[p][i] = a[p];
+          df[p][i] = b[p];
+        }
+      }
+      // dv += p^T dO over its 32 queries
+      grad6(dv, pf, sO + qw * 128);
+      // both warpgroups are done with this pair's dO and delta: the stage
+      // takes the next pair's; and their dq products of the previous pair
+      // have read ds^T: its parts take this pair's, row = key, 64 queries
+      // (128 bytes) a row, 16-byte unit u of row r at u ^ (r % 8); this
+      // warpgroup's queries are units 4 wg .. 4 wg + 3
+      named_barrier(1, HT);
+      if (threadIdx.x == 0 && !ld.done())
+        load_side3(sO, sE, ofull, &mo, delta, part_rows, row0 + ld.q0);
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+#pragma unroll
+        for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int r = fr + 8 * i;
+            const uint32_t at = sDS + p * P::DS_PART + r * 128 +
+                                (((4 * wg + jn) ^ (r & 7)) << 4) + 4 * t;
+            asm volatile("st.shared.b32 [%0], %1;" ::"r"(at),
+                         "r"(df[p][2 * jn + i])
+                         : "memory");
+          }
+      fence_proxy_async();
+
+      // dk += ds^T q2 over its 32 queries
+      grad6(dk, df, sQ + qw * 128);
+      // ds^T is whole, and both warpgroups are done with this pair's Q and
+      // lse: the stage takes the next pair's
+      named_barrier(1, HT);
+      if (threadIdx.x == 0 && !ld.done()) {
+        load_side3(sQ, sL, qfull, &mq, lse, part_rows, row0 + ld.q0);
+        ld.next();
+      }
+
+      // dq rows q0.. of the chunk's slot, columns 64 wg..: += ds K, six
+      // products into a fresh accumulator; the chunk's first tile stores,
+      // the others load, add and store; the last tile that the Q tile sees
+      // in the chunk scales by oscale
+      float fq[32];
+      pin(fq);
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < 6; ++p)
+#pragma unroll
+        for (int kk = 0; kk < BKV / 16; ++kk)
+          wgmma_64<1, 1>(fq,
+                         ds_mn + ((prod_a(p) * P::DS_PART) >> 4) + kk * 128,
+                         k_mn + ((prod_b(p) * P::PART) >> 4) + kk * 128,
+                         p > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(fq);
+      const int last = causal ? min(jv - 1, (q0 + QT - 1) / BKV) : jv - 1;
+      const float scale = j == last ? oscale : 1.f;
+      float* rowp = dq_slot + (size_t)(q0 + fr) * D + 64 * wg + 2 * t;
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float* at = rowp + 8 * i * D + 8 * jn;
+          float2 v = make_float2(0.f, 0.f);
+          if (j > j0) v = *reinterpret_cast<const float2*>(at);
+          *reinterpret_cast<float2*>(at) =
+              make_float2((v.x + fq[4 * jn + 2 * i]) * scale,
+                          (v.y + fq[4 * jn + 2 * i + 1]) * scale);
+        }
+    }
+    // every product of the tile is done: warpgroup 1's dk and dv to
+    // warpgroup 0 through K's and V's space, then the next tile's K and V
+    named_barrier(1, HT);
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        fbase[i * 128 + tid] = dk[i];
+        fbase[(64 + i) * 128 + tid] = dv[i];
+      }
+      fence_proxy_async();
+    }
+    named_barrier(1, HT);
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        dk[i] += fbase[i * 128 + tid];
+        dv[i] += fbase[(64 + i) * 128 + tid];
+      }
+    }
+    named_barrier(1, HT);
+    if (threadIdx.x == 0 && j + 1 < jv) {
+      mbar_expect_tx(kvfull, 2 * P::TILE);
+      tma_tile3(sK, kvfull, &mk, part_rows, row0 + (j + 1) * BKV);
+      tma_tile3(sV, kvfull, &mv, part_rows, row0 + (j + 1) * BKV);
+    }
+    // this KV tile's rows of both partials (dK times ln2: ds^T q2 =
+    // (scale log2e) ds^T q)
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int kv = kv0 + fr + 8 * i;
+        float* pk = dkp + (part + kv) * D + 2 * t;
+        float* pv = dvp + (part + kv) * D + 2 * t;
+#pragma unroll
+        for (int jn = 0; jn < 16; ++jn) {
+          *reinterpret_cast<float2*>(pk + 8 * jn) = make_float2(
+              dk[4 * jn + 2 * i] * LN2, dk[4 * jn + 2 * i + 1] * LN2);
+          *reinterpret_cast<float2*>(pv + 8 * jn) =
+              make_float2(dv[4 * jn + 2 * i], dv[4 * jn + 2 * i + 1]);
+        }
+      }
+    }
+  }
+  zero_unseen<D>(dkp, dvp, dq_slot, part, jv * BKV, min(j1 * BKV, S), qb0,
+                 min(qb1, q_first(qb0, j0 * BKV, causal)), threadIdx.x, HT);
+}
+
+// ===========================================================================
+// f32 at dh 256: the FMA phases of flash_bwd_tile.cuh on the same items
 // ===========================================================================
 template <int D, int BK>
 __global__ void __launch_bounds__(NT, 1)
@@ -593,71 +949,108 @@ struct Fused {
   cudaStream_t stream;
 };
 
+// the four operands' maps: `rows` rows of D columns each, boxes of QT rows
+// (q, dout) and bkv rows (k, v); false if one cannot be made
+template <int D>
+bool fused_maps(const Fused& a, int rows, int bkv, CUtensorMap* m) {
+  const EncodeTiled fn = encode_tiled();
+  return fn != nullptr && make_map(&m[0], fn, a.q, rows, D, D, 64, QT) &&
+         make_map(&m[1], fn, a.k, rows, D, D, 64, bkv) &&
+         make_map(&m[2], fn, a.v, rows, D, D, 64, bkv) &&
+         make_map(&m[3], fn, a.dout, rows, D, D, 64, QT);
+}
+
+// the wgmma kernels read their operands by TMA and lse and delta by bulk
+// copies, and take q already scaled
+bool sm90_args(const Fused& a) {
+  return a.qscale == 1.f && aligned(a.q, 16) && aligned(a.k, 16) &&
+         aligned(a.v, 16) && aligned(a.dout, 16) && aligned(a.lse, 16) &&
+         aligned(a.delta, 16);
+}
+
 template <int D>
 int launch_sm90(const Fused& a) {
-  if (a.qscale != 1.f) return static_cast<int>(cudaErrorInvalidValue);
-  if (!aligned(a.q, 16) || !aligned(a.k, 16) || !aligned(a.v, 16) ||
-      !aligned(a.dout, 16) || !aligned(a.lse, 16) || !aligned(a.delta, 16))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  constexpr int BKV = Hy<D>::BKV;
-  const int rows = a.bh * a.s;
-  CUtensorMap mq, mk, mv, mo;
-  if (!make_map(&mq, fn, a.q, rows, D, D, 64, QT) ||
-      !make_map(&mk, fn, a.k, rows, D, D, 64, BKV) ||
-      !make_map(&mv, fn, a.v, rows, D, D, 64, BKV) ||
-      !make_map(&mo, fn, a.dout, rows, D, D, 64, QT))
+  CUtensorMap m[4];
+  if (!sm90_args(a) || !fused_maps<D>(a, a.bh * a.s, Hy<D>::BKV, m))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch(fused_sm90_kernel<D>, dim3(a.n_items * a.bh), HT,
-                Hy<D>::SMEM, a.stream, mq, mk, mv, mo, a.lse, a.delta, a.dqp,
+                Hy<D>::SMEM, a.stream, m[0], m[1], m[2], m[3], a.lse,
+                a.delta, a.dqp, a.dkp, a.dvp, a.items, a.s, a.bh, a.bq,
+                a.chunk, a.causal, a.oscale);
+}
+
+// the operands are three parts each, [3, bh, s, 128] bf16: one map over
+// every part's rows
+int launch_f32_sm90(const Fused& a) {
+  CUtensorMap m[4];
+  if (!sm90_args(a) || !fused_maps<F6::D>(a, 3 * a.bh * a.s, F6::BKV, m))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch(fused_f32_sm90_kernel, dim3(a.n_items * a.bh), HT, F6::SMEM,
+                a.stream, m[0], m[1], m[2], m[3], a.lse, a.delta, a.dqp,
                 a.dkp, a.dvp, a.items, a.s, a.bh, a.bq, a.chunk, a.causal,
                 a.oscale);
 }
 
-template <int D, int BK>
-int launch_f32(const Fused& a) {
-  constexpr int smem = bwd_smem_floats(D, BK, true) * sizeof(float);
-  return launch(fused_f32_kernel<D, BK>, dim3(a.n_items * a.bh), NT, smem,
-                a.stream, static_cast<const float*>(a.q),
+constexpr int FMA_D = 256, FMA_BK = 32;   // the FMA kernel's dh, KV rows
+constexpr int FMA_SMEM = bwd_smem_floats(FMA_D, FMA_BK, true) * 4;
+
+int launch_fma(const Fused& a) {
+  return launch(fused_f32_kernel<FMA_D, FMA_BK>, dim3(a.n_items * a.bh), NT,
+                FMA_SMEM, a.stream, static_cast<const float*>(a.q),
                 static_cast<const float*>(a.k), static_cast<const float*>(a.v),
                 static_cast<const float*>(a.dout), a.lse, a.delta, a.dqp,
                 a.dkp, a.dvp, a.items, a.s, a.bh, a.bq, a.chunk, a.causal,
                 a.qscale, a.oscale);
 }
 
-// the KV tile rows of each kernel: what the plan's items are counted in
-int kv_tile(int dh, int bf16) {
-  if (bf16) return dh == 128 ? Hy<128>::BKV : Hy<256>::BKV;
-  return dh == 128 ? 64 : 32;
+// the kernel of (dh, parts) and its plan: KV tile rows (what the plan's
+// items are counted in) and dynamic shared memory; false if none
+bool route(int dh, int parts, int& bkv, int& smem) {
+  if (parts == 1 && (dh == 128 || dh == 256)) {
+    bkv = dh == 128 ? Hy<128>::BKV : Hy<256>::BKV;
+    smem = dh == 128 ? Hy<128>::SMEM : Hy<256>::SMEM;
+  } else if (parts == 3 && dh == F6::D) {
+    bkv = F6::BKV;
+    smem = F6::SMEM;
+  } else if (parts == 0 && dh == FMA_D) {
+    bkv = FMA_BK;
+    smem = FMA_SMEM;
+  } else {
+    return false;
+  }
+  return true;
 }
 
 }  // namespace
 
-// q, k, v, dout [bh, s, dh] (f32, or bf16 when bf16 != 0), lse and delta
-// [bh, s] f32, dqp [s / (bkv * chunk) rounded up, bh, s, dh] f32 (one dq
-// partial per KV chunk), dkp and dvp [bh, s / bq, s, dh] f32.  items holds
-// n_items pairs (Q block, KV chunk) on the device; the grid is n_items * bh
-// CTAs.  bkv names the kernel's KV tile (kv_tile above): the kernel refuses
-// another.  Q is multiplied by qscale as it is loaded (bf16: qscale must be
-// 1, the wrapper scales) and dq = oscale * ds k.  Launches on `stream` and
-// returns the launch's cudaError_t (0 on success).
+// q, k, v, dout: the hybrid class's casts [bh, s, dh] bf16 (parts 1; q
+// already times scale*log2e), the f32 class's parts at dh 128 [3, bh, s,
+// 128] bf16 (parts 3: t4_split_bwd of flash_bwd.cu), or at dh 256 f32
+// [bh, s, 256] (parts 0: the FMA kernel, q times qscale as it is loaded);
+// lse and delta [bh, s] f32; dqp [s / (bkv * chunk) rounded up, bh, s, dh]
+// f32 (one dq partial per KV chunk), dkp and dvp [bh, s / bq, s, dh] f32.
+// items holds n_items pairs (Q block, KV chunk) on the device; the grid is
+// n_items * bh CTAs.  (bkv, smem) name the kernel's plan (route above;
+// ops/attn.py:fused_plan): another is refused.  dq = oscale * ds k.
+// Launches on `stream` and returns the launch's cudaError_t (0 on
+// success).
 extern "C" int t4_flash_bwd_fused(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, void* dqp, void* dkp,
                                   void* dvp, const void* items, int n_items,
                                   int bh, int s, int dh, int bq, int bkv,
-                                  int chunk, int causal, int bf16,
+                                  int chunk, int causal, int parts, int smem,
                                   float qscale, float oscale, void* stream) {
+  int want_bkv = 0, want_smem = 0;
   if (bh <= 0 || s <= 0 || bq <= 0 || bq % QT != 0 || s % bq != 0 ||
-      (dh != 128 && dh != 256) || n_items <= 0 || chunk <= 0 ||
-      bkv != kv_tile(dh, bf16))
+      n_items <= 0 || chunk <= 0 || !route(dh, parts, want_bkv, want_smem) ||
+      bkv != want_bkv || smem != want_smem)
     return static_cast<int>(cudaErrorInvalidValue);
   const Fused a{q, k, v, dout, static_cast<const float*>(lse),
                 static_cast<const float*>(delta), static_cast<float*>(dqp),
                 static_cast<float*>(dkp), static_cast<float*>(dvp),
                 static_cast<const int*>(items), n_items, bh, s, bq, chunk,
                 causal, qscale, oscale, static_cast<cudaStream_t>(stream)};
-  if (bf16) return dh == 128 ? launch_sm90<128>(a) : launch_sm90<256>(a);
-  return dh == 128 ? launch_f32<128, 64>(a) : launch_f32<256, 32>(a);
+  if (parts == 1) return dh == 128 ? launch_sm90<128>(a) : launch_sm90<256>(a);
+  return parts == 3 ? launch_f32_sm90(a) : launch_fma(a);
 }

@@ -1,10 +1,10 @@
-// Shared-memory tile helpers of the flash-attention kernels (flash_fwd.cu,
-// attn_dots.cu, flash_bwd.cu, flash_bwd_fused.cu): 256-thread blocks laid
-// out as 16 row groups x 16 column lanes, f32 tiles whose rows are padded
-// by 4 floats.
+// Shared-memory tile helpers of the strict-f32 FMA flash-attention
+// kernels (flash_bwd_tile.cuh's phases: dh 256 in the f32 class of
+// flash_bwd.cu and flash_bwd_fused.cu): 256-thread blocks laid out as 16
+// row groups x 16 column lanes, f32 tiles whose rows are padded by 4
+// floats.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -17,13 +17,6 @@ constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(p2[0]);
-  const float2 b = __bfloat1622float2(p2[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 // rows x D elements of src (row-major, D per row) -> dst (ld floats per
@@ -41,11 +34,6 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
     x.w *= scale;
     *reinterpret_cast<float4*>(dst + row * ld + col) = x;
   }
-}
-
-// x rounded to bf16 and back when `on` (the hybrid mode's multiplicands)
-__device__ __forceinline__ float round_bf16(float x, int on) {
-  return on ? __bfloat162float(__float2bfloat16(x)) : x;
 }
 
 // acc[i][j] += sum over d < D of A[4r+i][d] * B[c+16j][d]: thread (r, c)

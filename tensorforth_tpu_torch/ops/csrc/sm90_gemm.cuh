@@ -1,6 +1,6 @@
 // The Hopper machinery that gemm_sm90.cu (K5a, K6), gemm_sm90_f32.cu (K5b,
-// K7), flash_bwd_fused.cu (K3), flash_fwd.cu (K1) and flash_bwd.cu (K2a,
-// K2b) share: mbarriers with a trapping wait, TMA loads (tiles and plain
+// K7), flash_bwd_fused.cu (K3), flash_fwd.cu (K1), attn_dots.cu (K8) and
+// flash_bwd.cu (K2a, K2b) share: mbarriers with a trapping wait, TMA loads (tiles and plain
 // bulk copies), wgmma's shared-memory descriptors and its operand forms
 // (m64n128, m64n64 and m64n32, A from shared memory or registers, either
 // operand transposed), the flash kernels' exp2, the grouped raster of

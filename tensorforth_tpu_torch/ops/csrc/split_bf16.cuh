@@ -1,7 +1,7 @@
 // Splitting f32 values into bf16 parts: the device code that gemm_sm90.cu
 // (K5a's rounding pass), flash_fwd.cu (K1's operand split, and its P split
-// in registers) and flash_bwd.cu (K2's operand split, and its p and ds
-// split in registers) share.  Everything is in an anonymous namespace: each
+// in registers), flash_bwd.cu (K2's operand split, and its p and ds split
+// in registers) and flash_bwd_fused.cu (K3-f32's p and ds split) share.  Everything is in an anonymous namespace: each
 // source that includes it is a library of its own.
 //
 // x = hi + lo (2 parts, the class 3pass):  hi = bf16(x), lo = bf16(x - hi)

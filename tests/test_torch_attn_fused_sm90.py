@@ -274,6 +274,7 @@ def test_kernel_source_has_no_atomics_and_names_its_tiles():
     code = re.sub(r"//[^\n]*", "", src)
     assert re.search(r"atomic|\bred\.", code) is None
     assert "BKV = D == 128 ? 128 : 64" in src
-    assert "return dh == 128 ? 64 : 32;" in src
+    assert "static constexpr int BKV = 64;" in src          # f32, dh 128
+    assert "FMA_D = 256, FMA_BK = 32" in src                 # f32, dh 256
     assert attn.FUSED_KV_TILE == {(True, 128): 128, (True, 256): 64,
                                   (False, 128): 64, (False, 256): 32}

@@ -1,0 +1,284 @@
+"""K3's f32 class at dh 128 (csrc/flash_bwd_fused.cu: fused_f32_sm90_kernel)
+as six bf16 products of the three-part split on wgmma, as far as the CPU
+can hold it.
+
+The kernel runs only on the card, where chip_smoke.py holds it against
+its plain version, against the two-kernel split (six-product K2) and
+against f64.  Here: a model of its arithmetic (attn.
+flash_attention_bwd_fused_split_ref: the split's parts, the products of
+each pair taken exactly and summed in f32 in the kernel's order, p and ds
+split in turn) against f64 autograd, against the JAX package's fused
+kernel in Pallas interpret mode and against six-product K2's plain
+version; the route that fused_plan picks from dh and the class; the shared
+memory of each route against the source; the launch's refusals on meta
+tensors; the CPU path; no FMA body at dh 128.  Inputs come from numpy
+seeds; tolerances are stated at each test.
+"""
+import math
+import os
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from chip_smoke import TOL_FUSED_SPLIT
+from tensorforth_tpu.ops import attn_pallas
+from tensorforth_tpu_torch.ops import attn, gemm
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(ROOT, "tensorforth_tpu_torch", "ops", "csrc",
+                   "flash_bwd_fused.cu")
+TOL_BWD = 2e-4     # absolute plus relative: tests/test_attention.py:185
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """small CPU products: one thread, so the suite's other workers keep
+    their cores"""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _case(shape, causal, seed, with_dlse=False):
+    """q, k, v, o, lse, do, dlse: randn from a numpy seed, o and lse from
+    the f32 forward's plain version"""
+    rs = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(rs.randn(*shape).astype(np.float32))
+                   for _ in range(4))
+    dlse = (torch.from_numpy(rs.randn(*shape[:2]).astype(np.float32))
+            if with_dlse else None)
+    o, lse = attn.flash_attention_ref(q, k, v, causal)
+    return q, k, v, o, lse, do, dlse
+
+
+def _f64_grads(q, k, v, do, dlse, causal):
+    """dq, dk, dv of the exact (o, lse) attention by f64 autograd"""
+    s, dh = q.shape[1], q.shape[2]
+    leaves = [t.double().requires_grad_(True) for t in (q, k, v)]
+    sc = torch.einsum("nqd,nkd->nqk", leaves[0], leaves[1]) / math.sqrt(dh)
+    if causal:
+        keep = torch.ones(s, s, dtype=torch.bool).tril()
+        sc = sc.masked_fill(~keep, attn.NEG_INF)
+    outs = [torch.einsum("nqk,nkd->nqd", torch.softmax(sc, dim=-1),
+                         leaves[2])]
+    cots = [do.double()]
+    if dlse is not None:
+        outs.append(torch.logsumexp(sc, dim=-1))
+        cots.append(dlse.double())
+    return torch.autograd.grad(outs, leaves, cots)
+
+
+def _ratio(got, want, tol):
+    """the largest |got - want| / (tol + tol |want|) over dq, dk and dv"""
+    return max(((g.double() - w.double()).abs()
+                / (tol + tol * w.double().abs())).max().item()
+               for g, w in zip(got, want))
+
+
+def _model(q, k, v, o, lse, do, causal, dlse=None, bq=None, sms=attn.N_SM):
+    """(dq, dk, dv) of the model, its partials summed as the wrapper sums
+    them"""
+    dq, dkp, dvp = attn.flash_attention_bwd_fused_split_ref(
+        q, k, v, o, lse, do, bq, causal, dlse, sms)
+    return dq, dkp.sum(dim=1), dvp.sum(dim=1)
+
+
+# (shape, causal, with_dlse, bq)
+CASES = [((1, 1024, 128), True, False, None), ((1, 512, 128), False, False,
+                                                 128),
+         ((2, 512, 128), True, True, 256)]
+
+
+# ---------------------------------------------------------------------------
+# (a) the six-product arithmetic of the fused kernel
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("shape,causal,with_dlse,bq", CASES, ids=str)
+def test_model_holds_the_class_against_f64(shape, causal, with_dlse, bq):
+    """within 0.01 of the class's f64 tolerance, 2e-4 + 2e-4 |x|: what is
+    left is the f32 roundings of s2, p, dp, ds, of each pair's products
+    and of the forward's o and lse"""
+    q, k, v, o, lse, do, dlse = _case(shape, causal, 31, with_dlse)
+    got = _model(q, k, v, o, lse, do, causal, dlse, bq)
+    assert _ratio(got, _f64_grads(q, k, v, do, dlse, causal), TOL_BWD) <= 0.01
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_model_matches_the_pallas_fused_backward(causal):
+    """against the JAX package's fused kernel in interpret mode at
+    precision highest, on the Pallas forward's o and lse, bq 256 (two Q
+    blocks): within 1e-5 + 1e-5 |x|, the tolerance of the JAX package's
+    own fused test (tests/test_attention.py:364-368)"""
+    b, s, dh, bq = 1, 512, 128, 256
+    q, k, v, _, _, do, _ = _case((b, s, dh), causal, 32)
+    with jax.default_matmul_precision("highest"):
+        qj, kj, vj, doj = (jnp.asarray(t.numpy()) for t in (q, k, v, do))
+        oj, lj = attn_pallas.flash_attention(qj, kj, vj, causal=causal,
+                                             return_lse=True, interpret=True)
+        want = attn_pallas.flash_attention_bwd_fused(
+            qj, kj, vj, oj, lj, doj, bq=bq, bkv=256, causal=causal,
+            interpret=True)
+    o = torch.tensor(np.asarray(oj))
+    lse = torch.tensor(np.asarray(lj)[..., 0])
+    got = _model(q, k, v, o, lse, do, causal, None, bq)
+    assert _ratio(got, [torch.tensor(np.asarray(w)) for w in want],
+                  TOL_FUSED_SPLIT) <= 1
+
+
+@pytest.mark.parametrize("shape,causal,with_dlse,bq", CASES, ids=str)
+def test_model_keeps_the_fused_equals_split_margin(shape, causal, with_dlse,
+                                                   bq):
+    """against six-product K2's plain version (the products of the same
+    parts taken exactly over the whole reduction): within 0.3 of
+    chip_smoke.py's fused-equals-split bound, 1e-5 + 1e-5 |x|, so the
+    check keeps most of its margin for the tensor cores' sums"""
+    q, k, v, o, lse, do, dlse = _case(shape, causal, 33, with_dlse)
+    got = _model(q, k, v, o, lse, do, causal, dlse, bq)
+    six = attn.flash_attention_bwd_split_ref(q, k, v, o, lse, do, causal,
+                                             3, dlse)
+    assert _ratio(got, six, TOL_FUSED_SPLIT) <= 0.3
+
+
+def test_model_sums_per_chunk_and_zeroes_unseen_blocks():
+    """the model's dq follows the plan's chunks (many heads: chunks of
+    several KV tiles) and equals itself on one chunk per tile within f32
+    roundings; the causal partials are zero past each Q block"""
+    q, k, v, o, lse, do, _ = _case((8, 512, 128), True, 34)
+    assert attn.fused_plan(8, 512, 256, True, False, 128, 16).chunk > 1
+    many = attn.flash_attention_bwd_fused_split_ref(q, k, v, o, lse, do, 256,
+                                                    True, sms=16)
+    one = attn.flash_attention_bwd_fused_split_ref(q, k, v, o, lse, do, 256,
+                                                   True, sms=10 ** 6)
+    assert attn.fused_plan(8, 512, 256, True, False, 128, 10 ** 6).chunk == 1
+    assert _ratio(many, one, 1e-6) <= 1
+    assert torch.equal(many[1], one[1]) and torch.equal(many[2], one[2])
+    assert many[1].shape == (8, 2, 512, 128)
+    assert not many[1][:, 0, 256:].any() and not many[2][:, 0, 256:].any()
+
+
+def test_model_takes_only_the_six_product_route():
+    """dh 256 in the f32 class is the FMA kernel's: the model refuses it"""
+    q, k, v, o, lse, do, _ = _case((1, 128, 256), True, 35)
+    with pytest.raises(ValueError):
+        attn.flash_attention_bwd_fused_split_ref(q, k, v, o, lse, do)
+
+
+# ---------------------------------------------------------------------------
+# (b) the route, the plan and the source
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("s,bq,causal", [(2048, 1024, True),
+                                         (1024, 256, False),
+                                         (576, 192, True)])
+def test_plan_picks_the_route_from_dh_and_the_class(s, bq, causal):
+    """f32 at dh 128: three bf16 parts on the six-product kernel, 64-row
+    KV tiles; f32 at dh 256: f32 operands on the FMA kernel, 32-row tiles;
+    hybrid: one part; whatever the shape, bq or mask"""
+    for dh, hybrid, parts, tile in ((128, False, 3, 64), (256, False, 0, 32),
+                                    (128, True, 1, 128), (256, True, 1, 64)):
+        plan = attn.fused_plan(4, s, bq, causal, hybrid, dh)
+        assert (plan.parts, plan.kv_tile) == (parts, tile)
+        assert attn.fused_parts(dh, hybrid) == parts
+        assert plan.smem == attn.fused_smem(dh, parts)
+
+
+def test_each_routes_shared_memory_fits_and_matches_the_source():
+    """every route stays under a block's 227 KB, and the bytes the plan
+    passes are the source's: F6 (K, V, Q, dO in three parts of 64 rows,
+    ds^T's three parts, lse, delta, three barriers), Hy, and the FMA
+    kernel's padded tiles"""
+    with open(SRC) as f:
+        src = f.read()
+    sizes = {(dh, parts): attn.fused_smem(dh, parts)
+             for dh, parts in ((128, 3), (256, 0), (128, 1), (256, 1))}
+    assert all(n <= gemm.SM90_SMEM_LIMIT == 232448 for n in sizes.values())
+    assert sizes[(128, 3)] == 1024 + 4 * 3 * 64 * 128 * 2 + 3 * 64 * 64 * 2 \
+        + 2 * 64 * 4 + 3 * 8 == 222744
+    assert "SMEM = ALIGN + 4 * TILE + 3 * DS_PART + 2 * ROWS +" in src
+    assert "PART = 2 * BOX" in src and "TILE = 3 * PART" in src
+    assert sizes[(256, 0)] == attn._fma_smem(256, 32, True) == 218624
+    assert "FMA_SMEM = bwd_smem_floats(FMA_D, FMA_BK, true) * 4" in src
+    # Hy<D>::SMEM at both head dims
+    assert sizes[(128, 1)] == 1024 + 2 * 32768 + 2 * 16384 + 3 * 33792 + 32
+    assert sizes[(256, 1)] == 1024 + 2 * 32768 + 2 * 8192 + 2 * 66560 + 24
+    assert "ALIGN + 2 * KV_BYTES + 2 * DS_BYTES + NS * STAGE + (NS + 1) * 8" \
+        in src
+
+
+def test_no_fma_body_is_left_at_dh128():
+    """the FMA kernel is instantiated at dh 256 alone; the f32 class at
+    dh 128 routes to the wgmma kernel, whose body has no FMA phase"""
+    with open(SRC) as f:
+        code = re.sub(r"//[^\n]*", "", f.read())
+    assert set(re.findall(r"fused_f32_kernel<([^>]*)>", code)) == {
+        "FMA_D, FMA_BK"}
+    assert "FMA_D = 256" in code
+    assert "parts == 3 && dh == F6::D" in code
+    assert "parts == 3 ? launch_f32_sm90(a) : launch_fma(a)" in code
+    start = code.index("fused_f32_sm90_kernel(")
+    body = code[start:code.index("template <int D, int BK>", start)]
+    assert "score6" in body and "grad6" in body and "wgmma_64<1, 1>" in body
+    for fma in ("fmaf", "pds_tiles", "accum_dkv", "accum_rows", "load_tile",
+                "atomic"):
+        assert fma not in body
+
+
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("bad", ["f32_at_128", "no_parts_at_128",
+                                 "two_parts", "parts_in_hybrid",
+                                 "bf16_at_256", "strided", "shapes"])
+def test_launch_refuses_what_the_kernels_do_not_take(bad):
+    """the fused kernel takes contiguous operands of one shape: bf16 [3,
+    B*h, S, 128] parts in the f32 class at dh 128, f32 [B*h, S, 256] at
+    dh 256, bf16 [B*h, S, dh] in the hybrid class; anything else raises
+    before a library is built"""
+    hybrid = bad in ("parts_in_hybrid", "strided", "shapes")
+    dh = 256 if bad == "bf16_at_256" else 128
+    ops = [_meta(3, 2, 128, 128) for _ in range(4)]
+    if hybrid:
+        ops = [_meta(2, 128, 128) for _ in range(4)]
+    if bad == "f32_at_128":
+        ops = [_meta(2, 128, 128, dtype=torch.float32) for _ in range(4)]
+    elif bad == "no_parts_at_128":
+        ops[1] = _meta(2, 128, 128)
+    elif bad == "two_parts":
+        ops[2] = _meta(2, 2, 128, 128)
+    elif bad == "parts_in_hybrid":
+        ops[0] = _meta(3, 2, 128, 128)
+    elif bad == "bf16_at_256":
+        ops = [_meta(2, 128, 256) for _ in range(4)]
+    elif bad == "strided":
+        ops[1] = _meta(2, 128, 256)[:, :, :128]
+    elif bad == "shapes":
+        ops[3] = _meta(2, 192, 128)
+    rows = _meta(2, 128 if dh == 128 else 128, dtype=torch.float32)
+    with pytest.raises(ValueError):
+        attn._launch_fused(ops, rows, rows, 1.0, 128, True, hybrid)
+
+
+def test_cpu_path_launches_nothing():
+    """CPU tensors take the plain version: neither the kernel nor the
+    split is launched, and chip_smoke's fused case counts no launch"""
+    q, k, v, o, lse, do, dlse = _case((1, 256, 128), True, 36, True)
+    attn.flash_attention_bwd_fused.launches = 0
+    attn.flash_attention_bwd_fused.split_launches = 0
+    got = attn.flash_attention_bwd_fused(q, k, v, o, lse, do, 128, True,
+                                         dlse=dlse)
+    want = attn.flash_attention_bwd_fused_ref(q, k, v, o, lse, do, 128,
+                                              True, dlse=dlse)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    split = attn.flash_attention_bwd(q, k, v, o, lse, do, True, dlse=dlse)
+    row = chip_smoke.fused_case((q, k, v, o, lse, do, True, False, dlse),
+                                split, 128, None, None, timed=False)
+    assert row["ok"] and row["launches_of_one_call"] == {"kernel": 0,
+                                                         "split": 0}
+    assert row["grid"]["route"].startswith("bf16 wgmma, six products")
+    assert attn.flash_attention_bwd_fused.launches == 0
+    assert attn.flash_attention_bwd_fused.split_launches == 0

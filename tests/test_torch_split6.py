@@ -207,6 +207,15 @@ def test_split_ref_of_the_f32_class_scales_q_first():
 # ---------------------------------------------------------------------------
 # (c) the wrappers
 # ---------------------------------------------------------------------------
+def _forward_source() -> str:
+    """K1's source and the body it shares with K8 (flash_fwd.cuh)"""
+    out = ""
+    for name in ("flash_fwd.cu", "flash_fwd.cuh"):
+        with open(os.path.join(CSRC, name)) as f:
+            out += f.read()
+    return out
+
+
 @pytest.mark.parametrize("dh", attn.KERNEL_DH)
 @pytest.mark.parametrize("hybrid", [False, True])
 def test_fwd_plan_fits_an_sm_and_matches_the_source(dh, hybrid):
@@ -219,8 +228,7 @@ def test_fwd_plan_fits_an_sm_and_matches_the_source(dh, hybrid):
     assert plan.ctas == 64 * 2048 // plan.bq
     tiles = plan.parts * (plan.bq + 2 * plan.stages * plan.bkv) * dh * 2
     assert plan.smem == 1024 + tiles + (1 + 2 * plan.stages) * 8
-    with open(os.path.join(CSRC, "flash_fwd.cu")) as f:
-        src = f.read()
+    src = _forward_source()
     assert "BQ = D == 128 ? 128 : 64" in src
     assert "BKV = D == 128 ? 64 : 32" in src
     assert "ST = NP == 1 ? 2 : 1" in src
@@ -265,8 +273,7 @@ def test_no_fma_body_is_left():
     FMA body: it includes neither flash_tile.cuh nor an fmaf"""
     assert not os.path.exists(os.path.join(CSRC, "gemm.cu"))
     assert "gemm" not in gemm._ARGTYPES
-    with open(os.path.join(CSRC, "flash_fwd.cu")) as f:
-        code = re.sub(r"//[^\n]*", "", f.read())
+    code = re.sub(r"//[^\n]*", "", _forward_source())
     assert "flash_tile.cuh" not in code and "fmaf" not in code
     assert "wgmma_128_rs" in code and "score_mma" in code
 
