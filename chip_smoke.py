@@ -47,6 +47,17 @@ Phases, one JSON line each:
           1000-product loop with a profile, the words gemm..gemm4 at
           4096^3 and 2048^3 under both precision settings with exact
           launch counts, and inverse/plu/det/solve at 1024 x 1024
+  nn      the NN tier's main path, mnist_cnn at t4_30e's full width
+          (batch 100 of 28 x 28 x 1, conv 10@3x3, maxpool 2, linear 100,
+          linear 10, softmax) on seeded numpy images, under both
+          precision classes: one forward / loss(CE) / backprop / adam
+          step on the card against a CPU copy of the port model with the
+          same weights (outputs, loss, every dw and db, the weights after
+          the step), the conv and linear dots against f64 of the class's
+          bf16 parts, 100 training steps (no NaN, the loss falls), ms per
+          step with the words' split and the device's busy share; then a
+          net of the other layer kinds (NN_COVERAGE) and gan_mnist's D at
+          batch 256, card against CPU
   attn_bench  the attention measurement path at full width (16 heads,
           S 2048, dh 128; the sweep at B x S = 16 x 2048, 4 x 4096,
           1 x 8192): bench_attention, bench_attention_bwd,
@@ -164,6 +175,42 @@ GEMM_SHAPES = ((1024, 1024, 1024), (2048, 2048, 2048), (4096, 4096, 4096),
 GEMM_MAIN = (4096, 4096, 4096)   # the shape of the `kernels` line
 TOL_LINALG = 1e-4  # the tensor phase: residuals at 1024 x 1024
 WORD_REPS = 3      # runs of each gemm word: the median time is kept
+
+# the nn phase: mnist_cnn at t4_30e's width (batch 100, 28 x 28 x 1,
+# conv 10@3x3, maxpool 2, linear 100, linear 10, softmax)
+NN_BATCH = 100
+NN_BATCHES = 5     # fixed batches the training steps cycle over
+NN_STEPS = 100     # training steps: no NaN, and the loss falls
+NN_TIMED = 20      # timed steps after them (median)
+NN_LR = 1e-3       # Adam: its first step moves each weight by ~3.16 lr
+# The card against the CPU port (exact f32), of each tensor's largest
+# value.  fast rounds both operands of every conv and linear product to
+# bf16 (8 significant bits, unit roundoff u = 2^-8), so a product is off
+# by at most 2u of |a||b|; a weight gradient comes out of at most three
+# dots in a row, and a sum may cancel to a few times below its terms:
+# 2u * 8 = 2^-4.  strict keeps hi + lo of each operand (off by at most
+# u^2 = 2^-16) and drops only lo * lo: three products, 2 * 2^-16 each,
+# with the same factor 8 and 3 is under 2^-11.
+TOL_NN = {"fast": 2.0 ** -4, "strict": 2.0 ** -11}
+# a conv or linear dot on the card against f64 of its class's bf16 parts:
+# the products are exact, only the f32 sums round (K <= 1960 terms)
+TOL_NN_CLASS = 1e-5
+# the layers mnist_cnn does not run, in one net on [8, 12, 12, 2]
+# (kind, n, bias, opt), as Model.add takes them
+NN_COVERAGE = ((1, 4, 0.5, [3, 2, 0, 1]),    # conv2d stride 2 -> 6 x 6 x 4
+               (16, 0, 0.0, None),           # batchnorm
+               (7, 0, 0.0, None),            # selu
+               (18, 3, 0.5, [4, 2, 1, 1]),   # dconv2d -> 12 x 12 x 3
+               (9, 0, 1.0, None),            # elu
+               (13, 3, 0.0, None),           # avgpool 3 -> 4 x 4
+               (17, 2, 0.0, None),           # upsample 2 -> 8 x 8
+               (15, 2, 0.0, None),           # minpool 2 -> 4 x 4
+               (8, 0, 0.1, None),            # leakyrelu
+               (10, 0, 0.2, None),           # dropout 0.2
+               (3, 0, 0.0, None),            # flatten -> 48
+               (2, 10, 1.0, None),           # linear 10
+               (12, 0, 0.0, None))           # logsmax
+NN_COVERAGE_IN = (8, 12, 12, 2)
 
 
 def emit(obj):
@@ -1722,6 +1769,268 @@ def phase_train(seed: int, device="cuda", lm=LM, seq=N_PROMPT,
     return launches
 
 
+def nn_data(seed: int, batches: int, batch: int, shape=(28, 28, 1),
+            classes: int = 10):
+    """seeded images that a net can learn: each is half its class's
+    template and half noise; (images [B, N, *shape] f32, labels [B, N])"""
+    rs = np.random.RandomState(seed)
+    protos = rs.rand(classes, *shape)
+    labels = rs.randint(0, classes, (batches, batch))
+    x = 0.5 * protos[labels] + 0.5 * rs.rand(batches, batch, *shape)
+    return x.astype(np.float32), labels
+
+
+def build_net(shape, layers, device):
+    """a port model on `shape` with `layers` (NN_COVERAGE's form)"""
+    from tensorforth_tpu_torch.mu.mmu import MMU
+    mmu = MMU.get_mmu()
+    m = mmu.model(device=device)
+    m.npush(mmu.tensor(*shape, device=device))
+    for kind, n, bias, opt in layers:
+        m.add(kind, n, bias, opt)
+    return m
+
+
+def nn_cpu_copy(m, build):
+    """a CPU model built by `build` with `m`'s weights"""
+    from tensorforth_tpu_torch import weights
+    c = build("cpu")
+    weights.load_jax_params(c, [tuple(a.cpu() for a in lp)
+                                for lp in m._params()])
+    return c
+
+
+def nn_step(m, x, hot, loss_op, key_seed):
+    """forward -> loss -> backprop -> adam on `m`: (output, loss, the
+    training state after backprop, the state after the step).  The
+    System seed is set first, so a dropout layer draws the same mask on
+    either device."""
+    from tensorforth_tpu_torch import weights
+    from tensorforth_tpu_torch.mu.mmu import MMU
+    from tensorforth_tpu_torch.system import System
+    mmu = MMU.get_mmu()
+    inp = mmu.tensor(*x.shape, device=m.device).set_numpy(x)
+    tgt = mmu.tensor(*m[-1].shape, device=m.device).set_numpy(hot)
+    System.get_sys().seed(key_seed)
+    m.forward(inp)
+    out = m[-1].numpy()
+    loss = m.loss(loss_op, tgt)
+    m.backprop(tgt)
+    grads = weights.dump_state(m)
+    m.adam(NN_LR)
+    return out, loss, grads, weights.dump_state(m)
+
+
+def adam_ref(st, lr):
+    """the port's Adam step (the reference's: no bias correction) in f32
+    numpy on a state of dump_state's, before the step"""
+    f = np.float32
+    g = st["dw"]
+    m = np.zeros_like(g) if st["m"] is None else st["m"]
+    v = np.zeros_like(g) if st["v"] is None else st["v"]
+    m = f(0.9) * m + (f(1) - f(0.9)) * g
+    v = f(0.999) * v + (f(1) - f(0.999)) * g * g
+    return st["w"] - f(lr) * (m / (np.sqrt(v) + f(1e-6)))
+
+
+def nn_compare(card, cpu, tol, card_first=True):
+    """the largest errors of one nn_step on the card against the CPU port:
+    the output of its largest value, the loss of itself, every dw and db
+    of the largest gradient in the net (a conv bias under a batchnorm
+    gets a gradient of rounding noise alone).  The
+    weights after the Adam step: on the card, the step of its own
+    gradients to f32 rounding; against the CPU, within the largest move
+    of a first step, 2 * 3.17 lr, wherever the gradients differ in sign"""
+    if not card_first:            # the CPU copy was stepped first
+        card, cpu = cpu, card
+
+    def rel(g, w):
+        return float(np.abs(g - w).max() / (np.abs(w).max() + 1e-30))
+    out = {"out": rel(card[0], cpu[0]),
+           "loss": abs(card[1] - cpu[1]) / abs(cpu[1]),
+           "dw": max(float(np.abs(g["dw"] - w["dw"]).max())
+                     for g, w in zip(card[2], cpu[2]))
+           / max(float(np.abs(w["dw"]).max()) for w in cpu[2])}
+    own = max(float(np.abs(a["w"] - adam_ref(b, NN_LR)).max())
+              for a, b in zip(card[3], card[2]))
+    out["w_after_step_vs_own_grads"] = own / NN_LR
+    out["w_after_step_vs_cpu"] = max(
+        float(np.abs(a["w"] - b["w"]).max())
+        for a, b in zip(card[3], cpu[3])) / NN_LR
+    out["ok"] = (max(out["out"], out["loss"], out["dw"]) <= tol
+                 and own <= 1e-3 * NN_LR
+                 and out["w_after_step_vs_cpu"] <= 2 * 3.17)
+    return out
+
+
+def nn_class_check(m, x, cls):
+    """the conv and linear dots of `m` (on the card) on one forward's
+    operands, against f64 of the class's bf16 parts: the largest error of
+    the largest value, and the distance to the exact f32 dot (the class's
+    own rounding)"""
+    import torch
+    from tensorforth_tpu_torch.mu.mmu import MMU
+    from tensorforth_tpu_torch.nn import funcs
+    from tensorforth_tpu_torch.nn.ntypes import Layer
+
+    def parts(a):
+        hi = a.to(torch.bfloat16).to(torch.float32)
+        if cls == "fast":
+            return [hi.double()]
+        return [hi.double(), (a - hi).to(torch.bfloat16).double()]
+
+    inp = MMU.get_mmu().tensor(*x.shape, device=m.device).set_numpy(x)
+    m.forward(inp)
+    res = {}
+    for j, ((kind, opts, _), p) in enumerate(zip(m._program(), m._params())):
+        x_in = m[j].ensure_data()
+        if kind == Layer.CONV:
+            a = funcs._filter2d(p[0])
+            b = funcs._patches(x_in, p[0].shape[1], *opts)
+        elif kind == Layer.LINEAR:
+            a, b = x_in.reshape(x_in.shape[0], -1), p[0].T
+        else:
+            continue
+        got = funcs.class_dot(funcs._mm, a, b).double()
+        pa, pb = parts(a), parts(b)
+        pairs = [(0, 0)] if cls == "fast" else [(1, 0), (0, 1), (0, 0)]
+        want = sum(pa[i] @ pb[k] for i, k in pairs)
+        exact = a.double() @ b.double()
+        top = want.abs().max()
+        res[f"{Layer.NAMES[kind].strip()}{j}"] = {
+            "err": float((got - want).abs().max() / top),
+            "from_exact_f32": float((got - exact).abs().max() / top)}
+    return res
+
+
+def phase_nn(seed: int, device="cuda", batch=NN_BATCH, steps=NN_STEPS,
+             timed=NN_TIMED, coverage_in=NN_COVERAGE_IN, gan_batch=256):
+    """mnist_cnn, the main path of the NN tier, under both precision
+    classes: one step on the card against the CPU port, the class of its
+    dots against f64, 100 training steps, the step's times; then the
+    coverage net and gan_mnist's D, card against CPU.  No hand-written
+    kernel lies on the path (its dots are library calls, as they are
+    XLA's in the JAX package): the counts stay at 0."""
+    import torch
+    from tensorforth_tpu_torch.config import Config
+    from tensorforth_tpu_torch.models import gan_mnist, mnist_cnn
+    from tensorforth_tpu_torch.mu.mmu import MMU
+    from tensorforth_tpu_torch.nn.ntypes import Loss
+    from tensorforth_tpu_torch.ops import gemm
+    from tensorforth_tpu_torch.system import System
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    xs, labels = nn_data(seed, NN_BATCHES, batch)
+    hots = np.eye(10, dtype=np.float32)[labels].reshape(
+        NN_BATCHES, batch, 1, 10, 1)
+    mmu = MMU.get_mmu()
+    checks, rec = {}, {}
+    kept = Config.PRECISION
+    try:
+        for cls in ("fast", "strict"):
+            Config.PRECISION = cls
+            System.get_sys().seed(seed)
+            m = mnist_cnn(batch, device=device)
+            cpu = nn_cpu_copy(m, lambda d: mnist_cnn(batch, device=d))
+            cmp = nn_compare(nn_step(m, xs[0], hots[0], Loss.CE, seed),
+                             nn_step(cpu, xs[0], hots[0], Loss.CE, seed),
+                             TOL_NN[cls])
+            checks[f"{cls}_card_vs_cpu"] = cmp.pop("ok")
+            cls_rec = nn_class_check(m, xs[1], cls)
+            if on_card:                # the CPU keeps exact f32 dots
+                checks[f"{cls}_class_vs_f64"] = all(
+                    v["err"] <= TOL_NN_CLASS for v in cls_rec.values())
+            # --- the main path, counted: every count to 0 just before
+            reset_flash_counts()
+            gemm.reset_launches()
+            inps = [mmu.tensor(*x.shape, device=device).set_numpy(x)
+                    for x in xs]
+            tgts = [mmu.tensor(batch, 1, 10, 1, device=device).set_numpy(h)
+                    for h in hots]
+            losses = []
+            for i in range(steps):
+                m.forward(inps[i % NN_BATCHES])
+                losses.append(m.loss(Loss.CE, tgts[i % NN_BATCHES]))
+                m.backprop(tgts[i % NN_BATCHES])
+                m.adam(NN_LR)
+            launches = dict(flash_counts(), **probe_counts(),
+                            **gemm.launches)
+            checks[f"{cls}_losses_finite"] = all(
+                math.isfinite(v) for v in losses)
+            checks[f"{cls}_loss_fell"] = (
+                statistics.mean(losses[-NN_BATCHES:])
+                < 0.5 * statistics.mean(losses[:NN_BATCHES]))
+
+            split = {}
+
+            def step(split=None):
+                words = (("forward", lambda: m.forward(inps[0])),
+                         ("loss", lambda: m.loss(Loss.CE, tgts[0])),
+                         ("backprop", lambda: m.backprop(tgts[0])),
+                         ("optimizer", lambda: m.adam(NN_LR)))
+                for name, word in words:
+                    t0 = time.perf_counter()
+                    word()
+                    if split is not None:
+                        sync()
+                        split.setdefault(name, []).append(
+                            (time.perf_counter() - t0) * 1e3)
+
+            for _ in range(timed):
+                step(split)
+            step_ms = [sum(ts) for ts in zip(*split.values())]
+            med = statistics.median(step_ms)
+            rec[cls] = {"card_vs_cpu": cmp, "tol": TOL_NN[cls],
+                        "class_vs_f64": cls_rec,
+                        "losses": losses,
+                        "ms_per_step": med,
+                        "split_ms": {k: statistics.median(v)
+                                     for k, v in split.items()},
+                        "images_per_s": batch / med * 1e3,
+                        "timing_samples": len(step_ms),
+                        "profile": profile_run(step, device, med),
+                        "kernel_launches_on_path": launches}
+
+            # --- the layers mnist_cnn does not run, and gan_mnist's D
+            def cov(d):
+                return build_net(coverage_in, NN_COVERAGE, d)
+
+            System.get_sys().seed(seed + 1)
+            m = cov(device)
+            xc, lc = nn_data(seed + 1, 1, coverage_in[0], coverage_in[1:])
+            hc = np.eye(10, dtype=np.float32)[lc[0]].reshape(
+                coverage_in[0], 1, 10, 1)
+            rec[cls]["coverage"] = nn_compare(
+                nn_step(nn_cpu_copy(m, cov), xc[0], hc, Loss.NLL, seed),
+                nn_step(m, xc[0], hc, Loss.NLL, seed), TOL_NN[cls],
+                card_first=False)
+            checks[f"{cls}_coverage"] = rec[cls]["coverage"].pop("ok")
+            _, d = gan_mnist(gan_batch, device=device)
+            xg, lg = nn_data(seed + 2, 1, gan_batch, classes=2)
+            hg = lg[0].astype(np.float32).reshape(gan_batch, 1, 1, 1)
+            rec[cls]["gan_d"] = nn_compare(
+                nn_step(nn_cpu_copy(d, lambda dv: gan_mnist(
+                    gan_batch, device=dv)[1]), xg[0], hg, Loss.BCE, seed),
+                nn_step(d, xg[0], hg, Loss.BCE, seed), TOL_NN[cls],
+                card_first=False)
+            checks[f"{cls}_gan_d"] = rec[cls]["gan_d"].pop("ok")
+            checks[f"{cls}_no_handwritten_kernel"] = not any(
+                launches.values())
+    finally:
+        Config.PRECISION = kept
+    emit({"phase": "nn", "model": "mnist_cnn", "batch": batch,
+          "optimizer": f"adam({NN_LR})", "steps": steps,
+          "class_tol": TOL_NN_CLASS, "card": card_line() if on_card else None,
+          **rec, "checks": checks})
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise RuntimeError(f"nn checks failed: {bad}")
+
+
 def phase_attn_bench(seed: int, device=None, n_iter=BENCH_ITERS,
                      reps=BENCH_REPS, shapes=None, **size):
     """the attention measurement path through its four entry points;
@@ -1868,6 +2177,7 @@ def main(argv=None) -> int:
     for name, n in per_step.items():
         ran[name] = ran.get(name, 0) + n
     on_tensor_path = timed("tensor", phase_tensor, args.seed)
+    timed("nn", phase_nn, args.seed)
     for name, n in timed("attn_bench", phase_attn_bench, args.seed).items():
         ran[name] = ran.get(name, 0) + n
     emit({"phase_seconds": seconds})

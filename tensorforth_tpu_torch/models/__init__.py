@@ -1,1 +1,1 @@
-from .zoo import tiny_lm  # noqa: F401
+from .zoo import gan_mnist, mnist_cnn, tiny_lm, tiny_transformer  # noqa: F401

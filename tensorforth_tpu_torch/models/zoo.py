@@ -1,5 +1,14 @@
-"""Model zoo — the port of tensorforth_tpu/models/zoo.py (the LM family
-the serving slice runs; the CNN/GAN/MoE nets come with their slices).
+"""Model zoo — the port of tensorforth_tpu/models/zoo.py: the example
+scripts' nets built through the nn API.
+
+  mnist_cnn        : examples/t4_30e.4th nn_c (conv-pool-relu + 2 linear)
+  gan_mnist        : examples/t4_40b.4th G/D MLP pair
+  tiny_transformer : attention blocks + linear softmax classifier
+  tiny_lm          : the LM tier's serving/training model
+
+Every entry point builds on the CUDA card unless the caller passes
+device="cpu" (and raises without a card).  The MoE net comes with its
+slice.
 """
 from __future__ import annotations
 
@@ -11,6 +20,59 @@ def _new_model(n, h, w, c, device=None):
     mmu = MMU.get_mmu()
     m = mmu.model(device=device)
     m.npush(mmu.tensor(n, h, w, c, device=m.device))
+    return m
+
+
+def mnist_cnn(batch: int = 100, device=None):
+    """t4_30e nn_c: 0.5 10 conv2d / 2 maxpool / relu / flatten /
+    100 linear relu / 10 linear softmax"""
+    m = _new_model(batch, 28, 28, 1, device=device)
+    m.add(Layer.CONV, 10, 0.5, [3, 1, 0, 1])
+    m.add(Layer.MAXPOOL, 2)
+    m.add(Layer.RELU)
+    m.add(Layer.FLATTEN)
+    m.add(Layer.LINEAR, 100, 1.0)
+    m.add(Layer.RELU)
+    m.add(Layer.LINEAR, 10, 1.0)
+    m.add(Layer.SOFTMAX)
+    return m
+
+
+def gan_mnist(batch: int = 256, device=None):
+    """t4_40b G (128->256->512->784 tanh) and D (784->512->256->1
+    sigmoid, dropout 0.3)"""
+    g = _new_model(batch, 128, 1, 1, device=device)
+    g.add(Layer.LINEAR, 256, 1.0)
+    g.add(Layer.LEAKYRL, 0, 0.2)
+    g.add(Layer.LINEAR, 512, 1.0)
+    g.add(Layer.LEAKYRL, 0, 0.2)
+    g.add(Layer.LINEAR, 784, 1.0)
+    g.add(Layer.TANH)
+
+    d = _new_model(batch, 28, 28, 1, device=device)
+    d.add(Layer.LINEAR, 512, 1.0)
+    d.add(Layer.LEAKYRL, 0, 0.2)
+    d.add(Layer.DROPOUT, 0, 0.3)
+    d.add(Layer.LINEAR, 256, 1.0)
+    d.add(Layer.LEAKYRL, 0, 0.2)
+    d.add(Layer.DROPOUT, 0, 0.3)
+    d.add(Layer.LINEAR, 1, 1.0)
+    d.add(Layer.SIGMOID)
+    return g, d
+
+
+def tiny_transformer(batch: int = 32, seq: int = 16, dim: int = 32,
+                     heads: int = 4, classes: int = 10, layers: int = 2,
+                     device=None):
+    """sequence classifier: [N, S, E, 1] tokens -> (attn + tanh)* ->
+    flatten -> linear softmax"""
+    m = _new_model(batch, seq, dim, 1, device=device)
+    for _ in range(layers):
+        m.add(Layer.ATTN, heads)
+        m.add(Layer.TANH)
+    m.add(Layer.FLATTEN)
+    m.add(Layer.LINEAR, classes, 1.0)
+    m.add(Layer.SOFTMAX)
     return m
 
 

@@ -1,14 +1,21 @@
 """NN compute on torch tensors — the layer forwards, the per-layer
-backward, the optimizer steps and the loss functions of the LM path (the
-port of tensorforth_tpu/nn/funcs.py).
+backward, the optimizer steps and the loss functions of the word path
+(the port of tensorforth_tpu/nn/funcs.py).
 
-Layouts are the JAX package's: activations [N, S, E, 1], attention cores
-[B*h, S, dh], wqkv [3E, E].  Every dot is strict f32 (TF32 is off, see
-the package __init__).  The attention core routes long aligned sequences
-on the card through the hand-written flash kernels, forward and backward
-(ops/attn.py); everything else uses the exact einsum path and PyTorch's
-own autograd.  Dropout, MoE, the conv/pool tier and the fused training
-cycle come with later slices.
+Layouts are the JAX package's: activations NHWC ([N, S, E, 1] on the LM
+tier), conv filters [C1, K, K, C0], linear weights [E0, E1], wqkv
+[3E, E].  On a CPU tensor every dot is exact f32, as XLA CPU computes
+it.  On the card the conv, dconv and linear dots (forward and backward)
+run in the class Config.PRECISION names at call time, the class of the
+reference's NN dots on its chip: 'fast' multiplies operands rounded to
+bf16 (XLA's default class), 'strict' sums the three products of their
+bf16 hi/lo parts (XLA's 'high'); both accumulate in f32 with TF32 off.
+The LM tier's dots stay strict f32.  The attention core routes long
+aligned sequences on the card through the hand-written flash kernels,
+forward and backward (ops/attn.py); the other layers take explicit
+backward rules.  exp, log, tanh and the logistic are ops/xla_math.py's:
+XLA CPU's bits on a CPU tensor.  MoE and the fused training cycle come
+with later slices.
 """
 from __future__ import annotations
 
@@ -16,13 +23,17 @@ import math
 import os
 
 import torch
+import torch.nn.functional as F
 
+from ..config import Config
 from ..ops import attn as _attn
+from ..ops import rng, xla_math
 from .ntypes import Layer
 
 SELU_L = 1.0507009873554805
 SELU_LA = SELU_L * 1.6732632423543772
 NEG_INF = -1.0e30
+BN_EPS = 1.0e-6           # reference DU_EPS in k_batchnorm_2
 LN_CLAMP = 1.0e-12        # floor inside log(): CE of a zero probability
 
 _ACTS = (Layer.RELU, Layer.TANH, Layer.SIGMOID, Layer.SELU,
@@ -38,13 +49,13 @@ def _activate_fwd(kind, x, alpha):
         m = (x > 0.0).to(torch.float32)
         return x * m, m
     if kind == Layer.TANH:
-        t = torch.tanh(x)
+        t = xla_math.tanh(x)
         return t, 1.0 - t * t
     if kind == Layer.SIGMOID:
-        s = torch.sigmoid(x)
+        s = xla_math.logistic(x)
         return s, s * (1.0 - s)
     if kind == Layer.SELU:
-        neg_f = SELU_LA * torch.exp(torch.clamp(x, max=0.0))
+        neg_f = SELU_LA * xla_math.exp(torch.clamp(x, max=0.0))
         y = torch.where(x > 0.0, x, neg_f - SELU_LA)
         m = torch.where(x > 0.0, torch.full_like(x, SELU_L), neg_f)
         return y, m
@@ -52,17 +63,210 @@ def _activate_fwd(kind, x, alpha):
         m = torch.where(x > 0.0, torch.ones_like(x), torch.full_like(x, alpha))
         return x * m, m
     if kind == Layer.ELU:
-        neg_f = alpha * torch.exp(torch.clamp(x, max=0.0))
+        neg_f = alpha * xla_math.exp(torch.clamp(x, max=0.0))
         y = torch.where(x > 0.0, x, neg_f - alpha)
         m = torch.where(x > 0.0, torch.ones_like(x), neg_f)
         return y, m
     raise ValueError(kind)
 
 
-def _softmax_fwd(x):
-    """softmax over the feature axis (W*C) per (N, H) position"""
+def _rows(x):
+    """the feature axis (W*C) of each (N, H) position as the last axis"""
     n, h = x.shape[0], (x.shape[1] if x.dim() == 4 else 1)
-    return torch.softmax(x.reshape(n, h, -1), dim=-1).reshape(x.shape)
+    return x.reshape(n, h, -1)
+
+
+def _softmax_fwd(x):
+    """softmax over the feature axis (W*C) per (N, H) position, in
+    jax.nn.softmax's steps: exp(x - max) / sum"""
+    f = _rows(x)
+    e = xla_math.exp(f - f.amax(dim=-1, keepdim=True))
+    return (e / e.sum(dim=-1, keepdim=True)).reshape(x.shape)
+
+
+def _logsoftmax_fwd(x):
+    """jax.nn.log_softmax's steps: (x - max) - log(sum(exp(x - max)))"""
+    f = _rows(x)
+    sh = f - f.amax(dim=-1, keepdim=True)
+    lse = xla_math.log(xla_math.exp(sh).sum(dim=-1, keepdim=True))
+    return (sh - lse).reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# the conv, dconv and linear dots in the precision class of the reference's
+# NN tier (see the module docstring)
+# ---------------------------------------------------------------------------
+def _bf16(x):
+    """x rounded to bf16 (to nearest even), held in f32"""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def class_dot(op, a, b):
+    """op(a, b) for a bilinear op of f32 tensors: exact f32 on the CPU; on
+    the card in Config.PRECISION's class (read now, so one process can run
+    both).  The products of bf16 values are exact in f32, so each op below
+    is the class's own arithmetic.  Any other class raises."""
+    if a.device.type != "cuda":
+        return op(a, b)
+    cls = Config.PRECISION
+    if cls not in ("fast", "strict"):
+        raise ValueError(f"T4_PRECISION={cls!r}: 'fast' or 'strict'")
+    ah, bh = _bf16(a), _bf16(b)
+    y = op(ah, bh)
+    if cls == "strict":              # XLA's 'high': hi*hi + hi*lo + lo*hi
+        y = (op(_bf16(a - ah), bh) + op(ah, _bf16(b - bh))) + y
+    return y
+
+
+def _mm(a, b):
+    return a @ b
+
+
+def _blocks(h: int, w: int, k: int, s: int, p: int):
+    return (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+
+
+def _patches(x, k: int, s: int, p: int):
+    """x NHWC -> [N, C*K*K, L] conv patches (zeros in the padding), rows
+    in (c, ky, kx) order: one strided copy (F.unfold launches once per
+    sample on the card)"""
+    n, h, w, c = x.shape
+    h0, w0 = _blocks(h, w, k, s, p)
+    xp = F.pad(x, (0, 0, p, p, p, p))
+    sn, sh, sw, sc = xp.stride()
+    v = xp.as_strided((n, c, k, k, h0, w0), (sn, sc, sh, sw, sh * s, sw * s))
+    return v.reshape(n, c * k * k, h0 * w0)
+
+
+def _fold(cols, h: int, w: int, k: int, s: int, p: int):
+    """the adjoint of _patches: [N, C*K*K, L] patches summed into NHWC
+    [N, H, W, C], one strided add per filter tap"""
+    n = cols.shape[0]
+    h0, w0 = _blocks(h, w, k, s, p)
+    c = cols.shape[1] // (k * k)
+    cols = cols.reshape(n, c, k, k, h0, w0).permute(0, 2, 3, 4, 5, 1)
+    out = cols.new_zeros(n, h + 2 * p, w + 2 * p, c)
+    for ky in range(k):
+        for kx in range(k):
+            out[:, ky:ky + s * (h0 - 1) + 1:s,
+                kx:kx + s * (w0 - 1) + 1:s] += cols[:, ky, kx]
+    return out[:, p:p + h, p:p + w]
+
+
+def _filter2d(w):
+    """[C1, K, K, C0] filter -> [C0, C1*K*K], the patches' row order"""
+    return w.permute(3, 0, 1, 2).reshape(w.shape[3], -1)
+
+
+def _tfilter2d(w):
+    """[C1, K, K, C0] filter -> [C0*K*K, C1]: the transposed conv's map
+    from input channels to the output's patches"""
+    return w.permute(3, 1, 2, 0).reshape(-1, w.shape[0])
+
+
+def _conv_fwd(x, w, b, S, P):
+    """x NHWC, w [C1,K,K,C0] (reference filter layout), stride S, pad P:
+    one product of the filter with the input's patches"""
+    n, h, wd, _ = x.shape
+    k = w.shape[1]
+    h0, w0 = _blocks(h, wd, k, S, P)
+    y = class_dot(_mm, _filter2d(w), _patches(x, k, S, P))   # [N, C0, L]
+    return y.reshape(n, -1, h0, w0).permute(0, 2, 3, 1) + b
+
+
+def _dconv_fwd(x, w, b, S, P):
+    """transposed conv C1 -> C0 of size (H1-1)S - 2P + K, as the JAX
+    package's dilated conv with the flipped kernel: the patches of the
+    output are the filter's transpose times the input, folded"""
+    n, h, wd, c1 = x.shape
+    k = w.shape[1]
+    h0, w0 = (h - 1) * S - 2 * P + k, (wd - 1) * S - 2 * P + k
+    xf = x.permute(0, 3, 1, 2).reshape(n, c1, h * wd)
+    cols = class_dot(_mm, _tfilter2d(w), xf)                # [N, C0KK, L]
+    return _fold(cols, h0, w0, k, S, P) + b
+
+
+def _linear_fwd(x, w, b):
+    """y[N,E0] = x[N,E1] @ w^T[E1,E0] + b (reference _flinear)"""
+    n = x.shape[0]
+    return class_dot(_mm, x.reshape(n, -1), w.T) + b
+
+
+def _dropout_fwd(x, rate, key):
+    """keep where u > rate, no rescale (the reference's quirk); u is
+    jax.random.uniform of the layer's key"""
+    u = rng.uniform(key, x.shape, x.device)
+    m = (u > rate).to(torch.float32)
+    return x * m, m
+
+
+def _pool_pad(x, k, fill):
+    n, h, w, c = x.shape
+    h0, w0 = -(-h // k), -(-w // k)
+    xp = F.pad(x, (0, 0, 0, w0 * k - w, 0, h0 * k - h), value=fill)
+    return xp.reshape(n, h0, k, w0, k, c)
+
+
+_POOL_FILL = {Layer.MAXPOOL: float("-inf"), Layer.MINPOOL: float("inf"),
+              Layer.AVGPOOL: 0.0}
+
+
+def _pool_fwd(kind, x, k):
+    """kxk pool, stride k, ceil-mode: the edge pads with -inf (max), +inf
+    (min) or 0 (avg), and the avg divides the padded sum by k*k
+    (reference k_pool, H0 = (H+k-1)/k)"""
+    xw = _pool_pad(x, k, _POOL_FILL[kind])
+    if kind == Layer.MAXPOOL:
+        return xw.amax(dim=(2, 4))
+    if kind == Layer.MINPOOL:
+        return xw.amin(dim=(2, 4))
+    return xw.sum(dim=(2, 4)) / (k * k)
+
+
+def _pool_bwd(kind, x, k, dy):
+    """the JAX vjp of the pool: max and min send each window's gradient to
+    its FIRST extreme element in row-major order (select_and_scatter_add
+    with a >= / <= select); avg spreads dy / (k*k) over the window"""
+    n, h, w, c = x.shape
+    xw = _pool_pad(x, k, _POOL_FILL[kind])
+    h0, w0 = xw.shape[1], xw.shape[3]
+    dy = dy.reshape(n, h0, 1, w0, 1, c)
+    if kind == Layer.AVGPOOL:
+        g = (dy / (k * k)).expand(n, h0, k, w0, k, c)
+    else:
+        # the first extreme of each window: the extremes weighted k*k - i
+        # by their place i leave one largest weight (argmax's choice
+        # among ties would be the device's own)
+        win = xw.permute(0, 1, 3, 5, 2, 4).reshape(n, h0, w0, c, k * k)
+        ext = (win.amax(dim=-1, keepdim=True) if kind == Layer.MAXPOOL
+               else win.amin(dim=-1, keepdim=True))
+        rank = (win == ext) * torch.arange(k * k, 0, -1, device=x.device,
+                                           dtype=dy.dtype)
+        hot = (rank == rank.amax(dim=-1, keepdim=True)).to(dy.dtype)
+        hot = hot.reshape(n, h0, w0, c, k, k).permute(0, 1, 4, 2, 5, 3)
+        g = hot * dy
+    g = g.reshape(n, h0 * k, w0 * k, c)
+    return g[:, :h, :w, :]
+
+
+def _upsample_fwd(x, k):
+    """nearest-neighbour k-x upsampling"""
+    return x.repeat_interleave(k, dim=1).repeat_interleave(k, dim=2)
+
+
+def _upsample_bwd(k, dy):
+    n, h, w, c = dy.shape
+    return dy.reshape(n, h // k, k, w // k, k, c).sum(dim=(2, 4))
+
+
+def _batchnorm_fwd(x, gamma, beta):
+    """train-mode BN; rvar = 1/(sqrt(pop-var)+eps) with the population
+    variance as mean(x^2) - mean^2 (reference k_batchnorm_2)"""
+    mean = x.mean(dim=(0, 1, 2), keepdim=True)
+    var = (x * x).mean(dim=(0, 1, 2), keepdim=True) - mean * mean
+    rvar = 1.0 / (torch.sqrt(torch.clamp_min(var, 0.0)) + BN_EPS)
+    xhat = (x - mean) * rvar
+    return xhat * gamma + beta, xhat, rvar
 
 
 def rope_apply(x, pos):
@@ -218,12 +422,31 @@ def _attn_opts(opts):
             bool(opts[2]) if len(opts) > 2 else False)
 
 
-def _apply_layer(spec, x, p):
-    kind, opts, _out_shape = spec
+def _apply_layer(spec, x, p, key=None):
+    kind, opts, out_shape = spec
+    if kind == Layer.CONV:
+        return _conv_fwd(x, p[0], p[1], opts[0], opts[1]), None
+    if kind == Layer.DCONV:
+        return _dconv_fwd(x, p[0], p[1], opts[0], opts[1]), None
+    if kind == Layer.LINEAR:
+        return _linear_fwd(x, p[0], p[1]).reshape(out_shape), None
+    if kind == Layer.FLATTEN:
+        return x.reshape(out_shape), None
     if kind in _ACTS:
         return _activate_fwd(kind, x, opts[0])
+    if kind == Layer.DROPOUT:
+        return _dropout_fwd(x, opts[0], key)
     if kind == Layer.SOFTMAX:
         return _softmax_fwd(x), None
+    if kind == Layer.LOGSMAX:
+        return _logsoftmax_fwd(x), None
+    if kind in _POOL_FILL:
+        return _pool_fwd(kind, x, opts[0]), None
+    if kind == Layer.BATCHNM:
+        y, xhat, rvar = _batchnorm_fwd(x, p[0], p[1])
+        return y, (xhat, rvar)
+    if kind == Layer.USAMPLE:
+        return _upsample_fwd(x, opts[0]), None
     if kind == Layer.ATTN:
         return attn_op(x, p[0], p[1], *_attn_opts(opts)), None
     if kind == Layer.LNORM:
@@ -237,13 +460,15 @@ def _apply_layer(spec, x, p):
 
 
 @torch.no_grad()
-def forward_pure(program, x, params):
-    """whole-network forward: x [N,S,1,1] ids -> (per-layer outputs,
-    derivative masks).  The JAX version's `key` feeds dropout only,
-    which this slice does not run."""
+def forward_pure(program, x, params, key=None):
+    """whole-network forward: (per-layer outputs, derivative masks).
+    `key` (a jax.random key pair, default PRNGKey(0)) feeds dropout only:
+    layer j draws from fold_in(key, j), as in the JAX package."""
+    key = rng.PRNGKey(0) if key is None else key
     outs, masks = [], []
-    for spec, p in zip(program, params):
-        x, m = _apply_layer(spec, x, p)
+    for j, (spec, p) in enumerate(zip(program, params)):
+        kj = rng.fold_in(key, j) if spec[0] == Layer.DROPOUT else None
+        x, m = _apply_layer(spec, x, p, kj)
         x = x.reshape(spec[2])
         outs.append(x)
         masks.append(m)
@@ -253,8 +478,9 @@ def forward_pure(program, x, params):
 # ===========================================================================
 # whole-network backward
 # ===========================================================================
-_PASS_THRU = (Layer.SIGMOID, Layer.SOFTMAX)
-_MASKED = (Layer.RELU, Layer.TANH, Layer.SELU, Layer.LEAKYRL, Layer.ELU)
+_PASS_THRU = (Layer.SIGMOID, Layer.SOFTMAX, Layer.LOGSMAX)
+_MASKED = (Layer.RELU, Layer.TANH, Layer.SELU, Layer.LEAKYRL, Layer.ELU,
+           Layer.DROPOUT)
 
 
 def _acc(a, g):
@@ -268,28 +494,63 @@ def _acc(a, g):
 def backward_pure(program, train, tgt, x0, outs, params, masks, dws, dbs,
                   flash: bool = True):
     """whole-network backward with the reference quirks (pass-through
-    sigmoid/softmax, masked activations): (dout, dxs, dws', dbs').
-    flash=False sends the attention layers through the einsum path, as a
-    check of the kernels.  (The JAX package's _bwd_body: with no jit
-    wrapper to share it with, the body lives here.)"""
+    sigmoid/softmax/logsmax and final linear, masked activations):
+    (dout, dxs, dws', dbs').  flash=False sends the attention layers
+    through the einsum path, as a check of the kernels.  (The JAX
+    package's _bwd_body: with no jit wrapper to share it with, the body
+    lives here.)"""
     # dLoss prep (reference _bprep, backprop.cu:75-109): the fused
-    # final-activation+loss pairs become out-tgt; any other final layer
-    # means tgt already IS dLoss
-    if program[-1][0] in _PASS_THRU:
+    # final-activation+loss pairs and a final linear become out-tgt; any
+    # other final layer means tgt already IS dLoss (e.g. GAN G <- D
+    # input grad)
+    if program[-1][0] in _PASS_THRU + (Layer.LINEAR,):
         dy = outs[-1] - tgt.reshape(outs[-1].shape)
     else:
         dy = tgt.reshape(outs[-1].shape)
     _, dxs, ndws, ndbs = backward_segment(
-        program, train, dy, x0, outs, params, masks, dws, dbs, flash=flash)
+        program, train, dy, x0, outs, params, masks, dws, dbs, tail=True,
+        flash=flash)
     return dy, dxs, ndws, ndbs
+
+
+def _conv_grads(x, w, dy, S, P):
+    """(dx, dw, db) of _conv_fwd for the cotangent dy (NHWC), each dot in
+    the forward's class"""
+    n, h, wd, c1 = x.shape
+    k, c0 = w.shape[1], w.shape[3]
+    dyf = dy.permute(0, 3, 1, 2).reshape(n, c0, -1)          # [N, C0, L]
+    cols = _patches(x, k, S, P)                              # [N, C1KK, L]
+    dcols = class_dot(_mm, _filter2d(w).T, dyf)
+    dx = _fold(dcols, h, wd, k, S, P)
+    dw2 = class_dot(_mm, dyf.permute(1, 0, 2).reshape(c0, -1),
+                    cols.permute(0, 2, 1).reshape(-1, cols.shape[1]))
+    dw = dw2.reshape(c0, c1, k, k).permute(1, 2, 3, 0)
+    return dx, dw, dy.sum(dim=(0, 1, 2))
+
+
+def _dconv_grads(x, w, dy, S, P):
+    """(dx, dw, db) of _dconv_fwd: the output's patches carry the
+    cotangent back through the filter"""
+    n, h, wd, c1 = x.shape
+    k, c0 = w.shape[1], w.shape[3]
+    dcols = _patches(dy, k, S, P)                            # [N, C0KK, L]
+    dx = class_dot(_mm, _tfilter2d(w).T, dcols)              # [N, C1, L]
+    xf = x.permute(0, 3, 1, 2).reshape(n, c1, -1)
+    dw2 = class_dot(_mm, dcols.permute(1, 0, 2).reshape(dcols.shape[1], -1),
+                    xf.permute(0, 2, 1).reshape(-1, c1))     # [C0KK, C1]
+    dw = dw2.reshape(c0, k, k, c1).permute(3, 1, 2, 0)
+    return (dx.reshape(n, c1, h, wd).permute(0, 2, 3, 1), dw,
+            dy.sum(dim=(0, 1, 2)))
 
 
 @torch.no_grad()
 def backward_segment(program, train, dy, x0, outs, params, masks, dws, dbs,
-                     flash: bool = True):
+                     tail: bool = False, flash: bool = True):
     """per-layer backward over a program segment given the cotangent dy at
     the segment's output (no dLoss prep): (dx0, dxs, dws', dbs').  With
-    train false only the input gradients are taken."""
+    train false only the input gradients are taken.  tail=True enables
+    the final-LINEAR pass-through quirk (no weight gradient), right only
+    for the segment that ends the network."""
     L = len(program)
     dxs = [None] * L
     ndws, ndbs = list(dws), list(dbs)
@@ -297,12 +558,36 @@ def backward_segment(program, train, dy, x0, outs, params, masks, dws, dbs,
         kind, opts, out_shape = program[j]
         x_in = outs[j - 1] if j > 0 else x0
         dw = db = None
-        if kind in _PASS_THRU:
+        if kind in _PASS_THRU or kind == Layer.FLATTEN or (
+                kind == Layer.LINEAR and tail and j == L - 1):
             dx = dy
         elif kind in _MASKED:
             # masks may carry a stale header shape if the user reshaped a
             # layer view between forward and backprop
             dx = dy * masks[j].reshape(dy.shape)
+        elif kind == Layer.LINEAR:
+            n = x_in.shape[0]
+            dyf = dy.reshape(n, -1)
+            db = dyf.sum(dim=0)
+            dw = class_dot(_mm, dyf.T, x_in.reshape(n, -1))
+            dx = class_dot(_mm, dyf, params[j][0])
+        elif kind == Layer.CONV:
+            dx, dw, db = _conv_grads(x_in, params[j][0],
+                                     dy.reshape(out_shape), *opts)
+        elif kind == Layer.DCONV:
+            dx, dw, db = _dconv_grads(x_in, params[j][0],
+                                      dy.reshape(out_shape), *opts)
+        elif kind in _POOL_FILL:
+            dx = _pool_bwd(kind, x_in, opts[0], dy)
+        elif kind == Layer.USAMPLE:
+            dx = _upsample_bwd(opts[0], dy.reshape(out_shape))
+        elif kind == Layer.BATCHNM:
+            # dgamma/dbeta accumulate channel MEANs (k_dbatchnorm_2)
+            xhat, rvar = masks[j]
+            dyr = dy.reshape(out_shape)
+            db = dyr.mean(dim=(0, 1, 2))
+            dw = (dyr * xhat).mean(dim=(0, 1, 2))
+            dx = params[j][0] * rvar * (dyr - db - xhat * dw)
         elif kind == Layer.ATTN:
             heads, causal, rope = _attn_opts(opts)
             dx, dw, db = _vjp(
@@ -344,6 +629,13 @@ def backward_segment(program, train, dy, x0, outs, params, masks, dws, dbs,
 # ===========================================================================
 # optimizers (reference k_sgd / k_adam / k_adamw semantics)
 # ===========================================================================
+def _one_minus(b: float) -> float:
+    """1 - b in f32, as the reference computes it from its f32
+    hyperparameters (1 - 0.999 is 0.00099998713 there, not 0.001)"""
+    one = torch.tensor(1.0, dtype=torch.float32)
+    return float(one - torch.tensor(b, dtype=torch.float32))
+
+
 @torch.no_grad()
 def sgd_step(ws, dws, ms, ndivs, momentum: bool, lr: float, b: float):
     """one SGD step over lists of tensors, IN PLACE (the JAX version
@@ -354,7 +646,7 @@ def sgd_step(ws, dws, ms, ndivs, momentum: bool, lr: float, b: float):
     for w, dw, m, nd in zip(ws, dws, ms, ndivs):
         dg = dw / nd
         if momentum:
-            m.mul_(b).add_(dg, alpha=1.0 - b)
+            m.mul_(b).add_(dg, alpha=_one_minus(b))
             w.sub_(m, alpha=lr)
         else:
             w.sub_(dg, alpha=lr)
@@ -369,8 +661,8 @@ def adam_step(ws, dws, ms, vs, adamw: bool, lr: float, b1: float,
     outside the square root; AdamW's decay is decoupled (added to the
     update, not to the gradient).  Gradients are zeroed."""
     for w, dg, m, v in zip(ws, dws, ms, vs):
-        m.mul_(b1).add_(dg, alpha=1.0 - b1)
-        v.mul_(b2).addcmul_(dg, dg, value=1.0 - b2)
+        m.mul_(b1).add_(dg, alpha=_one_minus(b1))
+        v.mul_(b2).addcmul_(dg, dg, value=_one_minus(b2))
         upd = m / (torch.sqrt(v) + 1.0e-6)
         if adamw:
             upd.add_(w, alpha=wd)
@@ -390,10 +682,10 @@ def loss_fn(op: str, out, tgt):
     if op == "mse":
         z = torch.sum((o - t) ** 2)
     elif op == "bce":
-        z = -torch.sum(t * torch.log(o + 1.0e-6)
-                       + (1.0 - t) * torch.log(1.0 - o + 1.0e-6))
+        z = -torch.sum(t * xla_math.log(o + 1.0e-6)
+                       + (1.0 - t) * xla_math.log(1.0 - o + 1.0e-6))
     elif op == "ce":
-        z = -torch.sum(t * torch.log(torch.clamp(o, min=LN_CLAMP)))
+        z = -torch.sum(t * xla_math.log(torch.clamp(o, min=LN_CLAMP)))
     elif op == "nll":
         z = -torch.sum(o * t)
     else:

@@ -4,27 +4,34 @@ tensorforth_tpu/nn/model.py: forward, loss, backprop, sgd/adam/adamw).
 
 Holds per-layer activation Tensors like the reference; layer j's
 parameters sit in ``self[j].grad[0]`` and ``.grad[1]``, their gradients
-in ``.grad[2]`` and ``.grad[3]``, an activation's derivative mask in
-``.grad[4]``, and the optimizer's moments in ``self[j].mtum[0..3]``.
+in ``.grad[2]`` and ``.grad[3]``, an activation's derivative mask (a
+batchnorm's xhat) in ``.grad[4]``, the optimizer's moments in
+``self[j].mtum[0..3]`` and a batchnorm's 1/std in ``mtum[4]``.
 ``_program()`` and ``_params()`` return what the JAX package's do, so
 nn/funcs.py and nn/serve.py read a model the same way.  As in the
 reference, ``backprop`` overwrites each layer's activation with its input
-gradient.  The dataset input path, the fused training cycle and its trace
-chunks come with a later slice.
+gradient, and a word given bad input prints through ``_err`` and sets
+``err`` instead of raising.  The dataset input path, the fused training
+cycle and its trace chunks come with a later slice.
 """
 from __future__ import annotations
 
 import math
 
 import numpy as np
+import torch
 
 from ..config import Config, resolve_device
 from ..mu.tensor import T4Type, Tensor
+from ..ops import rng
 from . import funcs
 from .ntypes import Layer, Loss, Optimizer
 
 _ACTS = (Layer.RELU, Layer.TANH, Layer.SIGMOID, Layer.SELU,
          Layer.LEAKYRL, Layer.ELU)
+_POOLS = (Layer.AVGPOOL, Layer.MAXPOOL, Layer.MINPOOL)
+_PARAMETERED = (Layer.CONV, Layer.DCONV, Layer.LINEAR, Layer.BATCHNM,
+                Layer.ATTN, Layer.LNORM, Layer.EMBED, Layer.PROJ)
 
 
 class Model:
@@ -34,6 +41,7 @@ class Model:
         self.data: list[Tensor] = []          # layer tensors (activations)
         self.device = resolve_device(device)
         self.train = 1
+        self.err = 0
         self._mmu = mmu
         self._hot: Tensor | None = None       # one-hot target vector
         self._hit = 0
@@ -79,10 +87,24 @@ class Model:
         t_in = self[-1]
         if t_in.grad_fn is not None:
             return self
-        if fn in _ACTS:
+        t_in.grad = [None] * 5
+        t_in.mtum = [None] * 5
+        if fn in (Layer.CONV, Layer.DCONV):
+            self._iconv(t_in, n, bias, opt or [3, 1, 0, 1], fn == Layer.DCONV)
+        elif fn == Layer.LINEAR:
+            self._ilinear(t_in, n, bias)
+        elif fn == Layer.FLATTEN:
+            self._iflatten(t_in)
+        elif fn in _ACTS or fn == Layer.DROPOUT:
             self._iactivate(t_in, bias)
-        elif fn == Layer.SOFTMAX:
+        elif fn in (Layer.SOFTMAX, Layer.LOGSMAX):
             self._isoftmax(t_in)
+        elif fn in _POOLS:
+            self._ipool(t_in, int(n))
+        elif fn == Layer.BATCHNM:
+            self._ibatchnorm(t_in, bias)
+        elif fn == Layer.USAMPLE:
+            self._iup(t_in, int(n), bias)
         elif fn == Layer.ATTN:
             self._iattn(t_in, int(n), int(bias))
         elif fn == Layer.LNORM:
@@ -103,6 +125,90 @@ class Model:
         System.perr, and the layer is not added"""
         from ..system import System
         System.get_sys().perr("", msg + " ")
+
+    def _iconv(self, t_in: Tensor, C0: int, bias: float, opt, txn: bool):
+        """conv2d (txn: dconv2d) C1 -> C0; opt = [K, S, P, D]: P 0 means
+        'same' padding (K-1)/2; a dconv's output is sized as the
+        reference's, (H1-1)S - 2P + K + (H1 + 2P - K) % S"""
+        N1, H1, W1, C1 = t_in.N(), t_in.H(), t_in.W(), t_in.C()
+        K, S = int(opt[0]), int(opt[1])
+        P = int(opt[2]) if (K > 1 and opt[2]) else (K - 1) // 2
+        if txn:
+            P0 = (H1 + P * 2 - K) % S
+            H0 = (H1 - 1) * S - P * 2 + K + P0
+            W0 = (W1 - 1) * S - P * 2 + K + P0
+        else:
+            H0 = (H1 - K + P * 2) // S + 1
+            W0 = (W1 - K + P * 2) // S + 1
+        if (not txn and K not in (1, 3, 5)) or (txn and K != 4):
+            self._err(f"conv kernel {K}x{K}? 1/3/5 (4 for dconv2d) only")
+            return
+        t_in.stride = [S, S, P, P]
+        t_in.xparm = bias
+        f = self._T4(C1, K, K, C0)
+        b = self._T4(C0)
+        t_in.grad[0], t_in.grad[1] = f, b
+        t_in.grad[2] = self._T4(C1, K, K, C0)
+        t_in.grad[3] = self._T4(C0)
+        t_in.grad[4] = self._T4(N1, H1, W1, C1)
+        if Config.MM_DEBUG:
+            f.set_numpy(np.full(f.numel, 0.5, np.float32))
+            b.set_numpy(np.full(b.numel, -0.5, np.float32))
+        else:
+            self._rand(f, math.sqrt(6.0 / (K * K * C1)))
+            self._rand(b, bias)
+        self.npush(self._T4(N1, H0, W0, C0))
+
+    def _ilinear(self, t_in: Tensor, E0: int, bias: float):
+        """linear [N, E1] -> [N, E0] over the flattened sample"""
+        N1, E1 = t_in.N(), t_in.HWC()
+        w = self._T4(1, E0, E1, 1)
+        b = self._T4(E0)
+        t_in.grad[0], t_in.grad[1] = w, b
+        t_in.grad[2] = self._T4(1, E0, E1, 1)
+        t_in.grad[3] = self._T4(E0)
+        t_in.xparm = bias
+        if Config.MM_DEBUG:
+            a = np.full(w.numel, 0.5, np.float32)
+            a[(w.numel >> 1) - 1] = 1.0
+            w.set_numpy(a)
+            b.set_numpy(np.zeros(E0, np.float32))
+        else:
+            self._rand(w, math.sqrt(1.0 / (E0 + E1)))
+            self._rand(b, bias)
+        self.npush(self._T4(N1, 1, E0, 1))
+
+    def _iflatten(self, t_in: Tensor):
+        self.npush(self._T4(t_in.N(), 1, t_in.HWC(), 1))
+
+    def _ipool(self, t_in: Tensor, k: int):
+        if k not in (2, 3):
+            self._err(f"pool k={k}? 2x2 and 3x3 only")
+            return
+        t_in.stride = [k, 1, 1, 0]
+        self.npush(self._T4(t_in.N(), (t_in.H() + k - 1) // k,
+                            (t_in.W() + k - 1) // k, t_in.C()))
+
+    def _ibatchnorm(self, t_in: Tensor, m: float):
+        C = t_in.C()
+        g = self._T4(C)
+        g.set_numpy(np.ones(C, np.float32))
+        t_in.grad[0] = g
+        t_in.grad[1] = self._T4(C)
+        t_in.grad[2] = self._T4(C)
+        t_in.grad[3] = self._T4(C)
+        t_in.grad[4] = self._T4(t_in.N(), t_in.H(), t_in.W(), t_in.C())
+        t_in.mtum[4] = self._T4(C * 3)
+        t_in.xparm = m
+        self.npush(self._T4(t_in.N(), t_in.H(), t_in.W(), t_in.C()))
+
+    def _iup(self, t_in: Tensor, k: int, method: float):
+        if k not in (2, 3):
+            self._err(f"upsample k={k}? 2x2 and 3x3 only")
+            return
+        t_in.iparm = int(method)
+        t_in.stride = [k, 1, 1, 1]
+        self.npush(self._T4(t_in.N(), t_in.H() * k, t_in.W() * k, t_in.C()))
 
     def _isoftmax(self, t_in: Tensor):
         t_in.grad[4] = self._T4(1, t_in.H(), t_in.W(), t_in.C())
@@ -202,11 +308,15 @@ class Model:
         for i in range(self.numel - 1):
             t_in, t_out = self[i], self[i + 1]
             kind = t_in.grad_fn
-            if kind == Layer.ATTN:
+            if kind in (Layer.CONV, Layer.DCONV):
+                opts = (t_in.stride[0], t_in.stride[2])
+            elif kind == Layer.ATTN:
                 flags = int(float(t_in.xparm))
                 opts = (t_in.iparm, bool(flags & 1), bool(flags & 2))
-            elif kind == Layer.LNORM or kind in _ACTS:
+            elif kind in (Layer.LNORM, Layer.DROPOUT) or kind in _ACTS:
                 opts = (float(t_in.xparm),)
+            elif kind in _POOLS or kind == Layer.USAMPLE:
+                opts = (t_in.stride[0],)
             else:
                 opts = ()
             prog.append((kind, opts, t_out.shape))
@@ -217,10 +327,10 @@ class Model:
         for i in range(self.numel - 1):
             t_in = self[i]
             kind = t_in.grad_fn
-            if kind == Layer.LNORM:
+            if kind in (Layer.CONV, Layer.DCONV, Layer.BATCHNM, Layer.LNORM):
                 out.append((t_in.grad[0].ensure_data(),
                             t_in.grad[1].ensure_data()))
-            elif kind in (Layer.EMBED, Layer.PROJ, Layer.ATTN):
+            elif kind in (Layer.LINEAR, Layer.EMBED, Layer.PROJ, Layer.ATTN):
                 w, b = t_in.grad[0], t_in.grad[1]
                 bb = (b.data_as(b.H(), b.W()) if kind == Layer.ATTN
                       else b.ensure_data())
@@ -235,21 +345,37 @@ class Model:
     def forward(self, inp: Tensor) -> "Model":
         n0 = self[0]
         if inp.numel != n0.numel:
-            raise ValueError(f"nn#forward input wrong shape {inp.shape} != "
-                             f"model input {n0.shape}")
+            self._err(f"nn#forward dataset wrong shape {inp.shape} != "
+                      f"model input {n0.shape}")
+            self.err = 1
+            return self
+        prog = self._program()
+        key = None               # only a dropout layer draws from the key
+        if any(k == Layer.DROPOUT for k, _o, _s in prog):
+            from ..system import System
+            key = rng.PRNGKey(System.get_sys().next_key())
         n0.replace_data(inp.data_as(*n0.shape))
-        outs, masks = funcs.forward_pure(self._program(), n0.ensure_data(),
-                                         self._params())
+        outs, masks = funcs.forward_pure(prog, n0.ensure_data(),
+                                         self._params(), key)
         self._apply_fwd_stash(outs, masks)
         return self
 
     def _apply_fwd_stash(self, outs, masks):
         """materialize a forward's outputs and derivative masks into the
-        layer tensors"""
+        layer tensors (a batchnorm's xhat in grad[4], its 1/std in
+        mtum[4] followed by 2C zeros, as the reference keeps them)"""
         for i, (o, m) in enumerate(zip(outs, masks)):
             self[i + 1].replace_data(o)
-            if m is not None and self[i].grad[4] is not None:
-                self[i].grad[4].replace_data(m)
+            t_in = self[i]
+            if m is None:
+                continue
+            if t_in.grad_fn == Layer.BATCHNM:
+                xhat, rvar = m
+                t_in.grad[4].replace_data(xhat)
+                t_in.mtum[4].replace_data(torch.cat(
+                    [rvar.reshape(-1), rvar.new_zeros(2 * t_in.C())]))
+            elif t_in.grad[4] is not None:
+                t_in.grad[4].replace_data(m)
 
     # =========================================================================
     # backprop (reference backprop.cu)
@@ -261,12 +387,15 @@ class Model:
         einsum path instead of the flash kernels (a check of the kernels)"""
         if tgt is None:
             if self._hot is None:
-                raise ValueError("nn#backprop missing onehot vector?")
+                self._err("nn#backprop missing onehot vector?")
+                return self
             tgt = self._hot
         out = self[-1]
         if out.numel != tgt.numel:
-            raise ValueError(f"Model#bprep: onehot wrong shape {tgt.shape} "
-                             f"!= {out.shape}")
+            self._err(f"Model#bprep: onehot wrong shape {tgt.shape} "
+                      f"!= {out.shape}")
+            self.err = 1
+            return self
         outs = tuple(self[i + 1].ensure_data()
                      for i in range(self.numel - 1))
         dws, dbs = self._gather_grads()
@@ -288,9 +417,17 @@ class Model:
                 t_in.grad[3].replace_data(ndbs[j])
 
     def _gather_masks(self):
-        return tuple(self[i].grad[4].ensure_data()
-                     if self[i].grad_fn in funcs._MASKED else None
-                     for i in range(self.numel - 1))
+        masks = []
+        for i in range(self.numel - 1):
+            t_in = self[i]
+            if t_in.grad_fn == Layer.BATCHNM:
+                masks.append((t_in.grad[4].ensure_data(),
+                              t_in.mtum[4].ensure_data()[:t_in.C()]))
+            elif t_in.grad_fn in funcs._MASKED:
+                masks.append(t_in.grad[4].ensure_data())
+            else:
+                masks.append(None)
+        return tuple(masks)
 
     def _gather_grads(self):
         """accumulators in their rank-4 storage shapes (None for a layer
@@ -312,8 +449,7 @@ class Model:
         out = []
         for i in range(self.numel - 1):
             t_in = self[i]
-            if t_in.grad_fn in (Layer.ATTN, Layer.LNORM, Layer.EMBED,
-                                Layer.PROJ) and t_in.grad[0] is not None:
+            if t_in.grad_fn in _PARAMETERED and t_in.grad[0] is not None:
                 out.append((t_in, 0))
                 out.append((t_in, 1))
         return out
@@ -402,7 +538,8 @@ class Model:
             tgt = self._hot
         out = self[-1]
         if tgt is None or out.numel != tgt.numel:
-            raise ValueError("nn::loss shape mismatch")
+            self._err("nn::loss shape mismatch")
+            return 0.0
         return funcs.loss_fn(Loss.NAMES[op].lower(), out.ensure_data(),
                              tgt.ensure_data())
 

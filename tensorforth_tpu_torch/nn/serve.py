@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..ops import rng
 from . import funcs
 from .ntypes import Layer
 
@@ -211,12 +212,14 @@ def _new_caches(program, n, s_max, kv_dtype, device):
 
 @torch.no_grad()
 def _generate(program, params, prompt, s_max: int, temp: float,
-              gen: torch.Generator, top_k: int = 0, top_p: float = 0.0,
+              key, top_k: int = 0, top_p: float = 0.0,
               kv_dtype: str = "float32", win: int = 0,
               prefill: bool = True):
     """prompt [N, n_prompt] int64 on the model's device -> ids [N, s_max]
     (greedy when temp == 0; optional top-k and/or nucleus top-p filtering
-    before the categorical draw from `gen`).
+    before the categorical draw).  `key` is a jax.random key pair
+    (ops/rng.py): as in the JAX package each pick with temp > 0 splits
+    it once and draws argmax(gumbel(sub) + logits).
 
     kv_dtype: KV cache STORAGE dtype ('float32', 'bfloat16' or 'int8').
     win > 0: WINDOWED decode — the steps split into power-of-two segments
@@ -231,15 +234,17 @@ def _generate(program, params, prompt, s_max: int, temp: float,
 
     def pick(logits):
         """sample/argmax the next token from [N, V] logits"""
+        nonlocal key
         if temp <= 0.0:
             return torch.argmax(logits, dim=-1)
+        key, sub = rng.split(key)
         lg = logits / temp
         if 0 < top_k < lg.shape[-1]:
             lg = _filter_top_k(lg, top_k)
         if 0.0 < top_p < 1.0:
             lg = _filter_top_p(lg, top_p)
-        return torch.multinomial(torch.softmax(lg, dim=-1), 1,
-                                 generator=gen)[:, 0]
+        return torch.argmax(rng.gumbel(sub, lg.shape, lg.device) + lg,
+                            dim=-1)
 
     t0 = 0
     if prefill:
@@ -276,8 +281,8 @@ def generate(model, prompt_ids, n_new: int, temp: float = 0.0,
              prefill: bool = True):
     """prompt_ids: [N, S0] (or [S0]) int array -> [N, S0+n_new] ids
     (numpy int32), computed on the model's device; temp=0 is greedy;
-    top_k/top_p filter the distribution when temp>0, drawn from a
-    torch.Generator seeded with `seed`.
+    top_k/top_p filter the distribution when temp>0, drawn as the JAX
+    package draws it from jax.random.PRNGKey(seed).
 
     kv_dtype ('float32'/'bfloat16'/'int8', default env T4_KV_DTYPE or
     f32) sets the KV cache storage dtype; win (default env
@@ -303,10 +308,9 @@ def generate(model, prompt_ids, n_new: int, temp: float = 0.0,
         win = Config.DECODE_WIN
     if kv_dtype not in _DTYPES:
         raise ValueError(f"nn.gen: kv_dtype {kv_dtype!r} not in {list(_DTYPES)}")
-    gen = torch.Generator(device=model.device)
-    gen.manual_seed(int(seed))
     prompt = torch.as_tensor(p.astype(np.int64), device=model.device)
-    ids = _generate(program, params, prompt, s_max, float(temp), gen,
+    ids = _generate(program, params, prompt, s_max, float(temp),
+                    rng.PRNGKey(int(seed)),
                     int(top_k), float(top_p), kv_dtype=str(kv_dtype),
                     win=int(win), prefill=bool(prefill))
     out = ids.cpu().numpy().astype(np.int32)

@@ -20,7 +20,10 @@ round-trips).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from . import xla_math
 
 
 def _eye_like(a):
@@ -31,8 +34,11 @@ def inverse(a):
     """f32 inverse + one Newton-Schulz refinement step: X' = X(2I - AX).
     Recovers the couple of ulps a blocked f32 LU loses, so `inverse @`
     round-trips print as the identity like the reference's Gauss-Jordan
-    (acceptance bar: values within 1e-5 of the CUDA build)."""
-    x = torch.linalg.inv(a)
+    (acceptance bar: values within 1e-5 of the CUDA build).
+    A singular matrix gives NaN everywhere, as jnp.linalg.inv does (it
+    does not raise)."""
+    x, info = torch.linalg.inv_ex(a)
+    x = torch.where(info != 0, torch.full_like(x, float("nan")), x)
     return x @ (2.0 * _eye_like(a) - a @ x)
 
 
@@ -50,8 +56,48 @@ def tri_lower(lu):
     return torch.tril(lu, -1) + _eye_like(lu)
 
 
+def _det_lu(a):
+    """(packed LU, 0-based pivots) of a square matrix: on a CPU tensor
+    LAPACK's sgetrf through scipy, the routine XLA CPU calls for
+    lax.linalg.lu (torch's own CPU LU rounds differently); on the card
+    torch's"""
+    if a.device.type == "cpu":
+        from scipy.linalg import lapack
+        lu, piv, _ = lapack.sgetrf(a.numpy())
+        return torch.from_numpy(lu), torch.from_numpy(piv.astype(np.int64))
+    lu, piv = torch.linalg.lu_factor(a)
+    return lu, piv.to(torch.int64) - 1
+
+
 def det(a) -> float:
-    return float(torch.linalg.det(a))
+    """jnp.linalg.det's route: closed forms at 2x2 and 3x3 with XLA CPU's
+    fused multiply-adds, sign * exp(logdet) of the LU route above that
+    (jax/_src/numpy/linalg.py _det_2x2, _det_3x3, _slogdet_lu), so the
+    CPU result has the reference's bits (a singular 2x2 gives +0)"""
+    n = a.shape[-1]
+    if n == 2:
+        return float(xla_math.fma(a[0, 0], a[1, 1], -(a[0, 1] * a[1, 0])))
+    if n == 3:
+        s = xla_math.fma(a[0, 0] * a[1, 1], a[2, 2],
+                         a[0, 1] * a[1, 2] * a[2, 0])
+        s = xla_math.fma(a[0, 2] * a[1, 0], a[2, 1], s)
+        s = xla_math.fma(-(a[0, 2] * a[1, 1]), a[2, 0], s)
+        s = xla_math.fma(-(a[0, 0] * a[1, 2]), a[2, 1], s)
+        s = xla_math.fma(-(a[0, 1] * a[1, 0]), a[2, 2], s)
+        return float(s)
+    lu, piv = _det_lu(a)
+    diag = torch.diagonal(lu)
+    parity = int((piv != torch.arange(n, device=piv.device)).sum()
+                 + (diag < 0).sum())
+    if bool((diag == 0).any()):
+        return 0.0
+    logs = xla_math.log(diag.abs())
+    logdet = logs[0]
+    for v in logs[1:]:                # XLA CPU sums the row in order
+        logdet = logdet + v
+    sign = torch.tensor(1.0 - 2.0 * (parity % 2), dtype=torch.float32,
+                        device=a.device)
+    return float(sign * xla_math.exp(logdet.reshape(1))[0])
 
 
 def solve(a, b):

@@ -14,6 +14,17 @@ What is reproduced (jax 0.9, ``jax_threefry_partitionable=True``):
             (Giles, "Approximating the erfinv function")
 Distribution semantics as in the reference: v = scale * (bias + u).
 
+The key API of ``jax.random`` that the NN tier draws from (a key is a
+pair of host ints, so deriving keys costs no device work):
+  PRNGKey   ``PRNGKey(seed)``, as ``key_of``
+  split     key i of ``split(key, num)`` is threefry2x32(key, (0, i))
+  fold_in   ``fold_in(key, d)`` is threefry2x32(key, (0, d)), the same
+            hash as split's key d
+  uniform   ``uniform(key, shape, minval, maxval)`` from the key's bits
+  gumbel    ``-log(-log(uniform(key, shape, tiny, 1)))``, the noise of
+            ``categorical``'s Gumbel-max draw (its logs are
+            ops/xla_math.py's: XLA CPU's bits on a CPU tensor)
+
 torch has few uint32 operations, so the integer work is done in int64
 with masks.
 """
@@ -70,10 +81,32 @@ def threefry2x32(key: tuple[int, int], x0, x1):
     return x0, x1
 
 
-def random_bits(seed: int, numel: int, device) -> torch.Tensor:
-    """`numel` 32-bit words as int64, one per counter value"""
+def PRNGKey(seed: int) -> tuple[int, int]:
+    """jax.random.PRNGKey(seed)"""
+    return key_of(seed)
+
+
+def _hash_pairs(key, counters):
+    """threefry2x32(key, (0, c)) for each host int c, as key pairs"""
+    c = torch.tensor(counters, dtype=torch.int64)
+    x0, x1 = threefry2x32(key, torch.zeros_like(c), c & _M32)
+    return [(int(a), int(b)) for a, b in zip(x0.tolist(), x1.tolist())]
+
+
+def split(key, num: int = 2):
+    """jax.random.split(key, num) (the partitionable threefry's)"""
+    return _hash_pairs(key, list(range(num)))
+
+
+def fold_in(key, data: int):
+    """jax.random.fold_in(key, data)"""
+    return _hash_pairs(key, [int(data) & _M32])[0]
+
+
+def key_bits(key, numel: int, device) -> torch.Tensor:
+    """`numel` 32-bit words of `key` as int64, one per counter value"""
     i = torch.arange(numel, dtype=torch.int64, device=device)
-    x0, x1 = threefry2x32(key_of(seed), i >> 32, i & _M32)
+    x0, x1 = threefry2x32(key, i >> 32, i & _M32)
     return x0 ^ x1
 
 
@@ -140,7 +173,7 @@ def _erfinv(x):
 
 def _draw(shape, dist: str, seed: int, device):
     shape = tuple(int(d) for d in shape)
-    f = _unit_floats(random_bits(seed, math.prod(shape), device))
+    f = _unit_floats(key_bits(key_of(seed), math.prod(shape), device))
     if dist == "normal":
         # the open interval's lower end, in f32 arithmetic as jax's
         lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)).item()
@@ -163,6 +196,23 @@ def fill(shape, dist: str, bias: float, scale: float, seed: int,
 
 def scalar(dist: str, seed: int) -> float:
     return float(_draw((1,), dist, seed, "cpu")[0])
+
+
+def uniform(key, shape, device="cpu", minval: float = 0.0,
+            maxval: float = 1.0):
+    """jax.random.uniform(key, shape, float32, minval, maxval)"""
+    shape = tuple(int(d) for d in shape)
+    f = _unit_floats(key_bits(key, math.prod(shape), device))
+    lo = torch.tensor(minval, dtype=torch.float32, device=device)
+    span = torch.tensor(maxval, dtype=torch.float32, device=device) - lo
+    return torch.maximum(lo, f * span + lo).reshape(shape)
+
+
+def gumbel(key, shape, device="cpu"):
+    """jax.random.gumbel(key, shape) in its default (low) mode"""
+    from . import xla_math
+    u = uniform(key, shape, device, minval=torch.finfo(torch.float32).tiny)
+    return -xla_math.log(-xla_math.log(u))
 
 
 def uniform_mask(shape, seed: int, device="cpu"):

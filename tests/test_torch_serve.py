@@ -124,6 +124,58 @@ def test_generate_greedy_tokens_match_jax(rope):
     assert len(np.unique(outs[0][:, 5:])) > 3      # decode is not stuck
 
 
+@pytest.mark.parametrize("seed,top_k,top_p", [(7, 0, 0.0), (3, 4, 0.0),
+                                                (5, 0, 0.9)],
+                         ids=["plain", "top_k4", "top_p0.9"])
+@pytest.mark.parametrize("prefill", [True, False])
+@pytest.mark.parametrize("win", [0, 4])
+def test_generate_sampled_tokens_match_jax(seed, top_k, top_p, prefill, win):
+    """temp 1.0, f32 cache: the same tokens as the JAX package.  Both draw
+    argmax(gumbel + logits) with one split of PRNGKey(seed) per pick, the
+    gumbel noise from the same threefry bits and XLA CPU's logs; the
+    logits agree to f32 rounding, so no draw flips at these seeds."""
+    from tensorforth_tpu.nn.serve import generate as jax_generate
+    from tensorforth_tpu_torch.nn.serve import generate as torch_generate
+    mj, mt = _pair(rope=True)
+    prompt = np.random.RandomState(2).randint(0, 32, (2, 5))
+    kw = dict(temp=1.0, seed=seed, top_k=top_k, top_p=top_p,
+              kv_dtype="float32", win=win, prefill=prefill)
+    want = jax_generate(mj, prompt, 12, **kw)
+    got = torch_generate(mt, prompt, 12, **kw)
+    np.testing.assert_array_equal(got, want)
+    assert len(np.unique(got[:, 5:])) > 3          # the draw is not stuck
+
+
+def test_gumbel_and_keys_match_jax():
+    """the draw's pieces bit for bit: split, fold_in, uniform and the
+    gumbel noise of jax.random.categorical"""
+    import jax
+    from tensorforth_tpu_torch.ops import rng
+
+    def pair(k):
+        return tuple(int(v) for v in np.asarray(k))
+
+    for seed in (0, 7, 2280545969, 1258627373665771185):
+        k = jax.random.PRNGKey(seed)
+        assert rng.PRNGKey(seed) == pair(k)
+        assert rng.split(rng.PRNGKey(seed), 3) == [
+            pair(x) for x in jax.random.split(k, 3)]
+        for d in (0, 1, 5, 123456):
+            assert rng.fold_in(rng.PRNGKey(seed), d) == pair(
+                jax.random.fold_in(k, d))
+        sub = jax.random.split(k)[1]
+        for shape in ((2, 32), (3, 5, 7), (4097,)):
+            got = rng.uniform(pair(sub), shape).numpy()
+            want = np.asarray(jax.random.uniform(sub, shape))
+            np.testing.assert_array_equal(got.view(np.uint32),
+                                          want.view(np.uint32))
+            got = rng.gumbel(pair(sub), shape).numpy()
+            want = np.asarray(jax.jit(
+                lambda k_, s=shape: jax.random.gumbel(k_, s))(sub))
+            np.testing.assert_array_equal(got.view(np.uint32),
+                                          want.view(np.uint32))
+
+
 @pytest.mark.parametrize("kv,tol", [("bfloat16", 2e-2), ("int8", 3e-2)])
 def test_step_token_low_precision_cache_matches_jax(kv, tol):
     """bf16 and int8 caches: _step_token logits for identical inputs

@@ -215,9 +215,9 @@ def test_backward_raises_on_a_layer_not_ported():
     from tensorforth_tpu_torch.nn import funcs
     from tensorforth_tpu_torch.nn.ntypes import Layer
     x = torch.zeros(1, 2, 3, 1)
-    with pytest.raises(NotImplementedError, match="maxpool"):
-        funcs.backward_segment(((Layer.MAXPOOL, (2,), x.shape),), True, x, x,
-                               (x,), ((),), (None,), (None,), (None,))
+    with pytest.raises(NotImplementedError, match="moe"):
+        funcs.backward_segment(((Layer.MOE, (2, 4, 1), x.shape),), True, x,
+                               x, (x,), ((),), (None,), (None,), (None,))
 
 
 def _train(m, inp, hot, steps, use_loss):
