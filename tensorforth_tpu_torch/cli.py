@@ -1,9 +1,11 @@
 """ten4_torch CLI — option parsing and the REPL loop (the port of
 tensorforth_tpu/cli.py).
 
-Reference: src/ten4.{h,cu} + src/opt.h.  One VM at the tensor level
-(eForth + tensor words).  Not ported yet: the VM pool and task words,
-the TensorBoard writer, the corpus viewer.
+Reference: src/ten4.{h,cu} + src/opt.h.  One VM, at the tier that
+Config.DO_OBJ and Config.DO_NN name (by default the net level: eForth +
+tensor words + NN words).
+Not ported yet: the VM pool and task words, the TensorBoard writer, the
+corpus viewer.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import time
 
 import torch
 
-from .config import resolve_device
+from .config import Config, resolve_device
 from .debug import Debug
 from .mu.mmu import MMU
 from .system import System
@@ -29,7 +31,9 @@ class TensorForth:
         self.sys.mu = MMU.get_mmu()
         self.sys.mu.device = self.device
         self.sys.db = Debug.get_db(self.sys)
-        self.vm = vm_factory("tensor", 0, self.sys)
+        level = "net" if (Config.DO_OBJ and Config.DO_NN) else (
+            "tensor" if Config.DO_OBJ else "forth")
+        self.vm = vm_factory(level, 0, self.sys)
         self.vm.init()
         self.vm.state = VMState.QUERY
         # reference Debug::self_tests (ten4.cu:225): silent integrity

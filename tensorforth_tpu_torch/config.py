@@ -8,14 +8,16 @@ import torch
 
 
 class Config:
-    # --- capability tiers (reference: T4_DO_OBJ / T4_DO_MATH)
+    # --- capability tiers (reference: T4_DO_OBJ / T4_DO_MATH / T4_DO_NN)
     DO_OBJ  = True
     DO_MATH = True
+    DO_NN   = True
 
     # --- sizing (reference: ten4_config.h)
     SS_SZ    = 64          # data stack depth        (T4_SS_SZ)
     RS_SZ    = 64          # return stack depth      (T4_RS_SZ)
     DICT_SZ  = 1024        # dictionary entries      (T4_DICT_SZ)
+    NET_SZ   = 128         # max layers per model    (T4_NET_SZ)
     PMEM_SZ  = 1 << 16     # parameter memory bytes  (T4_PMEM_SZ=48K; we round to 64K)
     TFREE_SZ = 1024        # deferred-free list size (T4_TFREE_SZ)
 
@@ -47,6 +49,19 @@ class Config:
 
     # --- deterministic init for QA (reference ten4_config.h MM_DEBUG)
     MM_DEBUG = bool(int(os.environ.get("T4_MM_DEBUG", "0")))
+
+    # --- dataset search roots: T4_DATA, ./data and ~/data (the JAX
+    # package's list, less its absolute one); the loader's WARN line
+    # prints them
+    DATA_ROOTS = [
+        os.environ.get("T4_DATA", ""),
+        "./data",
+        os.path.expanduser("~/data"),
+    ]
+    # allow the synthetic stand-in when corpus files are missing
+    ALLOW_SYNTHETIC_DATA = bool(int(os.environ.get("T4_SYNTH_DATA", "1")))
+
+    APP_NAME = "tensorForth-tpu"   # the model files' header (io/nnio.py)
 
 
 def default_device() -> torch.device:

@@ -1,6 +1,6 @@
-"""AIO — host-side IO: tensor pretty-printers and persistence (the port
-of tensorforth_tpu/io/aio.py; the model printer and the PNG export come
-with their tiers).
+"""AIO — host-side IO: tensor/model pretty-printers and persistence (the
+port of tensorforth_tpu/io/aio.py; the PNG export comes with the
+TensorBoard tier).
 
 Reference: src/io/aio.{h,cpp}, aio_tensor.cpp, aio_model.cpp.  Output
 formats are byte-compatible with the reference (PyTorch-style edge-item
@@ -41,6 +41,11 @@ class AIO:
     def to_s_obj(self, t, view: bool = False) -> str:
         if t is None:
             return "(null)"
+        if t.is_future():
+            # a deferred scalar renders as its (now read back) value:
+            # stack dumps look as if the value had been read at once
+            from .fmt import gfmt
+            return gfmt(np.float32(t.value()))
         tn = [["T", "N", "D", "X"], ["t", "n", "d", "x"]]
         s = tn[1 if view else 0][t.ttype]
         if t.rank:
@@ -62,9 +67,14 @@ class AIO:
     def marshall(self, t) -> str:
         if t is None:
             return "(null)"
+        if t.is_future():
+            from .fmt import gfmt
+            return gfmt(np.float32(t.value()))
         if t.ttype in (T4Type.TENSOR, T4Type.DATASET):
             return self._tensor(t)
-        return self.to_s_obj(t) + "\n"    # model printer: with the NN tier
+        if t.ttype == T4Type.MODEL:
+            return self._model(t)
+        return ""
 
     def _num(self, v) -> str:
         return f"{float(v):+.{self._prec}f}"
@@ -126,6 +136,56 @@ class AIO:
         else:
             s = f"tensor rank={t.rank} not supported"
         return s + "\n"
+
+    # =====================================================================
+    # model printer (reference aio_model.cpp:65-141)
+    # =====================================================================
+    def _model(self, m) -> str:
+        from ..nn.model import Model
+        if not m.is_model():
+            return "ERROR, not an NN Model!"
+        n = m.numel
+        out = [f"NN Model[{n - 1}/{Config.NET_SZ}]\n"]
+        for i in range(n):
+            t_in = m[i]
+            t_out = m[i + 1] if i + 1 < n else t_in
+            sz = sum(g.numel for g in t_in.grad if g is not None)
+            out.append(f"[{i:3d}] {Model.nname(t_in.grad_fn)}: "
+                       f"{self.to_s_obj(t_in)} #p={sz} ")
+            for k in (0, 1):
+                if t_in.grad[k] is not None:
+                    out.append(self.to_s_obj(t_in.grad[k]) + " ")
+            if t_in.grad[4] is not None:
+                out.append(self.to_s_obj(t_in.grad[4]) + " ")
+            out.append(self._parm(t_in, t_out) + "\n")
+        return "".join(out)
+
+    def _parm(self, t_in, t_out) -> str:
+        from ..nn.ntypes import Layer
+        fn = t_in.grad_fn
+        S = t_in.stride[0]
+        p = t_in.xparm
+        g = lambda v: f"{float(v):g}"
+        if fn in (Layer.CONV, Layer.DCONV):
+            return (f"bias={g(p)}, C={t_out.C()}, K={t_in.grad[0].H()}, "
+                    f"S={S}, P={t_in.stride[2]}")
+        if fn == Layer.LINEAR:
+            return f"bias={g(p)}, H={t_in.grad[0].H()}"
+        if fn in (Layer.SELU, Layer.LEAKYRL, Layer.ELU):
+            return f"bias={g(p)}"
+        if fn == Layer.DROPOUT:
+            return f"rate={g(p * 100.0)}%"
+        if fn in (Layer.AVGPOOL, Layer.MAXPOOL, Layer.MINPOOL):
+            return f"{S}x{S}"
+        if fn == Layer.BATCHNM:
+            return f"mtum={g(p)}"
+        if fn == Layer.USAMPLE:
+            nm = ["nearest", "linear", "bilinear", "cubic"]
+            return f"{S}x{S} {nm[t_in.iparm]}"
+        if fn == Layer.ATTN:
+            c = ", causal" if float(t_in.xparm) > 0.5 else ""
+            return f"heads={t_in.iparm}{c}"
+        return ""
 
     # =====================================================================
     # tensor persistence (reference aio_tensor.cpp:74-255)

@@ -1,0 +1,134 @@
+"""Deferred device scalars ("futures"; the port of
+tensorforth_tpu/mu/future.py).
+
+A Future is a tagged stack object (the same NaN-boxed handle scheme as
+tensors, du.py) wrapping a 0-d tensor on the MMU's device that has been
+computed but not read back.  The words that produce one (`loss.ce`,
+`nn.hit`, `sum`, `avg`, `std`, `norm`) push a Future instead of reading
+the value; scalar arithmetic on futures stays on the device; the value
+is read only when the host needs it: printing (`.`), comparisons,
+control flow, int conversion.  On the card no word between two such
+reads synchronizes, so the canonical training loop (examples/t4_30e.4th
+`for forward loss.ce lox ! nn.hit hit +! backprop nn.adam next`) reads
+back once per epoch, at its `stat` print.
+
+The reference (src/vm/netvm.cpp) reads `loss.ce` synchronously: its
+kernels and its host share one address space.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+class LazyIdx:
+    """deferred element `vec[i]` of a device vector: a lazy sum of
+    LazyIdx addends over one vector collapses into one sum of its
+    elements (the whole vector when the indices cover it)"""
+    __slots__ = ("vec", "i")
+
+    def __init__(self, vec, i: int):
+        self.vec = vec
+        self.i = int(i)
+
+
+def xla_sum(v):
+    """the f32 sum of a 1-d tensor in the order XLA's CPU backend adds it
+    (jnp.sum): up to 32 elements one after another from 0; above that,
+    windows of 32 over the vector padded with zeros on both sides (the
+    lower half of the padding first), each window summed one after
+    another, and the window sums summed again the same way"""
+    n = v.shape[0]
+    if n <= 32:
+        s = v.new_zeros(())
+        for i in range(n):
+            s = s + v[i]
+        return s
+    k = -(-n // 32)
+    lo = (32 * k - n) // 2
+    p = torch.nn.functional.pad(v, (lo, 32 * k - n - lo)).reshape(k, 32)
+    s = p.new_zeros(k)
+    for j in range(32):
+        s = s + p[:, j]
+    return xla_sum(s)
+
+
+def _collapse_lazy(host: float, devs: list, lazies: list):
+    """one device expression for (host + sum(devs) + sum(vec[i]...))"""
+    groups: dict = {}
+    for a in lazies:
+        groups.setdefault(id(a.vec), (a.vec, []))[1].append(a.i)
+    for vec, idxs in groups.values():
+        if len(idxs) == int(vec.shape[0]) and sorted(idxs) == list(
+                range(int(vec.shape[0]))):
+            devs.append(xla_sum(vec))
+        elif len(idxs) == 1:
+            devs.append(vec[idxs[0]])
+        else:
+            devs.append(xla_sum(vec[torch.as_tensor(idxs,
+                                                    device=vec.device)]))
+    if devs:
+        d = devs[0] if len(devs) == 1 else xla_sum(torch.stack(
+            [torch.as_tensor(x, dtype=torch.float32) for x in devs]))
+        return d + float(np.float32(host)) if host else d
+    return np.float32(host)
+
+
+class Future:
+    """0-d device scalar pending host materialization.
+
+    When ``pending`` is set (a list of addends, each a 0-d tensor or a
+    host number) the future is a lazy sum: `+!` accumulation (the
+    per-batch `nn.hit hit +!` counter) costs no device work per batch;
+    the chain collapses into one sum on its first real use (typically
+    the end-of-epoch `hit @ .`)."""
+    __slots__ = ("data", "oid", "pending")
+
+    def __init__(self, data, pending=None):
+        self.data = data          # 0-d tensor, np scalar, or python number
+        self.pending = pending    # lazy-sum addend list (data is None)
+        self.oid = 0
+
+    # --- the object duck-type of the MMU's table --------------------------
+    @property
+    def numel(self) -> int:
+        return 1
+
+    def is_tensor(self) -> bool:
+        return False
+
+    def is_model(self) -> bool:
+        return False
+
+    def is_dataset(self) -> bool:
+        return False
+
+    def is_future(self) -> bool:
+        return True
+
+    # --- resolution ---------------------------------------------------------
+    def dev(self):
+        """the value on the device: collapses a lazy sum (one sum of all
+        accumulated addends) without reading it back"""
+        if self.pending is not None:
+            host = 0.0
+            devs, lazies = [], []
+            for a in self.pending:
+                if isinstance(a, (int, float, np.floating, np.integer)):
+                    host += float(a)
+                elif isinstance(a, LazyIdx):
+                    lazies.append(a)
+                else:
+                    devs.append(a)
+            self.data = _collapse_lazy(host, devs, lazies)
+            self.pending = None
+        elif isinstance(self.data, LazyIdx):
+            self.data = self.data.vec[self.data.i]
+        return self.data
+
+    def value(self) -> float:
+        """read back: device -> host float32"""
+        return float(np.float32(float(self.dev())))
+
+    def __repr__(self):
+        return f"Future(oid={self.oid})"

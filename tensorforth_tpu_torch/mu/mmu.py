@@ -1,8 +1,8 @@
 """MMU — memory/object controller (the port of tensorforth_tpu/mu/mmu.py).
 
 Owns: the dictionary, parameter memory, the object table (tagged-DU
-handle -> Tensor/Model), the deferred-free (mark/sweep) list, and the
-byte accounting behind ``mstat``.
+handle -> Tensor/Model/Dataset/Future), the deferred-free (mark/sweep)
+list, and the byte accounting behind ``mstat``.
 
 Reference: src/mu/mmu.{h,cu}.  Where the reference sub-allocates a CUDA
 managed arena with a TLSF allocator, device memory here is owned by
@@ -11,8 +11,9 @@ and counts bytes in Python.  The native TLSF accounting (csrc/t4alloc)
 comes with the native slice and the device arena with its own, so
 ``mstat`` prints the reference's plain ``Ostore used/peak/alloc#`` line.
 
-``device`` is where the tensor words make their tensors: None means the
-package default (``cuda``; it raises without a GPU), the CLI sets it.
+``device`` is where the tensor words make their tensors, datasets keep
+their corpus and futures their values: None means the package default
+(``cuda``; it raises without a GPU), the CLI sets it.
 """
 from __future__ import annotations
 
@@ -69,6 +70,18 @@ class MMU:
             self._peak_bytes = max(self._peak_bytes, self._alloc_bytes)
         return obj
 
+    def rebind(self, obj):
+        """re-dimension support: account the object at its CURRENT numel
+        (a dataset learns its real shape on its first fetch, after it
+        was registered; reference dataset.cu:64-121)"""
+        with self._mlock:
+            if obj.oid not in self._objs:
+                return
+            nbytes = obj.numel * 4
+            self._alloc_bytes += nbytes - self._regsz.get(obj.oid, 0)
+            self._regsz[obj.oid] = nbytes
+            self._peak_bytes = max(self._peak_bytes, self._alloc_bytes)
+
     def du2obj(self, v):
         return self._objs.get(obj_id(v))
 
@@ -87,6 +100,17 @@ class MMU:
         from ..nn.model import Model
         return self.register(Model(
             self, device=self.device if device is None else device))
+
+    def dataset(self, batch_sz: int, device=None):
+        from .dataset import Dataset
+        return self.register(Dataset(
+            batch_sz, device=self.device if device is None else device))
+
+    def future(self, data, pending=None):
+        """deferred device scalar (mu/future.py): resolves on host use;
+        pending=list makes it a lazy sum (`+!` chains)"""
+        from .future import Future
+        return self.register(Future(data, pending))
 
     def copy(self, src: Tensor) -> Tensor:
         """deep copy of payload + shape (not grads)"""
@@ -122,6 +146,7 @@ class MMU:
                     if isinstance(t, Tensor) and t.oid in self._objs:
                         self.free_obj(t)
                 obj.data = []
+            # a future holds a 0-d value and no other object: nothing more
 
     def mark_free(self, v):
         """deferred free — swept per REPL cycle (reference mmu.cu:169-196)"""

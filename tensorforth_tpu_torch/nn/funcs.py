@@ -475,6 +475,19 @@ def forward_pure(program, x, params, key=None):
     return tuple(outs), tuple(masks)
 
 
+@torch.no_grad()
+def forward_with_metrics(program, x, params, key, labels):
+    """a dataset input's forward with its one-hot target and hit count
+    from the batch's device labels (reference forward.cu:71-75 collects
+    both after the pass); nothing is read back"""
+    outs, masks = forward_pure(program, x, params, key)
+    out = outs[-1]
+    n = out.shape[0]
+    classes = out.numel() // n
+    hot = onehot_fn(labels, classes).reshape(n, 1, classes, 1)
+    return outs, masks, hot, hit_fn(out, hot)
+
+
 # ===========================================================================
 # whole-network backward
 # ===========================================================================

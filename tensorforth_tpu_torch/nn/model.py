@@ -11,8 +11,10 @@ batchnorm's xhat) in ``.grad[4]``, the optimizer's moments in
 nn/funcs.py and nn/serve.py read a model the same way.  As in the
 reference, ``backprop`` overwrites each layer's activation with its input
 gradient, and a word given bad input prints through ``_err`` and sets
-``err`` instead of raising.  The dataset input path, the fused training
-cycle and its trace chunks come with a later slice.
+``err`` instead of raising.  A dataset input takes the reference's
+per-word path (what it runs under T4_NO_FUSE=1): one forward that also
+makes the batch's one-hot and hit count from the device labels.  The
+fused training cycle and its trace chunks are not ported.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ class Model:
     def __init__(self, mmu, device=None):
         self.oid = 0
         self.ttype = T4Type.MODEL
+        self.rank = 0
         self.data: list[Tensor] = []          # layer tensors (activations)
         self.device = resolve_device(device)
         self.train = 1
@@ -47,6 +50,8 @@ class Model:
         self._hit = 0
         self._iter = 0
         self._opt_inited = False
+        self.max_norm = 0.0
+        self.epoch = 0
 
     @property
     def numel(self) -> int:
@@ -64,12 +69,26 @@ class Model:
     def is_future(self) -> bool:
         return False
 
+    @staticmethod
+    def nname(i) -> str:
+        """padded 7-char layer name (reference LAYER_OP strings)"""
+        return Layer.NAMES[i if i is not None else 0]
+
     def __getitem__(self, i: int) -> Tensor:
         return self.data[i if i >= 0 else self.numel + i]
 
     def npush(self, t: Tensor) -> "Model":
         self.data.append(t)
+        if self.numel >= Config.NET_SZ:
+            from ..system import System
+            System.get_sys().perr("", "Model layer storage maxed out ")
         return self
+
+    def batch_size(self) -> int:
+        return self.data[0].N() if self.data else 1
+
+    def tick(self):
+        self.epoch += 1
 
     # --- tensor helpers -------------------------------------------------------
     def _T4(self, *dims) -> Tensor:
@@ -343,6 +362,8 @@ class Model:
     # forward (reference forward.cu), tensor input
     # =========================================================================
     def forward(self, inp: Tensor) -> "Model":
+        from ..system import System
+        sys = System.get_sys()
         n0 = self[0]
         if inp.numel != n0.numel:
             self._err(f"nn#forward dataset wrong shape {inp.shape} != "
@@ -352,18 +373,32 @@ class Model:
         prog = self._program()
         key = None               # only a dropout layer draws from the key
         if any(k == Layer.DROPOUT for k, _o, _s in prog):
-            from ..system import System
-            key = rng.PRNGKey(System.get_sys().next_key())
+            key = rng.PRNGKey(sys.next_key())
         n0.replace_data(inp.data_as(*n0.shape))
-        outs, masks = funcs.forward_pure(prog, n0.ensure_data(),
-                                         self._params(), key)
-        self._apply_fwd_stash(outs, masks)
+        hot = hit = None
+        if inp.is_dataset():
+            ld = inp.label_dev
+            if ld is not None and ld.shape[0] == n0.N():
+                labels = ld      # the batch's device slice: no upload
+            else:
+                labels = torch.as_tensor(
+                    inp.label[:n0.N()].astype(np.int64), device=self.device)
+            outs, masks, hot, hit = funcs.forward_with_metrics(
+                prog, n0.ensure_data(), self._params(), key, labels)
+        else:
+            outs, masks = funcs.forward_pure(prog, n0.ensure_data(),
+                                             self._params(), key)
+        self._apply_fwd_stash(outs, masks, hot, hit)
+        if sys.trace:
+            self._trace_pass("forward", range(self.numel - 1))
         return self
 
-    def _apply_fwd_stash(self, outs, masks):
+    def _apply_fwd_stash(self, outs, masks, hot=None, hit=None):
         """materialize a forward's outputs and derivative masks into the
         layer tensors (a batchnorm's xhat in grad[4], its 1/std in
-        mtum[4] followed by 2C zeros, as the reference keeps them)"""
+        mtum[4] followed by 2C zeros, as the reference keeps them); a
+        dataset forward's one-hot into the model's and its hit count,
+        kept on the device"""
         for i, (o, m) in enumerate(zip(outs, masks)):
             self[i + 1].replace_data(o)
             t_in = self[i]
@@ -376,6 +411,49 @@ class Model:
                     [rvar.reshape(-1), rvar.new_zeros(2 * t_in.C())]))
             elif t_in.grad[4] is not None:
                 t_in.grad[4].replace_data(m)
+        if hot is not None:
+            if self._hot is None:
+                out = self[-1]
+                self._hot = self._T4(out.N(), 1, out.HWC(), 1)
+            self._hot.replace_data(hot)
+            self._hit = hit
+
+    def _trace_pass(self, name: str, order):
+        """per-layer trace (reference forward.cu:44-51/backprop.cu:41-47):
+        the forward pass checks each layer's output for NaN, prints the
+        faulting layer, sets err (the net words stop on it) and breaks;
+        backprop keeps the check at trace > 1"""
+        from ..ops import engine
+        from ..system import System
+        sys = System.get_sys()
+        nan_check = name == "forward" or sys.trace > 1
+        sys.pstr(f"\nModel::{name} trace {{")
+        for i in order:
+            t_in, t_out = self[i], self[i + 1]
+            s = engine.t_sum(t_in.ensure_data()) / t_in.N() / max(t_in.C(), 1)
+            sys.pstr(
+                f"\n  {i:3d}> {Model.nname(t_in.grad_fn)} "
+                f"[{t_in.N():2d},{t_in.H():2d},{t_in.W():2d},{t_in.C():2d}]"
+                f" Σ/n={s:6.2f} p={float(t_in.xparm):6.3f}"
+                f" => out[{t_out.N():2d},{t_out.H():2d},"
+                f"{t_out.W():2d},{t_out.C():2d}]")
+            if nan_check and engine.has_nan(t_out.ensure_data()):
+                sys.pstr(f"\nERROR: nn#{name} NaN in "
+                         f"{Model.nname(t_in.grad_fn)}")
+                self.err = 1
+                break
+        sys.pstr("\n}\n")
+
+    def broadcast(self, tgt: Tensor) -> "Model":
+        """the target's first value of each sample, repeated over the
+        output's width, as the one-hot vector"""
+        out = self[-1]
+        N, HWC = out.N(), out.HWC()
+        if self._hot is None:
+            self._hot = self._T4(N, 1, HWC, 1)
+        v = tgt.numpy().reshape(N, -1)[:, :1]
+        self._hot.set_numpy(np.repeat(v, HWC, axis=1))
+        return self
 
     # =========================================================================
     # backprop (reference backprop.cu)
@@ -415,6 +493,9 @@ class Model:
                 t_in.grad[2].replace_data(ndws[j])
             if t_in.grad[3] is not None:
                 t_in.grad[3].replace_data(ndbs[j])
+        from ..system import System
+        if System.get_sys().trace:
+            self._trace_pass("backprop", range(self.numel - 2, -1, -1))
 
     def _gather_masks(self):
         masks = []
@@ -512,25 +593,55 @@ class Model:
     # loss & metrics (reference loss.cpp)
     # =========================================================================
     def onehot(self, t: Tensor | None = None) -> Tensor:
-        """the one-hot target vector; with `t`, set it"""
+        """the one-hot target vector; with `t`, set it (freeing the one
+        it replaces)"""
         if t is None:
             if self._hot is None:
-                raise ValueError("Model.onehot not set, pass a tensor")
+                self._err("Model.onehot not provided by dataset, "
+                          "use nn.onehot= to setup!")
+                return self[-1]
             return self._hot
         out = self[-1]
-        if t.N() != out.N() or t.HWC() != out.HWC():
-            raise ValueError(f"Model.onehot dimension is not "
-                             f"[{out.N()},1,{out.HWC()},1]")
+        if self._hot is not None:
+            self._mmu.free_obj(self._hot)
+        elif t.N() != out.N() or t.HWC() != out.HWC():
+            self._err(f"Model.onehot dimension is not "
+                      f"[{out.N()},1,{out.HWC()},1]")
+            return t
         self._hot = t
         self._hit = self.hit(True)
         return self._hot
 
+    def onehot_from_dataset(self, dset) -> Tensor:
+        out = self[-1]
+        E = out.HWC()
+        if self._hot is None:
+            self._hot = self._T4(out.N(), 1, E, 1)
+        ld = getattr(dset, "label_dev", None)
+        if ld is not None and ld.shape[0] == out.N():
+            labels = ld                    # the device slice: no upload
+        else:
+            labels = torch.as_tensor(dset.label[:out.N()].astype(np.int64),
+                                     device=self.device)
+        self._hot.replace_data(funcs.onehot_fn(labels, E))
+        return self._hot
+
     def hit(self, recalc: bool = False) -> int:
+        """the last forward's hit count (read back here); with recalc,
+        computed again from the output and the one-hot, on the device"""
         if not recalc:
+            from ..mu.future import LazyIdx
+            if isinstance(self._hit, LazyIdx):
+                self._hit = self._hit.vec[self._hit.i]
             return int(self._hit)      # syncs only when the caller reads it
         if self._hot is None:
             return 0
         return funcs.hit_fn(self[-1].ensure_data(), self._hot.ensure_data())
+
+    def hit_dev(self):
+        """the hit count on the device, not read back (the nn.hit word
+        wraps it in a future)"""
+        return self._hit
 
     def loss_dev(self, op: int, tgt: Tensor | None = None):
         """device scalar loss, no host sync"""

@@ -14,6 +14,10 @@ class Layer:
              "moe    ", "lnorm  ", "embed  ", "proj   "]
 
 
+class Upsample:
+    NEAREST, LINEAR, BILINEAR, CUBIC = range(4)
+
+
 class Loss:
     MSE, BCE, CE, NLL = range(4)
     NAMES = ["MSE", "BCE", "CE", "NLL"]

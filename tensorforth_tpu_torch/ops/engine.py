@@ -1,12 +1,10 @@
 """Device op engine: elementwise maps, broadcast binary ops, matmul,
-reductions (the port of tensorforth_tpu/ops/engine.py).  Every function
-takes and returns torch tensors on the caller's device and runs eagerly.
+reductions, deferred-scalar ops (the port of tensorforth_tpu/ops/
+engine.py).  Every function takes and returns torch tensors on the
+caller's device and runs eagerly.
 
 Reference behaviour: src/t4math.cu (k_math/k_ts_op/k_tt_op/k_gemm*/k_sum/
 k_nvar/k_max), src/mu/tensor.cu host wrappers.
-
-The deferred-scalar ops of the JAX module (sc_op1/sc_op2) wait for the
-port of mu/future.py.
 """
 from __future__ import annotations
 
@@ -19,10 +17,19 @@ from . import xla_math
 
 # ---------------------------------------------------------------------------
 # elementwise self-ops (reference k_math, t4math.cu:168-199).  exp, ln,
-# log, tanh and sigm are XLA CPU's own routines on a CPU tensor
-# (ops/xla_math.py), so the words print the JAX package's digits.
+# log, tanh, sigm, sqrt, pow, sin and cos are XLA CPU's own routines on a
+# CPU tensor (ops/xla_math.py), so the words print the JAX package's
+# digits.
 # ---------------------------------------------------------------------------
 _DU_LNX = 1.0e-12     # log clamp
+
+
+def _max0(x):
+    """jnp.maximum(x, 0.0) as XLA computes it: NaN passes through, -0 and
+    subnormals give +0"""
+    return torch.where(torch.isnan(x) | (x >= xla_math._TINY), x,
+                       torch.zeros_like(x))
+
 
 _MAP = {
     "abs":   lambda x, v: torch.abs(x),
@@ -33,7 +40,7 @@ _MAP = {
     "tanh":  lambda x, v: xla_math.tanh(x),
     "relu":  lambda x, v: torch.clamp_min(x, 0.0),
     "sigm":  lambda x, v: xla_math.logistic(x),
-    "sqrt":  lambda x, v: torch.sqrt(torch.clamp_min(x, 0.0)),
+    "sqrt":  lambda x, v: xla_math.sqrt(_max0(x)),
     "rcp":   lambda x, v: 1.0 / x,
     "sat":   lambda x, v: torch.clamp(x, 0.0, 1.0),
     "fill":  lambda x, v: torch.full_like(x, v),
@@ -41,9 +48,9 @@ _MAP = {
         x.numel(), dtype=torch.float32, device=x.device).reshape(x.shape)
         / x.numel(),
     "scale": lambda x, v: x * v,
-    "pow":   lambda x, v: torch.pow(x, v),
-    "sin":   lambda x, v: torch.sin(x),
-    "cos":   lambda x, v: torch.cos(x),
+    "pow":   lambda x, v: xla_math.pow(x, v),
+    "sin":   lambda x, v: xla_math.sin(x),
+    "cos":   lambda x, v: xla_math.cos(x),
     "add":   lambda x, v: x + v,
     "sub":   lambda x, v: x - v,
     "mul":   lambda x, v: x * v,
@@ -72,6 +79,56 @@ def identity(x):
     h, w = x.shape[-2], x.shape[-1]
     return torch.eye(h, w, dtype=torch.float32,
                      device=x.device).expand(x.shape).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# deferred-scalar (future) ops: 0-d device arithmetic; names match the
+# tenvm _MAP_NAME/_BIN_NAME tables.  The guards mirror the host scalar
+# ALU (vm.py xop1) so a deferred chain matches the eager one; on a CPU
+# tensor the transcendentals are XLA CPU's (ops/xla_math.py)
+# ---------------------------------------------------------------------------
+def _sc_ln(x, log):
+    eps = torch.tensor(1e-6, dtype=torch.float32, device=x.device)
+    return torch.where(x > eps, log(torch.maximum(x, eps)),
+                       torch.zeros_like(x))
+
+
+_SC_UN = {
+    "abs": torch.abs, "neg": torch.neg, "exp": xla_math.exp,
+    "tanh": xla_math.tanh, "sqrt": xla_math.sqrt, "sin": xla_math.sin,
+    "cos": xla_math.cos, "relu": _max0, "sigm": xla_math.logistic,
+    "rcp": lambda x: 1.0 / x,
+    "sat": lambda x: torch.clamp(x, 0.0, 1.0),
+    "ln": lambda x: _sc_ln(x, xla_math.log),
+    "log": lambda x: _sc_ln(x, xla_math.log10),
+}
+
+
+def _scalar(x, device=None):
+    """a 0-d f32 tensor of x (a host number or a tensor) on its device
+    (the MMU's for a host number)"""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32)
+    if device is None:
+        from ..mu.mmu import MMU
+        device = MMU.get_mmu().device
+    return torch.tensor(float(x), dtype=torch.float32,
+                        device=resolve_device(device))
+
+
+def sc_op1(name, x):
+    """unary device-scalar op; None = no device mapping (host resolves)"""
+    f = _SC_UN.get(name)
+    if f is None:
+        return None
+    return f(_scalar(x))
+
+
+def sc_op2(name, a, b, device=None):
+    """binary device-scalar op; None = no device mapping (host resolves)"""
+    if name not in ("add", "sub", "mul", "div", "max", "min"):
+        return None
+    return _bin_op(name, _scalar(a, device), _scalar(b, device))
 
 
 # ---------------------------------------------------------------------------

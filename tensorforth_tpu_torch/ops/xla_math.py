@@ -1,6 +1,7 @@
-"""exp, log, log10, tanh and the logistic as XLA's CPU backend computes
-them in f32, bit for bit (the JAX package's jnp.exp, jnp.log, jnp.log10,
-jnp.tanh and jax.nn.sigmoid on the CPU).
+"""exp, log, log10, tanh, the logistic, sqrt, sin, cos and pow as XLA's
+CPU backend computes them in f32, bit for bit (the JAX package's jnp.exp,
+jnp.log, jnp.log10, jnp.tanh, jax.nn.sigmoid, jnp.sqrt, jnp.sin, jnp.cos
+and jnp.power on the CPU).
 
 On a CPU f32 tensor each function replays XLA's own expansion: the same
 range reduction, the same polynomial constants, its multiply-adds fused
@@ -11,11 +12,18 @@ a CUDA one in particular, takes the torch op: on the card the port is
 held to the reference tests' tolerances, not to XLA CPU's last bit.
 
 The constants are the f32 values of XLA's emitted IR (hex doubles there).
+sqrt is `vsqrtps` there, the correctly rounded root of the flushed input.
+sin, cos and pow are calls of the C library's sinf, cosf and powf, which
+XLA's JIT binds to the process's libm: they are replayed by calling the
+same functions (through ctypes, one element at a time).
 """
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
 import struct
 
+import numpy as np
 import torch
 
 _TINY = 1.1754943508222875e-38           # FLT_MIN, the smallest normal
@@ -169,3 +177,99 @@ def logistic(x):
     if not _emulate(x):
         return torch.sigmoid(x)
     return _ftz(1.0 / _ftz(_exp(_ftz(-x)) + 1.0))
+
+
+# --- sqrt, sin, cos, pow ----------------------------------------------------
+_NAN_BITS = -4194304                     # 0xFFC00000, x86's default NaN
+_QUIET = 0x00400000                      # the quiet bit of an f32 NaN
+_LIBM = None
+
+
+def _libm():
+    """the C library's sinf, cosf and powf, typed for f32"""
+    global _LIBM
+    if _LIBM is None:
+        try:
+            lib = ctypes.CDLL("libm.so.6")
+        except OSError:
+            lib = ctypes.CDLL(ctypes.util.find_library("m"))
+        for name, n in (("sinf", 1), ("cosf", 1), ("powf", 2)):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_float
+            fn.argtypes = [ctypes.c_float] * n
+        _LIBM = lib
+    return _LIBM
+
+
+def _per_element(fn, *xs):
+    """fn over the elements of CPU f32 tensors of one shape, as f32"""
+    cols = [x.contiguous().reshape(-1).numpy().tolist() for x in xs]
+    out = np.fromiter((fn(*v) for v in zip(*cols)), np.float32,
+                      count=xs[0].numel())
+    return torch.from_numpy(out).reshape(xs[0].shape)
+
+
+def sqrt(x):
+    if not _emulate(x):
+        return torch.sqrt(x)
+    xd = _ftz(x)
+    # the f64 root rounds once more to f32 without a double-rounding
+    # error (53 >= 2 * 24 + 2); torch's own f32 root is off by an ulp
+    # for some inputs
+    r = torch.sqrt(xd.double()).float().view(torch.int32)
+    r = torch.where(xd < 0.0, torch.full_like(r, _NAN_BITS), r)
+    return torch.where(torch.isnan(x), x.view(torch.int32) | _QUIET,
+                       r).view(torch.float32)
+
+
+def sin(x):
+    if not _emulate(x):
+        return torch.sin(x)
+    return _per_element(_libm().sinf, x)
+
+
+def cos(x):
+    if not _emulate(x):
+        return torch.cos(x)
+    return _per_element(_libm().cosf, x)
+
+
+def _signaling(x):
+    b = x.view(torch.int32)
+    return torch.isnan(x) & ((b & _QUIET) == 0)
+
+
+def pow(x, y):
+    """x ** y for f32 tensors (or a tensor and a number) as jnp.power"""
+    if not isinstance(y, torch.Tensor):
+        y = torch.full_like(x, float(y))
+    elif not isinstance(x, torch.Tensor):
+        x = torch.full_like(y, float(x))
+    x, y = torch.broadcast_tensors(x, y)
+    if not (_emulate(x) and _emulate(y)):
+        return torch.pow(x, y)
+    # powf scales a subnormal base by 2^23 to normalize it, and under the
+    # runtime's flush that product reads as zero: its log2 becomes -150
+    # whatever the mantissa.  powf(2^-75, 2y) takes the same log2(x) * y
+    # (both products exact in f64); the sign of a negative base is
+    # applied after, as powf would have (NaN unless y is an integer,
+    # negative for an odd one)
+    sub = (x != 0.0) & (x.abs() < _TINY)
+    xc = torch.where(sub, torch.full_like(x, 2.0 ** -75), x)
+    yc = torch.where(sub, y * 2.0, y)
+    r = _ftz(_per_element(_libm().powf, xc, yc))
+    special = (y == 0.0) | torch.isinf(y) | torch.isnan(y)
+    neg = sub & (x < 0.0) & ~special
+    yi = torch.where(torch.isfinite(y), y, torch.zeros_like(y))
+    integer = yi == torch.trunc(yi)
+    odd = integer & (yi.abs() < 2.0 ** 24) & (torch.fmod(yi, 2.0) != 0.0)
+    r = torch.where(neg & odd, -r, r).view(torch.int32)
+    r = torch.where(neg & ~integer, torch.full_like(r, _NAN_BITS), r)
+    # a signaling NaN reaches powf unquieted there, where powf returns
+    # x + y instead of 1: x ** 0 with x signaling, 1 ** y with y
+    # signaling (a Python float carries no signaling NaN to powf here)
+    r = torch.where(_signaling(x) & (y == 0.0),
+                    x.view(torch.int32) | _QUIET, r)
+    r = torch.where(_signaling(y) & (x == 1.0),
+                    y.view(torch.int32) | _QUIET, r)
+    return r.view(torch.float32)

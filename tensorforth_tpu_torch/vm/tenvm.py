@@ -3,18 +3,19 @@ tensorforth_tpu/vm/tenvm.py).
 
 Reference behavior: src/vm/tenvm.{h,cpp}.  Every tensor word runs torch
 ops on the MMU's device (ops/engine.py, ops/linalg.py); the gemm2..4
-words go through the hand-written CUDA kernels of ops/gemm.py.
+words go through the hand-written CUDA kernels of ops/gemm.py.  The
+reductions push deferred scalars (mu/future.py), and scalar arithmetic
+on them stays on the device.
 
-Not ported yet: the deferred-scalar branches (mu/future.py: reductions
-push plain scalars here), the device arena's fused paths, the
-TensorBoard words and `.png`.
+Not ported yet: the device arena's fused paths, the TensorBoard words
+and `.png`.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..config import Config
-from ..du import DU0, DU1, SCALAR, IS_OBJ
+from ..du import DU0, DU1, SCALAR, IS_OBJ, IS_VIEW
 from ..mu.tensor import Tensor
 from ..system import System, IoOp
 from .vm import VMState, MathOp
@@ -119,6 +120,18 @@ class TensorVM(ForthVM):
     # 1-operand self math ops (destructive; reference tenvm.cpp:44-79)
     # ======================================================================
     def xop1(self, op: int, v=DU0):
+        fo = self.future_of(self.tos)
+        if fo is not None:
+            # unary math on a deferred scalar stays on the device
+            from ..ops import engine
+            r = engine.sc_op1(_MAP_NAME.get(op), fo.dev())
+            old = self.POP()
+            self.DROP_DU(old)
+            if r is None:                      # host-only op: read back
+                self.PUSH(SCALAR(np.float32(fo.value())))
+                return super().xop1(op, v)
+            self.PUSH_OBJ(self.mmu.future(r))
+            return
         if not IS_OBJ(self.tos):
             return super().xop1(op, v)
         A = self.TTOS()
@@ -137,6 +150,9 @@ class TensorVM(ForthVM):
     # 2-operand ops with scalar/tensor dispatch (reference tenvm.cpp:83-130)
     # ======================================================================
     def xop2(self, op: int, x: int = T_KEEP):
+        fn, ft = self.future_of(self.ss[-1]), self.future_of(self.tos)
+        if fn is not None or ft is not None:
+            return self._xop2_future(op, fn, ft, x)
         tt = (2 if IS_OBJ(self.ss[-1]) else 0) | (1 if IS_OBJ(self.tos) else 0)
         from ..ops import engine
         name = _BIN_NAME.get(op)
@@ -174,6 +190,47 @@ class TensorVM(ForthVM):
                 self.DROP_DU(self.POP())
                 self.DROP_DU(self.POP())
             self.PUSH_OBJ(O)
+
+    def _materialize(self, fo, where: str):
+        """replace a future DU in tos/nos with its read-back scalar"""
+        if where == "tos":
+            old, self.tos = self.tos, SCALAR(np.float32(fo.value()))
+        else:
+            old, self.ss[-1] = self.ss[-1], SCALAR(np.float32(fo.value()))
+        if not IS_VIEW(old):
+            self.mmu.mark_free(old)
+
+    def _xop2_future(self, op: int, fn, ft, x: int = T_KEEP):
+        """binary op with >=1 deferred-scalar operand.  future (+) scalar
+        and future (+) future stay on the device; a future meeting a
+        TENSOR, or an op with no device mapping, is read back in place
+        and re-enters the normal dispatch (keeping the in-place flag x
+        of the += family)"""
+        from ..ops import engine
+        if (fn is None and self.is_ten(self.ss[-1])) or \
+           (ft is None and self.is_ten(self.tos)):
+            if ft is not None:
+                self._materialize(ft, "tos")
+            if fn is not None:
+                self._materialize(fn, "nos")
+            return self.xop2(op, x)
+        r = engine.sc_op2(_BIN_NAME.get(op),
+                          fn.dev() if fn is not None else float(self.ss[-1]),
+                          ft.dev() if ft is not None else float(self.tos),
+                          self.mmu.device)
+        if r is None:                           # host-only op
+            if ft is not None:
+                self._materialize(ft, "tos")
+            if fn is not None:
+                self._materialize(fn, "nos")
+            return super().xop2(op)
+        n = self.ss.pop()
+        t = self.tos
+        for du in (n, t):
+            if self.future_of(du) is not None and not IS_VIEW(du):
+                self.mmu.mark_free(du)
+        self.tos = self.mmu.obj2du(self.mmu.future(r))
+        return None
 
     def _tt_op(self, name: str, A: Tensor, B: Tensor):
         if (A.N() == 1 or B.N() == 1) and A.HWC() != B.HWC():
@@ -433,11 +490,10 @@ class TensorVM(ForthVM):
                 t.replace_data((d - mu) / max(sd, 1e-12) * std + avg)
         CODE("normalize", _normalize)
         from ..ops import engine as _e
-        # reductions read their scalar back at once (the JAX package
-        # pushes a deferred scalar that resolves on host use)
+        # reductions push deferred scalars (read back on host use)
         def _reduce(vm, fn):
             if vm.TOS1T():
-                vm.PUSH(SCALAR(np.float32(fn(vm.TTOS().ensure_data()))))
+                vm.PUSH_OBJ(vm.mmu.future(fn(vm.TTOS().ensure_data())))
         CODE("sum",  lambda vm: _reduce(vm, _e.t_sum))
         CODE("avg",  lambda vm: _reduce(vm, _e.t_avg))
         CODE("std",  lambda vm: _reduce(vm, _e.t_std))

@@ -3,8 +3,7 @@
 Reference: src/vm/vm.{h,cpp}.  Stacks are flat float32 arrays holding
 tagged DUs (see du.py) so they can be shared zero-copy with a native
 inner interpreter.  The deferred-scalar hooks (future_of, fval, fpop)
-are kept: no object of this port is a future yet, so they resolve to
-the plain cell.
+read a future (mu/future.py) back where the host needs its value.
 """
 from __future__ import annotations
 
@@ -202,11 +201,13 @@ class VM:
         elif op == M.SUB:  t = n - t
         elif op == M.DIV:
             # IEEE semantics like the reference's plain f32 division
-            # (t4math.h DIV): 0/0 -> NaN, n/±0 -> ±inf by both signs
+            # (t4math.h DIV): 0/0 -> NaN, n/±0 -> ±inf by both signs.
+            # 0/0 is the x86 default NaN (sign bit set, printed -nan), as
+            # the JAX package's native engine divides
             if t != 0.0:
                 t = n / t
             elif n == 0.0:
-                t = float("nan")
+                t = math.copysign(math.nan, -1.0)
             else:
                 t = (math.copysign(float("inf"), n)
                      * math.copysign(1.0, t))
@@ -222,9 +223,12 @@ class VM:
 
 
 def vm_factory(level: str, vm_id: int, sys: System) -> VM:
-    """the VM of a tier: 'forth' (eForth) or 'tensor' (eForth + tensor
-    words).  The NN tier ('net', vm/netvm.py) is not ported yet."""
-    if level == "tensor" and Config.DO_OBJ:
+    """the VM of a tier: 'forth' (eForth), 'tensor' (eForth + tensor
+    words) or 'net' (eForth + tensor + NN words, vm/netvm.py)"""
+    if level == "net" and Config.DO_OBJ and Config.DO_NN:
+        from .netvm import NetVM
+        return NetVM(vm_id, sys)
+    if level in ("net", "tensor") and Config.DO_OBJ:
         from .tenvm import TensorVM
         return TensorVM(vm_id, sys)
     if level == "forth":

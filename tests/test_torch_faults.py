@@ -123,16 +123,52 @@ def _inputs(n=120_000, seed=0):
 OPS = {"exp": (xla_math.exp, jnp.exp), "log": (xla_math.log, jnp.log),
        "log10": (xla_math.log10, jnp.log10),
        "tanh": (xla_math.tanh, jnp.tanh),
-       "logistic": (xla_math.logistic, jax.nn.sigmoid)}
+       "logistic": (xla_math.logistic, jax.nn.sigmoid),
+       "sqrt": (xla_math.sqrt, jnp.sqrt), "sin": (xla_math.sin, jnp.sin),
+       "cos": (xla_math.cos, jnp.cos)}
 
 
-@pytest.mark.parametrize("op", list(OPS))
+def _pow_inputs(x, seed=1):
+    """exponents for the bases `x`: randn, small integers (negative
+    bases with integer exponents among them), all bit patterns at
+    random, the edges; then subnormal bases of both signs against
+    randn, integer and edge exponents"""
+    rs = np.random.RandomState(seed)
+    n = x.size
+    y = np.concatenate([
+        rs.randn(n // 3).astype(np.float32) * 4,
+        rs.randint(-8, 9, n // 3).astype(np.float32),
+        rs.randint(0, 2 ** 32, n - 2 * (n // 3), dtype=np.uint64).astype(
+            np.uint32).view(np.float32)])
+    rs.shuffle(y)
+    y[:8] = [0.0, -0.0, np.inf, -np.inf, np.nan, 1e-40, 2.0 ** 24, 0.5]
+    sub = np.concatenate([
+        rs.randint(1, 0x800000, 3000).astype(np.uint32),
+        rs.randint(0x80000001, 0x80800000, 3000).astype(np.uint32)]
+    ).view(np.float32)
+    edge = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-40, 3e38,
+                     -3e38, 2.0 ** 24, 2.0 ** 24 + 2, 0.5, 3.0], np.float32)
+    ys = np.concatenate([rs.randn(2000).astype(np.float32) * 3,
+                         rs.randint(-9, 10, 2000).astype(np.float32),
+                         np.resize(edge, 2000)])
+    return np.concatenate([x, sub]), np.concatenate([y, ys])
+
+
+@pytest.mark.parametrize("op", list(OPS) + ["pow"])
 def test_transcendentals_are_xla_cpu_bits(op):
     x = _inputs()
     assert x.size >= 100_000
-    mine, ref = OPS[op]
-    got = mine(torch.from_numpy(x.copy())).numpy()
-    want = np.asarray(jax.jit(ref)(x))
+    if op == "pow":
+        x, y = _pow_inputs(x)
+        with np.errstate(invalid="ignore"):
+            assert ((x < 0) & (y == np.trunc(y)) & (y != 0)).sum() > 10_000
+        got = xla_math.pow(torch.from_numpy(x.copy()),
+                           torch.from_numpy(y.copy())).numpy()
+        want = np.asarray(jax.jit(jnp.power)(x, y))
+    else:
+        mine, ref = OPS[op]
+        got = mine(torch.from_numpy(x.copy())).numpy()
+        want = np.asarray(jax.jit(ref)(x))
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
@@ -162,15 +198,32 @@ def test_cuda_tensors_take_the_torch_ops():
     """off the CPU (and for other dtypes) each function is the torch op"""
     x = torch.linspace(-3, 3, 11, dtype=torch.float64)
     for op, f in (("exp", torch.exp), ("log", torch.log),
-                  ("tanh", torch.tanh), ("logistic", torch.sigmoid)):
-        arg = x.abs() + 0.1 if op == "log" else x
+                  ("tanh", torch.tanh), ("logistic", torch.sigmoid),
+                  ("sqrt", torch.sqrt), ("sin", torch.sin),
+                  ("cos", torch.cos)):
+        arg = x.abs() + 0.1 if op in ("log", "sqrt") else x
         torch.testing.assert_close(OPS[op][0](arg), f(arg), rtol=0, atol=0)
+    torch.testing.assert_close(xla_math.pow(x.abs(), x), torch.pow(
+        x.abs(), x), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("word", ["exp", "ln", "log", "tanh", "sigm"])
+@pytest.mark.parametrize("word", ["exp", "ln", "log", "tanh", "sigm",
+                                  "sqrt", "sin", "cos"])
 def test_words_print_the_references_digits(t4, t4p, word):
     """e^4 printed +54.5981 in the port before"""
     line = f"2 3 matrix{{ 1 2 3 4 0.5 7.25 }} {word} ."
     assert t4p.forth(line) == t4.forth(line)
     line = f"4 3 matrix randn {word} ."
     assert t4p.forth(line) == t4.forth(line)
+
+
+@pytest.mark.parametrize("v", [2.0, 3.0, -1.0, 0.5, 0.0, 1.7, -3.0])
+def test_engine_pow_is_the_references(v):
+    """the tensor map op `pow` (no word reaches it; the `pow` word is the
+    scalar ALU's) against the JAX package's engine, bit for bit"""
+    from tensorforth_tpu.ops import engine as jengine
+    from tensorforth_tpu_torch.ops import engine as pengine
+    x = _inputs(20_000, seed=5)
+    got = pengine.map_op("pow", torch.from_numpy(x.copy()), v).numpy()
+    want = np.asarray(jengine.map_op("pow", x, v))
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))

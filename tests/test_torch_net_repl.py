@@ -1,0 +1,273 @@
+"""The port's REPL at the net level (tensorforth_tpu_torch: eForth +
+TensorVM + NetVM) against the JAX package's, on the CPU: the goldens,
+the deferred-scalar cases of test_future.py, every NN word's usage-error
+path, the LM examples and `nn.gen`, and a truncated t4_30e.  The JAX
+package runs its per-word path (T4_NO_FUSE=1 T4_NO_MACRO=1), the one the
+port has; where not stated otherwise the transcripts are equal byte for
+byte.
+"""
+import os
+import re
+
+import pytest
+
+from tests.test_torch_repl import (GOLDEN, HERE, _SEE_IDX, _forth_calls,  # noqa: F401
+                                   run_lines, script_lines, t4p)
+
+
+@pytest.fixture(autouse=True)
+def per_word_path(monkeypatch):
+    """the JAX package's per-word path: no fused cycle, no trace chunks,
+    no macro serve"""
+    monkeypatch.setenv("T4_NO_FUSE", "1")
+    monkeypatch.setenv("T4_NO_MACRO", "1")
+
+
+@pytest.fixture(autouse=True)
+def same_data_roots(monkeypatch):
+    """the JAX package searches the port's data roots (it also names an
+    absolute one of its own), so both print the same corpus WARN line"""
+    from tensorforth_tpu.config import Config as JConfig
+    from tensorforth_tpu_torch.config import Config
+    monkeypatch.setattr(JConfig, "DATA_ROOTS", list(Config.DATA_ROOTS))
+
+
+def _lines(name, **swap):
+    out = []
+    for ln in script_lines(name):
+        for a, b in swap.items():
+            ln = ln.replace(a, b)
+        out.append(ln)
+    return out
+
+
+# --- goldens ------------------------------------------------------------------
+@pytest.mark.parametrize("name", ["t4_30a", "t4_30b", "t4_30c"])
+def test_golden_byte_for_byte(t4, t4p, name):
+    lines = _lines(f"{name}.4th")
+    got = run_lines(t4p, lines)
+    with open(os.path.join(GOLDEN, f"{name}.out")) as f:
+        assert got == f.read()
+    assert got == run_lines(t4, lines)
+
+
+_NUM = re.compile(r"[-+]?(?:\d+\.?\d*(?:e[-+]?\d+)?|nan|inf)")
+
+
+def assert_close_transcripts(got, want, rtol):
+    """equal but for the numbers, which agree within rtol"""
+    assert _NUM.sub("#", got) == _NUM.sub("#", want)
+    for a, b in zip(_NUM.findall(got), _NUM.findall(want)):
+        fa, fb = float(a), float(b)
+        assert fa == fb or abs(fa - fb) <= rtol * max(abs(fa), abs(fb)), \
+            (a, b)
+
+
+# --- deferred scalars: test_future.py's REPL cases -------------------------------
+# left out: the TensorBoard writer is not ported (ROADMAP A6)
+FUTURE_LEFT_OUT = ("test_future_tb_scalar_and_dotr",)
+# trained through Adam over real-sized batches, where the loss is held to
+# a relative 1e-4: the two packages' f32 matmuls sum in another order,
+# and Adam's m / sqrt(v) magnifies that last bit wherever a gradient is
+# near zero (the hit count stays equal)
+FUTURE_TRAINED = {"test_epoch_loop_single_readback_semantics": 1e-4}
+
+
+def _future_cases():
+    cases = _forth_calls(os.path.join(HERE, "test_future.py"))
+    return [pytest.param(n, s, id=n) for n, s in cases.items()
+            if n not in FUTURE_LEFT_OUT]
+
+
+@pytest.mark.parametrize("name, scripts", _future_cases())
+def test_future_lines_match_jax(t4, t4p, name, scripts):
+    for script in scripts:
+        got, want = t4p.forth(script), t4.forth(script)
+        if name in FUTURE_TRAINED:
+            assert_close_transcripts(got, want, FUTURE_TRAINED[name])
+        else:
+            assert got == want, script
+        assert "ERROR" not in got, script
+
+
+def test_loss_and_hit_are_futures_until_read(t4p):
+    """loss.ce and nn.hit push futures; `lox !` keeps one, `hit +!`
+    builds a lazy sum, and `.` reads the value back"""
+    t4p.forth("""variable lox variable hit 0 hit !
+2 1 2 1 nn.model 2 linear softmax constant fm
+fm 4 vector{ 10 1 1 10 } 2 1 2 1 reshape4 forward
+4 vector{ 1 0 0 1 } 2 1 2 1 reshape4 nn.onehot=
+loss.ce lox ! nn.hit hit +! nn.hit hit +!""")
+    vm = t4p.vm
+    cell = vm.pmem.rd_du(int(t4p.forth("hit .").split()[0]))
+    f = vm.future_of(cell)
+    assert f is not None and f.pending is not None and len(f.pending) == 3
+    single = float(t4p.forth("nn.hit .").split()[0])
+    assert float(t4p.forth("hit @ .").split()[0]) == 2 * single
+
+
+# --- every net word's usage-error path ------------------------------------------------
+NOT_PORTED = ("nn.moe", "nn.train", "nn.pipe", "prof.start", "prof.stop")
+NET_WORDS = (
+    "nn.model conv1x1 conv2d dconv2d linear relu tanh sigmoid selu "
+    "leakyrelu elu softmax logsoftmax batchnorm nn.attn nn.moe layernorm "
+    "nn.embed nn.proj maxpool avgpool minpool dropout upsample loss.mse "
+    "loss.bce loss.ce loss.nll nn.loss nn.onehot nn.onehot= nn.hit nn.zero "
+    "nn.sgd nn.adam nn.adamw nn.max_norm trainable batchsize dataset "
+    "normalize fetch rewind ds.tell ds.seek forward backprop broadcast "
+    "network >n n@ nn.len nn.w nn.b nn.dw nn.db nn.ex nn.w= nn.b= nn.train "
+    "nn.pipe nn.gen prof.start prof.stop boot flatten save load "
+    "nn.load").split()
+STACKS = ("", "1 1 2 1 nn.model ", "1 1 2 1 nn.model 2 vector{ 1 2 } ")
+
+
+def test_net_words_are_the_references_in_its_order(t4p):
+    d = t4p.vm.dict
+    names = [d[i].name for i in range(len(d))]
+    i = names.index("\nNetwork::")
+    assert names[i + 1:names.index("\nUser::")] == list(NET_WORDS)
+
+
+@pytest.mark.parametrize("word", [w for w in NET_WORDS
+                                  if not w.startswith("prof.")])
+def test_net_word_usage_errors_match_jax(t4, t4p, word):
+    """each word on an empty stack, a bare model, and a model under a
+    vector: what it prints and the stack it leaves"""
+    for pre in STACKS:
+        line = f"abort {pre}{word} .s"
+        assert t4p.forth(line) == t4.forth(line), line
+
+
+@pytest.mark.parametrize("word", NOT_PORTED)
+def test_words_not_in_the_port_say_so(t4p, word):
+    """registered, printed as an error, the stack as the JAX package's
+    usage path leaves it (nn.moe with its arguments too)"""
+    args = {"nn.moe": "1 4 1 1 nn.model 16 4 ",
+            "nn.train": "1 4 1 1 nn.model 2 0.1 3 ",
+            "nn.pipe": "1 4 1 1 nn.model 2 0.1 3 2 "}.get(word, "")
+    before = t4p.forth(f"abort {args}.s")
+    out = t4p.forth(f"{word} .s")
+    assert f"{word} is not in the port yet" in out
+    assert "ERROR" not in out and "Traceback" not in out
+    assert out.splitlines()[-1] == before.splitlines()[-1]
+
+
+def test_unknown_level_raises_and_net_is_the_default(t4p):
+    from tensorforth_tpu_torch.vm.netvm import NetVM
+    from tensorforth_tpu_torch.vm.vm import vm_factory
+    assert isinstance(t4p.vm, NetVM)
+    with pytest.raises(ValueError):
+        vm_factory("gpu", 1, t4p.sys)
+
+
+@pytest.mark.parametrize("do_obj, do_nn, want", [
+    (True, True, "NetVM"), (True, False, "TensorVM"),
+    (False, True, "ForthVM"), (False, False, "ForthVM")])
+def test_config_tiers_name_the_repl_level(t4p, monkeypatch, do_obj, do_nn,
+                                          want):
+    """the REPL's tier comes from Config.DO_OBJ and Config.DO_NN, as the
+    JAX package's cli derives it"""
+    import io
+    from tensorforth_tpu_torch.cli import TensorForth
+    from tensorforth_tpu_torch.config import Config
+    t4p.teardown()
+    monkeypatch.setattr(Config, "DO_OBJ", do_obj)
+    monkeypatch.setattr(Config, "DO_NN", do_nn)
+    inst = TensorForth(fin=io.StringIO(""), fout=io.StringIO(),
+                       device="cpu")
+    try:
+        assert type(inst.vm).__name__ == want
+    finally:
+        inst.teardown()
+
+
+# --- the LM examples, nn.gen ------------------------------------------------------------
+@pytest.mark.parametrize("name", ["t4_53_lm", "t4_55_resume"])
+def test_lm_examples_match_jax(t4, t4p, tmp_path, name):
+    """the checkpoint of t4_55_resume goes to a directory of the test's
+    own, for each REPL in turn"""
+    lines = _lines(f"{name}.4th", **{"/tmp/": f"{tmp_path}/"})
+    got = run_lines(t4p, lines)
+    assert got == run_lines(t4, lines)
+    assert "ERROR" not in got and "?" not in got.replace("? \n", "")
+    if name == "t4_55_resume":
+        losses = re.findall(r"run loss\s+= (\S+)", got)
+        assert len(losses) == 2 and losses[0] == losses[1]
+    else:
+        assert "generated: vector[16]" in got
+
+
+LM_LINES = ("0 trace\n{n} 12 1 1 nn.model\n16 16 nn.embed layernorm "
+            "1 4 nn.attn tanh layernorm 16 nn.proj softmax\nconstant lmw")
+
+
+@pytest.mark.parametrize("prompt, gen, shape", [
+    ("4 vector{ 3 1 4 1 }", "8 nn.gen", "vector[12]"),
+    ("2 4 matrix{ 3 1 4 1  2 7 1 8 }", "8 nn.gen", "matrix[2,12]"),
+    ("4 vector{ 3 1 4 1 }", "8 1.0 nn.gen", "vector[12]"),
+    ("4 vector{ 3 1 4 1 }", "8 0.8 4 nn.gen", "vector[12]"),
+    ("4 vector{ 3 1 4 1 }", "8 0.8 4 0.9 nn.gen", "vector[12]"),
+    ("4 vector{ 3 1 4 1 }", "0 nn.gen", "vector[4]")])
+def test_nn_gen_matches_jax(t4, t4p, prompt, gen, shape):
+    """test_lm's single-device nn.gen cases: greedy and sampled (the
+    seed is the System's next key), one prompt and a matrix of them"""
+    n = 2 if prompt.startswith("2 4 matrix") else 1
+    script = (LM_LINES.format(n=n) + f"\n{prompt} constant pr\n"
+              f"lmw pr {gen} .")
+    got, want = t4p.forth(script), t4.forth(script)
+    assert got == want
+    assert shape in got
+
+
+def test_nn_gen_usage_error_keeps_the_repl_alive(t4, t4p):
+    for inst in (t4, t4p):
+        inst.forth(LM_LINES.format(n=1))
+    line = "abort lmw 5 nn.gen"
+    got = t4p.forth(line)
+    assert got == t4.forth(line) and "nn.gen?" in got
+    assert "5 " in t4p.forth("abort 2 3 + .")
+
+
+def test_lm_save_load_round_trip_matches_jax(t4, t4p, tmp_path):
+    outs = []
+    for inst, tag in ((t4p, "p"), (t4, "j")):
+        p = tmp_path / f"{tag}.t4"
+        outs.append(inst.forth(
+            LM_LINES.format(n=1) + "\nlmw 0 nn.w sum . cr drop\n"
+            f'lmw s" {p}" save drop\n1 12 1 1 nn.model constant ldlm\n'
+            f'ldlm s" {p}" load network\n0 nn.w sum . cr'))
+    assert outs[0] == outs[1]
+    assert "embed" in outs[0] and "proj" in outs[0]
+    assert (tmp_path / "p.t4").read_bytes() == (tmp_path / "j.t4").read_bytes()
+
+
+# --- the flagship word loop, truncated ---------------------------------------------
+_TIME = re.compile(r"t=-?\d+ ")
+
+
+@pytest.mark.parametrize("mode", ["per_word", "default"])
+def test_t4_30e_truncated_matches_jax(t4, t4p, monkeypatch, tmp_path,
+                                     mode):
+    """examples/t4_30e.4th at its full width, 2 epochs of 2 batches
+    (T4_MAX_BATCH=2): every line of both transcripts, the `see` indices
+    and the seconds of `stat` masked, the printed numbers within a
+    relative 1e-4 (on this machine they print the same 6 digits; the
+    two packages' f32 matmuls sum in another order, see
+    FUTURE_TRAINED).  `default` runs the JAX package in its default
+    mode (the fused cycle and trace chunks), which prints the same."""
+    monkeypatch.setenv("T4_MAX_BATCH", "2")
+    if mode == "default":
+        monkeypatch.delenv("T4_NO_FUSE")
+        monkeypatch.delenv("T4_NO_MACRO")
+    lines = _lines("t4_30e.4th", **{"20 cnn": "2 cnn",
+                                    "/tmp/": f"{tmp_path}/"})
+    masks = ((_SEE_IDX, r"\1 ..\2"), (_TIME, "t=T "))
+    got = run_lines(t4p, lines)
+    want = run_lines(t4, lines)
+    for pat, repl in masks:
+        got, want = pat.sub(repl, got), pat.sub(repl, want)
+    assert_close_transcripts(got, want, 1e-4)
+    assert got.count("\\ WARN: corpus files for 'mnist_train' not found") == 1
+    assert "ERROR" not in got
+    assert re.search(r"b=0 t=T acc=\S+ loss=\S+", got)
+    assert "NN Model[8/128]" in got

@@ -130,8 +130,8 @@ LEFT_OUT = {
     "test_gemm_variants":
         "the JAX words print a WARN line on the CPU (gemm cases below)",
 }
-# single lines left out: `words` lists the task and NN words, which the
-# port does not have yet (test_words_lists_both_tiers covers the port's)
+# single lines left out: `words` lists the task words, which the port
+# does not have yet (test_words_lists_both_tiers covers the port's)
 LEFT_OUT_LINES = ("words",)
 
 
@@ -229,10 +229,13 @@ def test_mstat_counts_objects(t4p):
 
 
 def test_words_lists_both_tiers(t4p):
+    """the REPL's default level is the net one: eForth, the tensor words
+    and the NN words (the task words are not ported)"""
     out = t4p.forth("words")
-    for w in ("Forth::", "Tensor::", "dup", "gemm4", "inverse", "randn"):
+    for w in ("Forth::", "Tensor::", "dup", "gemm4", "inverse", "randn",
+              "Network::", "nn.model", "nn.gen"):
         assert w in out
-    assert "nn.model" not in out and "task" not in out.split()
+    assert "task" not in out.split()
 
 
 def test_see_decompiles(t4p):
@@ -260,9 +263,13 @@ def test_no_device_means_cuda_and_raises_here():
 
 
 def test_net_level_is_not_there_yet(t4p):
+    """the net level is there now (the REPL's default); a level the
+    port does not know still raises"""
+    from tensorforth_tpu_torch.vm.netvm import NetVM
     from tensorforth_tpu_torch.vm.vm import vm_factory
+    assert isinstance(vm_factory("net", 1, t4p.sys), NetVM)
     with pytest.raises(ValueError):
-        vm_factory("net", 1, t4p.sys)
+        vm_factory("gpu", 1, t4p.sys)
 
 
 def test_cli_pipes_a_script(tmp_path):
