@@ -59,14 +59,38 @@ Phases, one JSON line each:
           net of the other layer kinds (NN_COVERAGE) and gan_mnist's D at
           batch 256, card against CPU
   net     the system's own main path, examples/t4_30e.4th, through the
-          port's REPL on the card: nn_c at batch 100 with Adam at 0.001
-          for the script's 20 epochs over the synthetic mnist_train of
-          60,000, then bench.py's held-out loop over mnist_test (gate
-          0.98), the saved model loaded into a CPU model of the port
-          (its weights the card's bit for bit, its logits within TOL_NN,
-          its classes the card's on at least NET_SAME_CLASS of a
-          held-out batch), ms per batch, images/s, launches
-          per batch and the device's busy share over a profiled slice
+          port's REPL on the card on its per-word path (T4_NO_FUSE=1
+          T4_NO_MACRO=1), the control of net_fused: nn_c at batch 100
+          with Adam at 0.001 for NET_CONTROL_EPOCHS of the script's 20
+          epochs over the synthetic mnist_train of 60,000, then bench.py's
+          held-out loop over mnist_test, the saved model loaded into a
+          CPU model of the port (its weights the card's bit for bit, its
+          logits within TOL_NN, its classes the card's on at least
+          NET_SAME_CLASS of a held-out batch), ms per batch, images/s,
+          launches per batch and the device's busy share over a profiled
+          slice
+  net_fused  t4_30e whole at the defaults, as a user of the JAX package
+          runs it: fused cycles and trace chunks of 100 batches, each
+          chunk K replays of one captured CUDA graph; its first epochs'
+          acc= and loss= lines equal the control's, the held-out gate
+          0.98, the net phase's other checks; fused cycles, chunks,
+          graph replays and macro-served batches a batch
+  net_rollback  the fused path's exits against their controls from the
+          same weights, on a window with a chunk in flight: a weight read
+          inside the loop (every cycle rolls the chunk back), the
+          canonical body without `hint` (the macro serve runs), each
+          against the per-word path, and the exploding SGD of
+          test_nan_guard.py detected lazily and eagerly (the faulting
+          batch and weights against the per-word path traced, the hits
+          against the per-batch fused cycles): all equal; then a failed
+          capture (a body that reads back) raises through the words
+  net_train  `nn.train`: examples/t4_50_tpu.4th whole (5 epochs, each a
+          captured batch step replayed once a batch) with bench.py's
+          held-out loop; train_epochs over tiny_transformer at
+          bench_prefill's widths (dim 1024, 8 heads, seq 2048, batch 8,
+          2 layers) on a seeded stub corpus of 4 batches against the
+          per-word loop (TOL_NET_TRAIN), with the flash kernels inside
+          its graph counted through the profiler
   net_gen an LM built by words at bench_prefill's width, `64 nn.gen`
           on a seeded [8, 2048] prompt: tokens against generate() and
           the teacher-forced replay, the flash forward launched once per
@@ -251,6 +275,34 @@ NET_GEN_WORDS = ("8 2048 1 1 nn.model 1024 2048 nn.embed\n"
                  + "layernorm 3 8 nn.attn tanh\n" * 4
                  + "layernorm 2048 nn.proj softmax constant lm")
 NET_GEN_LR = 1e-4  # the word-path step's Adam rate (TRAIN_LR)
+NET_CONTROL_EPOCHS = 2   # the per-word control's depth, cut from 20: the
+#                          fused run's first epochs are held against it
+PER_WORD = {"T4_NO_FUSE": "1", "T4_NO_MACRO": "1"}   # the control's path
+# net_rollback: t4_30e's nn_c on a window of ROLLBACK_BATCHES batches in
+# chunks of ROLLBACK_CHUNK, so that every epoch has a chunk in flight
+ROLLBACK_BATCHES = 10
+ROLLBACK_CHUNK = 4
+NN_C = ("100 28 28 1 nn.model\n"
+        "0.5 10 conv2d 2 maxpool relu flatten 100 linear relu "
+        "10 linear softmax\nconstant {v}\n"
+        "{v} batchsize dataset mnist_train constant {v}d drop")
+# test_nan_guard.py's fault: SGD at 3e3 on a purely linear model
+NAN_MODEL = ("8 28 28 1 nn.model\nflatten 16 linear 10 linear softmax\n"
+             "constant {v}\n{v} batchsize dataset mnist_train constant "
+             "{v}d drop")
+NAN_LOOP = ("variable {v}h 0 {v}h ! variable {v}l\n"
+            ": {v}ep for forward loss.ce {probe}{v}l ! nn.hit {v}h +! "
+            "backprop 3.0e3 nn.sgd next ;")
+# net_train: nn.train over the zoo's tiny_transformer at bench_prefill's
+# widths, on a seeded in-memory corpus of NET_TRAIN_BATCHES batches
+NET_TRAIN_LM = dict(batch=8, seq=2048, dim=1024, heads=8, classes=10,
+                    layers=2)
+NET_TRAIN_BATCHES = 4
+# its weights after one epoch against the per-word loop's from the same
+# start, of the largest weight: the two run the same kernels in the same
+# order (the graph replays what the words launch), so they agree to the
+# bit unless a kernel is not deterministic
+TOL_NET_TRAIN = 1e-6
 
 
 def emit(obj):
@@ -1584,6 +1636,10 @@ def profile_run(fn, device, wall_ms):
     for nm in FLASH_NAMES + ("Memcpy DtoD",):
         out[nm.replace(" ", "_").lower() + "_ms"] = sum(
             v for k, v in by_name.items() if nm in k)
+    for nm in FLASH_NAMES:       # counted on the device: graph replays too
+        out[nm + "_launches"] = sum(
+            e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and nm in e.key)
     out["top_kernels_ms"] = [[k[:80], v] for k, v in top]
     return out
 
@@ -2088,23 +2144,66 @@ def transcript_faults(out: str, allowed=("\\ WARN: corpus files for ",)):
             and not any(ln.lstrip().startswith(a) for a in allowed)]
 
 
+class env_set:
+    """os.environ with `values` set (None: removed) inside the block, put
+    back after"""
+
+    def __init__(self, **values):
+        self.values, self.saved = values, {}
+
+    def __enter__(self):
+        for k, v in self.values.items():
+            self.saved[k] = os.environ.get(k)
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def phase_net(seed: int = NET_SEED, device=None, epochs=NET_EPOCHS,
               max_batch=None, profile_batches=NET_PROFILE_BATCHES,
               script_dir="examples"):
     """the system's own main path, `ten4 < examples/t4_30e.4th`, through
-    the port's REPL: the flagship word loop over mnist_train, the
-    held-out pass of bench.py's gate, the saved model loaded on the CPU"""
-    with tempfile.TemporaryDirectory(prefix="t4_net_") as save_dir:
-        _net_run(seed, device, epochs, max_batch, profile_batches,
-                 script_dir, save_dir)
+    the port's REPL on its per-word path (T4_NO_FUSE=1 T4_NO_MACRO=1):
+    the flagship word loop over mnist_train, the held-out pass of
+    bench.py's gate, the saved model loaded on the CPU.  Returns the
+    epochs' (acc, loss) as printed: net_fused's control"""
+    with tempfile.TemporaryDirectory(prefix="t4_net_") as save_dir, \
+            env_set(**PER_WORD):
+        return _net_run(seed, device, epochs, max_batch, profile_batches,
+                        script_dir, save_dir)
+
+
+def phase_net_fused(seed: int = NET_SEED, device=None, epochs=NET_EPOCHS,
+                    max_batch=None, profile_batches=NET_PROFILE_BATCHES,
+                    script_dir="examples", control=None):
+    """t4_30e the way a user of the JAX package runs it, at the defaults:
+    fused cycles, trace chunks (captured CUDA graphs replayed on the card)
+    and the macro serve where the loop body allows it; its first epochs'
+    printed acc= and loss= held against `control` (phase_net's)"""
+    with tempfile.TemporaryDirectory(prefix="t4_net_") as save_dir, \
+            env_set(T4_NO_FUSE=None, T4_NO_MACRO=None):
+        return _net_run(seed, device, epochs, max_batch, profile_batches,
+                        script_dir, save_dir, control=control)
 
 
 def _net_run(seed, device, epochs, max_batch, profile_batches, script_dir,
-             save_dir):
-    """phase_net with the script's model saved under save_dir"""
+             save_dir, control=None):
+    """phase_net (control None) or phase_net_fused, with the script's
+    model saved under save_dir"""
     import torch
     from tensorforth_tpu_torch.config import Config
     from tensorforth_tpu_torch.io.nnio import _param_layers
+    from tensorforth_tpu_torch.nn import cycle
+    fused = control is not None
+    phase = "net_fused" if fused else "net"
     on_card = device is None or torch.device(device).type == "cuda"
     cut = []
     if epochs != NET_EPOCHS:
@@ -2113,10 +2212,11 @@ def _net_run(seed, device, epochs, max_batch, profile_batches, script_dir,
         os.environ["T4_MAX_BATCH"] = str(max_batch)
         cut.append(f"T4_MAX_BATCH={max_batch}")
     if cut:
-        print(f"net: cut to {', '.join(cut)}", flush=True)
+        print(f"{phase}: cut to {', '.join(cut)}", flush=True)
     checks = {}
     inst, run = repl(device, seed)
     vm = inst.vm
+    vm._macro_count = 0
     stamps = []                  # the time of every dataset NEXT
     ds_next = vm._ds_next
 
@@ -2130,15 +2230,18 @@ def _net_run(seed, device, epochs, max_batch, profile_batches, script_dir,
     for ln in _net_lines(os.path.join(script_dir, "t4_30e.4th"), epochs,
                          save_dir):
         if "cnn" in ln and ln.strip().startswith(f"{epochs} cnn"):
+            cycle.reset_counts()
             t_train = time.perf_counter()
         out.append(run(ln))
         if "cnn" in ln and ln.strip().startswith(f"{epochs} cnn"):
             train_s = time.perf_counter() - t_train
+            counts = dict(cycle.COUNTS, macro_served=vm._macro_count)
     script_s = time.perf_counter() - t0
     out = "".join(out)
     vm._ds_next = ds_next
     stats = [(int(b), float(acc), float(loss)) for b, acc, loss in
              re.findall(r"b=(\d+) t=\S+ acc=(\S+) loss=(\S+)", out)]
+    printed = re.findall(r"acc=(\S+) loss=(\S+)", out)
     n_batches = len(stamps)
 
     # --- the held-out pass: bench.py's gep loop (bench.py:889-895)
@@ -2164,18 +2267,22 @@ def _net_run(seed, device, epochs, max_batch, profile_batches, script_dir,
     weights = [t_in.grad[k].numpy().copy()
                for t_in, slots in _param_layers(md) for k in range(len(slots))]
     # --- one profiled epoch slice (and its time without the profiler);
-    #     it trains on, after the saved model was read back above
+    #     it trains on, after the saved model was read back above.  The
+    #     warm run arms the fused path again (the rate decayed after the
+    #     last epoch), so the timed and profiled runs are one chunk each
     os.environ["T4_MAX_BATCH"] = str(profile_batches)
     slice_line = "ds0 rewind drop md0 ds0 epoch drop"
-    run(slice_line)                              # warm, as the loop was
+    run(slice_line)
     sync = (lambda: torch.cuda.synchronize()) if on_card else (lambda: None)
     sync()
     t1 = time.perf_counter()
     run(slice_line)
     sync()
     slice_ms = (time.perf_counter() - t1) * 1e3
+    cycle.reset_counts()
     prof = profile_run(lambda: run(slice_line), "cuda" if on_card else "cpu",
                        slice_ms)
+    prof["cycle_runs"] = cycle.COUNTS["runs"]
     if max_batch:
         os.environ["T4_MAX_BATCH"] = str(max_batch)
     else:
@@ -2220,8 +2327,26 @@ def _net_run(seed, device, epochs, max_batch, profile_batches, script_dir,
     checks["saved_model_forward_on_cpu"] = rel <= tol
     checks["saved_model_same_class"] = same_class >= NET_SAME_CLASS
     checks["network_printed"] = "NN Model[8/128]" in transcript
-    emit({"phase": "net", "script": "examples/t4_30e.4th",
+    rec = {}
+    if fused:
+        n_ctl = len(control)
+        checks["first_epochs_equal_control"] = (
+            n_ctl > 0 and printed[:n_ctl] == control)
+        checks["fused_cycles_and_chunks_ran"] = (
+            counts["fused"] > 0 and counts["chunks"] > 0)
+        if on_card:
+            checks["graphs_captured_and_replayed"] = (
+                counts["captures"] >= 1 and counts["runs"] >= n_batches / 2)
+        rec = {"control_epochs": n_ctl, "control": control,
+               "per_batch": {k: v / max(n_batches, 1)
+                             for k, v in counts.items()},
+               "counts": counts}
+    else:
+        checks["per_word_path"] = counts["runs"] == 0
+    emit({"phase": phase, "script": "examples/t4_30e.4th",
           "batch": 100, "epochs": epochs, "cut": cut or None,
+          "path": ("defaults: fused cycle, trace chunks, macro serve"
+                   if fused else "per-word (T4_NO_FUSE=1 T4_NO_MACRO=1)"),
           "precision": precision, "seed": seed,
           "batches_run": n_batches, "stat_lines": stats,
           "held_out_accuracy": acc, "gate": NET_GATE if not cut else None,
@@ -2229,9 +2354,11 @@ def _net_run(seed, device, epochs, max_batch, profile_batches, script_dir,
           "ms_per_batch_median": ms_batch,
           "ms_per_batch_mean": train_s * 1e3 / max(n_batches, 1),
           "images_per_s": 100 * 1e3 / ms_batch,
+          "images_per_s_mean": 100 * n_batches / train_s,
           "launches_per_batch": prof["kernel_launches"] / profile_batches,
           "profiled_slice": {"batches": profile_batches,
                              "wall_ms": slice_ms, **prof},
+          **rec,
           "saved_model_logits_rel_err_cpu": rel, "tol": tol,
           "saved_model_output_rel_err_cpu": rel_out,
           "saved_model_same_class_share_cpu": same_class,
@@ -2241,7 +2368,332 @@ def _net_run(seed, device, epochs, max_batch, profile_batches, script_dir,
           "checks": checks})
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
-        raise RuntimeError(f"net checks failed: {bad}")
+        raise RuntimeError(f"{phase} checks failed: {bad}")
+    return printed
+
+
+def _models(vm):
+    return [o for o in vm.mmu._objs.values()
+            if getattr(o, "is_model", lambda: False)()]
+
+
+def _weights(m):
+    return [w.detach().cpu().numpy().copy() for pl in m._params()
+            for w in pl]
+
+
+def _pin(m, weights):
+    """m's parameters set to `weights` (another model's _weights)"""
+    it = iter(weights)
+    for j in range(m.numel - 1):
+        for k in range(len(m._params()[j])):
+            g = m[j].grad[k]
+            g.replace_data(next(it).reshape(g.shape))
+
+
+def _max_diff(wa, wb) -> float:
+    return max((float(np.abs(a - b).max()) for a, b in zip(wa, wb)),
+               default=0.0)
+
+
+def phase_net_rollback(seed: int = NET_SEED, device=None,
+                       batches=ROLLBACK_BATCHES, chunk=ROLLBACK_CHUNK):
+    """the fused path's exits on the card, each against its control from
+    the same weights: a weight read inside the loop body (test_chunk's
+    introspection case: every cycle rolls the chunk back), the canonical
+    body without `hint` (test_macro's: the macro serve runs), each
+    against the per-word path; and test_nan_guard's exploding SGD,
+    detected lazily and eagerly: the faulting batch and the weights
+    against the per-word path traced (its forward's NaN check stops it
+    there; it has no sentinel), the hit counts against the per-batch
+    fused cycles.  Then a failed capture, in a process of its own"""
+    from tensorforth_tpu_torch.nn import cycle
+    inst, run = repl(device, seed)
+    vm = inst.vm
+    rec, checks = {}, {}
+
+    def loop_run(name, env, model, loop, epochs, tag):
+        with env_set(**env):
+            run(model.format(v=name))
+            m = _models(vm)[-1]
+            if tag in base:
+                _pin(m, base[tag])
+            else:
+                base[tag] = _weights(m)
+            run(loop.format(v=name))
+            vm._macro_count = 0
+            cycle.reset_counts()
+            outs = [run(f"{name}d rewind drop {name} {name}d {name}ep "
+                        "drop") for _ in range(epochs)]
+            counts = dict(cycle.COUNTS, macro_served=vm._macro_count)
+            vals = [run(f"{name}{c} @ . cr").split()[0]
+                    for c in ("h", "l")]
+            return "".join(outs), vals, _weights(m), m, counts
+
+    base = {}
+    fused = dict(T4_NO_FUSE=None, T4_NO_MACRO=None,
+                 T4_MAX_BATCH=batches, T4_CHUNK=chunk)
+    control = dict(PER_WORD, T4_MAX_BATCH=batches)
+    cases = {
+        "probe": ("variable {v}h 0 {v}h ! variable {v}l variable {v}w\n"
+                  ": {v}ep for forward loss.ce {v}l ! nn.hit {v}h +! "
+                  "backprop dup 0 nn.w sum {v}w ! drop 0.001 nn.adam "
+                  "next ;"),
+        "macro": ("variable {v}h 0 {v}h ! variable {v}l\n"
+                  ": {v}ep for forward loss.ce {v}l ! nn.hit {v}h +! "
+                  "backprop 0.001 nn.adam next ;")}
+    for tag, loop in cases.items():
+        a = loop_run(f"{tag[0]}a", control, NN_C, loop, 2, tag)
+        b = loop_run(f"{tag[0]}b", fused, NN_C, loop, 2, tag)
+        va, vb = a[1], b[1]
+        if tag == "probe":
+            va.append(run(f"{tag[0]}aw @ . cr").split()[0])
+            vb.append(run(f"{tag[0]}bw @ . cr").split()[0])
+        diff = _max_diff(a[2], b[2])
+        rec[tag] = {"control": va, "fused": vb, "weights_max_diff": diff,
+                    "counts": b[4]}
+        checks[f"{tag}_printed_equal"] = va == vb
+        checks[f"{tag}_weights_equal"] = diff == 0.0
+        checks[f"{tag}_chunks_ran"] = b[4]["chunks"] > 0
+    checks["macro_served"] = rec["macro"]["counts"]["macro_served"] > 0
+
+    at = re.compile(r"non-finite at corpus offset (\d+)")
+    nan = {}
+    for tag, chunk_k, probe, guard in (("control", 0, "dup . ", ""),
+                                       ("lazy", 8, "dup . ", ""),
+                                       ("eager", 3, "", "eager")):
+        env = dict(T4_NO_FUSE=None, T4_NO_MACRO=None, T4_MAX_BATCH=9,
+                   T4_CHUNK=chunk_k, T4_NAN_GUARD=guard or None)
+        out, vals, w, m, counts = loop_run(
+            f"n{tag[0]}", env, NAN_MODEL,
+            NAN_LOOP.replace("{probe}", probe), 1, "nan")
+        offs = at.findall(out)
+        nan[tag] = {"offsets": offs, "err": m.err, "hits": vals[0],
+                    "weights": w, "counts": counts,
+                    "rolled_back": "rolled back to the faulting batch" in out}
+        run("0 trace")
+        m.err = 0
+    # the per-word path has no sentinel; traced, its forward's NaN check
+    # stops the loop at the faulting batch, before that batch's step:
+    # the state the sentinel rolls back to
+    with env_set(T4_MAX_BATCH=9, **PER_WORD):
+        run(NAN_MODEL.format(v="nw"))
+        m = _models(vm)[-1]
+        _pin(m, base["nan"])
+        run(NAN_LOOP.replace("{probe}", "").format(v="nw"))
+        out = run("1 trace nwd rewind drop nw nwd nwep drop 0 trace")
+        m.err = 0
+    per_word = {"offset": str((out.count("Model::forward trace") - 1) * 8),
+                "stopped": "ERROR: nn#forward NaN in" in out,
+                "weights": _weights(m)}
+    checks["nan_per_word_stopped"] = per_word["stopped"]
+    ctl = nan["control"]
+    for tag in ("control", "lazy", "eager"):
+        r = nan[tag]
+        diff = _max_diff(per_word["weights"], r["weights"])
+        checks[f"nan_{tag}_same_batch"] = r["offsets"][:1] == [
+            per_word["offset"]]
+        checks[f"nan_{tag}_weights_equal"] = diff == 0.0
+        r["weights_max_diff_vs_per_word"] = diff
+        if tag != "control":
+            checks[f"nan_{tag}_rolled_back"] = r["rolled_back"]
+            checks[f"nan_{tag}_same_hits"] = r["hits"] == ctl["hits"]
+    checks["nan_control_stopped"] = bool(ctl["offsets"]) and ctl["err"] == 1
+    checks["nan_weights_finite"] = all(
+        np.isfinite(w).all() for r in nan.values() for w in r["weights"])
+    for r in nan.values():
+        r.pop("weights")
+    per_word.pop("weights")
+    nan["per_word_traced"] = per_word
+    inst.teardown()
+    failed = None
+    if device is None or str(device).startswith("cuda"):
+        # a failed capture, in a process of its own (a capture left
+        # broken must not touch the phases after this one)
+        r = subprocess.run([sys.executable, "-c", "import chip_smoke as cs; "
+                            "cs.capture_failure_child()"],
+                           capture_output=True, text=True, timeout=600,
+                           cwd=os.path.dirname(os.path.abspath(__file__)))
+        lines = [ln for ln in r.stdout.splitlines()
+                 if ln.startswith('{"capture_failure"')]
+        failed = json.loads(lines[-1])["capture_failure"] if lines else {
+            "rc": r.returncode, "stderr": r.stderr[-2000:]}
+        checks["failed_capture_raises"] = bool(failed.get("raised"))
+        checks["failed_capture_no_eager_run"] = failed.get("runs") == 0
+        checks["failed_capture_repl_alive"] = bool(failed.get("alive"))
+    emit({"phase": "net_rollback", "window": batches, "chunk": chunk,
+          "cases": rec, "nan_guard": nan, "capture_failure": failed,
+          "checks": checks})
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise RuntimeError(f"net_rollback checks failed: {bad}")
+
+
+def capture_failure_child(device=None):
+    """run by phase_net_rollback in a process of its own: the fused
+    cycle's body made to read its loss back to the host, which no CUDA
+    graph capture allows.  The forward that captures it must raise
+    through the words (`ERROR in 'cfep'`, the word typed), run no cycle
+    eagerly in its place, and leave the REPL working"""
+    from tensorforth_tpu_torch.nn import cycle, funcs
+    body = funcs.fused_cycle_body
+
+    def reads_back(*a, **kw):
+        st = body(*a, **kw)
+        float(st[4])
+        return st
+
+    funcs.fused_cycle_body = reads_back
+    inst, run = repl(device, NET_SEED)
+    cycle.reset_counts()
+    with env_set(T4_NO_FUSE=None, T4_NO_MACRO=None, T4_MAX_BATCH=4,
+                 T4_CHUNK=0):
+        run(NN_C.replace("mnist_train", "mnist_test").format(v="cf"))
+        run("variable cfh 0 cfh ! variable cfl\n"
+            ": cfep for forward loss.ce cfl ! nn.hit cfh +! backprop "
+            "0.001 nn.adam next ;")
+        out = run("cfd rewind drop cf cfd cfep drop")
+        alive = run("1 2 + . cr")
+    print(json.dumps({"capture_failure": {
+        "raised": "ERROR in 'cfep'" in out,
+        "error": [ln for ln in out.splitlines() if "ERROR" in ln][:2],
+        "runs": cycle.COUNTS["runs"], "captures": cycle.COUNTS["captures"],
+        "alive": alive.split()[:1] == ["3"]}}), flush=True)
+    inst.teardown()
+
+
+class _StubCorpus:
+    """a corpus held in memory: what train_epochs reads"""
+
+    def __init__(self, data, labels):
+        self._data, self._labels = data, labels
+        self.size = data.shape[0]
+
+    def _read(self, start, n):
+        return self._data[start:start + n], self._labels[start:start + n]
+
+
+class _StubDataset:
+    def __init__(self, data, labels, batch):
+        self._corpus = _StubCorpus(data, labels)
+        self.batch_sz, self._mean, self._scale = batch, 0.0, 1.0
+
+
+def phase_net_train(seed: int = NET_SEED, device=None,
+                    lm=NET_TRAIN_LM, n_batches=NET_TRAIN_BATCHES,
+                    script_dir="examples", epochs=5, max_batch=None):
+    """`nn.train`: examples/t4_50_tpu.4th whole (5 epochs over mnist_train,
+    each a captured batch step replayed once a batch on the card), its
+    seconds an epoch and bench.py's held-out loop; then train_epochs over
+    tiny_transformer at bench_prefill's widths on a seeded stub corpus,
+    its weights against the per-word loop's from the same start, and the
+    flash kernels inside its graph counted through the profiler (host
+    counters count the warm-up and capture, not replays).  Returns the
+    profiled launches"""
+    import torch
+    from tensorforth_tpu_torch import models
+    from tensorforth_tpu_torch.nn import cycle
+    from tensorforth_tpu_torch.nn.train import train_epochs
+    on_card = device is None or torch.device(device).type == "cuda"
+    dev = torch.device("cuda" if device is None else device)
+    sync = (lambda: torch.cuda.synchronize()) if on_card else (lambda: None)
+    checks = {}
+    with tempfile.TemporaryDirectory(prefix="t4_train_") as save_dir, \
+            env_set(T4_MAX_BATCH=max_batch):
+        inst, run = repl(device, seed)
+        with open(os.path.join(script_dir, "t4_50_tpu.4th")) as f:
+            lines = [ln.rstrip("\n").replace("/tmp/", save_dir + "/")
+                     .replace("0.001 5 nn.train", f"0.001 {epochs} nn.train")
+                     for ln in f]
+        lines = lines[:lines.index("bye")]
+        out, train_s = [], None
+        cycle.reset_counts()
+        for ln in lines:
+            t0 = time.perf_counter()
+            out.append(run(ln))
+            if "nn.train" in ln:
+                sync()
+                train_s = time.perf_counter() - t0
+        runs = cycle.COUNTS["runs"]
+        held = run("md0 batchsize dataset mnist_test constant gtd\n"
+                   "variable gh 0 gh ! variable gn 0 gn !\n"
+                   ": gep for forward nn.hit gh +! batchsize gn +! next ;\n"
+                   "md0 gtd gep drop\n"
+                   'gh @ gn @ / ." GATE= " . cr')
+        inst.teardown()
+    transcript = "".join(out) + held
+    acc = float(re.search(r"GATE= (\S+) ", held).group(1))
+    loss = re.search(r"nn.train \d+ epochs done, final loss=(\S+)",
+                     transcript)
+    checks["nn_train_ran"] = loss is not None and math.isfinite(
+        float(loss.group(1)))
+    checks["no_error_or_warn"] = not transcript_faults(transcript)
+    checks["held_out_accuracy_finite"] = math.isfinite(acc)
+    checks["one_run_a_batch"] = runs > 0 and runs % epochs == 0
+
+    # --- tiny_transformer: nn.train against the per-word loop
+    rs = np.random.RandomState(seed)
+    b, s_, e = lm["batch"], lm["seq"], lm["dim"]
+    data = rs.rand(n_batches * b, s_, e, 1).astype(np.float32)
+    labels = rs.randint(0, lm["classes"], size=n_batches * b)
+    ds = _StubDataset(data, labels, b)
+    build = lambda: models.tiny_transformer(device=dev, **lm)  # noqa: E731
+    mg, mw = build(), build()
+    _pin(mw, _weights(mg))
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    train_epochs(mg, ds, lr=TRAIN_LR, epochs=1)
+    sync()
+    first_s = time.perf_counter() - t0
+    host_counts = flash_counts()
+    from tensorforth_tpu_torch.mu.mmu import MMU
+    mmu = MMU.get_mmu()
+    inp = mmu.tensor(b, s_, e, 1, device=dev)
+    hot = mmu.tensor(b, 1, lm["classes"], 1, device=dev)
+    eye = np.eye(lm["classes"], dtype=np.float32)
+    t0 = time.perf_counter()
+    for i in range(n_batches):
+        inp.set_numpy(data[i * b:(i + 1) * b])
+        hot.set_numpy(eye[labels[i * b:(i + 1) * b]])
+        mw.forward(inp)
+        mw.backprop(hot)
+        mw.adam(TRAIN_LR)
+    sync()
+    word_s = time.perf_counter() - t0
+    wg, ww = _weights(mg), _weights(mw)
+    diff = _max_diff(wg, ww) / max(float(np.abs(w).max()) for w in ww)
+    checks["nn_train_equals_word_loop"] = diff <= TOL_NET_TRAIN
+    t0 = time.perf_counter()
+    train_epochs(mg, ds, lr=TRAIN_LR, epochs=1)
+    sync()
+    epoch_ms = (time.perf_counter() - t0) * 1e3
+    prof = profile_run(lambda: train_epochs(mg, ds, lr=TRAIN_LR, epochs=1),
+                       "cuda" if on_card else "cpu", epoch_ms)
+    launched = {nm: prof[nm + "_launches"] for nm in FLASH_NAMES}
+    if on_card:
+        # a step launches the forward twice per attention layer (the
+        # layer backward runs it again) and each backward kernel once
+        want = {"flash_fwd": 2, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+        checks["flash_kernels_in_graph"] = all(
+            launched[nm] == k * lm["layers"] * n_batches
+            for nm, k in want.items())
+    emit({"phase": "net_train", "script": "examples/t4_50_tpu.4th",
+          "epochs": epochs, "cut": ({"T4_MAX_BATCH": max_batch}
+                                    if max_batch else None),
+          "nn_train_s": train_s,
+          "s_per_epoch": train_s / epochs if train_s else None,
+          "held_out_accuracy": acc, "cycle_runs": runs,
+          "model": dict(lm, n_batches=n_batches),
+          "first_call_s_with_capture": first_s, "word_loop_s": word_s,
+          "epoch_ms": epoch_ms, "ms_per_step": epoch_ms / n_batches,
+          "weights_rel_diff_vs_word_loop": diff, "tol": TOL_NET_TRAIN,
+          "host_counts_capture": host_counts,
+          "profiled_launches": launched, "profiled_epoch": prof,
+          "faults": transcript_faults(transcript), "checks": checks})
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise RuntimeError(f"net_train checks failed: {bad}")
+    return launched
 
 
 def phase_net_gen(seed: int, device=None, lm=LM, n_prompt=N_PROMPT,
@@ -2490,7 +2942,14 @@ def main(argv=None) -> int:
         ran[name] = ran.get(name, 0) + n
     on_tensor_path = timed("tensor", phase_tensor, args.seed)
     timed("nn", phase_nn, args.seed)
-    timed("net", phase_net)
+    # the per-word control, cut to its first epochs; then t4_30e whole at
+    # the defaults, its first epochs held against the control's lines
+    control = timed("net", phase_net, epochs=NET_CONTROL_EPOCHS)
+    timed("net_fused", phase_net_fused, control=control)
+    timed("net_rollback", phase_net_rollback)
+    # nn.train's graph launches the flash kernels; the profiler counts them
+    for name, n in timed("net_train", phase_net_train).items():
+        ran[name] = ran.get(name, 0) + n
     # nn.gen's prefill launches the forward kernel once per attention
     # layer; its word-path step launches what the train phase's does
     per_word = timed("net_gen", phase_net_gen, args.seed, expect_gen={
@@ -2506,19 +2965,21 @@ def main(argv=None) -> int:
     emit({"phase_seconds": seconds})
     # no word of either package reaches K5b or K7: the tensor phase calls
     # their wrappers on the words' operands
-    launched_by = {"flash_fwd": "generate, the train step, attn_bench "
-                                "and net_gen (the REPL's nn.gen prefill "
+    launched_by = {"flash_fwd": "generate, the train step, attn_bench, "
+                                "net_gen (the REPL's nn.gen prefill "
                                 "and its word-path step; in the f32 class "
                                 "after its split, split_launches on "
-                                "generate, the train step and net_gen)",
-                   "flash_bwd_dkv": "the train step, attn_bench and "
+                                "generate, the train step and net_gen) "
+                                "and net_train (inside nn.train's CUDA "
+                                "graph, counted by the profiler)",
+                   "flash_bwd_dkv": "the train step, attn_bench, "
                                     "net_gen's word-path step (in the f32 "
                                     "class after the backward's split, "
                                     "split_launches on the train step and "
-                                    "net_gen)",
-                   "flash_bwd_dq": "the train step, attn_bench and "
+                                    "net_gen) and net_train's graph",
+                   "flash_bwd_dq": "the train step, attn_bench, "
                                    "net_gen's word-path step (after the "
-                                   "same split)",
+                                   "same split) and net_train's graph",
                    "flash_bwd_fused": "attn_bench.sweep_bwd_fused (the "
                                       "hybrid class; the f32 class's "
                                       "kernels and its split in the kernel "

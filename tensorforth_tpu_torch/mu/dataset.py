@@ -2,11 +2,14 @@
 tensorforth_tpu/mu/dataset.py).
 
 Reference: src/mu/dataset.{h,cu}.  The whole U8 corpus is put on the
-dataset's device once (per corpus and device); each full batch is then
-one slice of it normalized as (x - mean) * 1/scale in f32, with its
-labels sliced beside it on the device (`label_dev`, what the forward's
-one-hot reads) and kept on the host (`label`, U32).  A partial tail
-batch is normalized on the host and padded with zeros.  Dimensions are
+dataset's device once (per corpus and device).  A fetch of a full batch
+then records only its corpus offset (`_fetch_spec`): the fused training
+cycle slices and normalizes it inside its own program, and any other
+reader makes it on first use (`ensure_data`): one slice of the corpus
+normalized as (x - mean) * 1/scale in f32, with its labels sliced beside
+it on the device (`label_dev`, what the forward's one-hot reads).  The
+labels are also kept on the host (`label`, U32).  A partial tail batch
+is normalized on the host and padded with zeros.  Dimensions are
 discovered on the first fetch (reference dataset.cu:64-121).
 """
 from __future__ import annotations
@@ -30,6 +33,7 @@ class Dataset(Tensor):
         self._mean = 0.0
         self._scale = 1.0 / 256.0
         self._corpus = None
+        self._fetch_spec = None            # corpus offset of a deferred batch
 
     def normalize(self, mean: float, scale: float):
         self._mean = float(mean)
@@ -95,23 +99,35 @@ class Dataset(Tensor):
             cp._lbl_cache = np.asarray(full_lbl)
         return self._resident()
 
-    def _load(self, data: np.ndarray | None, label: np.ndarray):
-        """stage the batch just fetched.  data is None when the corpus
-        served a full batch by its position alone (the corpus is on the
-        device already)"""
-        n = self.batch_sz if data is None else data.shape[0]
-        res = self._upload()
-        if res is not None and n == self.batch_sz:
-            buf, labels = res
-            pos = self._pos_of_batch()
+    def ensure_data(self):
+        """make a deferred batch (the per-word forward, printing, a host
+        read).  A set _fetch_spec is always newer than .data (_load
+        clears it), so it wins"""
+        if self._fetch_spec is not None:
+            pos, self._fetch_spec = self._fetch_spec, None
+            buf, labels = self._resident()
+            n = self.batch_sz
             mean = torch.tensor(self._mean, dtype=torch.float32,
                                 device=self.device)
             scale = torch.tensor(self._scale, dtype=torch.float32,
                                  device=self.device)
             x = (buf[pos:pos + n].to(torch.float32) - mean) * scale
             self.data = x.reshape(self.shape)
-            self.label = label.astype(np.uint32)
             self.label_dev = labels[pos:pos + n]
+        return super().ensure_data()
+
+    def _load(self, data: np.ndarray | None, label: np.ndarray):
+        """stage the batch just fetched.  data is None when the corpus
+        served a full batch by its position alone (the corpus is on the
+        device already); such a batch is deferred to its first reader"""
+        self._fetch_spec = None            # drop a batch nobody read
+        n = self.batch_sz if data is None else data.shape[0]
+        res = self._upload()
+        if res is not None and n == self.batch_sz:
+            self._fetch_spec = self._pos_of_batch()
+            self.data = None
+            self.label = label.astype(np.uint32)
+            self.label_dev = None
             return
         self.label_dev = None                      # host path
         d = (data.astype(np.float32) - self._mean) * self._scale

@@ -17,14 +17,24 @@ kernels and its host share one address space.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+
+# the err-bit NaN sentinel (nn/model.py sets it to Model._nan_alarm):
+# called whenever a non-finite scalar is read back to the host, so that a
+# NaN made inside a trace chunk stops the loop at the faulting batch, as
+# the reference's err bit does, instead of flowing on unseen
+NAN_HOOK = None
 
 
 class LazyIdx:
     """deferred element `vec[i]` of a device vector: a lazy sum of
     LazyIdx addends over one vector collapses into one sum of its
-    elements (the whole vector when the indices cover it)"""
+    elements (the whole vector when the indices cover it).  The trace
+    chunk's per-batch loss and hit vectors are served this way; each
+    chunk hands out vectors of its own, which no later replay writes."""
     __slots__ = ("vec", "i")
 
     def __init__(self, vec, i: int):
@@ -128,7 +138,10 @@ class Future:
 
     def value(self) -> float:
         """read back: device -> host float32"""
-        return float(np.float32(float(self.dev())))
+        v = float(np.float32(float(self.dev())))
+        if not math.isfinite(v) and NAN_HOOK is not None:
+            NAN_HOOK()
+        return v
 
     def __repr__(self):
         return f"Future(oid={self.oid})"

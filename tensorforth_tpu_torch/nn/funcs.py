@@ -14,8 +14,10 @@ The LM tier's dots stay strict f32.  The attention core routes long
 aligned sequences on the card through the hand-written flash kernels,
 forward and backward (ops/attn.py); the other layers take explicit
 backward rules.  exp, log, tanh and the logistic are ops/xla_math.py's:
-XLA CPU's bits on a CPU tensor.  MoE and the fused training cycle come
-with later slices.
+XLA CPU's bits on a CPU tensor.  The fused training cycle is built from
+these functions in nn/cycle.py; nothing here reads a value back to the
+host or copies one from it, so every function may run inside a captured
+CUDA graph.  MoE comes with a later slice.
 """
 from __future__ import annotations
 
@@ -459,15 +461,23 @@ def _apply_layer(spec, x, p, key=None):
         f"forward: layer '{Layer.NAMES[kind].strip()}' is not ported yet")
 
 
+def layer_key(key, j: int):
+    """the key dropout layer j draws from: fold_in(key, j) of a key pair,
+    or key(j) where the caller made the layers' keys already (a captured
+    cycle reads them from a device buffer)"""
+    return key(j) if callable(key) else rng.fold_in(key, j)
+
+
 @torch.no_grad()
 def forward_pure(program, x, params, key=None):
     """whole-network forward: (per-layer outputs, derivative masks).
     `key` (a jax.random key pair, default PRNGKey(0)) feeds dropout only:
-    layer j draws from fold_in(key, j), as in the JAX package."""
+    layer j draws from fold_in(key, j), as in the JAX package (see
+    layer_key)."""
     key = rng.PRNGKey(0) if key is None else key
     outs, masks = [], []
     for j, (spec, p) in enumerate(zip(program, params)):
-        kj = rng.fold_in(key, j) if spec[0] == Layer.DROPOUT else None
+        kj = layer_key(key, j) if spec[0] == Layer.DROPOUT else None
         x, m = _apply_layer(spec, x, p, kj)
         x = x.reshape(spec[2])
         outs.append(x)
@@ -649,38 +659,101 @@ def _one_minus(b: float) -> float:
     return float(one - torch.tensor(b, dtype=torch.float32))
 
 
+def hypers(opt: str, hyper: tuple):
+    """an optimizer's arguments from its (lr, h1, h2, h3): (lr, b) for
+    sgd/sgdm, (lr, b1, b2, wd) for adam/adamw, each with its 1 - b"""
+    lr, h1, h2, h3 = hyper
+    if opt in ("sgd", "sgdm"):
+        return lr, h1, _one_minus(h1)
+    return lr, h1, h2, h3, _one_minus(h1), _one_minus(h2)
+
+
+def _add_(y, x, a, sign: float = 1.0):
+    """y += sign * a * x in place.  A float a is add_'s alpha; a 0-d
+    tensor (a captured cycle keeps its hyperparameters on the device, and
+    the word path on the card takes them from there too, so that both
+    round alike) multiplies first"""
+    if torch.is_tensor(a):
+        return y.add_(x * a) if sign > 0 else y.sub_(x * a)
+    return y.add_(x, alpha=a) if sign > 0 else y.sub_(x, alpha=a)
+
+
 @torch.no_grad()
-def sgd_step(ws, dws, ms, ndivs, momentum: bool, lr: float, b: float):
+def sgd_step(ws, dws, ms, ndivs, momentum: bool, lr, b, omb):
     """one SGD step over lists of tensors, IN PLACE (the JAX version
     returns new arrays; updating where the state lies saves a copy of
     every weight, gradient and momentum per step).  The gradient is
     divided by its weight tensor's batch divisor; with momentum
-    m = b*m + (1-b)*g and w -= lr*m.  Gradients are zeroed."""
+    m = b*m + (1-b)*g and w -= lr*m (omb = 1 - b, see hypers).  Gradients
+    are zeroed.  The hyperparameters are floats or 0-d tensors (_add_)."""
     for w, dw, m, nd in zip(ws, dws, ms, ndivs):
         dg = dw / nd
         if momentum:
-            m.mul_(b).add_(dg, alpha=_one_minus(b))
-            w.sub_(m, alpha=lr)
+            _add_(m.mul_(b), dg, omb)
+            _add_(w, m, lr, -1.0)
         else:
-            w.sub_(dg, alpha=lr)
+            _add_(w, dg, lr, -1.0)
         dw.zero_()
 
 
 @torch.no_grad()
-def adam_step(ws, dws, ms, vs, adamw: bool, lr: float, b1: float,
-              b2: float, wd: float):
+def adam_step(ws, dws, ms, vs, adamw: bool, lr, b1, b2, wd, om1, om2):
     """one Adam or AdamW step over lists of tensors, IN PLACE (see
-    sgd_step).  The reference's form: no bias correction, eps = 1e-6
-    outside the square root; AdamW's decay is decoupled (added to the
-    update, not to the gradient).  Gradients are zeroed."""
+    sgd_step; om1, om2 = 1 - b1, 1 - b2).  The reference's form: no bias
+    correction, eps = 1e-6 outside the square root; AdamW's decay is
+    decoupled (added to the update, not to the gradient).  Gradients are
+    zeroed."""
     for w, dg, m, v in zip(ws, dws, ms, vs):
-        m.mul_(b1).add_(dg, alpha=_one_minus(b1))
-        v.mul_(b2).addcmul_(dg, dg, value=_one_minus(b2))
+        _add_(m.mul_(b1), dg, om1)
+        if torch.is_tensor(om2):
+            v.mul_(b2).addcmul_(dg * om2, dg)
+        else:
+            v.mul_(b2).addcmul_(dg, dg, value=om2)
         upd = m / (torch.sqrt(v) + 1.0e-6)
         if adamw:
-            upd.add_(w, alpha=wd)
-        w.sub_(upd, alpha=lr)
+            _add_(upd, w, wd)
+        _add_(w, upd, lr, -1.0)
         dg.zero_()
+
+
+# ===========================================================================
+# the canonical word cycle as one body (the JAX package's _fused_cycle_body)
+# ===========================================================================
+@torch.no_grad()
+def fused_cycle_body(program, train, loss_op, opt, ndivs, x, params, dws,
+                     dbs, ws, ms, vs, labels, key, hy):
+    """`forward loss.X ... backprop nn.<opt>` of one batch, built from
+    the word path's own functions in the words' order, so it computes
+    what the words compute: the forward with the one-hot and hit count,
+    the loss, the input-gradient chain with dW/dB accumulated into
+    dws/dbs, the optimizer step, the zeroed gradients and the int8 finite
+    status.  ws, ms, vs are the trainables' flat weights and moments in
+    Model._trainables() order and are stepped IN PLACE (`params` views
+    ws); hy is hypers(opt, hyper), floats or 0-d tensors.  Returns (outs,
+    masks, hot, hit, lval, dout, dxs, ndws, ndbs, nws, nms, nvs, zdws,
+    fin) as the reference's does; nws, nms, nvs are ws, ms, vs."""
+    outs, masks, hot, hit = forward_with_metrics(program, x, params, key,
+                                                 labels)
+    lval = loss_fn(loss_op, outs[-1], hot)
+    dout, dxs, ndws, ndbs = backward_pure(program, train, hot, x, outs,
+                                          params, masks, dws, dbs)
+    # the optimizer zeroes what it is given; the backprop word's dW/dB
+    # stay in ndws, ndbs
+    zdws = [g.clone() for j in range(len(program)) if params[j]
+            for g in (ndws[j], ndbs[j])]
+    if opt in ("adam", "adamw"):
+        adam_step(ws, zdws, ms, vs, opt == "adamw", *hy)
+    else:
+        sgd_step(ws, zdws, ms, ndivs, opt == "sgdm", *hy)
+    # 0 ok, 1 the forward's loss is not finite, 2 the step's weights are
+    # not (the forward was) -- the err-bit sentinel's status, made on the
+    # device so the word path pays no readback
+    w_ok = (torch.stack([torch.isfinite(w).all() for w in ws]).all()
+            if ws else torch.ones((), dtype=torch.bool, device=x.device))
+    fin = torch.where(torch.isfinite(lval), torch.where(w_ok, 0, 2),
+                      1).to(torch.int8)
+    return (outs, masks, hot, hit, lval, dout, dxs, ndws, ndbs, tuple(ws),
+            tuple(ms), tuple(vs), tuple(zdws), fin)
 
 
 # ===========================================================================
@@ -716,5 +789,7 @@ def hit_fn(out, hot):
 
 
 def onehot_fn(labels, classes: int):
-    return torch.nn.functional.one_hot(labels.to(torch.int64),
-                                       classes).to(torch.float32)
+    """class ids [...] -> [..., classes] f32 one-hot, as a compare: no
+    check of the labels, so nothing is read back inside a capture"""
+    return (labels.to(torch.int64).unsqueeze(-1) == torch.arange(
+        classes, device=labels.device)).to(torch.float32)

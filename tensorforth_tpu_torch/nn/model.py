@@ -11,14 +11,28 @@ batchnorm's xhat) in ``.grad[4]``, the optimizer's moments in
 nn/funcs.py and nn/serve.py read a model the same way.  As in the
 reference, ``backprop`` overwrites each layer's activation with its input
 gradient, and a word given bad input prints through ``_err`` and sets
-``err`` instead of raising.  A dataset input takes the reference's
-per-word path (what it runs under T4_NO_FUSE=1): one forward that also
-makes the batch's one-hot and hit count from the device labels.  The
-fused training cycle and its trace chunks are not ported.
+``err`` instead of raising.
+
+A dataset input takes the JAX package's default path.  The first
+canonical `forward loss.X ... backprop nn.<opt>` cycle runs word by word
+(one forward that also makes the batch's one-hot and hit count from the
+device labels, then each word); it arms `_fuse_sig`.  The next cycle runs
+as one fused program (nn/cycle.py: eager on the CPU, a captured CUDA
+graph on the card) whose slices the words apply; after one such cycle
+was consumed, a forward dispatches a trace chunk of up to T4_CHUNK
+batches at once and the words serve from it.  What every word observes
+is what the per-word path gives: anything out of the pattern (another
+rate, a weight read or write, a stray draw of the RNG) rolls the chunk
+back to the exact per-batch state.  Each fused batch carries a finite
+status, the err-bit NaN sentinel's evidence (`_fin_check`).
+T4_NO_FUSE=1 keeps every cycle on the per-word path.
 """
 from __future__ import annotations
 
+import itertools
 import math
+import os
+import weakref
 
 import numpy as np
 import torch
@@ -26,7 +40,7 @@ import torch
 from ..config import Config, resolve_device
 from ..mu.tensor import T4Type, Tensor
 from ..ops import rng
-from . import funcs
+from . import cycle, funcs
 from .ntypes import Layer, Loss, Optimizer
 
 _ACTS = (Layer.RELU, Layer.TANH, Layer.SIGMOID, Layer.SELU,
@@ -34,6 +48,21 @@ _ACTS = (Layer.RELU, Layer.TANH, Layer.SIGMOID, Layer.SELU,
 _POOLS = (Layer.AVGPOOL, Layer.MAXPOOL, Layer.MINPOOL)
 _PARAMETERED = (Layer.CONV, Layer.DCONV, Layer.LINEAR, Layer.BATCHNM,
                 Layer.ATTN, Layer.LNORM, Layer.EMBED, Layer.PROJ)
+_UIDS = itertools.count(1)       # a model's key in nn/cycle.py's cache
+_DEV_F32 = {}                    # (value, device) -> 0-d f32 on the card
+
+
+def _dev_f32(v: float, device):
+    """a hyperparameter as a 0-d f32 on the card, kept per value (the
+    card's word path steps with device scalars, as a captured cycle does)"""
+    key = (float(v), str(device))
+    r = _DEV_F32.get(key)
+    if r is None:
+        if len(_DEV_F32) > 4096:
+            _DEV_F32.clear()
+        r = _DEV_F32[key] = torch.tensor(v, dtype=torch.float32,
+                                         device=device)
+    return r
 
 
 class Model:
@@ -52,6 +81,18 @@ class Model:
         self._opt_inited = False
         self.max_norm = 0.0
         self.epoch = 0
+        # the fused paths' state (the JAX package's, model.py:90-111)
+        self._cycle: list = []                # verbs since the last step
+        self._fuse_sig = None                 # the last canonical cycle's
+        self._pending = None                  # a fused cycle's outputs
+        self._chunk = None                    # the trace chunk in flight
+        self._fuse_hits = 0                   # fused cycles consumed in a row
+        self._fin_tail = None                 # the last completed chunk
+        self._fin_log = []                    # [(seq, pos, fin)] consumed
+        self._fin_seq = 0                     # dispatch order of windows
+        self._fwd_seed = None                 # the last forward's seed
+        self._uid = next(_UIDS)
+        Model._live.add(self)
 
     @property
     def numel(self) -> int:
@@ -77,7 +118,47 @@ class Model:
     def __getitem__(self, i: int) -> Tensor:
         return self.data[i if i >= 0 else self.numel + i]
 
+    # --- the fused paths' bookkeeping (the JAX package's model.py:114-152)
+    def fuse_break(self):
+        """an out-of-cycle mutation (nn.w=, nn.zero, a one-hot swap, a new
+        layer) voids the speculative results; what earlier words of the
+        cycle applied stays"""
+        self._chunk_abort()
+        self._pending = None
+        self._fuse_sig = None
+        self._fuse_hits = 0
+        self._fin_tail = None    # a rollback would undo the mutation
+        self._fin_log.clear()
+        if self._cycle and self._cycle[-1] != "dirty":
+            self._cycle.append("dirty")
+
+    def chunk_sync(self):
+        """the exact per-batch tensor state before out-of-cycle
+        introspection (nn.w, nn.dw, n@, network, save): the rollback of
+        a trace chunk in flight; nothing otherwise"""
+        self._chunk_abort()
+
+    def _note_opt(self, opt: str, hyper: tuple):
+        """an optimizer step ends a cycle: record whether it was
+        canonical (and so may run fused next time)"""
+        c = self._cycle
+        canonical = (len(c) >= 1 and c[0] == "fwd_ds"
+                     and c.count("fwd_ds") == 1
+                     and c.count("bwd") == 1 and "dirty" not in c
+                     and all(v in ("fwd_ds", "bwd") or v.startswith("loss:")
+                             for v in c)
+                     and c.index("bwd") > 0)
+        loss_ops = {v[5:] for v in c if v.startswith("loss:")}
+        if canonical and len(loss_ops) <= 1:
+            self._fuse_sig = (self._program(), bool(self.train),
+                              loss_ops.pop() if loss_ops else "ce",
+                              opt, hyper)
+        else:
+            self._fuse_sig = None
+        self._cycle = []
+
     def npush(self, t: Tensor) -> "Model":
+        self.fuse_break()             # a new layer: drain any chunk
         self.data.append(t)
         if self.numel >= Config.NET_SZ:
             from ..system import System
@@ -103,6 +184,7 @@ class Model:
     # layer factory (reference Model::add, model.cpp:83-310)
     # =========================================================================
     def add(self, fn: int, n: int = 0, bias: float = 0.0, opt=None) -> "Model":
+        self.fuse_break()             # a new layer: drain any chunk
         t_in = self[-1]
         if t_in.grad_fn is not None:
             return self
@@ -358,8 +440,9 @@ class Model:
                 out.append(())
         return tuple(out)
 
+
     # =========================================================================
-    # forward (reference forward.cu), tensor input
+    # forward (reference forward.cu)
     # =========================================================================
     def forward(self, inp: Tensor) -> "Model":
         from ..system import System
@@ -372,22 +455,62 @@ class Model:
             return self
         prog = self._program()
         key = None               # only a dropout layer draws from the key
+        self._fwd_seed = None    # _chunk_fwd holds it against the chunk's
         if any(k == Layer.DROPOUT for k, _o, _s in prog):
-            key = rng.PRNGKey(sys.next_key())
-        n0.replace_data(inp.data_as(*n0.shape))
+            self._fwd_seed = sys.next_key()
+            key = rng.PRNGKey(self._fwd_seed)
         hot = hit = None
         if inp.is_dataset():
-            ld = inp.label_dev
-            if ld is not None and ld.shape[0] == n0.N():
-                labels = ld      # the batch's device slice: no upload
-            else:
-                labels = torch.as_tensor(
-                    inp.label[:n0.N()].astype(np.int64), device=self.device)
-            outs, masks, hot, hit = funcs.forward_with_metrics(
-                prog, n0.ensure_data(), self._params(), key, labels)
+            spec = inp._fetch_spec
+            if self._chunk is not None and self._chunk_fwd(inp, spec, prog):
+                self._cycle.append("fwd_ds")
+                return self
+            if self._pending is not None:
+                # the last fused cycle's step was never taken (an eval
+                # loop): drop it and stop paying for fused forwards
+                self._pending = None
+                self._fuse_sig = None
+                self._fuse_hits = 0
+            fused = None
+            if spec is not None and inp.data is None:
+                if self._maybe_chunk_dispatch(prog, inp, spec):
+                    inp._fetch_spec = None
+                    self._cycle.append("fwd_ds")
+                    return self
+                if self.err:          # the eager sentinel found a fault:
+                    return self       # leave its rolled-back state
+                # the batch is still a corpus offset: its slice and
+                # normalize run inside the fused program
+                r = self._try_fused_ds(prog, inp, spec)
+                if r is not None:
+                    x0, lab, outs, masks, hot, hit = r
+                    inp._fetch_spec = None
+                    inp.replace_data(x0)
+                    inp.label_dev = lab
+                    n0.replace_data(inp.data_as(*n0.shape))
+                    fused = True
+            if fused is None:
+                n0.replace_data(inp.data_as(*n0.shape))
+                ld = inp.label_dev
+                if ld is not None and ld.shape[0] == n0.N():
+                    labels = ld      # the batch's device slice: no upload
+                else:
+                    labels = torch.as_tensor(
+                        inp.label[:n0.N()].astype(np.int64),
+                        device=self.device)
+                fused = self._try_fused(prog, n0, labels)
+                if fused is not None:
+                    outs, masks, hot, hit = fused
+                else:
+                    outs, masks, hot, hit = funcs.forward_with_metrics(
+                        prog, n0.ensure_data(), self._params(), key, labels)
+            self._cycle.append("fwd_ds")
         else:
+            self._chunk_abort()               # the weights must be current
+            n0.replace_data(inp.data_as(*n0.shape))
             outs, masks = funcs.forward_pure(prog, n0.ensure_data(),
                                              self._params(), key)
+            self._cycle.append("dirty")       # tensor-input cycles unfused
         self._apply_fwd_stash(outs, masks, hot, hit)
         if sys.trace:
             self._trace_pass("forward", range(self.numel - 1))
@@ -418,7 +541,432 @@ class Model:
             self._hot.replace_data(hot)
             self._hit = hit
 
-    def _trace_pass(self, name: str, order):
+    # =========================================================================
+    # the fused cycle (the JAX package's model.py:634-714)
+    # =========================================================================
+    def _fusable(self, prog, sig) -> bool:
+        """the last cycle was canonical for this program, and may run
+        fused (T4_NO_FUSE=1 says no)"""
+        return (sig is not None and self._opt_inited and bool(self.train)
+                and sig[0] == prog and sig[1] == bool(self.train)
+                and os.environ.get("T4_NO_FUSE", "0") != "1"
+                and (sig[3] not in ("adam", "adamw")
+                     or all(t.mtum[s + 2] is not None
+                            for t, s in self._trainables())))
+
+    def _fused_state(self):
+        """(ws, ms, vs, dws, dbs): the live weights, moments and gradient
+        accumulators a fused cycle starts from"""
+        tr = self._trainables()
+        ws = [t.grad[s].ensure_data() for t, s in tr]
+        ms = [t.mtum[s].ensure_data() for t, s in tr]
+        vs = [t.mtum[s + 2].ensure_data() for t, s in tr
+              if t.mtum[s + 2] is not None]
+        dws, dbs = self._gather_grads()
+        return ws, ms, vs, list(dws), list(dbs)
+
+    @staticmethod
+    def _kmax() -> int:
+        try:
+            return int(os.environ.get("T4_CHUNK", "100"))
+        except ValueError:
+            return 100
+
+    def _cycle_of(self, sig, inp=None):
+        """the Cycle of this signature: over the dataset's resident
+        corpus, or (inp None) over an input copied in"""
+        prog, train, loss_op, opt, _hyper = sig
+        if inp is not None:
+            buf, labels = inp._resident()
+            src = ("ds", buf, labels, inp.batch_sz, float(inp._mean),
+                   float(inp._scale), tuple(self[0].shape))
+        else:
+            src = ("x", tuple(self[0].shape))
+        return cycle.get(self, prog, train, loss_op, opt, self._ndivs(),
+                         src, max(self._kmax(), 1))
+
+    def _seeds(self, prog, k: int):
+        """the dropout seeds k forwards from this one will burn, or None"""
+        if not any(kind == Layer.DROPOUT for kind, _o, _s in prog):
+            return None
+        from ..system import System
+        return [self._fwd_seed] + System.get_sys().peek_keys(k - 1)
+
+    def _stash_pending(self, what, st, lval, fin, pos, seq=None):
+        """the speculative results of one fused cycle (st: its outputs
+        less x and labels) for the words that follow; what = (loss op,
+        optimizer, hyperparameters) it assumed"""
+        (_outs, _masks, _hot, _hit, _lval, dout, dxs, ndws, ndbs, nws, nms,
+         nvs, zdws, _fin) = st
+        self._pending = {
+            "loss_op": what[0], "opt": what[1], "hyper": what[2],
+            "lval": lval, "dout": dout, "dxs": dxs, "ndws": ndws,
+            "ndbs": ndbs, "nws": nws, "nms": nms, "nvs": nvs, "zdws": zdws,
+            "fin": fin, "pos": pos,
+            "seq": self._next_fin_seq() if seq is None else seq,
+            "bwd_done": False}
+
+    def _try_fused(self, prog, n0, labels):
+        """the whole canonical cycle as one program on an input already
+        made, when the last cycle proved the pattern: (outs, masks, hot,
+        hit), or None for the per-word path"""
+        sig = self._fuse_sig
+        if not self._fusable(prog, sig):
+            return None
+        cyc = self._cycle_of(sig)
+        cyc.load(self._fused_state(), seeds=self._seeds(prog, 1),
+                 hyper=sig[4], x=n0.ensure_data(), labels=labels)
+        cyc.run(1)
+        lvals, hits, fins = cyc.results(0, 1)
+        cycle.COUNTS["fused"] += 1
+        self._stash_pending(sig[2:], cyc.stash[2:], lvals[0], fins[0], None)
+        outs, masks, hot = cyc.stash[2:5]
+        return outs, masks, hot, hits[0]
+
+    def _try_fused_ds(self, prog, inp, pos):
+        """the fetch-folded fused cycle: the batch's slice and normalize
+        run inside the one program.  (x, labels, outs, masks, hot, hit)
+        or None"""
+        sig = self._fuse_sig
+        if not self._fusable(prog, sig) or inp._resident() is None:
+            return None
+        cyc = self._cycle_of(sig, inp)
+        cyc.load(self._fused_state(), pos, self._seeds(prog, 1), sig[4])
+        cyc.run(1)
+        lvals, hits, fins = cyc.results(0, 1)
+        cycle.COUNTS["fused"] += 1
+        x0, lab = cyc.stash[:2]
+        self._stash_pending(sig[2:], cyc.stash[2:], lvals[0], fins[0],
+                            int(pos))
+        outs, masks, hot = cyc.stash[2:5]
+        return x0, lab.clone(), outs, masks, hot, hits[0]
+
+    # =========================================================================
+    # trace chunks: K canonical cycles at one dispatch (the JAX package's
+    # model.py:727-979).  Once the pattern was seen AND one fused cycle
+    # consumed, a forward dispatches K batches and the words serve from
+    # per-batch loss/hit vectors (LazyIdx futures).  The tensors show the
+    # chunk's last batch; any out-of-cycle introspection rolls back to
+    # the dispatch-time snapshot and replays batch by batch (chunk_sync).
+    # =========================================================================
+    def _chunk_plan(self, inp, pos: int) -> int:
+        """chunk length: the full batches left in the (T4_MAX_BATCH-cut)
+        corpus window, at most T4_CHUNK"""
+        kmax = self._kmax()
+        if kmax <= 1:
+            return 0
+        cp = inp._corpus
+        if cp is None:
+            return 0
+        b = inp.batch_sz
+        size = cp.size
+        max_b = int(os.environ.get("T4_MAX_BATCH", "0") or 0)
+        if max_b:                     # as Corpus.fetch windows it
+            size = min(size, max_b * b)
+        return min(kmax, max(0, (size - int(pos)) // b))
+
+    def _maybe_chunk_dispatch(self, prog, inp, pos) -> bool:
+        from ..system import System
+        sig = self._fuse_sig
+        if (self._fuse_hits < 1 or not self._fusable(prog, sig)
+                or System.get_sys().trace or inp._resident() is None):
+            return False
+        k = self._chunk_plan(inp, pos)
+        if k < 2:
+            return False
+        # this forward burned seed s1; the served forwards of batches
+        # 2..K will each burn one more: the chunk takes that exact run,
+        # and _chunk_fwd holds each served forward's seed against it, so
+        # a stray RNG consumer in the loop forces a rollback
+        seeds = self._seeds(prog, k)
+        # err-bit NaN sentinel: T4_NAN_GUARD=eager reads the retained
+        # windows' statuses at every chunk boundary; the default reads
+        # them only when a non-finite value reaches the host
+        if os.environ.get("T4_NAN_GUARD", "") == "eager" \
+                and self._fin_check():
+            return False                     # fault handled; err set
+        # the dispatch-time state: the Cycle's buffers are overwritten by
+        # every run, and a rollback starts again from this copy
+        snap = tuple([t.clone() if t is not None else None for t in part]
+                     for part in self._fused_state())
+        cyc = self._cycle_of(sig, inp)
+        cyc.load(snap, pos, seeds, sig[4])
+        cyc.run(k)
+        lvals, hits, fins = cyc.results(0, k)
+        cycle.COUNTS["chunks"] += 1
+        self._chunk = {
+            "ds": inp, "pos0": int(pos), "batch": inp.batch_sz, "k": k,
+            "j": 0, "stage": "idle", "lvals": lvals, "hits": hits,
+            "fins": fins, "loss_op": sig[2], "opt": sig[3],
+            "hyper": sig[4], "snap": snap, "seeds": seeds, "cycle": cyc,
+            "runs": cyc.runs, "seq": self._next_fin_seq()}
+        self._serve_chunk_cycle()
+        return True
+
+    def _chunk_fwd(self, inp, spec, prog) -> bool:
+        """serve the next cycle's forward from the chunk in flight; any
+        mismatch (another dataset or position, an unfinished cycle, a
+        topology or train-flag change, a dropout seed other than the
+        chunk's: a stray RNG consumer) rolls back first"""
+        ck = self._chunk
+        sig = self._fuse_sig
+        expected = ck["pos0"] + ck["j"] * ck["batch"]
+        if not (inp is ck["ds"] and spec is not None
+                and int(spec) == expected and ck["stage"] == "idle"
+                and ck["j"] < ck["k"] and sig is not None
+                and sig[0] == prog and sig[1] == bool(self.train)
+                and (ck["seeds"] is None
+                     or self._fwd_seed == ck["seeds"][ck["j"]])):
+            self._chunk_abort()
+            return False
+        inp._fetch_spec = None
+        self._serve_chunk_cycle()
+        return True
+
+    def _serve_chunk_cycle(self):
+        from ..mu.future import LazyIdx
+        ck = self._chunk
+        j = ck["j"]
+        if j == ck["k"] - 1:
+            self._chunk_apply_last()   # the last batch: the full stash
+            return
+        self._hit = LazyIdx(ck["hits"], j)
+        self._pending = {
+            "loss_op": ck["loss_op"], "opt": ck["opt"],
+            "hyper": ck["hyper"], "lval": LazyIdx(ck["lvals"], j),
+            "bwd_done": False, "chunk": True}
+        ck["stage"] = "fwd"
+
+    def _chunk_apply_last(self):
+        ck, self._chunk = self._chunk, None
+        cyc = ck["cycle"]
+        if cyc.runs != ck["runs"]:
+            raise RuntimeError("trace chunk: its cycle ran again before "
+                               "its last batch was served")
+        (x0, lab, outs, masks, hot, *_rest) = cyc.stash
+        k = ck["k"]
+        # the completed chunk, less its vectors, is the NaN sentinel's
+        # rollback window
+        self._fin_tail = {key: v for key, v in ck.items()
+                          if key not in ("lvals", "hits")}
+        inp, n0 = ck["ds"], self[0]
+        inp.replace_data(x0)
+        inp.label_dev = lab.clone()
+        n0.replace_data(inp.data_as(*n0.shape))
+        # the last batch's status is fins[k-1] of the retained window: no
+        # single-cycle entry for it
+        self._stash_pending((ck["loss_op"], ck["opt"], ck["hyper"]),
+                            cyc.stash[2:], ck["lvals"][k - 1], None, None,
+                            ck["seq"])
+        self._apply_fwd_stash(outs, masks, hot, ck["hits"][k - 1])
+
+    def _chunk_abort(self):
+        """rollback-replay: run the cycles already served again from the
+        dispatch-time snapshot, one by one, so that the tensors (weights,
+        moments, gradients, activations) are what per-batch execution
+        leaves.  Only out-of-cycle introspection or a broken pattern
+        lands here; the loss and hit futures already handed out keep the
+        chunk's values (the same arithmetic)."""
+        ck, self._chunk = self._chunk, None
+        if ck is None:
+            return
+        self._fuse_hits = 0
+        j, stage = ck["j"], ck["stage"]
+        if j == 0 and stage == "idle":
+            return                    # nothing served: a plain discard
+        res = self._chunk_replay(ck, j, want_stash=(stage != "idle"))
+        if stage == "idle":
+            self._pending = None
+            return
+        # a cycle half served: its stash again, at the right state, so
+        # the rest of its words serve as usual
+        st, lval, hit, fin = res
+        inp, n0 = ck["ds"], self[0]
+        inp.replace_data(st[0])
+        inp.label_dev = st[1].clone()
+        n0.replace_data(inp.data_as(*n0.shape))
+        self._stash_pending((ck["loss_op"], ck["opt"], ck["hyper"]), st[2:],
+                            lval, fin, ck["pos0"] + j * ck["batch"])
+        self._pending["bwd_done"] = stage == "bwd"
+        outs, masks, hot = st[2:5]
+        self._apply_fwd_stash(outs, masks, hot, hit)
+        if stage == "bwd":
+            self._apply_bwd(*st[7:11])
+
+    def _chunk_replay(self, ck, j: int, want_stash: bool):
+        """run j complete cycles of a dispatched chunk again from its
+        snapshot and apply the state they leave to the live tensors; when
+        want_stash, also run cycle j and return (its outputs, lval, hit,
+        fin)"""
+        cyc = ck["cycle"]
+        cyc.load(ck["snap"], ck["pos0"], ck["seeds"], ck["hyper"])
+        if j:
+            cyc.run(j)
+            nws, zws, nms, nvs = cyc.threaded()
+            adamlike = ck["opt"] in ("adam", "adamw")
+            for i, (t, s) in enumerate(self._trainables()):
+                t.grad[s].replace_data(nws[i])
+                t.grad[s + 2].replace_data(zws[i])
+                if adamlike:
+                    t.mtum[s].replace_data(nms[i])
+                    t.mtum[s + 2].replace_data(nvs[i])
+                elif t.mtum[s] is not t.grad[s]:
+                    t.mtum[s].replace_data(nms[i])
+        if not want_stash:
+            return None
+        cyc.run(1)
+        lvals, hits, fins = cyc.results(j, 1)
+        return cyc.stash, lvals[0], hits[0], fins[0]
+
+    # =========================================================================
+    # err-bit NaN sentinel (the JAX package's model.py:990-1146): the
+    # analog of the reference's per-layer _check_nan and err STOP
+    # (forward.cu:60-66, netvm.cpp:235).  Each fused batch has a finite
+    # status; the last completed chunk is kept (_fin_tail), so a
+    # non-finite value reaching the host can still be traced, and rolled
+    # back, to the exact faulting batch.
+    # =========================================================================
+    def _next_fin_seq(self) -> int:
+        self._fin_seq += 1
+        return self._fin_seq
+
+    def _fin_check(self) -> bool:
+        """read every retained finite status in dispatch order (consumed
+        single cycles, the retained and the active chunk, the pending
+        cycle: oldest first, so the first fault wins); on a fault, roll
+        back to the faulting batch where a chunk's snapshot allows it,
+        print the per-layer trace and set err (the net words stop on it,
+        as the reference's netvm.cpp:235).  True when a fault was found.
+        (The JAX package can skip a status not ready yet; a read here
+        waits for it.)"""
+        wins = [(seq, ("single", i)) for i, (seq, _p, _f)
+                in enumerate(self._fin_log)]
+        for ck in (self._fin_tail, self._chunk):
+            if ck is not None:
+                wins.append((ck["seq"], ("chunk", ck)))
+        p = self._pending
+        if p is not None and p.get("fin") is not None:
+            wins.append((p["seq"], ("pending", p)))
+        for _seq, (kind, win) in sorted(wins, key=lambda w: w[0]):
+            if kind == "single":
+                seq, pos, f = self._fin_log[win]
+                code = int(f)
+                self._fin_log[win] = (seq, pos, code)    # read once
+                if code:
+                    self._fin_single_fault(pos, code, advanced=True)
+                    return True
+                continue
+            if kind == "pending":
+                code = int(win["fin"])
+                if code:
+                    # the pending cycle's forward is the live state
+                    # already: report, no replay
+                    self._fin_single_fault(win.get("pos"), code,
+                                           advanced=False)
+                    return True
+                continue
+            fa = win["fins"]
+            if torch.is_tensor(fa):
+                fa = win["fins"] = fa.cpu().numpy()      # read once
+            if not fa.any():
+                continue
+            # the active chunk is unserved speculation atop the fault, or
+            # is the fault: a discard either way
+            self._chunk = None
+            self._fin_fault(win, fa)
+            return True
+        return False
+
+    def _fin_single_fault(self, pos, code: int, advanced: bool):
+        """a single-cycle window (a consumed arming cycle or the pending
+        one) made a non-finite batch; there is no snapshot to replay
+        from, so report it and set err"""
+        from ..system import System
+        sys = System.get_sys()
+        self._fuse_hits = 0
+        self._fuse_sig = None
+        self._pending = None
+        self._chunk = None       # unserved speculation atop the fault
+        self._fin_tail = None
+        self._fin_log.clear()
+        at = f" at corpus offset {pos}" if pos is not None \
+            else " in the current batch"
+        if code == 2:
+            sys.pstr(f"\nERROR: nn#opt non-finite weights after the "
+                     f"optimizer step{at}")
+        else:
+            sys.pstr(f"\nERROR: nn#forward non-finite{at}")
+        if advanced:
+            sys.pstr("\n(state has advanced past the faulting batch; "
+                     "rerun with trace=1 for per-batch checks)")
+        self._trace_pass("forward", range(self.numel - 1), nan_check=True)
+        self.err = 1
+
+    def _fin_fault(self, ck, fa):
+        """a dispatched chunk made a non-finite batch: report it, replay
+        to that batch, run its forward with the per-layer trace (which
+        prints the first NaN layer as the reference's traced forward
+        does) and set err"""
+        from ..system import System
+        sys = System.get_sys()
+        fwd_bad = np.nonzero(fa == 1)[0]
+        w_bad = np.nonzero(fa == 2)[0]
+        # the faulting batch: the first forward with a non-finite loss,
+        # the batch the reference's per-layer check flags; a weight
+        # explosion (2) is reported as itself
+        i = int(fwd_bad[0]) if fwd_bad.size else int(w_bad[0])
+        b = ck["batch"]
+        pos = ck["pos0"] + i * b
+        self._fuse_hits = 0
+        self._fuse_sig = None
+        self._pending = None
+        self._fin_tail = None
+        self._fin_log.clear()
+        if w_bad.size and (not fwd_bad.size or w_bad[0] < fwd_bad[0]):
+            sys.pstr(f"\nERROR: nn#opt non-finite weights after the "
+                     f"optimizer step at corpus offset "
+                     f"{ck['pos0'] + int(w_bad[0]) * b}")
+        if i == 0:
+            sys.pstr(f"\nERROR: non-finite at the retained window's "
+                     f"first batch (offset {pos}) — the fault may "
+                     f"predate it; rerun with trace=1 or "
+                     f"T4_NAN_GUARD=eager to localize")
+        st, _lval, hit, _fin = self._chunk_replay(ck, i, want_stash=True)
+        inp, n0 = ck["ds"], self[0]
+        inp.replace_data(st[0])
+        inp.label_dev = st[1].clone()
+        n0.replace_data(inp.data_as(*n0.shape))
+        self._apply_fwd_stash(st[2], st[3], st[4], hit)
+        sys.pstr(f"\nERROR: nn#forward non-finite at corpus offset "
+                 f"{pos} (batch {i} of the chunk at {ck['pos0']}); "
+                 f"state rolled back to the faulting batch")
+        self._trace_pass("forward", range(self.numel - 1), nan_check=True)
+        self.err = 1
+
+    _live: "weakref.WeakSet" = weakref.WeakSet()
+    _alarm_busy = False
+
+    @classmethod
+    def _nan_alarm(cls):
+        """mu/future.NAN_HOOK: a non-finite scalar reached the host; read
+        the live models' retained windows and turn the first fault into
+        the err-bit stop.  Free on healthy reads; guarded against its own
+        reads."""
+        if cls._alarm_busy:
+            return
+        cls._alarm_busy = True
+        try:
+            for m in list(cls._live):
+                if (m._chunk is not None or m._fin_tail is not None
+                        or m._fin_log
+                        or (m._pending is not None
+                            and m._pending.get("fin") is not None)):
+                    if m._fin_check():
+                        return
+        finally:
+            cls._alarm_busy = False
+
+    def _trace_pass(self, name: str, order, nan_check: bool | None = None):
         """per-layer trace (reference forward.cu:44-51/backprop.cu:41-47):
         the forward pass checks each layer's output for NaN, prints the
         faulting layer, sets err (the net words stop on it) and breaks;
@@ -426,7 +974,8 @@ class Model:
         from ..ops import engine
         from ..system import System
         sys = System.get_sys()
-        nan_check = name == "forward" or sys.trace > 1
+        if nan_check is None:
+            nan_check = name == "forward" or sys.trace > 1
         sys.pstr(f"\nModel::{name} trace {{")
         for i in order:
             t_in, t_out = self[i], self[i + 1]
@@ -447,6 +996,7 @@ class Model:
     def broadcast(self, tgt: Tensor) -> "Model":
         """the target's first value of each sample, repeated over the
         output's width, as the one-hot vector"""
+        self.fuse_break()                     # the one-hot swaps mid-cycle
         out = self[-1]
         N, HWC = out.N(), out.HWC()
         if self._hot is None:
@@ -474,6 +1024,23 @@ class Model:
                       f"!= {out.shape}")
             self.err = 1
             return self
+        p = self._pending
+        if p is not None and tgt is self._hot and not p["bwd_done"]:
+            p["bwd_done"] = True
+            self._cycle.append("bwd")
+            if p.get("chunk"):
+                # a chunk batch: its gradients exist in the chunk only;
+                # the tensors show the chunk's last batch (or a rollback)
+                if self._chunk is not None:
+                    self._chunk["stage"] = "bwd"
+                return self
+            # the fused cycle computed the backward: apply its slice
+            self._apply_bwd(p["dout"], p["dxs"], p["ndws"], p["ndbs"])
+            return self
+        if p is not None:                     # off the pattern: drop it
+            self._pending = None
+            self.fuse_break()
+        self._chunk_abort()                   # outs and weights current
         outs = tuple(self[i + 1].ensure_data()
                      for i in range(self.numel - 1))
         dws, dbs = self._gather_grads()
@@ -481,6 +1048,7 @@ class Model:
             self._program(), bool(self.train), tgt.ensure_data(),
             self[0].ensure_data(), outs, self._params(),
             self._gather_masks(), dws, dbs, flash=flash)
+        self._cycle.append("bwd")
         self._apply_bwd(dout, dxs, ndws, ndbs)
         return self
 
@@ -547,26 +1115,33 @@ class Model:
         self._opt_inited = True
 
     def grad_zero(self):
+        self.fuse_break()
         for t_in, slot in self._trainables():
             dg = t_in.grad[slot + 2]
             if dg is not None:
                 dg.ensure_data().zero_()
 
-    def _opt_apply(self, op: int, step_fn, *hyper):
-        """one optimizer step; step_fn updates the payloads of the weight,
-        gradient and moment tensors in place"""
+    def _opt_apply(self, op: int, opt: str, hyper: tuple):
+        """one optimizer step, updating the payloads of the weight,
+        gradient and moment tensors in place.  On the card the
+        hyperparameters go as device scalars, as a captured cycle's do"""
         if not self._opt_inited:
             self.grad_alloc(op)
         self._iter += 1
         if not self.train:
             return self
         tr = self._trainables()
-        state = [[t.grad[s].ensure_data() for t, s in tr],
-                 [t.grad[s + 2].ensure_data() for t, s in tr],
-                 [t.mtum[s].ensure_data() for t, s in tr]]
-        if op in (Optimizer.ADAM, Optimizer.ADAMW):
-            state.append([t.mtum[s + 2].ensure_data() for t, s in tr])
-        step_fn(*state, *hyper)
+        ws = [t.grad[s].ensure_data() for t, s in tr]
+        dws = [t.grad[s + 2].ensure_data() for t, s in tr]
+        ms = [t.mtum[s].ensure_data() for t, s in tr]
+        hy = funcs.hypers(opt, hyper)
+        if self.device.type == "cuda":
+            hy = tuple(_dev_f32(v, self.device) for v in hy)
+        if opt in ("adam", "adamw"):
+            vs = [t.mtum[s + 2].ensure_data() for t, s in tr]
+            funcs.adam_step(ws, dws, ms, vs, opt == "adamw", *hy)
+        else:
+            funcs.sgd_step(ws, dws, ms, self._ndivs(), opt == "sgdm", *hy)
         return self
 
     def _ndivs(self):
@@ -574,20 +1149,69 @@ class Model:
         return tuple(float(t.grad[s].N() if t.grad[s].rank == 4 else 1)
                      for t, s in self._trainables())
 
+    def _try_fused_opt(self, opt: str, hyper: tuple) -> bool:
+        """apply the fused cycle's speculative step if the call is the
+        one it assumed (the same word and hyperparameters, the backward
+        consumed)"""
+        p = self._pending
+        if (p is None or not p["bwd_done"] or p["opt"] != opt
+                or p["hyper"] != hyper):
+            return False
+        self._pending = None
+        self._iter += 1
+        if p.get("chunk"):
+            # a chunk batch: the weights moved inside the chunk; the
+            # tensors show its last batch
+            ck = self._chunk
+            if ck is not None:
+                ck["j"] += 1
+                ck["stage"] = "idle"
+            self._fuse_hits += 1
+            self._note_opt(opt, hyper)
+            return True
+        if p.get("fin") is not None:
+            # keep the consumed cycle's status: the sentinel's exact
+            # attribution for the cycles that arm a chunk
+            self._fin_log.append((p["seq"], p.get("pos"), p["fin"]))
+            del self._fin_log[:-8]
+        adamlike = opt in ("adam", "adamw")
+        for i, (t, s) in enumerate(self._trainables()):
+            t.grad[s].replace_data(p["nws"][i])
+            t.grad[s + 2].replace_data(p["zdws"][i])
+            if adamlike:
+                t.mtum[s].replace_data(p["nms"][i])
+                t.mtum[s + 2].replace_data(p["nvs"][i])
+            elif t.mtum[s] is not t.grad[s]:
+                t.mtum[s].replace_data(p["nms"][i])
+        self._fuse_hits += 1
+        self._note_opt(opt, hyper)
+        return True
+
+    def _step(self, op: int, opt: str, hyper: tuple) -> "Model":
+        """an optimizer word: the fused cycle's step when it assumed this
+        one, else the per-word step on the current state"""
+        if self._try_fused_opt(opt, hyper):
+            return self
+        self._chunk_abort()                   # the gradients current
+        self._pending = None
+        r = self._opt_apply(op, opt, hyper)
+        self._note_opt(opt, hyper)
+        return r
+
     def sgd(self, lr: float, b: float = 0.0) -> "Model":
         momentum = abs(b) > Config.DU_EPS
-        return self._opt_apply(
-            Optimizer.SGDM if momentum else Optimizer.SGD, funcs.sgd_step,
-            self._ndivs(), momentum, float(lr), float(b))
+        return self._step(Optimizer.SGDM if momentum else Optimizer.SGD,
+                          "sgdm" if momentum else "sgd",
+                          (float(lr), float(b), 0.0, 0.0))
 
     def adam(self, lr: float, b1: float = 0.9, b2: float = 0.999) -> "Model":
-        return self._opt_apply(Optimizer.ADAM, funcs.adam_step, False,
-                               float(lr), float(b1), float(b2), 0.0)
+        return self._step(Optimizer.ADAM, "adam",
+                          (float(lr), float(b1), float(b2), 0.0))
 
     def adamw(self, lr: float, wd: float = 0.01, b1: float = 0.9,
               b2: float = 0.999) -> "Model":
-        return self._opt_apply(Optimizer.ADAMW, funcs.adam_step, True,
-                               float(lr), float(b1), float(b2), float(wd))
+        return self._step(Optimizer.ADAMW, "adamw",
+                          (float(lr), float(b1), float(b2), float(wd)))
 
     # =========================================================================
     # loss & metrics (reference loss.cpp)
@@ -602,6 +1226,7 @@ class Model:
                 return self[-1]
             return self._hot
         out = self[-1]
+        self.fuse_break()                     # the one-hot swaps mid-cycle
         if self._hot is not None:
             self._mmu.free_obj(self._hot)
         elif t.N() != out.N() or t.HWC() != out.HWC():
@@ -644,15 +1269,32 @@ class Model:
         return self._hit
 
     def loss_dev(self, op: int, tgt: Tensor | None = None):
-        """device scalar loss, no host sync"""
+        """device scalar loss, no host sync; a fused cycle's own slice
+        when the call is the one it assumed"""
         if tgt is None:
             tgt = self._hot
         out = self[-1]
         if tgt is None or out.numel != tgt.numel:
             self._err("nn::loss shape mismatch")
             return 0.0
-        return funcs.loss_fn(Loss.NAMES[op].lower(), out.ensure_data(),
-                             tgt.ensure_data())
+        name = Loss.NAMES[op].lower()
+        self._cycle.append("loss:" + name)
+        p = self._pending
+        if p is not None and tgt is self._hot and name == p["loss_op"]:
+            return p["lval"]
+        if self._chunk is not None or (p is not None and p.get("chunk")):
+            # another loss during a chunk: the real per-batch state first,
+            # then the stash again
+            self._chunk_abort()
+            p = self._pending
+            if p is not None and tgt is self._hot \
+                    and name == p["loss_op"]:
+                return p["lval"]
+        return funcs.loss_fn(name, out.ensure_data(), tgt.ensure_data())
 
     def loss(self, op: int, tgt: Tensor | None = None) -> float:
         return float(self.loss_dev(op, tgt))
+
+
+from ..mu import future as _future  # noqa: E402  (after the class body)
+_future.NAN_HOOK = Model._nan_alarm

@@ -200,11 +200,14 @@ def scalar(dist: str, seed: int) -> float:
 
 def uniform(key, shape, device="cpu", minval: float = 0.0,
             maxval: float = 1.0):
-    """jax.random.uniform(key, shape, float32, minval, maxval)"""
+    """jax.random.uniform(key, shape, float32, minval, maxval).  The key
+    may also be a pair of 0-d int64 tensors (a captured cycle's); its
+    bounds are filled on the device, not copied there, so that the draw
+    can be captured into a CUDA graph"""
     shape = tuple(int(d) for d in shape)
     f = _unit_floats(key_bits(key, math.prod(shape), device))
-    lo = torch.tensor(minval, dtype=torch.float32, device=device)
-    span = torch.tensor(maxval, dtype=torch.float32, device=device) - lo
+    lo = torch.full((), minval, dtype=torch.float32, device=device)
+    span = torch.full((), maxval, dtype=torch.float32, device=device) - lo
     return torch.maximum(lo, f * span + lo).reshape(shape)
 
 

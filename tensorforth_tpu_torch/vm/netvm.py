@@ -4,22 +4,27 @@ tensorforth_tpu/vm/netvm.py).
 Reference behavior: src/vm/netvm.{h,cpp}: layer words with stack-pattern
 dispatch, forward/backprop handlers (incl. the for/next dataset form),
 loss words, optimizer words, dataset words, model persistence, and the
-LM tier's `nn.gen`.  Every word runs the per-word path, the one the JAX
-package takes under T4_NO_FUSE=1 T4_NO_MACRO=1: no fused training cycle,
-no trace chunks, no macro serve of a loop body.
+LM tier's `nn.gen` and `nn.train`.  The words take the JAX package's
+default path: the fused training cycle and its trace chunks (nn/model.py),
+and at the dataset NEXT the macro serve of a canonical loop body while a
+chunk is in flight.  T4_NO_FUSE=1 T4_NO_MACRO=1 keeps them on the
+per-word path; every word that reads a model's tensors drains a chunk
+first (Model.chunk_sync).
 
 Registered at their place in the dictionary but not in the port yet
 (each prints so through System.perr and leaves the stack as the JAX
-package's usage path does): `nn.moe` (the MoE layer), `nn.train` (the
-fused epoch), `nn.pipe` (pipeline-parallel training), `prof.start` and
-`prof.stop` (the device profiler words).
+package's usage path does): `nn.moe` (the MoE layer), `nn.pipe`
+(pipeline-parallel training), `nn.train` under T4_MESH (the mesh), and
+`prof.start` and `prof.stop` (the device profiler words).
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
 from ..config import Config
-from ..du import DU0, IS_OBJ
+from ..du import DU0, IS_OBJ, IS_VIEW
 from ..nn.model import Model
 from ..nn.ntypes import Layer, Loss
 from ..system import IoOp
@@ -247,9 +252,201 @@ class NetVM(TensorVM):
             self.DROP_DU(v)
             m.tick()
         else:
+            end = self.ip - 4            # the NEXT cell: the body ends here
             d.fetch(None, 0, self.sys.trace)
             self.ip = ioff
+            if m._chunk is not None:
+                self._macro_serve(m, d, ioff, end)
         return 1
+
+    # --- trace-chunk macro serve (the JAX package's netvm.py:243-441) --------
+    # While a K-batch trace chunk is in flight, the canonical cycle's words
+    # (`forward loss.ce lox ! nn.hit hit +! backprop 0.001 nn.adam`) are
+    # host bookkeeping only: stage advances, the chunk's LazyIdx futures,
+    # variable stores, lazy-sum appends.  At the dataset NEXT the loop body
+    # is decoded once per (ioff, end); when it matches the canonical
+    # grammar, the chunk's remaining batches but its last are served in
+    # one tight loop with no interpreter dispatch, with the per-word
+    # path's semantics (the same futures' values, mark_free order, RNG
+    # burn and _cycle/_note_opt bookkeeping).  The last batch is left to
+    # the interpreter, so the tensors materialize through _chunk_fwd and
+    # _chunk_apply_last; a body that does not match (another word, a
+    # hyperparameter that is not a literal or a value, t4_30e's `hint`)
+    # keeps the per-word path.  T4_NO_MACRO=1 turns it off.
+    def _body_plan(self, ioff: int, end: int):
+        """decode and match the loop body [ioff, end): (actions, value
+        addresses, optimizer word) or None.  actions: ("loss", op, sink,
+        addr) / ("hit", sink, addr), sink in {"store", "plus", "drop"}"""
+        from .pmem import ALIGN, DU_SZ, IU_SZ, Prim
+        cache = getattr(self, "_mplan_cache", None)
+        if cache is None:
+            cache = self._mplan_cache = {}
+        raw = bytes(self.pmem.buf[ioff:end])
+        hit = cache.get((ioff, end))
+        if hit is not None and hit[1] == raw:
+            return hit[0]
+        toks = []
+        a = ioff
+        ok = True
+        while a < end:
+            p = self.pmem.rd_param(a)
+            a += IU_SZ
+            if p.op == Prim.LIT and not p.exit:
+                toks.append(("val", a))
+                a += DU_SZ
+            elif p.op >= Prim.MAX_OP and not p.udf:
+                if p.ioff >= len(self.dict):
+                    ok = False
+                    break
+                toks.append(("word", self.dict[p.ioff].name))
+            elif p.op >= Prim.MAX_OP and p.udf:
+                t = self.pmem.rd_param(p.ioff)
+                if t.op == Prim.VAR and t.ioff == 0:
+                    toks.append(("addr", ALIGN(p.ioff + IU_SZ)))
+                elif t.op == Prim.LIT and t.exit:
+                    toks.append(("val", p.ioff + IU_SZ))
+                else:
+                    ok = False
+                    break
+            else:
+                ok = False
+                break
+        plan = self._match_plan(toks) if ok and a == end else None
+        cache[(ioff, end)] = (plan, raw)
+        if len(cache) > 64:
+            cache.pop(next(iter(cache)))
+        return plan
+
+    @staticmethod
+    def _match_plan(toks):
+        """grammar: forward (metric sink)* backprop val{1,2} opt"""
+        n = len(toks)
+        if n < 3 or toks[0] != ("word", "forward"):
+            return None
+        actions, i = [], 1
+        while i < n and toks[i][0] == "word" and (
+                toks[i][1].startswith("loss.") or toks[i][1] == "nn.hit"):
+            kind = ("hit",) if toks[i][1] == "nn.hit" \
+                else ("loss", toks[i][1][5:])
+            i += 1
+            if i < n and toks[i] == ("word", "drop"):
+                actions.append(kind + ("drop", 0))
+                i += 1
+            elif (i + 1 < n and toks[i][0] == "addr"
+                    and toks[i + 1][0] == "word"
+                    and toks[i + 1][1] in ("!", "+!")):
+                sink = "store" if toks[i + 1][1] == "!" else "plus"
+                actions.append(kind + (sink, toks[i][1]))
+                i += 2
+            else:
+                return None
+        if i >= n or toks[i] != ("word", "backprop"):
+            return None
+        i += 1
+        vals = []
+        while i < n and toks[i][0] == "val" and len(vals) < 2:
+            vals.append(toks[i][1])
+            i += 1
+        if not vals or i != n - 1 or toks[i][0] != "word" \
+                or toks[i][1] not in ("nn.sgd", "nn.adam", "nn.adamw"):
+            return None
+        addrs = [a[-1] for a in actions if a[-2] != "drop"]
+        if len(addrs) != len(set(addrs)):
+            return None          # two sinks on one cell: per-word path
+        return (tuple(actions), tuple(vals), toks[i][1])
+
+    def _plan_opt(self, plan):
+        """(opt, hyper) the plan's optimizer call will make: the arity of
+        Model.sgd/adam/adamw and of the M1V/M2V dispatch"""
+        _actions, vals, optw = plan
+        v = [float(self.pmem.rd_du(a)) for a in vals]
+        if optw == "nn.sgd":
+            lr, b = (v[0], 0.0) if len(v) == 1 else (v[0], v[1])
+            eps = Config.DU_EPS
+            return ("sgdm" if abs(b) > eps else "sgd", (lr, b, 0.0, 0.0))
+        if optw == "nn.adam":
+            lr, b1 = (v[0], 0.9) if len(v) == 1 else (v[0], v[1])
+            return ("adam", (lr, b1, 0.999, 0.0))
+        lr, wd = (v[0], 0.01) if len(v) == 1 else (v[0], v[1])
+        return ("adamw", (lr, 0.9, 0.999, wd))
+
+    def _macro_serve(self, m: Model, d, ioff: int, end: int):
+        if os.environ.get("T4_NO_MACRO", "0") == "1":
+            return
+        ck = m._chunk
+        if ck is None or ck["stage"] != "idle" or ck["ds"] is not d \
+                or ck["j"] >= ck["k"] - 1:
+            return
+        plan = self._body_plan(ioff, end)
+        if plan is None:
+            return
+        try:
+            opt, hyper = self._plan_opt(plan)
+        except Exception:
+            return
+        if opt != ck["opt"] or hyper != ck["hyper"]:
+            return
+        for act in plan[0]:
+            if act[0] == "loss" and act[1] != ck["loss_op"]:
+                return
+        from ..mu.future import LazyIdx
+        mmu, pm, sys_ = self.mmu, self.pmem, self.sys
+        # one future per sink, advanced in place: the batches between the
+        # first served one and the chunk's last are not observable (no
+        # word runs), so the end-of-chunk values are the per-word path's;
+        # only the objects' ids differ (mstat's counts)
+        cached = [None] * len(plan[0])
+        seeds, lvals, hits = ck["seeds"], ck["lvals"], ck["hits"]
+        kk, pos0, bsz = ck["k"] - 1, ck["pos0"], ck["batch"]
+        while m._chunk is ck and ck["stage"] == "idle":
+            j = ck["j"]
+            if j >= kk or d.done:
+                break
+            spec = d._fetch_spec
+            if spec is None or int(spec) != pos0 + j * bsz:
+                break
+            if seeds is not None:
+                if sys_.peek_keys(1)[0] != seeds[j]:
+                    break             # a stray RNG consumer: per word
+                sys_.next_key()       # the seed this forward burns
+                m._fwd_seed = seeds[j]
+            else:
+                m._fwd_seed = None
+            d._fetch_spec = None
+            for i, act in enumerate(plan[0]):
+                vec = lvals if act[0] == "loss" else hits
+                sink, addr = act[-2], act[-1]
+                f = cached[i]
+                if sink == "store":
+                    if f is None:
+                        f = mmu.future(LazyIdx(vec, j))
+                        old = pm.rd_du(addr)
+                        pm.wr_du(addr, mmu.obj2du(f))
+                        if self.future_of(old) is not None \
+                                and not IS_VIEW(old):
+                            mmu.mark_free(old)
+                        cached[i] = f
+                    else:
+                        f.data = LazyIdx(vec, j)
+                elif sink == "plus":
+                    if f is None:
+                        f = mmu.future(LazyIdx(vec, j))
+                        self._plus_into(addr, mmu.obj2du(f))
+                        cached[i] = self.future_of(pm.rd_du(addr))
+                    else:
+                        f.pending.append(LazyIdx(vec, j))
+                # "drop": the per-word path makes and frees a future no
+                # one sees
+            m._hit = LazyIdx(hits, j)
+            m._pending = None
+            m._iter += 1
+            ck["j"] = j + 1
+            m._fuse_hits += 1
+            # _note_opt would give back the chunk's own signature (held
+            # at dispatch; no word ran since): end the cycle only
+            m._cycle = []
+            self._macro_count = getattr(self, "_macro_count", 0) + 1
+            d.fetch(None, 0, 0)       # the NEXT: stage batch j + 1
 
     # --- parameter access (reference netvm.cpp:157-193) ----------------------
     def _get_parm(self, n: int):
@@ -257,6 +454,7 @@ class NetVM(TensorVM):
             self.sys.perr("", "N n(<5) required? ")
             return
         i = self.POPi()
+        self.MTOS().chunk_sync()     # the exact per-batch state
         t = self.MTOS()[i]
         p = t.grad[n] if n else (t.grad[0] if t.grad[0] is not None
                                  else t.grad[4])
@@ -276,6 +474,7 @@ class NetVM(TensorVM):
                                   else mt.grad[4])
         if p is not None and t.numel == p.numel:
             if p is not t:
+                self.MNOS().fuse_break()      # a direct weight write
                 p.replace_data(t.ensure_data().reshape(p.shape))
                 x = self.POP()
                 self.DROP_DU(x)
@@ -299,6 +498,7 @@ class NetVM(TensorVM):
         fn = self.pmem.rd_str(self.POPi())
         from ..io.nnio import nsave, nload
         if self.IS_M(self.tos):
+            self.MTOS().chunk_sync()
             if save:
                 nsave(self.MTOS(), fn, mode)
             else:
@@ -505,6 +705,7 @@ class NetVM(TensorVM):
         def _trainable(vm):
             if vm.M1V():
                 flag = vm.POPi()
+                vm.MTOS().chunk_sync()
                 vm.MTOS().train = 1 if flag else 0
             else:
                 vm.sys.perr("", "N [1|0] required ")
@@ -584,6 +785,7 @@ class NetVM(TensorVM):
         # --- debugging -------------------------------------------------------------------------------------
         def _network(vm):
             if vm.IS_M(vm.tos):
+                vm.MTOS().chunk_sync()
                 vm.sys.dot(IoOp.DOT, vm.tos)
         CODE("network", _network)
         def _npush(vm):
@@ -595,6 +797,7 @@ class NetVM(TensorVM):
             if not vm.M1V():
                 return
             i = vm.POPi()
+            vm.MTOS().chunk_sync()   # the exact per-batch state
             t = vm.MTOS()[i]
             vm.PUSH(vm.DUP_DU(vm.mmu.obj2du(t)))
         CODE("n@", _nat)
@@ -619,12 +822,30 @@ class NetVM(TensorVM):
         CODE("nn.b=", lambda vm: vm._set_parm(1))
         # --- extension: fused epoch training, pipeline training ----------
         def _nn_train(vm):
-            """( M D lr epochs -- M ) the JAX package's fused epoch (one
-            scanned program per epoch): not in the port yet"""
+            """( M D lr epochs -- M ) extension word: train the model on
+            the dataset with Adam for n epochs, each epoch a loop of one
+            batch step over the corpus on the device (nn/train.py: a
+            captured CUDA graph replayed once a batch on the card).
+            Under T4_MESH (the JAX package's SPMD trainer) it says that
+            the mesh is not in the port yet."""
             if not (vm.ss.size() > 2 and vm.IS_M(vm.ss[-3])):
                 vm.sys.perr("", "M D lr epochs nn.train? ")
                 return
-            vm._not_ported("nn.train")
+            if os.environ.get("T4_MESH"):
+                vm._not_ported("nn.train over T4_MESH")
+                return
+            epochs = vm.POPi()
+            lr = vm.fpop()
+            dsv = vm.POP()
+            ds = vm.mmu.du2obj(dsv)
+            m = vm.MTOS()
+            m.chunk_sync()
+            from ..nn.train import train_epochs
+            loss = train_epochs(m, ds, lr=lr, epochs=epochs,
+                                trace=vm.sys.trace)
+            vm.DROP_DU(dsv)
+            vm.sys.pstr(f"\\ nn.train {epochs} epochs done, "
+                        f"final loss={loss:.6g}\n")
         CODE("nn.train", _nn_train)
         def _nn_pipe(vm):
             """( M D lr epochs stages -- M ) pipeline-parallel training
@@ -660,6 +881,7 @@ class NetVM(TensorVM):
             tv = vm.POP()
             t = vm.mmu.du2obj(tv)
             m = vm.MTOS()
+            m.chunk_sync()       # generate() reads _params(): drain a chunk
             from ..nn.serve import generate
             # a matrix prompt [N, S0] decodes N sequences in one program
             ids = t.numpy().reshape(t.H(), t.W()) if t.rank == 2 \

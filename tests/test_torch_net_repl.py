@@ -1,10 +1,12 @@
 """The port's REPL at the net level (tensorforth_tpu_torch: eForth +
 TensorVM + NetVM) against the JAX package's, on the CPU: the goldens,
 the deferred-scalar cases of test_future.py, every NN word's usage-error
-path, the LM examples and `nn.gen`, and a truncated t4_30e.  The JAX
-package runs its per-word path (T4_NO_FUSE=1 T4_NO_MACRO=1), the one the
-port has; where not stated otherwise the transcripts are equal byte for
-byte.
+path, the LM examples, `nn.gen`, `nn.train`, and truncated t4_30e and
+t4_50_tpu.  Both packages run their per-word path here (T4_NO_FUSE=1
+T4_NO_MACRO=1) where not stated otherwise; tests/test_torch_fusion.py,
+test_torch_chunk.py, test_torch_macro.py and test_torch_nan_guard.py hold
+the default (fused) path.  Where not stated otherwise the transcripts are
+equal byte for byte.
 """
 import os
 import re
@@ -107,7 +109,7 @@ loss.ce lox ! nn.hit hit +! nn.hit hit +!""")
 
 
 # --- every net word's usage-error path ------------------------------------------------
-NOT_PORTED = ("nn.moe", "nn.train", "nn.pipe", "prof.start", "prof.stop")
+NOT_PORTED = ("nn.moe", "nn.pipe", "prof.start", "prof.stop")
 NET_WORDS = (
     "nn.model conv1x1 conv2d dconv2d linear relu tanh sigmoid selu "
     "leakyrelu elu softmax logsoftmax batchnorm nn.attn nn.moe layernorm "
@@ -143,13 +145,43 @@ def test_words_not_in_the_port_say_so(t4p, word):
     """registered, printed as an error, the stack as the JAX package's
     usage path leaves it (nn.moe with its arguments too)"""
     args = {"nn.moe": "1 4 1 1 nn.model 16 4 ",
-            "nn.train": "1 4 1 1 nn.model 2 0.1 3 ",
             "nn.pipe": "1 4 1 1 nn.model 2 0.1 3 2 "}.get(word, "")
     before = t4p.forth(f"abort {args}.s")
     out = t4p.forth(f"{word} .s")
     assert f"{word} is not in the port yet" in out
     assert "ERROR" not in out and "Traceback" not in out
     assert out.splitlines()[-1] == before.splitlines()[-1]
+
+
+def test_nn_train_errors_match_jax(t4, t4p, monkeypatch):
+    """nn.train on a model and a number in place of a dataset: both
+    packages raise in the word, print the same ERROR line and leave the
+    same stack.  Under T4_MESH the port says that the mesh is not in the
+    port yet and leaves the stack"""
+    line = "abort 1 4 1 1 nn.model 2 0.1 3 nn.train .s"
+    got = t4p.forth(line)
+    assert got == t4.forth(line)
+    assert "ERROR in 'nn.train'" in got
+    monkeypatch.setenv("T4_MESH", "dp2")
+    before = t4p.forth("abort 1 4 1 1 nn.model 2 0.1 3 .s")
+    out = t4p.forth("nn.train .s")
+    assert "nn.train over T4_MESH is not in the port yet" in out
+    assert out.splitlines()[-1] == before.splitlines()[-1]
+
+
+def test_t4_50_tpu_truncated_matches_jax(t4, t4p, monkeypatch, tmp_path):
+    """examples/t4_50_tpu.4th (5 epochs of nn.train) on a window of 3
+    batches, through both REPLs at their defaults: every line, the
+    printed numbers within a relative 1e-4 (FUTURE_TRAINED); the model it
+    saves goes to the test's own directory"""
+    monkeypatch.setenv("T4_MAX_BATCH", "3")
+    monkeypatch.delenv("T4_NO_FUSE")
+    monkeypatch.delenv("T4_NO_MACRO")
+    lines = _lines("t4_50_tpu.4th", **{"/tmp/": f"{tmp_path}/"})
+    got = run_lines(t4p, lines)
+    assert_close_transcripts(got, run_lines(t4, lines), 1e-4)
+    assert "nn.train 5 epochs done, final loss=" in got
+    assert "ERROR" not in got and "hits/100 = " in got
 
 
 def test_unknown_level_raises_and_net_is_the_default(t4p):
