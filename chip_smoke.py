@@ -34,8 +34,14 @@ Phases, one JSON line each:
   serve   tiny_lm at bench_prefill's full width (dim 1024, 8 heads,
           4 layers, vocab 2048, batch 8, 2048-token prompt, 64 new
           tokens) through generate(), f32 and int8 KV caches: kernel
-          launches counted, greedy tokens held against a teacher-forced
-          replay, prefill/decode timings
+          launches counted, the decode's graph captures and replays (one
+          replay a token after the prefill), its tokens against the
+          uncaptured step on the card (greedy and sampled), a strict
+          generate against its teacher-forced replay, prefill/decode
+          timings of the graphs and of the uncaptured step with profiles;
+          then an MoE LM (tiny_lm's widths at 2 layers, an MoE block
+          after each attention block) whose graph tokens are held against
+          its eager ones, on the route moe_select picks and dispatched
   train   the same tiny_lm, full width and depth, through the word path
           forward / loss(CE) / backprop / adam on 8 x 2048 tokens:
           kernel launches counted in one step, the step's weight
@@ -92,10 +98,20 @@ Phases, one JSON line each:
           per-word loop (TOL_NET_TRAIN), with the flash kernels inside
           its graph counted through the profiler
   net_gen an LM built by words at bench_prefill's width, `64 nn.gen`
-          on a seeded [8, 2048] prompt: tokens against generate() and
-          the teacher-forced replay, the flash forward launched once per
+          on a seeded [8, 2048] prompt: tokens against generate(), the
+          uncaptured step's and (under strict) the teacher-forced
+          replay, the decode's captures and replays, a generate's kernel
+          launches by the profiler, the flash forward launched once per
           layer; then one word-path step `forward loss.ce backprop
           nn.adam` with the train phase's launch counts
+  moe     the MoE layer: examples/t4_52_moe.4th's MoE parts through the
+          REPL on the card against a CPU run of the port (TOL_NN), its
+          nn.pipe part saying it is not in the port; the zoo's tiny_moe
+          one step card against CPU under fast and strict, soft and
+          under T4_MOE_DISPATCH=1; train_epochs over tiny_moe on a
+          seeded stub corpus against the word loop; the REPL's fused
+          cycles and chunks over tiny_moe's layers against its per-word
+          path, bit for bit, both routes
   attn_bench  the attention measurement path at full width (16 heads,
           S 2048, dh 128; the sweep at B x S = 16 x 2048, 4 x 4096,
           1 x 8192): bench_attention, bench_attention_bwd,
@@ -142,6 +158,7 @@ NO_SPILL = ("flash_fwd", "flash_bwd", "flash_bwd_fused", "attn_dots",
             "gemm_sm90")
 LM = dict(batch=8, vocab=2048, dim=1024, heads=8, layers=4, rope=True)
 N_PROMPT, N_NEW = 2048, 64
+MOE_LM = dict(LM, layers=2)      # the MoE LM's depth, cut from 4
 TOL_F32 = 1e-4     # f32 sums in another order than the plain version's
 # the f32 forward against f64, absolute plus relative: the JAX package's
 # own tolerance for its flash forward in f32 (tests/test_attention.py)
@@ -178,6 +195,20 @@ TOL_DOTS = 2.0 ** -6  # the probe against its plain version, of the largest
 TOL_GRAD = 1e-3    # train: dw, db against the plain attention path, of
 #                    each tensor's largest value
 MARGIN = 1e-4      # top-2 logit gap below which a replay flip is a tie
+# the class of the dots around a kernel when its path is held against
+# the plain one: a decode against its teacher-forced replay (under fast
+# the prompt's attention core is K1's f32 class in the decode and a bf16
+# einsum in the replay, which is not flash-eligible at 2112 tokens), and
+# the train step's gradients against the plain attention path's (under
+# fast the bf16 rounding of the dots' operands turns the two cores'
+# ~1e-6 difference into whole bf16 steps where an operand straddles a
+# rounding point).  strict holds the dots near f32 (three bf16 products,
+# 2^-16 of each term)
+CHECK_CLASS = "strict"
+SAMPLE_SEED, SAMPLE_TOP_K = 7, 50   # the sampled decode's draw
+# the MoE LM of the serve phase: tiny_lm's widths (LM) at 2 layers, an
+# MoE block (4 experts, hidden 1024, top-2) after each attention block
+MOE_BLOCK = dict(experts=4, hidden=1024, top_k=2)
 TRAIN_STEPS = 5    # timed steps after the counted one
 TRAIN_LR = 1e-4    # Adam.  The reference's Adam has no bias correction,
 #                    so its first steps move every weight by about 3 lr;
@@ -298,6 +329,20 @@ NAN_LOOP = ("variable {v}h 0 {v}h ! variable {v}l\n"
 NET_TRAIN_LM = dict(batch=8, seq=2048, dim=1024, heads=8, classes=10,
                     layers=2)
 NET_TRAIN_BATCHES = 4
+# the moe phase: nn.train over the zoo's tiny_moe on a stub corpus of
+# MOE_BATCHES batches; the REPL's fused paths over tiny_moe's layers at
+# mnist_train's shape on a window of MOE_FUSED_BATCHES batches in chunks
+# of MOE_FUSED_CHUNK
+MOE_BATCHES = 4
+MOE_FUSED_BATCHES = 7
+MOE_FUSED_CHUNK = 3
+MOE_FUSED_NET = ("8 28 28 1 nn.model\n"
+                 "4 nn.attn 2 32 4 nn.moe tanh flatten 10 linear softmax\n"
+                 "constant {v}\n"
+                 "{v} batchsize dataset mnist_train constant {v}d drop")
+MOE_FUSED_LOOP = ("variable {v}h 0 {v}h ! variable {v}l\n"
+                  ": {v}ep for forward loss.ce {v}l ! nn.hit {v}h +! "
+                  "backprop 0.001 nn.adam next ;")
 # its weights after one epoch against the per-word loop's from the same
 # start, of the largest weight: the two run the same kernels in the same
 # order (the graph replays what the words launch), so they agree to the
@@ -1585,7 +1630,10 @@ def phase_tensor(seed: int, device=None, big=(4096, 2048), n_linalg=1024,
 def replay_check(m, out, device, lm, n_prompt):
     """teacher-forced replay: the argmax of the full forward over the
     generated sequence at each decoded position must be the token that
-    followed it.  Returns (checked, flips above MARGIN, ties below it)."""
+    followed it.  Returns (checked, flips above MARGIN, ties below it).
+    The forward runs in Config.PRECISION's class, so a replay checks a
+    decode of the same class (the serve and net_gen phases take both
+    under strict, see CHECK_CLASS)"""
     import torch
     from tensorforth_tpu_torch.models import tiny_lm
     from tensorforth_tpu_torch.nn import funcs
@@ -1604,6 +1652,86 @@ def replay_check(m, out, device, lm, n_prompt):
     flip = want != got
     return (int(flip.size), int((flip & (margin >= MARGIN)).sum()),
             int((margin < MARGIN).sum()))
+
+
+class precision_set:
+    """Config.PRECISION set to `cls` inside the block, put back after"""
+
+    def __init__(self, cls):
+        self.cls = cls
+
+    def __enter__(self):
+        from tensorforth_tpu_torch.config import Config
+        self.kept, Config.PRECISION = Config.PRECISION, self.cls
+
+    def __exit__(self, *exc):
+        from tensorforth_tpu_torch.config import Config
+        Config.PRECISION = self.kept
+
+
+def decode_checks(m, prompt, n_new, device, lm, out, checks, tag=""):
+    """the captured decode against the uncaptured body on the same device
+    (serve._generate_ids with graphs=False: the same step, run eagerly),
+    greedy (`out`, the main path's tokens) and sampled with one seed, and
+    a strict generate against its teacher-forced replay; returns what it
+    measured"""
+    from tensorforth_tpu_torch.nn import serve
+    device = torch_device(device)
+    on_card = device.type == "cuda"
+    eager = serve._generate_ids(m, prompt, n_new, temp=0.0, graphs=False)
+    checks[f"{tag}tokens_equal_eager_body"] = bool((eager == out).all())
+    kw = dict(temp=1.0, seed=SAMPLE_SEED, top_k=SAMPLE_TOP_K)
+    sampled = serve.generate(m, prompt, n_new, **kw)
+    sampled_eager = serve._generate_ids(m, prompt, n_new, graphs=False, **kw)
+    checks[f"{tag}sampled_tokens_equal_eager_body"] = bool(
+        (sampled == sampled_eager).all())
+    checks[f"{tag}sampled_tokens_differ_from_greedy"] = bool(
+        (sampled != out).any())
+    # the replay of a decode of the same class: under fast the prompt's
+    # attention core is K1's f32 class while the replay's einsum core
+    # rounds to bf16, so the strict class holds both to f32's order
+    fast = replay_check(m, out, device, lm, prompt.shape[1])
+    with precision_set(CHECK_CLASS):
+        strict = serve.generate(m, prompt, n_new, temp=0.0)
+        checked, flips, ties = replay_check(m, strict, device, lm,
+                                            prompt.shape[1])
+    checks[f"{tag}replay_tokens"] = flips == 0
+    return {"eager_token_agreement": float((eager == out).mean()),
+            "sampled": {"seed": SAMPLE_SEED, "top_k": SAMPLE_TOP_K,
+                        "agreement_with_eager": float(
+                            (sampled == sampled_eager).mean())},
+            "replay_class": CHECK_CLASS, "replay_checked": checked,
+            "replay_flips": flips, "replay_ties_below_margin": ties,
+            "fast_replay_of_fast_decode": {
+                "checked": fast[0], "flips_above_margin": fast[1],
+                "ties": fast[2]},
+            "strict_token_agreement_with_fast": float(
+                (strict == out).mean()),
+            "on_card": on_card}
+
+
+def torch_device(device):
+    import torch
+    return torch.device("cuda" if device is None else device)
+
+
+def moe_lm(seq, device, lm, moe=MOE_BLOCK):
+    """tiny_lm's program with an MoE block after each attention layer's
+    activation (test_lm.py:207-225's MoE LM at `lm`'s widths)"""
+    from tensorforth_tpu_torch.models.zoo import _new_model
+    from tensorforth_tpu_torch.nn.ntypes import Layer
+    m = _new_model(lm["batch"], seq, 1, 1, device=device)
+    m.add(Layer.EMBED, lm["vocab"], float(lm["dim"]))
+    for _ in range(lm["layers"]):
+        m.add(Layer.LNORM)
+        m.add(Layer.ATTN, lm["heads"], 3.0 if lm.get("rope") else 1.0)
+        m.add(Layer.TANH)
+        m.add(Layer.MOE, moe["experts"], float(moe["hidden"]),
+              [moe["top_k"]])
+    m.add(Layer.LNORM)
+    m.add(Layer.PROJ, lm["vocab"])
+    m.add(Layer.SOFTMAX)
+    return m
 
 
 def profile_run(fn, device, wall_ms):
@@ -1628,9 +1756,16 @@ def profile_run(fn, device, wall_ms):
                 e.self_device_time_total / 1e3)
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # cuBLAS's GEMM kernels (the class's products and the f32 `@`s;
+    # the port's own GEMM kernels are named t4_*)
+    gemm_ms = sum(v for k, v in by_name.items()
+                  if "gemm" in k.lower() and "t4_" not in k)
     out = {"device_busy_ms": busy_ms if busy_ms > 0 else None,
            "device_idle_share": (1 - busy_ms / wall_ms
                                  if busy_ms > 0 else None),
+           "cublas_gemm_ms": gemm_ms,
+           "cublas_gemm_share_of_busy": (gemm_ms / busy_ms
+                                         if busy_ms > 0 else None),
            "kernel_launches": sum(e.count for e in prof.key_averages()
                                   if e.device_type == DeviceType.CUDA)}
     for nm in FLASH_NAMES + ("Memcpy DtoD",):
@@ -1644,28 +1779,44 @@ def profile_run(fn, device, wall_ms):
     return out
 
 
-def profile_generate(m, prompt, n_new, device, wall_ms):
-    from tensorforth_tpu_torch.nn.serve import generate
-    return profile_run(lambda: generate(m, prompt, n_new, temp=0.0), device,
-                       wall_ms)
+def profile_generate(m, prompt, n_new, device, wall_ms, graphs=True):
+    from tensorforth_tpu_torch.nn import serve
+    return profile_run(lambda: serve._generate_ids(
+        m, prompt, n_new, temp=0.0, graphs=graphs), device, wall_ms)
+
+
+def time_generate(m, prompt, n_new, sync, graphs=True, reps=3):
+    """median ms of a prefill alone (0 new tokens) and of a whole
+    generate, each synchronized, and their samples"""
+    from tensorforth_tpu_torch.nn import serve
+    pre, tot = [], []
+    for _ in range(reps):
+        for n_gen, acc in ((0, pre), (n_new, tot)):
+            t0 = time.perf_counter()
+            serve._generate_ids(m, prompt, n_gen, temp=0.0, graphs=graphs)
+            sync()
+            acc.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(pre), statistics.median(tot), pre, tot
 
 
 def phase_serve(seed: int, device="cuda", lm=LM, n_prompt=N_PROMPT,
-                n_new=N_NEW, expect_launches=None):
+                n_new=N_NEW, expect_launches=None, moe_lm_cfg=MOE_LM):
     """the main path: returns the flash forward's launches in it, and its
     split's (the f32 class splits before each launch)"""
     import torch
     from tensorforth_tpu_torch.models import tiny_lm
+    from tensorforth_tpu_torch.nn import serve
     from tensorforth_tpu_torch.nn.serve import generate
     from tensorforth_tpu_torch.ops import attn
     from tensorforth_tpu_torch.system import System
+    on_card = torch.device(device).type == "cuda"
 
     def sync():
-        if torch.device(device).type == "cuda":
+        if on_card:
             torch.cuda.synchronize()
 
     System.get_sys().seed(seed)
-    if torch.device(device).type == "cuda":
+    if on_card:
         torch.cuda.reset_peak_memory_stats()
     m = tiny_lm(seq=n_prompt, device=device, **lm)
     n = lm["batch"]
@@ -1673,16 +1824,20 @@ def phase_serve(seed: int, device="cuda", lm=LM, n_prompt=N_PROMPT,
                                                  (n, n_prompt))
     # --- the main path, counted: every count to 0 just before, read after
     reset_flash_counts()
+    serve.reset_counts()
     t0 = time.perf_counter()
     out = generate(m, prompt, n_new, temp=0.0)
     sync()
     first_ms = (time.perf_counter() - t0) * 1e3
+    decode = dict(serve.COUNTS)
     l_f32 = attn.flash_attention.launches
     out8 = generate(m, prompt, n_new, temp=0.0, kv_dtype="int8")
     sync()
     launches = attn.flash_attention.launches
     split = attn.flash_attention.split_launches
     l_int8 = launches - l_f32
+    segments = serve._segments(n_prompt, n_prompt + n_new,
+                               serve.Config.DECODE_WIN)
 
     checks = {}
     for nm, o in (("f32", out), ("int8", out8)):
@@ -1694,46 +1849,86 @@ def phase_serve(seed: int, device="cuda", lm=LM, n_prompt=N_PROMPT,
         checks["launches_per_generate"] = (l_f32 == expect_launches
                                            and l_int8 == expect_launches)
     checks["split_before_each_launch"] = split == launches
-    checked, flips, ties = replay_check(m, out, device, lm, n_prompt)
-    checks["replay_tokens"] = flips == 0
+    # a generate on the card: its captures, then one replay a token
+    # after the prefill, and no eager step
+    checks["decode_captures_and_replays"] = (
+        decode == {"captures": len(segments), "replays": n_new - 1,
+                   "steps": 0} if on_card else
+        decode == {"captures": 0, "replays": 0, "steps": n_new - 1})
+    agree = decode_checks(m, prompt, n_new, device, lm, out, checks)
     int8_agree = float((out8[:, n_prompt:] == out[:, n_prompt:]).mean())
 
-    # --- timings (after the counted run)
-    pre, tot = [], []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        generate(m, prompt, 0, temp=0.0)
-        sync()
-        pre.append((time.perf_counter() - t0) * 1e3)
-        t0 = time.perf_counter()
-        generate(m, prompt, n_new, temp=0.0)
-        sync()
-        tot.append((time.perf_counter() - t0) * 1e3)
-    prefill_ms, total_ms = statistics.median(pre), statistics.median(tot)
+    # --- timings (after the counted run): the captured decode and the
+    #     uncaptured body on the same device, in turns
+    t_graph = time_generate(m, prompt, n_new, sync, graphs=on_card)
+    t_eager = time_generate(m, prompt, n_new, sync, graphs=False)
+    prefill_ms, total_ms = t_graph[:2]
     decode_s = (total_ms - prefill_ms) / 1e3
-    prof = {"prefill": profile_generate(m, prompt, 0, device, prefill_ms),
+    eager_decode_s = (t_eager[1] - t_eager[0]) / 1e3
+    prof = {"prefill": profile_generate(m, prompt, 0, device, prefill_ms,
+                                        graphs=on_card),
             "generate": profile_generate(m, prompt, n_new, device,
-                                         total_ms)}
+                                         total_ms, graphs=on_card),
+            "generate_eager_body": profile_generate(
+                m, prompt, n_new, device, t_eager[1], graphs=False)}
+    moe = moe_lm_check(seed, device, moe_lm_cfg, n_prompt, n_new, sync,
+                       checks)
     emit({"phase": "serve", "model": dict(lm, n_prompt=n_prompt,
                                           n_new=n_new),
           "launches_f32": l_f32, "launches_int8": l_int8,
-          "split_launches": split,
-          "replay_checked": checked, "replay_flips": flips,
-          "replay_ties_below_margin": ties, "margin": MARGIN,
-          "int8_token_agreement": int8_agree,
+          "split_launches": split, "decode_counts": decode,
+          "segments": segments, **agree,
+          "margin": MARGIN, "int8_token_agreement": int8_agree,
           "first_generate_ms": first_ms, "prefill_ms": prefill_ms,
           "total_ms_per_generate": total_ms,
           "decode_tokens_per_s": (n * n_new / decode_s if decode_s > 0
                                   else None),
-          "timing_samples": {"prefill_ms": pre, "total_ms": tot},
-          "profile": prof, "peak_mem_gb": (
-              torch.cuda.max_memory_allocated() / 1e9
-              if torch.device(device).type == "cuda" else None),
+          "eager_body": {"prefill_ms": t_eager[0],
+                         "total_ms_per_generate": t_eager[1],
+                         "decode_tokens_per_s": (
+                             n * n_new / eager_decode_s
+                             if eager_decode_s > 0 else None),
+                         "timing_samples": {"prefill_ms": t_eager[2],
+                                            "total_ms": t_eager[3]}},
+          "timing_samples": {"prefill_ms": t_graph[2],
+                             "total_ms": t_graph[3]},
+          "profile": prof, "moe_lm": moe, "peak_mem_gb": (
+              torch.cuda.max_memory_allocated() / 1e9 if on_card else None),
           "checks": checks})
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise RuntimeError(f"serve checks failed: {bad}")
     return {"flash_fwd": launches, "flash_fwd_split": split}
+
+
+def moe_lm_check(seed, device, lm, n_prompt, n_new, sync, checks):
+    """the MoE LM (moe_lm) served: its captured decode's tokens against
+    the uncaptured body's, greedy, on the route moe_select picks (soft:
+    8 tokens a step) and under T4_MOE_DISPATCH=1 (both the prefill and
+    the steps dispatch)"""
+    from tensorforth_tpu_torch.nn import serve
+    from tensorforth_tpu_torch.system import System
+    System.get_sys().seed(seed + 1)
+    m = moe_lm(n_prompt, device, lm)
+    prompt = np.random.RandomState(seed + 1).randint(0, lm["vocab"],
+                                                     (lm["batch"], n_prompt))
+    res = {"model": dict(lm, moe=MOE_BLOCK)}
+    for route, env in (("auto", None), ("dispatch", "1")):
+        with env_set(T4_MOE_DISPATCH=env):
+            serve.reset_counts()
+            t0 = time.perf_counter()
+            g = serve.generate(m, prompt, n_new, temp=0.0)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = dict(serve.COUNTS)
+            e = serve._generate_ids(m, prompt, n_new, temp=0.0, graphs=False)
+        checks[f"moe_lm_{route}_tokens_equal_eager_body"] = bool(
+            (g == e).all())
+        res[route] = {"first_generate_ms": ms, "decode_counts": counts,
+                      "token_agreement": float((g == e).mean()),
+                      "distinct_new_tokens": int(len(np.unique(
+                          g[:, n_prompt:])))}
+    return res
 
 
 def flash_counts():
@@ -1792,10 +1987,23 @@ def phase_train(seed: int, device="cuda", lm=LM, seq=N_PROMPT,
     def grads():
         return [(e["dw"]) for e in weights.dump_state(m)]
 
-    # --- the step through the plain attention path: what the counted
-    #     step's gradients are held against (its launches are not counted)
+    # --- the kernels' gradients against the plain attention path (their
+    #     launches are not counted), like against like: the plain path's
+    #     core is the flash kernels' plain version in their class
+    #     (funcs._sdpa_plain: exact f32), and both steps take the other
+    #     dots under CHECK_CLASS.  Under fast the bf16 rounding of those
+    #     dots' operands turns the cores' ~1e-6 difference into whole
+    #     bf16 steps wherever an operand straddles a rounding point (the
+    #     fast pair is recorded beside, unchecked)
+    with precision_set(CHECK_CLASS):
+        m.forward(inp).backprop(hot, flash=False)
+        want = grads()
+        m.grad_zero()
+        m.forward(inp).backprop(hot)
+        got = grads()
+        m.grad_zero()
     m.forward(inp).backprop(hot, flash=False)
-    want = grads()
+    want_fast = grads()
     m.grad_zero()
     sync()
     if on_card:
@@ -1807,7 +2015,7 @@ def phase_train(seed: int, device="cuda", lm=LM, seq=N_PROMPT,
     m.forward(inp)
     losses = [m.loss(Loss.CE, hot)]
     m.backprop(hot)
-    got = grads()
+    got_fast = grads()
     m.adam(TRAIN_LR)
     sync()
     first_ms = (time.perf_counter() - t0) * 1e3
@@ -1815,13 +2023,15 @@ def phase_train(seed: int, device="cuda", lm=LM, seq=N_PROMPT,
                     flash_fwd_split=attn.flash_attention.split_launches,
                     flash_bwd_split=attn.flash_attention_bwd.split_launches)
 
-    rel = [float(np.abs(g - w).max() / (np.abs(w).max() + 1e-30))
-           for g, w in zip(got, want)]
-    checks = {"grads_match_plain_attention": max(rel) <= TOL_GRAD,
+    def rel(gs, ws):
+        return [float(np.abs(g - w).max() / (np.abs(w).max() + 1e-30))
+                for g, w in zip(gs, ws)]
+    checked, fast = rel(got, want), rel(got_fast, want_fast)
+    checks = {"grads_match_plain_attention": max(checked) <= TOL_GRAD,
               "grads_nonzero": all(bool(w.any()) for w in want)}
     if expect_launches is not None:
         checks["launches_per_step"] = launches == expect_launches
-    del got, want
+    del got, want, got_fast, want_fast
 
     # --- timed steps, the host clock with a sync after each word
     def step(split=None):
@@ -1849,7 +2059,10 @@ def phase_train(seed: int, device="cuda", lm=LM, seq=N_PROMPT,
     del losses[n_timed:]               # the profiled step's loss
     emit({"phase": "train", "model": dict(lm, seq=seq),
           "optimizer": f"adam({TRAIN_LR})", "launches_per_step": launches,
-          "max_rel_grad_err_vs_plain_attention": max(rel),
+          "max_rel_grad_err_vs_plain_attention": max(checked),
+          "grad_check_class": CHECK_CLASS,
+          "rel_grad_err_vs_plain_attention_by_tensor": checked,
+          "fast_pair_rel_grad_err_by_tensor": fast,
           "grad_tol": TOL_GRAD, "losses": losses,
           "first_step_ms": first_ms, "ms_per_step": med,
           "split_ms": {k: statistics.median(v) for k, v in split.items()},
@@ -2703,7 +2916,7 @@ def phase_net_gen(seed: int, device=None, lm=LM, n_prompt=N_PROMPT,
     generate() and the teacher-forced replay, then one word-path training
     step; returns the flash kernels' launches in both"""
     import torch
-    from tensorforth_tpu_torch.nn import funcs
+    from tensorforth_tpu_torch.nn import funcs, serve
     from tensorforth_tpu_torch.nn.serve import generate
     from tensorforth_tpu_torch.ops import attn
     on_card = device is None or torch.device(device).type == "cuda"
@@ -2728,20 +2941,26 @@ def phase_net_gen(seed: int, device=None, lm=LM, n_prompt=N_PROMPT,
 
     # --- nn.gen, counted: every count to 0 just before, read after
     reset_flash_counts()
+    serve.reset_counts()
     t0 = time.perf_counter()
     out.append(run(f"lm pr {n_new} nn.gen"))
     sync()
     first_ms = (time.perf_counter() - t0) * 1e3
     gen = dict(flash_counts(),
                flash_fwd_split=attn.flash_attention.split_launches)
+    decode = dict(serve.COUNTS)
     toks = vm.mmu.du2obj(vm.tos).numpy().astype(np.int64)
     out.append(run("drop drop"))
     want = generate(m, prompt, n_new, temp=0.0)
     checks["tokens_shape"] = toks.shape == (n, n_prompt + n_new)
     checks["tokens_equal_generate"] = bool((toks == want).all())
-    checked, flips, ties = replay_check(m, toks, device or "cuda", lm,
-                                        n_prompt)
-    checks["replay_tokens"] = flips == 0
+    segments = serve._segments(n_prompt, n_prompt + n_new,
+                               serve.Config.DECODE_WIN)
+    checks["decode_captures_and_replays"] = (
+        decode == {"captures": len(segments), "replays": n_new - 1,
+                   "steps": 0} if on_card else
+        decode == {"captures": 0, "replays": 0, "steps": n_new - 1})
+    agree = decode_checks(m, prompt, n_new, device, lm, toks, checks)
     if expect_gen is not None:
         checks["launches_per_nn_gen"] = gen == expect_gen
 
@@ -2753,6 +2972,8 @@ def phase_net_gen(seed: int, device=None, lm=LM, n_prompt=N_PROMPT,
             run(f"lm pr {n_gen} nn.gen drop drop")
             sync()
             acc.append((time.perf_counter() - t0) * 1e3)
+    prof = profile_generate(m, prompt, n_new, torch_device(device),
+                            statistics.median(tot), graphs=on_card)
 
     # --- one word-path step: forward loss.ce backprop nn.adam, counted
     hot = vm.mmu.tensor(n, n_prompt, lm["vocab"], 1)
@@ -2780,9 +3001,10 @@ def phase_net_gen(seed: int, device=None, lm=LM, n_prompt=N_PROMPT,
     emit({"phase": "net_gen", "model": dict(lm, n_prompt=n_prompt,
                                             n_new=n_new),
           "words": words, "launches_per_nn_gen": gen,
-          "launches_per_step": step, "replay_checked": checked,
-          "replay_flips": flips, "replay_ties_below_margin": ties,
-          "first_nn_gen_ms": first_ms,
+          "launches_per_step": step, "decode_counts": decode,
+          "segments": segments, **agree,
+          "generate_kernel_launches": prof["kernel_launches"],
+          "generate_profile": prof, "first_nn_gen_ms": first_ms,
           "nn_gen_ms": statistics.median(tot),
           "prefill_ms": statistics.median(pre),
           "timing_samples": {"nn_gen_ms": tot, "prefill_ms": pre},
@@ -2793,6 +3015,183 @@ def phase_net_gen(seed: int, device=None, lm=LM, n_prompt=N_PROMPT,
         raise RuntimeError(f"net_gen checks failed: {bad}")
     return {k: gen.get(k, 0) + step.get(k, 0)
             for k in set(gen) | set(step)}
+
+
+def phase_moe(seed: int, device=None, cfg=None, n_batches=MOE_BATCHES,
+              script_dir="examples", fused_batches=MOE_FUSED_BATCHES):
+    """the MoE layer on the card (nothing of it is a TPU kernel: the JAX
+    package's MoE is XLA's einsums, scatter and gather): t4_52_moe.4th's
+    MoE parts through the REPL on the card against a CPU run of the port,
+    its printed numbers within TOL_NN; the zoo's tiny_moe (its defaults)
+    one step card against a CPU copy under fast and strict, soft and
+    under T4_MOE_DISPATCH=1; train_epochs over tiny_moe on a seeded stub
+    corpus, the graph's weights against the word loop's; the REPL's
+    fused cycles and trace chunks over tiny_moe's layers at mnist_train's
+    shape against the per-word path, bit for bit"""
+    import torch
+    from tensorforth_tpu_torch import models
+    from tensorforth_tpu_torch.config import Config
+    from tensorforth_tpu_torch.nn.ntypes import Loss
+    from tensorforth_tpu_torch.nn.train import train_epochs
+    from tensorforth_tpu_torch.system import System
+    dev = torch_device(device)
+    on_card = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize()) if on_card else (lambda: None)
+    cfg = dict(cfg or {})
+    checks, res = {}, {}
+
+    # --- t4_52_moe.4th: the card against the CPU
+    with open(os.path.join(script_dir, "t4_52_moe.4th")) as f:
+        lines = [ln.rstrip("\n") for ln in f]
+    cut = next(i for i, ln in enumerate(lines) if "pipeline-parallel" in ln)
+    outs = {}
+    for where in (device, "cpu"):
+        inst, run = repl(where, seed)
+        outs[str(where)] = "".join(run(ln) for ln in lines[:cut])
+        if where is device:
+            rest = "".join(run(ln) for ln in lines[cut:cut + 6])
+        inst.teardown()
+    card_out, cpu_out = outs[str(device)], outs["cpu"]
+    num = re.compile(r"[-+]?\d+\.?\d*(?:e[-+]?\d+)?")
+    tol = TOL_NN[Config.PRECISION]
+    pairs = [(float(a), float(b)) for a, b in zip(num.findall(card_out),
+                                                  num.findall(cpu_out))]
+    worst = max((abs(a - b) / max(abs(a), abs(b)) for a, b in pairs
+                 if a != b), default=0.0)
+    checks["t4_52_moe_lines_match_cpu"] = (
+        num.sub("#", card_out) == num.sub("#", cpu_out) and worst <= tol)
+    checks["t4_52_moe_pipe_not_in_port"] = (
+        "nn.pipe is not in the port yet" in rest)
+    checks["t4_52_moe_no_error"] = not transcript_faults(card_out + rest)
+    res["t4_52_moe"] = {"worst_rel_diff_vs_cpu": worst, "tol": tol,
+                        "numbers": len(pairs), "precision": Config.PRECISION,
+                        "losses": re.findall(r"loss \w+ += (\S+)",
+                                             card_out)}
+
+    # --- tiny_moe: one step on the card against a CPU copy
+    build = lambda where: models.tiny_moe(device=where, **cfg)  # noqa: E731
+    probe = build("cpu")
+    b, s_, d = probe[0].N(), probe[0].H(), probe[0].W()
+    classes = probe[-1].HWC()
+    rs = np.random.RandomState(seed)
+    x = rs.randn(b, s_, d, 1).astype(np.float32)
+    hot = np.eye(classes, dtype=np.float32)[rs.randint(0, classes, b)]
+    hot = hot.reshape(b, 1, classes, 1)
+    steps = {}
+    for cls in ("fast", "strict"):
+        for route, env in (("soft", "0"), ("dispatch", "1")):
+            with precision_set(cls), env_set(T4_MOE_DISPATCH=env):
+                System.get_sys().seed(seed)
+                m = build(device)
+                c = nn_cpu_copy(m, build)
+                margin, top_cpu = moe_routing(c, x)
+                _, top_card = moe_routing(m, x)
+                card = nn_step(m, x, hot, Loss.CE, seed)
+                cpu = nn_step(c, x, hot, Loss.CE, seed)
+                cmp = nn_compare(card, cpu, TOL_NN[cls])
+            # tokens whose experts differ between the card and the CPU: a
+            # near tie of the gates that the class's rounding tips over
+            cmp["gate_margin_cpu"] = margin
+            cmp["tokens_routed_apart"] = int(
+                (top_card != top_cpu).any(axis=1).sum())
+            steps[f"{cls}_{route}"] = cmp
+            checks[f"tiny_moe_step_{cls}_{route}"] = cmp["ok"]
+    res["tiny_moe_step"] = steps
+
+    # --- nn.train over tiny_moe against the word loop, both routes
+    b = probe[0].N()
+    data = rs.rand(n_batches * b, s_, d, 1).astype(np.float32)
+    labels = rs.randint(0, classes, size=n_batches * b)
+    ds = _StubDataset(data, labels, b)
+    eye = np.eye(classes, dtype=np.float32)
+    from tensorforth_tpu_torch.mu.mmu import MMU
+    mmu = MMU.get_mmu()
+    trains = {}
+    for route, env in (("soft", "0"), ("dispatch", "1")):
+        with env_set(T4_MOE_DISPATCH=env):
+            mg, mw = build(device), build(device)
+            _pin(mw, _weights(mg))
+            t0 = time.perf_counter()
+            train_epochs(mg, ds, lr=TRAIN_LR, epochs=1)
+            sync()
+            first_s = time.perf_counter() - t0
+            inp = mmu.tensor(b, s_, d, 1, device=dev)
+            tgt = mmu.tensor(b, 1, classes, 1, device=dev)
+            for i in range(n_batches):
+                inp.set_numpy(data[i * b:(i + 1) * b])
+                tgt.set_numpy(eye[labels[i * b:(i + 1) * b]])
+                mw.forward(inp)
+                mw.backprop(tgt)
+                mw.adam(TRAIN_LR)
+            sync()
+            wg, ww = _weights(mg), _weights(mw)
+            diff = _max_diff(wg, ww) / max(float(np.abs(w).max())
+                                           for w in ww)
+            t0 = time.perf_counter()
+            train_epochs(mg, ds, lr=TRAIN_LR, epochs=1)
+            sync()
+            epoch_ms = (time.perf_counter() - t0) * 1e3
+        trains[route] = {"weights_rel_diff_vs_word_loop": diff,
+                         "first_call_s_with_capture": first_s,
+                         "epoch_ms": epoch_ms}
+        checks[f"nn_train_{route}_equals_word_loop"] = diff <= TOL_NET_TRAIN
+    res["nn_train"] = dict(trains, n_batches=n_batches, tol=TOL_NET_TRAIN)
+
+    # --- the REPL's fused cycles and chunks against its per-word path
+    fused = {}
+    for route, env in (("soft", "0"), ("dispatch", "1")):
+        got = []
+        for name, path in (("ma", PER_WORD), ("mb", {"T4_NO_FUSE": "0",
+                                                    "T4_NO_MACRO": "0"})):
+            with env_set(T4_MOE_DISPATCH=env, T4_MAX_BATCH=fused_batches,
+                         T4_CHUNK=MOE_FUSED_CHUNK, **path):
+                inst, run = repl(device, seed)
+                run(MOE_FUSED_NET.format(v=name))
+                m = _models(inst.vm)[-1]
+                if got:
+                    _pin(m, got[0][2])
+                w0 = _weights(m)
+                run(MOE_FUSED_LOOP.format(v=name))
+                from tensorforth_tpu_torch.nn import cycle
+                cycle.reset_counts()
+                for _ in range(2):
+                    run(f"{name}d rewind drop {name} {name}d {name}ep drop")
+                hit = run(f"{name}h @ . cr").split()[0]
+                loss = run(f"{name}l @ . cr").split()[0]
+                got.append((hit, loss, w0 if not got else None,
+                            _weights(m), dict(cycle.COUNTS)))
+                inst.teardown()
+        (ha, la, _, wa, _), (hb, lb, _, wb, counts) = got
+        fused[route] = {"hit": hb, "loss": lb, "counts": counts,
+                        "max_diff_vs_per_word": _max_diff(wa, wb)}
+        checks[f"fused_{route}_equals_per_word"] = (
+            ha == hb and la == lb and _max_diff(wa, wb) == 0.0
+            and counts["chunks"] >= 1)
+    res["fused"] = fused
+    emit({"phase": "moe", "model": {"tiny_moe": cfg or "zoo defaults"},
+          **res, "checks": checks})
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise RuntimeError(f"moe checks failed: {bad}")
+
+
+def moe_routing(m, x):
+    """the MoE layer of `m` (tiny_moe: layer 1) on the input x, from one
+    forward: (the least gap between a token's k-th and (k+1)-th gate,
+    each token's top-k experts as a sorted array)"""
+    import torch
+    from tensorforth_tpu_torch.mu.mmu import MMU
+    from tensorforth_tpu_torch.parallel import moe
+    inp = MMU.get_mmu().tensor(*x.shape, device=m.device).set_numpy(x)
+    m.forward(inp)
+    w1 = m._params()[1][0]
+    k = m[1].stride[0]
+    g = moe._gates(m[1].ensure_data().reshape(-1, w1.shape[1]), w1[:, :, -1])
+    o = torch.sort(g, dim=-1, descending=True, stable=True)
+    top = np.sort(o.indices[:, :k].cpu().numpy(), axis=1)
+    gv = o.values
+    return (float((gv[:, k - 1] - gv[:, k]).min()) if k < g.shape[1]
+            else 1.0), top
 
 
 def phase_attn_bench(seed: int, device=None, n_iter=BENCH_ITERS,
@@ -2960,6 +3359,7 @@ def main(argv=None) -> int:
                      "flash_bwd_split": layers})
     for name, n in per_word.items():
         ran[name] = ran.get(name, 0) + n
+    timed("moe", phase_moe, args.seed)
     for name, n in timed("attn_bench", phase_attn_bench, args.seed).items():
         ran[name] = ran.get(name, 0) + n
     emit({"phase_seconds": seconds})

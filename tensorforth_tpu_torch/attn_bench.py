@@ -104,7 +104,8 @@ def bench_attention(nh: int = 16, s: int = 2048, dh: int = 128,
             x, k, v, hybrid=True)[0], q, n_iter),
         "f32stream": _chain(lambda x: attn.flash_attention(x, k, v)[0], q,
                             n_iter),
-        "plain": _chain(lambda x: _sdpa_ref(x, k, v, False), q, n_iter),
+        "plain": _chain(lambda x: _sdpa_ref(x, k, v, False, "f32"), q,
+                        n_iter),
     }, reps, device)
     return {name: [flops / t / 1e12 for t in ts]
             for name, ts in times.items()}
@@ -114,7 +115,7 @@ def _plain_bwd(q, k, v, causal: bool):
     """bwd(do) -> (dq, dk, dv) by autograd through the einsum attention
     (the JAX benches' `xla_attn`); the graph is built once and kept"""
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-    o = _sdpa_ref(*leaves, causal)
+    o = _sdpa_ref(*leaves, causal, "f32")
     return lambda do: torch.autograd.grad(o, leaves, do, retain_graph=True)
 
 

@@ -4,11 +4,11 @@ scripts' nets built through the nn API.
   mnist_cnn        : examples/t4_30e.4th nn_c (conv-pool-relu + 2 linear)
   gan_mnist        : examples/t4_40b.4th G/D MLP pair
   tiny_transformer : attention blocks + linear softmax classifier
+  tiny_moe         : attention + mixture-of-experts sequence classifier
   tiny_lm          : the LM tier's serving/training model
 
 Every entry point builds on the CUDA card unless the caller passes
-device="cpu" (and raises without a card).  The MoE net comes with its
-slice.
+device="cpu" (and raises without a card).
 """
 from __future__ import annotations
 
@@ -70,6 +70,21 @@ def tiny_transformer(batch: int = 32, seq: int = 16, dim: int = 32,
     for _ in range(layers):
         m.add(Layer.ATTN, heads)
         m.add(Layer.TANH)
+    m.add(Layer.FLATTEN)
+    m.add(Layer.LINEAR, classes, 1.0)
+    m.add(Layer.SOFTMAX)
+    return m
+
+
+def tiny_moe(batch: int = 8, seq: int = 8, dim: int = 16, experts: int = 4,
+             hidden: int = 32, top_k: int = 2, classes: int = 4,
+             device=None):
+    """sequence classifier with a mixture-of-experts FFN block:
+    [N, S, D, 1] -> attn -> moe -> tanh -> flatten -> linear softmax"""
+    m = _new_model(batch, seq, dim, 1, device=device)
+    m.add(Layer.ATTN, 4)
+    m.add(Layer.MOE, experts, float(hidden), [top_k])
+    m.add(Layer.TANH)
     m.add(Layer.FLATTEN)
     m.add(Layer.LINEAR, classes, 1.0)
     m.add(Layer.SOFTMAX)

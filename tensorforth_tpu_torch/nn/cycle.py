@@ -35,6 +35,7 @@ from collections import OrderedDict
 import torch
 
 from ..config import Config
+from ..parallel import moe
 from . import funcs
 from .ntypes import Layer
 
@@ -156,6 +157,7 @@ class Cycle:
         if self.on_card and self.graph is None:
             # the warm-up writes every buffer
             self.graph = capture(self._body, self.ctr, self.device)
+            COUNTS["captures"] += 1
         ws, ms, vs, dws, dbs = state
         for dst, src in zip(self.W, ws):
             dst.copy_(src)
@@ -209,11 +211,12 @@ class Cycle:
                 [m.clone() for m in self.M], [v.clone() for v in self.V])
 
 
-def capture(body, ctr, device):
+def capture(body, ctr, device, pool=None):
     """a torch.cuda.CUDAGraph of body(): WARMUP runs on a side stream
     first (they build and load the kernels, and set up cuBLAS's workspace
     and autograd's threads, none of which a capture may do), each from
-    counter 0, then one captured run; ctr is left at 0"""
+    counter 0, then one captured run; ctr is left at 0.  Graphs that
+    never run at once may share a memory pool (`pool`)"""
     cur = torch.cuda.current_stream(device)
     s = torch.cuda.Stream(device)
     s.wait_stream(cur)
@@ -225,10 +228,9 @@ def capture(body, ctr, device):
     g = torch.cuda.CUDAGraph()
     with torch.cuda.stream(s):
         ctr.zero_()
-    with torch.cuda.graph(g, stream=s):
+    with torch.cuda.graph(g, pool=pool, stream=s):
         body()
     ctr.zero_()
-    COUNTS["captures"] += 1
     return g
 
 
@@ -237,12 +239,12 @@ def get(model, program, train: bool, loss_op: str, opt: str, ndivs: tuple,
     """the model's Cycle of this signature, made on first use.  src is
     ("ds", corpus bytes, labels, batch, mean, scale, input shape) or
     ("x", input shape); the corpus is keyed by identity, the class of
-    the dots and the attention's by their settings (a capture bakes them
-    in)"""
+    the dots, the attention's and the MoE routing's by their settings (a
+    capture bakes them in)"""
     skey = (src[0], id(src[1]), id(src[2])) + tuple(src[3:]) \
         if src[0] == "ds" else src
     key = (model._uid, program, train, loss_op, opt, ndivs, skey, kcap,
-           Config.PRECISION, funcs._attn_hybrid())
+           Config.PRECISION, funcs._attn_hybrid(), moe.capture_key())
     c = _CACHE.get(key)
     if c is None:
         c = Cycle(model, program, train, loss_op, opt, ndivs, src, kcap)

@@ -5,19 +5,21 @@ backward, the optimizer steps and the loss functions of the word path
 Layouts are the JAX package's: activations NHWC ([N, S, E, 1] on the LM
 tier), conv filters [C1, K, K, C0], linear weights [E0, E1], wqkv
 [3E, E].  On a CPU tensor every dot is exact f32, as XLA CPU computes
-it.  On the card the conv, dconv and linear dots (forward and backward)
-run in the class Config.PRECISION names at call time, the class of the
-reference's NN dots on its chip: 'fast' multiplies operands rounded to
-bf16 (XLA's default class), 'strict' sums the three products of their
-bf16 hi/lo parts (XLA's 'high'); both accumulate in f32 with TF32 off.
-The LM tier's dots stay strict f32.  The attention core routes long
-aligned sequences on the card through the hand-written flash kernels,
-forward and backward (ops/attn.py); the other layers take explicit
+it.  On the card every dot of the NN and LM tiers (forward and backward:
+conv, dconv, linear; the attention layer's qkv and wo, the einsum
+attention's two products, PROJ, the MoE einsums) runs in the class
+Config.PRECISION names at call time, the class of the reference's dots
+on its chip: 'fast' multiplies operands rounded to bf16 (XLA's default
+class), 'strict' sums the three products of their bf16 hi/lo parts
+(XLA's 'high'); both accumulate in f32 with TF32 off.  The flash
+kernels keep their own class (T4_ATTN_HYBRID).  The attention core
+routes long aligned sequences on the card through the hand-written flash
+kernels, forward and backward (ops/attn.py); the other layers take explicit
 backward rules.  exp, log, tanh and the logistic are ops/xla_math.py's:
 XLA CPU's bits on a CPU tensor.  The fused training cycle is built from
 these functions in nn/cycle.py; nothing here reads a value back to the
 host or copies one from it, so every function may run inside a captured
-CUDA graph.  MoE comes with a later slice.
+CUDA graph.  The MoE layer's routing lives in parallel/moe.py.
 """
 from __future__ import annotations
 
@@ -86,6 +88,28 @@ def _softmax_fwd(x):
     return (e / e.sum(dim=-1, keepdim=True)).reshape(x.shape)
 
 
+class _RouterSoftmax(torch.autograd.Function):
+    """softmax over the last axis of [S, E] with _softmax_fwd's values
+    (XLA CPU's exp on a CPU tensor) and softmax's vjp, y * (g - Σ g·y)"""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = _softmax_fwd(x.reshape(x.shape[0], 1, -1, 1)).reshape(x.shape)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        return y * (g - (g * y).sum(dim=-1, keepdim=True))
+
+
+def router_softmax(x):
+    """the MoE router's gates from its scores [S, E]"""
+    return _RouterSoftmax.apply(x)
+
+
 def _logsoftmax_fwd(x):
     """jax.nn.log_softmax's steps: (x - max) - log(sum(exp(x - max)))"""
     f = _rows(x)
@@ -103,14 +127,18 @@ def _bf16(x):
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def class_dot(op, a, b):
+def class_dot(op, a, b, cls=None):
     """op(a, b) for a bilinear op of f32 tensors: exact f32 on the CPU; on
     the card in Config.PRECISION's class (read now, so one process can run
-    both).  The products of bf16 values are exact in f32, so each op below
-    is the class's own arithmetic.  Any other class raises."""
-    if a.device.type != "cuda":
+    both).  A caller may name the class (`cls`; 'f32' is exact f32), on
+    either device.  The products of bf16 values are exact in f32, so each
+    op below is the class's own arithmetic.  Any other class raises."""
+    if cls is None:
+        if a.device.type != "cuda":
+            return op(a, b)
+        cls = Config.PRECISION
+    if cls == "f32":
         return op(a, b)
-    cls = Config.PRECISION
     if cls not in ("fast", "strict"):
         raise ValueError(f"T4_PRECISION={cls!r}: 'fast' or 'strict'")
     ah, bh = _bf16(a), _bf16(b)
@@ -122,6 +150,82 @@ def class_dot(op, a, b):
 
 def _mm(a, b):
     return a @ b
+
+
+def _einsum_op(spec):
+    return lambda a, b: torch.einsum(spec, a, b)
+
+
+def _grad_specs(spec):
+    """the einsums of a two-operand einsum's cotangents: 'A,B->O' gives
+    'O,B->A' (of g and b) and 'A,O->B' (of a and g).  Every index of an
+    operand must appear in the other operand or in the output, which
+    holds for each product of the LM tier"""
+    ins, out = spec.replace(" ", "").split("->")
+    a, b = ins.split(",")
+    return f"{out},{b}->{a}", f"{a},{out}->{b}"
+
+
+class _ClassEinsum(torch.autograd.Function):
+    """einsum(spec, a, b) in a precision class, forward AND backward: the
+    cotangents are class products too (autograd through the bf16 casts
+    would take f32 products of rounded operands, a class the reference
+    never computes)"""
+
+    @staticmethod
+    def forward(ctx, spec, cls, a, b):
+        ctx.save_for_backward(a, b)
+        ctx.spec, ctx.cls = spec, cls
+        return class_dot(_einsum_op(spec), a, b, cls)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        sa, sb = _grad_specs(ctx.spec)
+        da = (class_dot(_einsum_op(sa), g, b, ctx.cls)
+              if ctx.needs_input_grad[2] else None)
+        db = (class_dot(_einsum_op(sb), a, g, ctx.cls)
+              if ctx.needs_input_grad[3] else None)
+        return None, None, da, db
+
+
+class _ClassMatmul(torch.autograd.Function):
+    """a [..., K] @ b [K, M] in a precision class, forward and backward"""
+
+    @staticmethod
+    def forward(ctx, cls, a, b):
+        ctx.save_for_backward(a, b)
+        ctx.cls = cls
+        return class_dot(_mm, a, b, cls)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = (class_dot(_mm, g, b.T, ctx.cls)
+              if ctx.needs_input_grad[1] else None)
+        db = (class_dot(_mm, a.reshape(-1, a.shape[-1]).T,
+                        g.reshape(-1, g.shape[-1]), ctx.cls)
+              if ctx.needs_input_grad[2] else None)
+        return None, da, db
+
+
+def class_einsum(spec, a, b, cls=None):
+    """torch.einsum(spec, a, b) of the LM tier: on the CPU the plain op
+    (exact f32); on the card in Config.PRECISION's class, its gradients
+    too (a named `cls` holds on either device)"""
+    if cls == "f32" or (cls is None and a.device.type != "cuda"):
+        return torch.einsum(spec, a, b)
+    return _ClassEinsum.apply(spec, cls, a, b)
+
+
+def class_matmul(a, b, cls=None):
+    """a @ b of the LM tier (b a matrix): the plain op on the CPU, the
+    class's products forward and backward on the card (or `cls`'s)"""
+    if cls == "f32" or (cls is None and a.device.type != "cuda"):
+        return a @ b
+    return _ClassMatmul.apply(cls, a, b)
 
 
 def _blocks(h: int, w: int, k: int, s: int, p: int):
@@ -304,15 +408,23 @@ def _attn_hybrid() -> bool:
     return os.environ.get("T4_ATTN_HYBRID", "0") == "1"
 
 
-def _sdpa_ref(q, k, v, causal):
-    """exact softmax attention, [B, S, dh] (the einsum path)"""
+def _sdpa_ref(q, k, v, causal, cls=None):
+    """softmax attention, [B, S, dh] (the einsum path): f32 scores and
+    softmax, its two products in the LM tier's class (or `cls`)"""
     s, dh = q.shape[1], q.shape[2]
-    sc = torch.einsum("nqd,nkd->nqk", q, k) / math.sqrt(dh)
+    sc = class_einsum("nqd,nkd->nqk", q, k, cls) / math.sqrt(dh)
     if causal:
         keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
         sc = torch.where(keep, sc, torch.full_like(sc, NEG_INF))
     w = torch.softmax(sc, dim=-1)
-    return torch.einsum("nqk,nkd->nqd", w, v)
+    return class_einsum("nqk,nkd->nqd", w, v, cls)
+
+
+def _sdpa_plain(q, k, v, causal):
+    """the flash kernels' plain version: the einsum path in the kernels'
+    class (exact f32; T4_ATTN_HYBRID's bf16 operands), whatever
+    Config.PRECISION says"""
+    return _sdpa_ref(q, k, v, causal, "fast" if _attn_hybrid() else "f32")
 
 
 def _sdpa_flash(q, k, v, causal: bool = False):
@@ -327,8 +439,8 @@ def _sdpa_flash(q, k, v, causal: bool = False):
 def sdpa(q, k, v, causal: bool = False):
     """softmax-attention core with the flash forward AND backward kernels
     for long aligned sequences on the card (S x S never reaches device
-    memory in either direction); other shapes take the exact einsum path
-    and PyTorch's own autograd"""
+    memory in either direction); other shapes take the einsum path in
+    the LM tier's class and PyTorch's own autograd"""
     if _flash_ok(q):
         return _sdpa_flash(q, k, v, causal)
     return _sdpa_ref(q, k, v, causal)
@@ -337,10 +449,12 @@ def sdpa(q, k, v, causal: bool = False):
 def _mha_fwd(x, wqkv, wo, heads: int, flash: bool = True,
              causal: bool = False, rope: bool = False):
     """multi-head self-attention layer: x [N, S, E, 1], wqkv [3E, E],
-    wo [E, E] -> [N, S, E, 1]"""
+    wo [E, E] -> [N, S, E, 1].  flash=False takes the core through the
+    flash kernels' plain version (_sdpa_plain), as a check of them"""
     n, s, e, _ = x.shape
     dh = e // heads
-    qkv = (x.reshape(n, s, e) @ wqkv.T).reshape(n, s, 3, heads, dh)
+    qkv = class_matmul(x.reshape(n, s, e), wqkv.T).reshape(n, s, 3, heads,
+                                                          dh)
     q = qkv[:, :, 0].transpose(1, 2)                # [N, h, S, dh]
     k = qkv[:, :, 1].transpose(1, 2)
     v = qkv[:, :, 2].transpose(1, 2)
@@ -348,11 +462,11 @@ def _mha_fwd(x, wqkv, wo, heads: int, flash: bool = True,
         pos = torch.arange(s, device=x.device)
         q = rope_apply(q, pos)
         k = rope_apply(k, pos)
-    core = sdpa if flash else _sdpa_ref
+    core = sdpa if flash else _sdpa_plain
     o = core(q.reshape(n * heads, s, dh), k.reshape(n * heads, s, dh),
              v.reshape(n * heads, s, dh), causal)
     o = o.reshape(n, heads, s, dh).transpose(1, 2).reshape(n, s, e)
-    return (o @ wo.T).reshape(n, s, e, 1)
+    return class_matmul(o, wo.T).reshape(n, s, e, 1)
 
 
 def _vjp(fn, inputs, dy):
@@ -390,6 +504,24 @@ def attn_op(x, wqkv, wo, heads: int, causal: bool = False,
     return _AttnOp.apply(x, wqkv, wo, heads, causal, rope)
 
 
+def _moe_fwd(x, w1aug, w2, top_k: int):
+    """mixture-of-experts FFN layer: x [N,S,D,1]; w1aug [E,D,F+1] packs
+    the experts' w1 [E,D,F] with the router wr [E,D] in the last column
+    (the generic two-slot layer contract); w2 [E,F,D].  The route is
+    parallel/moe.moe_select's for this call's token count"""
+    from ..parallel.moe import (capacity_factor, moe_fwd, moe_fwd_dispatch,
+                                moe_select)
+    n, s, d, _ = x.shape
+    f = w1aug.shape[2] - 1
+    e = w1aug.shape[0]
+    args = (x.reshape(n, s, d), w1aug[:, :, f], w1aug[:, :, :f], w2, top_k)
+    if moe_select((n, s), e, top_k):
+        y = moe_fwd_dispatch(*args, capacity_factor=capacity_factor())
+    else:
+        y = moe_fwd(*args)
+    return y.reshape(n, s, d, 1)
+
+
 def _embed_fwd(x, table, b):
     """token embedding: x [N,S,1,1] float ids -> [N,S,E,1]"""
     n, s = x.shape[0], x.shape[1]
@@ -401,7 +533,7 @@ def _embed_fwd(x, table, b):
 def _proj_fwd(x, w, b):
     """position-wise projection: x [N,S,E,1] @ w^T [E,V] + b -> [N,S,V,1]"""
     n, s, e, _ = x.shape
-    return (x.reshape(n, s, e) @ w.T + b).reshape(n, s, -1, 1)
+    return (class_matmul(x.reshape(n, s, e), w.T) + b).reshape(n, s, -1, 1)
 
 
 def _lnorm_fwd(x, gamma, beta, eps: float):
@@ -451,14 +583,21 @@ def _apply_layer(spec, x, p, key=None):
         return _upsample_fwd(x, opts[0]), None
     if kind == Layer.ATTN:
         return attn_op(x, p[0], p[1], *_attn_opts(opts)), None
+    if kind == Layer.MOE:
+        return _moe_fwd(x, p[0], p[1], opts[2]), None
     if kind == Layer.LNORM:
         return _lnorm_fwd(x, p[0], p[1], opts[0]), None
     if kind == Layer.EMBED:
         return _embed_fwd(x, p[0], p[1]), None
     if kind == Layer.PROJ:
         return _proj_fwd(x, p[0], p[1]), None
-    raise NotImplementedError(
-        f"forward: layer '{Layer.NAMES[kind].strip()}' is not ported yet")
+    raise NotImplementedError(f"forward: layer {_kind_name(kind)} has no "
+                              f"forward")
+
+
+def _kind_name(kind) -> str:
+    ok = isinstance(kind, int) and 0 <= kind < len(Layer.NAMES)
+    return f"'{Layer.NAMES[kind].strip()}'" if ok else f"kind {kind}"
 
 
 def layer_key(key, j: int):
@@ -617,6 +756,10 @@ def backward_segment(program, train, dy, x0, outs, params, masks, dws, dbs,
                 lambda x_, w1, w2: _mha_fwd(x_, w1, w2, heads, flash=flash,
                                             causal=causal, rope=rope),
                 (x_in, *params[j]), dy.reshape(out_shape))
+        elif kind == Layer.MOE:
+            dx, dw, db = _vjp(
+                lambda x_, w1, w2: _moe_fwd(x_, w1, w2, opts[2]),
+                (x_in, *params[j]), dy.reshape(out_shape))
         elif kind == Layer.LNORM:
             dx, dw, db = _vjp(
                 lambda x_, g_, b_: _lnorm_fwd(x_, g_, b_, opts[0]),
@@ -635,13 +778,12 @@ def backward_segment(program, train, dy, x0, outs, params, masks, dws, dbs,
         elif kind == Layer.PROJ:
             n, s, e, _ = x_in.shape
             dyf = dy.reshape(n * s, -1)
-            dw = dyf.T @ x_in.reshape(n * s, e)
+            dw = class_dot(_mm, dyf.T, x_in.reshape(n * s, e))
             db = dyf.sum(dim=0)
-            dx = dyf @ params[j][0]
+            dx = class_dot(_mm, dyf, params[j][0])
         else:
             raise NotImplementedError(
-                f"backprop: layer '{Layer.NAMES[kind].strip()}' is not "
-                f"ported yet")
+                f"backprop: layer {_kind_name(kind)} has no backward")
         if train and dw is not None:
             ndws[j] = _acc(ndws[j], dw)
             ndbs[j] = _acc(ndbs[j], db)

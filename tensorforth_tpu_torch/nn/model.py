@@ -47,7 +47,7 @@ _ACTS = (Layer.RELU, Layer.TANH, Layer.SIGMOID, Layer.SELU,
          Layer.LEAKYRL, Layer.ELU)
 _POOLS = (Layer.AVGPOOL, Layer.MAXPOOL, Layer.MINPOOL)
 _PARAMETERED = (Layer.CONV, Layer.DCONV, Layer.LINEAR, Layer.BATCHNM,
-                Layer.ATTN, Layer.LNORM, Layer.EMBED, Layer.PROJ)
+                Layer.ATTN, Layer.MOE, Layer.LNORM, Layer.EMBED, Layer.PROJ)
 _UIDS = itertools.count(1)       # a model's key in nn/cycle.py's cache
 _DEV_F32 = {}                    # (value, device) -> 0-d f32 on the card
 
@@ -208,6 +208,8 @@ class Model:
             self._iup(t_in, int(n), bias)
         elif fn == Layer.ATTN:
             self._iattn(t_in, int(n), int(bias))
+        elif fn == Layer.MOE:
+            self._imoe(t_in, int(n), int(bias), opt or [2])
         elif fn == Layer.LNORM:
             self._ilnorm(t_in, bias)
         elif fn == Layer.EMBED:
@@ -215,9 +217,8 @@ class Model:
         elif fn == Layer.PROJ:
             self._iproj(t_in, int(n), bias)
         else:
-            raise NotImplementedError(
-                f"Model#add: layer '{Layer.NAMES[fn].strip()}' is not "
-                f"ported yet")
+            self._err(f"Model#add layer {fn} not supported")
+            return self
         t_in.grad_fn = fn
         return self
 
@@ -348,6 +349,34 @@ class Model:
             self._rand(wo, k)
         self.npush(self._T4(N1, S, E, 1))
 
+    def _imoe(self, t_in: Tensor, experts: int, hidden: int, opt):
+        """mixture-of-experts FFN layer: input [N,S,D,1]; the router is
+        packed into the weight slot's last column, w1aug [E,D,F+1,1] =
+        the experts' w1 [E,D,F] ++ the router wr [E,D,1], and w2
+        [E,F,D,1] sits in the bias slot, so the layer keeps the two-slot
+        (w, b) optimizer and file contract"""
+        N1, S = t_in.N(), t_in.H()
+        D = t_in.W() * t_in.C()
+        top_k = int(opt[0]) if opt else 2
+        if experts < 1 or hidden < 1 or not (1 <= top_k <= experts):
+            self._err(f"moe E={experts} F={hidden} k={top_k}?")
+            return
+        w1 = self._T4(experts, D, hidden + 1, 1)
+        w2 = self._T4(experts, hidden, D, 1)
+        t_in.grad[0], t_in.grad[1] = w1, w2
+        t_in.grad[2] = self._T4(experts, D, hidden + 1, 1)
+        t_in.grad[3] = self._T4(experts, hidden, D, 1)
+        t_in.iparm = experts
+        t_in.stride = [top_k, hidden, 0, 0]
+        k = math.sqrt(1.0 / (D + hidden))
+        if Config.MM_DEBUG:
+            w1.set_numpy(np.full(w1.numel, 0.5, np.float32))
+            w2.set_numpy(np.full(w2.numel, 0.5, np.float32))
+        else:
+            self._rand(w1, k)
+            self._rand(w2, k)
+        self.npush(self._T4(N1, S, D, 1))
+
     def _ilnorm(self, t_in: Tensor, eps: float):
         """layer normalization over the feature axis (W*C), learnable
         gamma/beta"""
@@ -414,6 +443,8 @@ class Model:
             elif kind == Layer.ATTN:
                 flags = int(float(t_in.xparm))
                 opts = (t_in.iparm, bool(flags & 1), bool(flags & 2))
+            elif kind == Layer.MOE:
+                opts = (t_in.iparm, t_in.stride[1], t_in.stride[0])
             elif kind in (Layer.LNORM, Layer.DROPOUT) or kind in _ACTS:
                 opts = (float(t_in.xparm),)
             elif kind in _POOLS or kind == Layer.USAMPLE:
@@ -436,6 +467,10 @@ class Model:
                 bb = (b.data_as(b.H(), b.W()) if kind == Layer.ATTN
                       else b.ensure_data())
                 out.append((w.data_as(w.H(), w.W()), bb))
+            elif kind == Layer.MOE:          # [E,D,F+1] and [E,F,D] views
+                w1, w2 = t_in.grad[0], t_in.grad[1]
+                out.append((w1.data_as(w1.N(), w1.H(), w1.W()),
+                            w2.data_as(w2.N(), w2.H(), w2.W())))
             else:
                 out.append(())
         return tuple(out)

@@ -1,29 +1,35 @@
 """Autoregressive serving — KV-cache generation for LM-tier models (the
 port of tensorforth_tpu/nn/serve.py).
 
-Supported program shape (the `tiny_lm` zoo family):
-  EMBED -> { [LNORM] ATTN(causal) [activation] }* -> [LNORM]
+Supported program shape (the `tiny_lm` zoo family and its MoE variant):
+  EMBED -> { [LNORM] ATTN(causal) [activation] [MOE] }* -> [LNORM]
         -> PROJ -> SOFTMAX
-Position-wise layers run on the single-token slice; ATTN attends over
-its cache.  The batched prefill routes its causal attention through
-funcs.sdpa, which on the card launches the flash kernel (ops/attn.py).
+Position-wise layers (LNORM, activations, MOE, PROJ) run on the
+single-token slice; ATTN attends over its cache.  The batched prefill
+routes its causal attention through funcs.sdpa, which on the card
+launches the flash kernel (ops/attn.py).
 
 Where the JAX package compiles the decode into one program (`lax.scan`
-over steps, caches threaded functionally), the port runs a Python loop
-over steps and updates the KV caches IN PLACE: one preallocated buffer
-per layer, written at position t, instead of a fresh cache per step.
-Mesh serving (T4_MESH) is not ported yet.
+over the steps of each window segment, the token, position and key in
+the carry), the port keeps the decode's state in a Decoder's buffers,
+updated IN PLACE, and its step reads the position from a device
+counter: on the card each segment's step is one captured CUDA graph,
+replayed once a token; on the CPU the same step runs eagerly.  The
+prefill runs eagerly into the same buffers.  Mesh serving (T4_MESH) is
+not ported yet.
 """
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 
 import numpy as np
 import torch
 
 from ..config import Config
 from ..ops import rng
-from . import funcs
+from ..parallel import moe
+from . import cycle, funcs
 from .ntypes import Layer
 
 _POSWISE = (Layer.RELU, Layer.TANH, Layer.SIGMOID, Layer.SELU,
@@ -31,6 +37,17 @@ _POSWISE = (Layer.RELU, Layer.TANH, Layer.SIGMOID, Layer.SELU,
 NEG_INF = -1.0e30
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "int8": torch.int8}
+CACHE_SIZE = 8           # Decoders kept (each holds its KV caches)
+_DECODERS: OrderedDict = OrderedDict()
+
+# what the decodes did since the last reset_counts(): step graphs
+# captured, graph replays, eager steps
+COUNTS = {"captures": 0, "replays": 0, "steps": 0}
+
+
+def reset_counts():
+    for k in COUNTS:
+        COUNTS[k] = 0
 
 
 def _check_program(program):
@@ -66,6 +83,11 @@ def _poswise(kind, opts, p, x):
         return funcs._lnorm_fwd(x, p[0], p[1], opts[0])
     if kind in _POSWISE:
         return funcs._activate_fwd(kind, x, opts[0])[0]
+    if kind == Layer.MOE:
+        # the route is moe_select's for this call's token count: a
+        # prefill and a step may take different ones, as in the JAX
+        # package
+        return funcs._moe_fwd(x, p[0], p[1], opts[2])
     if kind == Layer.PROJ:
         return funcs._proj_fwd(x, p[0], p[1])
     if kind == Layer.SOFTMAX:
@@ -73,7 +95,7 @@ def _poswise(kind, opts, p, x):
     return None
 
 
-def _store(cache, t0, k1, v1):
+def _store(cache, t0: int, k1, v1):
     """write K/V rows [N, h, S, dh] into the cache at positions t0.. (in
     place), quantizing for an int8 cache"""
     ck, cv, sk, sv = cache
@@ -87,12 +109,27 @@ def _store(cache, t0, k1, v1):
     cv[:, :, t0:t1] = v1.to(cv.dtype)
 
 
+def _store_at(cache, tt, k1, v1):
+    """write one position's K/V [N, h, 1, dh] at the device position tt
+    ([1] int64), in place"""
+    ck, cv, sk, sv = cache
+    if sk is not None:                  # int8 + scales
+        k1, k1s = _quant8(k1)
+        v1, v1s = _quant8(v1)
+        sk.index_copy_(2, tt, k1s)
+        sv.index_copy_(2, tt, v1s)
+    ck.index_copy_(2, tt, k1.to(ck.dtype))
+    cv.index_copy_(2, tt, v1.to(cv.dtype))
+
+
 def _step_token(program, params, caches, tok, t, s_max, w: int = 0):
     """one decode step: tok [N] ids at position t -> (logits [N,V],
-    caches).  The caches are updated in place and returned as given.
-    `w` limits the attention read to the first w cache positions (the
-    windowed-decode segments)."""
+    caches).  t is a host int or a 0-d int64 tensor on tok's device (a
+    captured step reads its position from there).  The caches are
+    updated in place and returned as given.  `w` limits the attention
+    read to the first w cache positions (the windowed-decode segments)."""
     n = tok.shape[0]
+    tt = torch.as_tensor(t, dtype=torch.int64, device=tok.device).reshape(1)
     x = tok.reshape(n, 1, 1, 1).to(torch.float32)
     ci = 0
     for (kind, opts, _shape), p in zip(program, params):
@@ -105,43 +142,50 @@ def _step_token(program, params, caches, tok, t, s_max, w: int = 0):
         heads = opts[0]
         e = x.shape[2]
         dh = e // heads
-        qkv = (x.reshape(n, e) @ p[0].T).reshape(n, 3, heads, dh)
+        qkv = funcs.class_matmul(x.reshape(n, e), p[0].T).reshape(
+            n, 3, heads, dh)
         q, k1, v1 = qkv[:, 0], qkv[:, 1], qkv[:, 2]     # [N, h, dh]
         if len(opts) > 2 and opts[2]:                  # RoPE at pos t
-            pos = torch.full((1,), t, dtype=torch.int64, device=x.device)
-            q = funcs.rope_apply(q[:, :, None, :], pos)[:, :, 0]
-            k1 = funcs.rope_apply(k1[:, :, None, :], pos)[:, :, 0]
+            q = funcs.rope_apply(q[:, :, None, :], tt)[:, :, 0]
+            k1 = funcs.rope_apply(k1[:, :, None, :], tt)[:, :, 0]
         cache = caches[ci]
         ci += 1
-        _store(cache, t, k1[:, :, None], v1[:, :, None])
+        _store_at(cache, tt, k1[:, :, None], v1[:, :, None])
         ck, cv, sk, sv = cache
         quant = sk is not None
         span = w if 0 < w < s_max else s_max
-        # bf16 cache: bf16 multiplicands, f32 products and sums (the
-        # rounded values multiply exactly in f32).  int8 loads exactly
-        # as float and dequantizes by folding the scales into the f32
-        # scores and softmax weights.
-        md = torch.bfloat16 if quant else ck.dtype
-        scores = torch.einsum("nhd,nhsd->nhs", q.to(md).float(),
-                              ck[:, :, :span].float())
+        if ck.dtype == torch.float32:
+            # an f32 cache: the LM tier's class (exact f32 on the CPU)
+            scores = funcs.class_einsum("nhd,nhsd->nhs", q, ck[:, :, :span])
+        else:
+            # bf16 cache: bf16 multiplicands, f32 products and sums (the
+            # rounded values multiply exactly in f32).  int8 loads
+            # exactly as float and dequantizes by folding the scales
+            # into the f32 scores and softmax weights.
+            scores = torch.einsum("nhd,nhsd->nhs",
+                                  q.to(torch.bfloat16).float(),
+                                  ck[:, :, :span].float())
         if quant:
             scores = scores * sk[:, :, :span]
         scores = scores / math.sqrt(dh)
-        live = torch.arange(span, device=x.device) <= t
+        live = torch.arange(span, device=x.device) <= tt
         scores = torch.where(live, scores, torch.full_like(scores, NEG_INF))
         wts = torch.softmax(scores, dim=-1)
         if quant:
             wts = wts * sv[:, :, :span]
-        o = torch.einsum("nhs,nhsd->nhd", wts.to(md).float(),
-                         cv[:, :, :span].float())
-        x = (o.reshape(n, e) @ p[1].T).reshape(n, 1, e, 1)
+        if cv.dtype == torch.float32:
+            o = funcs.class_einsum("nhs,nhsd->nhd", wts, cv[:, :, :span])
+        else:
+            o = torch.einsum("nhs,nhsd->nhd", wts.to(torch.bfloat16).float(),
+                             cv[:, :, :span].float())
+        x = funcs.class_matmul(o.reshape(n, e), p[1].T).reshape(n, 1, e, 1)
     return x.reshape(n, -1), caches
 
 
 def _prefill(program, params, prompt, caches):
     """ONE full-prompt forward that fills every attention layer's KV
     cache for positions 0..S0-1 (in place) and returns (last-position
-    logits [N, V], caches).  f32 scores/softmax/PV; K/V are cast to the
+    logits [N, V], caches).  f32 scores/softmax; K/V are cast to the
     cache's storage type only when stored."""
     n, s0 = prompt.shape
     x = prompt.reshape(n, s0, 1, 1).to(torch.float32)
@@ -156,7 +200,8 @@ def _prefill(program, params, prompt, caches):
         heads = opts[0]
         e = x.shape[2]
         dh = e // heads
-        qkv = (x.reshape(n, s0, e) @ p[0].T).reshape(n, s0, 3, heads, dh)
+        qkv = funcs.class_matmul(x.reshape(n, s0, e), p[0].T).reshape(
+            n, s0, 3, heads, dh)
         q = qkv[:, :, 0].transpose(1, 2)               # [N, h, S0, dh]
         k1 = qkv[:, :, 1].transpose(1, 2)
         v1 = qkv[:, :, 2].transpose(1, 2)
@@ -167,12 +212,12 @@ def _prefill(program, params, prompt, caches):
         _store(caches[ci], 0, k1, v1)
         ci += 1
         # the flash kernel for long aligned prompts on the card (the
-        # S0 x S0 scores never reach device memory), exact einsum else
+        # S0 x S0 scores never reach device memory), the einsum path else
         o = funcs.sdpa(q.reshape(n * heads, s0, dh),
                        k1.reshape(n * heads, s0, dh),
                        v1.reshape(n * heads, s0, dh), causal=True)
         o = o.reshape(n, heads, s0, dh).transpose(1, 2).reshape(n, s0, e)
-        x = (o @ p[1].T).reshape(n, s0, e, 1)
+        x = funcs.class_matmul(o, p[1].T).reshape(n, s0, e, 1)
     return x.reshape(n, s0, -1)[:, -1, :], caches
 
 
@@ -210,69 +255,192 @@ def _new_caches(program, n, s_max, kv_dtype, device):
     return caches
 
 
+def _segments(t0: int, s_max: int, win: int):
+    """the decode's window segments from position t0: [(w, steps)].
+    Segment [t0, t1) may read positions 0..t1-1 -> window t1; the
+    doubling reaches w >= t0 + 1 before (or at) the s_max cap.  win <= 0
+    or >= s_max is one segment over the whole cache"""
+    segs = []
+    if t0 >= s_max - 1:
+        return segs                    # nothing to decode (n_new == 0)
+    w = win if 0 < win < s_max else s_max
+    while w < t0 + 1:
+        w = min(w * 2, s_max)
+    while t0 < s_max - 1:
+        t1 = min(w, s_max - 1)
+        segs.append((w, t1 - t0))
+        t0 = t1
+        w = min(w * 2, s_max)
+    return segs
+
+
+def _pick(logits, temp, top_k: int, top_p: float, key):
+    """the next token from [N, V] logits: argmax when key is None (greedy),
+    else argmax(gumbel(key) + filtered logits / temp), the JAX package's
+    categorical draw.  temp is a 0-d tensor on the logits' device and
+    key a pair of host ints or of 0-d tensors: nothing is read back"""
+    if key is None:
+        return torch.argmax(logits, dim=-1)
+    lg = logits / temp
+    if 0 < top_k < lg.shape[-1]:
+        lg = _filter_top_k(lg, top_k)
+    if 0.0 < top_p < 1.0:
+        lg = _filter_top_p(lg, top_p)
+    return torch.argmax(rng.gumbel(key, lg.shape, lg.device) + lg, dim=-1)
+
+
+class Decoder:
+    """the decode of one signature on buffers of its own: the ids, the KV
+    caches (f32, bf16, or int8 with its scales), the position counter,
+    the prompt's length, the temperature and the pick keys by position.
+    `body(w)` is one step of window w at the counter's position (the JAX
+    package's scan step, serve.py:342-364): it reads the token and its
+    key there, writes K/V at the position, the next token at t+1 (the
+    prompt's own within it) and adds one to the counter.  On the card
+    each window's body is captured once into a CUDA graph (cycle.capture,
+    the graphs sharing one memory pool) and a segment of L tokens is L
+    replays queued back to back; on the CPU the body runs eagerly."""
+
+    def __init__(self, program, params, n: int, s_max: int, kv_dtype: str,
+                 sampled: bool, top_k: int, top_p: float, device):
+        self.program, self.params = program, params
+        self.s_max, self.sampled = s_max, sampled
+        self.top_k, self.top_p = top_k, top_p
+        self.device = device
+        self.caches = _new_caches(program, n, s_max, kv_dtype, device)
+        self.ids = torch.zeros((n, s_max), dtype=torch.int64, device=device)
+        self.t = torch.zeros((), dtype=torch.int64, device=device)
+        self.n_prompt = torch.zeros((), dtype=torch.int64, device=device)
+        self.temp = torch.ones((), dtype=torch.float32, device=device)
+        self.keys = torch.zeros((s_max, 2), dtype=torch.int64, device=device)
+        self.graphs = {}
+        self.pool = None
+
+    def body(self, w: int):
+        t = self.t
+        tt = t.view(1)
+        tok = self.ids.index_select(1, tt)[:, 0]
+        logits, _ = _step_token(self.program, self.params, self.caches, tok,
+                                t, self.s_max, w=w)
+        key = None
+        if self.sampled:
+            kt = self.keys.index_select(0, tt)[0]
+            key = (kt[0], kt[1])
+        nxt = _pick(logits, self.temp, self.top_k, self.top_p, key)
+        # within the prompt, the next token is given (replay); beyond
+        # it, the model's choice extends the sequence
+        nt = torch.clamp(t + 1, max=self.s_max - 1).view(1)
+        cur = self.ids.index_select(1, nt)[:, 0]
+        nxt = torch.where(t + 1 < self.n_prompt, cur, nxt)
+        self.ids.index_copy_(1, nt, nxt[:, None])
+        t.add_(1)
+
+    def capture(self, w: int):
+        """window w's graph, captured on first use.  The warm-up runs
+        write the buffers: capture before start()"""
+        if w not in self.graphs:
+            g = cycle.capture(lambda: self.body(w), self.t, self.device,
+                              self.pool)
+            if self.pool is None:
+                self.pool = g.pool()
+            self.graphs[w] = g
+            COUNTS["captures"] += 1
+        return self.graphs[w]
+
+    def start(self, prompt, temp: float, keys: dict):
+        """fresh caches, the prompt in ids, the temperature and the pick
+        keys {position: key}"""
+        for ck, cv, sk, sv in self.caches:
+            ck.zero_()
+            cv.zero_()
+            if sk is not None:
+                sk.fill_(1.0)
+                sv.fill_(1.0)
+        self.ids.zero_()
+        self.ids[:, :prompt.shape[1]].copy_(prompt)
+        self.n_prompt.fill_(prompt.shape[1])
+        self.temp.fill_(temp)
+        if keys:
+            pos = list(keys)
+            self.keys[pos[0]:pos[-1] + 1].copy_(torch.tensor(
+                [keys[t] for t in pos], dtype=torch.int64))
+
+    def decode(self, t0: int, segs, graphs: bool):
+        """the steps from position t0, segment by segment"""
+        self.t.fill_(t0)
+        for w, steps in segs:
+            if graphs:
+                g = self.graphs[w]
+                for _ in range(steps):
+                    g.replay()
+                COUNTS["replays"] += steps
+            else:
+                for _ in range(steps):
+                    self.body(w)
+                COUNTS["steps"] += steps
+
+
+def _decoder(uid, program, params, n, s_max, kv_dtype, sampled, top_k,
+             top_p, device) -> Decoder:
+    """the cached Decoder of this signature, made on first use.  The key
+    holds what a capture bakes in: the dots' class, the MoE routing, and
+    the parameters' storage, so a reloaded model never replays stale
+    weights"""
+    key = (uid, program, n, s_max, kv_dtype, sampled, top_k, top_p,
+           str(device), Config.PRECISION, moe.capture_key(),
+           tuple(w.data_ptr() for pl in params for w in pl))
+    dec = _DECODERS.get(key)
+    if dec is None:
+        dec = _DECODERS[key] = Decoder(program, params, n, s_max, kv_dtype,
+                                       sampled, top_k, top_p, device)
+        if len(_DECODERS) > CACHE_SIZE:
+            _DECODERS.popitem(last=False)
+    else:
+        _DECODERS.move_to_end(key)
+    return dec
+
+
 @torch.no_grad()
 def _generate(program, params, prompt, s_max: int, temp: float,
               key, top_k: int = 0, top_p: float = 0.0,
               kv_dtype: str = "float32", win: int = 0,
-              prefill: bool = True):
+              prefill: bool = True, graphs: bool = False, uid=None):
     """prompt [N, n_prompt] int64 on the model's device -> ids [N, s_max]
     (greedy when temp == 0; optional top-k and/or nucleus top-p filtering
     before the categorical draw).  `key` is a jax.random key pair
     (ops/rng.py): as in the JAX package each pick with temp > 0 splits
-    it once and draws argmax(gumbel(sub) + logits).
+    it once; the chain is hashed on the host before the first step.
 
     kv_dtype: KV cache STORAGE dtype ('float32', 'bfloat16' or 'int8').
     win > 0: WINDOWED decode — the steps split into power-of-two segments
     (win, 2*win, ... s_max) and each segment's attention reads only its
     cache prefix.  prefill=True runs the prompt through ONE causal
     forward (_prefill) instead of n_prompt sequential steps;
-    token-identical for greedy decode."""
+    token-identical for greedy decode.  graphs=True (a CUDA prompt)
+    replays each segment's captured step, from the Decoder cached under
+    the model's `uid`; graphs=False runs the same body eagerly."""
     n, n_prompt = prompt.shape
-    caches = _new_caches(program, n, s_max, kv_dtype, prompt.device)
-    ids = torch.zeros((n, s_max), dtype=torch.int64, device=prompt.device)
-    ids[:, :n_prompt] = prompt
-
-    def pick(logits):
-        """sample/argmax the next token from [N, V] logits"""
-        nonlocal key
-        if temp <= 0.0:
-            return torch.argmax(logits, dim=-1)
-        key, sub = rng.split(key)
-        lg = logits / temp
-        if 0 < top_k < lg.shape[-1]:
-            lg = _filter_top_k(lg, top_k)
-        if 0.0 < top_p < 1.0:
-            lg = _filter_top_p(lg, top_p)
-        return torch.argmax(rng.gumbel(sub, lg.shape, lg.device) + lg,
-                            dim=-1)
-
-    t0 = 0
+    sampled = temp > 0.0
+    t0 = n_prompt if prefill else 0
+    segs = _segments(t0, s_max, win)
+    args = (program, params, n, s_max, kv_dtype, sampled, int(top_k),
+            float(top_p), prompt.device)
+    dec = _decoder(uid, *args) if graphs else Decoder(*args)
+    if graphs:
+        for w, _steps in segs:
+            dec.capture(w)
+    subs = rng.split_chain(key, int(prefill) + sum(st for _w, st in segs)) \
+        if sampled else []
+    first = subs[0] if sampled and prefill else None
+    steps = subs[int(prefill):]
+    dec.start(prompt, temp, {t0 + i: k for i, k in enumerate(steps)})
     if prefill:
-        logits, caches = _prefill(program, params, prompt, caches)
-        nxt = pick(logits)
+        logits, _ = _prefill(program, params, prompt, dec.caches)
+        nxt = _pick(logits, dec.temp, top_k, top_p, first)
         if n_prompt < s_max:
-            ids[:, n_prompt] = nxt
-        t0 = n_prompt
-    if t0 >= s_max - 1:
-        return ids                     # nothing to decode (n_new == 0)
-    # segment [t0, t1) may read positions 0..t1-1 -> window t1.  The
-    # doubling reaches w >= t0 + 1 before (or at) the s_max cap.
-    w = win if 0 < win < s_max else s_max
-    while w < t0 + 1:
-        w = min(w * 2, s_max)
-    while t0 < s_max - 1:
-        t1 = min(w, s_max - 1)
-        for t in range(t0, t1):
-            logits, caches = _step_token(program, params, caches,
-                                         ids[:, t], t, s_max, w=w)
-            nxt = pick(logits)
-            # within the prompt, the next token is given (replay);
-            # beyond it, the model's choice extends the sequence
-            if t + 1 >= n_prompt:
-                ids[:, t + 1] = nxt
-        t0 = t1
-        w = min(w * 2, s_max)
-    return ids
+            dec.ids[:, n_prompt] = nxt
+    dec.decode(t0, segs, graphs)
+    return dec.ids.clone()
 
 
 def generate(model, prompt_ids, n_new: int, temp: float = 0.0,
@@ -282,11 +450,23 @@ def generate(model, prompt_ids, n_new: int, temp: float = 0.0,
     """prompt_ids: [N, S0] (or [S0]) int array -> [N, S0+n_new] ids
     (numpy int32), computed on the model's device; temp=0 is greedy;
     top_k/top_p filter the distribution when temp>0, drawn as the JAX
-    package draws it from jax.random.PRNGKey(seed).
+    package draws it from jax.random.PRNGKey(seed).  On the card the
+    decode replays captured CUDA graphs, one a token after the prefill.
 
     kv_dtype ('float32'/'bfloat16'/'int8', default env T4_KV_DTYPE or
     f32) sets the KV cache storage dtype; win (default env
     T4_DECODE_WIN, 512) sets power-of-two windowed decode (0 = off)."""
+    return _generate_ids(model, prompt_ids, n_new, temp, seed, top_k,
+                         top_p, kv_dtype, win, prefill,
+                         graphs=model.device.type == "cuda")
+
+
+def _generate_ids(model, prompt_ids, n_new, temp=0.0, seed=0, top_k=0,
+                  top_p=0.0, kv_dtype=None, win=None, prefill=True,
+                  graphs=False):
+    """generate() with the decode's route given: graphs=False runs the
+    uncaptured body, also on the card (the control a capture is held
+    against)"""
     program = model._program()
     _check_program(program)
     params = model._params()
@@ -312,6 +492,7 @@ def generate(model, prompt_ids, n_new: int, temp: float = 0.0,
     ids = _generate(program, params, prompt, s_max, float(temp),
                     rng.PRNGKey(int(seed)),
                     int(top_k), float(top_p), kv_dtype=str(kv_dtype),
-                    win=int(win), prefill=bool(prefill))
+                    win=int(win), prefill=bool(prefill), graphs=graphs,
+                    uid=model._uid)
     out = ids.cpu().numpy().astype(np.int32)
     return out[0] if squeeze else out

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..parallel import moe
 from . import cycle, funcs
 from .ntypes import Layer
 
@@ -150,6 +151,7 @@ class _Epoch:
         """start from the model's parameters, zero moments"""
         if self.on_card and self.graph is None:
             self.graph = cycle.capture(self._body, self.ctr, self.device)
+            cycle.COUNTS["captures"] += 1
         for dst, src in zip(self.W, (w for pl in params for w in pl)):
             dst.copy_(src)
         for t in self.M + self.V:
@@ -178,9 +180,11 @@ class _Epoch:
 def _make_epoch(model, program, batch, in_shape, classes, n_batches, buf,
                 lab):
     """the model's epoch loop of this signature and corpus, made on first
-    use (a capture bakes the dots' class and the attention's in)"""
+    use (a capture bakes the dots' class, the attention's and the MoE
+    routing in)"""
     key = (model._uid, program, batch, in_shape, classes, n_batches,
-           id(buf), id(lab), Config.PRECISION, funcs._attn_hybrid())
+           id(buf), id(lab), Config.PRECISION, funcs._attn_hybrid(),
+           moe.capture_key())
     ep = _EPOCHS.get(key)
     if ep is None:
         ep = _EPOCHS[key] = _Epoch(model, program, batch, in_shape, classes,

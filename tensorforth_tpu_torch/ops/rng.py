@@ -98,6 +98,16 @@ def split(key, num: int = 2):
     return _hash_pairs(key, list(range(num)))
 
 
+def split_chain(key, num: int):
+    """the subkeys of `num` successive `key, sub = split(key)`, in order,
+    hashed on host ints (a decode takes them all before its first step)"""
+    subs = []
+    for _ in range(num):
+        key, sub = threefry2x32(key, 0, 0), threefry2x32(key, 0, 1)
+        subs.append(sub)
+    return subs
+
+
 def fold_in(key, data: int):
     """jax.random.fold_in(key, data)"""
     return _hash_pairs(key, [int(data) & _M32])[0]

@@ -13,9 +13,9 @@ first (Model.chunk_sync).
 
 Registered at their place in the dictionary but not in the port yet
 (each prints so through System.perr and leaves the stack as the JAX
-package's usage path does): `nn.moe` (the MoE layer), `nn.pipe`
-(pipeline-parallel training), `nn.train` under T4_MESH (the mesh), and
-`prof.start` and `prof.stop` (the device profiler words).
+package's usage path does): `nn.pipe` (pipeline-parallel training),
+`nn.train` under T4_MESH (the mesh), and `prof.start` and `prof.stop`
+(the device profiler words).
 """
 from __future__ import annotations
 
@@ -567,12 +567,17 @@ class NetVM(TensorVM):
                 vm.sys.perr("", "( M [causal] heads -- ) for nn.attn! ")
         CODE("nn.attn", _attn)
         def _moe(vm):
-            """( M [k] F E -- M' ) mixture-of-experts FFN layer: not in
-            the port yet"""
+            """( M [k] F E -- M' ) mixture-of-experts FFN layer: E
+            experts with hidden dim F, top-k routing (default k=2) over
+            the model's [N, S, D, 1] activations (nn/funcs.py _moe_fwd)"""
             if (vm.ss.size() > 2 and vm.IS_M(vm.ss[-3])
                     and not IS_OBJ(vm.ss[-2]) and not IS_OBJ(vm.ss[-1])
-                    and not IS_OBJ(vm.tos)) or vm.M2V():
-                vm._not_ported("nn.moe")
+                    and not IS_OBJ(vm.tos)):
+                e = vm.POPi(); f = vm.POPi(); k = vm.POPi()
+                vm.MTOS().add(Layer.MOE, e, float(f), [k])
+            elif vm.M2V():
+                e = vm.POPi(); f = vm.POPi()
+                vm.MTOS().add(Layer.MOE, e, float(f), [2])
             else:
                 vm.sys.perr("", "( M [k] F E -- ) for nn.moe! ")
         CODE("nn.moe", _moe)
