@@ -122,6 +122,22 @@ Phases, one JSON line each:
           and partial bytes.  Then, uncounted, the fused backward at
           every (shape, mask, Q block) the sweep launched it at, against
           its plain version and the split.  It asserts no speed.
+  host    the host tier: examples/t4_40a.4th whole through ten4_torch's
+          main() with -t (and once without, and once more with): 21
+          epochs at batch 256 on the fused path, its event file read
+          back (every record's CRCs; each epoch's train/acc, loss, lr,
+          time and test/acc, four histograms, the two tiles, the graph),
+          the logged values against the printed ones, bench.py's
+          held-out loop on the trained model (gate 0.98), seconds an
+          epoch with and without -t, the deferred queue's backlog, and
+          mstat's TLSF lines at bye against the live tensors; the native
+          inner interpreter against the Python loop (t4_20a whole, `see
+          mx` as the JAX package prints it, msec/cycle of the mx and mxl
+          loops in turns); two tasks (a gemm4 loop, a send/recv `@`
+          loop) at T4_VM_COUNT=4 while VM 0 captures and replays a fused
+          chunk: their results and VM 0's weights against the same words
+          in turn and a single-VM run, bit for bit; prof.start/prof.stop
+          around gemm4 and gemm, the trace naming K6 and cuBLAS's GEMM
 Then the seconds each phase took (`phase_seconds`), one `kernels` JSON
 line, the card's name and power limit as nvidia-smi reports them, and
 last {"ok": true, "device": {...}}.
@@ -2746,8 +2762,10 @@ def capture_failure_child(device=None):
     """run by phase_net_rollback in a process of its own: the fused
     cycle's body made to read its loss back to the host, which no CUDA
     graph capture allows.  The forward that captures it must raise
-    through the words (`ERROR in 'cfep'`, the word typed), run no cycle
-    eagerly in its place, and leave the REPL working"""
+    through the words (`ERROR in 'forward'`: the native inner
+    interpreter runs `cfep` and names the word that raised, as the JAX
+    package's does), run no cycle eagerly in its place, and leave the
+    REPL working"""
     from tensorforth_tpu_torch.nn import cycle, funcs
     body = funcs.fused_cycle_body
 
@@ -2768,7 +2786,7 @@ def capture_failure_child(device=None):
         out = run("cfd rewind drop cf cfd cfep drop")
         alive = run("1 2 + . cr")
     print(json.dumps({"capture_failure": {
-        "raised": "ERROR in 'cfep'" in out,
+        "raised": "ERROR in 'forward'" in out,
         "error": [ln for ln in out.splitlines() if "ERROR" in ln][:2],
         "runs": cycle.COUNTS["runs"], "captures": cycle.COUNTS["captures"],
         "alive": alive.split()[:1] == ["3"]}}), flush=True)
@@ -3299,6 +3317,517 @@ def phase_attn_bench(seed: int, device=None, n_iter=BENCH_ITERS,
     return launches
 
 
+# --- the host phase (the host tier: the native engine, the TLSF, the VM
+# pool and task words, the TensorBoard writer and its deferred queue, the
+# profiler words)
+HOST_EPOCHS = 20          # t4_40a's own `20 cnn` (it runs epochs 0..20)
+HOST_GATE = NET_GATE      # net_fused's held-out gate
+HOST_TB_TAGS = ("train/acc", "train/loss", "train/lr", "train/time")
+HOST_HISTOS = ("nn/conv0", "nn/relu2", "nn/lin4", "nn/lin6")
+HOST_TILES = ("mnist/train", "mnist/test")
+# bench.py's held-out loop (bench.py:889-895) over t4_40a's model, on the
+# full batches of mnist_test only (39 of 256: 9,984 of its 10,000): the
+# script's own test/acc divides the hits of 40 batches, the last padded
+# with 240 zero images of label 0, by 10,000
+HOST_HELD_BATCHES = 39
+HOST_HELD_OUT = ("md0 batchsize dataset mnist_test constant gtd\n"
+                 "variable gh 0 gh ! variable gn 0 gn !\n"
+                 ": gep for forward nn.hit gh +! batchsize gn +! next ;\n"
+                 "md0 gtd gep drop\n"
+                 'gh @ gn @ / ." GATE= " . cr')
+HOST_TASK_N = 512         # the task words' square operands
+HOST_TASK_ITERS = 3000    # each task's gemm4 or @ loop: long enough to
+#                           be running when VM 0 captures its chunk
+HOST_CHUNK = 4            # VM 0's fused chunk while the tasks run ...
+HOST_BATCHES = 10         # ... on a window of this many batches
+# `see mx` as the JAX package prints it (its REPL on the CPU, from
+# examples/t4_20a.4th): the dictionary indices of the words mx calls
+SEE_MX = """: mx
+  ( 0014 [  2] ) dup  
+  ( 0018 [ 57] ) >r  
+  ( 001c [ 83] ) clock  
+  ( 0020 [ 57] ) >r  
+  ( 0024 [  9] ) for  
+  ( 0028 [ e4] ) @  
+  ( 002c [  3] ) drop  
+  ( 0030 [  1] ) next  \\ $0028
+  ( 0034 [ 83] ) clock  
+  ( 0038 [ 58] ) r>  
+  ( 003c [ 10] ) -  
+  ( 0040 [ 58] ) r>  
+  ( 0044 [ 24] ) 1+  
+  ( 0048 [ 12] ) /  
+  ( 004c [  6] ) ." => "
+  ( 0054 [ 3a] ) .  
+  ( 0058 [  6] ) ."  msec/cycle"
+  ( 0068 [ 39] ) cr  
+  ( 006c [  0] ) ;
+"""
+
+
+class attr_set:
+    """obj's attributes set to `values` inside the block, put back after"""
+
+    def __init__(self, obj, **values):
+        self.obj, self.values, self.saved = obj, values, {}
+
+    def __enter__(self):
+        for k, v in self.values.items():
+            self.saved[k] = getattr(self.obj, k)
+            setattr(self.obj, k, v)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            setattr(self.obj, k, v)
+
+
+def native_libs() -> dict:
+    """the native libraries the port built from csrc/ and loaded; raises
+    when one did not load (no compiler, a failed build)"""
+    from tensorforth_tpu_torch.runtime import native
+    libs = {name: get() for name, get in (
+        ("t4core", native.get_core), ("t4alloc", native.get_alloc),
+        ("t4io", native.get_io), ("t4tb", native.get_tb))}
+    print("host: native libraries " + ", ".join(
+        f"{k}={getattr(v, '_name', None)}" for k, v in libs.items()),
+        flush=True)
+    missing = [k for k, v in libs.items() if v is None]
+    if missing:
+        raise RuntimeError(f"the native libraries {missing} did not load")
+    return {k: v._name for k, v in libs.items()}
+
+
+def _host_t4_40a(seed, device, tb_dir, epochs, max_batch):
+    """examples/t4_40a.4th through ten4_torch's main() with its stdin and
+    stdout redirected, with `-t tb_dir -r t4_40a` or, tb_dir None, without:
+    (transcript, seconds of each epoch, the equeue's backlog at each
+    line's end, mstat's lines and the MMU's live bytes at bye, the
+    session's seconds up to bye)"""
+    import contextlib
+    from tensorforth_tpu_torch import cli
+    from tensorforth_tpu_torch.debug import Debug
+    from tensorforth_tpu_torch.io.aio import AIO
+    from tensorforth_tpu_torch.mu.mmu import MMU
+    from tensorforth_tpu_torch.system import System
+    from tensorforth_tpu_torch.tb.summary import Summary
+    for free in (System.free_sys, MMU.free_mmu, Debug.free_db, AIO.free_io):
+        free()                   # main() as in a process of its own
+    with open(os.path.join("examples", "t4_40a.4th")) as f:
+        script = f.read().replace("20 cnn", f"{epochs} cnn")
+    backlog, at_bye = [], {}
+    flush, teardown = Summary.flush, cli.TensorForth.teardown
+
+    def counted_flush(self):
+        backlog.append(self.pending())
+        flush(self)
+
+    def reading_teardown(self):
+        """at bye: mstat and the MMU's live bytes, then (with -t) the
+        held-out loop on the trained model"""
+        from tensorforth_tpu_torch.vm.vm import VMState
+        at_bye["t"] = time.perf_counter()
+        mmu = self.sys.mu
+        buf = io.StringIO()
+        with attr_set(self.sys, fout=buf):
+            mmu.status()
+        at_bye["mstat"] = buf.getvalue()
+        live = [o.numel * 4 for o in mmu._objs.values()
+                if not (o.is_model() or o.is_future())]
+        at_bye["live_tensor_bytes"] = sum(live)
+        at_bye["live_tlsf_bytes"] = sum((max(b, 4) + 7) // 8 * 8
+                                        for b in live)
+        at_bye["live_tensors"] = len(live)
+        if tb_dir:                 # its GATE= line ends the transcript
+            self.vm.state = VMState.QUERY
+            with env_set(T4_MAX_BATCH=min(HOST_HELD_BATCHES, max_batch
+                                          or HOST_HELD_BATCHES)):
+                for ln in HOST_HELD_OUT.split("\n"):
+                    self.run_line(ln)
+        teardown(self)
+
+    args = ["-r", "t4_40a", "-t", tb_dir] if tb_dir else []
+    if device is not None:
+        args += ["--device", str(device)]
+    out = io.StringIO()
+    env = dict(T4_SEED=seed, T4_MAX_BATCH=max_batch or None)
+    t0 = time.perf_counter()
+    with env_set(**env), attr_set(sys, stdin=io.StringIO(script)), \
+            contextlib.redirect_stdout(out), \
+            attr_set(Summary, flush=counted_flush), \
+            attr_set(cli.TensorForth, teardown=reading_teardown):
+        rc = cli.main(args)
+    wall = at_bye.pop("t") - t0                # the session up to bye
+    text = out.getvalue()
+    if rc != 0:
+        raise RuntimeError(f"ten4_torch exited {rc}")
+    if tb_dir:
+        at_bye["held_out"] = float(re.search(r"GATE= (\S+) ",
+                                             text).group(1))
+    secs = [float(x) for x in re.findall(r"epoch=\S+ (\S+) sec", text)]
+    per_epoch = [b - a for a, b in zip([0.0] + secs, secs)]
+    return text, per_epoch, backlog, at_bye, wall
+
+
+def _host_tb_check(tb_dir, text, epochs, checks):
+    """the event file of _host_t4_40a against what the script printed"""
+    from tensorforth_tpu_torch.tb import reader
+    run_dir = os.path.join(tb_dir, "t4_40a")
+    files = [f for f in os.listdir(run_dir) if "tfevents" in f]
+    path = os.path.join(run_dir, files[0])
+    try:
+        import tensorboard.backend.event_processing.event_file_loader \
+            as tb_loader
+        n_tb = len(list(tb_loader.RawEventFileLoader(path).Load()))
+    except ImportError:
+        n_tb = None
+    recs = reader.records(path)           # raises on a bad CRC
+    vals = reader.summaries(path)
+    steps = list(range(epochs + 1))
+    scal = {t: [(s, v) for s, tag, k, v in vals if tag == t]
+            for t in HOST_TB_TAGS + ("test/acc",)}
+    checks["tb_one_file"] = len(files) == 1
+    checks["tb_crcs"] = len(recs) > 0
+    checks["tb_reader_agrees"] = n_tb is None or n_tb == len(recs)
+    for t in HOST_TB_TAGS + ("test/acc",):
+        checks[f"tb_{t}_steps"] = [s for s, _ in scal[t]] == steps
+    for t in HOST_HISTOS:
+        checks[f"tb_{t}_steps"] = [s for s, tag, k, _ in vals
+                                   if tag == t and k == "histo"] == steps
+    checks["tb_tiles"] = sorted(tag for _, tag, k, v in vals
+                                if k == "image"
+                                and v[:8] == b"\x89PNG\r\n\x1a\n") == sorted(
+        HOST_TILES)
+    checks["tb_graph"] = len(reader.graphs(path)) == 1
+    # the logged values against the printed ones, to the printed digit
+    # (both print 6 significant digits, %g): hit= and test/acc= on
+    # stdout (train/acc = hit / 60000 in f32), and the progress/text
+    # record's acc= loss= learn_rate=
+    hits = [int(h) for h in re.findall(r"hit=(\d+)", text)]
+    test_acc = re.findall(r"test/acc=(\S+)", text)
+    texts = [v[8][0].decode() for _, tag, k, v in vals
+             if tag == "progress/text"]
+    got = [re.search(r"acc=(\S+) loss=(\S+) learn_rate=(\S+)", t).groups()
+           for t in texts]
+    g6 = "{:g}".format
+    checks["tb_acc_is_printed_hits"] = len(hits) == len(steps) and all(
+        math.isclose(v, h / 60000, rel_tol=1e-6)
+        for (_, v), h in zip(scal["train/acc"], hits))
+    checks["tb_acc_loss_lr_are_the_texts"] = len(got) == len(steps) and all(
+        (g6(a), g6(lo), g6(lr)) == t
+        for (_, a), (_, lo), (_, lr), t in zip(
+            scal["train/acc"], scal["train/loss"], scal["train/lr"], got))
+    checks["tb_test_acc_is_printed"] = len(test_acc) == len(steps) and all(
+        g6(v) == p for (_, v), p in zip(scal["test/acc"], test_acc))
+    return {"records": len(recs), "tensorboard_reader_records": n_tb,
+            "summaries": len(vals), "script_test_acc": float(test_acc[-1])
+            if test_acc else None}
+
+
+def _host_engines(seed, device, cycles):
+    """t4_20a whole on the native engine and on the Python inner loop
+    (the path T4_NO_NATIVE=1 takes), each in a REPL of its own; then, in
+    one REPL, 3 warm runs each of t4_20a's `mx` loop and the larger
+    `mxl` loop on either engine, the engines in turns (N P P N N P)"""
+    from tensorforth_tpu_torch.runtime import native
+    core = native.get_core
+    gets = {"native": core, "python": lambda: None}
+    res = {e: {} for e in gets}
+    with open(os.path.join("examples", "t4_20a.4th")) as f:
+        lines = [ln.rstrip("\n").replace("999 mx", f"{cycles} mx")
+                 for ln in f if not ln.startswith("bye")]
+    for engine, get in gets.items():
+        with attr_set(native, get_core=get):
+            inst, run = repl(device, seed)
+            res[engine]["transcript"] = "".join(run(ln) for ln in lines)
+            res[engine]["engine_used"] = inst.vm._engine is not None
+            inst.teardown()
+    inst, run = repl(device, seed)
+    # t4_20a's word; mxl is the same loop over the larger operands
+    run("0 trace\n: mx dup >r clock >r for @ drop next clock r> - r> 1+ "
+        '/ ." => " . ."  msec/cycle" cr ;')
+    for word, operands in (
+            ("mx", "512 1024 matrix rand 1024 256 matrix ones"),
+            ("mxl", "1024 2048 matrix rand 2048 512 matrix ones")):
+        run(operands)
+        run(f"{cycles} mx")        # warm: the allocator holds its results
+        for engine in ("native", "python", "python", "native", "native",
+                       "python"):
+            with attr_set(native, get_core=gets[engine]):
+                inst.vm._engine = None     # made again on the next line
+                o = run(f"{cycles} mx")
+                if (inst.vm._engine is not None) != (engine == "native"):
+                    raise RuntimeError(f"{word} did not run on {engine}")
+            res[engine].setdefault(word + "_samples", []).append(
+                float(re.search(r"=> (\S+) ", o).group(1)))
+        run("drop drop")
+    inst.teardown()
+    for r in res.values():
+        for word in ("mx", "mxl"):
+            r[word + "_ms"] = statistics.median(r[word + "_samples"])
+    return res
+
+
+def _host_tasks(seed, device, n, iters, batches, chunk):
+    """at T4_VM_COUNT=4, two tasks run a gemm4 loop and a send/recv `@`
+    loop on card tensors while VM 0 trains t4_30e's nn_c on the fused
+    path (a captured chunk and its replays); then the same words on VM 0
+    one after another, and VM 0's training again from the same weights in
+    a single-VM REPL"""
+    import torch
+    from tensorforth_tpu_torch.config import Config
+    from tensorforth_tpu_torch.nn import cycle
+    from tensorforth_tpu_torch.vm.multitask import TaskPool
+    setup = (f"{n} {n} matrix rand constant TA\n"
+             f"{n} {n} matrix rand constant TB\n"
+             f"{n} {n} matrix rand constant TC\n"
+             f"{n} {n} matrix rand constant TX\n"
+             f": tg 1.0 0.0 TA TB TC {iters} for gemm4 drop next gemm4 ;\n"
+             f": tms TB {iters} for @ drop next @ ;\n"
+             ": tm recv tms ;")
+    loop = ("variable {v}h 0 {v}h ! variable {v}l\n"
+            ": {v}ep for forward loss.ce {v}l ! nn.hit {v}h +! "
+            "backprop 0.001 nn.adam next ;")
+    fused = dict(T4_NO_FUSE=None, T4_NO_MACRO=None, T4_MAX_BATCH=batches,
+                 T4_CHUNK=chunk)
+    alive_at_capture = []
+    capture_fn = cycle._capture
+
+    def watched(*a):
+        alive_at_capture.append(sum(
+            1 for t in TaskPool.get().tasks.values()
+            if t.thread is not None and t.thread.is_alive()))
+        return capture_fn(*a)
+
+    with attr_set(Config, VM_COUNT=4), env_set(**fused), \
+            attr_set(cycle, _capture=watched):
+        inst, run = repl(device, seed)
+        pool_size = len(inst.pool)
+        run(setup)
+        run(NN_C.format(v="ka"))
+        base = _weights(_models(inst.vm)[-1])
+        run(loop.format(v="ka"))
+        cycle.reset_counts()
+        run("' tg task constant T1\n' tm task constant T2")
+        out = run("T1 start T2 start TX 1 T2 send "
+                  "kad rewind drop ka kad kaep drop\n"
+                  "kad rewind drop ka kad kaep drop")
+        counts = dict(cycle.COUNTS)
+        run("T1 join T2 join")
+        pulled = []
+        for t in ("T1", "T2"):
+            run(f"1 {t} pull")
+            pulled.append(inst.vm.TTOS().numpy())
+            run("drop")
+        w_tasks = _weights(_models(inst.vm)[-1])
+        seq = []
+        for word in ("tg", "TX tms"):
+            run(f"abort {word}")
+            seq.append(inst.vm.TTOS().numpy())
+        run("abort")
+        inst.teardown()
+    with env_set(**fused):
+        inst, run = repl(device, seed)
+        run(NN_C.format(v="ka"))
+        _pin(_models(inst.vm)[-1], base)
+        run(loop.format(v="ka"))
+        run("kad rewind drop ka kad kaep drop\n"
+            "kad rewind drop ka kad kaep drop")
+        w_single = _weights(_models(inst.vm)[-1])
+        inst.teardown()
+    torch.cuda.synchronize() if torch.cuda.is_available() else None
+    return {"pool": pool_size, "counts": counts,
+            "tasks_alive_at_captures": alive_at_capture,
+            "faults": transcript_faults(out),
+            "task_results_equal": [bool(np.array_equal(a, b))
+                                   for a, b in zip(pulled, seq)],
+            "weights_max_diff": _max_diff(w_tasks, w_single)}
+
+
+def _host_prof(seed, device, n):
+    """_host_prof_child in a process of its own, as a user's session
+    that profiles: on an H100 a process that had run this script's
+    earlier phases (many profiler sessions, CUDA graphs) kept only the
+    first kernel record of a later session, where a process's first
+    sessions kept all of them"""
+    r = subprocess.run([sys.executable, "-c", "import json, chip_smoke as "
+                        f"cs; print(json.dumps({{'prof': cs._host_prof_child("
+                        f"{seed!r}, {device!r}, {n!r})}}))"],
+                       capture_output=True, text=True, timeout=600,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith('{"prof"')]
+    if r.returncode or not lines:
+        raise RuntimeError(f"the profiler's child failed ({r.returncode}): "
+                           f"{r.stderr[-2000:]}")
+    return json.loads(lines[-1])["prof"]
+
+
+def _host_prof_child(seed, device, n):
+    """prof.start / prof.stop around one gemm4 and one gemm: the kernel
+    names in the Chrome trace under ./t4_profile"""
+    import glob
+    with tempfile.TemporaryDirectory(prefix="t4_prof_") as d:
+        cwd = os.getcwd()
+        inst, run = repl(device, seed)
+        try:
+            run(f"1.0 0.0 {n} {n} matrix rand {n} {n} matrix rand "
+                f"{n} {n} matrix zeros gemm4 drop gemm drop")
+            os.chdir(d)
+            out = run("prof.start\ngemm4 drop\ngemm drop\nprof.stop")
+        finally:
+            os.chdir(cwd)
+            inst.teardown()
+        paths = glob.glob(os.path.join(d, "t4_profile", "plugins", "profile",
+                                       "*", "*.pt.trace.json"))
+        names, cats = set(), {}
+        for p in paths:
+            with open(p) as f:
+                events = json.load(f)["traceEvents"]
+            for e in events:
+                c = str(e.get("cat"))
+                cats[c] = cats.get(c, 0) + 1
+                if c.lower() == "kernel":
+                    names.add(e.get("name", ""))
+    ours = sorted(k for k in names if "gemm_sm90_kernel" in k)
+    library = sorted(k for k in names
+                     if "gemm" in k.lower() and "gemm_sm90" not in k)
+    return {"printed": [ln for ln in out.splitlines() if "prof" in ln],
+            "faults": transcript_faults(out), "traces": len(paths),
+            "event_categories": cats,
+            "kernels": sorted(k[:60] for k in names)[:12],
+            "k6_kernels": [k[:120] for k in ours],
+            "library_gemm_kernels": [k[:120] for k in library]}
+
+
+def phase_host(seed: int = NET_SEED, device=None, epochs=HOST_EPOCHS,
+               max_batch=None, cycles=999, task_n=HOST_TASK_N,
+               task_iters=HOST_TASK_ITERS, batches=HOST_BATCHES,
+               chunk=HOST_CHUNK):
+    """the host tier on the card: (a) t4_40a through TensorBoard, uncut,
+    with and without -t; (b) the native engine against the Python loop on
+    t4_20a's loops; (c) tasks on the card while VM 0 captures; (d)
+    prof.start/prof.stop; (e) mstat's TLSF lines after (a)"""
+    import torch
+    on_card = device is None or torch.device(device).type == "cuda"
+    cut = []
+    if epochs != HOST_EPOCHS:
+        cut.append(f"{epochs} epochs of {HOST_EPOCHS}")
+    if max_batch:
+        cut.append(f"T4_MAX_BATCH={max_batch}")
+    if cut:
+        print(f"host: cut to {', '.join(cut)}", flush=True)
+    libs = native_libs()
+    checks, rec = {}, {"native_libraries": libs}
+
+    # --- (a) t4_40a with -t, without it (the control of its cost), and
+    #     with it again: the first run also makes the corpus
+    runs = []
+    for tb, sync_io in ((True, None), (False, None), (True, None),
+                        (True, 1)):
+        with tempfile.TemporaryDirectory(prefix="t4_tb_") as tb_dir, \
+                env_set(T4_SYNC_IO=sync_io):
+            r = _host_t4_40a(seed, device, tb_dir if tb else None, epochs,
+                             max_batch)
+            if not runs:
+                rec["tb"] = _host_tb_check(tb_dir, r[0], epochs, checks)
+        runs.append(r)
+    text, per_epoch, backlog, at_bye, wall = runs[0]
+    ctl_text, ctl_epoch, _, _, ctl_wall = runs[1]
+    again_epoch, again_wall = runs[2][1], runs[2][4]
+    sync_epoch, sync_wall = runs[3][1], runs[3][4]
+    checks["t4_40a_epochs_printed"] = len(per_epoch) == epochs + 1
+    checks["t4_40a_no_faults"] = not transcript_faults(text)
+    # the same training with and without the writer: the same hits
+    checks["t4_40a_same_hits_without_tb"] = re.findall(
+        r"hit=(\d+)", text) == re.findall(r"hit=(\d+)", ctl_text)
+    acc = at_bye["held_out"]
+    if not cut:
+        checks["held_out_accuracy"] = acc >= HOST_GATE
+    rec["t4_40a"] = {
+        "epochs_run": len(per_epoch), "wall_s_with_tb": wall,
+        "wall_s_without_tb": ctl_wall, "wall_s_with_tb_again": again_wall,
+        "s_per_epoch_with_tb": statistics.median(per_epoch[1:] or per_epoch),
+        "s_per_epoch_without_tb": statistics.median(ctl_epoch[1:]
+                                                    or ctl_epoch),
+        "s_per_epoch_with_tb_again": statistics.median(again_epoch[1:]
+                                                       or again_epoch),
+        # the writes on VM 0's thread, no worker (T4_SYNC_IO=1)
+        "s_per_epoch_with_tb_sync_io": statistics.median(sync_epoch[1:]
+                                                         or sync_epoch),
+        "wall_s_with_tb_sync_io": sync_wall,
+        "epoch_s_with_tb_sync_io": sync_epoch,
+        "first_epoch_s_with_tb": per_epoch[0],
+        "first_epoch_s_without_tb": ctl_epoch[0],
+        "epoch_s_with_tb": per_epoch, "epoch_s_without_tb": ctl_epoch,
+        "equeue_backlog_at_line_ends_max": max(backlog),
+        "equeue_backlog_at_bye": backlog[-1],
+        "equeue_backlog_at_training_line_end": backlog[-2],
+        "script_test_acc": rec["tb"]["script_test_acc"],
+        "held_out_accuracy": acc, "held_out_samples":
+            256 * min(HOST_HELD_BATCHES, max_batch or HOST_HELD_BATCHES),
+        "gate": HOST_GATE if not cut else None}
+
+    # --- (e) mstat after (a): the TLSF's used bytes are the live tensors'
+    m = re.search(r"Ostore\(TLSF:accounting\) arena\[(\d+)\] used\[(\d+)\] "
+                  r"peak\[(\d+)\] alloc#\[(\d+)\] free#\[(\d+)\]",
+                  at_bye["mstat"])
+    checks["mstat_tlsf_line"] = m is not None
+    if m:
+        used, peak = int(m.group(2)), int(m.group(3))
+        checks["mstat_used_is_live_tensor_bytes"] = (
+            used == at_bye["live_tlsf_bytes"])
+        checks["mstat_peak_at_least_used"] = peak >= used
+    rec["mstat"] = {"lines": at_bye["mstat"].splitlines(),
+                    "live_tensors": at_bye["live_tensors"],
+                    "live_tensor_bytes": at_bye["live_tensor_bytes"],
+                    "live_tensor_bytes_8_aligned": at_bye["live_tlsf_bytes"]}
+
+    # --- (b) the native engine against the Python loop
+    eng = _host_engines(seed, device, cycles)
+    mask = lambda t: re.sub(r"=> \S+  msec/cycle", "=> T  msec/cycle",
+                            t)  # noqa: E731
+    checks["native_engine_used"] = eng["native"]["engine_used"]
+    checks["python_loop_used"] = not eng["python"]["engine_used"]
+    checks["engines_print_the_same"] = (mask(eng["native"]["transcript"])
+                                        == mask(eng["python"]["transcript"]))
+    checks["see_mx_is_the_references"] = SEE_MX in eng["native"]["transcript"]
+    checks["engines_no_faults"] = not transcript_faults(
+        eng["native"]["transcript"])
+    rec["engines"] = {k: {kk: vv for kk, vv in v.items()
+                          if kk != "transcript"} for k, v in eng.items()}
+
+    # --- (c) tasks on the card while VM 0 captures
+    tasks = _host_tasks(seed, device, task_n, task_iters, batches, chunk)
+    checks["tasks_pool_of_4"] = tasks["pool"] == 4
+    checks["tasks_chunks_ran"] = tasks["counts"]["chunks"] > 0
+    if on_card:
+        checks["tasks_captured"] = tasks["counts"]["captures"] > 0
+        checks["tasks_ran_during_a_capture"] = any(
+            tasks["tasks_alive_at_captures"])
+    checks["tasks_no_faults"] = not tasks["faults"]
+    checks["task_results_equal_in_turn"] = all(tasks["task_results_equal"])
+    checks["weights_equal_single_vm"] = tasks["weights_max_diff"] == 0.0
+    rec["tasks"] = tasks
+
+    # --- (d) the profiler words
+    prof = _host_prof(seed, device, task_n)
+    checks["prof_trace_written"] = prof["traces"] == 1
+    checks["prof_no_faults"] = not prof["faults"]
+    checks["prof_printed"] = any("profile -> t4_profile" in ln
+                                 for ln in prof["printed"])
+    if on_card:
+        checks["prof_names_k6"] = bool(prof["k6_kernels"])
+        checks["prof_names_library_gemm"] = bool(prof["library_gemm_kernels"])
+    rec["prof"] = prof
+
+    emit({"phase": "host", "card": card_line() if on_card else None,
+          "cut": cut or None, **rec, "checks": checks})
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise RuntimeError(f"host checks failed: {bad}")
+    return rec
+
+
+
 def card_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"],
@@ -3362,6 +3891,7 @@ def main(argv=None) -> int:
     timed("moe", phase_moe, args.seed)
     for name, n in timed("attn_bench", phase_attn_bench, args.seed).items():
         ran[name] = ran.get(name, 0) + n
+    timed("host", phase_host)
     emit({"phase_seconds": seconds})
     # no word of either package reaches K5b or K7: the tensor phase calls
     # their wrappers on the words' operands

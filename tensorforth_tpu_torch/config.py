@@ -8,10 +8,13 @@ import torch
 
 
 class Config:
-    # --- capability tiers (reference: T4_DO_OBJ / T4_DO_MATH / T4_DO_NN)
+    # --- capability tiers (reference: T4_DO_OBJ / T4_DO_MATH / T4_DO_NN / T4_DO_TB)
     DO_OBJ  = True
     DO_MATH = True
     DO_NN   = True
+    DO_TB   = True
+
+    VM_COUNT = int(os.environ.get("T4_VM_COUNT", "1"))  # VM pool (T4_VM_COUNT)
 
     # --- sizing (reference: ten4_config.h)
     SS_SZ    = 64          # data stack depth        (T4_SS_SZ)
@@ -20,6 +23,8 @@ class Config:
     NET_SZ   = 128         # max layers per model    (T4_NET_SZ)
     PMEM_SZ  = 1 << 16     # parameter memory bytes  (T4_PMEM_SZ=48K; we round to 64K)
     TFREE_SZ = 1024        # deferred-free list size (T4_TFREE_SZ)
+    OSTORE_SZ = int(os.environ.get("T4_OSTORE_SZ",
+                                   2 << 30))  # TLSF-accounted arena bytes
 
     # --- numerics
     # precision class of the f32-I/O GEMM kernels behind gemm2/gemm3

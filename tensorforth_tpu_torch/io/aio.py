@@ -1,6 +1,5 @@
-"""AIO — host-side IO: tensor/model pretty-printers and persistence (the
-port of tensorforth_tpu/io/aio.py; the PNG export comes with the
-TensorBoard tier).
+"""AIO — host-side IO: tensor/model pretty-printers, persistence and the
+PNG export (the port of tensorforth_tpu/io/aio.py).
 
 Reference: src/io/aio.{h,cpp}, aio_tensor.cpp, aio_model.cpp.  Output
 formats are byte-compatible with the reference (PyTorch-style edge-item
@@ -230,3 +229,19 @@ class AIO:
         except OSError as e:
             self.sys.perr("", f"tload {fname}: {e} ")
             return 1
+
+    def t2png(self, t, fname: str, n_per_row: int = 1) -> int:
+        """export tensor as a tiled PNG (reference aio_tensor.cpp:98-136):
+        the pixels are scaled where the tensor lies, and only they come
+        to the host"""
+        from ..tb.png import raw2png
+        from ..tb.summary import tile_pixels
+        px = tile_pixels(t.ensure_data(), (t.N(), t.H(), t.W(), t.C()),
+                         n_per_row, border=0, offset=0.0)
+        try:
+            with open(fname, "wb") as fs:
+                fs.write(raw2png(px.cpu().numpy()))
+            return 0
+        except OSError as e:
+            self.sys.perr("", f"t2png {fname}: {e} ")
+            return -1

@@ -100,17 +100,50 @@ class Mnist(Corpus):
         if self._img is not None:
             return
         img_p, lbl_p = _find(self.img_rel), _find(self.lbl_rel)
-        with _open(img_p) as f:
-            magic, n, h, w = struct.unpack(">IIII", f.read(16))
-            assert magic == 0x803, f"bad MNIST image magic {magic:#x}"
-            self._img = np.frombuffer(f.read(n * h * w),
-                                      dtype=np.uint8).reshape(n, h, w, 1)
-        with _open(lbl_p) as f:
-            magic, n2 = struct.unpack(">II", f.read(8))
-            assert magic == 0x801, f"bad MNIST label magic {magic:#x}"
-            self._lbl = np.frombuffer(f.read(n2), dtype=np.uint8)
+        n, h, w, n2 = self._init_native(img_p, lbl_p)
+        if n is None:                              # pure-Python fallback
+            with _open(img_p) as f:
+                magic, n, h, w = struct.unpack(">IIII", f.read(16))
+                assert magic == 0x803, f"bad MNIST image magic {magic:#x}"
+                self._img = np.frombuffer(f.read(n * h * w),
+                                          dtype=np.uint8).reshape(n, h, w, 1)
+            with _open(lbl_p) as f:
+                magic, n2 = struct.unpack(">II", f.read(8))
+                assert magic == 0x801, f"bad MNIST label magic {magic:#x}"
+                self._lbl = np.frombuffer(f.read(n2), dtype=np.uint8)
         assert n2 == n, "label/image count mismatch"
         self.size, self.H, self.W, self.C = n, h, w, 1
+
+    def _init_native(self, img_p: str, lbl_p: str):
+        """IDX parse + bulk read in C (csrc/t4io.cpp t4_ld_idx_*);
+        returns (None,)*4 when the native lib is unavailable"""
+        from ..runtime import native
+        lib = native.get_io()
+        if lib is None:
+            return None, None, None, None
+        import ctypes as C
+        dims = (C.c_uint32 * 4)()
+        hsz = lib.t4_ld_idx_info(img_p.encode(), dims)
+        assert hsz > 0 and dims[0] == 0x803, \
+            f"bad MNIST image magic {dims[0]:#x}"
+        n, h, w = dims[1], dims[2], dims[3]
+        img = np.empty(n * h * w, np.uint8)
+        got = lib.t4_ld_idx_read(
+            img_p.encode(), hsz,
+            img.ctypes.data_as(C.POINTER(C.c_uint8)), img.size)
+        assert got == img.size, "truncated MNIST image file"
+        self._img = img.reshape(n, h, w, 1)
+        hsz = lib.t4_ld_idx_info(lbl_p.encode(), dims)
+        assert hsz > 0 and dims[0] == 0x801, \
+            f"bad MNIST label magic {dims[0]:#x}"
+        n2 = dims[1]
+        lbl = np.empty(n2, np.uint8)
+        got = lib.t4_ld_idx_read(
+            lbl_p.encode(), hsz,
+            lbl.ctypes.data_as(C.POINTER(C.c_uint8)), lbl.size)
+        assert got == lbl.size, "truncated MNIST label file"
+        self._lbl = lbl
+        return n, h, w, n2
 
     def _read(self, pos: int, n: int):
         return self._img[pos:pos + n], self._lbl[pos:pos + n]
@@ -185,13 +218,34 @@ class Cifar10(Corpus):
         if self._data is not None:
             return
         p = _find(self.rel)
-        with _open(p) as f:
-            raw = np.frombuffer(f.read(), dtype=np.uint8)
-        n = len(raw) // self.REC
-        raw = raw[:n * self.REC].reshape(n, self.REC)
-        self._lbl = raw[:, 0].copy()
-        chw = raw[:, 1:].reshape(n, 3, 32, 32)
-        self._data = np.ascontiguousarray(chw.transpose(0, 2, 3, 1))
+        from ..runtime import native
+        lib = native.get_io()
+        if lib is not None:
+            # record parse + CHW->HWC transpose in C (t4_ld_cifar)
+            import ctypes as C
+            sz = os.path.getsize(p)
+            if p.endswith(".gz"):
+                with open(p, "rb") as f:       # gzip ISIZE footer
+                    f.seek(-4, 2)
+                    sz = struct.unpack("<I", f.read(4))[0]
+            cap = max(sz // self.REC, 1)
+            data = np.empty((cap, 32, 32, 3), np.uint8)
+            lbl = np.empty(cap, np.uint8)
+            u8p = C.POINTER(C.c_uint8)
+            n = lib.t4_ld_cifar(p.encode(),
+                                data.ctypes.data_as(u8p),
+                                lbl.ctypes.data_as(u8p), cap)
+            assert n > 0, f"no CIFAR records in {p}"
+            self._data = np.ascontiguousarray(data[:n])
+            self._lbl = lbl[:n].copy()
+        else:
+            with _open(p) as f:
+                raw = np.frombuffer(f.read(), dtype=np.uint8)
+            n = len(raw) // self.REC
+            raw = raw[:n * self.REC].reshape(n, self.REC)
+            self._lbl = raw[:, 0].copy()
+            chw = raw[:, 1:].reshape(n, 3, 32, 32)
+            self._data = np.ascontiguousarray(chw.transpose(0, 2, 3, 1))
         self.size, self.H, self.W, self.C = n, 32, 32, 3
 
     def _read(self, pos: int, n: int):

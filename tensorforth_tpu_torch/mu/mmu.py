@@ -7,9 +7,12 @@ list, and the byte accounting behind ``mstat``.
 Reference: src/mu/mmu.{h,cu}.  Where the reference sub-allocates a CUDA
 managed arena with a TLSF allocator, device memory here is owned by
 PyTorch's caching allocator; the MMU keeps the same object-handle scheme
-and counts bytes in Python.  The native TLSF accounting (csrc/t4alloc)
-comes with the native slice and the device arena with its own, so
-``mstat`` prints the reference's plain ``Ostore used/peak/alloc#`` line.
+and byte accounting (``mstat``) on top of it.  The native TLSF
+(csrc/t4alloc through runtime/native.get_alloc) tracks the offsets a
+2 GB arena (Config.OSTORE_SZ) would hand the tensors, as accounting only:
+it owns no memory, and ``mstat`` prints its ``Ostore(TLSF:accounting)``
+line.  Without the native library (T4_NO_NATIVE=1, no compiler) it
+prints the plain ``Ostore used/peak/alloc#`` line.
 
 ``device`` is where the tensor words make their tensors, datasets keep
 their corpus and futures their values: None means the package default
@@ -42,8 +45,15 @@ class MMU:
         self._peak_bytes = 0
         self._num_alloc = 0
         self._regsz: dict[int, int] = {}      # oid -> bytes at register
-        # free_obj recurses into grad chains -> RLock
+        # task VM threads share this MMU: object-table mutation must be
+        # atomic (free_obj recurses into grad chains -> RLock)
         self._mlock = threading.RLock()
+        # native TLSF accounting (csrc/t4alloc; reference mu/tlsf)
+        from ..runtime.native import get_alloc
+        self._tlsf = get_alloc()
+        if self._tlsf is not None:
+            self._tlsf.t4_tlsf_init(Config.OSTORE_SZ)
+        self._offs: dict[int, int] = {}       # oid -> arena byte offset
 
     @classmethod
     def get_mmu(cls) -> "MMU":
@@ -68,7 +78,24 @@ class MMU:
             self._regsz[obj.oid] = nbytes
             self._alloc_bytes += nbytes
             self._peak_bytes = max(self._peak_bytes, self._alloc_bytes)
+            self._tlsf_malloc(obj, nbytes)
         return obj
+
+    _TLSF_NONE = (1 << 64) - 1               # t4_tlsf_malloc: no block
+
+    def _tlsf_malloc(self, obj, nbytes: int):
+        """take the object's arena offset (models and futures own no
+        payload of their own and take none)"""
+        if self._tlsf is None or obj.is_model() or obj.is_future():
+            return
+        off = self._tlsf.t4_tlsf_malloc(max(nbytes, 4))
+        if off != self._TLSF_NONE:
+            self._offs[obj.oid] = off
+
+    def _tlsf_free(self, oid: int):
+        off = self._offs.pop(oid, None)     # none without the library
+        if off is not None:
+            self._tlsf.t4_tlsf_free(off)
 
     def rebind(self, obj):
         """re-dimension support: account the object at its CURRENT numel
@@ -81,6 +108,8 @@ class MMU:
             self._alloc_bytes += nbytes - self._regsz.get(obj.oid, 0)
             self._regsz[obj.oid] = nbytes
             self._peak_bytes = max(self._peak_bytes, self._alloc_bytes)
+            self._tlsf_free(obj.oid)
+            self._tlsf_malloc(obj, nbytes)
 
     def du2obj(self, v):
         return self._objs.get(obj_id(v))
@@ -132,6 +161,7 @@ class MMU:
             if obj is None or obj.oid not in self._objs:
                 return
             self._alloc_bytes -= self._regsz.pop(obj.oid, obj.numel * 4)
+            self._tlsf_free(obj.oid)
             del self._objs[obj.oid]
             # free grad/momentum chains (reference mmu.cu:247-265)
             if isinstance(obj, Tensor):
@@ -175,8 +205,23 @@ class MMU:
                 f"tfree[{len(self._marked)}/{Config.TFREE_SZ}]\n")
         sys.pstr(f"\\   Mpool obj#used[{len(self._objs)}] "
                  f"id#next[{self._next_id}]\n")
-        sys.pstr(f"\\   Ostore used[{self._alloc_bytes}] "
-                 f"peak[{self._peak_bytes}] alloc#[{self._num_alloc}]\n")
+        if self._tlsf is None:
+            sys.pstr(f"\\   Ostore used[{self._alloc_bytes}] "
+                     f"peak[{self._peak_bytes}] "
+                     f"alloc#[{self._num_alloc}]\n")
+            return
+        import ctypes
+        st = (ctypes.c_uint64 * 5)()
+        self._tlsf.t4_tlsf_status(st)
+        sys.pstr(f"\\   Ostore(TLSF:accounting) arena[{st[0]}] "
+                 f"used[{st[1]}] peak[{st[2]}] alloc#[{st[3]}] "
+                 f"free#[{st[4]}]\n")
+        # the TLSF owns no memory here: every payload is PyTorch's
+        with self._mlock:
+            live = [o.numel * 4 for o in self._objs.values()
+                    if not (o.is_model() or o.is_future())]
+        sys.pstr(f"\\   payloads pool-owned[0]=0B "
+                 f"torch-owned[{len(live)}]={sum(live)}B\n")
 
     def clear(self, i: int):
         self.dict.clear(i)

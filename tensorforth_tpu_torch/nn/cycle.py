@@ -36,6 +36,7 @@ import torch
 
 from ..config import Config
 from ..parallel import moe
+from ..runtime.capture import CAPTURE_LOCK
 from . import funcs
 from .ntypes import Layer
 
@@ -216,7 +217,14 @@ def capture(body, ctr, device, pool=None):
     first (they build and load the kernels, and set up cuBLAS's workspace
     and autograd's threads, none of which a capture may do), each from
     counter 0, then one captured run; ctr is left at 0.  Graphs that
-    never run at once may share a memory pool (`pool`)"""
+    never run at once may share a memory pool (`pool`).  It holds the
+    capture lock throughout (runtime/capture.py): no task thread or host
+    worker touches the card while it captures"""
+    with CAPTURE_LOCK:
+        return _capture(body, ctr, device, pool)
+
+
+def _capture(body, ctr, device, pool):
     cur = torch.cuda.current_stream(device)
     s = torch.cuda.Stream(device)
     s.wait_stream(cur)

@@ -1,0 +1,46 @@
+"""The device profiler behind `prof.start`/`prof.stop` and T4_PROFILE
+(the port's counterpart of the JAX package's jax.profiler hooks).
+
+torch.profiler traces the host's operators and, where a card is there,
+its kernels (CUPTI), and writes one Chrome trace under
+<logdir>/plugins/profile/<run>/, the layout TensorBoard's profile plugin
+reads (<logdir> is the TensorBoard run directory under -t, else
+./t4_profile).
+"""
+from __future__ import annotations
+
+import os
+import time
+
+import torch
+
+
+class Profiler:
+    def __init__(self, logdir: str):
+        self.logdir = logdir
+        self.path = None                 # the run directory, once stopped
+        self._p = None
+
+    def start(self):
+        if self._p is not None:
+            raise RuntimeError("a profiler trace is already running")
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        run = os.path.join(self.logdir, "plugins", "profile",
+                           time.strftime("%Y_%m_%d_%H_%M_%S"))
+        p = torch.profiler.profile(
+            activities=acts,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(run))
+        p.start()
+        self._p, self.path = p, run
+
+    def stop(self) -> str:
+        """end the trace and write it; returns its directory"""
+        if self._p is None:
+            raise RuntimeError("no profiler trace is running")
+        p, self._p = self._p, None
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        p.stop()
+        return self.path

@@ -2,11 +2,12 @@
 
 Reference behavior: src/vm/eforth.{h,cpp} (token-threaded inner
 interpreter over byte-addressed pmem, ~110 built-in words, colon
-compiler with control-flow words, base-prefixed number parser).
-
-This port runs the Python inner interpreter only.  The native engine
-(runtime/native.py over csrc/t4core) with its word table, and the
-multitasking words (vm/multitask.py), are not ported yet.
+compiler with control-flow words, base-prefixed number parser).  The
+port of tensorforth_tpu/vm/eforth.py: compiled words run on the native
+inner interpreter (runtime/native.py over csrc/t4core, built into
+build/torch_native/) when it loads, else on the Python loop (_py_nest,
+T4_NO_NATIVE=1); both print the same.  The multitasking words come
+from vm/multitask.py.
 """
 from __future__ import annotations
 
@@ -25,11 +26,19 @@ import math
 
 
 class ForthVM(VM):
+    # a task VM's lock, held around each built-in word it runs and each
+    # prim that may read a deferred scalar, but the words that wait on
+    # another VM (lock_free): no task touches the card while VM 0
+    # captures a CUDA graph (runtime/capture.py, vm/multitask.py)
+    word_lock = None
+    lock_free = frozenset()
+
     def __init__(self, vm_id: int, sys: System):
         super().__init__(vm_id, sys)
         self.pmem: PMem = sys.mu.pmem
         self.dict: Dictionary = sys.mu.dict
         self.pmem.set_base(vm_id, 10)
+        self._engine = None          # native inner interpreter (csrc/t4core)
         self._qdo_marks = []         # compile-time do/?do pairing for `loop`
 
     # --- base (radix) stored in pmem user area ----------------------------
@@ -75,6 +84,23 @@ class ForthVM(VM):
         if self.state == VMState.NEST:     # finished: back to input mode
             self.state = VMState.QUERY
         self.post()
+
+    def _native(self):
+        """the native engine (csrc/t4core), made on first use; None when
+        the library does not load"""
+        if self._engine is None and getattr(self.dict, "native", None):
+            from ..runtime.native import NativeEngine, get_core
+            if get_core() is not None:
+                self._engine = NativeEngine(self)
+        return self._engine
+
+    def outer(self):
+        """native token loop (csrc t4_outer) when available; the pure
+        python loop (VM.outer) remains the fallback/reference path"""
+        eng = self._native()
+        if eng is not None and eng.can_outer():
+            return eng.outer()
+        return super().outer()
 
     def parse(self, idiom: str) -> int:
         w = self.dict.find(idiom)
@@ -127,6 +153,10 @@ class ForthVM(VM):
     # inner interpreter
     # ======================================================================
     def nest(self):
+        eng = self._native()
+        return eng.nest() if eng is not None else self._py_nest()
+
+    def _py_nest(self):
         self.state = VMState.NEST
         pm = self.pmem
         rs = self.rs
@@ -139,7 +169,7 @@ class ForthVM(VM):
                     rs.push(np.float32(self.ip))
                     self.ip = ix.ioff
                 else:
-                    self.dict[ix.ioff].fn(self)
+                    self._exec(self.dict[ix.ioff])
             elif op == Prim.EXIT:
                 self.ip = int(float(rs.pop()))
             elif op == Prim.LIT:
@@ -150,7 +180,7 @@ class ForthVM(VM):
                     self.ip = int(float(rs.pop()))
             elif op == Prim.NEXT:
                 if IS_OBJ(self.tos) and rs.size() and IS_OBJ(rs[-1]):
-                    self._ds_next(ix.ioff)
+                    self._locked(self._ds_next, ix.ioff)
                 else:
                     v = float(rs[-1]) - 1.0
                     rs[-1] = v
@@ -181,15 +211,29 @@ class ForthVM(VM):
             elif op == Prim.BRAN:
                 self.ip = ix.ioff
             elif op == Prim.ZBRAN:
-                if ZEQ(self.fpop()):       # resolves deferred scalars
-                    self.ip = ix.ioff
+                if ZEQ(self._locked(self.fpop)):    # resolves deferred
+                    self.ip = ix.ioff               # scalars
             elif op == Prim.FOR:
-                rs.push(self._loopval(self.POP()))
+                rs.push(self._locked(self._loopval, self.POP()))
             elif op == Prim.DO:
-                rs.push(self._loopval(self.ss.pop()))
-                rs.push(self._loopval(self.POP()))
+                rs.push(self._locked(self._loopval, self.ss.pop()))
+                rs.push(self._locked(self._loopval, self.POP()))
             elif op == Prim.KEY:
                 self.PUSH(np.float32(ord(self.sys.key())))
+
+    def _exec(self, c):
+        """run the built-in word c (under a task VM's word_lock)"""
+        if self.word_lock is None or c.name in self.lock_free:
+            c.fn(self)
+        else:
+            with self.word_lock:
+                c.fn(self)
+
+    def _locked(self, fn, *a):
+        if self.word_lock is None:
+            return fn(*a)
+        with self.word_lock:
+            return fn(*a)
 
     def call(self, w: int):
         c = self.dict[w]
@@ -331,6 +375,15 @@ class ForthVM(VM):
             dst = self.dict[widx]
             dst.fn, dst.udf, dst.pfa = src.fn, src.udf, src.pfa
             self.dict.gen += 1                   # snapshot tables stale
+            native = getattr(self.dict, "native", None)
+            if native is not None:
+                # retarget the native dispatch entry to match the alias
+                if w in native:
+                    native[widx] = native[w]
+                else:
+                    native.pop(widx, None)
+                if self._engine is not None:
+                    self._engine._table = None       # force table rebuild
 
     def _ss_dump(self):
         self.sys.db.ss_dump(self.id, self.tos, self.ss, self.BASE)
@@ -759,7 +812,8 @@ class ForthVM(VM):
         CODE("roll", _roll)
         # ?do ( limit start -- ) skips the body when start >= limit (the
         # entry form of LOOP's float continue test, limit-v > DU_EPS).
-        # Compiled entirely from existing prims:
+        # Compiled entirely from existing prims so the native inner
+        # interpreter (csrc/t4core.cpp) runs it untouched:
         #   over over > ZBRAN->Lskip DO Lbody: ... LOOP->Lbody
         #   BRAN->Lend Lskip: drop drop Lend:
         # `loop` (redefined below) emits the tail when closing a ?do;
@@ -774,6 +828,23 @@ class ForthVM(VM):
             vm.PUSH(np.float32(vm.HERE))
             vm._qdo_marks.append(qa)
         IMMD("?do", _qdo)
+
+        # --- native inner-interpreter dispatch table -----------------------
+        # record base (scalar) definitions for the C engine; later tiers'
+        # redefinitions (tensor max/min/@ ...) keep their own indices and
+        # trampoline back to Python.
+        from ..runtime.native import NATIVE_WORDS
+        self.dict.native = {}
+        for nm, nid in NATIVE_WORDS.items():
+            w = self.dict.find(nm)
+            if w:
+                self.dict.native[w] = nid
+
+        # --- multitasking words (reference vm.h:62-79 DO_MULTITASK
+        # scaffold, declared but compiled out there; realized here as a
+        # host thread pool — device-level scaling goes through parallel/)
+        from .multitask import register_multitask_words
+        register_multitask_words(self.dict)
 
     def _loopval(self, v):
         """FOR/DO counter cell: futures resolve to host scalars; other

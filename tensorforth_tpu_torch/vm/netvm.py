@@ -11,11 +11,11 @@ chunk is in flight.  T4_NO_FUSE=1 T4_NO_MACRO=1 keeps them on the
 per-word path; every word that reads a model's tensors drains a chunk
 first (Model.chunk_sync).
 
-Registered at their place in the dictionary but not in the port yet
-(each prints so through System.perr and leaves the stack as the JAX
-package's usage path does): `nn.pipe` (pipeline-parallel training),
-`nn.train` under T4_MESH (the mesh), and `prof.start` and `prof.stop`
-(the device profiler words).
+`prof.start` and `prof.stop` trace the card with torch.profiler
+(runtime/prof.py).  Registered at their place in the dictionary but not
+in the port yet (each prints so through System.perr and leaves the stack
+as the JAX package's usage path does): `nn.pipe` (pipeline-parallel
+training) and `nn.train` under T4_MESH (the mesh).
 """
 from __future__ import annotations
 
@@ -33,6 +33,8 @@ from .vm import MathOp, VMState
 
 
 class NetVM(TensorVM):
+    _prof = None                 # prof.start's trace (runtime/prof.py)
+
     # --- stack-pattern predicates (reference netvm.h:18-25) ---------------
     def IS_M(self, v) -> bool:
         o = self.mmu.du2obj(v)
@@ -899,9 +901,33 @@ class NetVM(TensorVM):
             vm.DROP_DU(tv)
             vm.PUSH(vm.mmu.obj2du(ot))
         CODE("nn.gen", _nn_gen)
-        # --- device profiler: not in the port yet -------------------------
-        CODE("prof.start", lambda vm: vm._not_ported("prof.start"))
-        CODE("prof.stop", lambda vm: vm._not_ported("prof.stop"))
+        def _prof_start(vm):
+            """( -- ) start a device profiler trace (torch.profiler:
+            host operators and, on the card, its kernels).  Extension
+            beyond the reference: its `trace` word (src/sys/debug.cpp)
+            prints per-layer activation stats; this captures the
+            timeline into <tb-logdir>/plugins/profile — or ./t4_profile
+            without -t — for TensorBoard's profiler"""
+            from ..runtime.prof import Profiler
+            if vm._prof is None:
+                vm._prof = Profiler(vm.sys.tb.path if vm.sys.tb
+                                    else "t4_profile")
+            try:
+                vm._prof.start()
+            except Exception as e:               # noqa: BLE001
+                vm.sys.perr("", f"prof.start failed ({e}) ")
+        CODE("prof.start", _prof_start)
+        def _prof_stop(vm):
+            """( -- ) stop the profiler trace and report its location"""
+            try:
+                if vm._prof is None:
+                    raise RuntimeError("no profiler trace is running")
+                vm._prof.stop()
+                vm.sys.pstr(f"\\ profile -> {vm._prof.logdir}\n")
+                vm._prof = None
+            except Exception as e:               # noqa: BLE001
+                vm.sys.perr("", f"prof.stop failed ({e}) ")
+        CODE("prof.stop", _prof_stop)
         # --- overrides ------------------------------------------------------------------------------------------
         CODE("boot", lambda vm: vm.dict.clear(vm.dict.find("network") + 1))
         CODE("flatten", lambda vm: vm._nnop(Layer.FLATTEN))

@@ -7,8 +7,9 @@ words go through the hand-written CUDA kernels of ops/gemm.py.  The
 reductions push deferred scalars (mu/future.py), and scalar arithmetic
 on them stays on the device.
 
-Not ported yet: the device arena's fused paths, the TensorBoard words
-and `.png`.
+The TensorBoard words post to the TB writer (tb/summary.py), which
+snapshots a tensor on the device and writes it off the interpreter's
+thread.  Not ported yet: the device arena's fused paths.
 """
 from __future__ import annotations
 
@@ -376,10 +377,10 @@ class TensorVM(ForthVM):
             self.sys.perr("", "dim? ")
 
     # ======================================================================
-    # persistence
+    # persistence & TensorBoard marshalling
     # ======================================================================
-    def _pickle(self, save: bool):
-        mode = FAM_RW if not save else FAM_WO
+    def _pickle(self, save: bool, png: bool = False):
+        mode = 0 if png else (FAM_RW if not save else FAM_WO)
         if self.ss.size() > 1 and IS_OBJ(self.ss[-2]):
             pass
         elif self.ss.size() > 2 and IS_OBJ(self.ss[-3]):
@@ -392,10 +393,45 @@ class TensorVM(ForthVM):
         from ..io.aio import AIO
         io = AIO.get_io(self.sys)
         t = self.TTOS()
-        if save:
+        if png:
+            io.t2png(t, tag)
+        elif save:
             io.tsave(t, tag, raw=bool(mode & FAM_RAW))
         else:
             io.tload(t, tag)
+
+    def _tboard(self, op: str):
+        self.POPi()
+        tag = self.pmem.rd_str(self.POPi())
+        tb = self.sys.tb
+
+        def mark(v):
+            if IS_OBJ(v) and not IS_VIEW(v):
+                self.mmu.mark_free(v)
+
+        if op == "init":
+            if tb:
+                tb.init(tag)
+        elif op == "text":
+            self.POPi()
+            txt = self.pmem.rd_str(self.POPi())
+            if tb:
+                tb.text(tag, txt)
+        elif op == "scalar":
+            v = self.fpop()                  # resolves deferred scalars
+            if tb:
+                tb.scalar(tag, float(v))
+        elif op in ("image", "embed"):
+            t = self.POP()
+            if tb:
+                getattr(tb, op)(tag, self.mmu.du2obj(t))
+            mark(t)
+        elif op in ("tile", "histo"):
+            n = self.POPi()
+            t = self.POP()
+            if tb:
+                getattr(tb, op)(tag, self.mmu.du2obj(t), n)
+            mark(t)
 
     # ======================================================================
     # vocabulary (reference tenvm.cpp:450-636)
@@ -584,6 +620,32 @@ class TensorVM(ForthVM):
         CODE("r/w", lambda vm: vm.PUSH(np.float32(FAM_RW)))
         CODE("save", lambda vm: vm._pickle(True))
         CODE("load", lambda vm: vm._pickle(False))
+        # --- TensorBoard -----------------------------------------------------------------------------
+        if Config.DO_TB:
+            CODE(".tbinit", lambda vm: vm._tboard("init"))
+            def _tbstep(vm):
+                i = vm.POPi()
+                if vm.sys.tb:
+                    vm.sys.tb.set_step(i)
+            CODE(".tbstep", _tbstep)
+            CODE(".scalar", lambda vm: vm._tboard("scalar"))
+            CODE(".text",   lambda vm: vm._tboard("text"))
+            CODE(".image",  lambda vm: vm._tboard("image"))
+            CODE(".tile",   lambda vm: vm._tboard("tile"))
+            CODE(".histo",  lambda vm: vm._tboard("histo"))
+            CODE(".embed",  lambda vm: vm._tboard("embed"))
+            def _hparam(vm):                 # ( v tag len -- )
+                vm.POPi()
+                tag = vm.pmem.rd_str(vm.POPi())
+                v = vm.fpop()
+                if vm.sys.tb:
+                    vm.sys.tb.hparam(tag, v)
+            CODE(".hparam", _hparam)
+            def _tbgraph(vm):
+                v = vm.POP()
+                if vm.sys.tb:
+                    vm.sys.tb.graph(vm.mmu.du2obj(v))
+            CODE(".graph", _tbgraph)
         # --- redefined base words ----------------------------------------------------------------------
         CODE("boot", lambda vm: vm.dict.clear(vm.dict.find("load") + 1))
         def _at(vm):
@@ -605,3 +667,4 @@ class TensorVM(ForthVM):
             else:
                 vm.xop2(M.MIN)
         CODE("min", _min2)
+        CODE(".png", lambda vm: vm._pickle(False, png=True))

@@ -11,10 +11,9 @@ tolerances: losses 2e-5, weights 1e-5).
 import numpy as np
 import pytest
 
-from tests.test_torch_fusion import (DEFAULT, MODEL, MODES, PER_WORD,  # noqa: F401
-                                     first_word, models, paired_runs, pin,
-                                     same_data_roots, set_env, snap, t4p,
-                                     weights)
+from tests.test_torch_fusion import (  # noqa: F401
+    DEFAULT, MODEL, MODES, PER_WORD, first_word, fresh_jax_chunk_programs,
+    models, paired_runs, pin, same_data_roots, set_env, snap, t4p, weights)
 
 LOOP = ("variable {v}h 0 {v}h ! variable {v}l\n"
         ": {v}ep for forward loss.ce {v}l ! nn.hit {v}h +! "

@@ -53,6 +53,19 @@ def same_data_roots(monkeypatch):
     monkeypatch.setattr(JConfig, "DATA_ROOTS", list(Config.DATA_ROOTS))
 
 
+@pytest.fixture(autouse=True)
+def fresh_jax_chunk_programs():
+    """after each test, the JAX package's compiled chunk programs as a
+    fresh process has them: tests/test_chunk.py reads that cache's size
+    to see that its dropout model's chunk was built, and the same
+    program left there by a [jax] case of the port's tests (the same
+    model at the same shapes) hid the build when both files ran in one
+    test worker"""
+    yield
+    from tensorforth_tpu.nn import funcs
+    funcs.get_fused_chunk_ds.cache_clear()
+
+
 def models(inst):
     return [o for o in inst.vm.mmu._objs.values()
             if getattr(o, "is_model", lambda: False)()]
@@ -262,8 +275,10 @@ def test_fused_cycle_on_a_batch_already_made(t4p, monkeypatch):
 
 def test_failed_cycle_raises_through_the_word(t4p, monkeypatch):
     """a fused cycle that fails (on the card: its capture or a replay)
-    raises through the words, `ERROR in '<the word typed>'`, with no
-    per-word run in its place; the REPL goes on"""
+    raises through the words, with no per-word run in its place; the REPL
+    goes on.  The native inner interpreter runs the colon word and names
+    the word that raised, `forward` (the JAX package's engine does the
+    same); the Python loop names the word typed, `mzep`"""
     from tensorforth_tpu_torch.nn import cycle
 
     def fail(self, k=1):
@@ -275,7 +290,8 @@ def test_failed_cycle_raises_through_the_word(t4p, monkeypatch):
     t4p.forth(LOOP.format(v="mz", lr="0.001"))
     monkeypatch.setattr(cycle.Cycle, "run", fail)
     out = t4p.forth("mzd rewind drop mz mzd mzep drop")
-    assert "ERROR in 'mzep': the cycle failed" in out
+    assert t4p.vm._engine is not None
+    assert "ERROR in 'forward': the cycle failed" in out
     # the arming cycle ran word by word, the failed one nothing more
     assert first_word(t4p.forth("mzh @ . cr")) != "0"
     assert models(t4p)[-1]._iter == 1

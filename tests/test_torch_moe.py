@@ -20,9 +20,9 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_fusion import (DEFAULT, PER_WORD, first_word,  # noqa: F401
-                                     models, pin, same_data_roots, set_env,
-                                     snap, t4p, weights)
+from tests.test_torch_fusion import (  # noqa: F401
+    DEFAULT, PER_WORD, first_word, fresh_jax_chunk_programs, models, pin,
+    same_data_roots, set_env, snap, t4p, weights)
 from tests.test_torch_nn_models import (TOL, TOL_LATER, _io, _layers_close,
                                         _seed, _state_close, _zoo)
 from tests.test_torch_repl import run_lines, script_lines

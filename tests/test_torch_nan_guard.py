@@ -19,10 +19,9 @@ import re
 import numpy as np
 import pytest
 
-from tests.test_torch_fusion import (DEFAULT, MODES, PER_WORD,  # noqa: F401
-                                     first_word, models, pin,
-                                     same_data_roots, set_env, snap, t4p,
-                                     weights)
+from tests.test_torch_fusion import (  # noqa: F401
+    DEFAULT, MODES, PER_WORD, first_word, fresh_jax_chunk_programs, models,
+    pin, same_data_roots, set_env, snap, t4p, weights)
 
 MODEL = """0 trace
 8 28 28 1 nn.model

@@ -13,7 +13,7 @@ import re
 
 import pytest
 
-from tests.test_torch_repl import (GOLDEN, HERE, _SEE_IDX, _forth_calls,  # noqa: F401
+from tests.test_torch_repl import (GOLDEN, HERE, _forth_calls,  # noqa: F401
                                    run_lines, script_lines, t4p)
 
 
@@ -66,8 +66,9 @@ def assert_close_transcripts(got, want, rtol):
 
 
 # --- deferred scalars: test_future.py's REPL cases -------------------------------
-# left out: the TensorBoard writer is not ported (ROADMAP A6)
-FUTURE_LEFT_OUT = ("test_future_tb_scalar_and_dotr",)
+# left out: none (the TB words are in the port; without -t they log
+# nothing, and test_torch_tb.py holds what they write)
+FUTURE_LEFT_OUT = ()
 # trained through Adam over real-sized batches, where the loss is held to
 # a relative 1e-4: the two packages' f32 matmuls sum in another order,
 # and Adam's m / sqrt(v) magnifies that last bit wherever a gradient is
@@ -109,7 +110,7 @@ loss.ce lox ! nn.hit hit +! nn.hit hit +!""")
 
 
 # --- every net word's usage-error path ------------------------------------------------
-NOT_PORTED = ("nn.pipe", "prof.start", "prof.stop")
+NOT_PORTED = ("nn.pipe",)
 NET_WORDS = (
     "nn.model conv1x1 conv2d dconv2d linear relu tanh sigmoid selu "
     "leakyrelu elu softmax logsoftmax batchnorm nn.attn nn.moe layernorm "
@@ -292,7 +293,7 @@ def test_t4_30e_truncated_matches_jax(t4, t4p, monkeypatch, tmp_path,
         monkeypatch.delenv("T4_NO_MACRO")
     lines = _lines("t4_30e.4th", **{"20 cnn": "2 cnn",
                                     "/tmp/": f"{tmp_path}/"})
-    masks = ((_SEE_IDX, r"\1 ..\2"), (_TIME, "t=T "))
+    masks = ((_TIME, "t=T "),)
     got = run_lines(t4p, lines)
     want = run_lines(t4, lines)
     for pat, repl in masks:

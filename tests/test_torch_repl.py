@@ -69,11 +69,6 @@ def run_lines(inst, lines):
     return "".join(out)
 
 
-# `see` prints each compiled word's dictionary index.  The JAX package
-# registers its multitasking words between the eForth and the tensor
-# words, so a tensor word's index differs there; the listing is compared
-# with the index field blanked.
-_SEE_IDX = re.compile(r"^(  \( [0-9a-f]{4} \[)[ 0-9a-f]{3}(\] \))", re.M)
 _MSEC = re.compile(r"=> \S+  msec/cycle")
 # an off-diagonal of A @ inverse(A) is rounding noise around zero (1e-8),
 # and its sign depends on the order of the LU's operations
@@ -99,8 +94,7 @@ def test_t4_20a_matches_jax(t4, t4p):
     benchmark loop is cut to 10 cycles and its time masked"""
     lines = [ln.replace("999 mx", "9 mx")
              for ln in script_lines("t4_20a.4th")]
-    masks = ((_SEE_IDX, r"\1 ..\2"), (_MSEC, "=> T  msec/cycle"),
-             (_NEG_ZERO, "+0.0000"))
+    masks = ((_MSEC, "=> T  msec/cycle"), (_NEG_ZERO, "+0.0000"))
     got = _mask(run_lines(t4p, lines), *masks)
     want = _mask(run_lines(t4, lines), *masks)
     assert got == want
@@ -130,9 +124,8 @@ LEFT_OUT = {
     "test_gemm_variants":
         "the JAX words print a WARN line on the CPU (gemm cases below)",
 }
-# single lines left out: `words` lists the task words, which the port
-# does not have yet (test_words_lists_both_tiers covers the port's)
-LEFT_OUT_LINES = ("words",)
+# single lines left out (none since the task words are in the port)
+LEFT_OUT_LINES = ()
 
 
 def _forth_calls(path):
@@ -220,22 +213,26 @@ def test_tensor_save_load_round_trip(t4, t4p, tmp_path):
 
 
 def test_mstat_counts_objects(t4p):
+    """the TLSF's accounting (csrc/t4alloc): 24 and 16 bytes, each
+    rounded up to its 8-byte alignment"""
     out = t4p.forth("abort 2 3 matrix ones 4 vector mstat")
     assert "Mpool obj#used[2]" in out
-    assert "Ostore used[40] peak[40] alloc#[2]" in out
+    assert "used[40] peak[40] alloc#[2] free#[0]" in out
+    assert "torch-owned[2]=40B" in out
     out = t4p.forth("drop drop mstat")       # marked, swept after the line
     out = t4p.forth("mstat")
     assert "obj#used[0]" in out and "used[0] peak[40]" in out
 
 
 def test_words_lists_both_tiers(t4p):
-    """the REPL's default level is the net one: eForth, the tensor words
-    and the NN words (the task words are not ported)"""
+    """the REPL's default level is the net one: eForth, the task words,
+    the tensor and TensorBoard words and the NN words"""
     out = t4p.forth("words")
     for w in ("Forth::", "Tensor::", "dup", "gemm4", "inverse", "randn",
-              "Network::", "nn.model", "nn.gen"):
+              "Network::", "nn.model", "nn.gen", ".tbstep", ".png",
+              "prof.start"):
         assert w in out
-    assert "task" not in out.split()
+    assert "task" in out.split() and "pull" in out.split()
 
 
 def test_see_decompiles(t4p):

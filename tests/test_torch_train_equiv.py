@@ -14,7 +14,8 @@ import re
 import numpy as np
 import pytest
 
-from tests.test_torch_fusion import host, same_data_roots, t4p  # noqa: F401
+from tests.test_torch_fusion import (  # noqa: F401
+    fresh_jax_chunk_programs, host, same_data_roots, t4p)
 from tests.test_torch_net_repl import assert_close_transcripts
 
 
