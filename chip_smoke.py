@@ -138,6 +138,23 @@ Phases, one JSON line each:
           chunk: their results and VM 0's weights against the same words
           in turn and a single-VM run, bit for bit; prof.start/prof.stop
           around gemm4 and gemm, the trace naming K6 and cuBLAS's GEMM
+  arena   the device arena (T4_ARENA=1): t4_20a whole with the payloads
+          in the one pool and without it (transcripts equal but for the
+          clock and mstat's Ostore lines), mx's msec/cycle both ways,
+          mstat's `Ostore(TLSF:owner)` and its owner line against the
+          live tensors' bytes; t4_30e's nn_c trained 2 epochs on the
+          per-word path both ways, the printed acc=/loss= and bench.py's
+          held-out accuracy equal
+  mesh    the dp/tp mesh, its ranks gloo processes on the one card (NCCL
+          refuses two ranks on one GPU): a ShardedTrainer gradient of
+          tiny_lm at bench_prefill's width under dp2 against one rank
+          (TOL_NN of each tensor's largest value), K1, K2a and K2b
+          launched inside the ranks; t4_30e's word loop under dp2 and
+          dp2,tp2 against one rank (test_word_mesh's bounds, uncaptured);
+          generate at bench_prefill's width under dp2,tp2 (the KV caches
+          [4, 4, S, 128] a rank) against the one-rank tokens, prefill ms
+          and decode tok/s beside the one-rank numbers; the ranks'
+          count, the backend and rank 0's collectives
 Then the seconds each phase took (`phase_seconds`), one `kernels` JSON
 line, the card's name and power limit as nvidia-smi reports them, and
 last {"ok": true, "device": {...}}.
@@ -3828,6 +3845,508 @@ def phase_host(seed: int = NET_SEED, device=None, epochs=HOST_EPOCHS,
 
 
 
+ARENA_EPOCHS = 2      # t4_30e under T4_ARENA=1 and without, cut from 20
+# t4_20a's runs, in an order that puts the pool's runs between two runs
+# without it: the first run of a process pays the first-run effect
+ARENA_ORDER = (False, True, True, False)
+# after t4_30e's word loop at the defaults, one epoch of nn.train
+ARENA_NN_TRAIN = "ds0 rewind drop md0 ds0 0.001 1 nn.train drop"
+ARENA_MASK = ((re.compile(r"=> \S+  msec/cycle"), "=> #  msec/cycle"),
+              (re.compile(r"-0\.0000\b"), "+0.0000"),
+              (re.compile(r"\\   (Ostore|payloads).*\n"), ""))
+
+
+def _with_arena(on: bool, fn):
+    """fn() with Config.ARENA set (a fresh REPL's MMU reads it)"""
+    from tensorforth_tpu_torch.config import Config
+    saved = Config.ARENA
+    Config.ARENA = on
+    try:
+        return fn()
+    finally:
+        Config.ARENA = saved
+
+
+def phase_arena(seed: int = NET_SEED, device=None, epochs=ARENA_EPOCHS,
+                max_batch=None, script_dir="examples"):
+    """the device arena (T4_ARENA=1, mu/arena.py): t4_20a whole and
+    t4_30e's model trained `epochs` epochs on the per-word path and at the
+    REPL's defaults (fused cycles, chunks and CUDA graphs, then an epoch
+    of nn.train), each with the payloads in the one pool and without it;
+    the transcripts equal (but for the clock and mstat's Ostore lines),
+    mx's msec/cycle both ways (ARENA_ORDER), mstat's owner line against
+    the live tensors' bytes, and the held-out accuracy equal"""
+    from tensorforth_tpu_torch.nn import cycle
+    with open(os.path.join(script_dir, "t4_20a.4th")) as f:
+        t20 = [ln.rstrip("\n") for ln in f]
+    runs, checks, mx = {}, {}, []
+    for on in ARENA_ORDER:
+        def go():
+            inst, run = repl(device, seed)
+            out = "".join(run(ln) for ln in t20)
+            mst = run("256 256 matrix rand 3 vector{ 1 2 3 } 8 8 matrix ones "
+                      "mstat")
+            mmu = inst.sys.mu
+            own, other = mmu.payloads()
+            live = sum(o.numel * 4 for o in mmu._objs.values()
+                       if not (o.is_model() or o.is_future()))
+            return dict(out=out, mstat=mst, own=own, other=other, live=live,
+                        ms=[float(v) for v in re.findall(
+                            r"=> (\S+)  msec/cycle", out)],
+                        pool=mmu.arena is not None)
+        got = _with_arena(on, go)
+        runs.setdefault(on, got)          # the first run of each kind
+        mx.append({"arena": on, "ms": got["ms"]})
+        checks["t4_20a_equal"] = checks.get("t4_20a_equal", True) and (
+            _mask_all(got["out"], ARENA_MASK)
+            == _mask_all(runs[ARENA_ORDER[0]]["out"], ARENA_MASK))
+    a, b = runs[True], runs[False]
+    checks["t4_20a_no_fault"] = not transcript_faults(a["out"])
+    checks["pool_made"] = a["pool"] and not b["pool"]
+    checks["mstat_owner"] = "Ostore(TLSF:owner)" in a["mstat"]
+    owner = re.search(r"pool-owned\[(\d+)\]=(\d+)B torch-owned\[(\d+)\]"
+                      r"=(\d+)B", a["mstat"])
+    checks["owner_line_is_live_bytes"] = bool(owner) and (
+        int(owner.group(2)) + int(owner.group(4)) == a["live"] > 0
+        and int(owner.group(2)) == sum(a["own"]) > 0)
+    t30 = {}
+    for path, env in (("per_word", PER_WORD),
+                      ("default", {k: None for k in PER_WORD})):
+        held = {}
+        with tempfile.TemporaryDirectory(prefix="t4_arena_") as save_dir, \
+                env_set(T4_MAX_BATCH=max_batch, **env):
+            lines = _net_lines(os.path.join(script_dir, "t4_30e.4th"),
+                               epochs, save_dir)
+            if path == "default":
+                lines.append(ARENA_NN_TRAIN)
+            for on in (False, True):
+                def train():
+                    inst, run = repl(device, seed)
+                    cycle.reset_counts()
+                    t0 = time.perf_counter()
+                    out = "".join(run(ln) for ln in lines)
+                    sec = time.perf_counter() - t0
+                    counts = dict(cycle.COUNTS)
+                    h = run(HOST_HELD_OUT)
+                    return dict(printed=re.findall(r"acc=(\S+) loss=(\S+)",
+                                                   out),
+                                acc=float(re.search(r"GATE= (\S+) ",
+                                                    h).group(1)),
+                                seconds=sec, counts=counts,
+                                pool=inst.sys.mu.arena is not None,
+                                faults=transcript_faults(out))
+                held[on] = _with_arena(on, train)
+        t, f = held[True], held[False]
+        checks[f"t4_30e_{path}_lines_equal"] = (
+            t["printed"] == f["printed"] and len(t["printed"]) == epochs)
+        checks[f"t4_30e_{path}_held_out_equal"] = t["acc"] == f["acc"]
+        checks[f"t4_30e_{path}_no_fault"] = not (t["faults"] or f["faults"])
+        checks[f"t4_30e_{path}_pool_made"] = t["pool"] and not f["pool"]
+        if path == "default":
+            # the fused cycles and nn.train's graph ran under the pool
+            checks["t4_30e_default_fused"] = t["counts"]["fused"] > 0 and \
+                t["counts"]["runs"] > 0
+            checks["t4_30e_default_captured"] = (
+                t["counts"]["captures"] > 0 or torch_device(device).type != "cuda")
+        t30[path] = {"held_out_arena": t["acc"],
+                     "held_out_no_arena": f["acc"],
+                     "printed": t["printed"], "counts_arena": t["counts"],
+                     "counts_no_arena": f["counts"],
+                     "seconds_arena": t["seconds"],
+                     "seconds_no_arena": f["seconds"]}
+    emit({"phase": "arena", "card": card_line() if
+          torch_device(device).type == "cuda" else None,
+          "mx_msec_per_cycle": mx, "order": ARENA_ORDER,
+          "mstat_owner": owner.group(0) if owner else None,
+          "live_tensor_bytes": a["live"],
+          "t4_30e": {"epochs": epochs, **t30}, "checks": checks})
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise RuntimeError(f"arena phase failed: {bad}")
+    return checks
+
+
+def _mask_all(text, pats):
+    for pat, repl_ in pats:
+        text = pat.sub(repl_, text)
+    return text
+
+
+MESH_LM = dict(LM)          # bench_prefill's tiny_lm width (LM), seq 2048
+MESH_RANKS = 2              # dp2 on the one card, over gloo
+MESH_SPECS = ("dp2", "dp2,tp2")   # the word loop's meshes
+MESH_EPOCHS = 2             # t4_30e's word loop under each mesh
+# batches an epoch, cut from 600: test_word_mesh's own depth (7), where
+# the mesh is held to one rank within its bounds (equal hits, 5e-5 on the
+# loss, 2e-4 on the weights), and 50 (100 steps), where the mesh is held
+# bit for bit to one process that runs the ranks' arithmetic in turn
+# (_emulated_mesh): a rank's products over its 50 rows (or its half of a
+# layer's features) sum in another order than one rank's over 100, and
+# Adam's steps carry that apart from one rank (PERF.md §6)
+MESH_MAX_BATCH = 7
+MESH_LONG_BATCH = 50
+MESH_LOSS_TOL, MESH_W_ATOL = 5e-5, 2e-4
+MESH_GEN_SPEC = "dp2,tp2"   # generate over 4 ranks: 4 prompts and 4 heads
+MESH_N_NEW = 64             # each
+
+
+class _TpPiece:
+    """one tp rank's view in funcs._tp_layer: its all-gather hands back
+    its own piece (the caller concatenates the pieces, as the gather
+    does)"""
+
+    def __init__(self, tp, t):
+        self.tp, self.tp_idx = tp, t
+
+    def all_gather(self, y, ax, axis):
+        return y
+
+
+def _emu_forward(mesh, program, x, params, key):
+    """funcs._forward_mesh's arithmetic for every dp rank in turn, each
+    rank's layer over its rows and (for a split layer) each tp rank's
+    features in turn; the collectives become concatenations"""
+    import torch
+    from tensorforth_tpu_torch.nn import funcs
+    from tensorforth_tpu_torch.nn.ntypes import Layer
+    from tensorforth_tpu_torch.ops import rng
+    n = x.shape[0]
+    k = n // mesh.dp
+    per = []
+    for d in range(mesh.dp):
+        lo = d * k
+        xl, outs, masks = x[lo:lo + k], [], []
+        for j, (spec, p) in enumerate(zip(program, params)):
+            ls = funcs._local_spec(spec, k)
+            if spec[0] == Layer.DROPOUT:
+                u = rng.uniform(funcs.layer_key(key, j),
+                                (n,) + tuple(xl.shape[1:]), xl.device)
+                m = (u > spec[1][0]).to(torch.float32)[lo:lo + k]
+                y = xl * m
+            elif spec[0] in funcs._TP_SPLIT:
+                y = torch.cat([funcs._tp_layer(_TpPiece(mesh.tp, t), ls, xl,
+                                               p) for t in range(mesh.tp)],
+                              dim=funcs._TP_SPLIT[spec[0]][0])
+                m = None
+            elif spec[0] in (Layer.BATCHNM, Layer.MOE):
+                raise NotImplementedError("the emulation has no batchnorm")
+            else:
+                y, m = funcs._apply_layer(ls, xl, p, None)
+            xl = y.reshape(ls[2])
+            outs.append(xl)
+            masks.append(m)
+        per.append((outs, masks))
+    rows = lambda ts: (torch.cat(ts, 0) if torch.is_tensor(ts[0])  # noqa
+                       and ts[0].dim() and ts[0].shape[0] == k else ts[0])
+    return tuple(tuple(rows([r[i][j] for r in per])
+                       for j in range(len(program))) for i in (0, 1))
+
+
+def _emu_backward(mesh, program, train, tgt, x0, outs, params, masks, dws,
+                  dbs, flash):
+    """funcs._backward_mesh's arithmetic for the dp2 ranks in turn: each
+    rank's rows from zeroed accumulators, the two contributions summed (a
+    sum of two is the one order gloo's all-reduce can take)"""
+    import torch
+    from tensorforth_tpu_torch.nn import funcs
+    assert mesh.dp == 2, "the emulation sums two ranks"
+    n = outs[-1].shape[0]
+    k = n // mesh.dp
+    res = []
+    for d in range(mesh.dp):
+        sl = lambda t, lo=d * k: funcs._row_slice(t, lo, k, n)  # noqa: E731
+        res.append(funcs._backward_body(
+            tuple(funcs._local_spec(spec, k) for spec in program), train,
+            sl(tgt.reshape(outs[-1].shape)), sl(x0), sl(tuple(outs)), params,
+            sl(tuple(masks)), [None if w is None else torch.zeros_like(w)
+                               for w in dws],
+            [None if b is None else torch.zeros_like(b) for b in dbs],
+            flash))
+    (o0, x0s, w0, b0), (o1, x1s, w1, b1) = res
+    acc = lambda a, c0, c1: None if c0 is None else funcs._acc(  # noqa
+        a, c0.contiguous() + c1.contiguous())
+    return (torch.cat((o0, o1)),
+            type(x0s)(None if a is None else torch.cat((a, b))
+                      for a, b in zip(x0s, x1s)),
+            type(w0)(acc(a, c0, c1) for a, c0, c1 in zip(dws, w0, w1)),
+            type(b0)(acc(a, c0, c1) for a, c0, c1 in zip(dbs, b0, b1)))
+
+
+class _emulated_mesh:
+    """inside the block the word path runs a dp2[,tpM] mesh's arithmetic
+    in this one process, with no collective: the witness that a mesh run
+    departs from one rank's by the ranks' shapes alone"""
+
+    def __init__(self, spec):
+        from tensorforth_tpu_torch.parallel.mesh import parse_spec
+        dp, tp = parse_spec(spec)
+        self.mesh = type("EmulatedMesh", (), {"dp": dp, "tp": tp,
+                                              "shape": (dp, tp)})()
+
+    def __enter__(self):
+        from tensorforth_tpu_torch.nn import funcs
+        self.saved = (funcs.word_mesh, funcs._forward_mesh,
+                      funcs._backward_mesh)
+        funcs.word_mesh = lambda: self.mesh
+        funcs._forward_mesh, funcs._backward_mesh = _emu_forward, _emu_backward
+        return self
+
+    def __exit__(self, *exc):
+        from tensorforth_tpu_torch.nn import funcs
+        (funcs.word_mesh, funcs._forward_mesh,
+         funcs._backward_mesh) = self.saved
+
+
+def _mesh_word_loop(device, epochs, max_batch, script_dir):
+    """t4_30e's lines (its `epochs`), the model's weights after them and
+    the printed acc=/loss= lines, through a fresh REPL"""
+    with tempfile.TemporaryDirectory(prefix="t4_mesh_") as save_dir, \
+            env_set(T4_MAX_BATCH=max_batch):
+        lines = _net_lines(os.path.join(script_dir, "t4_30e.4th"), epochs,
+                           save_dir)
+        inst, run = repl(device, NET_SEED)
+        t0 = time.perf_counter()
+        out = "".join(run(ln) for ln in lines)
+        sec = time.perf_counter() - t0
+        run("md0")
+        md = inst.vm.mmu.du2obj(inst.vm.tos)
+        run("drop")
+        ws = [w.detach().cpu().numpy().copy() for pl in md._params()
+              for w in pl]
+    return dict(printed=re.findall(r"acc=(\S+) loss=(\S+)", out),
+                weights=ws, seconds=sec, faults=transcript_faults(out))
+
+
+def _mesh_word_rank(rank, world, device, spec, epochs, max_batch,
+                    script_dir):
+    import torch
+    from tensorforth_tpu_torch.nn import cycle, funcs
+    from tensorforth_tpu_torch.parallel import mesh as pm
+    os.environ["T4_MESH"] = spec
+    cycle.reset_counts()
+    r = _mesh_word_loop(device, epochs, max_batch, script_dir)
+    r.update(mesh=funcs.word_mesh().shape, counts=dict(cycle.COUNTS),
+             collectives=dict(pm.COUNTS),
+             backend=torch.distributed.get_backend())
+    r["long"] = _mesh_word_loop(device, epochs, MESH_LONG_BATCH, script_dir)
+    return r
+
+
+def _mesh_gen_rank(rank, world, device, spec, lm, seq, n_new, seed):
+    """generate under the mesh: (ids, prefill ms, whole ms, collectives)"""
+    import torch
+    from tensorforth_tpu_torch.nn import serve
+    from tensorforth_tpu_torch.parallel import mesh as pm
+    os.environ["T4_MESH"] = spec
+    m = _gen_lm(device, lm, seq, seed)
+    prompt = np.random.RandomState(seed).randint(0, lm["vocab"],
+                                                 (lm["batch"], seq))
+    sync = torch.cuda.synchronize if m.device.type == "cuda" else (
+        lambda: None)
+    ids = serve.generate(m, prompt, n_new, temp=0.0)
+    pre, tot, _p, _t = time_generate(m, prompt, n_new, sync, graphs=False)
+    return dict(ids=ids, prefill_ms=pre, total_ms=tot,
+                mesh=serve.serving_mesh(m._program(), lm["batch"]).shape,
+                collectives=dict(pm.COUNTS), launches=flash_counts())
+
+
+def _gen_lm(device, lm, seq, seed):
+    from tensorforth_tpu_torch.models.zoo import tiny_lm
+    from tensorforth_tpu_torch.system import System
+    System.get_sys().seed(seed)
+    return tiny_lm(seq=seq, device=device, **lm)
+
+
+def _mesh_lm(device, lm, seq):
+    from tensorforth_tpu_torch.models import zoo
+    import torch
+    torch.manual_seed(0)
+    m = zoo.tiny_lm(batch=lm["batch"], seq=seq, vocab=lm["vocab"],
+                    dim=lm["dim"], heads=lm["heads"], layers=lm["layers"],
+                    rope=lm["rope"], device=device)
+    rs = np.random.RandomState(0)
+    for pl in m._params():          # the same weights on every rank
+        for w in pl:
+            v = rs.standard_normal(tuple(w.shape)).astype(np.float32)
+            w.copy_(torch.from_numpy(0.02 * v).to(w.device))
+    return m
+
+
+def _mesh_batch(lm, seq, device):
+    import torch
+    rs = np.random.RandomState(1)
+    ids = rs.randint(0, lm["vocab"], size=(lm["batch"], seq, 1, 1))
+    nxt = rs.randint(0, lm["vocab"], size=(lm["batch"], seq))
+    tgt = np.zeros((lm["batch"], seq, lm["vocab"], 1), np.float32)
+    tgt[np.arange(lm["batch"])[:, None], np.arange(seq)[None, :], nxt, 0] = 1
+    return (torch.from_numpy(ids.astype(np.float32)).to(device),
+            torch.from_numpy(tgt).to(device))
+
+
+def _mesh_rank(rank, world, device, lm, seq, spec):
+    """a rank of the mesh: one ShardedTrainer gradient and step of the LM
+    on its dp rows; rank 0 returns its numbers"""
+    import torch
+    from tensorforth_tpu_torch.ops import rng
+    from tensorforth_tpu_torch.parallel import mesh as pm
+    from tensorforth_tpu_torch.parallel.trainer import ShardedTrainer
+    tr = ShardedTrainer(_mesh_lm(device, lm, seq), pm.mesh_from_spec(spec))
+    x, y = _mesh_batch(lm, seq, device)
+    sync = torch.cuda.synchronize if x.is_cuda else (lambda: None)
+    tr.grads(x, y, rng.PRNGKey(0))          # warm: no build in the time
+    before = flash_counts()
+    sync()
+    t0 = time.perf_counter()
+    lval, grads = tr.grads(x, y, rng.PRNGKey(0))
+    sync()
+    ms = 1e3 * (time.perf_counter() - t0)
+    after = flash_counts()
+    tr.step(x, y)
+    return dict(loss=float(lval), ms=ms,
+                grads=[g.detach().cpu() for gl in grads for g in gl],
+                launches={k: after[k] - before[k] for k in after},
+                collectives=dict(pm.COUNTS), mesh=repr(tr.mesh),
+                backend=torch.distributed.get_backend())
+
+
+def phase_mesh(seed: int = 0, device=None, lm=MESH_LM, seq=N_PROMPT,
+               ranks=MESH_RANKS, epochs=MESH_EPOCHS,
+               max_batch=MESH_MAX_BATCH, n_new=MESH_N_NEW,
+               script_dir="examples"):
+    """the dp/tp mesh (parallel/mesh.py, trainer.py) on the one card: a
+    ShardedTrainer gradient of tiny_lm at bench_prefill's width under dp2,
+    its two ranks gloo processes on the one device (NCCL refuses two ranks
+    on one GPU), against the one-rank gradient within TOL_NN of each
+    tensor's largest value; each rank launches K1, K2a and K2b on its
+    rows.  Then t4_30e's word loop at nn_c's width under dp2 and dp2,tp2
+    against the one-rank run (test_word_mesh's bounds at its 14 steps),
+    and generate at
+    bench_prefill's width under dp2,tp2 (4 ranks: 4 prompts and 4 heads
+    each, the KV caches [4, 4, S, 128]) against the one-rank tokens, with
+    prefill ms and decode tok/s beside the one-rank numbers.  The word
+    loop also runs 100 steps under each mesh, held bit for bit to one
+    process that runs the ranks' arithmetic in turn (_emulated_mesh),
+    with both runs' distance from one rank beside it"""
+    import torch
+    from tensorforth_tpu_torch.config import Config
+    from tensorforth_tpu_torch.ops import rng
+    from tensorforth_tpu_torch.parallel import launch
+    from tensorforth_tpu_torch.parallel.trainer import ShardedTrainer
+    dev = torch_device(device)
+    one = ShardedTrainer(_mesh_lm(dev, lm, seq))
+    x, y = _mesh_batch(lm, seq, dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    one.grads(x, y, rng.PRNGKey(0))         # warm: no build in the time
+    sync()
+    t0 = time.perf_counter()
+    l1, g1 = one.grads(x, y, rng.PRNGKey(0))
+    sync()
+    ms1 = 1e3 * (time.perf_counter() - t0)
+    g1 = [g.detach().cpu() for gl in g1 for g in gl]
+    del one, x, y
+    r = launch.run(_mesh_rank, ranks, str(dev), lm, seq, f"dp{ranks}")
+    tol = TOL_NN[Config.PRECISION]
+    worst = max(float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+                for a, b in zip(r["grads"], g1))
+    checks = {"grads_within_tol_nn": worst <= tol,
+              "loss_close": abs(r["loss"] - float(l1)) <= tol * abs(float(l1)),
+              "k1_k2_launched_in_rank": all(
+                  r["launches"][k] > 0 for k in
+                  ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
+              or dev.type != "cuda",
+              "backend_gloo": r["backend"] == "gloo"}
+    emit({"phase": "mesh", "ranks": ranks,
+          "backend": r["backend"], "mesh": r["mesh"],
+          "collectives_rank0": r["collectives"],
+          "launches_rank0": r["launches"], "lm": lm, "seq": seq,
+          "precision": Config.PRECISION, "tol_nn": tol,
+          "worst_grad_rel_err": worst, "loss_dp": r["loss"],
+          "loss_one_rank": float(l1), "grad_ms_rank0": r["ms"],
+          "grad_ms_one_rank": ms1, "checks": checks})
+    # --- t4_30e's word loop under T4_MESH against one rank, and at 100
+    # steps against the ranks' arithmetic run in one process
+    one_loop = _mesh_word_loop(device, epochs, max_batch, script_dir)
+    one_long = _mesh_word_loop(device, epochs, MESH_LONG_BATCH, script_dir)
+    loops = {}
+    for spec in MESH_SPECS:
+        world = 4 if "tp" in spec else 2
+        with _emulated_mesh(spec):
+            emu = _mesh_word_loop(device, epochs, MESH_LONG_BATCH, script_dir)
+        loops[spec] = lr = launch.run(_mesh_word_rank, world, str(dev), spec,
+                                      epochs, max_batch, script_dir)
+        long_ = lr.pop("long")
+        w_emu = max(float(np.abs(a - b).max())
+                    for a, b in zip(long_["weights"], emu["weights"]))
+        drift = lambda run: max(float(np.abs(a - b).max())  # noqa: E731
+                                for a, b in zip(run["weights"],
+                                                one_long["weights"]))
+        checks[f"word_loop_{spec}_100_steps_bit_equal_emulation"] = (
+            w_emu == 0.0 and long_["printed"] == emu["printed"]
+            and len(emu["printed"]) == epochs)
+        checks[f"word_loop_{spec}_100_steps_no_fault"] = not (
+            long_["faults"] or emu["faults"])
+        lr["100_steps"] = {
+            "printed": long_["printed"], "seconds": long_["seconds"],
+            "emulation_printed": emu["printed"],
+            "emulation_seconds": emu["seconds"],
+            "max_weight_err_against_emulation": w_emu,
+            "max_weight_err_against_one_rank": drift(long_),
+            "emulation_max_weight_err_against_one_rank": drift(emu)}
+        hits_equal = [a[0] for a in lr["printed"]] == [
+            a[0] for a in one_loop["printed"]]
+        loss_ok = all(abs(float(a[1]) - float(b[1])) < MESH_LOSS_TOL
+                      for a, b in zip(lr["printed"], one_loop["printed"]))
+        w_err = max(float(np.abs(a - b).max())
+                    for a, b in zip(lr["weights"], one_loop["weights"]))
+        checks[f"word_loop_{spec}_hits_equal"] = hits_equal and \
+            len(lr["printed"]) == epochs
+        checks[f"word_loop_{spec}_loss"] = loss_ok
+        checks[f"word_loop_{spec}_weights"] = w_err <= MESH_W_ATOL
+        checks[f"word_loop_{spec}_uncaptured"] = lr["counts"]["captures"] == 0
+        checks[f"word_loop_{spec}_no_fault"] = not lr["faults"]
+        lr["max_weight_err"] = w_err
+        del lr["weights"]
+    # --- generate under dp2,tp2 against one rank (graphs and eager alike)
+    gm = _gen_lm(dev, lm, seq, seed)
+    prompt = np.random.RandomState(seed).randint(0, lm["vocab"],
+                                                 (lm["batch"], seq))
+    from tensorforth_tpu_torch.nn import serve
+    one_ids = serve.generate(gm, prompt, n_new, temp=0.0)
+    one_pre, one_tot, _p, _t = time_generate(gm, prompt, n_new, sync,
+                                             graphs=dev.type == "cuda")
+    del gm
+    gen = launch.run(_mesh_gen_rank, 4, str(dev), MESH_GEN_SPEC, lm, seq,
+                     n_new, seed)
+    checks["generate_tokens_equal"] = bool(np.array_equal(gen["ids"],
+                                                          one_ids))
+    checks["generate_heads_split"] = gen["mesh"] == (2, 2)
+    tok_s = lambda pre, tot: lm["batch"] * n_new / ((tot - pre) / 1e3)  # noqa
+    emit({"phase": "mesh_paths", "word_loop": {
+              "one_rank": {"printed": one_loop["printed"],
+                           "seconds": one_loop["seconds"],
+                           "100_steps_printed": one_long["printed"],
+                           "100_steps_seconds": one_long["seconds"]},
+              **{k: {kk: vv for kk, vv in v.items()}
+                 for k, v in loops.items()},
+              "epochs": epochs, "max_batch": max_batch,
+              "long_max_batch": MESH_LONG_BATCH},
+          "generate": {"spec": MESH_GEN_SPEC, "n_new": n_new,
+                       "prefill_ms": gen["prefill_ms"],
+                       "one_rank_prefill_ms": one_pre,
+                       "decode_tok_s": tok_s(gen["prefill_ms"],
+                                             gen["total_ms"]),
+                       "one_rank_decode_tok_s": tok_s(one_pre, one_tot),
+                       "collectives_rank0": gen["collectives"],
+                       "launches_rank0": gen["launches"]},
+          "checks": checks})
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise RuntimeError(f"mesh phase failed: {bad}")
+    launched = dict(r["launches"])
+    launched["flash_fwd"] += gen["launches"]["flash_fwd"]
+    return launched
+
+
 def card_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"],
@@ -3892,6 +4411,9 @@ def main(argv=None) -> int:
     for name, n in timed("attn_bench", phase_attn_bench, args.seed).items():
         ran[name] = ran.get(name, 0) + n
     timed("host", phase_host)
+    timed("arena", phase_arena)
+    for name, n in timed("mesh", phase_mesh, args.seed).items():
+        ran[name] = ran.get(name, 0) + n
     emit({"phase_seconds": seconds})
     # no word of either package reaches K5b or K7: the tensor phase calls
     # their wrappers on the words' operands
@@ -3899,17 +4421,24 @@ def main(argv=None) -> int:
                                 "net_gen (the REPL's nn.gen prefill "
                                 "and its word-path step; in the f32 class "
                                 "after its split, split_launches on "
-                                "generate, the train step and net_gen) "
-                                "and net_train (inside nn.train's CUDA "
-                                "graph, counted by the profiler)",
+                                "generate, the train step and net_gen), "
+                                "net_train (inside nn.train's CUDA "
+                                "graph, counted by the profiler) and the "
+                                "mesh phase's rank 0 (its dp2 "
+                                "ShardedTrainer gradient and its dp2,tp2 "
+                                "generate's prefills)",
                    "flash_bwd_dkv": "the train step, attn_bench, "
                                     "net_gen's word-path step (in the f32 "
                                     "class after the backward's split, "
                                     "split_launches on the train step and "
-                                    "net_gen) and net_train's graph",
+                                    "net_gen), net_train's graph and the "
+                                    "mesh phase's rank 0 (its dp2 "
+                                    "ShardedTrainer gradient)",
                    "flash_bwd_dq": "the train step, attn_bench, "
                                    "net_gen's word-path step (after the "
-                                   "same split) and net_train's graph",
+                                   "same split), net_train's graph and the "
+                                   "mesh phase's rank 0 (its dp2 "
+                                   "ShardedTrainer gradient)",
                    "flash_bwd_fused": "attn_bench.sweep_bwd_fused (the "
                                       "hybrid class; the f32 class's "
                                       "kernels and its split in the kernel "

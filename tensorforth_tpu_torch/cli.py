@@ -143,6 +143,30 @@ def _bench(m: int, k: int, n: int, device) -> str:
             f"({2.0 * m * k * n / dt / 1e9:.1f} GFLOP/s)")
 
 
+def _mesh_world() -> int:
+    """the ranks T4_MESH asks for (1: no mesh, or already a rank)"""
+    import torch.distributed as dist
+    from .parallel.mesh import parse_spec
+    spec = parse_spec(os.environ.get("T4_MESH", ""))
+    if spec is None or (dist.is_available() and dist.is_initialized()):
+        return 1
+    return spec[0] * spec[1]
+
+
+def _repl_rank(rank, world, text, verbose, device):
+    """a rank of the REPL under T4_MESH: every rank reads the same input,
+    rank 0 alone prints"""
+    import io
+    out = _sys.stdout if rank == 0 else io.StringIO()
+    t4 = TensorForth(fin=io.StringIO(text), fout=out, verbose=verbose,
+                     device=device)
+    try:
+        t4.main_loop()
+    finally:
+        out.flush()
+        t4.teardown()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="ten4_torch", description="tensorForth on PyTorch/CUDA")
@@ -187,6 +211,13 @@ def main(argv=None):
 
     if args.bench:
         print(_bench(*args.bench, resolve_device(device)))
+        return 0
+
+    world = _mesh_world()
+    if world > 1:                            # T4_MESH: one process a rank
+        from .parallel import launch
+        launch.run(_repl_rank, world, _sys.stdin.read(), args.verbose,
+                   device)
         return 0
 
     t4 = TensorForth(verbose=args.verbose, device=device,

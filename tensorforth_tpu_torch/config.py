@@ -24,7 +24,12 @@ class Config:
     PMEM_SZ  = 1 << 16     # parameter memory bytes  (T4_PMEM_SZ=48K; we round to 64K)
     TFREE_SZ = 1024        # deferred-free list size (T4_TFREE_SZ)
     OSTORE_SZ = int(os.environ.get("T4_OSTORE_SZ",
-                                   2 << 30))  # TLSF-accounted arena bytes
+                                   2 << 30))  # TLSF arena bytes
+    # --- device arena ownership: T4_ARENA=1 backs tensor payloads with
+    # ONE preallocated device buffer sub-allocated by the native TLSF
+    # (reference mmu.cu:37-53 managed-arena model; mu/arena.py); default
+    # off keeps payloads as tensors of PyTorch's caching allocator
+    ARENA = bool(int(os.environ.get("T4_ARENA", "0")))
 
     # --- numerics
     # precision class of the f32-I/O GEMM kernels behind gemm2/gemm3

@@ -112,7 +112,10 @@ class Dataset(Tensor):
             scale = torch.tensor(self._scale, dtype=torch.float32,
                                  device=self.device)
             x = (buf[pos:pos + n].to(torch.float32) - mean) * scale
-            self.data = x.reshape(self.shape)
+            if self.aoff is not None:
+                self.replace_data(x)         # into the batch's pool slot
+            else:
+                self.data = x.reshape(self.shape)
             self.label_dev = labels[pos:pos + n]
         return super().ensure_data()
 
@@ -128,6 +131,11 @@ class Dataset(Tensor):
             self.data = None
             self.label = label.astype(np.uint32)
             self.label_dev = None
+            if self.aoff is not None:
+                # under the device arena the batch is fetched eagerly into
+                # its pool slot, so no corpus offset is left for the fused
+                # fetch or a trace chunk to serve (the JAX package's rule)
+                self.ensure_data()
             return
         self.label_dev = None                      # host path
         d = (data.astype(np.float32) - self._mean) * self._scale

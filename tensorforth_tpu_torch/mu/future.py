@@ -22,6 +22,8 @@ import math
 import numpy as np
 import torch
 
+from ..ops.xla_reduce import xla_sum
+
 # the err-bit NaN sentinel (nn/model.py sets it to Model._nan_alarm):
 # called whenever a non-finite scalar is read back to the host, so that a
 # NaN made inside a trace chunk stops the loop at the faulting batch, as
@@ -40,27 +42,6 @@ class LazyIdx:
     def __init__(self, vec, i: int):
         self.vec = vec
         self.i = int(i)
-
-
-def xla_sum(v):
-    """the f32 sum of a 1-d tensor in the order XLA's CPU backend adds it
-    (jnp.sum): up to 32 elements one after another from 0; above that,
-    windows of 32 over the vector padded with zeros on both sides (the
-    lower half of the padding first), each window summed one after
-    another, and the window sums summed again the same way"""
-    n = v.shape[0]
-    if n <= 32:
-        s = v.new_zeros(())
-        for i in range(n):
-            s = s + v[i]
-        return s
-    k = -(-n // 32)
-    lo = (32 * k - n) // 2
-    p = torch.nn.functional.pad(v, (lo, 32 * k - n - lo)).reshape(k, 32)
-    s = p.new_zeros(k)
-    for j in range(32):
-        s = s + p[:, j]
-    return xla_sum(s)
 
 
 def _collapse_lazy(host: float, devs: list, lazies: list):

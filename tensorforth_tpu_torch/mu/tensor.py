@@ -1,12 +1,16 @@
 """Tensor — rank-1/2/4 row-major NHWC f32 tensor object backed by a torch
-tensor on an explicit device (the port of tensorforth_tpu/mu/tensor.py;
-the HBM-arena fields come with the arena slice).
+tensor on an explicit device (the port of tensorforth_tpu/mu/tensor.py).
 
 The header (shape/rank/grad slots/stride/params) lives on the host; the
 payload is a ``torch.Tensor`` of the logical shape, made lazily on first
 read.  "Destructive" reference semantics are realized by swapping the
 payload in place, so stack views (which alias the same Tensor object)
 observe mutations exactly like the reference's shared-pointer views.
+
+Under the device arena (`T4_ARENA=1`, mu/arena.py) a registered tensor
+has a word offset `aoff` in the pool and its payload is the pool's view
+there: made on first read (zeroed then, `_ainit`), written in place by
+`replace_data`.
 """
 from __future__ import annotations
 
@@ -33,6 +37,8 @@ class Tensor:
         self.shape = dims
         self.device = resolve_device(device)
         self.data: torch.Tensor | None = None  # payload, logical shape
+        self.aoff = None                   # device-arena word offset
+        self._ainit = True                 # arena slot holds defined data
         # layer-tensor extensions (reference tensor.h:53-57)
         self.grad_fn = None                # t4_layer tag when part of a model
         self.grad = [None] * 5             # w, b, dw, db, extra(mask/xhat)
@@ -89,8 +95,21 @@ class Tensor:
         return self.shape == other.shape
 
     # --- payload management ------------------------------------------------
+    def _arena(self):
+        if self.aoff is None:
+            return None
+        from .mmu import MMU
+        return MMU.get_mmu().arena
+
     def ensure_data(self) -> torch.Tensor:
         if self.data is None:
+            ar = self._arena()
+            if ar is not None:             # the payload is the pool's view
+                self.data = ar.read(self.aoff, self.shape)
+                if not self._ainit:        # a fresh slot is zeroed lazily
+                    ar.fill(self.aoff, 0.0, self.numel)
+                    self._ainit = True
+                return self.data
             self.data = torch.zeros(self.shape, dtype=torch.float32,
                                     device=self.device)
         return self.data
@@ -104,6 +123,15 @@ class Tensor:
         change.  The payload is a copy: torch tensors are mutable, so
         sharing the caller's storage would let its in-place writes leak
         in (the JAX package could alias its immutable arrays)."""
+        ar = self._arena()
+        if ar is not None:                 # in place, into the pool
+            src = torch.as_tensor(arr)
+            if src.numel() != self.numel:
+                raise ValueError(f"replace_data: {src.numel()} values for "
+                                 f"{self.shape}")
+            self.data = ar.write(self.aoff, src).view(self.shape)
+            self._ainit = True
+            return self
         arr = torch.as_tensor(arr).to(device=self.device,
                                       dtype=torch.float32, copy=True)
         self.data = arr.reshape(self.shape)

@@ -60,7 +60,9 @@ class Cycle:
                  ndivs: tuple, src: tuple, kcap: int):
         dev = model.device
         self.device = dev
-        self.on_card = dev.type == "cuda"
+        # captured on the card, but for a mesh: gloo's collectives run on
+        # the host and cannot be captured (funcs.word_mesh)
+        self.on_card = dev.type == "cuda" and funcs.word_mesh() is None
         self.program, self.train = program, train
         self.loss_op, self.opt, self.ndivs = loss_op, opt, ndivs
         self.src = src

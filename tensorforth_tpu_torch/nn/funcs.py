@@ -31,7 +31,7 @@ import torch.nn.functional as F
 
 from ..config import Config
 from ..ops import attn as _attn
-from ..ops import rng, xla_math
+from ..ops import rng, xla_math, xla_reduce
 from .ntypes import Layer
 
 SELU_L = 1.0507009873554805
@@ -85,7 +85,7 @@ def _softmax_fwd(x):
     jax.nn.softmax's steps: exp(x - max) / sum"""
     f = _rows(x)
     e = xla_math.exp(f - f.amax(dim=-1, keepdim=True))
-    return (e / e.sum(dim=-1, keepdim=True)).reshape(x.shape)
+    return (e / xla_reduce.row_sum(e)).reshape(x.shape)
 
 
 class _RouterSoftmax(torch.autograd.Function):
@@ -607,13 +607,156 @@ def layer_key(key, j: int):
     return key(j) if callable(key) else rng.fold_in(key, j)
 
 
+# ===========================================================================
+# the word path over a mesh (T4_MESH; the JAX package's word_mesh)
+# ===========================================================================
+_MESHES: dict = {}
+# layers whose output features split over tp: the raw output's feature
+# axis and the parameters' (w, b) feature axes
+_TP_SPLIT = {Layer.LINEAR: (1, 0, 0), Layer.PROJ: (2, 0, 0),
+             Layer.CONV: (3, 3, 0)}
+
+
+def word_mesh():
+    """the mesh of the interactive word path: T4_MESH=dp4[,tp2] over the
+    ranks of the process group (parallel/launch.py starts them; the REPL
+    does under T4_MESH), or None: no spec, one rank, or a spec needing
+    more ranks than the group has (as the JAX package degrades to one
+    device).  Under a mesh `forward_pure` runs a rank's dp rows of the
+    batch, each linear/proj/conv layer's output features split over tp
+    and all-gathered, batchnorm over the batch's moments all-reduced over
+    dp, and all-gathers the layers' outputs and masks, so every rank
+    holds what one device computes; `backward_pure` runs the rank's rows
+    (batchnorm's channel means all-reduced over dp) and sums the dW/dB
+    contributions over dp.  The rest is replicated, not partitioned: the
+    other layers' forward, the whole backward and the optimizer run
+    whole on every tp rank, and every rank holds the whole parameters and
+    the whole batch's activations.  The fused cycle, trace chunks and
+    `nn.train` are built from the two, and run uncaptured under a mesh
+    (gloo's collectives run on the host).  A batch or a layer's features
+    that do not divide the mesh raise, as the JAX package's sharding
+    does; an MoE layer raises (its experts shard over ep, with A9)."""
+    spec = os.environ.get("T4_MESH", "")
+    if not spec:
+        return None
+    import torch.distributed as dist
+    up = dist.is_available() and dist.is_initialized()
+    key = (spec, dist.get_world_size() if up else 1)
+    if key not in _MESHES:
+        from ..parallel.mesh import mesh_from_spec
+        _MESHES[key] = mesh_from_spec(spec)
+    return _MESHES[key]
+
+
+def _mesh_for(program, n: int):
+    mesh = word_mesh()
+    if mesh is None:
+        return None
+    if n % mesh.dp:
+        raise ValueError(f"T4_MESH: a batch of {n} does not divide over "
+                         f"dp{mesh.dp}")
+    if any(spec[0] == Layer.MOE for spec in program):
+        raise NotImplementedError(
+            "T4_MESH: the word path has no MoE layer on a mesh yet (its "
+            "experts shard over ep); run it without T4_MESH")
+    return mesh
+
+
+def _local_spec(spec, k: int):
+    return (spec[0], spec[1], (k,) + tuple(spec[2][1:]))
+
+
+def _tp_layer(mesh, spec, x, p):
+    """layer output with its features split over tp, all-gathered"""
+    ax, wax, bax = _TP_SPLIT[spec[0]]
+    w, b = p
+    if mesh.tp == 1:
+        return _apply_layer(spec, x, p)[0]
+    if w.shape[wax] % mesh.tp:
+        raise ValueError(f"T4_MESH: {_kind_name(spec[0])}'s "
+                         f"{w.shape[wax]} output features do not divide "
+                         f"over tp{mesh.tp}")
+    f = w.shape[wax] // mesh.tp
+    lo = mesh.tp_idx * f
+    pl = (w.narrow(wax, lo, f), b.narrow(bax, lo, f))
+    if spec[0] == Layer.CONV:
+        y = _conv_fwd(x, pl[0], pl[1], spec[1][0], spec[1][1])
+    elif spec[0] == Layer.LINEAR:
+        y = _linear_fwd(x, *pl)
+    else:
+        y = _proj_fwd(x, *pl)
+    return mesh.all_gather(y, ax, "tp")
+
+
+def _batchnorm_dp(mesh, x, gamma, beta, n):
+    """_batchnorm_fwd on this rank's rows with the whole batch's moments:
+    the sums of x and x^2 all-reduced over dp"""
+    cnt = n * x.shape[1] * x.shape[2]
+    s = torch.stack((x.sum(dim=(0, 1, 2)), (x * x).sum(dim=(0, 1, 2))))
+    s = mesh.all_reduce(s, "dp") / cnt
+    mean = s[0].reshape(1, 1, 1, -1)
+    var = s[1].reshape(1, 1, 1, -1) - mean * mean
+    rvar = 1.0 / (torch.sqrt(torch.clamp_min(var, 0.0)) + BN_EPS)
+    xhat = (x - mean) * rvar
+    return xhat * gamma + beta, xhat, rvar
+
+
+def _gather_rows(mesh, t, k):
+    if isinstance(t, tuple):
+        return tuple(_gather_rows(mesh, v, k) for v in t)
+    if torch.is_tensor(t) and t.dim() and t.shape[0] == k:
+        return mesh.all_gather(t, 0, "dp")
+    return t
+
+
+def _row_slice(t, lo, k, n):
+    if isinstance(t, (tuple, list)):
+        return type(t)(_row_slice(v, lo, k, n) for v in t)
+    if torch.is_tensor(t) and t.dim() and t.shape[0] == n:
+        return t[lo:lo + k]
+    return t
+
+
+def _forward_mesh(mesh, program, x, params, key):
+    n = x.shape[0]
+    k = n // mesh.dp
+    lo = mesh.dp_idx * k
+    xl = x[lo:lo + k]
+    outs, masks = [], []
+    for j, (spec, p) in enumerate(zip(program, params)):
+        ls = _local_spec(spec, k)
+        if spec[0] == Layer.DROPOUT:
+            # the global mask from the layer's key, this rank's rows of it
+            u = rng.uniform(layer_key(key, j), (n,) + tuple(xl.shape[1:]),
+                            xl.device)
+            m = (u > spec[1][0]).to(torch.float32)
+            y, m = xl * m[lo:lo + k], m[lo:lo + k]
+        elif spec[0] in _TP_SPLIT:
+            y, m = _tp_layer(mesh, ls, xl, p), None
+        elif spec[0] == Layer.BATCHNM:
+            y, xhat, rvar = _batchnorm_dp(mesh, xl, p[0], p[1], n)
+            m = (xhat, rvar)
+        else:
+            y, m = _apply_layer(ls, xl, p, None)
+        xl = y.reshape(ls[2])
+        outs.append(xl)
+        masks.append(m)
+    return (tuple(_gather_rows(mesh, o, k) for o in outs),
+            tuple((_gather_rows(mesh, m[0], k), m[1])
+                  if spec[0] == Layer.BATCHNM else _gather_rows(mesh, m, k)
+                  for spec, m in zip(program, masks)))
+
+
 @torch.no_grad()
 def forward_pure(program, x, params, key=None):
     """whole-network forward: (per-layer outputs, derivative masks).
     `key` (a jax.random key pair, default PRNGKey(0)) feeds dropout only:
     layer j draws from fold_in(key, j), as in the JAX package (see
-    layer_key)."""
+    layer_key).  Under T4_MESH see word_mesh."""
     key = rng.PRNGKey(0) if key is None else key
+    mesh = _mesh_for(program, x.shape[0])
+    if mesh is not None:
+        return _forward_mesh(mesh, program, x, params, key)
     outs, masks = [], []
     for j, (spec, p) in enumerate(zip(program, params)):
         kj = layer_key(key, j) if spec[0] == Layer.DROPOUT else None
@@ -661,6 +804,16 @@ def backward_pure(program, train, tgt, x0, outs, params, masks, dws, dbs,
     through the einsum path, as a check of the kernels.  (The JAX
     package's _bwd_body: with no jit wrapper to share it with, the body
     lives here.)"""
+    mesh = _mesh_for(program, outs[-1].shape[0])
+    if mesh is not None:
+        return _backward_mesh(mesh, program, train, tgt, x0, outs, params,
+                              masks, dws, dbs, flash)
+    return _backward_body(program, train, tgt, x0, outs, params, masks, dws,
+                          dbs, flash)
+
+
+def _backward_body(program, train, tgt, x0, outs, params, masks, dws, dbs,
+                   flash, dp=None):
     # dLoss prep (reference _bprep, backprop.cu:75-109): the fused
     # final-activation+loss pairs and a final linear become out-tgt; any
     # other final layer means tgt already IS dLoss (e.g. GAN G <- D
@@ -671,8 +824,32 @@ def backward_pure(program, train, tgt, x0, outs, params, masks, dws, dbs,
         dy = tgt.reshape(outs[-1].shape)
     _, dxs, ndws, ndbs = backward_segment(
         program, train, dy, x0, outs, params, masks, dws, dbs, tail=True,
-        flash=flash)
+        flash=flash, dp=dp)
     return dy, dxs, ndws, ndbs
+
+
+def _backward_mesh(mesh, program, train, tgt, x0, outs, params, masks,
+                   dws, dbs, flash):
+    """backward_pure on this rank's dp rows: the dW/dB contributions
+    summed over dp (the batch's sum, in another order), dout and the
+    input gradients all-gathered"""
+    n = outs[-1].shape[0]
+    k = n // mesh.dp
+    lo = mesh.dp_idx * k
+    sl = lambda t: _row_slice(t, lo, k, n)  # noqa: E731
+    zw = [None if d is None else torch.zeros_like(d) for d in dws]
+    zb = [None if d is None else torch.zeros_like(d) for d in dbs]
+    dout, dxs, cw, cb = _backward_body(
+        tuple(_local_spec(spec, k) for spec in program), train,
+        sl(tgt.reshape(outs[-1].shape)), sl(x0), sl(tuple(outs)), params,
+        sl(tuple(masks)), zw, zb, flash, dp=(mesh, n))
+    ndws = [None if c is None else _acc(d, mesh.all_reduce(
+        c.contiguous(), "dp")) for d, c in zip(dws, cw)]
+    ndbs = [None if c is None else _acc(d, mesh.all_reduce(
+        c.contiguous(), "dp")) for d, c in zip(dbs, cb)]
+    return (_gather_rows(mesh, dout, k),
+            type(dxs)(_gather_rows(mesh, dx, k) for dx in dxs),
+            type(cw)(ndws), type(cb)(ndbs))
 
 
 def _conv_grads(x, w, dy, S, P):
@@ -707,12 +884,13 @@ def _dconv_grads(x, w, dy, S, P):
 
 @torch.no_grad()
 def backward_segment(program, train, dy, x0, outs, params, masks, dws, dbs,
-                     tail: bool = False, flash: bool = True):
+                     tail: bool = False, flash: bool = True, dp=None):
     """per-layer backward over a program segment given the cotangent dy at
     the segment's output (no dLoss prep): (dx0, dxs, dws', dbs').  With
     train false only the input gradients are taken.  tail=True enables
     the final-LINEAR pass-through quirk (no weight gradient), right only
-    for the segment that ends the network."""
+    for the segment that ends the network.  dp=(mesh, n): the rows are a
+    dp rank's of a batch of n (batchnorm's means are the batch's)."""
     L = len(program)
     dxs = [None] * L
     ndws, ndbs = list(dws), list(dbs)
@@ -747,9 +925,18 @@ def backward_segment(program, train, dy, x0, outs, params, masks, dws, dbs,
             # dgamma/dbeta accumulate channel MEANs (k_dbatchnorm_2)
             xhat, rvar = masks[j]
             dyr = dy.reshape(out_shape)
-            db = dyr.mean(dim=(0, 1, 2))
-            dw = (dyr * xhat).mean(dim=(0, 1, 2))
-            dx = params[j][0] * rvar * (dyr - db - xhat * dw)
+            if dp is None:
+                db = dbm = dyr.mean(dim=(0, 1, 2))
+                dw = dwm = (dyr * xhat).mean(dim=(0, 1, 2))
+            else:
+                # this rank's part of the batch's means; the means
+                # themselves are their sum over dp
+                cnt = dp[1] * out_shape[1] * out_shape[2]
+                db = dyr.sum(dim=(0, 1, 2)) / cnt
+                dw = (dyr * xhat).sum(dim=(0, 1, 2)) / cnt
+                dbm, dwm = dp[0].all_reduce(torch.stack((db, dw)),
+                                            "dp").unbind(0)
+            dx = params[j][0] * rvar * (dyr - dbm - xhat * dwm)
         elif kind == Layer.ATTN:
             heads, causal, rope = _attn_opts(opts)
             dx, dw, db = _vjp(
@@ -903,7 +1090,10 @@ def fused_cycle_body(program, train, loss_op, opt, ndivs, x, params, dws,
 # ===========================================================================
 @torch.no_grad()
 def loss_fn(op: str, out, tgt):
-    """summed loss over all elements divided by the batch N (not by N*S)"""
+    """summed loss over all elements divided by the batch N (not by N*S);
+    on CPU tensors XLA CPU's bits (`ops/xla_reduce.py`)"""
+    if out.device.type == "cpu":
+        return xla_reduce.xla_loss(op, out, tgt, LN_CLAMP)
     n = out.shape[0] if out.dim() > 1 else 1
     o = out.reshape(-1)
     t = tgt.reshape(-1)

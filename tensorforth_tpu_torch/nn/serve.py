@@ -15,8 +15,18 @@ the carry), the port keeps the decode's state in a Decoder's buffers,
 updated IN PLACE, and its step reads the position from a device
 counter: on the card each segment's step is one captured CUDA graph,
 replayed once a token; on the CPU the same step runs eagerly.  The
-prefill runs eagerly into the same buffers.  Mesh serving (T4_MESH) is
-not ported yet.
+prefill runs eagerly into the same buffers.
+
+Under T4_MESH (funcs.word_mesh) `generate` serves as the JAX package's
+`_shard_serving` lays it out: the batch over dp, the attention heads over
+tp, each rank's KV caches [N/dp, h/tp, S, dh].  A rank computes its
+heads' q, k, v (its rows of wqkv), their attention, and all-gathers the
+heads' outputs over tp before the output projection, so its tokens are
+one device's; the ids are all-gathered over dp at the end.  A sampled
+pick draws the whole batch's Gumbel noise and takes its rows.  The
+decode runs uncaptured (gloo's collectives run on the host).  When the
+batch or the heads do not divide the mesh it serves on one device, as
+the JAX package does.
 """
 from __future__ import annotations
 
@@ -122,13 +132,22 @@ def _store_at(cache, tt, k1, v1):
     cv.index_copy_(2, tt, v1.to(cv.dtype))
 
 
-def _step_token(program, params, caches, tok, t, s_max, w: int = 0):
+def _heads_out(mesh, o, dim):
+    """the tp ranks' heads' outputs side by side (all of them)"""
+    return o if mesh is None else mesh.all_gather(o, dim, "tp")
+
+
+def _step_token(program, params, caches, tok, t, s_max, w: int = 0,
+                mesh=None):
     """one decode step: tok [N] ids at position t -> (logits [N,V],
     caches).  t is a host int or a 0-d int64 tensor on tok's device (a
     captured step reads its position from there).  The caches are
     updated in place and returned as given.  `w` limits the attention
-    read to the first w cache positions (the windowed-decode segments)."""
+    read to the first w cache positions (the windowed-decode segments).
+    Under a mesh the attention runs this rank's heads (params hold their
+    rows of wqkv) and gathers the heads' outputs over tp."""
     n = tok.shape[0]
+    tp = 1 if mesh is None else mesh.tp
     tt = torch.as_tensor(t, dtype=torch.int64, device=tok.device).reshape(1)
     x = tok.reshape(n, 1, 1, 1).to(torch.float32)
     ci = 0
@@ -139,9 +158,9 @@ def _step_token(program, params, caches, tok, t, s_max, w: int = 0):
             continue
         if kind != Layer.ATTN:
             raise ValueError(f"nn.gen: unsupported layer {kind}")
-        heads = opts[0]
+        heads = opts[0] // tp
         e = x.shape[2]
-        dh = e // heads
+        dh = e // opts[0]
         qkv = funcs.class_matmul(x.reshape(n, e), p[0].T).reshape(
             n, 3, heads, dh)
         q, k1, v1 = qkv[:, 0], qkv[:, 1], qkv[:, 2]     # [N, h, dh]
@@ -178,16 +197,18 @@ def _step_token(program, params, caches, tok, t, s_max, w: int = 0):
         else:
             o = torch.einsum("nhs,nhsd->nhd", wts.to(torch.bfloat16).float(),
                              cv[:, :, :span].float())
-        x = funcs.class_matmul(o.reshape(n, e), p[1].T).reshape(n, 1, e, 1)
+        o = _heads_out(mesh, o.reshape(n, heads * dh), 1)
+        x = funcs.class_matmul(o, p[1].T).reshape(n, 1, e, 1)
     return x.reshape(n, -1), caches
 
 
-def _prefill(program, params, prompt, caches):
+def _prefill(program, params, prompt, caches, mesh=None):
     """ONE full-prompt forward that fills every attention layer's KV
     cache for positions 0..S0-1 (in place) and returns (last-position
     logits [N, V], caches).  f32 scores/softmax; K/V are cast to the
     cache's storage type only when stored."""
     n, s0 = prompt.shape
+    tp = 1 if mesh is None else mesh.tp
     x = prompt.reshape(n, s0, 1, 1).to(torch.float32)
     ci = 0
     for (kind, opts, _shape), p in zip(program, params):
@@ -197,9 +218,9 @@ def _prefill(program, params, prompt, caches):
             continue
         if kind != Layer.ATTN:
             raise ValueError(f"nn.gen: unsupported layer {kind}")
-        heads = opts[0]
+        heads = opts[0] // tp
         e = x.shape[2]
-        dh = e // heads
+        dh = e // opts[0]
         qkv = funcs.class_matmul(x.reshape(n, s0, e), p[0].T).reshape(
             n, s0, 3, heads, dh)
         q = qkv[:, :, 0].transpose(1, 2)               # [N, h, S0, dh]
@@ -216,8 +237,10 @@ def _prefill(program, params, prompt, caches):
         o = funcs.sdpa(q.reshape(n * heads, s0, dh),
                        k1.reshape(n * heads, s0, dh),
                        v1.reshape(n * heads, s0, dh), causal=True)
-        o = o.reshape(n, heads, s0, dh).transpose(1, 2).reshape(n, s0, e)
-        x = funcs.class_matmul(o, p[1].T).reshape(n, s0, e, 1)
+        o = o.reshape(n, heads, s0, dh).transpose(1, 2).reshape(
+            n, s0, heads * dh)
+        x = funcs.class_matmul(_heads_out(mesh, o, 2), p[1].T).reshape(
+            n, s0, e, 1)
     return x.reshape(n, s0, -1)[:, -1, :], caches
 
 
@@ -239,13 +262,15 @@ def _filter_top_p(logits, p: float):
     return torch.where(logits < thr, torch.full_like(logits, NEG_INF), logits)
 
 
-def _new_caches(program, n, s_max, kv_dtype, device):
+def _new_caches(program, n, s_max, kv_dtype, device, tp: int = 1):
+    """each attention layer's K/V cache [n, h/tp, s_max, dh] (and int8's
+    scales)"""
     kd = _DTYPES[kv_dtype]
     caches = []
     for kind, opts, shape in program:
         if kind != Layer.ATTN:
             continue
-        h, d = opts[0], shape[2] // opts[0]
+        h, d = opts[0] // tp, shape[2] // opts[0]
         kv = [torch.zeros((n, h, s_max, d), dtype=kd, device=device)
               for _ in range(2)]
         # int8 storage + one f32 scale per cached vector
@@ -274,11 +299,13 @@ def _segments(t0: int, s_max: int, win: int):
     return segs
 
 
-def _pick(logits, temp, top_k: int, top_p: float, key):
+def _pick(logits, temp, top_k: int, top_p: float, key, rows=None):
     """the next token from [N, V] logits: argmax when key is None (greedy),
     else argmax(gumbel(key) + filtered logits / temp), the JAX package's
     categorical draw.  temp is a 0-d tensor on the logits' device and
-    key a pair of host ints or of 0-d tensors: nothing is read back"""
+    key a pair of host ints or of 0-d tensors: nothing is read back.
+    rows = (first row, whole batch): the logits are a dp rank's rows, and
+    the noise is the whole batch's, sliced"""
     if key is None:
         return torch.argmax(logits, dim=-1)
     lg = logits / temp
@@ -286,7 +313,12 @@ def _pick(logits, temp, top_k: int, top_p: float, key):
         lg = _filter_top_k(lg, top_k)
     if 0.0 < top_p < 1.0:
         lg = _filter_top_p(lg, top_p)
-    return torch.argmax(rng.gumbel(key, lg.shape, lg.device) + lg, dim=-1)
+    if rows is None:
+        g = rng.gumbel(key, lg.shape, lg.device)
+    else:
+        g = rng.gumbel(key, (rows[1], lg.shape[1]), lg.device)[
+            rows[0]:rows[0] + lg.shape[0]]
+    return torch.argmax(g + lg, dim=-1)
 
 
 class Decoder:
@@ -302,12 +334,15 @@ class Decoder:
     replays queued back to back; on the CPU the body runs eagerly."""
 
     def __init__(self, program, params, n: int, s_max: int, kv_dtype: str,
-                 sampled: bool, top_k: int, top_p: float, device):
+                 sampled: bool, top_k: int, top_p: float, device,
+                 mesh=None, rows=None):
         self.program, self.params = program, params
+        self.mesh, self.rows = mesh, rows
         self.s_max, self.sampled = s_max, sampled
         self.top_k, self.top_p = top_k, top_p
         self.device = device
-        self.caches = _new_caches(program, n, s_max, kv_dtype, device)
+        self.caches = _new_caches(program, n, s_max, kv_dtype, device,
+                                  1 if mesh is None else mesh.tp)
         self.ids = torch.zeros((n, s_max), dtype=torch.int64, device=device)
         self.t = torch.zeros((), dtype=torch.int64, device=device)
         self.n_prompt = torch.zeros((), dtype=torch.int64, device=device)
@@ -321,12 +356,13 @@ class Decoder:
         tt = t.view(1)
         tok = self.ids.index_select(1, tt)[:, 0]
         logits, _ = _step_token(self.program, self.params, self.caches, tok,
-                                t, self.s_max, w=w)
+                                t, self.s_max, w=w, mesh=self.mesh)
         key = None
         if self.sampled:
             kt = self.keys.index_select(0, tt)[0]
             key = (kt[0], kt[1])
-        nxt = _pick(logits, self.temp, self.top_k, self.top_p, key)
+        nxt = _pick(logits, self.temp, self.top_k, self.top_p, key,
+                    self.rows)
         # within the prompt, the next token is given (replay); beyond
         # it, the model's choice extends the sequence
         nt = torch.clamp(t + 1, max=self.s_max - 1).view(1)
@@ -404,7 +440,8 @@ def _decoder(uid, program, params, n, s_max, kv_dtype, sampled, top_k,
 def _generate(program, params, prompt, s_max: int, temp: float,
               key, top_k: int = 0, top_p: float = 0.0,
               kv_dtype: str = "float32", win: int = 0,
-              prefill: bool = True, graphs: bool = False, uid=None):
+              prefill: bool = True, graphs: bool = False, uid=None,
+              mesh=None):
     """prompt [N, n_prompt] int64 on the model's device -> ids [N, s_max]
     (greedy when temp == 0; optional top-k and/or nucleus top-p filtering
     before the categorical draw).  `key` is a jax.random key pair
@@ -418,14 +455,25 @@ def _generate(program, params, prompt, s_max: int, temp: float,
     forward (_prefill) instead of n_prompt sequential steps;
     token-identical for greedy decode.  graphs=True (a CUDA prompt)
     replays each segment's captured step, from the Decoder cached under
-    the model's `uid`; graphs=False runs the same body eagerly."""
+    the model's `uid`; graphs=False runs the same body eagerly.  `mesh`
+    serves this rank's dp rows and tp heads (module docstring), uncaptured,
+    and returns the whole batch's ids."""
+    rows = None
+    if mesh is not None:
+        graphs = False
+        big = prompt.shape[0]
+        k = big // mesh.dp
+        rows = (mesh.dp_idx * k, big)
+        prompt = prompt[rows[0]:rows[0] + k]
+        params = _head_params(program, params, mesh)
     n, n_prompt = prompt.shape
     sampled = temp > 0.0
     t0 = n_prompt if prefill else 0
     segs = _segments(t0, s_max, win)
     args = (program, params, n, s_max, kv_dtype, sampled, int(top_k),
             float(top_p), prompt.device)
-    dec = _decoder(uid, *args) if graphs else Decoder(*args)
+    dec = _decoder(uid, *args) if graphs else Decoder(*args, mesh=mesh,
+                                                      rows=rows)
     if graphs:
         for w, _steps in segs:
             dec.capture(w)
@@ -435,12 +483,42 @@ def _generate(program, params, prompt, s_max: int, temp: float,
     steps = subs[int(prefill):]
     dec.start(prompt, temp, {t0 + i: k for i, k in enumerate(steps)})
     if prefill:
-        logits, _ = _prefill(program, params, prompt, dec.caches)
-        nxt = _pick(logits, dec.temp, top_k, top_p, first)
+        logits, _ = _prefill(program, params, prompt, dec.caches, mesh)
+        nxt = _pick(logits, dec.temp, top_k, top_p, first, rows)
         if n_prompt < s_max:
             dec.ids[:, n_prompt] = nxt
     dec.decode(t0, segs, graphs)
+    if mesh is not None:
+        return mesh.all_gather(dec.ids, 0, "dp")
     return dec.ids.clone()
+
+
+def _head_params(program, params, mesh):
+    """an attention layer's rows of wqkv [3E, E] for this rank's heads
+    (q's, k's and v's alike); wo and the other layers whole"""
+    out = []
+    for (kind, opts, _shape), pl in zip(program, params):
+        if kind == Layer.ATTN and mesh.tp > 1:
+            wqkv, wo = pl
+            e = wqkv.shape[1]
+            hl = opts[0] // mesh.tp
+            dh = e // opts[0]
+            w = wqkv.reshape(3, opts[0], dh, e)[
+                :, mesh.tp_idx * hl:(mesh.tp_idx + 1) * hl]
+            pl = (w.reshape(3 * hl * dh, e), wo)
+        out.append(pl)
+    return tuple(out)
+
+
+def serving_mesh(program, n: int):
+    """T4_MESH's mesh for a batch of n prompts, or None when there is none
+    or the batch or an attention layer's heads do not divide it"""
+    mesh = funcs.word_mesh()
+    if mesh is None or n % mesh.dp or any(
+            opts[0] % mesh.tp for kind, opts, _s in program
+            if kind == Layer.ATTN):
+        return None
+    return mesh
 
 
 def generate(model, prompt_ids, n_new: int, temp: float = 0.0,
@@ -493,6 +571,6 @@ def _generate_ids(model, prompt_ids, n_new, temp=0.0, seed=0, top_k=0,
                     rng.PRNGKey(int(seed)),
                     int(top_k), float(top_p), kv_dtype=str(kv_dtype),
                     win=int(win), prefill=bool(prefill), graphs=graphs,
-                    uid=model._uid)
+                    uid=model._uid, mesh=serving_mesh(program, p.shape[0]))
     out = ids.cpu().numpy().astype(np.int32)
     return out[0] if squeeze else out

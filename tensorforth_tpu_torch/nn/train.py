@@ -16,7 +16,8 @@ and `save` see them.
 
 As in the JAX package, dropout draws from one key an epoch,
 PRNGKey(epoch), where the word path draws a seed a forward.  Under
-T4_MESH the word says that the mesh is not in the port yet (vm/netvm.py).
+T4_MESH the step is `funcs.forward_pure`/`backward_pure` over the mesh
+(the batch over dp, the features over tp; funcs.word_mesh), run eagerly.
 """
 from __future__ import annotations
 
@@ -102,7 +103,9 @@ class _Epoch:
     def __init__(self, model, program, batch, in_shape, classes, n_batches,
                  buf, lab):
         dev = model.device
-        self.device, self.on_card = dev, dev.type == "cuda"
+        # uncaptured under a mesh (its collectives run on the host)
+        self.device = dev
+        self.on_card = dev.type == "cuda" and funcs.word_mesh() is None
         self.program, self.batch, self.in_shape = program, batch, in_shape
         self.classes, self.n_batches = classes, n_batches
         self.buf, self.lab = buf, lab

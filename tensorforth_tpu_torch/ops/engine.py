@@ -14,6 +14,7 @@ import torch
 
 from ..config import resolve_device
 from . import xla_math
+from .xla_reduce import xla_sum
 
 # ---------------------------------------------------------------------------
 # elementwise self-ops (reference k_math, t4math.cu:168-199).  exp, ln,
@@ -226,15 +227,16 @@ def transpose(a):
 # computes sqrt(sum((x-mu)^2))/numel, kept verbatim for output parity)
 # ---------------------------------------------------------------------------
 def _nvar(x, mu: float) -> float:
-    return float(torch.sum((x - _f32(mu)) ** 2))
+    d = x - _f32(mu)
+    return float(xla_sum(d, d))
 
 
 def t_sum(x) -> float:
-    return float(torch.sum(x))
+    return float(xla_sum(x))
 
 
 def t_avg(x) -> float:
-    return float(torch.sum(x)) / x.numel()
+    return float(xla_sum(x)) / x.numel()
 
 
 def t_std(x) -> float:
@@ -269,7 +271,8 @@ def has_nan(x) -> int:
 # ---------------------------------------------------------------------------
 def sync(device=None):
     """wait for all work queued on the CUDA device (of the MMU when none
-    is given); nothing to wait for on the CPU"""
+    is given; the device arena's work shares its stream); nothing to wait
+    for on the CPU"""
     if device is None:
         from ..mu.mmu import MMU
         device = MMU.get_mmu().device

@@ -13,9 +13,9 @@ first (Model.chunk_sync).
 
 `prof.start` and `prof.stop` trace the card with torch.profiler
 (runtime/prof.py).  Registered at their place in the dictionary but not
-in the port yet (each prints so through System.perr and leaves the stack
+in the port yet (it prints so through System.perr and leaves the stack
 as the JAX package's usage path does): `nn.pipe` (pipeline-parallel
-training) and `nn.train` under T4_MESH (the mesh).
+training).
 """
 from __future__ import annotations
 
@@ -833,13 +833,10 @@ class NetVM(TensorVM):
             the dataset with Adam for n epochs, each epoch a loop of one
             batch step over the corpus on the device (nn/train.py: a
             captured CUDA graph replayed once a batch on the card).
-            Under T4_MESH (the JAX package's SPMD trainer) it says that
-            the mesh is not in the port yet."""
+            Under T4_MESH each rank steps its dp rows of a batch
+            (funcs.word_mesh), uncaptured."""
             if not (vm.ss.size() > 2 and vm.IS_M(vm.ss[-3])):
                 vm.sys.perr("", "M D lr epochs nn.train? ")
-                return
-            if os.environ.get("T4_MESH"):
-                vm._not_ported("nn.train over T4_MESH")
                 return
             epochs = vm.POPi()
             lr = vm.fpop()

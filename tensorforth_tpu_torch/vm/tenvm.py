@@ -142,6 +142,8 @@ class TensorVM(ForthVM):
         from ..ops import engine
         if op == MathOp.IDEN:
             A.replace_data(engine.identity(A.ensure_data()))
+        elif op == MathOp.FILL and self.mmu.arena_fill(A, float(v)):
+            pass                                       # fused in-pool fill
         elif op in _MAP_NAME:
             A.replace_data(engine.map_op(_MAP_NAME[op], A.ensure_data(), float(v)))
         else:
@@ -164,7 +166,9 @@ class TensorVM(ForthVM):
             A = self.TTOS()
             O = self.COPY(self.tos) if x == T_KEEP else A
             flip = op in (MathOp.DIV, MathOp.SUB)
-            if flip:
+            if self.mmu.arena_binop_ts(name, O, A, v, flip):
+                pass                                   # fused in-pool op
+            elif flip:
                 O.replace_data(engine.ten_op_st(name, v, A.ensure_data()))
             else:
                 O.replace_data(engine.ten_op_ts(name, A.ensure_data(), v))
@@ -177,7 +181,8 @@ class TensorVM(ForthVM):
             A = self.TNOS()
             v = float(self.tos)
             O = self.mmu.copy(A) if x == T_KEEP else A
-            O.replace_data(engine.ten_op_ts(name, A.ensure_data(), v))
+            if not self.mmu.arena_binop_ts(name, O, A, v):
+                O.replace_data(engine.ten_op_ts(name, A.ensure_data(), v))
             if x == T_KEEP:
                 self.PUSH_OBJ(O)
             else:
@@ -239,8 +244,9 @@ class TensorVM(ForthVM):
             return B
         from ..ops import engine
         O = self.mmu.copy(B if A.N() == 1 and B.N() != 1 else A)
-        O.replace_data(engine.ten_op_tt(name, A.ensure_data(),
-                                        B.ensure_data(), O.shape))
+        if not self.mmu.arena_binop_tt(name, O, A, B):
+            O.replace_data(engine.ten_op_tt(name, A.ensure_data(),
+                                            B.ensure_data(), O.shape))
         if B.rank == 1:
             O.reshape(O.numel)
         return O
@@ -323,8 +329,9 @@ class TensorVM(ForthVM):
             return C
         if A.rank == 2 and B.rank == 2 and A.W() == B.H():
             C = self.mmu.tensor(A.H(), B.W())
-            C.replace_data(engine.matmul(A.ensure_data(), A.shape,
-                                         B.ensure_data(), B.shape))
+            if not self.mmu.arena_matmul(C, A, B):   # fused in-pool path
+                C.replace_data(engine.matmul(A.ensure_data(), A.shape,
+                                             B.ensure_data(), B.shape))
             return C
         Na, Nb = A.N(), B.N()
         if ((Na == 1 or Nb == 1) and Na != Nb and A.C() == B.C()
