@@ -106,7 +106,7 @@ Phases, one JSON line each:
           nn.adam` with the train phase's launch counts
   moe     the MoE layer: examples/t4_52_moe.4th's MoE parts through the
           REPL on the card against a CPU run of the port (TOL_NN), its
-          nn.pipe part saying it is not in the port; the zoo's tiny_moe
+          nn.pipe part trained over two pipeline ranks; the zoo's tiny_moe
           one step card against CPU under fast and strict, soft and
           under T4_MOE_DISPATCH=1; train_epochs over tiny_moe on a
           seeded stub corpus against the word loop; the REPL's fused
@@ -154,7 +154,26 @@ Phases, one JSON line each:
           generate at bench_prefill's width under dp2,tp2 (the KV caches
           [4, 4, S, 128] a rank) against the one-rank tokens, prefill ms
           and decode tok/s beside the one-rank numbers; the ranks'
-          count, the backend and rank 0's collectives
+          count, the backend and rank 0's collectives; each word-loop
+          rank's peak allocated bytes and collectives a step beside one
+          rank's (C10: a rank holds its shards)
+  parallel  the parallel modules, every rank a gloo process on the card:
+          ring attention over sp4 on [64, 2048, 128] f32, causal and
+          not (4 K1 launches a rank a call, 4 K2a and 4 K2b a backward),
+          outputs and dq, dk, dv of sum(o^2) against single-rank K4 over
+          the whole sequence within TOL_F32_F64, the K/V hops and bytes;
+          nn.pipe's engine over pp4 on tiny_transformer at
+          bench_prefill's width with 4 layers (a stage a layer, 8
+          microbatches of [1, 2048, 1024]), 2 batches, its weights
+          against the word path's steps on one rank under strict, each
+          stage's K1/K2a/K2b launches and seconds a step; nn.train over
+          tiny_moe under T4_MESH=ep4 against the unsharded run (a rank's
+          expert bytes a quarter; the worst element, its gradients and
+          each forward's smallest top-2 route margin printed); the sp
+          forward over make_mesh3(dp1, sp2, tp2) at bench_prefill's
+          widths against one rank (K1 once an attention layer a rank,
+          on the input gathered over sp); two processes started by
+          T4_COORD/T4_NPROC/T4_RANK training on dp2 against one
 Then the seconds each phase took (`phase_seconds`), one `kernels` JSON
 line, the card's name and power limit as nvidia-smi reports them, and
 last {"ok": true, "device": {...}}.
@@ -3084,7 +3103,10 @@ def phase_moe(seed: int, device=None, cfg=None, n_batches=MOE_BATCHES,
         inst, run = repl(where, seed)
         outs[str(where)] = "".join(run(ln) for ln in lines[:cut])
         if where is device:
-            rest = "".join(run(ln) for ln in lines[cut:cut + 6])
+            # its nn.pipe: two pipeline ranks on the card, cut to 3
+            # batches an epoch (as test_scripts.py cuts the script)
+            with env_set(T4_MAX_BATCH="3"):
+                rest = "".join(run(ln) for ln in lines[cut:cut + 6])
         inst.teardown()
     card_out, cpu_out = outs[str(device)], outs["cpu"]
     num = re.compile(r"[-+]?\d+\.?\d*(?:e[-+]?\d+)?")
@@ -3095,8 +3117,8 @@ def phase_moe(seed: int, device=None, cfg=None, n_batches=MOE_BATCHES,
                  if a != b), default=0.0)
     checks["t4_52_moe_lines_match_cpu"] = (
         num.sub("#", card_out) == num.sub("#", cpu_out) and worst <= tol)
-    checks["t4_52_moe_pipe_not_in_port"] = (
-        "nn.pipe is not in the port yet" in rest)
+    checks["t4_52_moe_pipe_trains"] = (
+        "nn.pipe 2 epochs over pp2 done" in rest)
     checks["t4_52_moe_no_error"] = not transcript_faults(card_out + rest)
     res["t4_52_moe"] = {"worst_rel_diff_vs_cpu": worst, "tol": tol,
                         "numbers": len(pairs), "precision": Config.PRECISION,
@@ -3978,34 +4000,46 @@ MESH_SPECS = ("dp2", "dp2,tp2")   # the word loop's meshes
 MESH_EPOCHS = 2             # t4_30e's word loop under each mesh
 # batches an epoch, cut from 600: test_word_mesh's own depth (7), where
 # the mesh is held to one rank within its bounds (equal hits, 5e-5 on the
-# loss, 2e-4 on the weights), and 50 (100 steps), where the mesh is held
+# loss, 2e-4 on the weights), and 20 (40 steps), where the mesh is held
 # bit for bit to one process that runs the ranks' arithmetic in turn
 # (_emulated_mesh): a rank's products over its 50 rows (or its half of a
 # layer's features) sum in another order than one rank's over 100, and
 # Adam's steps carry that apart from one rank (PERF.md §6)
 MESH_MAX_BATCH = 7
-MESH_LONG_BATCH = 50
+MESH_LONG_BATCH = 20
 MESH_LOSS_TOL, MESH_W_ATOL = 5e-5, 2e-4
 MESH_GEN_SPEC = "dp2,tp2"   # generate over 4 ranks: 4 prompts and 4 heads
 MESH_N_NEW = 64             # each
 
 
-class _TpPiece:
-    """one tp rank's view in funcs._tp_layer: its all-gather hands back
-    its own piece (the caller concatenates the pieces, as the gather
-    does)"""
+class _EmuMesh:
+    """the word mesh as one process sees it while it runs every rank's
+    arithmetic in turn: dp x tp with no collective (the whole tensors are
+    there already)"""
+    axis_names = ("dp", "tp")
 
-    def __init__(self, tp, t):
-        self.tp, self.tp_idx = tp, t
+    def __init__(self, dp, tp):
+        self.dp, self.tp, self.shape = dp, tp, (dp, tp)
 
-    def all_gather(self, y, ax, axis):
-        return y
+    def axis_size(self, axis):
+        return dict(zip(self.axis_names, self.shape)).get(axis, 1)
+
+    def all_gather(self, t, dim, axis="tp"):
+        return t
+
+    def all_reduce(self, t, axis):
+        return t
+
+
+def _tp_part(t, axis, i, tp):
+    return t.chunk(tp, dim=axis)[i].contiguous()
 
 
 def _emu_forward(mesh, program, x, params, key):
     """funcs._forward_mesh's arithmetic for every dp rank in turn, each
     rank's layer over its rows and (for a split layer) each tp rank's
-    features in turn; the collectives become concatenations"""
+    shard of the parameters in turn; the collectives become
+    concatenations"""
     import torch
     from tensorforth_tpu_torch.nn import funcs
     from tensorforth_tpu_torch.nn.ntypes import Layer
@@ -4023,10 +4057,12 @@ def _emu_forward(mesh, program, x, params, key):
                                 (n,) + tuple(xl.shape[1:]), xl.device)
                 m = (u > spec[1][0]).to(torch.float32)[lo:lo + k]
                 y = xl * m
-            elif spec[0] in funcs._TP_SPLIT:
-                y = torch.cat([funcs._tp_layer(_TpPiece(mesh.tp, t), ls, xl,
-                                               p) for t in range(mesh.tp)],
-                              dim=funcs._TP_SPLIT[spec[0]][0])
+            elif spec[0] in funcs._TP_SPLIT and mesh.tp > 1:
+                ax, wax, bax = funcs._TP_SPLIT[spec[0]]
+                y = torch.cat([funcs._tp_layer(
+                    mesh, ls, xl, (_tp_part(p[0], wax, t, mesh.tp),
+                                   _tp_part(p[1], bax, t, mesh.tp)))
+                    for t in range(mesh.tp)], dim=ax)
                 m = None
             elif spec[0] in (Layer.BATCHNM, Layer.MOE):
                 raise NotImplementedError("the emulation has no batchnorm")
@@ -4042,6 +4078,38 @@ def _emu_forward(mesh, program, x, params, key):
                        for j in range(len(program))) for i in (0, 1))
 
 
+def _emu_split_grads(m, kind, x_in, w, dy, opts, out_shape):
+    """funcs._split_grads for each tp rank in turn (its shard of w, its
+    features of dy), dx summed over them (a sum of two is the one order
+    gloo's all-reduce can take), dw and db concatenated"""
+    import torch
+    from tensorforth_tpu_torch.nn import funcs
+    if m is None:
+        return _EMU_SAVED["split"](None, kind, x_in, w, dy, opts, out_shape)
+    assert m.tp == 2, "the emulation sums two tp ranks"
+    ax, wax, bax = funcs._TP_SPLIT[kind]
+    res = []
+    for t in range(m.tp):
+        one = type("TpRank", (), {
+            "chunk": lambda self, v, dim, axis, t=t: v.chunk(m.tp, dim)[t],
+            "all_reduce": lambda self, v, axis: v})()
+        res.append(_EMU_SAVED["split"](one, kind, x_in,
+                                       _tp_part(w, wax, t, m.tp), dy, opts,
+                                       out_shape))
+    (x0, w0, b0), (x1, w1, b1) = res
+    return x0 + x1, torch.cat((w0, w1), wax), torch.cat((b0, b1), bax)
+
+
+def _row_slice(t, lo, k, n):
+    """rows lo.. lo + k of every tensor of n rows in t (a tuple of them)"""
+    import torch
+    if isinstance(t, (tuple, list)):
+        return type(t)(_row_slice(v, lo, k, n) for v in t)
+    if torch.is_tensor(t) and t.dim() and t.shape[0] == n:
+        return t[lo:lo + k]
+    return t
+
+
 def _emu_backward(mesh, program, train, tgt, x0, outs, params, masks, dws,
                   dbs, flash):
     """funcs._backward_mesh's arithmetic for the dp2 ranks in turn: each
@@ -4054,14 +4122,14 @@ def _emu_backward(mesh, program, train, tgt, x0, outs, params, masks, dws,
     k = n // mesh.dp
     res = []
     for d in range(mesh.dp):
-        sl = lambda t, lo=d * k: funcs._row_slice(t, lo, k, n)  # noqa: E731
+        sl = lambda t, lo=d * k: _row_slice(t, lo, k, n)  # noqa: E731
         res.append(funcs._backward_body(
             tuple(funcs._local_spec(spec, k) for spec in program), train,
             sl(tgt.reshape(outs[-1].shape)), sl(x0), sl(tuple(outs)), params,
             sl(tuple(masks)), [None if w is None else torch.zeros_like(w)
                                for w in dws],
             [None if b is None else torch.zeros_like(b) for b in dbs],
-            flash))
+            flash, mesh=(mesh, n)))
     (o0, x0s, w0, b0), (o1, x1s, w1, b1) = res
     acc = lambda a, c0, c1: None if c0 is None else funcs._acc(  # noqa
         a, c0.contiguous() + c1.contiguous())
@@ -4072,41 +4140,76 @@ def _emu_backward(mesh, program, train, tgt, x0, outs, params, masks, dws,
             type(b0)(acc(a, c0, c1) for a, c0, c1 in zip(dbs, b0, b1)))
 
 
+_EMU_SAVED = {}
+
+
 class _emulated_mesh:
-    """inside the block the word path runs a dp2[,tpM] mesh's arithmetic
-    in this one process, with no collective: the witness that a mesh run
-    departs from one rank's by the ranks' shapes alone"""
+    """inside the block the word path runs a dp2[,tp2] mesh's arithmetic
+    in this one process, with no collective and the model's tensors
+    whole: the witness that a mesh run departs from one rank's by the
+    ranks' shapes alone"""
 
     def __init__(self, spec):
         from tensorforth_tpu_torch.parallel.mesh import parse_spec
-        dp, tp = parse_spec(spec)
-        self.mesh = type("EmulatedMesh", (), {"dp": dp, "tp": tp,
-                                              "shape": (dp, tp)})()
+        p = parse_spec(spec)
+        self.mesh = _EmuMesh(p.get("dp", 1), p.get("tp", 1))
 
     def __enter__(self):
         from tensorforth_tpu_torch.nn import funcs
-        self.saved = (funcs.word_mesh, funcs._forward_mesh,
-                      funcs._backward_mesh)
+        from tensorforth_tpu_torch.nn.model import Model
+        self.saved = (funcs.word_mesh, Model._rows, Model._pspec,
+                      funcs._forward_mesh, funcs._backward_mesh,
+                      funcs._split_grads)
+        _EMU_SAVED["split"] = funcs._split_grads
         funcs.word_mesh = lambda: self.mesh
+        # the model's tensors stay whole: no rank's rows or shards
+        Model._rows = staticmethod(lambda: None)
+        Model._pspec = staticmethod(lambda t_in, k: None)
         funcs._forward_mesh, funcs._backward_mesh = _emu_forward, _emu_backward
+        funcs._split_grads = _emu_split_grads
         return self
 
     def __exit__(self, *exc):
         from tensorforth_tpu_torch.nn import funcs
-        (funcs.word_mesh, funcs._forward_mesh,
-         funcs._backward_mesh) = self.saved
+        from tensorforth_tpu_torch.nn.model import Model
+        rows, pspec = self.saved[1:3]
+        (funcs.word_mesh, _r, _p, funcs._forward_mesh,
+         funcs._backward_mesh, funcs._split_grads) = self.saved
+        Model._rows, Model._pspec = staticmethod(rows), staticmethod(pspec)
+
+
+def _held_bytes(model) -> int:
+    """the bytes of a model's tensors (layer outputs, parameters,
+    gradients, moments, masks) that this process holds: a rank's part
+    under the word mesh (C10), else the whole"""
+    seen, n = set(), 0
+    for t in model.data:
+        for x in [t] + list(t.grad) + list(t.mtum):
+            if x is None or id(x) in seen:
+                continue
+            seen.add(id(x))
+            part = x._shard[0] if x._shard is not None else x.data
+            n += 0 if part is None else part.numel() * 4
+    return n
 
 
 def _mesh_word_loop(device, epochs, max_batch, script_dir):
     """t4_30e's lines (its `epochs`), the model's weights after them and
-    the printed acc=/loss= lines, through a fresh REPL"""
+    the printed acc=/loss= lines, through a fresh REPL; the bytes of the
+    model this process held after its training loop (before `save` reads
+    the model whole)"""
     with tempfile.TemporaryDirectory(prefix="t4_mesh_") as save_dir, \
             env_set(T4_MAX_BATCH=max_batch):
         lines = _net_lines(os.path.join(script_dir, "t4_30e.4th"), epochs,
                            save_dir)
         inst, run = repl(device, NET_SEED)
         t0 = time.perf_counter()
-        out = "".join(run(ln) for ln in lines)
+        out, held = [], None
+        for ln in lines:
+            if held is None and " save" in ln:
+                held = _held_bytes(_models(inst.vm)[-1])
+            out.append(run(ln))
+        out = "".join(out)
         sec = time.perf_counter() - t0
         run("md0")
         md = inst.vm.mmu.du2obj(inst.vm.tos)
@@ -4114,7 +4217,22 @@ def _mesh_word_loop(device, epochs, max_batch, script_dir):
         ws = [w.detach().cpu().numpy().copy() for pl in md._params()
               for w in pl]
     return dict(printed=re.findall(r"acc=(\S+) loss=(\S+)", out),
-                weights=ws, seconds=sec, faults=transcript_faults(out))
+                weights=ws, seconds=sec, faults=transcript_faults(out),
+                held_bytes=held)
+
+
+def _peak_over(device, fn):
+    """fn()'s result and the device memory its run allocated at its peak
+    beyond what was allocated before it (None off the card)"""
+    import torch
+    if torch.device(device if device else "cuda").type != "cuda":
+        return fn(), None
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
 
 
 def _mesh_word_rank(rank, world, device, spec, epochs, max_batch,
@@ -4124,9 +4242,15 @@ def _mesh_word_rank(rank, world, device, spec, epochs, max_batch,
     from tensorforth_tpu_torch.parallel import mesh as pm
     os.environ["T4_MESH"] = spec
     cycle.reset_counts()
-    r = _mesh_word_loop(device, epochs, max_batch, script_dir)
+    before = dict(pm.COUNTS)
+    r, peak = _peak_over(device, lambda: _mesh_word_loop(
+        device, epochs, max_batch, script_dir))
+    steps = epochs * max_batch
+    comm = {k: pm.COUNTS[k] - before[k] for k in before}
     r.update(mesh=funcs.word_mesh().shape, counts=dict(cycle.COUNTS),
-             collectives=dict(pm.COUNTS),
+             collectives=comm, peak_bytes_over_start=peak,
+             collectives_per_step={k: comm[k] / steps
+                                   for k in ("all_reduce", "all_gather")},
              backend=torch.distributed.get_backend())
     r["long"] = _mesh_word_loop(device, epochs, MESH_LONG_BATCH, script_dir)
     return r
@@ -4143,11 +4267,29 @@ def _mesh_gen_rank(rank, world, device, spec, lm, seq, n_new, seed):
                                                  (lm["batch"], seq))
     sync = torch.cuda.synchronize if m.device.type == "cuda" else (
         lambda: None)
+    before, launched = dict(pm.COUNTS), flash_counts()
     ids = serve.generate(m, prompt, n_new, temp=0.0)
     pre, tot, _p, _t = time_generate(m, prompt, n_new, sync, graphs=False)
     return dict(ids=ids, prefill_ms=pre, total_ms=tot,
                 mesh=serve.serving_mesh(m._program(), lm["batch"]).shape,
-                collectives=dict(pm.COUNTS), launches=flash_counts())
+                collectives={k: pm.COUNTS[k] - before[k] for k in before},
+                launches={k: v - launched[k]
+                          for k, v in flash_counts().items()})
+
+
+def _mesh_ranks(rank, world, device, spec, lm, seq, epochs, max_batch,
+                script_dir, n_new, seed):
+    """one start of the mesh's ranks: the ShardedTrainer gradient under
+    dp2, the word loop under `spec`, generate under MESH_GEN_SPEC"""
+    out = {}
+    if "tp" not in spec:
+        out["trainer"] = _mesh_rank(rank, world, device, lm, seq, spec)
+    out["word"] = _mesh_word_rank(rank, world, device, spec, epochs,
+                                  max_batch, script_dir)
+    if spec == MESH_GEN_SPEC:
+        out["gen"] = _mesh_gen_rank(rank, world, device, spec, lm, seq,
+                                    n_new, seed)
+    return out
 
 
 def _gen_lm(device, lm, seq, seed):
@@ -4224,7 +4366,7 @@ def phase_mesh(seed: int = 0, device=None, lm=MESH_LM, seq=N_PROMPT,
     bench_prefill's width under dp2,tp2 (4 ranks: 4 prompts and 4 heads
     each, the KV caches [4, 4, S, 128]) against the one-rank tokens, with
     prefill ms and decode tok/s beside the one-rank numbers.  The word
-    loop also runs 100 steps under each mesh, held bit for bit to one
+    loop also runs 40 steps under each mesh, held bit for bit to one
     process that runs the ranks' arithmetic in turn (_emulated_mesh),
     with both runs' distance from one rank beside it"""
     import torch
@@ -4233,6 +4375,7 @@ def phase_mesh(seed: int = 0, device=None, lm=MESH_LM, seq=N_PROMPT,
     from tensorforth_tpu_torch.parallel import launch
     from tensorforth_tpu_torch.parallel.trainer import ShardedTrainer
     dev = torch_device(device)
+    t_part = time.perf_counter()
     one = ShardedTrainer(_mesh_lm(dev, lm, seq))
     x, y = _mesh_batch(lm, seq, dev)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -4244,7 +4387,32 @@ def phase_mesh(seed: int = 0, device=None, lm=MESH_LM, seq=N_PROMPT,
     ms1 = 1e3 * (time.perf_counter() - t0)
     g1 = [g.detach().cpu() for gl in g1 for g in gl]
     del one, x, y
-    r = launch.run(_mesh_rank, ranks, str(dev), lm, seq, f"dp{ranks}")
+    # the one-rank references, then each mesh's ranks started once
+    one_loop, one_peak = _peak_over(device, lambda: _mesh_word_loop(
+        device, epochs, max_batch, script_dir))
+    one_long = _mesh_word_loop(device, epochs, MESH_LONG_BATCH, script_dir)
+    gm = _gen_lm(dev, lm, seq, seed)
+    prompt = np.random.RandomState(seed).randint(0, lm["vocab"],
+                                                 (lm["batch"], seq))
+    from tensorforth_tpu_torch.nn import serve
+    one_ids = serve.generate(gm, prompt, n_new, temp=0.0)
+    one_pre, one_tot, _p, _t = time_generate(gm, prompt, n_new, sync,
+                                             graphs=dev.type == "cuda")
+    del gm
+    runs, emus = {}, {}
+    seconds = {"one_rank_references": time.perf_counter() - t_part}
+    for spec in MESH_SPECS:
+        t_part = time.perf_counter()
+        with _emulated_mesh(spec):
+            emus[spec] = _mesh_word_loop(device, epochs, MESH_LONG_BATCH,
+                                         script_dir)
+        seconds[f"emulation_{spec}"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        runs[spec] = launch.run(_mesh_ranks, 4 if "tp" in spec else ranks,
+                                str(dev), spec, lm, seq, epochs, max_batch,
+                                script_dir, n_new, seed)
+        seconds[f"ranks_{spec}"] = time.perf_counter() - t_part
+    r = runs[f"dp{ranks}"]["trainer"]
     tol = TOL_NN[Config.PRECISION]
     worst = max(float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
                 for a, b in zip(r["grads"], g1))
@@ -4255,7 +4423,7 @@ def phase_mesh(seed: int = 0, device=None, lm=MESH_LM, seq=N_PROMPT,
                   ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
               or dev.type != "cuda",
               "backend_gloo": r["backend"] == "gloo"}
-    emit({"phase": "mesh", "ranks": ranks,
+    emit({"phase": "mesh", "ranks": ranks, "seconds": seconds,
           "backend": r["backend"], "mesh": r["mesh"],
           "collectives_rank0": r["collectives"],
           "launches_rank0": r["launches"], "lm": lm, "seq": seq,
@@ -4263,29 +4431,24 @@ def phase_mesh(seed: int = 0, device=None, lm=MESH_LM, seq=N_PROMPT,
           "worst_grad_rel_err": worst, "loss_dp": r["loss"],
           "loss_one_rank": float(l1), "grad_ms_rank0": r["ms"],
           "grad_ms_one_rank": ms1, "checks": checks})
-    # --- t4_30e's word loop under T4_MESH against one rank, and at 100
+    # --- t4_30e's word loop under T4_MESH against one rank, and at 40
     # steps against the ranks' arithmetic run in one process
-    one_loop = _mesh_word_loop(device, epochs, max_batch, script_dir)
-    one_long = _mesh_word_loop(device, epochs, MESH_LONG_BATCH, script_dir)
     loops = {}
     for spec in MESH_SPECS:
-        world = 4 if "tp" in spec else 2
-        with _emulated_mesh(spec):
-            emu = _mesh_word_loop(device, epochs, MESH_LONG_BATCH, script_dir)
-        loops[spec] = lr = launch.run(_mesh_word_rank, world, str(dev), spec,
-                                      epochs, max_batch, script_dir)
+        emu = emus[spec]
+        loops[spec] = lr = runs[spec]["word"]
         long_ = lr.pop("long")
         w_emu = max(float(np.abs(a - b).max())
                     for a, b in zip(long_["weights"], emu["weights"]))
         drift = lambda run: max(float(np.abs(a - b).max())  # noqa: E731
                                 for a, b in zip(run["weights"],
                                                 one_long["weights"]))
-        checks[f"word_loop_{spec}_100_steps_bit_equal_emulation"] = (
+        checks[f"word_loop_{spec}_long_run_bit_equal_emulation"] = (
             w_emu == 0.0 and long_["printed"] == emu["printed"]
             and len(emu["printed"]) == epochs)
-        checks[f"word_loop_{spec}_100_steps_no_fault"] = not (
+        checks[f"word_loop_{spec}_long_run_no_fault"] = not (
             long_["faults"] or emu["faults"])
-        lr["100_steps"] = {
+        lr["long_run"] = {
             "printed": long_["printed"], "seconds": long_["seconds"],
             "emulation_printed": emu["printed"],
             "emulation_seconds": emu["seconds"],
@@ -4307,16 +4470,7 @@ def phase_mesh(seed: int = 0, device=None, lm=MESH_LM, seq=N_PROMPT,
         lr["max_weight_err"] = w_err
         del lr["weights"]
     # --- generate under dp2,tp2 against one rank (graphs and eager alike)
-    gm = _gen_lm(dev, lm, seq, seed)
-    prompt = np.random.RandomState(seed).randint(0, lm["vocab"],
-                                                 (lm["batch"], seq))
-    from tensorforth_tpu_torch.nn import serve
-    one_ids = serve.generate(gm, prompt, n_new, temp=0.0)
-    one_pre, one_tot, _p, _t = time_generate(gm, prompt, n_new, sync,
-                                             graphs=dev.type == "cuda")
-    del gm
-    gen = launch.run(_mesh_gen_rank, 4, str(dev), MESH_GEN_SPEC, lm, seq,
-                     n_new, seed)
+    gen = runs[MESH_GEN_SPEC]["gen"]
     checks["generate_tokens_equal"] = bool(np.array_equal(gen["ids"],
                                                           one_ids))
     checks["generate_heads_split"] = gen["mesh"] == (2, 2)
@@ -4324,8 +4478,10 @@ def phase_mesh(seed: int = 0, device=None, lm=MESH_LM, seq=N_PROMPT,
     emit({"phase": "mesh_paths", "word_loop": {
               "one_rank": {"printed": one_loop["printed"],
                            "seconds": one_loop["seconds"],
-                           "100_steps_printed": one_long["printed"],
-                           "100_steps_seconds": one_long["seconds"]},
+                           "held_bytes": one_loop["held_bytes"],
+                           "peak_bytes_over_start": one_peak,
+                           "long_run_printed": one_long["printed"],
+                           "long_run_seconds": one_long["seconds"]},
               **{k: {kk: vv for kk, vv in v.items()}
                  for k, v in loops.items()},
               "epochs": epochs, "max_batch": max_batch,
@@ -4347,6 +4503,631 @@ def phase_mesh(seed: int = 0, device=None, lm=MESH_LM, seq=N_PROMPT,
     return launched
 
 
+# --- the parallel phase: ring attention, nn.pipe, the ep and sp axes and
+# the multi-host start-up, every rank a gloo process on the one card
+PAR_RING = dict(bh=64, s=2048, dh=128)  # tiny_lm's prefill heads (B*h 64)
+PAR_RANKS = 4                           # sp4, pp4, ep4, dp1 x sp2 x tp2
+PAR_PIPE_LM = dict(batch=8, seq=2048, dim=1024, heads=8, classes=10,
+                   layers=4)            # a stage a layer over pp4
+PAR_PIPE_BATCHES = 2
+# the pipelined step against the word path's under strict: test_moe_pipe's
+# bounds (its f32 sums run in another order: microbatches of 1 row).  The
+# worst element is a weight whose gradient lies within 40x Adam's eps,
+# where the update is most sensitive to the sums' order; the word path
+# with each batch's rows reversed lands as far from itself (PERF.md,
+# section 6: seeds 0 to 3 on the card)
+PAR_PIPE_TOL = dict(rtol=1e-4, atol=1e-5)
+PAR_EP_BATCHES = 2                      # test_moe_pipe's ep case's corpus
+PAR_EP_LR = 0.01                        # and its learning rate
+# ep4 against the unsharded run under strict: test_moe_pipe's bounds (the
+# loss at 1e-4, each weight within 2e-5 past 2e-4 of its value).  They
+# hold for a run free of two discontinuities, in the JAX package's own ep
+# run as in this one (PERF.md, section 6): a top-2 route whose margin lies
+# within the runs' rounding (a token changes expert, and a unit's first
+# gradient takes the other sign: Adam's first step, lr * sqrt(10), each
+# way), and a gradient that is rounding noise beside Adam's eps of 1e-6.
+# The seed's run is free of both; the phase prints the routes' margins and
+# the worst element's gradients, which tell which one a failure is
+PAR_EP_LOSS_RTOL, PAR_EP_TOL = 1e-4, dict(rtol=2e-4, atol=2e-5)
+PAR_SP_LM = dict(NET_TRAIN_LM)          # bench_prefill's widths
+PAR_DIST_LR = 0.01                      # tests/dist_worker.py's run
+
+
+def _ring_inputs(seed, ring):
+    rs = np.random.RandomState(seed)
+    shape = (ring["bh"], ring["s"], ring["dh"])
+    return tuple(rs.standard_normal(shape).astype(np.float32)
+                 for _ in range(3))
+
+
+def _ring_rank(mesh, device, seed, ring):
+    """ring attention over sp4 on this rank's [64, 512, 128] shards,
+    causal and not, forward and the backward of sum(o^2); against the
+    single-rank K4 pair over the whole sequence (each rank computes that
+    reference after its counted run and checks its own chunk)"""
+    import torch
+    from tensorforth_tpu_torch.ops import attn
+    from tensorforth_tpu_torch.parallel import mesh as pm
+    from tensorforth_tpu_torch.parallel.ring import ring_attention
+    sync = torch.cuda.synchronize if device.type == "cuda" else (
+        lambda: None)
+    q, k, v = (torch.from_numpy(t).to(device)
+               for t in _ring_inputs(seed, ring))
+    # a first call, uncounted and untimed: the hops' buffers and
+    # connections, the kernels' libraries
+    warm = [mesh.chunk(t, 1, "sp").contiguous().requires_grad_(True)
+            for t in (q, k, v)]
+    ring_attention(*warm, mesh, False).sum().backward()
+    del warm
+    out = {}
+    for causal in (False, True):
+        loc = [mesh.chunk(t, 1, "sp").contiguous().requires_grad_(True)
+               for t in (q, k, v)]
+        reset_flash_counts()
+        before = dict(pm.COUNTS)
+        sync()
+        t0 = time.perf_counter()
+        o = ring_attention(*loc, mesh, causal)
+        sync()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        fwd = flash_counts()
+        t0 = time.perf_counter()
+        (o ** 2).sum().backward()
+        sync()
+        bwd_ms = (time.perf_counter() - t0) * 1e3
+        counts = flash_counts()
+        hops = {key: pm.COUNTS[key] - before[key] for key in before}
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        ref, _lse = attn.flash_attention_lse(*leaves, causal)
+        (ref ** 2).sum().backward()
+        got = [o.detach()] + [t.grad for t in loc]
+        want = [mesh.chunk(ref.detach(), 1, "sp")] + [
+            mesh.chunk(t.grad, 1, "sp") for t in leaves]
+        out["causal" if causal else "full"] = {
+            "fwd_launches": fwd, "launches": counts, "hops": hops,
+            "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+            "f64_ratio": [f64_ratio(a, b.double()) for a, b in
+                          zip(got, want)]}
+        del o, loc, ref, leaves
+    return out
+
+
+def _moe_corpus(seed):
+    """tiny_moe's stub corpus at its defaults (batches of 8 [8, 16, 1])"""
+    rs = np.random.RandomState(seed)
+    data = rs.rand(PAR_EP_BATCHES * 8, 8, 16, 1).astype(np.float32)
+    return data, rs.randint(0, 4, PAR_EP_BATCHES * 8)
+
+
+def _pipe_corpus(seed, lm, n_batches):
+    rs = np.random.RandomState(seed)
+    b = lm["batch"]
+    data = rs.rand(n_batches * b, lm["seq"], lm["dim"], 1).astype(np.float32)
+    return data, rs.randint(0, lm["classes"], n_batches * b)
+
+
+def _reversed_rows(n_batches, batch):
+    """an index that reverses the rows of each batch: the same batches,
+    their sums over the rows in another order"""
+    return np.concatenate([np.arange(i * batch, (i + 1) * batch)[::-1]
+                           for i in range(n_batches)])
+
+
+def _par_models(seed, dev, sp_lm, pipe_lm=None):
+    """the phase's models, their weights drawn from the seed in one
+    order: the same in every process that calls this (tiny_moe first, so
+    a fresh draw of it alone has its weights)"""
+    from tensorforth_tpu_torch.models import zoo
+    from tensorforth_tpu_torch.system import System
+    System.get_sys().seed(seed)
+    out = (zoo.tiny_moe(device=dev), zoo.tiny_transformer(device=dev,
+                                                          **sp_lm))
+    if pipe_lm is not None:
+        out += (zoo.tiny_transformer(device=dev, **pipe_lm),)
+    return out
+
+
+def _fresh_moe(seed, dev):
+    from tensorforth_tpu_torch.models import zoo
+    from tensorforth_tpu_torch.system import System
+    System.get_sys().seed(seed)
+    return zoo.tiny_moe(device=dev)
+
+
+def _leaves(m):
+    """(layer, slot) of each of m's parameters, in _weights' order"""
+    return [(j, k) for j, pl in enumerate(m._params()) for k in range(len(pl))]
+
+
+def _worst_leaf(m, got, want, rtol):
+    """the element of m's parameters where `got` lies furthest from
+    `want` past rtol: its leaf (layer, kind, w or b), flat index, values
+    and excess |got - want| - rtol |want|"""
+    from tensorforth_tpu_torch.nn import funcs
+    prog = m._program()
+    worst = None
+    for i, ((j, k), a, c) in enumerate(zip(_leaves(m), got, want)):
+        ex = np.abs(a - c) - rtol * np.abs(c)
+        e = int(np.argmax(ex))
+        if worst is None or ex.flat[e] > worst["excess"]:
+            worst = {"param": i, "layer": j,
+                     "kind": funcs._kind_name(prog[j][0]).strip("'"),
+                     "which": "wb"[k],
+                     "index": e, "got": float(a.flat[e]),
+                     "want": float(c.flat[e]), "excess": float(ex.flat[e])}
+    return worst
+
+
+def _word_steps(m, data, labels, batch, lr, epochs, sync, grads=None):
+    """the word path's steps (forward, backprop, adam) on m over the
+    corpus in batches of `batch`, `epochs` times; each step's seconds
+    (the gradients' copies left out).  grads: each step's gradient of
+    every parameter (host copies, flat) appended"""
+    from tensorforth_tpu_torch.mu.mmu import MMU
+    mmu = MMU.get_mmu()
+    classes = m[-1].HWC()
+    inp = mmu.tensor(batch, *m[0].shape[1:], device=m.device)
+    hot = mmu.tensor(batch, 1, classes, 1, device=m.device)
+    eye = np.eye(classes, dtype=np.float32)
+    leaves = _leaves(m)
+    steps = []
+    for _e in range(epochs):
+        for i in range(data.shape[0] // batch):
+            sl = slice(i * batch, (i + 1) * batch)
+            inp.set_numpy(data[sl])
+            hot.set_numpy(eye[labels[sl]])
+            sync()
+            t0 = time.perf_counter()
+            m.forward(inp)
+            m.backprop(hot)
+            sync()
+            t1 = time.perf_counter()
+            if grads is not None:
+                grads.append([m[j].grad[2 + k].numpy().reshape(-1)
+                              for j, k in leaves])
+            t2 = time.perf_counter()
+            m.adam(lr)
+            sync()
+            steps.append(t1 - t0 + time.perf_counter() - t2)
+    return steps
+
+
+def _at(grads, leaf):
+    """each step's gradient at a _worst_leaf element"""
+    return [float(g[leaf["param"]][leaf["index"]]) for g in grads]
+
+
+def _parallel_rank(rank, world, device, seed, ring, sp_lm, pipe_lm,
+                   pipe_batches):
+    """a rank of the parallel phase: the ring, nn.train over tiny_moe
+    under T4_MESH=ep4, the sp forward over (dp1, sp2, tp2), then nn.pipe's
+    engine over pp4; rank 0 returns every rank's numbers.  The ranks make
+    their models and data from the seed (nothing large is sent to them)"""
+    import torch
+    import torch.distributed as dist
+    from tensorforth_tpu_torch.nn import funcs
+    from tensorforth_tpu_torch.nn.train import train_epochs
+    from tensorforth_tpu_torch.parallel import mesh as pm
+    from tensorforth_tpu_torch.parallel.trainer import ShardedTrainer
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    m, t, pipe_m = _par_models(seed, dev, sp_lm, pipe_lm)
+    start_w = [float(sum(np.abs(w).sum() for w in _weights(x)))
+               for x in (m, t, pipe_m)]
+    program, params = pipe_m._program(), pipe_m._params()
+    del pipe_m
+    out = {"ring": _ring_rank(pm.Mesh(("sp",), (world,)), dev, seed, ring)}
+    # --- ep: nn.train over tiny_moe, the experts over ep4
+    os.environ["T4_MESH"] = "ep4"
+    t0 = time.perf_counter()
+    loss = train_epochs(m, _StubDataset(*_moe_corpus(seed), 8), lr=PAR_EP_LR,
+                        epochs=2)
+    ep_s = time.perf_counter() - t0
+    j = next(i for i, spec in enumerate(m._program())
+             if spec[0] == funcs.Layer.MOE)
+    mine = sum(w.numel() * 4 for w in m._params(True)[j])
+    whole = sum(w.numel() * 4 for w in m._params()[j])
+    out["ep"] = {"loss": loss, "weights": _weights(m), "seconds": ep_s,
+                 "expert_bytes_rank": mine, "expert_bytes_whole": whole,
+                 "mesh": repr(funcs.word_mesh())}
+    os.environ.pop("T4_MESH")
+    # --- sp: tiny_transformer's forward over (dp1, sp2, tp2)
+    x = _sp_input(seed, sp_lm, dev)
+    tr = ShardedTrainer(t, pm.make_mesh3(world, 1, 2, 2))
+    before = dict(pm.COUNTS)
+    tr.forward(x)                       # warm
+    reset_flash_counts()
+    sync()
+    t0 = time.perf_counter()
+    y = tr.forward(x)
+    sync()
+    out["sp"] = {"out": y.cpu() if rank == 0 else None,
+                 "ms": (time.perf_counter() - t0) * 1e3,
+                 "launches": flash_counts(),
+                 "collectives": {k: (pm.COUNTS[k] - before[k]) // 2
+                                 for k in before}}
+    del tr, x, y
+    out["pipe"], pipe_loss, pipe_w = _pipe_rank_part(
+        rank, world, dev, program, params,
+        *_pipe_corpus(seed, pipe_lm, pipe_batches), pipe_lm, pipe_batches)
+    every = [None] * world
+    dist.all_gather_object(every, {k: v for k, v in out.items()
+                                   if k != "sp"} | {
+        "sp": {k: v for k, v in out["sp"].items() if k != "out"}})
+    return {"ranks": every, "sp_out": out["sp"]["out"],
+            "pipe_loss": pipe_loss, "pipe_weights": pipe_w,
+            "start_weights": start_w}
+
+
+def _pipe_rank_part(rank, world, dev, program, params, data, labels, lm,
+                    n_batches):
+    """nn.pipe's engine (pipeline.pipe_train, the body of each rank that
+    train_pipeline starts) over pp on this group's ranks: the rank's flash
+    launches, seconds and hops; rank 0's loss and trained weights too"""
+    import torch
+    from tensorforth_tpu_torch.parallel import mesh as pm
+    from tensorforth_tpu_torch.parallel.pipeline import (make_pp_mesh,
+                                                         pipe_train)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    b = lm["batch"]
+    x, y = torch.from_numpy(data).to(dev), torch.from_numpy(labels).to(dev)
+    mesh = make_pp_mesh(world)
+    reset_flash_counts()
+    before = dict(pm.COUNTS)
+    sync()
+    t0 = time.perf_counter()
+    loss, full, _l = pipe_train(mesh, program, params, x, y, b, 0.0, 1.0,
+                                (b, lm["seq"], lm["dim"], 1), lm["classes"],
+                                TRAIN_LR, 1, n_batches)
+    sync()
+    part = {"launches": flash_counts(), "seconds": time.perf_counter() - t0,
+            "comm": {k: pm.COUNTS[k] - before[k] for k in before}}
+    return part, loss, ([w.cpu().numpy() for pl_ in full for w in pl_]
+                        if rank == 0 else None)
+
+
+def _dist_worker(out_path: str, device: str):
+    """a process of the dist check: T4_COORD/T4_NPROC/T4_RANK form the
+    group (parallel/dist.py), then nn.train over tests/dist_worker.py's
+    model and corpus on the card, {rank, nproc, loss, weights} to
+    out_path"""
+    import torch
+    from tensorforth_tpu_torch.models import zoo
+    from tensorforth_tpu_torch.nn.train import train_epochs
+    from tensorforth_tpu_torch.parallel.dist import init_distributed
+    rank, nproc = init_distributed()
+    model = zoo.tiny_transformer(batch=8, seq=8, dim=16, heads=4, classes=4,
+                                 layers=2, device=device)
+    rs = np.random.RandomState(7)
+    for j in range(model.numel - 1):
+        for g in model[j].grad[:2]:
+            if g is None:
+                break
+            g.set_numpy((rs.rand(*g.shape).astype(np.float32) - 0.5) * 0.2)
+    rs = np.random.RandomState(3)
+    data = rs.rand(16, 8, 16, 1).astype(np.float32)
+    labels = rs.randint(0, 4, 16)
+    loss = train_epochs(model, _StubDataset(data, labels, 8),
+                        lr=PAR_DIST_LR, epochs=2)
+    ws = [w.tolist() for w in _weights(model)]
+    if torch.distributed.is_initialized():
+        torch.distributed.barrier()
+    with open(out_path, "w") as f:
+        json.dump({"rank": rank, "nproc": nproc, "loss": float(loss),
+                   "weights": ws}, f)
+
+
+def _sp_input(seed, lm, dev):
+    import torch
+    return torch.from_numpy(np.random.RandomState(seed).rand(
+        lm["batch"], lm["seq"], lm["dim"], 1).astype(np.float32)).to(dev)
+
+
+def _dist_start(tmp, device):
+    """two processes started as a cluster starts them, and one alone:
+    (the processes, their result files)"""
+    from tensorforth_tpu_torch.parallel.launch import free_port
+    port = free_port()
+    outs = [os.path.join(tmp, f"r{i}.json") for i in range(3)]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("T4_COORD", "T4_NPROC", "T4_RANK", "T4_MESH")}
+
+    def start(i, **extra):
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-worker",
+             outs[i], str(device)], env=dict(env, **extra),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+    procs = [start(i, T4_COORD=f"localhost:{port}", T4_NPROC="2",
+                   T4_RANK=str(i), T4_MESH="dp2") for i in range(2)]
+    procs.append(start(2))
+    return procs, outs
+
+
+def _dist_finish(procs, outs):
+    """the dist processes' results, once each has ended"""
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    for i, p in enumerate(procs):
+        if p.returncode != 0:
+            raise RuntimeError(f"dist process {i} failed:\n"
+                               f"{logs[i].decode(errors='replace')[-2500:]}")
+    return [json.load(open(o)) for o in outs]
+
+
+class _routing_margins:
+    """inside the block every MoE soft-route forward records the smallest
+    gap between a token's top_k-th and next gate (the route's margin: a
+    gap within the two runs' rounding lets a token's route flip)"""
+
+    def __init__(self):
+        self.margins = []
+
+    def __enter__(self):
+        import torch
+        from tensorforth_tpu_torch.parallel import moe
+        self.saved = orig = moe.moe_fwd
+
+        def recorded(x, wr, w1, w2, top_k=2, mesh=None, axis="ep"):
+            with torch.no_grad():
+                g = torch.sort(moe._gates(x, wr, mesh, axis), dim=-1).values
+                e = g.shape[-1]
+                if top_k < e:
+                    self.margins.append(float(
+                        (g[..., e - top_k] - g[..., e - top_k - 1]).min()))
+            return orig(x, wr, w1, w2, top_k, mesh, axis)
+        moe.moe_fwd = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from tensorforth_tpu_torch.parallel import moe
+        moe.moe_fwd = self.saved
+
+
+def _ep_references(seed, dev, moe_m, sync):
+    """the ep check's one-rank runs from the seed's weights: nn.train
+    unsharded (moe_m), the same with each batch's rows reversed (the same
+    sums in another order: the f32 order's own spread), and the word
+    path's steps with each step's gradients and its routes' margins"""
+    from tensorforth_tpu_torch.nn.train import train_epochs
+    data, labels = _moe_corpus(seed)
+    loss = train_epochs(moe_m, _StubDataset(data, labels, 8), lr=PAR_EP_LR,
+                        epochs=2)
+    rev = _reversed_rows(PAR_EP_BATCHES, 8)
+    m_rev = _fresh_moe(seed, dev)
+    train_epochs(m_rev, _StubDataset(data[rev], labels[rev], 8),
+                 lr=PAR_EP_LR, epochs=2)
+    m_rep, grads = _fresh_moe(seed, dev), []
+    with _routing_margins() as route:
+        _word_steps(m_rep, data, labels, 8, PAR_EP_LR, 2, sync, grads)
+    return (loss, _weights(moe_m), _weights(m_rev), _weights(m_rep), grads,
+            route.margins)
+
+
+def _pipe_compare(m, seed, lm, n_batches, loss, got, per, sync):
+    """the pipeline's trained weights (got, rank 0's) against the word
+    path's steps on one rank from the same weights (m), and against the
+    same steps with each batch's rows reversed (the f32 order's own
+    spread); its launches"""
+    from tensorforth_tpu_torch.models import zoo
+    b = lm["batch"]
+    data, labels = _pipe_corpus(seed, lm, n_batches)
+    w0 = _weights(m)
+    grads = []
+    steps = _word_steps(m, data, labels, b, TRAIN_LR, 1, sync, grads)
+    want = _weights(m)
+    ctl = zoo.tiny_transformer(device=m.device, **lm)
+    _pin(ctl, w0)
+    rev = _reversed_rows(n_batches, b)
+    _word_steps(ctl, data[rev], labels[rev], b, TRAIN_LR, 1, sync)
+    w_rev = _weights(ctl)
+    del ctl
+    rtol = PAR_PIPE_TOL["rtol"]
+    per_param = [float(np.max(np.abs(a - c) - rtol * np.abs(c)))
+                 for a, c in zip(got, want)]
+    excess = max(per_param)
+    worst = _worst_leaf(m, got, want, rtol)
+    worst["word_path_grads"] = _at(grads, worst)
+    rev_worst = _worst_leaf(m, w_rev, want, rtol)
+    rev_worst["word_path_grads"] = _at(grads, rev_worst)
+    moved = max(float(np.abs(a - c).max()) for a, c in zip(got, w0))
+    counts = [p["launches"] for p in per]
+    # a stage a layer: each microbatch's forward launches K1 once and its
+    # backward K1 again (the layer's vjp) with K2a and K2b
+    n_micro = 2 * PAR_RANKS if b % (2 * PAR_RANKS) == 0 else PAR_RANKS
+    want_k = {"flash_fwd": 2 * n_micro * n_batches,
+              "flash_bwd_dkv": n_micro * n_batches,
+              "flash_bwd_dq": n_micro * n_batches}
+    checks = {"pipe_weights_match_word_path": excess <= PAR_PIPE_TOL["atol"],
+              "pipe_weights_moved": moved > 0,
+              "pipe_loss_finite": math.isfinite(loss)}
+    if m.device.type == "cuda":
+        checks["pipe_stage_launches"] = all(c == want_k for c in counts)
+    return {"lm": lm, "stages": PAR_RANKS, "n_micro": n_micro,
+            "batches": n_batches, "loss": loss,
+            "worst_weight_excess": excess, "tol": PAR_PIPE_TOL,
+            "weight_excess_per_param": per_param, "worst_leaf": worst,
+            "reversed_rows_worst_weight_excess": rev_worst["excess"],
+            "reversed_rows_worst_leaf": rev_worst,
+            "max_abs_step": [float(np.abs(a - c).max())
+                             for a, c in zip(want, w0)],
+            "launches_per_rank": counts, "launches_rank0": counts[0],
+            "rank_seconds": [p["seconds"] for p in per],
+            "rank_comm": [p["comm"] for p in per],
+            "s_per_step_pipeline": max(p["seconds"] for p in per)
+            / n_batches,
+            "s_per_step_one_rank_word_path": steps, "checks": checks}
+
+
+def phase_parallel(seed: int = 0, device=None, ring=PAR_RING,
+                   pipe_lm=PAR_PIPE_LM, sp_lm=PAR_SP_LM,
+                   pipe_batches=PAR_PIPE_BATCHES):
+    """the parallel modules on the one card, every rank a gloo process:
+    ring attention over sp4 on [64, 2048, 128] (K1 forward and K2a/K2b
+    backward on each rank's [64, 512, 128] chunks, causal and not)
+    against single-rank K4 over the whole sequence; nn.train over
+    tiny_moe under T4_MESH=ep4 against the unsharded run; the sp forward
+    over make_mesh3(dp1, sp2, tp2) at bench_prefill's widths (K1 on each
+    attention layer's gathered sequence) against one rank; nn.pipe's
+    engine through train_pipeline over pp4 on tiny_transformer at
+    bench_prefill's width, 4 layers, a stub corpus of 2 batches, against
+    the word path's steps on one rank; two processes started by
+    T4_COORD/T4_NPROC/T4_RANK training on dp2 against one (started first,
+    they run beside the rest).  Under strict, the class the pipelined
+    step is held to the word path's in (PAR_PIPE_TOL).  The ep and
+    pipeline checks report their worst element, the one-rank gradients
+    there, and the same distance between the one-rank run and itself
+    with each batch's rows reversed.  Returns the flash kernels' launches
+    of the ring's, the sp forward's and the pipeline's rank 0"""
+    import torch
+    from tensorforth_tpu_torch.nn.ntypes import Layer
+    from tensorforth_tpu_torch.parallel import launch
+    from tensorforth_tpu_torch.parallel.trainer import ShardedTrainer
+    dev = torch_device(device)
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    checks = {}
+    seconds = {}
+    t_part = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="t4_dist_") as tmp:
+        procs, outs = _dist_start(tmp, dev)
+        try:
+            with env_set(T4_PRECISION="strict"), precision_set("strict"):
+                moe_m, sp_m, pipe_m = _par_models(seed, dev, sp_lm, pipe_lm)
+                start_w = [float(sum(np.abs(w).sum() for w in _weights(x)))
+                           for x in (moe_m, sp_m, pipe_m)]
+                r = launch.run(_parallel_rank, PAR_RANKS, str(dev), seed,
+                               ring, sp_lm, pipe_lm, pipe_batches)
+                seconds["ranks"] = time.perf_counter() - t_part
+                checks["ranks_start_from_the_same_weights"] = (
+                    r["start_weights"] == start_w)
+                t_part = time.perf_counter()
+                # the one-rank references
+                pipe = _pipe_compare(pipe_m, seed, pipe_lm, pipe_batches,
+                                     r["pipe_loss"], r["pipe_weights"],
+                                     [rk["pipe"] for rk in r["ranks"]], sync)
+                del pipe_m
+                lm1, w1, w_rev, w_rep, ep_grads, margins = _ep_references(
+                    seed, dev, moe_m, sync)
+                x = _sp_input(seed, sp_lm, dev)
+                one = ShardedTrainer(sp_m)
+                one.forward(x)                  # warm
+                sync()
+                t0 = time.perf_counter()
+                y1 = one.forward(x)
+                sync()
+                sp1_ms = (time.perf_counter() - t0) * 1e3
+                n_attn = sum(spec[0] == Layer.ATTN
+                             for spec in sp_m._program())
+                del one, x
+                seconds["one_rank_references"] = (time.perf_counter()
+                                                  - t_part)
+        except BaseException:
+            for p in procs:
+                p.kill()
+            raise
+        t_part = time.perf_counter()
+        dist = _dist_finish(procs, outs)
+        seconds["dist_wait"] = time.perf_counter() - t_part
+    ranks = r["ranks"]
+    # --- the ring
+    rings = {}
+    nr = PAR_RANKS
+    chunk = ring["bh"] * (ring["s"] // nr) * ring["dh"] * 4
+    for mode in ("full", "causal"):
+        per = [rk["ring"][mode] for rk in ranks]
+        rings[mode] = {
+            "launches_per_rank": [p["launches"] for p in per],
+            "fwd_launches_per_rank": [p["fwd_launches"] for p in per],
+            "hops_rank0": per[0]["hops"],
+            "fwd_ms_per_rank": [p["fwd_ms"] for p in per],
+            "bwd_ms_per_rank": [p["bwd_ms"] for p in per],
+            "worst_f64_ratio_o_dq_dk_dv": [max(p["f64_ratio"][i] for p in per)
+                                           for i in range(4)]}
+        checks[f"ring_{mode}_within_tol_f32_f64"] = all(
+            v <= 1.0 for v in rings[mode]["worst_f64_ratio_o_dq_dk_dv"])
+        # K/V: n - 1 hops each forward and back, one chunk a hop
+        checks[f"ring_{mode}_hops"] = all(
+            p["hops"]["hops"] == 4 * (nr - 1)
+            and p["hops"]["hop_bytes"] == 4 * (nr - 1) * chunk
+            and p["hops"]["all_gather"] == 0 for p in per)
+        if on_card:
+            checks[f"ring_{mode}_launches"] = all(
+                p["fwd_launches"]["flash_fwd"] == nr
+                and p["launches"]["flash_bwd_dkv"] == nr
+                and p["launches"]["flash_bwd_dq"] == nr for p in per)
+    # --- ep
+    ep = ranks[0]["ep"]
+    rtol = PAR_EP_TOL["rtol"]
+    ep_w = max(float(np.max(np.abs(a - c) - rtol * np.abs(c)))
+               for a, c in zip(ep["weights"], w1))
+    ep_rel = max(float(np.abs(a - c).max()) / max(float(np.abs(c).max()),
+                                                  1e-30)
+                 for a, c in zip(ep["weights"], w1))
+    ep_worst = _worst_leaf(moe_m, ep["weights"], w1, rtol)
+    ep_worst["word_path_grads"] = _at(ep_grads, ep_worst)
+    rev_worst = _worst_leaf(moe_m, w_rev, w1, rtol)
+    rev_worst["word_path_grads"] = _at(ep_grads, rev_worst)
+    checks["ep_loss"] = abs(ep["loss"] - lm1) <= PAR_EP_LOSS_RTOL * abs(lm1)
+    checks["ep_weights"] = ep_w <= PAR_EP_TOL["atol"]
+    checks["ep_all_ranks_equal_loss"] = len({rk["ep"]["loss"]
+                                            for rk in ranks}) == 1
+    checks["ep_quarter_of_the_experts"] = (
+        ep["expert_bytes_rank"] * 4 == ep["expert_bytes_whole"])
+    # --- sp
+    tol = TOL_NN["strict"]
+    sp_err = float((r["sp_out"].to(y1.device) - y1).abs().max()
+                   / max(float(y1.abs().max()), 1e-30))
+    checks["sp_forward_within_tol_nn"] = sp_err <= tol
+    if on_card:                         # K1 once an attention layer
+        checks["sp_launches"] = all(
+            rk["sp"]["launches"] == {"flash_fwd": n_attn, "flash_bwd_dkv": 0,
+                                     "flash_bwd_dq": 0} for rk in ranks)
+    # --- dist
+    d0, d1, d_one = dist
+    dw = max(float(np.max(np.abs(np.asarray(a) - np.asarray(c))))
+             for a, c in zip(d0["weights"], d_one["weights"]))
+    checks["dist_ranks_agree"] = (d0["loss"] == d1["loss"]
+                                  and d0["weights"] == d1["weights"]
+                                  and (d0["nproc"], d1["nproc"]) == (2, 2))
+    checks["dist_matches_one_process"] = (
+        abs(d0["loss"] - d_one["loss"]) <= 1e-5 * abs(d_one["loss"])
+        and dw <= MESH_W_ATOL)
+    checks.update(pipe.pop("checks"))
+    emit({"phase": "parallel", "seed": seed, "ranks": PAR_RANKS,
+          "backend": "gloo", "precision": "strict", "seconds": seconds,
+          "ring": {"shape": ring, "sp": nr, "chunk_bytes": chunk, **rings},
+          "pipe": pipe,
+          "ep": {"spec": "ep4", "loss": ep["loss"], "loss_one_rank": lm1,
+                 "worst_weight_rel_err": ep_rel,
+                 "worst_excess_over_rtol": ep_w, "tol": PAR_EP_TOL,
+                 "worst_leaf": ep_worst,
+                 "reversed_rows_worst_excess_over_rtol": rev_worst["excess"],
+                 "reversed_rows_worst_leaf": rev_worst,
+                 "word_path_replica_max_diff": _max_diff(w_rep, w1),
+                 "smallest_route_margin_per_forward": margins,
+                 "expert_bytes_rank": ep["expert_bytes_rank"],
+                 "expert_bytes_whole": ep["expert_bytes_whole"],
+                 "seconds_2_epochs": ep["seconds"], "mesh": ep["mesh"]},
+          "sp": {"mesh": "dp1,sp2,tp2", "lm": sp_lm, "rel_err": sp_err,
+                 "tol_nn": tol, "ms_rank0": ranks[0]["sp"]["ms"],
+                 "ms_one_rank": sp1_ms, "attention_layers": n_attn,
+                 "launches_per_rank": [rk["sp"]["launches"] for rk in ranks],
+                 "collectives_rank0": ranks[0]["sp"]["collectives"]},
+          "dist": {"processes": 2, "loss": d0["loss"],
+                   "loss_one_process": d_one["loss"],
+                   "max_weight_diff": dw, "atol": MESH_W_ATOL},
+          "checks": checks})
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise RuntimeError(f"parallel phase failed: {bad}")
+    launched = dict(ranks[0]["ring"]["full"]["launches"])
+    for part in (ranks[0]["ring"]["causal"]["launches"],
+                 ranks[0]["sp"]["launches"], pipe["launches_rank0"]):
+        for k, v in part.items():
+            launched[k] += v
+    return launched
+
+
 def card_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"],
@@ -4357,7 +5138,13 @@ def card_line() -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    # the parallel phase's dist check starts this script as its processes
+    ap.add_argument("--dist-worker", nargs=2, default=None,
+                    metavar=("OUT", "DEVICE"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.dist_worker:                 # a process of that check only
+        _dist_worker(*args.dist_worker)
+        return 0
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4414,6 +5201,8 @@ def main(argv=None) -> int:
     timed("arena", phase_arena)
     for name, n in timed("mesh", phase_mesh, args.seed).items():
         ran[name] = ran.get(name, 0) + n
+    for name, n in timed("parallel", phase_parallel, args.seed).items():
+        ran[name] = ran.get(name, 0) + n
     emit({"phase_seconds": seconds})
     # no word of either package reaches K5b or K7: the tensor phase calls
     # their wrappers on the words' operands
@@ -4426,19 +5215,28 @@ def main(argv=None) -> int:
                                 "graph, counted by the profiler) and the "
                                 "mesh phase's rank 0 (its dp2 "
                                 "ShardedTrainer gradient and its dp2,tp2 "
-                                "generate's prefills)",
+                                "generate's prefills) and the parallel "
+                                "phase's rank 0 (its sp4 ring's steps, "
+                                "causal and not, its dp1,sp2,tp2 "
+                                "forward's attention layers, and the "
+                                "microbatches of the first pp4 stage "
+                                "that train_pipeline starts)",
                    "flash_bwd_dkv": "the train step, attn_bench, "
                                     "net_gen's word-path step (in the f32 "
                                     "class after the backward's split, "
                                     "split_launches on the train step and "
-                                    "net_gen), net_train's graph and the "
+                                    "net_gen), net_train's graph, the "
                                     "mesh phase's rank 0 (its dp2 "
-                                    "ShardedTrainer gradient)",
+                                    "ShardedTrainer gradient) and the "
+                                    "parallel phase's rank 0 (the ring's "
+                                    "backward, the nn.pipe stage's)",
                    "flash_bwd_dq": "the train step, attn_bench, "
                                    "net_gen's word-path step (after the "
-                                   "same split), net_train's graph and the "
+                                   "same split), net_train's graph, the "
                                    "mesh phase's rank 0 (its dp2 "
-                                   "ShardedTrainer gradient)",
+                                   "ShardedTrainer gradient) and the "
+                                   "parallel phase's rank 0 (the ring's "
+                                   "backward, the nn.pipe stage's)",
                    "flash_bwd_fused": "attn_bench.sweep_bwd_fused (the "
                                       "hybrid class; the f32 class's "
                                       "kernels and its split in the kernel "

@@ -30,6 +30,12 @@ class TensorForth:
         """`device` None means the package default, `cuda`, and raises
         without a GPU; name "cpu" to run there"""
         self.device = resolve_device(device)
+        if os.environ.get("T4_COORD"):       # multi-host cluster start-up
+            from .parallel.dist import init_distributed
+            rank, nproc = init_distributed()
+            if verbose:
+                print(f"\\ distributed: process {rank}/{nproc}, "
+                      f"{nproc} global ranks")
         self.sys = System.get_sys(fin, fout, verbose)
         self.sys.mu = MMU.get_mmu()
         self.sys.mu.device = self.device
@@ -144,13 +150,16 @@ def _bench(m: int, k: int, n: int, device) -> str:
 
 
 def _mesh_world() -> int:
-    """the ranks T4_MESH asks for (1: no mesh, or already a rank)"""
+    """the local ranks T4_MESH asks for (1: no mesh, already a rank, or a
+    cluster's process that T4_COORD starts elsewhere)"""
+    import math
     import torch.distributed as dist
     from .parallel.mesh import parse_spec
     spec = parse_spec(os.environ.get("T4_MESH", ""))
-    if spec is None or (dist.is_available() and dist.is_initialized()):
+    if spec is None or os.environ.get("T4_COORD") or (
+            dist.is_available() and dist.is_initialized()):
         return 1
-    return spec[0] * spec[1]
+    return math.prod(spec.values())
 
 
 def _repl_rank(rank, world, text, verbose, device):
@@ -224,14 +233,13 @@ def main(argv=None):
                      tb_logdir=args.tb_logdir, tb_run_id=args.run_id)
     profile_dir = os.environ.get("T4_PROFILE")
     if profile_dir:                          # device-level tracing hook
-        from .runtime.prof import Profiler
-        prof = Profiler(profile_dir)
-        prof.start()
+        from .runtime import prof
+        prof.start_trace(profile_dir)
     try:
         t4.main_loop()
     finally:
         if profile_dir:
-            prof.stop()
+            prof.stop_trace()
         t4.teardown()
     return 0
 

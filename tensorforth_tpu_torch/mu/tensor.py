@@ -11,6 +11,14 @@ Under the device arena (`T4_ARENA=1`, mu/arena.py) a registered tensor
 has a word offset `aoff` in the pool and its payload is the pool's view
 there: made on first read (zeroed then, `_ainit`), written in place by
 `replace_data`.
+
+Under the word path's mesh (nn/funcs.word_mesh) a tensor of a model may
+hold only a rank's part of its payload (`set_local`, `local`): a `spec`
+names the part (`part(whole)`) and how the ranks put it back together
+(`whole(part)`, a collective every rank calls at the same point, which
+the REPL's ranks do: they run the same words).  `ensure_data` puts a
+sharded payload back together first, so every reader outside the word
+path sees the whole tensor.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ class Tensor:
         self.rank = len(dims)
         self.shape = dims
         self.device = resolve_device(device)
+        self._shard = None                 # (a rank's part, its spec)
         self.data: torch.Tensor | None = None  # payload, logical shape
         self.aoff = None                   # device-arena word offset
         self._ainit = True                 # arena slot holds defined data
@@ -95,6 +104,39 @@ class Tensor:
         return self.shape == other.shape
 
     # --- payload management ------------------------------------------------
+    @property
+    def data(self) -> torch.Tensor | None:
+        """the whole payload (None while unmade or sharded)"""
+        return self._data
+
+    @data.setter
+    def data(self, v):
+        self._data = v
+        self._shard = None
+
+    def local(self, spec) -> torch.Tensor:
+        """this rank's part of the payload under `spec` (None: the whole
+        payload); a whole payload is cut to the part, which is kept"""
+        if spec is None:
+            return self.ensure_data()
+        if self._shard is not None:
+            if self._shard[1] == spec:
+                return self._shard[0]
+        part = spec.part(self.ensure_data()).clone()
+        self._data, self._shard = None, (part, spec)
+        return part
+
+    def set_local(self, arr, spec) -> "Tensor":
+        """the payload as this rank's part under `spec` (a copy; None:
+        replace_data)"""
+        if spec is None:
+            return self.replace_data(arr)
+        part = torch.as_tensor(arr).to(device=self.device,
+                                       dtype=torch.float32, copy=True)
+        self._data = None
+        self._shard = (part.reshape(spec.shape(self.shape)), spec)
+        return self
+
     def _arena(self):
         if self.aoff is None:
             return None
@@ -102,6 +144,9 @@ class Tensor:
         return MMU.get_mmu().arena
 
     def ensure_data(self) -> torch.Tensor:
+        if self._shard is not None:        # the ranks' parts put together
+            part, spec = self._shard
+            self.replace_data(spec.whole(part))
         if self.data is None:
             ar = self._arena()
             if ar is not None:             # the payload is the pool's view
@@ -156,6 +201,8 @@ class Tensor:
             n *= d
         if n != self.numel:
             raise ValueError(f"reshape {self.shape} -> {dims} numel mismatch")
+        if self._shard is not None:        # a part's shape is not dims
+            self.ensure_data()
         if self.data is not None:
             self.data = self.data.reshape(dims)
         self.shape = dims

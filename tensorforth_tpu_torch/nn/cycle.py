@@ -67,22 +67,25 @@ class Cycle:
         self.loss_op, self.opt, self.ndivs = loss_op, opt, ndivs
         self.src = src
         tr = model._trainables()
-        zeros = lambda t: torch.zeros_like(t.ensure_data())   # noqa: E731
-        self.W = [zeros(t.grad[s]) for t, s in tr]
+        # the rank's shards under the word mesh (Model._slot)
+        zeros = lambda t, w, k: torch.zeros_like(  # noqa: E731
+            model._slot(t, w, k))
+        self.W = [zeros(t, "grad", s) for t, s in tr]
         self.adamlike = opt in ("adam", "adamw")
-        self.M = [zeros(t.grad[s]) for t, s in tr] if opt != "sgd" \
+        self.M = [zeros(t, "grad", s) for t, s in tr] if opt != "sgd" \
             else self.W
-        self.V = [zeros(t.grad[s]) for t, s in tr] if self.adamlike else []
+        self.V = [zeros(t, "grad", s) for t, s in tr] if self.adamlike \
+            else []
         # accumulators of the layers with parameters, in their storage
         # shapes (Model._gather_grads); None for the others
-        self.DW = [zeros(model[j].grad[2]) if model[j].grad[2] is not None
+        self.DW = [zeros(model[j], "grad", 2) if model[j].grad[2] is not None
                    else None for j in range(len(program))]
-        self.DB = [zeros(model[j].grad[3]) if model[j].grad[3] is not None
+        self.DB = [zeros(model[j], "grad", 3) if model[j].grad[3] is not None
                    else None for j in range(len(program))]
         # the program-indexed params the layers read: views of W in the
         # shapes Model._params() gives
         flat, params = iter(self.W), []
-        for pl in model._params():
+        for pl in model._params(True):
             params.append(tuple(next(flat).view(p.shape) for p in pl))
         self.params = tuple(params)
         self.kcap = kcap
@@ -250,11 +253,13 @@ def get(model, program, train: bool, loss_op: str, opt: str, ndivs: tuple,
     ("ds", corpus bytes, labels, batch, mean, scale, input shape) or
     ("x", input shape); the corpus is keyed by identity, the class of
     the dots, the attention's and the MoE routing's by their settings (a
-    capture bakes them in)"""
+    capture bakes them in), the word mesh by identity (its buffers are
+    the rank's shards)"""
     skey = (src[0], id(src[1]), id(src[2])) + tuple(src[3:]) \
         if src[0] == "ds" else src
     key = (model._uid, program, train, loss_op, opt, ndivs, skey, kcap,
-           Config.PRECISION, funcs._attn_hybrid(), moe.capture_key())
+           Config.PRECISION, funcs._attn_hybrid(), moe.capture_key(),
+           id(funcs.word_mesh()))
     c = _CACHE.get(key)
     if c is None:
         c = Cycle(model, program, train, loss_op, opt, ndivs, src, kcap)

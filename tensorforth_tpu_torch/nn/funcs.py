@@ -50,8 +50,10 @@ _ACTS = (Layer.RELU, Layer.TANH, Layer.SIGMOID, Layer.SELU,
 def _activate_fwd(kind, x, alpha):
     """returns (y, derivative-mask) — reference k_activate"""
     if kind == Layer.RELU:
+        # XLA compiles x * (x > 0) to select(x > 0, x, 0) and flushes
+        # subnormal inputs: +0 for -0, negatives, NaN and subnormals
         m = (x > 0.0).to(torch.float32)
-        return x * m, m
+        return torch.where(x >= xla_math._TINY, x, torch.zeros_like(x)), m
     if kind == Layer.TANH:
         t = xla_math.tanh(x)
         return t, 1.0 - t * t
@@ -504,21 +506,34 @@ def attn_op(x, wqkv, wo, heads: int, causal: bool = False,
     return _AttnOp.apply(x, wqkv, wo, heads, causal, rope)
 
 
-def _moe_fwd(x, w1aug, w2, top_k: int):
+def _moe_fwd(x, w1aug, w2, top_k: int, mesh=None):
     """mixture-of-experts FFN layer: x [N,S,D,1]; w1aug [E,D,F+1] packs
     the experts' w1 [E,D,F] with the router wr [E,D] in the last column
     (the generic two-slot layer contract); w2 [E,F,D].  The route is
-    parallel/moe.moe_select's for this call's token count"""
+    parallel/moe.moe_select's for this call's token count.  Under a word
+    mesh (see word_mesh) x is a dp rank's rows and the experts are the
+    rank's along the mesh's expert axis; the dispatch route, whose
+    capacity is the batch's, routes the whole batch's tokens"""
     from ..parallel.moe import (capacity_factor, moe_fwd, moe_fwd_dispatch,
                                 moe_select)
     n, s, d, _ = x.shape
     f = w1aug.shape[2] - 1
-    e = w1aug.shape[0]
-    args = (x.reshape(n, s, d), w1aug[:, :, f], w1aug[:, :, :f], w2, top_k)
-    if moe_select((n, s), e, top_k):
-        y = moe_fwd_dispatch(*args, capacity_factor=capacity_factor())
+    ax = _expert_axis(mesh)
+    e = w1aug.shape[0] * (mesh.axis_size(ax) if ax else 1)
+    dp = mesh.dp if mesh is not None else 1
+    xx = x.reshape(n, s, d)
+    dispatch = moe_select((n * dp, s), e, top_k)
+    if dispatch and dp > 1:
+        from ..parallel.mesh import gather
+        xx = gather(xx.contiguous(), mesh, 0, "dp")
+    args = (xx, w1aug[:, :, f], w1aug[:, :, :f], w2, top_k)
+    kw = dict(mesh=mesh, axis=ax) if ax else {}
+    if dispatch:
+        y = moe_fwd_dispatch(*args, capacity_factor=capacity_factor(), **kw)
+        if dp > 1:
+            y = mesh.chunk(y, 0, "dp")
     else:
-        y = moe_fwd(*args)
+        y = moe_fwd(*args, **kw)
     return y.reshape(n, s, d, 1)
 
 
@@ -612,30 +627,40 @@ def layer_key(key, j: int):
 # ===========================================================================
 _MESHES: dict = {}
 # layers whose output features split over tp: the raw output's feature
-# axis and the parameters' (w, b) feature axes
+# axis and the parameters' (w, b) feature axes in the [E0, E1] / filter
+# views funcs takes
 _TP_SPLIT = {Layer.LINEAR: (1, 0, 0), Layer.PROJ: (2, 0, 0),
              Layer.CONV: (3, 3, 0)}
 
 
 def word_mesh():
-    """the mesh of the interactive word path: T4_MESH=dp4[,tp2] over the
-    ranks of the process group (parallel/launch.py starts them; the REPL
-    does under T4_MESH), or None: no spec, one rank, or a spec needing
-    more ranks than the group has (as the JAX package degrades to one
-    device).  Under a mesh `forward_pure` runs a rank's dp rows of the
-    batch, each linear/proj/conv layer's output features split over tp
-    and all-gathered, batchnorm over the batch's moments all-reduced over
-    dp, and all-gathers the layers' outputs and masks, so every rank
-    holds what one device computes; `backward_pure` runs the rank's rows
-    (batchnorm's channel means all-reduced over dp) and sums the dW/dB
-    contributions over dp.  The rest is replicated, not partitioned: the
-    other layers' forward, the whole backward and the optimizer run
-    whole on every tp rank, and every rank holds the whole parameters and
-    the whole batch's activations.  The fused cycle, trace chunks and
-    `nn.train` are built from the two, and run uncaptured under a mesh
+    """the mesh of the interactive word path: T4_MESH=dp4[,tp2] (or
+    dpX,epY) over the ranks of the process group (parallel/launch.py
+    starts them, as the REPL does under T4_MESH; across hosts
+    parallel/dist.py under T4_COORD), or None: no spec, one rank, or a
+    spec needing more ranks than the group has (as the JAX package
+    degrades to one device).
+
+    Under a mesh a rank holds its part of the state, as the JAX package's
+    shardings lay it out (parallel/mesh.shard_params): every layer's
+    output, input gradient and mask its dp rows; the parameters of the
+    linear, proj and conv layers, their dW/dB and their optimizer moments
+    its tp shard (the output features); an MoE layer's experts its shard
+    over ep (over tp on a dp/tp mesh); the rest replicated.  The model
+    keeps these as shards (mu/tensor.Tensor.local) and gathers a tensor
+    whole only where a word reads it (`nn.w`, `n@`, the trace, the loss
+    and hit readbacks, save).  `forward_pure` takes the rank's shards of
+    the parameters and the whole batch and returns the rank's rows: a
+    split layer computes its features and all-gathers them over tp,
+    batchnorm's moments are all-reduced over dp, a dropout layer keeps
+    its rows of the whole batch's mask.  `backward_pure` takes the rank's
+    rows and computes the rank's shard of each gradient: a split layer's
+    dW/dB from its features' cotangent, its input gradient all-reduced
+    over tp, every dW/dB summed over dp.  The fused cycle, trace chunks
+    and `nn.train` are built from the two, and run uncaptured under a mesh
     (gloo's collectives run on the host).  A batch or a layer's features
     that do not divide the mesh raise, as the JAX package's sharding
-    does; an MoE layer raises (its experts shard over ep, with A9)."""
+    does."""
     spec = os.environ.get("T4_MESH", "")
     if not spec:
         return None
@@ -643,22 +668,67 @@ def word_mesh():
     up = dist.is_available() and dist.is_initialized()
     key = (spec, dist.get_world_size() if up else 1)
     if key not in _MESHES:
-        from ..parallel.mesh import mesh_from_spec
-        _MESHES[key] = mesh_from_spec(spec)
+        from ..parallel.mesh import mesh_from_spec, parse_spec
+        if up and int(os.environ.get("T4_NPROC", "1") or 1) > 1:
+            from ..parallel.dist import make_global_mesh
+            _MESHES[key] = make_global_mesh(**parse_spec(spec))
+        else:
+            _MESHES[key] = mesh_from_spec(spec)
     return _MESHES[key]
 
 
+def _expert_axis(mesh):
+    """the axis an MoE layer's experts shard over: ep, else tp"""
+    if mesh is None:
+        return None
+    for ax in ("ep", "tp"):
+        if mesh.axis_size(ax) > 1:
+            return ax
+    return None
+
+
+def param_dims(mesh, kind) -> tuple:
+    """(mesh axis, dim) of a layer's (w, b) in their storage shapes under
+    the word mesh (None: replicated): linear/proj W [1, E0, E1, 1] and
+    conv filters [C1, K, K, C0] on their output features over tp, their
+    biases on their only axis; MoE w1aug [E, D, F+1, 1] and w2 [E, F, D,
+    1] on the experts"""
+    if mesh is None:
+        return (None, None)
+    if kind in _TP_SPLIT and mesh.tp > 1:
+        return (("tp", 1 if kind != Layer.CONV else 3), ("tp", 0))
+    if kind == Layer.MOE and _expert_axis(mesh):
+        ax = _expert_axis(mesh)
+        return ((ax, 0), (ax, 0))
+    return (None, None)
+
+
+def _check_mesh(mesh, program):
+    """the split layers' output features divide over tp, and an MoE
+    layer's experts over its axis"""
+    for kind, opts, shape in program:
+        if kind in _TP_SPLIT and mesh.tp > 1:
+            f = {Layer.LINEAR: math.prod(shape[1:]), Layer.PROJ: shape[2],
+                 Layer.CONV: shape[3]}[kind]
+            if f % mesh.tp:
+                raise ValueError(f"T4_MESH: {_kind_name(kind)}'s {f} output "
+                                 f"features do not divide over tp{mesh.tp}")
+        if kind == Layer.MOE and _expert_axis(mesh):
+            ax = _expert_axis(mesh)
+            if opts[0] % mesh.axis_size(ax):
+                raise ValueError(f"T4_MESH: {opts[0]} experts do not divide "
+                                 f"over {ax}{mesh.axis_size(ax)}")
+
+
 def _mesh_for(program, n: int):
+    """the word mesh for a batch of n (None without one)"""
     mesh = word_mesh()
     if mesh is None:
         return None
     if n % mesh.dp:
         raise ValueError(f"T4_MESH: a batch of {n} does not divide over "
                          f"dp{mesh.dp}")
-    if any(spec[0] == Layer.MOE for spec in program):
-        raise NotImplementedError(
-            "T4_MESH: the word path has no MoE layer on a mesh yet (its "
-            "experts shard over ep); run it without T4_MESH")
+    _check_mesh(mesh, program)
     return mesh
 
 
@@ -667,24 +737,15 @@ def _local_spec(spec, k: int):
 
 
 def _tp_layer(mesh, spec, x, p):
-    """layer output with its features split over tp, all-gathered"""
-    ax, wax, bax = _TP_SPLIT[spec[0]]
-    w, b = p
-    if mesh.tp == 1:
-        return _apply_layer(spec, x, p)[0]
-    if w.shape[wax] % mesh.tp:
-        raise ValueError(f"T4_MESH: {_kind_name(spec[0])}'s "
-                         f"{w.shape[wax]} output features do not divide "
-                         f"over tp{mesh.tp}")
-    f = w.shape[wax] // mesh.tp
-    lo = mesh.tp_idx * f
-    pl = (w.narrow(wax, lo, f), b.narrow(bax, lo, f))
+    """a split layer's output from the rank's shard of its parameters:
+    its features, all-gathered over tp"""
+    ax = _TP_SPLIT[spec[0]][0]
     if spec[0] == Layer.CONV:
-        y = _conv_fwd(x, pl[0], pl[1], spec[1][0], spec[1][1])
+        y = _conv_fwd(x, p[0], p[1], spec[1][0], spec[1][1])
     elif spec[0] == Layer.LINEAR:
-        y = _linear_fwd(x, *pl)
+        y = _linear_fwd(x, *p)
     else:
-        y = _proj_fwd(x, *pl)
+        y = _proj_fwd(x, *p)
     return mesh.all_gather(y, ax, "tp")
 
 
@@ -701,27 +762,25 @@ def _batchnorm_dp(mesh, x, gamma, beta, n):
     return xhat * gamma + beta, xhat, rvar
 
 
-def _gather_rows(mesh, t, k):
-    if isinstance(t, tuple):
-        return tuple(_gather_rows(mesh, v, k) for v in t)
-    if torch.is_tensor(t) and t.dim() and t.shape[0] == k:
-        return mesh.all_gather(t, 0, "dp")
-    return t
+def _gather_rows(mesh, t):
+    """the whole batch of a rank's rows (an all-gather over dp)"""
+    return mesh.all_gather(t, 0, "dp")
 
 
-def _row_slice(t, lo, k, n):
-    if isinstance(t, (tuple, list)):
-        return type(t)(_row_slice(v, lo, k, n) for v in t)
-    if torch.is_tensor(t) and t.dim() and t.shape[0] == n:
-        return t[lo:lo + k]
-    return t
+def _rows_of(mesh, t, k):
+    """this rank's rows of t, whole (k * dp rows) or the rank's already"""
+    if t is None or t.shape[0] == k:
+        return t
+    return mesh.chunk(t, 0, "dp")
 
 
 def _forward_mesh(mesh, program, x, params, key):
+    """forward_pure on the rank's rows with the rank's parameter shards:
+    (its rows of each output, of each mask)"""
     n = x.shape[0]
     k = n // mesh.dp
     lo = mesh.dp_idx * k
-    xl = x[lo:lo + k]
+    xl = _rows_of(mesh, x, k)
     outs, masks = [], []
     for j, (spec, p) in enumerate(zip(program, params)):
         ls = _local_spec(spec, k)
@@ -729,22 +788,21 @@ def _forward_mesh(mesh, program, x, params, key):
             # the global mask from the layer's key, this rank's rows of it
             u = rng.uniform(layer_key(key, j), (n,) + tuple(xl.shape[1:]),
                             xl.device)
-            m = (u > spec[1][0]).to(torch.float32)
-            y, m = xl * m[lo:lo + k], m[lo:lo + k]
-        elif spec[0] in _TP_SPLIT:
+            m = (u > spec[1][0]).to(torch.float32)[lo:lo + k]
+            y = xl * m
+        elif spec[0] in _TP_SPLIT and mesh.tp > 1:
             y, m = _tp_layer(mesh, ls, xl, p), None
         elif spec[0] == Layer.BATCHNM:
             y, xhat, rvar = _batchnorm_dp(mesh, xl, p[0], p[1], n)
             m = (xhat, rvar)
+        elif spec[0] == Layer.MOE:
+            y, m = _moe_fwd(xl, p[0], p[1], spec[1][2], mesh), None
         else:
             y, m = _apply_layer(ls, xl, p, None)
         xl = y.reshape(ls[2])
         outs.append(xl)
         masks.append(m)
-    return (tuple(_gather_rows(mesh, o, k) for o in outs),
-            tuple((_gather_rows(mesh, m[0], k), m[1])
-                  if spec[0] == Layer.BATCHNM else _gather_rows(mesh, m, k)
-                  for spec, m in zip(program, masks)))
+    return tuple(outs), tuple(masks)
 
 
 @torch.no_grad()
@@ -771,9 +829,14 @@ def forward_pure(program, x, params, key=None):
 def forward_with_metrics(program, x, params, key, labels):
     """a dataset input's forward with its one-hot target and hit count
     from the batch's device labels (reference forward.cu:71-75 collects
-    both after the pass); nothing is read back"""
+    both after the pass); nothing is read back.  Under the word mesh the
+    one-hot is the whole batch's and the hit count the whole batch's
+    (the last output gathered)"""
     outs, masks = forward_pure(program, x, params, key)
     out = outs[-1]
+    mesh = word_mesh()
+    if mesh is not None:
+        out = _gather_rows(mesh, out)
     n = out.shape[0]
     classes = out.numel() // n
     hot = onehot_fn(labels, classes).reshape(n, 1, classes, 1)
@@ -803,9 +866,11 @@ def backward_pure(program, train, tgt, x0, outs, params, masks, dws, dbs,
     (dout, dxs, dws', dbs').  flash=False sends the attention layers
     through the einsum path, as a check of the kernels.  (The JAX
     package's _bwd_body: with no jit wrapper to share it with, the body
-    lives here.)"""
-    mesh = _mesh_for(program, outs[-1].shape[0])
+    lives here.)  Under T4_MESH see word_mesh."""
+    k = outs[-1].shape[0]
+    mesh = word_mesh()
     if mesh is not None:
+        mesh = _mesh_for(program, k * mesh.dp)
         return _backward_mesh(mesh, program, train, tgt, x0, outs, params,
                               masks, dws, dbs, flash)
     return _backward_body(program, train, tgt, x0, outs, params, masks, dws,
@@ -813,7 +878,7 @@ def backward_pure(program, train, tgt, x0, outs, params, masks, dws, dbs,
 
 
 def _backward_body(program, train, tgt, x0, outs, params, masks, dws, dbs,
-                   flash, dp=None):
+                   flash, mesh=None):
     # dLoss prep (reference _bprep, backprop.cu:75-109): the fused
     # final-activation+loss pairs and a final linear become out-tgt; any
     # other final layer means tgt already IS dLoss (e.g. GAN G <- D
@@ -824,32 +889,31 @@ def _backward_body(program, train, tgt, x0, outs, params, masks, dws, dbs,
         dy = tgt.reshape(outs[-1].shape)
     _, dxs, ndws, ndbs = backward_segment(
         program, train, dy, x0, outs, params, masks, dws, dbs, tail=True,
-        flash=flash, dp=dp)
+        flash=flash, mesh=mesh)
     return dy, dxs, ndws, ndbs
 
 
 def _backward_mesh(mesh, program, train, tgt, x0, outs, params, masks,
                    dws, dbs, flash):
-    """backward_pure on this rank's dp rows: the dW/dB contributions
-    summed over dp (the batch's sum, in another order), dout and the
-    input gradients all-gathered"""
-    n = outs[-1].shape[0]
-    k = n // mesh.dp
-    lo = mesh.dp_idx * k
-    sl = lambda t: _row_slice(t, lo, k, n)  # noqa: E731
+    """backward_pure on the rank's rows (outs and masks; the target and
+    the input whole or the rank's) and the rank's parameter shards: the
+    rank's shard of each dW/dB, its contribution summed over dp (the
+    batch's sum, in another order), dout and the input gradients its
+    rows"""
+    k = outs[-1].shape[0]
+    n = k * mesh.dp
     zw = [None if d is None else torch.zeros_like(d) for d in dws]
     zb = [None if d is None else torch.zeros_like(d) for d in dbs]
     dout, dxs, cw, cb = _backward_body(
         tuple(_local_spec(spec, k) for spec in program), train,
-        sl(tgt.reshape(outs[-1].shape)), sl(x0), sl(tuple(outs)), params,
-        sl(tuple(masks)), zw, zb, flash, dp=(mesh, n))
+        _rows_of(mesh, tgt.reshape((-1,) + tuple(outs[-1].shape[1:])), k),
+        _rows_of(mesh, x0, k), outs, params, masks, zw, zb, flash,
+        mesh=(mesh, n))
     ndws = [None if c is None else _acc(d, mesh.all_reduce(
         c.contiguous(), "dp")) for d, c in zip(dws, cw)]
     ndbs = [None if c is None else _acc(d, mesh.all_reduce(
         c.contiguous(), "dp")) for d, c in zip(dbs, cb)]
-    return (_gather_rows(mesh, dout, k),
-            type(dxs)(_gather_rows(mesh, dx, k) for dx in dxs),
-            type(cw)(ndws), type(cb)(ndbs))
+    return dout, dxs, type(cw)(ndws), type(cb)(ndbs)
 
 
 def _conv_grads(x, w, dy, S, P):
@@ -882,22 +946,47 @@ def _dconv_grads(x, w, dy, S, P):
             dy.sum(dim=(0, 1, 2)))
 
 
+def _split_grads(m, kind, x_in, w, dy, opts, out_shape):
+    """(dx, dw, db) of a linear, proj or conv layer (w its weight in the
+    shape _params gives); on a tp rank of the word mesh (m) from its
+    output features' part of dy and its shard of w, dx summed over tp"""
+    if kind == Layer.CONV:
+        dyc = dy.reshape(out_shape)
+        if m is not None:               # the rank's output features
+            dyc = m.chunk(dyc, 3, "tp").contiguous()
+        dx, dw, db = _conv_grads(x_in, w, dyc, *opts)
+    else:
+        rows = x_in.shape[0] * (x_in.shape[1] if kind == Layer.PROJ else 1)
+        dyf = dy.reshape(rows, -1)
+        if m is not None:
+            dyf = m.chunk(dyf, 1, "tp")
+        db = dyf.sum(dim=0)
+        dw = class_dot(_mm, dyf.T, x_in.reshape(rows, -1))
+        dx = class_dot(_mm, dyf, w)
+    if m is not None:                   # the features' parts of dx
+        dx = m.all_reduce(dx.contiguous(), "tp")
+    return dx, dw, db
+
+
 @torch.no_grad()
 def backward_segment(program, train, dy, x0, outs, params, masks, dws, dbs,
-                     tail: bool = False, flash: bool = True, dp=None):
+                     tail: bool = False, flash: bool = True, mesh=None):
     """per-layer backward over a program segment given the cotangent dy at
     the segment's output (no dLoss prep): (dx0, dxs, dws', dbs').  With
     train false only the input gradients are taken.  tail=True enables
     the final-LINEAR pass-through quirk (no weight gradient), right only
-    for the segment that ends the network.  dp=(mesh, n): the rows are a
-    dp rank's of a batch of n (batchnorm's means are the batch's)."""
+    for the segment that ends the network.  mesh=(mesh, n): the rows are
+    a dp rank's of a batch of n (batchnorm's means are the batch's) and
+    the parameters the rank's shards (see word_mesh)."""
     L = len(program)
     dxs = [None] * L
     ndws, ndbs = list(dws), list(dbs)
+    m = mesh[0] if mesh is not None else None
     for j in range(L - 1, -1, -1):
         kind, opts, out_shape = program[j]
         x_in = outs[j - 1] if j > 0 else x0
         dw = db = None
+        split = m is not None and kind in _TP_SPLIT and m.tp > 1
         if kind in _PASS_THRU or kind == Layer.FLATTEN or (
                 kind == Layer.LINEAR and tail and j == L - 1):
             dx = dy
@@ -905,15 +994,9 @@ def backward_segment(program, train, dy, x0, outs, params, masks, dws, dbs,
             # masks may carry a stale header shape if the user reshaped a
             # layer view between forward and backprop
             dx = dy * masks[j].reshape(dy.shape)
-        elif kind == Layer.LINEAR:
-            n = x_in.shape[0]
-            dyf = dy.reshape(n, -1)
-            db = dyf.sum(dim=0)
-            dw = class_dot(_mm, dyf.T, x_in.reshape(n, -1))
-            dx = class_dot(_mm, dyf, params[j][0])
-        elif kind == Layer.CONV:
-            dx, dw, db = _conv_grads(x_in, params[j][0],
-                                     dy.reshape(out_shape), *opts)
+        elif kind in _TP_SPLIT:
+            dx, dw, db = _split_grads(m if split else None, kind, x_in,
+                                      params[j][0], dy, opts, out_shape)
         elif kind == Layer.DCONV:
             dx, dw, db = _dconv_grads(x_in, params[j][0],
                                       dy.reshape(out_shape), *opts)
@@ -925,17 +1008,17 @@ def backward_segment(program, train, dy, x0, outs, params, masks, dws, dbs,
             # dgamma/dbeta accumulate channel MEANs (k_dbatchnorm_2)
             xhat, rvar = masks[j]
             dyr = dy.reshape(out_shape)
-            if dp is None:
+            if mesh is None:
                 db = dbm = dyr.mean(dim=(0, 1, 2))
                 dw = dwm = (dyr * xhat).mean(dim=(0, 1, 2))
             else:
                 # this rank's part of the batch's means; the means
                 # themselves are their sum over dp
-                cnt = dp[1] * out_shape[1] * out_shape[2]
+                cnt = mesh[1] * out_shape[1] * out_shape[2]
                 db = dyr.sum(dim=(0, 1, 2)) / cnt
                 dw = (dyr * xhat).sum(dim=(0, 1, 2)) / cnt
-                dbm, dwm = dp[0].all_reduce(torch.stack((db, dw)),
-                                            "dp").unbind(0)
+                dbm, dwm = m.all_reduce(torch.stack((db, dw)),
+                                        "dp").unbind(0)
             dx = params[j][0] * rvar * (dyr - dbm - xhat * dwm)
         elif kind == Layer.ATTN:
             heads, causal, rope = _attn_opts(opts)
@@ -945,8 +1028,10 @@ def backward_segment(program, train, dy, x0, outs, params, masks, dws, dbs,
                 (x_in, *params[j]), dy.reshape(out_shape))
         elif kind == Layer.MOE:
             dx, dw, db = _vjp(
-                lambda x_, w1, w2: _moe_fwd(x_, w1, w2, opts[2]),
+                lambda x_, w1, w2: _moe_fwd(x_, w1, w2, opts[2], m),
                 (x_in, *params[j]), dy.reshape(out_shape))
+            if _expert_axis(m):          # the rank's experts' part of dx
+                dx = m.all_reduce(dx.contiguous(), _expert_axis(m))
         elif kind == Layer.LNORM:
             dx, dw, db = _vjp(
                 lambda x_, g_, b_: _lnorm_fwd(x_, g_, b_, opts[0]),
@@ -962,12 +1047,6 @@ def backward_segment(program, train, dy, x0, outs, params, masks, dws, dbs,
                 0, x_in.reshape(-1).to(torch.int64), dyf)
             db = dyf.sum(dim=0)
             dx = torch.zeros_like(x_in)
-        elif kind == Layer.PROJ:
-            n, s, e, _ = x_in.shape
-            dyf = dy.reshape(n * s, -1)
-            dw = class_dot(_mm, dyf.T, x_in.reshape(n * s, e))
-            db = dyf.sum(dim=0)
-            dx = class_dot(_mm, dyf, params[j][0])
         else:
             raise NotImplementedError(
                 f"backprop: layer {_kind_name(kind)} has no backward")
@@ -1063,7 +1142,10 @@ def fused_cycle_body(program, train, loss_op, opt, ndivs, x, params, dws,
     fin) as the reference's does; nws, nms, nvs are ws, ms, vs."""
     outs, masks, hot, hit = forward_with_metrics(program, x, params, key,
                                                  labels)
-    lval = loss_fn(loss_op, outs[-1], hot)
+    mesh = word_mesh()
+    # the loss over the whole batch (the last output gathered on a mesh)
+    lval = loss_fn(loss_op, outs[-1] if mesh is None
+                   else _gather_rows(mesh, outs[-1]), hot)
     dout, dxs, ndws, ndbs = backward_pure(program, train, hot, x, outs,
                                           params, masks, dws, dbs)
     # the optimizer zeroes what it is given; the backprop word's dW/dB
@@ -1079,6 +1161,13 @@ def fused_cycle_body(program, train, loss_op, opt, ndivs, x, params, dws,
     # device so the word path pays no readback
     w_ok = (torch.stack([torch.isfinite(w).all() for w in ws]).all()
             if ws else torch.ones((), dtype=torch.bool, device=x.device))
+    if mesh is not None:
+        # every rank of the mesh takes one status: its shards' and the
+        # other ranks' (a rank's own would part the ranks' words)
+        bad = (~w_ok).to(torch.float32).reshape(1)
+        for ax in mesh.axis_names:
+            mesh.all_reduce(bad, ax)
+        w_ok = bad[0] == 0
     fin = torch.where(torch.isfinite(lval), torch.where(w_ok, 0, 2),
                       1).to(torch.int8)
     return (outs, masks, hot, hit, lval, dout, dxs, ndws, ndbs, tuple(ws),

@@ -454,26 +454,61 @@ class Model:
             prog.append((kind, opts, t_out.shape))
         return tuple(prog)
 
-    def _params(self):
+    def _params(self, local: bool = False):
+        """each layer's parameters in the JAX package's shapes; local=True:
+        under the word mesh, this rank's shards of them (funcs.word_mesh)"""
         out = []
         for i in range(self.numel - 1):
             t_in = self[i]
             kind = t_in.grad_fn
-            if kind in (Layer.CONV, Layer.DCONV, Layer.BATCHNM, Layer.LNORM):
-                out.append((t_in.grad[0].ensure_data(),
-                            t_in.grad[1].ensure_data()))
-            elif kind in (Layer.LINEAR, Layer.EMBED, Layer.PROJ, Layer.ATTN):
-                w, b = t_in.grad[0], t_in.grad[1]
-                bb = (b.data_as(b.H(), b.W()) if kind == Layer.ATTN
-                      else b.ensure_data())
-                out.append((w.data_as(w.H(), w.W()), bb))
-            elif kind == Layer.MOE:          # [E,D,F+1] and [E,F,D] views
-                w1, w2 = t_in.grad[0], t_in.grad[1]
-                out.append((w1.data_as(w1.N(), w1.H(), w1.W()),
-                            w2.data_as(w2.N(), w2.H(), w2.W())))
-            else:
+            if kind not in _PARAMETERED:
                 out.append(())
+                continue
+            w, b = (self._slot(t_in, "grad", k) if local
+                    else t_in.grad[k].ensure_data() for k in (0, 1))
+            if kind in (Layer.LINEAR, Layer.EMBED, Layer.PROJ, Layer.ATTN):
+                # [1, E0, E1, 1] storage as [E0, E1] (wo's too)
+                w = w.view(w.shape[1], w.shape[2])
+                if kind == Layer.ATTN:
+                    b = b.view(b.shape[1], b.shape[2])
+            elif kind == Layer.MOE:          # [E,D,F+1] and [E,F,D] views
+                w = w.view(w.shape[:3])
+                b = b.view(b.shape[:3])
+            out.append((w, b))
         return tuple(out)
+
+    # --- a rank's shards under the word mesh (nn/funcs.word_mesh) -----------
+    @staticmethod
+    def _rows():
+        """the spec of a rank's rows of an activation, or None (no mesh,
+        or a mesh of one dp rank)"""
+        mesh = funcs.word_mesh()
+        if mesh is None or mesh.dp == 1:
+            return None
+        from ..parallel.mesh import Shard
+        return Shard(mesh, "dp", 0)
+
+    @staticmethod
+    def _pspec(t_in, k: int):
+        """the spec of a rank's shard of layer t_in's parameter k (0: w,
+        1: b; their gradients and moments alike), or None: replicated"""
+        mesh = funcs.word_mesh()
+        if mesh is None:
+            return None
+        d = funcs.param_dims(mesh, t_in.grad_fn)[k % 2]
+        if d is None:
+            return None
+        from ..parallel.mesh import Shard
+        return Shard(mesh, *d)
+
+    def _slot(self, t_in, which: str, k: int):
+        """the rank's part of t_in.grad[k] or .mtum[k] (the whole payload
+        without a mesh)"""
+        return getattr(t_in, which)[k].local(self._pspec(t_in, k))
+
+    def _put(self, t_in, which: str, k: int, arr):
+        """the rank's part of t_in.grad[k] or .mtum[k] replaced"""
+        getattr(t_in, which)[k].set_local(arr, self._pspec(t_in, k))
 
 
     # =========================================================================
@@ -538,13 +573,14 @@ class Model:
                     outs, masks, hot, hit = fused
                 else:
                     outs, masks, hot, hit = funcs.forward_with_metrics(
-                        prog, n0.ensure_data(), self._params(), key, labels)
+                        prog, n0.ensure_data(), self._params(True), key,
+                        labels)
             self._cycle.append("fwd_ds")
         else:
             self._chunk_abort()               # the weights must be current
             n0.replace_data(inp.data_as(*n0.shape))
             outs, masks = funcs.forward_pure(prog, n0.ensure_data(),
-                                             self._params(), key)
+                                             self._params(True), key)
             self._cycle.append("dirty")       # tensor-input cycles unfused
         self._apply_fwd_stash(outs, masks, hot, hit)
         if sys.trace:
@@ -556,19 +592,21 @@ class Model:
         layer tensors (a batchnorm's xhat in grad[4], its 1/std in
         mtum[4] followed by 2C zeros, as the reference keeps them); a
         dataset forward's one-hot into the model's and its hit count,
-        kept on the device"""
+        kept on the device.  Under the word mesh the outputs and masks
+        are the rank's rows"""
+        rows = self._rows()
         for i, (o, m) in enumerate(zip(outs, masks)):
-            self[i + 1].replace_data(o)
+            self[i + 1].set_local(o, rows)
             t_in = self[i]
             if m is None:
                 continue
             if t_in.grad_fn == Layer.BATCHNM:
                 xhat, rvar = m
-                t_in.grad[4].replace_data(xhat)
+                t_in.grad[4].set_local(xhat, rows)
                 t_in.mtum[4].replace_data(torch.cat(
                     [rvar.reshape(-1), rvar.new_zeros(2 * t_in.C())]))
             elif t_in.grad[4] is not None:
-                t_in.grad[4].replace_data(m)
+                t_in.grad[4].set_local(m, rows)
         if hot is not None:
             if self._hot is None:
                 out = self[-1]
@@ -593,9 +631,9 @@ class Model:
         """(ws, ms, vs, dws, dbs): the live weights, moments and gradient
         accumulators a fused cycle starts from"""
         tr = self._trainables()
-        ws = [t.grad[s].ensure_data() for t, s in tr]
-        ms = [t.mtum[s].ensure_data() for t, s in tr]
-        vs = [t.mtum[s + 2].ensure_data() for t, s in tr
+        ws = [self._slot(t, "grad", s) for t, s in tr]
+        ms = [self._slot(t, "mtum", s) for t, s in tr]
+        vs = [self._slot(t, "mtum", s + 2) for t, s in tr
               if t.mtum[s + 2] is not None]
         dws, dbs = self._gather_grads()
         return ws, ms, vs, list(dws), list(dbs)
@@ -838,15 +876,7 @@ class Model:
         if j:
             cyc.run(j)
             nws, zws, nms, nvs = cyc.threaded()
-            adamlike = ck["opt"] in ("adam", "adamw")
-            for i, (t, s) in enumerate(self._trainables()):
-                t.grad[s].replace_data(nws[i])
-                t.grad[s + 2].replace_data(zws[i])
-                if adamlike:
-                    t.mtum[s].replace_data(nms[i])
-                    t.mtum[s + 2].replace_data(nvs[i])
-                elif t.mtum[s] is not t.grad[s]:
-                    t.mtum[s].replace_data(nms[i])
+            self._put_state(ck["opt"], nws, zws, nms, nvs)
         if not want_stash:
             return None
         cyc.run(1)
@@ -1076,52 +1106,55 @@ class Model:
             self._pending = None
             self.fuse_break()
         self._chunk_abort()                   # outs and weights current
-        outs = tuple(self[i + 1].ensure_data()
-                     for i in range(self.numel - 1))
+        rows = self._rows()
+        outs = tuple(self[i + 1].local(rows) for i in range(self.numel - 1))
         dws, dbs = self._gather_grads()
         dout, dxs, ndws, ndbs = funcs.backward_pure(
             self._program(), bool(self.train), tgt.ensure_data(),
-            self[0].ensure_data(), outs, self._params(),
+            self[0].local(rows), outs, self._params(True),
             self._gather_masks(), dws, dbs, flash=flash)
         self._cycle.append("bwd")
         self._apply_bwd(dout, dxs, ndws, ndbs)
         return self
 
     def _apply_bwd(self, dout, dxs, ndws, ndbs):
-        self[-1].replace_data(dout)
+        rows = self._rows()
+        self[-1].set_local(dout, rows)
         for j in range(self.numel - 1):
             t_in = self[j]
-            t_in.replace_data(dxs[j])
+            t_in.set_local(dxs[j], rows)
             if t_in.grad[2] is not None:
-                t_in.grad[2].replace_data(ndws[j])
+                self._put(t_in, "grad", 2, ndws[j])
             if t_in.grad[3] is not None:
-                t_in.grad[3].replace_data(ndbs[j])
+                self._put(t_in, "grad", 3, ndbs[j])
         from ..system import System
         if System.get_sys().trace:
             self._trace_pass("backprop", range(self.numel - 2, -1, -1))
 
     def _gather_masks(self):
+        """the derivative masks (the rank's rows under the word mesh)"""
+        rows = self._rows()
         masks = []
         for i in range(self.numel - 1):
             t_in = self[i]
             if t_in.grad_fn == Layer.BATCHNM:
-                masks.append((t_in.grad[4].ensure_data(),
+                masks.append((t_in.grad[4].local(rows),
                               t_in.mtum[4].ensure_data()[:t_in.C()]))
             elif t_in.grad_fn in funcs._MASKED:
-                masks.append(t_in.grad[4].ensure_data())
+                masks.append(t_in.grad[4].local(rows))
             else:
                 masks.append(None)
         return tuple(masks)
 
     def _gather_grads(self):
-        """accumulators in their rank-4 storage shapes (None for a layer
-        without parameters)"""
+        """accumulators in their rank-4 storage shapes (the rank's shards
+        under the word mesh; None for a layer without parameters)"""
         dws, dbs = [], []
         for i in range(self.numel - 1):
             t_in = self[i]
             has = t_in.grad[2] is not None
-            dws.append(t_in.grad[2].ensure_data() if has else None)
-            dbs.append(t_in.grad[3].ensure_data() if has else None)
+            dws.append(self._slot(t_in, "grad", 2) if has else None)
+            dbs.append(self._slot(t_in, "grad", 3) if has else None)
         return tuple(dws), tuple(dbs)
 
     # =========================================================================
@@ -1152,9 +1185,8 @@ class Model:
     def grad_zero(self):
         self.fuse_break()
         for t_in, slot in self._trainables():
-            dg = t_in.grad[slot + 2]
-            if dg is not None:
-                dg.ensure_data().zero_()
+            if t_in.grad[slot + 2] is not None:
+                self._slot(t_in, "grad", slot + 2).zero_()
 
     def _opt_apply(self, op: int, opt: str, hyper: tuple):
         """one optimizer step, updating the payloads of the weight,
@@ -1166,14 +1198,14 @@ class Model:
         if not self.train:
             return self
         tr = self._trainables()
-        ws = [t.grad[s].ensure_data() for t, s in tr]
-        dws = [t.grad[s + 2].ensure_data() for t, s in tr]
-        ms = [t.mtum[s].ensure_data() for t, s in tr]
+        ws = [self._slot(t, "grad", s) for t, s in tr]
+        dws = [self._slot(t, "grad", s + 2) for t, s in tr]
+        ms = [self._slot(t, "mtum", s) for t, s in tr]
         hy = funcs.hypers(opt, hyper)
         if self.device.type == "cuda":
             hy = tuple(_dev_f32(v, self.device) for v in hy)
         if opt in ("adam", "adamw"):
-            vs = [t.mtum[s + 2].ensure_data() for t, s in tr]
+            vs = [self._slot(t, "mtum", s + 2) for t, s in tr]
             funcs.adam_step(ws, dws, ms, vs, opt == "adamw", *hy)
         else:
             funcs.sgd_step(ws, dws, ms, self._ndivs(), opt == "sgdm", *hy)
@@ -1209,18 +1241,23 @@ class Model:
             # attribution for the cycles that arm a chunk
             self._fin_log.append((p["seq"], p.get("pos"), p["fin"]))
             del self._fin_log[:-8]
-        adamlike = opt in ("adam", "adamw")
-        for i, (t, s) in enumerate(self._trainables()):
-            t.grad[s].replace_data(p["nws"][i])
-            t.grad[s + 2].replace_data(p["zdws"][i])
-            if adamlike:
-                t.mtum[s].replace_data(p["nms"][i])
-                t.mtum[s + 2].replace_data(p["nvs"][i])
-            elif t.mtum[s] is not t.grad[s]:
-                t.mtum[s].replace_data(p["nms"][i])
+        self._put_state(opt, p["nws"], p["zdws"], p["nms"], p["nvs"])
         self._fuse_hits += 1
         self._note_opt(opt, hyper)
         return True
+
+    def _put_state(self, opt: str, nws, zws, nms, nvs):
+        """a fused cycle's weights, zeroed gradients and moments into the
+        trainables' tensors"""
+        adamlike = opt in ("adam", "adamw")
+        for i, (t, s) in enumerate(self._trainables()):
+            self._put(t, "grad", s, nws[i])
+            self._put(t, "grad", s + 2, zws[i])
+            if adamlike:
+                self._put(t, "mtum", s, nms[i])
+                self._put(t, "mtum", s + 2, nvs[i])
+            elif t.mtum[s] is not t.grad[s]:
+                self._put(t, "mtum", s, nms[i])
 
     def _step(self, op: int, opt: str, hyper: tuple) -> "Model":
         """an optimizer word: the fused cycle's step when it assumed this

@@ -16,8 +16,11 @@ and `save` see them.
 
 As in the JAX package, dropout draws from one key an epoch,
 PRNGKey(epoch), where the word path draws a seed a forward.  Under
-T4_MESH the step is `funcs.forward_pure`/`backward_pure` over the mesh
-(the batch over dp, the features over tp; funcs.word_mesh), run eagerly.
+T4_MESH (and, across hosts, T4_COORD: the global mesh of parallel/dist.py)
+the step is `funcs.forward_pure`/`backward_pure` over the mesh (the batch
+over dp, the features over tp or the MoE experts over ep;
+funcs.word_mesh) on the rank's shards of the weights and moments, run
+eagerly.
 """
 from __future__ import annotations
 
@@ -77,7 +80,9 @@ def batch_step(program, x, hot, params, ws, ms, vs, key, hy):
     vs IN PLACE (params views ws; hy = funcs.hypers("adam", ...)).
     Returns the loss"""
     outs, masks = funcs.forward_pure(program, x, params, key)
-    loss = funcs.loss_fn("ce", outs[-1], hot)
+    mesh = funcs.word_mesh()             # the batch's loss: the rows put
+    loss = funcs.loss_fn("ce", outs[-1] if mesh is None    # together
+                         else funcs._gather_rows(mesh, outs[-1]), hot)
     zero = [torch.zeros_like(pl[0]) if pl else None for pl in params]
     zerob = [torch.zeros_like(pl[1]) if pl else None for pl in params]
     _, _, dws, dbs = funcs.backward_pure(program, True, hot, x, outs,
@@ -87,12 +92,16 @@ def batch_step(program, x, hot, params, ws, ms, vs, key, hy):
     return loss
 
 
-def write_back(model, params):
+def write_back(model, params, local: bool = False):
     """the trained parameters into the model's tensors, for every layer
-    with parameters (copies: the loop's buffers are its own)"""
+    with parameters (copies: the loop's buffers are its own); local:
+    they are the rank's shards under the word mesh"""
     for j in range(model.numel - 1):
         for k, w in enumerate(params[j]):
-            model[j].grad[k].replace_data(w)
+            if local:
+                model._put(model[j], "grad", k, w)
+            else:
+                model[j].grad[k].replace_data(w)
 
 
 class _Epoch:
@@ -109,11 +118,13 @@ class _Epoch:
         self.program, self.batch, self.in_shape = program, batch, in_shape
         self.classes, self.n_batches = classes, n_batches
         self.buf, self.lab = buf, lab
-        self.W = [torch.zeros_like(w) for pl in model._params() for w in pl]
+        # the rank's shards under the word mesh (Model._params(True))
+        local = model._params(True)
+        self.W = [torch.zeros_like(w) for pl in local for w in pl]
         self.M = [torch.zeros_like(w) for w in self.W]
         self.V = [torch.zeros_like(w) for w in self.W]
         flat, params = iter(self.W), []
-        for pl in model._params():
+        for pl in local:
             params.append(tuple(next(flat) for _ in pl))
         self.params = tuple(params)
         self.drop = [j for j, spec in enumerate(program)
@@ -212,7 +223,7 @@ def train_epochs(model, ds, lr: float = 1e-3, epochs: int = 1,
     in_shape = (batch,) + tuple(model[0].shape[1:])
     ep = _make_epoch(model, program, batch, in_shape, model[-1].HWC(),
                      n_batches, buf, lab)
-    ep.load(model._params(), float(lr), ds._mean, ds._scale)
+    ep.load(model._params(True), float(lr), ds._mean, ds._scale)
     sys = System.get_sys()
     for e in range(epochs):
         ep.epoch(e)
@@ -222,5 +233,5 @@ def train_epochs(model, ds, lr: float = 1e-3, epochs: int = 1,
     loss = float(ep.L.mean())
     model.tick()
     model._iter += n_batches * epochs
-    write_back(model, ep.params)
+    write_back(model, ep.params, local=True)
     return loss

@@ -39,7 +39,7 @@ _MAP = {
     "ln":    lambda x, v: xla_math.log(torch.clamp_min(x, _DU_LNX)),
     "log":   lambda x, v: xla_math.log10(torch.clamp_min(x, _DU_LNX)),
     "tanh":  lambda x, v: xla_math.tanh(x),
-    "relu":  lambda x, v: torch.clamp_min(x, 0.0),
+    "relu":  lambda x, v: _max0(x),
     "sigm":  lambda x, v: xla_math.logistic(x),
     "sqrt":  lambda x, v: xla_math.sqrt(_max0(x)),
     "rcp":   lambda x, v: 1.0 / x,

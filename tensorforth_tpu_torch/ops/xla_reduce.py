@@ -223,6 +223,9 @@ def sum_np(a, b=None) -> np.float32:
     return _ftz(_final(a, b)[0])
 
 
+_BCE_BLOCKS = np.r_[0:4, 8:12, 16:20, 4:8, 12:16, 20:24]
+
+
 def _loss_rows(t: int) -> int:
     """the fused loss loop's vector width over `t` rows (1: not
     vectorised)"""
@@ -246,10 +249,10 @@ def loss_np(op: str, out, tgt, clamp: float) -> np.float32:
     fused in: mse/nll/ce one FMA chain, or lanes over 4, 8 or 16 rows (FMA
     lanes; mse's, and nll's over 8 columns, round their products first);
     bce acc = fma(t, log(o + 1e-6), fma(1 - t, log(1.00000095 - o), acc))
-    as a chain, as lanes over 4, 8 or 16 rows, or as 8 flat lanes for a
-    vector of 25 elements or more, where the loop stays rolled (from 28
-    to 31 elements the replay is not yet XLA's: ROADMAP C9).  One element
-    is its term alone."""
+    as a chain, as lanes over 4, 8 or 16 rows, or, for a vector of 25
+    elements or more, as 8 flat lanes where the loop stays rolled (25 to
+    27 and 32) and as 4 lanes over the blocks of the unrolled loop (28 to
+    31).  One element is its term alone."""
     o = torch.from_numpy(np.asarray(out, _F32))
     t = torch.from_numpy(np.asarray(tgt, _F32))
     n = o.shape[0] if o.dim() > 1 else 1
@@ -282,6 +285,14 @@ def loss_np(op: str, out, tgt, clamp: float) -> np.float32:
             if op == "mse" or (op == "nll" and a.shape[-1] == 8):
                 arrs, step = [arrs[0] * arrs[1]], _plain
             z = _lanes(arrs, vf, step)[0]
+        elif step is _bce and a.ndim == 2 and 28 <= a.size <= 31:
+            # unrolled: 4 lanes over the first 24 terms' blocks of 4 in
+            # the order 0, 2, 4, 1, 3, 5 (read from the IR's adds and
+            # held on random inputs), the rest one after another
+            flat = [x.reshape(1, -1) for x in arrs]
+            z = _lanes([f[:, _BCE_BLOCKS] for f in flat], 4, step,
+                       rows=False)
+            z = _seq([f[:, 24:] for f in flat], step, z)[0]
         elif step is _bce and a.ndim == 2 and a.size >= 25:
             z = _lanes(arrs, 8, step, rows=False)[0]
         else:

@@ -317,7 +317,8 @@ class NativeEngine:
         self._to_vm()
         try:
             if widx >= 0:
-                vm._exec(vm.dict[widx])
+                with vm._lock_for(vm.dict[widx]):
+                    vm.dict[widx].fn(vm)
             elif widx in (-2, -3):               # print, read a key
                 self._prim(widx)
             else:                                # may touch the card

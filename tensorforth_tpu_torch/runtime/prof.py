@@ -1,5 +1,7 @@
 """The device profiler behind `prof.start`/`prof.stop` and T4_PROFILE
 (the port's counterpart of the JAX package's jax.profiler hooks).
+`start_trace`/`stop_trace` keep one trace a process, as jax.profiler
+does, and word their errors as it does.
 
 torch.profiler traces the host's operators and, where a card is there,
 its kernels (CUPTI), and writes one Chrome trace under
@@ -44,3 +46,26 @@ class Profiler:
             torch.cuda.synchronize()
         p.stop()
         return self.path
+
+
+_ACTIVE = None                   # the process's trace (start_trace)
+
+
+def start_trace(logdir: str):
+    """start the process's one trace into logdir (jax.profiler's rule)"""
+    global _ACTIVE
+    if _ACTIVE is not None:
+        raise RuntimeError("Profile has already been started. Only one "
+                           "profile may be run at a time.")
+    p = Profiler(logdir)
+    p.start()
+    _ACTIVE = p
+
+
+def stop_trace() -> str:
+    """end the process's trace and write it; returns its directory"""
+    global _ACTIVE
+    if _ACTIVE is None:
+        raise RuntimeError("No profile started")
+    p, _ACTIVE = _ACTIVE, None
+    return p.stop()

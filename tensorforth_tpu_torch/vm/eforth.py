@@ -22,7 +22,11 @@ from .pmem import Prim, Param, PMem, ALIGN, IU_SZ, DU_SZ
 from .dict import Dictionary
 from .vm import VM, VMState, MathOp, Stack
 
+import contextlib
 import math
+
+
+_NO_LOCK = contextlib.nullcontext()      # reusable: it holds no state
 
 
 class ForthVM(VM):
@@ -169,7 +173,8 @@ class ForthVM(VM):
                     rs.push(np.float32(self.ip))
                     self.ip = ix.ioff
                 else:
-                    self._exec(self.dict[ix.ioff])
+                    with self._lock_for(self.dict[ix.ioff]):
+                        self.dict[ix.ioff].fn(self)
             elif op == Prim.EXIT:
                 self.ip = int(float(rs.pop()))
             elif op == Prim.LIT:
@@ -221,13 +226,13 @@ class ForthVM(VM):
             elif op == Prim.KEY:
                 self.PUSH(np.float32(ord(self.sys.key())))
 
-    def _exec(self, c):
-        """run the built-in word c (under a task VM's word_lock)"""
+    def _lock_for(self, c):
+        """the lock the built-in word c runs under: a task VM's word_lock,
+        or none (the call sites then read as the JAX package's, so an
+        uncaught error's traceback has its frames)"""
         if self.word_lock is None or c.name in self.lock_free:
-            c.fn(self)
-        else:
-            with self.word_lock:
-                c.fn(self)
+            return _NO_LOCK
+        return self.word_lock
 
     def _locked(self, fn, *a):
         if self.word_lock is None:

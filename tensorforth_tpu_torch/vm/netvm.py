@@ -12,10 +12,8 @@ per-word path; every word that reads a model's tensors drains a chunk
 first (Model.chunk_sync).
 
 `prof.start` and `prof.stop` trace the card with torch.profiler
-(runtime/prof.py).  Registered at their place in the dictionary but not
-in the port yet (it prints so through System.perr and leaves the stack
-as the JAX package's usage path does): `nn.pipe` (pipeline-parallel
-training).
+(runtime/prof.py).  `nn.pipe` trains over local pipeline ranks
+(parallel/pipeline.py).
 """
 from __future__ import annotations
 
@@ -33,7 +31,6 @@ from .vm import MathOp, VMState
 
 
 class NetVM(TensorVM):
-    _prof = None                 # prof.start's trace (runtime/prof.py)
 
     # --- stack-pattern predicates (reference netvm.h:18-25) ---------------
     def IS_M(self, v) -> bool:
@@ -69,11 +66,6 @@ class NetVM(TensorVM):
         """TOS is a tensor or dataset (reference netvm.h TOS1D)"""
         o = self.mmu.du2obj(self.tos) if IS_OBJ(self.tos) else None
         return o is not None and (o.is_tensor() or o.is_dataset())
-
-    def _not_ported(self, word: str):
-        """a word of the JAX package that the port does not have yet:
-        said through perr, the stack left as it was"""
-        self.sys.perr("", f"{word} is not in the port yet ")
 
     # ======================================================================
     # layer-word dispatcher (reference netvm.cpp:20-133)
@@ -852,12 +844,29 @@ class NetVM(TensorVM):
                         f"final loss={loss:.6g}\n")
         CODE("nn.train", _nn_train)
         def _nn_pipe(vm):
-            """( M D lr epochs stages -- M ) pipeline-parallel training
-            over a 'pp' mesh axis: not in the port yet"""
+            """( M D lr epochs stages -- M ) extension word: pipeline-
+            parallel training — the model's repeated body (e.g. stacked
+            nn.attn blocks) runs GPipe-style over a 'pp' mesh axis of
+            `stages` local ranks (parallel/launch.py), microbatches
+            passing from rank to rank; the head replicates.  Needs a body
+            of `stages` identical blocks (parallel/pipeline.py
+            train_pipeline)."""
             if not (vm.ss.size() > 3 and vm.IS_M(vm.ss[-4])):
                 vm.sys.perr("", "M D lr epochs stages nn.pipe? ")
                 return
-            vm._not_ported("nn.pipe")
+            stages = vm.POPi()
+            epochs = vm.POPi()
+            lr = vm.fpop()
+            dsv = vm.POP()
+            ds = vm.mmu.du2obj(dsv)
+            m = vm.MTOS()
+            m.chunk_sync()       # params must reflect any in-flight chunk
+            from ..parallel.pipeline import train_pipeline
+            loss = train_pipeline(m, ds, lr=lr, epochs=epochs,
+                                  stages=stages, trace=vm.sys.trace)
+            vm.DROP_DU(dsv)
+            vm.sys.pstr(f"\\ nn.pipe {epochs} epochs over pp{stages} done, "
+                        f"final loss={loss:.6g}\n")
         CODE("nn.pipe", _nn_pipe)
         def _nn_gen(vm):
             """( M T n [temp [topk [topp]]] -- M T' ) extension word:
@@ -905,23 +914,21 @@ class NetVM(TensorVM):
             prints per-layer activation stats; this captures the
             timeline into <tb-logdir>/plugins/profile — or ./t4_profile
             without -t — for TensorBoard's profiler"""
-            from ..runtime.prof import Profiler
-            if vm._prof is None:
-                vm._prof = Profiler(vm.sys.tb.path if vm.sys.tb
-                                    else "t4_profile")
+            from ..runtime import prof
+            logdir = vm.sys.tb.path if vm.sys.tb else "t4_profile"
             try:
-                vm._prof.start()
+                prof.start_trace(logdir)
+                vm._prof_dir = logdir
             except Exception as e:               # noqa: BLE001
                 vm.sys.perr("", f"prof.start failed ({e}) ")
         CODE("prof.start", _prof_start)
         def _prof_stop(vm):
             """( -- ) stop the profiler trace and report its location"""
+            from ..runtime import prof
             try:
-                if vm._prof is None:
-                    raise RuntimeError("no profiler trace is running")
-                vm._prof.stop()
-                vm.sys.pstr(f"\\ profile -> {vm._prof.logdir}\n")
-                vm._prof = None
+                prof.stop_trace()
+                vm.sys.pstr("\\ profile -> "
+                            f"{getattr(vm, '_prof_dir', 't4_profile')}\n")
             except Exception as e:               # noqa: BLE001
                 vm.sys.perr("", f"prof.stop failed ({e}) ")
         CODE("prof.stop", _prof_stop)

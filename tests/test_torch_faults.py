@@ -9,6 +9,9 @@ on the CPU by running the same call through both packages:
   C6  forward, backprop and loss given bad input print through _err and
       carry on (tests/test_torch_model_errors.py)
 
+  C9  the relu layer and the relu word give XLA's +0 for -0, negatives,
+      NaN (the layer) and subnormals, bit for bit, sign included
+
 C2, the sampled tokens of generate, is in tests/test_torch_serve.py.
 """
 import io
@@ -226,4 +229,39 @@ def test_engine_pow_is_the_references(v):
     x = _inputs(20_000, seed=5)
     got = pengine.map_op("pow", torch.from_numpy(x.copy()), v).numpy()
     want = np.asarray(jengine.map_op("pow", x, v))
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def _relu_inputs():
+    rs = np.random.RandomState(9)
+    x = rs.standard_normal(256).astype(np.float32)
+    x[:16] = [-0.0, 0.0, np.nan, -np.nan, np.inf, -np.inf, 1e-40, -1e-40,
+              F32_MIN, -F32_MIN, 1.0, -1.0, 3e-39, -3e-39, 0.5, -0.5]
+    return x.reshape(4, 8, 8, 1)
+
+
+def test_relu_layer_is_xlas_bits_sign_included():
+    """C9: the port's x * (x > 0) gave -0 where XLA's select gives +0 (t4_30d
+    layer 3: 112 of 256 values); the mask stays (x > 0)"""
+    from tensorforth_tpu.nn import funcs as jf
+    from tensorforth_tpu.nn.ntypes import Layer
+    from tensorforth_tpu_torch.nn import funcs as pf
+    x = _relu_inputs()
+    jy, jm = jax.jit(lambda v: jf._activate_fwd(Layer.RELU, v, 0.0))(
+        jnp.asarray(x))
+    py, pm = pf._activate_fwd(Layer.RELU, torch.from_numpy(x), 0.0)
+    np.testing.assert_array_equal(py.numpy().view(np.uint32),
+                                  np.asarray(jy).view(np.uint32))
+    assert not np.signbit(py.numpy()).any()
+    np.testing.assert_array_equal(pm.numpy(), (x > 0).astype(np.float32))
+
+
+def test_relu_word_is_xlas_bits_sign_included():
+    """C9: the `relu` word is jnp.maximum(x, 0): NaN passes, -0 and
+    subnormals give +0"""
+    from tensorforth_tpu.ops import engine as jengine
+    from tensorforth_tpu_torch.ops import engine as pengine
+    x = _relu_inputs()
+    want = np.asarray(jengine._map_op("relu", jnp.asarray(x), 0.0))
+    got = pengine._MAP["relu"](torch.from_numpy(x), 0.0).numpy()
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))

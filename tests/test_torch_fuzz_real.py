@@ -6,6 +6,7 @@ transcripts are equal but where stated.  The chunk-probe case is not
 here: it needs the JAX package's trace-chunk internals
 (tests/test_chunk.py); test_torch_chunk.py holds the port's."""
 import ctypes
+import re
 
 import numpy as np
 import pytest
@@ -48,19 +49,60 @@ def test_fuzz_case_transcripts_match_jax(t4, t4p, name):
     assert got == want
 
 
+# an uncaught error's traceback names each package's own files and lines
+TRACE_FILE = (re.compile(r'File "[^"]*", line \d+,'), 'File #, line #,')
+OWNER = (re.compile(r"xla-owned"), "torch-owned")     # mstat's payload owner
+
+
+@pytest.fixture()
+def same_clock(monkeypatch):
+    """`clock` reads the host's clock in both packages: both read one
+    sequence of values here"""
+    from tensorforth_tpu.system import System as JSystem
+    from tensorforth_tpu_torch.system import System
+    for cls in (JSystem, System):
+        ticks = iter(range(1000, 10 ** 6, 37))
+        monkeypatch.setattr(cls, "clock", staticmethod(lambda t=ticks:
+                                                       float(next(t))))
+
+
+@pytest.fixture()
+def no_trace_left():
+    """a soup may leave a `prof.start` trace running; each package keeps
+    one a process, so it is stopped for the tests that follow"""
+    yield
+    import jax
+    from tensorforth_tpu_torch.runtime import prof
+    for stop in (jax.profiler.stop_trace, prof.stop_trace):
+        try:
+            stop()
+        except RuntimeError:
+            pass
+
+
 @pytest.mark.parametrize("name", [
     "test_fuzz_scalar_words_keep_repl_alive",
     "test_fuzz_tensor_words_keep_repl_alive"])
-def test_fuzz_soup_keeps_the_ports_repl_alive(t4p, name):
-    """the word-soup fuzz over the port's own dictionary (its order is the
-    JAX package's), with the reference's asserts.  The transcripts are not
-    compared: a `prof.stop` with no trace running words its error in
-    torch.profiler's terms, an uncaught error's traceback names the
-    port's files, and one `rand`-fed product prints another value
-    (ROADMAP C9)"""
-    rec = Recording(t4p)
-    getattr(fuzz, name)(rec)
-    assert "ERROR" not in rec.text().split("\n")[-1]
+def test_fuzz_soup_keeps_the_ports_repl_alive(t4, t4p, same_clock,
+                                              no_trace_left, name):
+    """the word-soup fuzz over each package's dictionary (the port's order
+    is the JAX package's), with the reference's asserts.  The transcripts
+    are equal once both read one clock, but for the traceback's file
+    paths and line numbers and mstat's payload owner (ROADMAP C9: the
+    one differing scalar was `clock`)"""
+    from tests.test_torch_repl import _mask
+    got, want = _both(t4, t4p, getattr(fuzz, name))
+    assert "ERROR" not in got.split("\n")[-1]
+    assert _mask(got, TRACE_FILE, OWNER) == _mask(want, TRACE_FILE, OWNER)
+
+
+def test_clock_is_the_soups_differing_scalar(t4, t4p, same_clock):
+    """the soup's line `2 2 matrix ones clock 1 fill broadcast` prints the
+    same in both packages once both read one clock (it printed 8095.71
+    and 2554.98, the two processes' clocks)"""
+    line = "2 2 matrix ones clock 1 fill broadcast"
+    got, want = t4p.forth(line), t4.forth(line)
+    assert got == want and "op=11?" in got and "T2[2,2] 1000 -> ok" in got
 
 
 def test_native_fault_containment(t4p):

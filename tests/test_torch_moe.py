@@ -315,18 +315,29 @@ def test_moe_word_errors_match_jax(t4, t4p, line):
     assert "nn.moe" in t4p.forth("abort nn.moe")
 
 
-def test_t4_52_moe_matches_jax(t4, t4p):
+def test_t4_52_moe_matches_jax(t4, t4p, monkeypatch):
     """examples/t4_52_moe.4th through both REPLs: its MoE parts (the
     network, the forward, a step of backprop and Adam) byte for byte;
-    its nn.pipe part says that it is not in the port yet (the parallel
-    tier)"""
+    its nn.pipe part (two pipeline ranks of the port, cut to 3 batches
+    an epoch as test_scripts.py cuts its scripts) lands on the loss of
+    the same epochs through the JAX package's `nn.train` (the word path's
+    step, which the pipeline takes: test_moe_pipe.py:85-95), within that
+    test's rtol 1e-4 (the JAX package's own nn.pipe needs two devices)"""
+    import re
     lines = script_lines("t4_52_moe.4th")
     cut = next(i for i, ln in enumerate(lines) if "pipeline-parallel" in ln)
     got = run_lines(t4p, lines[:cut])
     assert got == run_lines(t4, lines[:cut])
     assert "loss after" in got and "[  1] moe" in got
+    monkeypatch.setenv("T4_MAX_BATCH", "3")
     rest = run_lines(t4p, lines[cut:cut + 6])
-    assert "nn.pipe is not in the port yet" in rest
+    want = run_lines(t4, [ln.replace("2 2 nn.pipe", "2 nn.train")
+                          for ln in lines[cut:cut + 6]])
+    loss = re.compile(r"final loss=(\S+)")
+    assert "nn.pipe 2 epochs over pp2 done" in rest
+    assert "nn.train 2 epochs done" in want and "ERROR" not in rest
+    (a,), (b,) = loss.findall(rest), loss.findall(want)
+    assert abs(float(a) - float(b)) <= 1e-4 * abs(float(b)), (a, b)
 
 
 @pytest.mark.parametrize("saver", ["jax", "port"])

@@ -110,7 +110,6 @@ loss.ce lox ! nn.hit hit +! nn.hit hit +!""")
 
 
 # --- every net word's usage-error path ------------------------------------------------
-NOT_PORTED = ("nn.pipe",)
 NET_WORDS = (
     "nn.model conv1x1 conv2d dconv2d linear relu tanh sigmoid selu "
     "leakyrelu elu softmax logsoftmax batchnorm nn.attn nn.moe layernorm "
@@ -139,18 +138,6 @@ def test_net_word_usage_errors_match_jax(t4, t4p, word):
     for pre in STACKS:
         line = f"abort {pre}{word} .s"
         assert t4p.forth(line) == t4.forth(line), line
-
-
-@pytest.mark.parametrize("word", NOT_PORTED)
-def test_words_not_in_the_port_say_so(t4p, word):
-    """registered, printed as an error, the stack as the JAX package's
-    usage path leaves it (nn.pipe with its arguments too)"""
-    args = {"nn.pipe": "1 4 1 1 nn.model 2 0.1 3 2 "}.get(word, "")
-    before = t4p.forth(f"abort {args}.s")
-    out = t4p.forth(f"{word} .s")
-    assert f"{word} is not in the port yet" in out
-    assert "ERROR" not in out and "Traceback" not in out
-    assert out.splitlines()[-1] == before.splitlines()[-1]
 
 
 def test_nn_train_errors_match_jax(t4, t4p, monkeypatch):

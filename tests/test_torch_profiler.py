@@ -31,7 +31,7 @@ def test_prof_words_capture_trace(t4p, tmp_path, monkeypatch):
 
 def test_prof_stop_without_start_keeps_repl_alive(t4p):
     out = t4p.forth("prof.stop")
-    assert "prof.stop failed" in out
+    assert "prof.stop failed (No profile started)" in out
     assert t4p.forth("1 2 + . cr").strip().startswith("3")
 
 
@@ -39,7 +39,9 @@ def test_prof_start_twice_is_refused(t4p, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     t4p.forth("prof.start")
     out = t4p.forth("prof.start")
-    assert "prof.start failed (a profiler trace is already running)" in out
+    # jax.profiler's own words (ROADMAP C9)
+    assert ("prof.start failed (Profile has already been started. Only "
+            "one profile may be run at a time.)") in out
     assert "profile ->" in t4p.forth("prof.stop")
     assert len(_traces(os.path.join(tmp_path, "t4_profile"))) == 1
 

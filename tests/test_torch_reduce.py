@@ -90,8 +90,7 @@ LOSS_SHAPES = [(2, 4), (2, 1, 4, 1), (4, 10), (100, 10), (3,), (1, 1),
                          ids=["x".join(map(str, s)) for s in LOSS_SHAPES])
 def test_loss_fn_is_xla_cpu_bits(shape):
     """every loss over one-hot, 0/1 and [0, 1) targets and outputs that
-    are [0, 1) or rows that sum to 1 (bce with 28 to 31 elements on one
-    axis is ROADMAP C7's open remainder)"""
+    are [0, 1) or rows that sum to 1"""
     import jax.numpy as jnp
     from tensorforth_tpu.nn import funcs as jf
     from tensorforth_tpu_torch.nn import funcs as pf
@@ -117,6 +116,27 @@ def test_loss_fn_is_xla_cpu_bits(shape):
             want = jf.loss_fn(op, jnp.asarray(o), jnp.asarray(t))
             if _bits(got) != _bits(want):
                 bad.append((i, op, float(got), float(want)))
+    assert not bad, bad[:5]
+
+
+@pytest.mark.parametrize("n", range(1, 41))
+def test_bce_is_xla_cpu_bits_for_1_to_40_elements(n):
+    """loss.bce over n = 1..40 elements, as a column [n, 1] and a vector,
+    bit for bit (ROADMAP C9: 28 to 31 are the unrolled loop's 4 lanes)"""
+    import jax.numpy as jnp
+    from tensorforth_tpu.nn import funcs as jf
+    from tensorforth_tpu_torch.nn import funcs as pf
+    rng = np.random.default_rng(1000 + n)
+    bad = []
+    for shape in ((n, 1), (n,)):
+        for i in range(10):
+            o = rng.random(shape).astype(np.float32)
+            t = ((rng.random(shape) > 0.5).astype(np.float32) if i % 2
+                 else rng.random(shape).astype(np.float32))
+            got = pf.loss_fn("bce", torch.from_numpy(o), torch.from_numpy(t))
+            want = jf.loss_fn("bce", jnp.asarray(o), jnp.asarray(t))
+            if _bits(got) != _bits(want):
+                bad.append((shape, i, float(got), float(want)))
     assert not bad, bad[:5]
 
 

@@ -252,13 +252,15 @@ def _rank_batchnorm(rank, world, env):
                                {k: pm.COUNTS[k] - before[k] for k in before})
     prog = ((funcs.Layer.FLATTEN, (), (7, 784)),)
     errs = []
-    for call in (lambda: funcs._mesh_for(prog, 7),
-                 lambda: funcs._mesh_for(((funcs.Layer.MOE, (2, 8, 2),
-                                           (8, 4, 1, 1)),), 8),
-                 lambda: funcs._tp_layer(
+
+    def moe_over_ep2():
+        os.environ["T4_MESH"] = "ep2"
+        return funcs._mesh_for(((funcs.Layer.MOE, (3, 8, 2),
+                                 (8, 4, 1, 1)),), 8)
+    for call in (lambda: funcs._mesh_for(prog, 7), moe_over_ep2,
+                 lambda: funcs._check_mesh(
                      type("M", (), {"tp": 2})(),
-                     (funcs.Layer.LINEAR, (), (8, 1, 5, 1)), None,
-                     (np.zeros((5, 3)), np.zeros(5)))):
+                     ((funcs.Layer.LINEAR, (), (8, 1, 5, 1)),))):
         try:
             call()
             errs.append(None)
@@ -270,19 +272,20 @@ def _rank_batchnorm(rank, world, env):
 def test_word_loop_batchnorm_on_mesh():
     """a batchnorm program under dp2: the batch's moments and channel
     means all-reduced over dp (collectives issued), landing on the run
-    of one process within test_word_mesh's bounds; an odd batch, an MoE
-    layer and output features that do not divide tp raise"""
+    of one process within test_word_mesh's bounds; an odd batch, MoE
+    experts that do not divide ep and output features that do not divide
+    tp raise"""
     from tensorforth_tpu_torch.parallel import launch
     env = {"T4_MAX_BATCH": "3", "T4_CHUNK": "2"}
     runs, errs = launch.run(_rank_batchnorm, 2, env)
     (one, c1), (dp2, c2) = runs["one"], runs["dp2"]
-    assert c1 == {"all_reduce": 0, "all_gather": 0}
+    assert not any(c1.values())          # no collective, no hop
     # forward: one moments' all-reduce a batchnorm layer; backward: one
     # means' all-reduce a batchnorm layer and one a weight or bias
     assert c2["all_reduce"] >= 6 * (2 * 2 + 6) and c2["all_gather"] > 0
     _compare(one, dp2, "batchnorm dp2")
     assert "batch of 7 does not divide over dp2" in errs[0]
-    assert "MoE" in errs[1]
+    assert "3 experts do not divide over ep2" in errs[1]
     assert "do not divide over tp2" in errs[2]
 
 
