@@ -441,16 +441,14 @@ def attn_work(b, s, dh, causal, hybrid):
 def attn_bwd_work(which, b, s, dh, causal, parts):
     """(operations, bytes, split bytes) of one backward kernel.  dK/dV does
     4 products per visited pair (s2, dp, p^T do, ds^T q), dQ does 3 (s2,
-    dp, ds k); each reads q, k, v and do (`parts` bf16 parts each, or f32
-    on the FMA route, parts 0), lse and delta once and writes its outputs
-    once.  The f32 class's split (parts 3) reads q, k, v and do and writes
-    three bf16 parts of each (the split bytes, its own bound); hybrid's
-    casts are the wrapper's"""
+    dp, ds k); each reads q, k, v and do (`parts` bf16 parts each), lse
+    and delta once and writes its outputs once.  The f32 class's split
+    (parts 3) reads q, k, v and do and writes three bf16 parts of each (the
+    split bytes, its own bound); hybrid's casts are the wrapper's"""
     pairs = s * (s + 1) // 2 if causal else s * s
     n_prod, n_out = (4, 2) if which == "dkv" else (3, 1)
     ops = n_prod * 2 * dh * b * pairs
-    elem = 2 * parts if parts else 4
-    nbytes = (4 * b * s * dh * elem + 2 * b * s * 4
+    nbytes = (4 * b * s * dh * 2 * parts + 2 * b * s * 4
               + n_out * b * s * dh * 4)
     split = 4 * b * s * dh * (4 + 3 * 2) if parts == 3 else 0
     return ops, nbytes, split
@@ -483,9 +481,9 @@ def fwd_peak(hybrid: bool) -> float:
 
 
 def bwd_peak(parts: int) -> float:
-    """the rate of the backward's route (ops.attn.bwd_plan): one bf16
-    product on the tensor cores (parts 1), six (parts 3), or f32 FMAs on
-    the CUDA cores (parts 0: dh 256 in the f32 class)"""
+    """the rate of a backward route (ops.attn.bwd_plan, fused_parts): one
+    bf16 product on the tensor cores (parts 1), six (parts 3), or f32 FMAs
+    on the CUDA cores (parts 0: the fused kernel's f32 class at dh 256)"""
     return {1: PEAK_BF16_FLOPS, 3: PEAK_BF16_FLOPS / 6,
             0: PEAK_F32_FLOPS}[parts]
 
@@ -493,6 +491,28 @@ def bwd_peak(parts: int) -> float:
 BWD_ROUTES = {1: "bf16 wgmma, one product",
               3: "bf16 wgmma, six products of a three-part split",
               0: "f32 FMA on the CUDA cores"}
+
+
+def bwd_route(plan) -> str:
+    """the two-kernel backward's route, from its plan"""
+    return BWD_ROUTES[plan.parts] + (
+        ", dh split over a cluster of two CTAs" if plan.dq.cluster == 2
+        else "")
+
+
+def kernel_names(fn, top=3):
+    """the names of the `top` CUDA kernels that take most device time in
+    one fn() under torch.profiler (a library call's backend)"""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total, e.key) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    return [key[:120] for _, key in sorted(rows, reverse=True)[:top]]
 
 
 def bound_ms(ops, nbytes, peak_flops=PEAK_F32_FLOPS):
@@ -597,14 +617,14 @@ def phase_build():
                                       "flash_fwd_kernel<256,3>",
                                       "flash_fwd_kernel<256,1>",
                                       "split_kernel<3>")),
-                       ("flash_bwd", ("flash_bwd_dkv_sm90_kernel<128,3>",
-                                      "flash_bwd_dq_sm90_kernel<128,3>",
-                                      "flash_bwd_dkv_sm90_kernel<128,1>",
-                                      "flash_bwd_dq_sm90_kernel<128,1>",
-                                      "flash_bwd_dkv_sm90_kernel<256,1>",
-                                      "flash_bwd_dq_sm90_kernel<256,1>",
-                                      "flash_bwd_dkv_kernel<256,32>",
-                                      "flash_bwd_dq_kernel<256,32>",
+                       ("flash_bwd", ("flash_bwd_dkv_sm90_kernel<128,3,1>",
+                                      "flash_bwd_dq_sm90_kernel<128,3,1>",
+                                      "flash_bwd_dkv_sm90_kernel<128,1,1>",
+                                      "flash_bwd_dq_sm90_kernel<128,1,1>",
+                                      "flash_bwd_dkv_sm90_kernel<256,1,1>",
+                                      "flash_bwd_dq_sm90_kernel<256,1,1>",
+                                      "flash_bwd_dkv_sm90_kernel<256,3,2>",
+                                      "flash_bwd_dq_sm90_kernel<256,3,2>",
                                       "split_kernel<3>"))):
         for kern in want:
             if not any(kern in k["kernel"] for k in by_source[name]):
@@ -904,6 +924,9 @@ def phase_kernel(seed: int):
         ("odd_s_causal", 16, 1536, 128, True, False, False, 768),
         ("slice_causal_hybrid", 64, 2048, 128, True, True, False, 1024),
         ("dh256_causal", 8, 1024, 256, True, False, False, 512),
+        # the dh-256 train slice's shape: tiny_lm at bench_prefill's
+        # widths with 4 heads
+        ("dh256_slice_causal", 32, 2048, 256, True, False, False, 1024),
         ("odd_s_causal_dlse", 16, 1536, 128, True, False, True, 192),
         ("s2560_hybrid_dlse", 4, 2560, 128, False, True, True, 640),
         ("bench_causal_hybrid", BENCH["nh"], BENCH["s"], BENCH["dh"], True,
@@ -972,7 +995,10 @@ def phase_kernel(seed: int):
             for nm, g in zip(("dq", "dk", "dv"), (dq, dk, dv)))
         brow = {"case": name, "shape": [b, s, dh], "causal": causal,
                 "hybrid": hybrid, "dlse": with_dlse,
-                "route": BWD_ROUTES[plan.parts], "max_abs_err": errs,
+                "route": bwd_route(plan), "plan": {
+                    key: (val._asdict() if hasattr(val, "_asdict") else val)
+                    for key, val in plan._asdict().items()},
+                "max_abs_err": errs,
                 "largest_reference_value": tops, "two_runs_bit_equal":
                 repeats, "ok": bok,
                 "tol": (f"{TOL_BWD_HYBRID} of the largest reference value"
@@ -994,7 +1020,8 @@ def phase_kernel(seed: int):
             if brow["max_abs_err_kernel_vs_f64"] > TOL_BWD_F32:
                 brow["ok"] = bok = False
         del want
-        timed = name in ("slice_causal", "bench_causal_hybrid")
+        timed = name in ("slice_causal", "bench_causal_hybrid",
+                         "dh256_causal", "dh256_slice_causal")
         brow["fused"] = fused_case(
             (q, k, v, o, lse, do, causal, hybrid, dlse), (dq, dk, dv), bq,
             w64 if with_dlse else None,
@@ -1031,6 +1058,34 @@ def phase_kernel(seed: int):
             brow["kernels_and_split_ms"] = (brow["dkv"]["kernel_ms"]
                                             + brow["dq"]["kernel_ms"]
                                             + brow.get("split_ms", 0.0))
+        if name.startswith("dh256") and not hybrid:
+            # the f32 class at dh 256 (the cluster route) beside the
+            # library's f32 backward on the same operands (timed by the
+            # fused case; the 4-d call's kernels named), the plain version,
+            # and K3's f32 class at dh 256 (its FMA kernel)
+            fused = brow["fused"]
+            brow.update(
+                library_ms=fused["library_ms"],
+                library_ms_4d=fused["library_ms_4d"],
+                library_4d_kernels=kernel_names(sdpa_grads(
+                    *(x[None] for x in (q, k, v, do)), causal)),
+                plain_ms=time_ms(lambda: attn.flash_attention_bwd_ref(
+                    *call, dlse=dlse), reps=5))
+            common = {key: brow[key] for key in (
+                "shape", "route", "plan", "ms", "split_ms",
+                "split_bound_ms", "kernels_and_split_ms", "plain_ms",
+                "library_ms", "library_ms_4d", "library_4d_kernels",
+                "f64_ratio_kernel", "two_runs_bit_equal")}
+            for which, errs_of in (("dkv", ("dk", "dv")), ("dq", ("dq",))):
+                main.setdefault(f"flash_bwd_{which}_dh256", {})[name] = dict(
+                    brow[which], max_abs_err=max(errs[e] for e in errs_of),
+                    **common)
+            main.setdefault("flash_bwd_fused_f32_dh256", {})[name] = {
+                key: fused[key] for key in (
+                    "kernel_ms", "ms", "bound_ms", "bound_by", "plain_ms",
+                    "library_ms", "library_ms_4d", "grid", "bq",
+                    "max_abs_err_vs_split", "fused_equals_split",
+                    "two_runs_bit_equal")}
         if name == "slice_causal":
             row["plain_ms"] = time_ms(
                 lambda: attn.flash_attention_ref(q, k, v, causal), reps=10)
@@ -1143,8 +1198,8 @@ def phase_kernel(seed: int):
               cases=bwd_rows, peak_bf16_tflops=PEAK_BF16_FLOPS / 1e12,
               precision="dkv, dq: bf16 wgmma, f32 sums: f32 class six "
                         "products of a three-part split (bound at a sixth "
-                        "of the bf16 rate), hybrid one product; dh 256 in "
-                        "the f32 class f32 FMA on the CUDA cores",
+                        "of the bf16 rate; at dh 256 over a cluster of two "
+                        "CTAs that split dh), hybrid one product",
               fused_precision="hybrid: bf16 wgmma, f32 sums (bound at the "
                               "bf16 rate); f32 at dh 128: six products of "
                               "a three-part split after one split launch "
@@ -2109,7 +2164,11 @@ def phase_train(seed: int, device="cuda", lm=LM, seq=N_PROMPT,
     n_timed = len(losses)
     prof = profile_run(step, device, med)
     del losses[n_timed:]               # the profiled step's loss
-    emit({"phase": "train", "model": dict(lm, seq=seq),
+    dh = lm["dim"] // lm["heads"]
+    emit({"phase": "train", "model": dict(lm, seq=seq), "head_dim": dh,
+          "attention_backward_route": bwd_route(attn.bwd_plan(
+              n * lm["heads"], seq, dh, False)) if dh in attn.KERNEL_DH
+          else None,
           "optimizer": f"adam({TRAIN_LR})", "launches_per_step": launches,
           "max_rel_grad_err_vs_plain_attention": max(checked),
           "grad_check_class": CHECK_CLASS,
@@ -5168,10 +5227,17 @@ def main(argv=None) -> int:
     # a step launches the forward kernel twice per attention layer (the
     # layer backward runs the layer forward again), each after its split
     # (the f32 class), and each backward kernel once, both after one split
-    per_step = timed("train", phase_train, args.seed, expect_launches={
-        "flash_fwd": 2 * layers, "flash_fwd_split": 2 * layers,
-        "flash_bwd_dkv": layers, "flash_bwd_dq": layers,
-        "flash_bwd_split": layers})
+    step_launches = {"flash_fwd": 2 * layers, "flash_fwd_split": 2 * layers,
+                     "flash_bwd_dkv": layers, "flash_bwd_dq": layers,
+                     "flash_bwd_split": layers}
+    per_step = timed("train", phase_train, args.seed,
+                     expect_launches=step_launches)
+    for name, n in per_step.items():
+        ran[name] = ran.get(name, 0) + n
+    # the same model with 4 heads: dh 256, whose f32 backward runs on the
+    # cluster kernels
+    per_step = timed("train_dh256", phase_train, args.seed,
+                     lm=dict(LM, heads=4), expect_launches=step_launches)
     for name, n in per_step.items():
         ran[name] = ran.get(name, 0) + n
     on_tensor_path = timed("tensor", phase_tensor, args.seed)
@@ -5221,7 +5287,8 @@ def main(argv=None) -> int:
                                 "forward's attention layers, and the "
                                 "microbatches of the first pp4 stage "
                                 "that train_pipeline starts)",
-                   "flash_bwd_dkv": "the train step, attn_bench, "
+                   "flash_bwd_dkv": "the train steps (dh 128, and dh 256 "
+                                    "on the cluster route), attn_bench, "
                                     "net_gen's word-path step (in the f32 "
                                     "class after the backward's split, "
                                     "split_launches on the train step and "
@@ -5230,7 +5297,8 @@ def main(argv=None) -> int:
                                     "ShardedTrainer gradient) and the "
                                     "parallel phase's rank 0 (the ring's "
                                     "backward, the nn.pipe stage's)",
-                   "flash_bwd_dq": "the train step, attn_bench, "
+                   "flash_bwd_dq": "the train steps (dh 128, and dh 256 "
+                                   "on the cluster route), attn_bench, "
                                    "net_gen's word-path step (after the "
                                    "same split), net_train's graph, the "
                                    "mesh phase's rank 0 (its dp2 "
@@ -5281,6 +5349,11 @@ def main(argv=None) -> int:
     rec["flash_fwd"]["split_launches"] = ran["flash_fwd_split"]
     rec["flash_fwd"]["hybrid"] = rec.pop("flash_fwd_hybrid")
     rec["flash_bwd_fused"]["f32"] = rec.pop("flash_bwd_fused_f32")
+    rec["flash_bwd_fused"]["f32_dh256"] = rec.pop(
+        "flash_bwd_fused_f32_dh256")
+    for which in ("dkv", "dq"):
+        rec[f"flash_bwd_{which}"]["f32_dh256"] = rec.pop(
+            f"flash_bwd_{which}_dh256")
     for which, hy in rec.pop("flash_bwd_hybrid").items():
         rec[f"flash_bwd_{which}"].update(
             hybrid=hy, split_launches=ran["flash_bwd_split"])
@@ -5290,14 +5363,14 @@ def main(argv=None) -> int:
              "flash_bwd_dkv": ("kernel_ms", "split_ms", "split_bound_ms",
                                "split_launches", "kernels_and_split_ms",
                                "ms_whole_backward", "library_ms_4d", "route",
-                               "f64_ratio_kernel", "hybrid"),
+                               "f64_ratio_kernel", "hybrid", "f32_dh256"),
              "flash_bwd_dq": ("kernel_ms", "split_ms", "split_bound_ms",
                               "split_launches", "kernels_and_split_ms",
                               "ms_whole_backward", "library_ms_4d", "route",
-                              "f64_ratio_kernel", "hybrid"),
+                              "f64_ratio_kernel", "hybrid", "f32_dh256"),
              "flash_bwd_fused": ("kernel_ms", "ms_before_the_sums",
                                  "library_bf16_ms", "library_ms_4d",
-                                 "blocks", "grid", "f32"),
+                                 "blocks", "grid", "f32", "f32_dh256"),
              "attn_dots": ("route", "flash_fwd_ms_on_the_same_operands",
                            "flash_fwd_over_attn_dots"),
              "mm_f32io": ("rounding_pass_ms", "ms_includes_rounding_pass",

@@ -22,9 +22,11 @@ operations (4 and 3 products per visited tile pair), and run on bf16
 ``wgmma`` fed by TMA: in the f32 class as six products of a three-part
 split (q*scale*log2e, k, v and do split by one launch of the same source,
 ``_split_bwd``; p and ds in registers), in the hybrid class as one
-product of the wrapper's casts.  dh 256 in the f32 class keeps
-strict-f32 FMA kernels (three parts of its tiles do not fit an SM).
-Their plan is ``bwd_plan``.  ``flash_attention_lse`` pairs forward and
+product of the wrapper's casts.  At dh 256 in the f32 class three parts
+of their tiles do not fit a CTA: there a cluster of two CTAs splits dh,
+each holding the dh-128 tiles over its half of the columns, and the two
+add their partial s2 and dp through distributed shared memory.  Their
+plan is ``bwd_plan``.  ``flash_attention_lse`` pairs forward and
 backward as a ``torch.autograd.Function`` that returns (o, lse),
 differentiable in both (attn_pallas.py:flash_attention_lse).
 
@@ -165,8 +167,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {   # library -> exported function -> ctypes signature
     "flash_fwd": {"t4_flash_fwd": [_P] * 5 + [_I] * 9 + [_F, _P],
                   "t4_split_qkv": [_P] * 4 + [_I] * 2 + [_F, _P]},
-    "flash_bwd": {"t4_flash_bwd_dkv": [_P] * 8 + [_I] * 9 + [_F, _P],
-                  "t4_flash_bwd_dq": [_P] * 7 + [_I] * 9 + [_F, _F, _P],
+    "flash_bwd": {"t4_flash_bwd_dkv": [_P] * 8 + [_I] * 10 + [_P],
+                  "t4_flash_bwd_dq": [_P] * 7 + [_I] * 10 + [_F, _P],
                   "t4_split_bwd": [_P] * 5 + [_I] * 2 + [_F, _P]},
     "flash_bwd_fused": {"t4_flash_bwd_fused": [_P] * 10 + [_I] * 10
                         + [_F, _F, _P]},
@@ -340,16 +342,19 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = False,
 
 
 def flash_attention_bwd_split_ref(q, k, v, o, lse, do, causal: bool = False,
-                                  parts: int = 3, dlse=None):
+                                  parts: int = 3, dlse=None,
+                                  cluster: int = 1):
     """the f32 class's backward arithmetic with its products taken exactly,
     in f64: delta and q*scale*log2e as _bwd_operands forms them (f32),
     q2, k, v and do split into the first `parts` of the three-part split
     (gemm._split3_ref), each product the sum of the products of parts
     (i, j) with i + j < parts (six for 3 parts: the kernels'; three for 2)
-    in f64; s2 and dp rounded to f32 as the accumulators hold them, p =
-    exp2(s2 - lse*log2e) and ds = p (dp - delta) in f32 and split the same
-    way.  What it leaves out of the kernels: the tensor cores' truncating
-    sums and ex2.approx.  Returns (dq, dk, dv), f64."""
+    in f64; s2 and dp rounded to f32 as the accumulators hold them (with
+    `cluster` 2, as the dh-256 kernels form them: each CTA's sum over its
+    half of dh rounded to f32, the halves added in f32), p = exp2(s2 -
+    lse*log2e) and ds = p (dp - delta) in f32 and split the same way.  What
+    it leaves out of the kernels: the tensor cores' truncating sums and
+    ex2.approx.  Returns (dq, dk, dv), f64."""
     s, dh = q.shape[1], q.shape[2]
     q, k, v, do, delta, qscale = _bwd_operands(q, k, v, o, lse, do, False,
                                                dlse)
@@ -361,13 +366,19 @@ def flash_attention_bwd_split_ref(q, k, v, o, lse, do, causal: bool = False,
         ys = [t.double() for t in _split3_ref(y)[:parts]]
         return sum(torch.einsum(eq, xs[i], ys[j]) for i, j in pairs)
 
+    def scores(x, y):
+        """x y^T, one f32 sum per CTA's columns, added in column order"""
+        w = dh // cluster
+        return sum(prod(x[..., c * w:(c + 1) * w], y[..., c * w:(c + 1) * w],
+                        "nqd,nkd->nqk").float() for c in range(cluster))
+
     q2 = q * qscale
-    s2 = prod(q2, k, "nqd,nkd->nqk").float()
+    s2 = scores(q2, k)
     if causal:
         keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
         s2 = torch.where(keep, s2, torch.full_like(s2, NEG_INF))
     p = torch.exp2(s2 - (lse * LOG2E)[..., None])
-    ds = p * (prod(do, v, "nqd,nkd->nqk").float() - delta[..., None])
+    ds = p * (scores(do, v) - delta[..., None])
     dv = prod(p, do, "nqk,nqd->nkd")
     dk = prod(ds, q2, "nqk,nqd->nkd") * LN2
     dq = prod(ds, k, "nqk,nkd->nqd") / math.sqrt(dh)
@@ -444,30 +455,34 @@ def flash_attention_bwd_fused_split_ref(q, k, v, o, lse, do, bq=None,
 
 
 # --- the backward kernels' plan ----------------------------------------------
-BWD_ROWS = 64                    # stationary rows of a CTA (wgmma route)
-BWD_TILES = {128: 64, 256: 32}   # dh -> rows of a streamed tile
+BWD_ROWS = 64                    # stationary rows of a CTA
+BWD_TILES = {128: 64, 256: 32}   # a CTA's columns of dh -> streamed rows
 BWD_STAGES = {3: 1, 1: 2}        # parts -> stages of each streamed operand
-# the FMA route (dh 256, f32 class): 64-row Q tiles, 32-row KV tiles
-# (csrc/flash_bwd_tile.cuh: BQ; csrc/flash_bwd.cu: FMA_BK)
-FMA_Q, FMA_KV = 64, 32
+# a cluster's exchange slots (csrc/flash_bwd.cu: Bwd::XCH): each of a
+# CTA's 256 threads' partial s2 and dp, 32 f32
+BWD_EXCHANGE = 256 * 32 * 4
+# the fused kernel's FMA route: 64-row Q tiles (csrc/flash_bwd_tile.cuh: BQ)
+FMA_Q = 64
 
 
 class BwdTiles(NamedTuple):
     """one backward kernel's plan: a CTA holds `rows` stationary rows of
-    one head (dK/dV: key rows; dQ: query rows) and streams the other side
-    in tiles of `tile` rows, `stages` of each streamed operand in flight"""
+    one head (dK/dV: key rows; dQ: query rows) over dh / `cluster` of its
+    columns and streams the other side in tiles of `tile` rows, `stages`
+    of each streamed operand in flight; `cluster` CTAs (1 or 2) share the
+    rows and split dh"""
     rows: int
     tile: int
     stages: int
-    smem: int           # dynamic shared memory, bytes
+    smem: int           # dynamic shared memory of a CTA, bytes
     ctas: int
+    cluster: int
 
 
 class BwdPlan(NamedTuple):
     """the two backward kernels' plan for one shape (csrc/flash_bwd.cu):
     on bf16 wgmma every operand in `parts` bf16 parts (3: the f32 class's
-    split; 1: the hybrid casts); parts 0 is the FMA route (dh 256 in the
-    f32 class: f32 operands)"""
+    split; 1: the hybrid casts)"""
     parts: int
     dkv: BwdTiles
     dq: BwdTiles
@@ -483,24 +498,25 @@ def _fma_smem(dh: int, bk: int, with_p: bool) -> int:
 
 def bwd_plan(bh: int, s: int, dh: int, hybrid: bool) -> BwdPlan:
     """the plan t4_flash_bwd_dkv and t4_flash_bwd_dq launch (they refuse
-    any other).  wgmma: both stationary operands' parts [rows, dh] stay
-    for the CTA, both streamed operands' [tile, dh] come in `stages` each,
-    1024 bytes of alignment slack, an 8-byte barrier for the stationary
-    operands and for each stage of each streamed one; dK/dV also holds
-    its streamed rows' lse and delta.  The route is picked by dh and the
-    class alone: dh 256 in the f32 class takes the FMA kernels."""
-    if dh == 256 and not hybrid:
-        return BwdPlan(0,
-                       BwdTiles(FMA_KV, FMA_Q, 1, _fma_smem(dh, FMA_KV, True),
-                                bh * (s // FMA_KV)),
-                       BwdTiles(FMA_Q, FMA_KV, 1,
-                                _fma_smem(dh, FMA_KV, False),
-                                bh * (s // FMA_Q)))
+    any other).  A CTA holds both stationary operands' parts [rows, dh /
+    cluster] for its life and takes both streamed operands' [tile, dh /
+    cluster] in `stages` each, with 1024 bytes of alignment slack, an
+    8-byte barrier for the stationary operands and for each stage of each
+    streamed one; dK/dV also holds its streamed rows' lse and delta.  The
+    route is picked by dh and the class alone: at dh 256 the f32 class's
+    three parts do not fit a CTA, so a cluster of two CTAs splits dh, each
+    with the dh-128 tiles, an exchange slot that receives the peer's
+    partial scores and the slot's two barriers."""
     parts = 1 if hybrid else 3
-    tile, stages = BWD_TILES[dh], BWD_STAGES[parts]
-    smem = (SM90_ALIGN + 2 * parts * BWD_ROWS * dh * 2
-            + 2 * stages * parts * tile * dh * 2 + (1 + 2 * stages) * 8)
-    dq = BwdTiles(BWD_ROWS, tile, stages, smem, bh * (s // BWD_ROWS))
+    cluster = 2 if dh == 256 and not hybrid else 1
+    cols = dh // cluster
+    tile, stages = BWD_TILES[cols], BWD_STAGES[parts]
+    smem = (SM90_ALIGN + 2 * parts * BWD_ROWS * cols * 2
+            + 2 * stages * parts * tile * cols * 2
+            + (BWD_EXCHANGE if cluster == 2 else 0)
+            + (1 + 2 * stages + (2 if cluster == 2 else 0)) * 8)
+    dq = BwdTiles(BWD_ROWS, tile, stages, smem,
+                  cluster * bh * (s // BWD_ROWS), cluster)
     return BwdPlan(parts, dq._replace(smem=smem + 2 * stages * tile * 4), dq)
 
 
@@ -525,20 +541,18 @@ def _split_bwd(q, k, v, do, qscale: float, owner):
     return tuple(out)
 
 
-def _launch_bwd(which: str, ops, lse, delta, qscale, causal, plan: BwdPlan):
-    """launch one backward kernel on prepared operands (q, k, v, do: bf16
-    parts [3, B*h, S, dh] from _split_bwd when plan.parts is 3, bf16
-    [B*h, S, dh] when 1, f32 [B*h, S, dh] when 0; q times qscale in the
-    kernel): "dkv" -> (dk, dv), "dq" -> (dq,)"""
+def _launch_bwd(which: str, ops, lse, delta, causal, plan: BwdPlan):
+    """launch one backward kernel on prepared operands (q*scale*log2e, k,
+    v, do: bf16 parts [3, B*h, S, dh] from _split_bwd when plan.parts is
+    3, bf16 [B*h, S, dh] when 1): "dkv" -> (dk, dv), "dq" -> (dq,)"""
     b, s, dh = ops[0].shape[-3:]
-    dtype = torch.float32 if plan.parts == 0 else torch.bfloat16
-    if any(t.dtype != dtype or not t.is_contiguous()
+    if any(t.dtype != torch.bfloat16 or not t.is_contiguous()
            or t.shape[-3:] != ops[0].shape[-3:]
            or (t.dim() == 4) != (plan.parts == 3)
            or (t.dim() == 4 and t.shape[0] != 3) for t in ops):
         raise ValueError(f"flash_bwd_{which}: operands must be contiguous "
-                         f"{dtype} [B*h, S, dh], [3, B*h, S, dh] parts in "
-                         "the f32 class")
+                         "bf16 [B*h, S, dh], [3, B*h, S, dh] parts in the "
+                         "f32 class")
     tiles = plan.dkv if which == "dkv" else plan.dq
     lib = _lib("flash_bwd")
     outs = tuple(torch.empty((b, s, dh), dtype=torch.float32,
@@ -546,7 +560,7 @@ def _launch_bwd(which: str, ops, lse, delta, qscale, causal, plan: BwdPlan):
                  for _ in range(2 if which == "dkv" else 1))
     ptrs = [t.data_ptr() for t in (*ops, lse, delta) + outs]
     cfg = (b, s, dh, int(causal), plan.parts, tiles.rows, tiles.tile,
-           tiles.stages, tiles.smem, qscale)
+           tiles.stages, tiles.smem, tiles.cluster)
     with torch.cuda.device(lse.device):
         stream = torch.cuda.current_stream(lse.device).cuda_stream
         if which == "dkv":
@@ -563,12 +577,12 @@ def _launch_bwd(which: str, ops, lse, delta, qscale, causal, plan: BwdPlan):
 
 def _prepare_bwd(q, k, v, o, lse, do, causal, hybrid, dlse):
     """what both backward kernels take, from CUDA tensors: (ops, lse,
-    delta, qscale, causal, plan), with the f32 class's split launched"""
+    delta, causal, plan), with the f32 class's split launched"""
     plan = bwd_plan(*q.shape, hybrid)
     *ops, delta, qscale = _bwd_operands(q, k, v, o, lse, do, hybrid, dlse)
     if plan.parts == 3:
-        ops, qscale = _split_bwd(*ops, qscale, flash_attention_bwd), 1.0
-    return ops, lse.contiguous(), delta.contiguous(), qscale, causal, plan
+        ops = _split_bwd(*ops, qscale, flash_attention_bwd)
+    return ops, lse.contiguous(), delta.contiguous(), causal, plan
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,

@@ -1,6 +1,5 @@
-// The phases of the strict-f32 FMA backward kernels (flash_bwd.cu: dK/dV
-// and dQ apart at dh 256 in the f32 class; flash_bwd_fused.cu: all three in
-// one kernel, its f32 class at dh 256).  A
+// The phases of the strict-f32 FMA backward kernel (flash_bwd_fused.cu:
+// dQ, dK and dV in one kernel, its f32 class at dh 256).  A
 // block works on one 64-row query tile against one BK-row key/value tile:
 //   phase 1, pds_tiles:  p = exp2(s2 - lse2), ds = p * (dp - delta) as
 //            [64, BK] tiles in shared memory, from s2 = Q K^T, dp = dO V^T;
@@ -163,14 +162,5 @@ __device__ __forceinline__ void store_dkv(
     }
   }
 }
-
-// the operands of a backward launch, shared by the C entry points
-struct BwdArgs {
-  const void *q, *k, *v, *dout;
-  const float *lse, *delta;
-  int bh, s, causal;
-  float qscale;
-  cudaStream_t stream;
-};
 
 }  // namespace

@@ -1,8 +1,8 @@
 // Shared-memory tile helpers of the strict-f32 FMA flash-attention
-// kernels (flash_bwd_tile.cuh's phases: dh 256 in the f32 class of
-// flash_bwd.cu and flash_bwd_fused.cu): 256-thread blocks laid out as 16
-// row groups x 16 column lanes, f32 tiles whose rows are padded by 4
-// floats.
+// kernel (flash_bwd_tile.cuh's phases: dh 256 in the f32 class of
+// flash_bwd_fused.cu): 256-thread blocks laid out as 16 row groups x 16
+// column lanes, f32 tiles whose rows are padded by 4 floats.  Its
+// constants (NT, LOG2E, LN2) are flash_bwd.cu's too.
 #pragma once
 
 #include <cuda_runtime.h>

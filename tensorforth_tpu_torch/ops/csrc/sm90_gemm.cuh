@@ -1,12 +1,14 @@
 // The Hopper machinery that gemm_sm90.cu (K5a, K6), gemm_sm90_f32.cu (K5b,
 // K7), flash_bwd_fused.cu (K3), flash_fwd.cu (K1), attn_dots.cu (K8) and
-// flash_bwd.cu (K2a, K2b) share: mbarriers with a trapping wait, TMA loads (tiles and plain
-// bulk copies), wgmma's shared-memory descriptors and its operand forms
-// (m64n128, m64n64 and m64n32, A from shared memory or registers, either
-// operand transposed), the flash kernels' exp2, the grouped raster of
-// output tiles, the predicated epilogue store, and on the host the tensor
-// maps.  Everything is in an anonymous namespace: each source that
-// includes it is a library of its own.
+// flash_bwd.cu (K2a, K2b) share: mbarriers with a trapping wait, TMA loads
+// (tiles and plain bulk copies), the cluster barrier and distributed
+// shared memory (flash_bwd.cu's dh-256 f32 route), wgmma's shared-memory
+// descriptors and its operand forms (m64n128, m64n64 and m64n32, A from
+// shared memory or registers, either operand transposed), the flash
+// kernels' exp2, the grouped raster of output tiles, the predicated
+// epilogue store, and on the host the tensor maps and the launches, plain
+// and in clusters.  Everything is in an anonymous namespace: each source
+// that includes it is a library of its own.
 //
 // Tiles are 128 x 256 (or 128 x 128): warpgroups 0 and 1 are consumers
 // that own 64 rows each and hold WN m64n128 accumulators.
@@ -57,18 +59,33 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
 // wait for the completion of the barrier's phase of parity `parity`.  A
 // wait that outlasts any real one by orders of magnitude traps: a barrier
 // that can never complete faults the launch instead of hanging the card.
+// CLUSTER: the arrivals came from other CTAs of the cluster (acquire at
+// cluster scope).
+template <bool CLUSTER = false>
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   for (uint32_t spin = 0;; ++spin) {
     uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
+    if constexpr (CLUSTER)
+      asm volatile(
+          "{\n"
+          ".reg .pred p;\n"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, "
+          "[%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n"
+          "}\n"
+          : "=r"(done)
+          : "r"(bar), "r"(parity)
+          : "memory");
+    else
+      asm volatile(
+          "{\n"
+          ".reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n"
+          "}\n"
+          : "=r"(done)
+          : "r"(bar), "r"(parity)
+          : "memory");
     if (done) return;
     if (spin == (1u << 22)) __trap();
   }
@@ -108,6 +125,64 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
 // __syncthreads') wait for each other
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- clusters --------------------------------------------------------------
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// the cluster barrier: every thread of every CTA of the cluster arrives
+// (release: its earlier writes are seen by the others) before any of them
+// passes (acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// the shared::cluster address of shared address `addr` in CTA `rank` of
+// the cluster
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr,
+                                                 uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// four floats to a shared::cluster address in another CTA of the cluster,
+// their 16 bytes completing a transaction on that CTA's mbarrier `bar` (a
+// shared::cluster address of the same CTA); no acknowledgement is waited for
+__device__ __forceinline__ void st_async4(uint32_t addr, float a, float b,
+                                          float c, float d, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];" ::"r"(addr),
+      "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ float4 ld_shared4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// one arrival on an mbarrier of another CTA of the cluster (a
+// shared::cluster address), releasing this thread's earlier writes to the
+// cluster
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(
+          bar)
+      : "memory");
 }
 
 // ---- wgmma -----------------------------------------------------------------
@@ -417,6 +492,35 @@ int launch(Kernel kernel, dim3 grid, int threads, int smem,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<grid, threads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the same launch in clusters of `cluster` CTAs along x (grid.x a multiple
+// of it; 1 is the plain launch); the launch's own error, else
+// cudaGetLastError(), as int
+template <typename... Params, typename... Args>
+int launch_cluster(void (*kernel)(Params...), dim3 grid, int cluster,
+                   int threads, int smem, cudaStream_t stream,
+                   Args... args) {
+  if (cluster == 1)
+    return launch(kernel, grid, threads, smem, stream, args...);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -169,33 +169,39 @@ def test_split_ref_takes_the_products_of_the_parts():
 @pytest.mark.parametrize("dh", attn.KERNEL_DH)
 @pytest.mark.parametrize("hybrid", [False, True])
 def test_bwd_plan_fits_an_sm_and_matches_the_source(dh, hybrid):
-    """both kernels' plans stay under 227 KB; the wgmma route's tiles are
-    the ones flash_bwd.cu's Bwd is built with, and dh 256 in the f32
-    class takes the FMA route with flash_bwd_tile.cuh's tiles"""
+    """both kernels' plans stay under 227 KB a CTA and follow flash_bwd.cu's
+    Bwd; dh 256 in the f32 class takes a cluster of two CTAs that split
+    dh, each with the dh-128 f32 tiles, the exchange slots and their two
+    barriers (1,024 + 196,608 + 32,768 + 512 + 40 = 230,952 bytes for
+    dK/dV)"""
     plan = attn.bwd_plan(64, 2048, dh, hybrid)
     with open(os.path.join(CSRC, "flash_bwd.cu")) as f:
         src = f.read()
     for tiles in (plan.dkv, plan.dq):
         assert tiles.smem <= gemm.SM90_SMEM_LIMIT == 232448
-    if dh == 256 and not hybrid:
-        assert plan.parts == 0
-        assert "FMA_D = 256, FMA_BK = 32" in src
-        assert (plan.dkv.rows, plan.dkv.tile) == (32, 64)
-        assert (plan.dq.rows, plan.dq.tile) == (64, 32)
-        assert plan.dkv.ctas == 64 * 2048 // 32
-        assert plan.dq.ctas == 64 * 2048 // 64
-        return
     assert plan.parts == (1 if hybrid else 3)
-    assert "ROWS = 64" in src and "TILE = D == 128 ? 64 : 32" in src
-    assert "ST = NP == 1 ? 2 : 1" in src
+    cluster = 2 if dh == 256 and not hybrid else 1
+    assert plan.dq.cluster == plan.dkv.cluster == cluster
+    assert "ROWS = 64" in src and "TILE = DC == 128 ? 64 : 32" in src
+    assert "DC = D / CL" in src and "ST = NP == 1 ? 2 : 1" in src
+    assert "XCH = CL == 2 ? NT * 32 * 4 : 0" in src
+    assert attn.BWD_EXCHANGE == 256 * 32 * 4 == 32768
     assert attn.BWD_TILES == {128: 64, 256: 32}
     assert attn.BWD_STAGES == {3: 1, 1: 2}
+    cols = dh // cluster
     p, st, tile = plan.parts, plan.dq.stages, plan.dq.tile
-    tiles = 2 * p * 64 * dh * 2 + 2 * st * p * tile * dh * 2
-    assert plan.dq.smem == 1024 + tiles + (1 + 2 * st) * 8
+    assert tile == (64 if cols == 128 else 32)
+    tiles = 2 * p * 64 * cols * 2 + 2 * st * p * tile * cols * 2
+    xch = 32768 if cluster == 2 else 0
+    bars = 1 + 2 * st + (2 if cluster == 2 else 0)
+    assert plan.dq.smem == 1024 + tiles + xch + bars * 8
     assert plan.dkv.smem == plan.dq.smem + 2 * st * tile * 4
     assert plan.dkv._replace(smem=0) == plan.dq._replace(smem=0)
-    assert plan.dq.ctas == 64 * 2048 // 64
+    assert plan.dq.ctas == cluster * 64 * 2048 // 64
+    if cluster == 2:
+        assert plan.dkv.smem == 230952
+        assert "Bwd<256, 3, 2>::SMEM_DKV == 230952" in src
+        assert "NBAR = 1 + 2 * ST + (CL == 2 ? 2 : 0)" in src
 
 
 def _c_params(src: str, fn: str):
@@ -217,15 +223,25 @@ def test_ctypes_tables_match_the_c_entries(fn):
 
 
 def test_no_fma_body_is_left_at_dh128():
-    """the wgmma kernels serve dh 128 in both classes: every FMA instance
-    left in flash_bwd.cu is the f32 class's dh 256"""
+    """no FMA body is left in flash_bwd.cu: every route of both kernels
+    (dh 128 and 256, both classes) is a wgmma instance, dh 256 in the f32
+    class on a cluster of two CTAs"""
     with open(os.path.join(CSRC, "flash_bwd.cu")) as f:
         code = re.sub(r"//[^\n]*", "", f.read())
-    fma = re.findall(r"flash_bwd_(?:dkv|dq)_kernel<([^>]*)>", code)
-    assert fma and set(fma) == {"FMA_D, FMA_BK"}
+    assert re.search(r"flash_bwd_(?:dkv|dq)_kernel\b", code) is None
+    for fma in ("fmaf", "FMA_D", "FMA_BK", "pds_tiles", "accum_dkv",
+                "accum_rows", "load_tile", "flash_bwd_tile.cuh"):
+        assert fma not in code
     assert "wgmma_128_rs" in code and "wgmma_64_rs" in code
-    for parts in (3, 1):
-        assert f"dh == 128 && parts == {parts}" in code
+    routes = set(re.findall(r"if \(dh == (\d+) && parts == (\d)\) "
+                            r"return T4_(DKV|DQ)\((\d+), (\d), (\d)\)",
+                            code))
+    assert routes == {(dh, p, k, dh, p, cl) for k in ("DKV", "DQ")
+                      for dh, p, cl in (("128", "3", "1"), ("128", "1", "1"),
+                                        ("256", "3", "2"),
+                                        ("256", "1", "1"))}
+    assert "launch_cluster(flash_bwd_dkv_sm90_kernel<D, NP, CL>" in code
+    assert "launch_cluster(flash_bwd_dq_sm90_kernel<D, NP, CL>" in code
 
 
 @pytest.mark.parametrize("hash_tail", ["9e5ef83d", "6f0a9c52d"])
@@ -238,11 +254,12 @@ def test_ptxas_records_name_the_new_instances(hash_tail):
     log = "\n".join([
         "ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__"
         f"{hash_tail}_12_flash_bwd_cu_311c35f824flash_bwd_dq_sm90_kernel"
-        "ILi256ELi1EEEv14CUtensorMap_stS1_S1_S1_PKfS3_Pfiiif' for 'sm_90a'",
+        "ILi256ELi3ELi2EEEv14CUtensorMap_stS1_S1_S1_PKfS3_Pfiiif' for "
+        "'sm_90a'",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 122 registers, used 2 barriers"])
     rec, = ptxas_by_kernel(log)
-    assert rec == {"kernel": "flash_bwd_dq_sm90_kernel<256,1>",
+    assert rec == {"kernel": "flash_bwd_dq_sm90_kernel<256,3,2>",
                    "stack_frame": 0, "spill_stores": 0, "spill_loads": 0,
                    "registers": 122, "static_smem": 0}
 
@@ -254,17 +271,18 @@ def _meta(*shape, dtype=torch.bfloat16):
 @pytest.mark.parametrize("which", ["dkv", "dq"])
 @pytest.mark.parametrize("bad", ["f32", "strided", "no_parts_in_f32",
                                  "parts_in_hybrid", "shapes", "two_parts",
-                                 "bf16_on_fma"])
+                                 "f32_at_dh256"])
 def test_launch_refuses_what_the_kernels_do_not_take(which, bad):
     """the kernels take contiguous operands of one shape: bf16 [3, B*h, S,
-    dh] parts in the f32 class, bf16 [B*h, S, dh] in the hybrid class, f32
-    [B*h, S, dh] on the FMA route; anything else raises before a library
-    is built"""
+    dh] parts in the f32 class (at dh 256 too: f32 operands, which the
+    FMA route took, are refused), bf16 [B*h, S, dh] in the hybrid class;
+    anything else raises before a library is built"""
     hybrid = bad in ("f32", "strided", "parts_in_hybrid", "shapes")
-    dh = 256 if bad == "bf16_on_fma" else 128
+    dh = 256 if bad == "f32_at_dh256" else 128
     plan = attn.bwd_plan(2, 128, dh, hybrid)
-    ops = [_meta(2, 128, dh) if hybrid or bad == "bf16_on_fma"
-           else _meta(3, 2, 128, dh) for _ in range(4)]
+    ops = [_meta(2, 128, dh, dtype=torch.float32) if bad == "f32_at_dh256"
+           else _meta(2, 128, dh) if hybrid else _meta(3, 2, 128, dh)
+           for _ in range(4)]
     if bad == "f32":
         ops[0] = _meta(2, 128, 128, dtype=torch.float32)
     elif bad == "strided":
@@ -279,7 +297,7 @@ def test_launch_refuses_what_the_kernels_do_not_take(which, bad):
         ops[0] = _meta(2, 2, 128, 128)
     rows = _meta(2, 128, dtype=torch.float32)
     with pytest.raises(ValueError):
-        attn._launch_bwd(which, ops, rows, rows, 1.0, True, plan)
+        attn._launch_bwd(which, ops, rows, rows, True, plan)
 
 
 def test_cpu_path_launches_nothing():

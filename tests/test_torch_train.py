@@ -112,13 +112,9 @@ def _state_close(mj, mt, what, keys=weights.STATE_KEYS, adam_grads=None):
                 err_msg=f"{what}: trainable {j} '{k}'")
 
 
-@pytest.mark.parametrize("layers,rope", [(1, False), (1, True), (2, False),
-                                         (2, True)])
-def test_train_step_matches_jax_word_by_word(t4, layers, rope):
-    """forward: every layer output; loss(CE): the value; backprop: every
-    dx, dw, db; adam(0.01): every weight, m and v.  Each within 1e-5
-    (weights whose gradient is near zero: 1e-4, see _state_close)."""
-    mj, mt, (inp_j, hot_j), (inp_t, hot_t) = _pair(layers, rope)
+def _step_matches(layers, rope, **lm):
+    """one step of both models, compared after each word"""
+    mj, mt, (inp_j, hot_j), (inp_t, hot_t) = _pair(layers, rope, **lm)
     mj.forward(inp_j)
     mt.forward(inp_t)
     _layers_close(mj, mt, "forward")
@@ -133,6 +129,22 @@ def test_train_step_matches_jax_word_by_word(t4, layers, rope):
     mt.adam(0.01)
     _state_close(mj, mt, "adam", adam_grads=grads)
     assert all(not e["dw"].any() for e in weights.dump_state(mt))
+
+
+@pytest.mark.parametrize("layers,rope", [(1, False), (1, True), (2, False),
+                                         (2, True)])
+def test_train_step_matches_jax_word_by_word(t4, layers, rope):
+    """forward: every layer output; loss(CE): the value; backprop: every
+    dx, dw, db; adam(0.01): every weight, m and v.  Each within 1e-5
+    (weights whose gradient is near zero: 1e-4, see _state_close)."""
+    _step_matches(layers, rope)
+
+
+def test_train_step_at_dh256_matches_jax(t4):
+    """the same step at dh 256 (dim 256, one head: the head dim whose flash
+    backward runs on a cluster of two CTAs on the card), each value within
+    1e-5 (1e-4 near zero)"""
+    _step_matches(1, True, dim=256, heads=1)
 
 
 @pytest.mark.parametrize("opt", ["adam", "sgd", "sgdm", "adamw"])
