@@ -14,9 +14,10 @@ Phases, one JSON line each:
           included, must show no spill and no stack frame)
   kernel  each kernel (flash forward with its split, flash backward dK/dV
           and dQ with theirs, the fused single-kernel backward (its f32
-          class at dh 128 after its split, with the launches of a call
-          counted), the dots-only probe (the forward's body with the
-          softmax compiled out, beside two cuBLAS calls),
+          class after its split, at dh 256 on a cluster of two CTAs,
+          with the launches of a call counted), the dots-only probe
+          (the forward's body with the softmax compiled out, beside two
+          cuBLAS calls),
           and the GEMM kernels of the tensor tier: K5a on the wgmma kernel
           with its rounding pass in all three classes, K6 on the same
           kernel, K5b and K7 on f32 operands rounded inside their one
@@ -482,22 +483,18 @@ def fwd_peak(hybrid: bool) -> float:
 
 def bwd_peak(parts: int) -> float:
     """the rate of a backward route (ops.attn.bwd_plan, fused_parts): one
-    bf16 product on the tensor cores (parts 1), six (parts 3), or f32 FMAs
-    on the CUDA cores (parts 0: the fused kernel's f32 class at dh 256)"""
-    return {1: PEAK_BF16_FLOPS, 3: PEAK_BF16_FLOPS / 6,
-            0: PEAK_F32_FLOPS}[parts]
+    bf16 product on the tensor cores (parts 1), or six (parts 3)"""
+    return {1: PEAK_BF16_FLOPS, 3: PEAK_BF16_FLOPS / 6}[parts]
 
 
 BWD_ROUTES = {1: "bf16 wgmma, one product",
-              3: "bf16 wgmma, six products of a three-part split",
-              0: "f32 FMA on the CUDA cores"}
+              3: "bf16 wgmma, six products of a three-part split"}
 
 
-def bwd_route(plan) -> str:
-    """the two-kernel backward's route, from its plan"""
-    return BWD_ROUTES[plan.parts] + (
-        ", dh split over a cluster of two CTAs" if plan.dq.cluster == 2
-        else "")
+def bwd_route(parts: int, cluster: int) -> str:
+    """a backward route, from its plan's parts and cluster"""
+    return BWD_ROUTES[parts] + (
+        ", dh split over a cluster of two CTAs" if cluster == 2 else "")
 
 
 def kernel_names(fn, top=3):
@@ -580,7 +577,8 @@ def phase_build():
         for hy in (False, True)}
     fused_routes = {f"dh{dh}_{'hybrid' if hy else 'f32'}": {
         "parts": attn.fused_parts(dh, hy), "kv_tile": attn.FUSED_KV_TILE[(
-            hy, dh)], "smem": attn.fused_smem(dh, attn.fused_parts(dh, hy))}
+            hy, dh)], "smem": attn.fused_smem(dh, attn.fused_parts(dh, hy)),
+        "cluster": attn.fused_cluster(dh, hy)}
         for dh in attn.KERNEL_DH for hy in (False, True)}
     bwd_plans = {f"dh{dh}_{'hybrid' if hy else 'f32'}": {
         key: (val._asdict() if hasattr(val, "_asdict") else val)
@@ -608,8 +606,8 @@ def phase_build():
                        ("gemm_sm90_f32", ("mm_bf16_kernel", "mm_db_kernel")),
                        ("flash_bwd_fused", ("fused_sm90_kernel<128>",
                                             "fused_sm90_kernel<256>",
-                                            "fused_f32_sm90_kernel",
-                                            "fused_f32_kernel<256,32>")),
+                                            "fused_f32_sm90_kernel<1>",
+                                            "fused_f32_sm90_kernel<2>")),
                        ("attn_dots", ("attn_dots_kernel<128>",
                                       "attn_dots_kernel<256>")),
                        ("flash_fwd", ("flash_fwd_kernel<128,3>",
@@ -717,7 +715,7 @@ def fused_case(args, split, bq, f64, sdpa_bwd, timed=True):
     partials, the never-visited blocks included), against the two-kernel
     split's (dq, dk, dv), against f64 where given, and against itself run
     again; its grid and the launches of one call (the kernel, and the f32
-    class's split at dh 128); its times unless `timed` is false, and the
+    class's split); its times unless `timed` is false, and the
     library backward's where given (for hybrid cases also on bf16
     operands)"""
     import torch
@@ -757,14 +755,16 @@ def fused_case(args, split, bq, f64, sdpa_bwd, timed=True):
     split_ok = fused_equals_split(got, split, hybrid)
     again = attn.flash_attention_bwd_fused(*call)
     repeats = all(torch.equal(g, a) for g, a in zip(got, again))
-    plan = attn.fused_plan(b, s, bq, causal, hybrid, dh,
-                           attn.sm_count(q.device))
+    plan = attn.fused_plan_on(q.device, b, s, bq, causal, hybrid, dh)
     row = {"bq": bq, "n_q": n_q, "blocks": plan.ctas,
-           "grid": {"ctas": plan.ctas, "ctas_with_work": b * sum(
-               1 for x in plan.work if x), "kv_tile_rows": plan.kv_tile,
-               "kv_tiles_per_cta": plan.chunk, "dq_partials": plan.n_slots,
-               "most_pairs_of_a_cta": plan.work[0], "smem": plan.smem,
-               "route": BWD_ROUTES[parts]},
+           "grid": {"ctas": plan.ctas, "ctas_with_work": plan.cluster * b
+                    * sum(1 for x in plan.work if x),
+                    "kv_tile_rows": plan.kv_tile,
+                    "kv_tiles_per_cta": plan.chunk,
+                    "dq_partials": plan.n_slots,
+                    "most_pairs_of_a_cta": plan.work[0], "smem": plan.smem,
+                    "cluster": plan.cluster,
+                    "route": bwd_route(parts, plan.cluster)},
            "launches_of_one_call": one_call,
            "max_abs_err": errs, "largest_reference_value": tops,
            "partials_shape_and_zero_blocks_ok": zeros_ok,
@@ -778,6 +778,8 @@ def fused_case(args, split, bq, f64, sdpa_bwd, timed=True):
     if f64 is not None:
         row["max_abs_err_vs_f64"] = max(
             (g.double() - w).abs().max().item() for g, w in zip(got, f64))
+        row["f64_ratio"] = max(f64_ratio(g, w, TOL_BWD_F32)
+                               for g, w in zip(got, f64))
         ok = ok and row["max_abs_err_vs_f64"] <= TOL_BWD_F32
     del got, again, dq, dkp, dvp
     row["ok"] = ok and zeros_ok and split_ok and repeats and calls_ok
@@ -793,10 +795,8 @@ def fused_case(args, split, bq, f64, sdpa_bwd, timed=True):
     row["kernel_ms"] = time_ms(lambda: attn._launch_fused(
         *prep, bq, causal, hybrid))
     del prep
-    ops, nbytes = attn_bwd_fused_work(b, s, dh, bq, causal,
-                                      {1: 2, 3: 6, 0: 4}[parts])
-    # the rate of the class's route (bwd_peak: one bf16 product, six, or
-    # f32 on the CUDA cores)
+    ops, nbytes = attn_bwd_fused_work(b, s, dh, bq, causal, 2 * parts)
+    # the rate of the class's route (bwd_peak: one bf16 product, or six)
     row["bound_ms"], row["bound_by"] = bound_ms(ops, nbytes, bwd_peak(parts))
     row.update(gflop=ops / 1e9, mbytes=nbytes / 1e6,
                tflops=ops / row["ms"] / 1e9)
@@ -995,7 +995,7 @@ def phase_kernel(seed: int):
             for nm, g in zip(("dq", "dk", "dv"), (dq, dk, dv)))
         brow = {"case": name, "shape": [b, s, dh], "causal": causal,
                 "hybrid": hybrid, "dlse": with_dlse,
-                "route": bwd_route(plan), "plan": {
+                "route": bwd_route(plan.parts, plan.dq.cluster), "plan": {
                     key: (val._asdict() if hasattr(val, "_asdict") else val)
                     for key, val in plan._asdict().items()},
                 "max_abs_err": errs,
@@ -1024,8 +1024,7 @@ def phase_kernel(seed: int):
                          "dh256_causal", "dh256_slice_causal")
         brow["fused"] = fused_case(
             (q, k, v, o, lse, do, causal, hybrid, dlse), (dq, dk, dv), bq,
-            w64 if with_dlse else None,
-            sdpa_grads(q, k, v, do, causal) if timed else None)
+            w64, sdpa_grads(q, k, v, do, causal) if timed else None)
         del w64, dq, dk, dv
         for which in ("dkv", "dq"):
             kms = time_ms(lambda: attn.flash_attention_bwd(
@@ -1059,10 +1058,29 @@ def phase_kernel(seed: int):
                                             + brow["dq"]["kernel_ms"]
                                             + brow.get("split_ms", 0.0))
         if name.startswith("dh256") and not hybrid:
-            # the f32 class at dh 256 (the cluster route) beside the
+            # K1's <256,3> route (the dh-256 train step's): the kernel
+            # alone on its split's parts, the split, and SDPA's f32
+            # forward through a 4-d call on the same operands
+            qscale = attn.LOG2E / math.sqrt(dh)
+            row["split_ms"] = time_ms(lambda: attn._split_qkv(q, k, v,
+                                                              qscale))
+            parts = attn._split_qkv(q, k, v, qscale)
+            row["kernel_ms"] = time_ms(lambda: attn._launch_fwd(
+                *parts, causal, False))
+            del parts
+            row["library_ms_4d"] = time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q[None], k[None], v[None], is_causal=causal))
+            main.setdefault("flash_fwd_dh256", {})[name] = {
+                key: row[key] for key in (
+                    "shape", "route", "ms", "kernel_ms", "split_ms",
+                    "split_bound_ms", "bound_ms", "bound_by",
+                    "library_ms_4d", "max_abs_err_o", "max_abs_err_lse",
+                    "f64_ratio_o", "f64_ratio_lse")}
+            # the f32 class at dh 256 (the cluster routes) beside the
             # library's f32 backward on the same operands (timed by the
             # fused case; the 4-d call's kernels named), the plain version,
-            # and K3's f32 class at dh 256 (its FMA kernel)
+            # and K3's f32 class at dh 256
             fused = brow["fused"]
             brow.update(
                 library_ms=fused["library_ms"],
@@ -1082,9 +1100,11 @@ def phase_kernel(seed: int):
                     **common)
             main.setdefault("flash_bwd_fused_f32_dh256", {})[name] = {
                 key: fused[key] for key in (
-                    "kernel_ms", "ms", "bound_ms", "bound_by", "plain_ms",
-                    "library_ms", "library_ms_4d", "grid", "bq",
-                    "max_abs_err_vs_split", "fused_equals_split",
+                    "kernel_ms", "ms", "ms_before_the_sums", "split_ms",
+                    "bound_ms", "bound_by", "plain_ms", "library_ms",
+                    "library_ms_4d", "grid", "bq", "launches_of_one_call",
+                    "max_abs_err", "max_abs_err_vs_split",
+                    "fused_equals_split", "max_abs_err_vs_f64", "f64_ratio",
                     "two_runs_bit_equal")}
         if name == "slice_causal":
             row["plain_ms"] = time_ms(
@@ -1201,10 +1221,11 @@ def phase_kernel(seed: int):
                         "of the bf16 rate; at dh 256 over a cluster of two "
                         "CTAs that split dh), hybrid one product",
               fused_precision="hybrid: bf16 wgmma, f32 sums (bound at the "
-                              "bf16 rate); f32 at dh 128: six products of "
-                              "a three-part split after one split launch "
-                              "(bound at a sixth of the bf16 rate); f32 at "
-                              "dh 256: f32 FMA on the CUDA cores",
+                              "bf16 rate); f32: six products of a "
+                              "three-part split after one split launch "
+                              "(bound at a sixth of the bf16 rate; at dh "
+                              "256 over a cluster of two CTAs that split "
+                              "dh)",
               plain_and_library_ms="one pass that gives dq, dk and dv: "
                                    "both kernels' work, and the fused "
                                    "kernel's with its sums"))
@@ -2165,10 +2186,11 @@ def phase_train(seed: int, device="cuda", lm=LM, seq=N_PROMPT,
     prof = profile_run(step, device, med)
     del losses[n_timed:]               # the profiled step's loss
     dh = lm["dim"] // lm["heads"]
+    bplan = (attn.bwd_plan(n * lm["heads"], seq, dh, False)
+             if dh in attn.KERNEL_DH else None)
     emit({"phase": "train", "model": dict(lm, seq=seq), "head_dim": dh,
-          "attention_backward_route": bwd_route(attn.bwd_plan(
-              n * lm["heads"], seq, dh, False)) if dh in attn.KERNEL_DH
-          else None,
+          "attention_backward_route": bwd_route(
+              bplan.parts, bplan.dq.cluster) if bplan else None,
           "optimizer": f"adam({TRAIN_LR})", "launches_per_step": launches,
           "max_rel_grad_err_vs_plain_attention": max(checked),
           "grad_check_class": CHECK_CLASS,
@@ -5348,6 +5370,7 @@ def main(argv=None) -> int:
                              ops_dir + "gemm_pallas.py:76")}
     rec["flash_fwd"]["split_launches"] = ran["flash_fwd_split"]
     rec["flash_fwd"]["hybrid"] = rec.pop("flash_fwd_hybrid")
+    rec["flash_fwd"]["f32_dh256"] = rec.pop("flash_fwd_dh256")
     rec["flash_bwd_fused"]["f32"] = rec.pop("flash_bwd_fused_f32")
     rec["flash_bwd_fused"]["f32_dh256"] = rec.pop(
         "flash_bwd_fused_f32_dh256")
@@ -5359,7 +5382,8 @@ def main(argv=None) -> int:
             hybrid=hy, split_launches=ran["flash_bwd_split"])
     extra = {"flash_fwd": ("kernel_ms", "split_ms", "split_bound_ms",
                            "split_launches", "library_ms_4d", "route",
-                           "f64_ratio_o", "f64_ratio_lse", "hybrid"),
+                           "f64_ratio_o", "f64_ratio_lse", "hybrid",
+                           "f32_dh256"),
              "flash_bwd_dkv": ("kernel_ms", "split_ms", "split_bound_ms",
                                "split_launches", "kernels_and_split_ms",
                                "ms_whole_backward", "library_ms_4d", "route",

@@ -1,21 +1,27 @@
-"""Time the port's flash backward in the f32 class at dh 256 (K2a, K2b) and
-a tiny_lm train step at dh 256, on the card, in the tree it is run from.
+"""Time the port's flash backward in the f32 class at dh 256 (K2a, K2b and
+the fused K3) and a tiny_lm train step at dh 256, on the card, in the
+tree it is run from.
 
 Run from the root of a checkout:
 
-    python3 scripts/torch_bwd_dh256.py --tag NAME
+    python3 scripts/torch_bwd_dh256.py --tag NAME [--skip-train]
 
-It times K2a and K2b alone on prepared operands and the whole backward
-(delta, the split, both kernels) at [8, 1024, 256] and [32, 2048, 256]
-causal, and the dh-128 route at [64, 2048, 128] causal, which does the
-operations of [32, 2048, 256]; then chip_smoke.py's train phase on
-tiny_lm at bench_prefill's widths with 4 heads (dh 256).  It calls only
-entry points that the FMA route (before the cluster route) has too, so
-one call to the card can hold two trees against each other in turns
-(parent, change, change, parent).  Prints one JSON line; exits 2 without
-a card.
+At [8, 1024, 256] and [32, 2048, 256] causal, and on the dh-128 route at
+[64, 2048, 128] causal, which does the operations of [32, 2048, 256], it
+times K2a and K2b alone on prepared operands and the whole two-kernel
+backward (delta, the split, both kernels), then K3's f32 class alone on
+prepared operands and with its split, delta and sums
+(flash_attention_bwd_fused, bq 512 at S 1024 and 1024 at S 2048) and
+the SHA-1 of its dq, dk and dv bits (in both classes at dh 128, whose
+kernels two trees can share bit for bit); then,
+unless --skip-train, chip_smoke.py's train phase on tiny_lm at
+bench_prefill's widths with 4 heads (dh 256).  It calls only entry
+points that the FMA routes (before the cluster routes) have too, so one
+call to the card can hold two trees against each other in turns (parent,
+change, change, parent).  Prints one JSON line; exits 2 without a card.
 """
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -27,6 +33,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tag", default="")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--skip-train", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.getcwd())
     import numpy as np
@@ -52,9 +59,32 @@ def main(argv=None) -> int:
         row["ms_whole_backward"] = cs.time_ms(
             lambda: attn.flash_attention_bwd(q, k, v, o, lse, do, True),
             reps=args.reps)
+        del prep
+        # K3's f32 class: the kernel alone on its prepared operands, then
+        # the whole call with its split, delta and sums
+        bq = min(1024, s // 2)
+        prep = attn._prepare_fused(q, k, v, o, lse, do, False, None)
+        row["fused_bq"] = bq
+        row["fused_kernel_ms"] = cs.time_ms(
+            lambda: attn._launch_fused(*prep, bq, True, False),
+            reps=args.reps)
+        row["fused_ms"] = cs.time_ms(
+            lambda: attn.flash_attention_bwd_fused(q, k, v, o, lse, do, bq,
+                                                   True),
+            reps=args.reps)
+        for hybrid in (False, True) if dh == 128 else (False,):
+            h = hashlib.sha1()
+            for g in attn.flash_attention_bwd_fused(q, k, v, o, lse, do, bq,
+                                                    True, hybrid):
+                h.update(g.cpu().numpy().tobytes())
+            row["fused_sha1_hybrid" if hybrid else "fused_sha1"] = \
+                h.hexdigest()
         out["cases"].append(row)
         del q, k, v, do, o, lse, prep
         torch.cuda.empty_cache()
+    if args.skip_train:
+        print(json.dumps(out), flush=True)
+        return 0
     # the train phase's own record, taken from its emitted line
     lines, emit = [], cs.emit
     cs.emit = lines.append

@@ -38,9 +38,10 @@ per-Q-block partials [B*h, n_q, S, dh] that one ``sum(dim=1)`` reduces.
 Its grid is planned here (``fused_plan``): a CTA owns a (head, Q block,
 KV chunk) item, so the grid fills the card whatever bq is, and dq leaves
 as one partial per KV chunk that the wrapper sums.  Hybrid mode runs on
-bf16 ``wgmma``; the f32 class at dh 128 too, as six products of the
-backward's three-part split (``_split_bwd``, counted as the fused path's
-own), and at dh 256 on the CUDA cores.  It is a measurement path
+bf16 ``wgmma``; the f32 class too, as six products of the backward's
+three-part split (``_split_bwd``, counted as the fused path's own), at dh
+256 on a cluster of two CTAs that split dh, as the two-kernel backward's
+route there does.  It is a measurement path
 (``attn_bench``): ``flash_attention_lse`` keeps the two-kernel backward,
 as in the JAX package.
 
@@ -170,8 +171,9 @@ _ARGTYPES = {   # library -> exported function -> ctypes signature
     "flash_bwd": {"t4_flash_bwd_dkv": [_P] * 8 + [_I] * 10 + [_P],
                   "t4_flash_bwd_dq": [_P] * 7 + [_I] * 10 + [_F, _P],
                   "t4_split_bwd": [_P] * 5 + [_I] * 2 + [_F, _P]},
-    "flash_bwd_fused": {"t4_flash_bwd_fused": [_P] * 10 + [_I] * 10
-                        + [_F, _F, _P]},
+    "flash_bwd_fused": {"t4_flash_bwd_fused": [_P] * 10 + [_I] * 11
+                        + [_F, _P],
+                        "t4_flash_bwd_fused_clusters": [_P]},
     "attn_dots": {"t4_attn_dots": [_P] * 4 + [_I] * 3 + [_P]},
 }
 
@@ -388,24 +390,24 @@ def flash_attention_bwd_split_ref(q, k, v, o, lse, do, causal: bool = False,
 def flash_attention_bwd_fused_split_ref(q, k, v, o, lse, do, bq=None,
                                         causal: bool = False, dlse=None,
                                         sms: int = N_SM):
-    """a model of the fused kernel's f32 class at dh 128 (six products of
-    the three-part split): (dq [B, S, dh], dk_parts, dv_parts [B, n_q, S,
-    dh]), f32.  s2, p, dp and ds as flash_attention_bwd_split_ref forms
-    them (the products of parts exact in f64, rounded to f32; p and ds
-    split in turn); then the gradients as the kernel sums them: each
-    warpgroup's 32 queries of a (Q tile, KV tile) pair give one exact
-    product for the tile's 64 keys (dv = p^T do, dk = ds^T q2), rounded to
-    f32 and added in f32 one Q tile after another, the two warpgroups'
-    sums added at the KV tile's end, dk times ln2; dq one exact product
-    per pair over the tile's 64 keys, rounded to f32 and added in f32 one
-    KV tile after another within a chunk of fused_plan, times 1/sqrt(dh),
-    the chunks' slots added in f32 in order.  What it leaves out: the
-    tensor cores' truncating sums and ex2.approx."""
+    """a model of the fused kernel's f32 class (six products of the
+    three-part split): (dq [B, S, dh], dk_parts, dv_parts [B, n_q, S, dh]),
+    f32.  s2, p, dp and ds as flash_attention_bwd_split_ref forms them (the
+    products of parts exact in f64, rounded to f32; at dh 256 with its
+    `cluster` 2, each CTA's half of dh rounded to f32 and the halves added
+    in f32; p and ds split in turn); then the gradients as the kernel sums
+    them, each column on its own: each warpgroup's 32 queries of a (Q tile,
+    KV tile) pair give one exact product for the tile's 64 keys (dv = p^T
+    do, dk = ds^T q2), rounded to f32 and added in f32 one Q tile after
+    another, the two warpgroups' sums added at the KV tile's end, dk times
+    ln2; dq one exact product per pair over the tile's 64 keys, rounded to
+    f32 and added in f32 one KV tile after another within a chunk of
+    fused_plan, times 1/sqrt(dh), the chunks' slots added in f32 in order.
+    What it leaves out: the tensor cores' truncating sums and ex2.approx."""
+    what = "flash_attention_bwd_fused_split_ref"
+    _check_shape(what, (q, k, v, o, do))
     b, s, dh = q.shape
-    if fused_parts(dh, False) != 3:
-        raise ValueError(f"the six-product fused kernel takes dh 128, "
-                         f"got {dh}")
-    bq = _fused_bq("flash_attention_bwd_fused_split_ref", s, bq)
+    bq = _fused_bq(what, s, bq)
     plan = fused_plan(b, s, bq, causal, False, dh, sms)
     q, k, v, do, delta, qscale = _bwd_operands(q, k, v, o, lse, do, False,
                                                dlse)
@@ -418,14 +420,21 @@ def flash_attention_bwd_fused_split_ref(q, k, v, o, lse, do, bq=None,
     def prod(xs, ys, eq):
         return sum(torch.einsum(eq, xs[i], ys[j]) for i, j in pairs).float()
 
+    def scores(xs, ys):
+        """x y^T, one f32 sum per CTA's columns, added in column order"""
+        w = dh // plan.cluster
+        return sum(prod([x[..., c * w:(c + 1) * w] for x in xs],
+                        [y[..., c * w:(c + 1) * w] for y in ys],
+                        "nqd,nkd->nqk") for c in range(plan.cluster))
+
     q2 = q * qscale
     qs, ks, vs, dos = split(q2), split(k), split(v), split(do)
-    s2 = prod(qs, ks, "nqd,nkd->nqk")
+    s2 = scores(qs, ks)
     if causal:
         keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
         s2 = torch.where(keep, s2, torch.full_like(s2, NEG_INF))
     p = torch.exp2(s2 - (lse * LOG2E)[..., None])
-    ds = p * (prod(dos, vs, "nqd,nkd->nqk") - delta[..., None])
+    ds = p * (scores(dos, vs) - delta[..., None])
 
     # [B, Q block, Q tile, warpgroup, 32 queries, KV tile, 64 keys]
     grid = (b, n_q, bq // TILE, 2, TILE // 2, n_kv, bkv)
@@ -461,8 +470,6 @@ BWD_STAGES = {3: 1, 1: 2}        # parts -> stages of each streamed operand
 # a cluster's exchange slots (csrc/flash_bwd.cu: Bwd::XCH): each of a
 # CTA's 256 threads' partial s2 and dp, 32 f32
 BWD_EXCHANGE = 256 * 32 * 4
-# the fused kernel's FMA route: 64-row Q tiles (csrc/flash_bwd_tile.cuh: BQ)
-FMA_Q = 64
 
 
 class BwdTiles(NamedTuple):
@@ -486,14 +493,6 @@ class BwdPlan(NamedTuple):
     parts: int
     dkv: BwdTiles
     dq: BwdTiles
-
-
-def _fma_smem(dh: int, bk: int, with_p: bool) -> int:
-    """csrc/flash_bwd_tile.cuh: bwd_smem_floats, in bytes: K, V, Q and dO
-    tiles with rows padded by 4 floats, the ds tile (and p's), the Q
-    tile's lse and delta"""
-    return 4 * ((2 * bk + 2 * FMA_Q) * (dh + 4)
-                + (2 if with_p else 1) * FMA_Q * (bk + 4) + 2 * FMA_Q)
 
 
 def bwd_plan(bh: int, s: int, dh: int, hybrid: bool) -> BwdPlan:
@@ -682,44 +681,54 @@ def flash_attention_bwd_fused_parts_ref(q, k, v, o, lse, do, bq=None,
 
 # --- the fused kernel's grid ------------------------------------------------
 # KV tile rows of the kernel by (hybrid, dh) (csrc/flash_bwd_fused.cu:
-# route): hybrid's wgmma kernel, the f32 class's six-product wgmma kernel
-# at dh 128 and its FMA kernel at dh 256
+# route): hybrid's wgmma kernel and the f32 class's six-product wgmma
+# kernel (at dh 256 on a cluster of two CTAs that split dh)
 FUSED_KV_TILE = {(True, 128): 128, (True, 256): 64,
-                 (False, 128): 64, (False, 256): 32}
+                 (False, 128): 64, (False, 256): 64}
+# a cluster's exchange slots (csrc/flash_bwd_fused.cu: F6::XCH): each of a
+# CTA's 256 threads' partial s2 and dp, 32 f32; ds^T's parts live in them
+FUSED_EXCHANGE = 256 * 32 * 4
 
 
 def fused_parts(dh: int, hybrid: bool) -> int:
-    """the fused kernel's route, from dh and the class alone: the parts of
-    each bf16 operand (1: the hybrid casts; 3: the f32 class's split at dh
-    128), or 0 for f32 operands on the FMA kernel (the f32 class at dh 256,
-    whose three parts do not fit an SM)"""
-    return 1 if hybrid else 3 if dh == 128 else 0
+    """the parts of each bf16 operand of the fused kernel, from the class:
+    1 (the hybrid casts) or 3 (the f32 class's split)"""
+    return 1 if hybrid else 3
+
+
+def fused_cluster(dh: int, hybrid: bool) -> int:
+    """the CTAs of a cluster of the fused kernel's route, from dh and the
+    class alone: 2 for the f32 class at dh 256, whose three parts do not
+    fit one CTA (two CTAs split dh), else 1"""
+    return 2 if dh == 256 and not hybrid else 1
 
 
 def fused_smem(dh: int, parts: int) -> int:
-    """dynamic shared memory of the fused kernel of (dh, parts), bytes
-    (csrc/flash_bwd_fused.cu: Hy, F6, FMA_SMEM).  hybrid: K and V of a KV
+    """dynamic shared memory of a CTA of the fused kernel of (dh, parts),
+    bytes (csrc/flash_bwd_fused.cu: Hy, F6).  hybrid: K and V of a KV
     tile, two ds^T tiles, a ring of Q-side stages (Q, dO, then lse and
     delta in 1024 aligned bytes) and a barrier per stage and one for K and
-    V.  f32 at dh 128: the three parts of K, V, Q and dO (64 rows each),
-    of ds^T [64, 64], lse and delta of a Q tile, three barriers.  f32 at
-    dh 256: the FMA tiles (_fma_smem)."""
-    if parts == 0:
-        return _fma_smem(dh, FUSED_KV_TILE[(False, dh)], True)
+    V.  f32: the three parts of K, V, Q and dO (64 rows of the CTA's 128
+    columns each), of ds^T [64, 64], lse and delta of a Q tile, three
+    barriers; at dh 256 (a cluster) ds^T's parts live in the exchange
+    slots, and two barriers more guard them."""
     if parts == 3:
-        return SM90_ALIGN + 4 * 3 * TILE * dh * 2 + 3 * TILE * TILE * 2 \
-            + 2 * TILE * 4 + 3 * 8
+        cluster = fused_cluster(dh, False)
+        return (SM90_ALIGN + 4 * 3 * TILE * 128 * 2
+                + (FUSED_EXCHANGE if cluster == 2 else 3 * TILE * TILE * 2)
+                + 2 * TILE * 4 + (5 if cluster == 2 else 3) * 8)
     bkv, stages = FUSED_KV_TILE[(True, dh)], (3 if dh == 128 else 2)
     return (SM90_ALIGN + 2 * bkv * dh * 2 + 2 * bkv * TILE * 2
             + stages * (2 * TILE * dh * 2 + SM90_ALIGN) + (stages + 1) * 8)
 
 
 class FusedPlan(NamedTuple):
-    """the fused kernel's grid for one shape: a CTA per (head, item), an
-    item = (Q block, KV chunk) of `chunk` KV tiles of `kv_tile` rows,
-    listed heaviest first; `work` = the (Q tile, KV tile) pairs of each
-    item; dq leaves as `n_slots` partials, one per KV chunk.  The kernel:
-    `parts` (fused_parts) and its `smem` bytes (fused_smem)."""
+    """the fused kernel's grid for one shape: `cluster` CTAs per (head,
+    item), an item = (Q block, KV chunk) of `chunk` KV tiles of `kv_tile`
+    rows, listed heaviest first; `work` = the (Q tile, KV tile) pairs of
+    each item; dq leaves as `n_slots` partials, one per KV chunk; `ctas`
+    counts every CTA of the grid.  The kernel: `parts` (fused_parts), its
+    `smem` bytes a CTA (fused_smem) and `cluster` (fused_cluster)."""
     kv_tile: int
     chunk: int
     n_slots: int
@@ -728,6 +737,7 @@ class FusedPlan(NamedTuple):
     ctas: int
     parts: int
     smem: int
+    cluster: int
 
 
 def _q_tiles_seeing(qi: int, j: int, bq: int, kv_tile: int, s: int,
@@ -755,28 +765,35 @@ def _chunk_works(s: int, bq: int, causal: bool, kv_tile: int,
 
 @functools.lru_cache(maxsize=256)
 def fused_plan(bh: int, s: int, bq: int, causal: bool, hybrid: bool,
-               dh: int, sms: int = N_SM) -> FusedPlan:
-    """the fused kernel's grid.  The chunk is the largest power of two of
-    KV tiles that still gives every SM a CTA with work (one tile if none
-    does): a longer chunk means fewer dq partials to write and sum, a
-    shorter one more CTAs to even out the causal load (PERF.md, section
-    6).  Items with no work (KV chunks that a causal Q block never sees)
-    stay in the grid: their CTAs write the zeros of those rows.  Plans are
-    kept: a shape's plan is made once."""
+               dh: int, sms: int = N_SM, clusters=None) -> FusedPlan:
+    """the fused kernel's grid on a card of `sms` SMs.  The chunk is the
+    largest power of two of KV tiles that still gives every slot an item
+    with work (one tile if none does): a slot is an SM, or on the cluster
+    route a pair of SMs (at most `clusters`, the clusters the card runs at
+    once, which fused_plan_on asks the card for).  A longer
+    chunk means fewer dq partials to write and sum, a shorter one more
+    items to even out the causal load (PERF.md, section 6).  Items with no
+    work (KV chunks that a causal Q block never sees) stay in the grid:
+    their CTAs write the zeros of those rows.  Plans are kept: a shape's
+    plan is made once."""
     kv_tile = FUSED_KV_TILE[(bool(hybrid), dh)]
+    cluster = fused_cluster(dh, hybrid)
+    slots = sms if cluster == 1 else max(1, min(sms // 2,
+                                                clusters or sms // 2))
     n_kv = -(-s // kv_tile)
     chunk = 1
     while chunk * 2 <= n_kv:
         w = _chunk_works(s, bq, causal, kv_tile, chunk * 2)
-        if bh * sum(1 for x in w.values() if x) < sms:
+        if bh * sum(1 for x in w.values() if x) < slots:
             break
         chunk *= 2
     w = _chunk_works(s, bq, causal, kv_tile, chunk)
     items = sorted(w, key=lambda it: (-w[it], -it[0], it[1]))
     parts = fused_parts(dh, hybrid)
     return FusedPlan(kv_tile, chunk, -(-n_kv // chunk), tuple(items),
-                     tuple(w[it] for it in items), len(items) * bh, parts,
-                     fused_smem(dh, parts))
+                     tuple(w[it] for it in items),
+                     len(items) * bh * cluster, parts, fused_smem(dh, parts),
+                     cluster)
 
 
 @functools.lru_cache(maxsize=256)
@@ -792,6 +809,33 @@ def sm_count(device) -> int:
     if device.type != "cuda":
         return N_SM
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=8)
+def _active_clusters(index: int) -> int:
+    """the most clusters of the f32 class's dh-256 fused kernel that CUDA
+    device `index` runs at once (t4_flash_bwd_fused_clusters)"""
+    lib = _lib("flash_bwd_fused")
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = lib.t4_flash_bwd_fused_clusters(ctypes.addressof(n))
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_fused occupancy query failed: "
+                           f"cudaError {err}")
+    return n.value
+
+
+def fused_plan_on(device, bh: int, s: int, bq: int, causal: bool,
+                  hybrid: bool, dh: int) -> FusedPlan:
+    """fused_plan for the card the tensors lie on: its SMs and, on the
+    cluster route, the clusters it runs at once"""
+    device = torch.device(device)
+    clusters = (_active_clusters(device.index if device.index is not None
+                                 else torch.cuda.current_device())
+                if device.type == "cuda" and fused_cluster(dh, hybrid) == 2
+                else None)
+    return fused_plan(bh, s, bq, causal, hybrid, dh, sm_count(device),
+                      clusters)
 
 
 def flash_attention_bwd_fused_slots_ref(q, k, v, o, lse, do, bq=None,
@@ -852,33 +896,30 @@ def flash_attention_bwd_fused_ref(q, k, v, o, lse, do, bq=None,
 
 
 def _prepare_fused(q, k, v, o, lse, do, hybrid, dlse):
-    """what the fused kernel takes, from CUDA tensors: (ops, lse, delta,
-    qscale), with the f32 class's split launched at dh 128"""
+    """what the fused kernel takes, from CUDA tensors: (ops, lse, delta),
+    q times scale*log2e: the hybrid class's casts, or the f32 class's
+    parts after one split launch"""
     *ops, delta, qscale = _bwd_operands(q, k, v, o, lse, do, hybrid, dlse)
     if fused_parts(q.shape[-1], hybrid) == 3:
         ops = _split_bwd(*ops, qscale, flash_attention_bwd_fused)
-        qscale = 1.0
-    return ops, lse.contiguous(), delta.contiguous(), qscale
+    return ops, lse.contiguous(), delta.contiguous()
 
 
-def _launch_fused(ops, lse, delta, qscale: float, bq: int, causal: bool,
-                  hybrid: bool):
-    """launch the fused kernel on _prepare_fused's operands (q, k, v, do:
-    bf16 [B*h, S, dh] in the hybrid class, bf16 parts [3, B*h, S, dh] from
-    _split_bwd in the f32 class at dh 128, f32 [B*h, S, dh] at dh 256; q
-    times qscale in the kernel): (dq partials [n_slots, B*h, S, dh],
-    dk_parts, dv_parts [B*h, S / bq, S, dh]), f32"""
+def _launch_fused(ops, lse, delta, bq: int, causal: bool, hybrid: bool):
+    """launch the fused kernel on _prepare_fused's operands (q*scale*log2e,
+    k, v, do: bf16 [B*h, S, dh] in the hybrid class, bf16 parts [3, B*h, S,
+    dh] from _split_bwd in the f32 class): (dq partials [n_slots, B*h, S,
+    dh], dk_parts, dv_parts [B*h, S / bq, S, dh]), f32"""
     b, s, dh = ops[0].shape[-3:]
     parts = fused_parts(dh, hybrid)
-    dtype = torch.float32 if parts == 0 else torch.bfloat16
-    if any(t.dtype != dtype or not t.is_contiguous()
+    if any(t.dtype != torch.bfloat16 or not t.is_contiguous()
            or t.shape[-3:] != ops[0].shape[-3:]
            or (t.dim() == 4) != (parts == 3)
            or (t.dim() == 4 and t.shape[0] != 3) for t in ops):
-        raise ValueError(f"flash_bwd_fused: operands must be contiguous "
-                         f"{dtype} [B*h, S, dh], [3, B*h, S, dh] parts in "
-                         "the f32 class at dh 128")
-    plan = fused_plan(b, s, bq, causal, hybrid, dh, sm_count(lse.device))
+        raise ValueError("flash_bwd_fused: operands must be contiguous "
+                         "bf16 [B*h, S, dh], [3, B*h, S, dh] parts in the "
+                         "f32 class")
+    plan = fused_plan_on(lse.device, b, s, bq, causal, hybrid, dh)
     items = _items_on(plan.items, str(lse.device))
     lib = _lib("flash_bwd_fused")
     slots = torch.empty((plan.n_slots, b, s, dh), dtype=torch.float32,
@@ -892,7 +933,7 @@ def _launch_fused(ops, lse, delta, qscale: float, bq: int, causal: bool,
         stream = torch.cuda.current_stream(lse.device).cuda_stream
         err = lib.t4_flash_bwd_fused(*ptrs, len(plan.items), b, s, dh, bq,
                                      plan.kv_tile, plan.chunk, int(causal),
-                                     plan.parts, plan.smem, qscale,
+                                     plan.parts, plan.smem, plan.cluster,
                                      1.0 / math.sqrt(dh), stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd_fused kernel launch failed: "
@@ -906,7 +947,7 @@ def flash_attention_bwd_fused_parts(q, k, v, o, lse, do, bq=None,
                                     hybrid: bool = False, dlse=None):
     """the fused backward before its sum: (dq [B*h, S, dh], dk_parts,
     dv_parts [B*h, n_q, S, dh]) f32, n_q = S / bq.  CUDA tensors launch
-    the one kernel (in the f32 class at dh 128 after one split launch of
+    the one kernel (in the f32 class after one split launch of
     q*scale*log2e, k, v and do); CPU tensors take the plain version;
     anything else raises."""
     what = "flash_attention_bwd_fused"

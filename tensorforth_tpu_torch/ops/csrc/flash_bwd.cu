@@ -218,30 +218,6 @@ __device__ __forceinline__ void score_products(float (&s)[16], uint32_t a,
     }
 }
 
-// a cluster's exchange: 16 floats of this thread's partial s2 or dp to
-// its twin's slot in the peer CTA (4 float4 from `at`, a shared::cluster
-// address, NT * 16 bytes apart), completing their bytes on the peer's
-// `full` barrier at `bar`
-__device__ __forceinline__ void push(const float (&x)[16], uint32_t at,
-                                     uint32_t bar) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    st_async4(at + j * NT * 16, x[4 * j], x[4 * j + 1], x[4 * j + 2],
-              x[4 * j + 3], bar);
-}
-
-// ... and the twin's partial, from this thread's own slot at `at`, added
-__device__ __forceinline__ void add_peer(float (&x)[16], uint32_t at) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float4 y = ld_shared4(at + j * NT * 16);
-    x[4 * j] += y.x;
-    x[4 * j + 1] += y.y;
-    x[4 * j + 2] += y.z;
-    x[4 * j + 3] += y.w;
-  }
-}
-
 // a [64 x 32] accumulator (m64n32's layout) as the bf16 A fragments of
 // the k16 steps over its 32 columns, in NP parts: step kk, register u of a
 // part holds elements 8 kk + 2 u and 8 kk + 2 u + 1
@@ -447,7 +423,7 @@ __device__ __forceinline__ void bwd_body(
       wgmma_wait<1>();
       pin(dp);
       if (it > 0) mbar_wait<true>(xempty, (it - 1) & 1);
-      push(dp, cluster_addr(xmine + 4 * NT * 16, peer),
+      push<NT>(dp, cluster_addr(xmine + 4 * NT * 16, peer),
            cluster_addr(xfull, peer));
     }
     wgmma_wait<0>();
@@ -464,11 +440,11 @@ __device__ __forceinline__ void bwd_body(
     //      over all of dh (an f32 sum of two terms is the same bits in
     //      either CTA)
     if constexpr (CL == 2) {
-      push(s, cluster_addr(xmine, peer), cluster_addr(xfull, peer));
+      push<NT>(s, cluster_addr(xmine, peer), cluster_addr(xfull, peer));
       mbar_expect_tx(xfull, 32 * 4);
       mbar_wait<true>(xfull, it & 1);
-      add_peer(s, xmine);
-      add_peer(dp, xmine + 4 * NT * 16);
+      add_peer<NT>(s, xmine);
+      add_peer<NT>(dp, xmine + 4 * NT * 16);
       mbar_arrive_remote(cluster_addr(xempty, peer));
     }
 

@@ -16,9 +16,9 @@
 //
 // Layout: q, k, v, do [B*h, S, dh] row-major (bf16 casts in hybrid mode;
 // in the f32 class three bf16 parts [3, B*h, S, dh] of q*scale*log2e, k, v
-// and do at dh 128, f32 at dh 256); lse, delta [B*h, S] f32; dq partials
-// [n_slots, B*h, S, dh] f32; dkp, dvp [B*h, n_q, S, dh] f32.  S % bq == 0,
-// bq % 64 == 0, dh in {128, 256}.
+// and do); lse, delta [B*h, S] f32; dq partials [n_slots, B*h, S, dh] f32;
+// dkp, dvp [B*h, n_q, S, dh] f32.  S % bq == 0, bq % 64 == 0, dh in {128,
+// 256}.
 //
 // What bounds it on this card: operations, but for the partials' bytes.
 //   hybrid (bf16 multiplicands, f32 sums), at [16, 2048, 128] causal, bq
@@ -34,15 +34,18 @@
 //     products alone, summed exactly, miss it by up to 2.8 times
 //     (tests/test_torch_attn_fused_sm90.py); six keep it
 //     (tests/test_torch_fused6.py).
-//   f32, dh 256: strict-f32 FMAs, operations at the CUDA cores' 67
-//     TFLOP/s: three parts of its tiles do not fit a block's 227 KB.
+//   f32, dh 256, at [32, 2048, 256] causal, bq 1024: the same six
+//     products over the same 171.9 GFLOP, 1.04 ms; three parts of its
+//     tiles do not fit a block's 227 KB, so a cluster of two CTAs splits
+//     dh (below), and the two halves of s2 and dp cross between them.
 //
-// The design.  One CTA owns a work item (head, Q block, KV chunk): a run of
-// `chunk` KV tiles of one head, against the Q tiles of one Q block that see
-// them.  The host plans the items (ops/attn.py:fused_plan): it picks the
-// longest chunk that still gives every SM a CTA with work (or one tile),
-// whatever bq is, and lists the items heaviest first, since the causal
-// load differs from item to item.  Inside a CTA the order is KV tile
+// The design.  One CTA (a cluster of two at dh 256 in the f32 class) owns
+// a work item (head, Q block, KV chunk): a run of `chunk` KV tiles of one
+// head, against the Q tiles of one Q block that see them.  The host plans
+// the items (ops/attn.py:fused_plan): it picks the longest chunk that
+// still gives every SM a CTA with work (every cluster slot a pair), or one
+// tile, whatever bq is, and lists the items heaviest first, since the
+// causal load differs from item to item.  Inside a CTA the order is KV tile
 // (outer) -> the Q block's 64-row tiles (inner): K and V stay in
 // shared memory and the tile's dK/dV rows stay in registers across the
 // inner loop, so a partial row is stored once, by one thread.  dq cannot
@@ -78,17 +81,30 @@
 // pair's stage is free for thread 0 to refill.  A pair's dq rows of an
 // earlier tile of the chunk are prefetched into L1 when the pair starts.
 //
-// f32 at dh 128, fused_f32_sm90_kernel: the same data flow on the three
+// f32 at dh 128, fused_f32_sm90_kernel<1>: the same data flow on the three
 // parts of each operand, six products each (its notes below).  Shared
 // memory: K's and V's parts 96 KB, one stage of Q's and dO's 96 KB, ds^T's
 // three parts 24 KB, lse and delta: 218 KB of a block's 227 KB.
 //
-// f32 at dh 256, fused_f32_kernel: 256 threads, the FMA phases of
-// flash_bwd_tile.cuh (BK = 32; 219 KB of shared memory), on the same items
-// and slots.  ops/attn.py:fused_plan picks the kernel from dh and the
-// class.
+// f32 at dh 256, fused_f32_sm90_kernel<2>: the dh-128 body on a cluster
+// of two CTAs that split dh, as flash_bwd.cu's cluster route does.  Each
+// CTA of a pair owns the same item and holds F6's tiles over its 128
+// columns (its maps' boxes start at column 128 rank), so its s2^T and
+// dp^T are partial sums over half of dh.  Per pair each thread pushes its
+// 32 partial floats into its twin's slot in the peer CTA (mapa, st.async,
+// the bytes completing on the peer's `full` barrier; dp's while s2's
+// products run), then adds its twin's partials in f32: the same bits in
+// both CTAs, so p and ds are equal in both.  dv, dk and dq then run over
+// the CTA's own columns, and every output element keeps one writer.  The
+// budget: F6's tiles, the 32 KB of slots, lse and delta and five barriers
+// are 230,952 of 232,448 bytes only because ds^T's three parts (24 KB)
+// live in the slots: a CTA writes them once every thread has read its
+// twin's partials (the pair's barrier before the ds^T stores), and
+// arrives on the peer's `empty` barrier, which lets the peer push the next
+// pair, only once its dq products, the last readers of ds^T, are done.
+// ops/attn.py:fused_plan picks the route from dh and the class.
 
-#include "flash_bwd_tile.cuh"
+#include "flash_tile.cuh"
 #include "sm90_gemm.cuh"
 #include "split_bf16.cuh"
 
@@ -98,14 +114,16 @@ constexpr int QT = 64;       // rows of a Q tile (both kernels)
 
 // one CTA's work item: its head, Q block and KV chunk, from the plan's list
 // (items[2 i], items[2 i + 1] = Q block, chunk; every head of item i
-// before any of item i + 1)
+// before any of item i + 1); the CL CTAs of a cluster share one
 struct Item {
   int bh, qi, c;
 };
 
+template <int CL = 1>
 __device__ __forceinline__ Item item_of(const int* items, int BH) {
-  const int i = static_cast<int>(blockIdx.x / BH);
-  return {static_cast<int>(blockIdx.x % BH), items[2 * i], items[2 * i + 1]};
+  const int blk = static_cast<int>(blockIdx.x / CL);
+  const int i = blk / BH;
+  return {blk % BH, items[2 * i], items[2 * i + 1]};
 }
 
 // the first Q tile (its first row) of the block at qb0 that sees keys from
@@ -114,33 +132,36 @@ __device__ __forceinline__ int q_first(int qb0, int kv0, int causal) {
   return causal ? max(qb0, kv0 / QT * QT) : qb0;
 }
 
-// n floats at p (16-byte aligned, n % 4 == 0) set to zero by `threads`
-// threads, this one being `tid`
-__device__ __forceinline__ void zero_floats(float* p, size_t n, int tid,
-                                            int threads) {
+// `rows` rows of D floats from p (16-byte aligned), their W columns from
+// col0 on (W % 4 == 0), set to zero by `threads` threads, this one being
+// `tid`
+template <int D, int W>
+__device__ __forceinline__ void zero_rows(float* p, int rows, int col0,
+                                          int tid, int threads) {
   const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (size_t i = tid; i < n / 4; i += threads)
-    reinterpret_cast<float4*>(p)[i] = z;
+  for (size_t i = tid; i < (size_t)rows * (W / 4); i += threads)
+    *reinterpret_cast<float4*>(p + i / (W / 4) * D + col0 +
+                               i % (W / 4) * 4) = z;
 }
 
-// the rows of an item that no pair writes, set to zero: the rows
+// the rows of an item that no pair writes, set to zero over the CTA's W
+// columns from col0 on (all D unless a cluster splits dh): the rows
 // [kz0, kz1) of both partial slabs (keys of the chunk that the Q block
 // never sees) and the rows [qb0, qz1) of the chunk's dq slot (Q tiles that
 // see no key of the chunk)
-template <int D>
+template <int D, int W = D>
 __device__ __forceinline__ void zero_unseen(float* dkp, float* dvp,
                                             float* dq_slot, size_t part,
                                             int kz0, int kz1, int qb0,
-                                            int qz1, int tid, int threads) {
+                                            int qz1, int tid, int threads,
+                                            int col0 = 0) {
   if (kz1 > kz0) {
-    zero_floats(dkp + (part + kz0) * D, (size_t)(kz1 - kz0) * D, tid,
-                threads);
-    zero_floats(dvp + (part + kz0) * D, (size_t)(kz1 - kz0) * D, tid,
-                threads);
+    zero_rows<D, W>(dkp + (part + kz0) * D, kz1 - kz0, col0, tid, threads);
+    zero_rows<D, W>(dvp + (part + kz0) * D, kz1 - kz0, col0, tid, threads);
   }
   if (qz1 > qb0)
-    zero_floats(dq_slot + (size_t)qb0 * D, (size_t)(qz1 - qb0) * D, tid,
-                threads);
+    zero_rows<D, W>(dq_slot + (size_t)qb0 * D, qz1 - qb0, col0, tid,
+                    threads);
 }
 
 // ===========================================================================
@@ -493,8 +514,10 @@ __global__ void __launch_bounds__(HT, 1)
                  min(qb1, q_first(qb0, j0 * BKV, causal)), threadIdx.x, HT);
 }
 
+
 // ===========================================================================
-// f32 at dh 128: six bf16 products of the three-part split on wgmma
+// f32: six bf16 products of the three-part split on wgmma; dh 128 on one
+// CTA, dh 256 on a cluster of two that split dh
 // ===========================================================================
 // q2, k, v and do arrive as three bf16 parts each (t4_split_bwd); every
 // product is six products of parts, smallest first (prod_a / prod_b of
@@ -502,33 +525,45 @@ __global__ void __launch_bounds__(HT, 1)
 // accumulator (the scores) or a fresh one that the CUDA cores add to the
 // running sum (the gradients).  The KV tile has 64 rows, all parts of K and
 // V stay for the tile; one stage of Q's and dO's parts streams per pair.
+// A CTA holds 128 columns of each: all of dh 128 (CL 1), or its half of dh
+// 256 (CL 2).
+template <int CL>
 struct F6 {
-  static constexpr int D = 128;
+  static constexpr int D = 128 * CL;        // the head dim
   static constexpr int BKV = 64;            // KV tile rows
   static constexpr int BOX = 64 * 128;      // a [64 d x 64 rows] box, 8 KB
   static constexpr int PART = 2 * BOX;      // a part of a 64-row tile
   static constexpr int TILE = 3 * PART;     // the three parts, 48 KB
   static constexpr int DS_PART = BKV * 128; // a part of ds^T [64 kv x 64 q]
   static constexpr int ROWS = QT * 4;       // lse (or delta) of a Q tile
-  // K, V, Q, dO, ds^T's parts, lse, delta, then kvfull, qfull, ofull
-  static constexpr int SMEM = ALIGN + 4 * TILE + 3 * DS_PART + 2 * ROWS +
-                              3 * 8;
+  // a cluster's exchange slots: each thread's twin's partial s2 and dp, 32
+  // floats; ds^T's three parts live in them
+  static constexpr int XCH = HT * 32 * 4;
+  static constexpr int DS = CL == 2 ? XCH : 3 * DS_PART;   // ds^T's region
+  // K, V, Q, dO, ds^T's region, lse, delta, then kvfull, qfull, ofull and a
+  // cluster's xfull, xempty
+  static constexpr int SMEM = ALIGN + 4 * TILE + DS + 2 * ROWS +
+                              (CL == 2 ? 5 : 3) * 8;
 };
-static_assert(F6::SMEM <= SMEM_LIMIT, "shared memory");
+static_assert(F6<1>::SMEM <= SMEM_LIMIT && F6<2>::SMEM <= SMEM_LIMIT,
+              "shared memory");
+static_assert(F6<2>::SMEM == 230952, "the cluster's budget");
+static_assert(F6<2>::XCH >= 3 * F6<2>::DS_PART, "ds^T in the slots");
 // warpgroup 1's dk and dv (64 KB) reach warpgroup 0 through K's and V's
-static_assert(2 * F6::TILE >= 2 * 64 * 128 * 4, "reduction");
+static_assert(2 * F6<1>::TILE >= 2 * 64 * 128 * 4, "reduction");
+using F6T = F6<1>;   // the tiles' sizes, the same in both
 
 // one 64-row tile of an operand in its three parts by TMA (part p's rows
-// start p part_rows down the map), against `bar`, whose bytes the caller
-// expects; one thread
+// start p part_rows down the map, the CTA's 128 columns from col on),
+// against `bar`, whose bytes the caller expects; one thread
 __device__ __forceinline__ void tma_tile3(uint32_t dst, uint32_t bar,
                                           const CUtensorMap* map,
-                                          int part_rows, int row) {
+                                          int part_rows, int row, int col) {
 #pragma unroll
   for (int p = 0; p < 3; ++p)
 #pragma unroll
     for (int b = 0; b < 2; ++b)
-      tma_load(dst + p * F6::PART + b * F6::BOX, map, bar, 64 * b,
+      tma_load(dst + p * F6T::PART + b * F6T::BOX, map, bar, col + 64 * b,
                p * part_rows + row);
 }
 
@@ -538,23 +573,24 @@ __device__ __forceinline__ void load_side3(uint32_t dst, uint32_t rows_dst,
                                            uint32_t bar,
                                            const CUtensorMap* map,
                                            const float* rows_src,
-                                           int part_rows, int row) {
-  mbar_expect_tx(bar, F6::TILE + F6::ROWS);
-  tma_tile3(dst, bar, map, part_rows, row);
-  bulk_load(rows_dst, rows_src + row, F6::ROWS, bar);
+                                           int part_rows, int row, int col) {
+  mbar_expect_tx(bar, F6T::TILE + F6T::ROWS);
+  tma_tile3(dst, bar, map, part_rows, row, col);
+  bulk_load(rows_dst, rows_src + row, F6T::ROWS, bar);
 }
 
-// s (=) A B^T over dh, m64n32, six products: A the 64 rows of a KV-side
-// tile at a (K or V), B 32 rows of a Q-side tile at b, both K-major
+// s (=) A B^T over the CTA's 128 columns, m64n32, six products: A the 64
+// rows of a KV-side tile at a (K or V), B 32 rows of a Q-side tile at b,
+// both K-major
 __device__ __forceinline__ void score6(float (&s)[16], uint32_t a,
                                        uint32_t b) {
 #pragma unroll
   for (int p = 0; p < 6; ++p)
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
-      const uint32_t col = (kk / 4) * F6::BOX + (kk % 4) * 32;
-      wgmma_32<0, 0>(s, desc_a(a + prod_a(p) * F6::PART + col),
-                     desc_a(b + prod_b(p) * F6::PART + col), p > 0 || kk > 0);
+      const uint32_t col = (kk / 4) * F6T::BOX + (kk % 4) * 32;
+      wgmma_32<0, 0>(s, desc_a(a + prod_a(p) * F6T::PART + col),
+                     desc_a(b + prod_b(p) * F6T::PART + col), p > 0 || kk > 0);
     }
 }
 
@@ -566,7 +602,7 @@ __device__ __forceinline__ void grad6(float (&acc)[64], uint32_t (&f)[3][8],
                                       uint32_t b) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const uint64_t bd = desc_b(b + h * F6::BOX, F6::BOX);
+    const uint64_t bd = desc_b(b + h * F6T::BOX, F6T::BOX);
     float fresh[32];
     pin(fresh);
     wgmma_fence();
@@ -576,7 +612,7 @@ __device__ __forceinline__ void grad6(float (&acc)[64], uint32_t (&f)[3][8],
       for (int kk = 0; kk < 2; ++kk) {
         const uint32_t* a = f[prod_a(p)] + 4 * kk;
         wgmma_64_rs(fresh, a[0], a[1], a[2], a[3],
-                    bd + ((prod_b(p) * F6::PART) >> 4) + kk * 128,
+                    bd + ((prod_b(p) * F6T::PART) >> 4) + kk * 128,
                     p > 0 || kk > 0);
       }
     wgmma_commit();
@@ -597,18 +633,25 @@ __device__ __forceinline__ void grad6(float (&acc)[64], uint32_t (&f)[3][8],
 // warpgroups; each takes 32 of a Q tile's 64 queries (m64n32 scores) and
 // keeps its own dk and dv over them, and warpgroup 1's reach warpgroup 0
 // through shared memory once a KV tile, added in one order.  Per pair:
-//   dp^T = V dO^T, s2^T = K Q^T     six products each over dh
+//   dp^T = V dO^T, s2^T = K Q^T     six products each over the CTA's
+//                                   columns (CL 2: then the twins'
+//                                   partials are exchanged and added)
 //   p, ds                           in the accumulators, then split into
 //                                   three bf16 A fragments each
 //   dv += p^T dO, dk += ds^T q2     six products over its 32 queries
-//   dq += ds K                      each warpgroup 64 of dq's columns over
-//                                   the 64 keys: ds^T's parts (written to
-//                                   a swizzled tile by both warpgroups)
-//                                   read transposed as A, K MN-major
+//   dq += ds K                      each warpgroup 64 of the CTA's dq
+//                                   columns over the 64 keys: ds^T's parts
+//                                   (written to a swizzled tile by both
+//                                   warpgroups) read transposed as A, K
+//                                   MN-major
 // dO's next tile loads once both warpgroups' dv products have read it,
 // during the dk and dq products, Q's once their dk products have, during
 // the dq products and the next pair's dp^T; K and V once warpgroup 0 has
-// taken warpgroup 1's sums out of their space.
+// taken warpgroup 1's sums out of their space.  CL 2: launched in clusters
+// of two CTAs; each thread waits for the peer's `empty` (the peer's dq
+// products of the last pair are done with the slots) before its first
+// push, and arrives on it once its own dq products are.
+template <int CL>
 __global__ void __launch_bounds__(HT, 1)
     fused_f32_sm90_kernel(const __grid_constant__ CUtensorMap mq,
                           const __grid_constant__ CUtensorMap mk,
@@ -620,21 +663,25 @@ __global__ void __launch_bounds__(HT, 1)
                           float* __restrict__ dvp,
                           const int* __restrict__ items, int S, int BH,
                           int bq, int chunk, int causal, float oscale) {
-  using P = F6;
+  using P = F6<CL>;
   constexpr int D = P::D, BKV = P::BKV;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = aligned_base(smem_raw);
   float* const fbase =
       reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)));
   const uint32_t sK = base, sV = sK + P::TILE, sQ = sV + P::TILE;
-  const uint32_t sO = sQ + P::TILE, sDS = sO + P::TILE;
-  const uint32_t sL = sDS + 3 * P::DS_PART, sE = sL + P::ROWS;
+  const uint32_t sO = sQ + P::TILE, sDS = sO + P::TILE;  // CL 2: the slots
+  const uint32_t sL = sDS + P::DS, sE = sL + P::ROWS;
   const uint32_t kvfull = sE + P::ROWS, qfull = kvfull + 8,
                  ofull = qfull + 8;
+  const uint32_t xfull = ofull + 8, xempty = xfull + 8;  // CL 2
   const float* Lq = fbase + (sL - base) / 4;      // the pair's lse, delta
   const float* Eq = fbase + (sE - base) / 4;
 
-  const Item w = item_of(items, BH);
+  const Item w = item_of<CL>(items, BH);
+  // CL 2: the CTA's rank in its cluster picks its 128 columns
+  const int rank = CL == 1 ? 0 : static_cast<int>(cluster_ctarank());
+  const int col0 = 128 * rank;
   const int n_q = S / bq, n_kv = (S + BKV - 1) / BKV;
   const int qb0 = w.qi * bq, qb1 = qb0 + bq;
   const int j0 = w.c * chunk, j1 = min(j0 + chunk, n_kv);
@@ -648,28 +695,39 @@ __global__ void __launch_bounds__(HT, 1)
     mbar_init(kvfull, 1);
     mbar_init(qfull, 1);
     mbar_init(ofull, 1);
+    if (CL == 2) {
+      mbar_init(xfull, HT);
+      mbar_init(xempty, HT);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     if (jv > j0) {
       mbar_expect_tx(kvfull, 2 * P::TILE);
-      tma_tile3(sK, kvfull, &mk, part_rows, row0 + j0 * BKV);
-      tma_tile3(sV, kvfull, &mv, part_rows, row0 + j0 * BKV);
-      load_side3(sO, sE, ofull, &mo, delta, part_rows, row0 + ld.q0);
-      load_side3(sQ, sL, qfull, &mq, lse, part_rows, row0 + ld.q0);
+      tma_tile3(sK, kvfull, &mk, part_rows, row0 + j0 * BKV, col0);
+      tma_tile3(sV, kvfull, &mv, part_rows, row0 + j0 * BKV, col0);
+      load_side3(sO, sE, ofull, &mo, delta, part_rows, row0 + ld.q0, col0);
+      load_side3(sQ, sL, qfull, &mq, lse, part_rows, row0 + ld.q0, col0);
       ld.next();
     }
   }
   __syncthreads();
+  // CL 2: the peer's exchange barriers are set up before any arrival
+  if constexpr (CL == 2) cluster_sync();
 
   const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int tid = threadIdx.x % 128;
   const int fr = warp * 16 + g;       // its fragment rows fr and fr + 8
   const int qw = 32 * wg;             // its queries of a Q tile
+  const int dc = col0 + 64 * wg;      // its dq columns
   const size_t part = ((size_t)w.bh * n_q + w.qi) * S;   // partial rows
   float* dq_slot = dqp + ((size_t)w.c * BH + w.bh) * S * D;
   // ds^T's parts, and the descriptors of dq's operands (step: 16 keys)
   const uint64_t ds_mn = desc_b(sDS, P::DS_PART);
   const uint64_t k_mn = desc_b(sK + wg * P::BOX, P::BOX);
+  // CL 2: this thread's exchange slot (its twin's is at the same address
+  // in the peer CTA, its s2 part first, then its dp part)
+  const uint32_t peer = rank ^ 1;
+  const uint32_t xmine = sDS + threadIdx.x * 16;
 
   float dk[64], dv[64], s[16], dp[16];
   int it = 0;
@@ -683,14 +741,14 @@ __global__ void __launch_bounds__(HT, 1)
       if (j > j0) {
         // this pair's dq rows, to be loaded after its other products: into
         // L1 now, while those run
-        const float* rowp = dq_slot + (size_t)(q0 + fr) * D + 64 * wg;
+        const float* rowp = dq_slot + (size_t)(q0 + fr) * D + dc;
 #pragma unroll
         for (int u = 0; u < 4; ++u)
           asm volatile("prefetch.global.L1 [%0];" ::"l"(
               rowp + (u / 2) * 8 * D + (u % 2) * 32));
       }
 
-      // dp^T and s2^T [64 kv x 32 q] over dh
+      // dp^T and s2^T [64 kv x 32 q] over the CTA's columns
       pin(dp);
       pin(s);
       mbar_wait(ofull, ph);
@@ -700,9 +758,28 @@ __global__ void __launch_bounds__(HT, 1)
       mbar_wait(qfull, ph);
       score6(s, sK, sQ + qw * 128);
       wgmma_commit();
+      if constexpr (CL == 2) {
+        // dp's partial leaves while s2's products run, once the peer's dq
+        // products of the last pair are done with its slots
+        wgmma_wait<1>();
+        pin(dp);
+        if (it > 0) mbar_wait<true>(xempty, (it - 1) & 1);
+        push<HT>(dp, cluster_addr(xmine + 4 * HT * 16, peer),
+                 cluster_addr(xfull, peer));
+      }
       wgmma_wait<0>();
       pin(dp);
       pin(s);
+      if constexpr (CL == 2) {
+        // s2's partial too; this thread's arrival on `full` expects the
+        // 128 bytes its twin sends; then both sums are over all of dh (an
+        // f32 sum of two terms is the same bits in either CTA)
+        push<HT>(s, cluster_addr(xmine, peer), cluster_addr(xfull, peer));
+        mbar_expect_tx(xfull, 32 * 4);
+        mbar_wait<true>(xfull, ph);
+        add_peer<HT>(s, xmine);
+        add_peer<HT>(dp, xmine + 4 * HT * 16);
+      }
 
       // p and ds in place; only a tile that crosses the diagonal masks
       if (causal && kv0 + BKV - 1 > q0 + qw)
@@ -727,12 +804,15 @@ __global__ void __launch_bounds__(HT, 1)
       grad6(dv, pf, sO + qw * 128);
       // both warpgroups are done with this pair's dO and delta: the stage
       // takes the next pair's; and their dq products of the previous pair
-      // have read ds^T: its parts take this pair's, row = key, 64 queries
-      // (128 bytes) a row, 16-byte unit u of row r at u ^ (r % 8); this
-      // warpgroup's queries are units 4 wg .. 4 wg + 3
+      // have read ds^T (CL 2: and every thread has read its twin's
+      // partials from the slots): its parts take this pair's, row = key,
+      // 64 queries (128 bytes) a row, 16-byte unit u of row r at u ^ (r %
+      // 8); this warpgroup's queries are units 4 wg .. 4 wg + 3
       named_barrier(1, HT);
       if (threadIdx.x == 0 && !ld.done())
-        load_side3(sO, sE, ofull, &mo, delta, part_rows, row0 + ld.q0);
+        load_side3(sO, sE, ofull, &mo, delta, part_rows, row0 + ld.q0, col0);
+      // CL 2: generic stores where the peer's st.async wrote
+      if constexpr (CL == 2) fence_proxy_async();
 #pragma unroll
       for (int p = 0; p < 3; ++p)
 #pragma unroll
@@ -754,11 +834,11 @@ __global__ void __launch_bounds__(HT, 1)
       // lse: the stage takes the next pair's
       named_barrier(1, HT);
       if (threadIdx.x == 0 && !ld.done()) {
-        load_side3(sQ, sL, qfull, &mq, lse, part_rows, row0 + ld.q0);
+        load_side3(sQ, sL, qfull, &mq, lse, part_rows, row0 + ld.q0, col0);
         ld.next();
       }
 
-      // dq rows q0.. of the chunk's slot, columns 64 wg..: += ds K, six
+      // dq rows q0.. of the chunk's slot, its columns dc..: += ds K, six
       // products into a fresh accumulator; the chunk's first tile stores,
       // the others load, add and store; the last tile that the Q tile sees
       // in the chunk scales by oscale
@@ -776,9 +856,12 @@ __global__ void __launch_bounds__(HT, 1)
       wgmma_commit();
       wgmma_wait<0>();
       pin(fq);
+      // CL 2: this thread's reads of ds^T are done, so the peer may push
+      // the next pair into the slots
+      if constexpr (CL == 2) mbar_arrive_remote(cluster_addr(xempty, peer));
       const int last = causal ? min(jv - 1, (q0 + QT - 1) / BKV) : jv - 1;
       const float scale = j == last ? oscale : 1.f;
-      float* rowp = dq_slot + (size_t)(q0 + fr) * D + 64 * wg + 2 * t;
+      float* rowp = dq_slot + (size_t)(q0 + fr) * D + dc + 2 * t;
 #pragma unroll
       for (int jn = 0; jn < 8; ++jn)
 #pragma unroll
@@ -813,17 +896,17 @@ __global__ void __launch_bounds__(HT, 1)
     named_barrier(1, HT);
     if (threadIdx.x == 0 && j + 1 < jv) {
       mbar_expect_tx(kvfull, 2 * P::TILE);
-      tma_tile3(sK, kvfull, &mk, part_rows, row0 + (j + 1) * BKV);
-      tma_tile3(sV, kvfull, &mv, part_rows, row0 + (j + 1) * BKV);
+      tma_tile3(sK, kvfull, &mk, part_rows, row0 + (j + 1) * BKV, col0);
+      tma_tile3(sV, kvfull, &mv, part_rows, row0 + (j + 1) * BKV, col0);
     }
-    // this KV tile's rows of both partials (dK times ln2: ds^T q2 =
-    // (scale log2e) ds^T q)
+    // this KV tile's rows of both partials over the CTA's columns (dK
+    // times ln2: ds^T q2 = (scale log2e) ds^T q)
     if (wg == 0) {
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int kv = kv0 + fr + 8 * i;
-        float* pk = dkp + (part + kv) * D + 2 * t;
-        float* pv = dvp + (part + kv) * D + 2 * t;
+        float* pk = dkp + (part + kv) * D + col0 + 2 * t;
+        float* pv = dvp + (part + kv) * D + col0 + 2 * t;
 #pragma unroll
         for (int jn = 0; jn < 16; ++jn) {
           *reinterpret_cast<float2*>(pk + 8 * jn) = make_float2(
@@ -834,108 +917,14 @@ __global__ void __launch_bounds__(HT, 1)
       }
     }
   }
-  zero_unseen<D>(dkp, dvp, dq_slot, part, jv * BKV, min(j1 * BKV, S), qb0,
-                 min(qb1, q_first(qb0, j0 * BKV, causal)), threadIdx.x, HT);
-}
-
-// ===========================================================================
-// f32 at dh 256: the FMA phases of flash_bwd_tile.cuh on the same items
-// ===========================================================================
-template <int D, int BK>
-__global__ void __launch_bounds__(NT, 1)
-    fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dqp,
-                     float* __restrict__ dkp, float* __restrict__ dvp,
-                     const int* __restrict__ items, int S, int BH, int bq,
-                     int chunk, int causal, float qscale, float oscale) {
-  constexpr int LD = D + 4;    // padded row stride of the operand tiles
-  constexpr int LDP = BK + 4;  // padded row stride of the p and ds tiles
-  constexpr int CJ = BK / 16;  // score columns, and kv rows, per thread
-  constexpr int DJ = D / 64;   // float4 output column groups per thread
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + BK * LD;
-  float* Qs = Vs + BK * LD;
-  float* Os = Qs + BQ * LD;    // the dO tile
-  float* Ps = Os + BQ * LD;
-  float* Ds = Ps + BQ * LDP;   // the ds tile
-  float* Ls = Ds + BQ * LDP;   // base-2 lse of the Q tile's rows
-  float* Es = Ls + BQ;         // delta of the Q tile's rows
-
-  const Item w = item_of(items, BH);
-  const int n_q = S / bq;
-  const int qb0 = w.qi * bq, qb1 = qb0 + bq;
-  const int kv_a = w.c * chunk * BK, kv_b = min(kv_a + chunk * BK, S);
-  const int kv_vis = min(kv_b, causal ? qb1 : S);  // keys visited: kv_a..
-  const size_t head = (size_t)w.bh * S * D;
-  const size_t rows = (size_t)w.bh * S;
-  const size_t part = ((size_t)w.bh * n_q + w.qi) * S;
-  float* dq_slot = dqp + ((size_t)w.c * BH + w.bh) * S * D;
-  const int r = threadIdx.x >> 4;  // phase 1: query rows 4r..4r+3;
-                                   // dK/dV: kv rows CJ*r..CJ*r+CJ-1;
-                                   // dQ: query rows 4r..4r+3
-  const int c = threadIdx.x & 15;  // phase 1: key columns c+16j;
-                                   // dK/dV, dQ: output columns 64jj+4c..+3
-
-  for (int k0 = kv_a; k0 < kv_vis; k0 += BK) {
-    __syncthreads();  // the previous KV tile's K is consumed (dq product)
-    load_tile<D>(Ks, LD, k + head + (size_t)k0 * D, BK, 1.f);
-    load_tile<D>(Vs, LD, v + head + (size_t)k0 * D, BK, 1.f);
-
-    float dka[CJ][DJ][4], dva[CJ][DJ][4];
-#pragma unroll
-    for (int i = 0; i < CJ; ++i)
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) dka[i][jj][u] = dva[i][jj][u] = 0.f;
-
-    for (int q0 = q_first(qb0, k0, causal); q0 < qb1; q0 += BQ) {
-      __syncthreads();  // the previous tile's Q, dO, p and ds are consumed
-      load_q_side<D>(Qs, Os, Ls, Es, q + head, dout + head, lse + rows,
-                     delta + rows, q0, qscale);
-      __syncthreads();
-      pds_tiles<D, BK, true>(Qs, Os, Ks, Vs, Ls, Es, Ps, Ds, q0, k0,
-                             causal && k0 + BK - 1 > q0, r, c);
-      __syncthreads();
-      accum_dkv<D, BK>(dka, dva, Ps, Ds, Os, Qs, r, c);
-
-      // this pair's share of dq, added into the slot's rows: the chunk's
-      // first tile stores, the last tile that this Q tile sees in the
-      // chunk stores times oscale
-      float acc[4][DJ][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < DJ; ++jj)
-#pragma unroll
-          for (int u = 0; u < 4; ++u) acc[i][jj][u] = 0.f;
-      accum_rows<D, BK>(acc, Ds, LDP, Ks, LD, r, c);  // ds K
-      const bool first = k0 == kv_a;
-      const float flush =
-          k0 == min(kv_b, causal ? q0 + BQ : S) - BK ? oscale : 1.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float* row = dq_slot + (size_t)(q0 + 4 * r + i) * D;
-#pragma unroll
-        for (int jj = 0; jj < DJ; ++jj) {
-          float4* at = reinterpret_cast<float4*>(row + 64 * jj + 4 * c);
-          float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (!first) x = *at;
-          *at = make_float4((x.x + acc[i][jj][0]) * flush,
-                            (x.y + acc[i][jj][1]) * flush,
-                            (x.z + acc[i][jj][2]) * flush,
-                            (x.w + acc[i][jj][3]) * flush);
-        }
-      }
-    }
-    store_dkv<D, BK>(dka, dva, dkp + part * D, dvp + part * D, k0, r, c);
+  // CL 2: the peer's last arrival on `empty` is its last access to this
+  // CTA's shared memory
+  if constexpr (CL == 2) {
+    if (it > 0) mbar_wait<true>(xempty, (it - 1) & 1);
   }
-  zero_unseen<D>(dkp, dvp, dq_slot, part, max(kv_a, kv_vis), kv_b, qb0,
-                 min(qb1, q_first(qb0, kv_a, causal)), threadIdx.x, NT);
+  zero_unseen<D, 128>(dkp, dvp, dq_slot, part, jv * BKV, min(j1 * BKV, S),
+                      qb0, min(qb1, q_first(qb0, j0 * BKV, causal)),
+                      threadIdx.x, HT, col0);
 }
 
 // ---- host side -------------------------------------------------------------
@@ -945,12 +934,13 @@ struct Fused {
   float *dqp, *dkp, *dvp;
   const int* items;
   int n_items, bh, s, bq, chunk, causal;
-  float qscale, oscale;
+  float oscale;
   cudaStream_t stream;
 };
 
-// the four operands' maps: `rows` rows of D columns each, boxes of QT rows
-// (q, dout) and bkv rows (k, v); false if one cannot be made
+// the four operands' maps: `rows` rows of D columns each, boxes of 64
+// columns and QT rows (q, dout) or bkv rows (k, v); false if one cannot be
+// made
 template <int D>
 bool fused_maps(const Fused& a, int rows, int bkv, CUtensorMap* m) {
   const EncodeTiled fn = encode_tiled();
@@ -960,12 +950,10 @@ bool fused_maps(const Fused& a, int rows, int bkv, CUtensorMap* m) {
          make_map(&m[3], fn, a.dout, rows, D, D, 64, QT);
 }
 
-// the wgmma kernels read their operands by TMA and lse and delta by bulk
-// copies, and take q already scaled
+// the kernels read their operands by TMA and lse and delta by bulk copies
 bool sm90_args(const Fused& a) {
-  return a.qscale == 1.f && aligned(a.q, 16) && aligned(a.k, 16) &&
-         aligned(a.v, 16) && aligned(a.dout, 16) && aligned(a.lse, 16) &&
-         aligned(a.delta, 16);
+  return aligned(a.q, 16) && aligned(a.k, 16) && aligned(a.v, 16) &&
+         aligned(a.dout, 16) && aligned(a.lse, 16) && aligned(a.delta, 16);
 }
 
 template <int D>
@@ -979,42 +967,36 @@ int launch_sm90(const Fused& a) {
                 a.chunk, a.causal, a.oscale);
 }
 
-// the operands are three parts each, [3, bh, s, 128] bf16: one map over
-// every part's rows
+// the operands are three parts each, [3, bh, s, dh] bf16: one map over
+// every part's rows; CL 2 launches an item's two CTAs as a cluster
+template <int CL>
 int launch_f32_sm90(const Fused& a) {
+  using P = F6<CL>;
   CUtensorMap m[4];
-  if (!sm90_args(a) || !fused_maps<F6::D>(a, 3 * a.bh * a.s, F6::BKV, m))
+  if (!sm90_args(a) || !fused_maps<P::D>(a, 3 * a.bh * a.s, P::BKV, m))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch(fused_f32_sm90_kernel, dim3(a.n_items * a.bh), HT, F6::SMEM,
-                a.stream, m[0], m[1], m[2], m[3], a.lse, a.delta, a.dqp,
-                a.dkp, a.dvp, a.items, a.s, a.bh, a.bq, a.chunk, a.causal,
-                a.oscale);
-}
-
-constexpr int FMA_D = 256, FMA_BK = 32;   // the FMA kernel's dh, KV rows
-constexpr int FMA_SMEM = bwd_smem_floats(FMA_D, FMA_BK, true) * 4;
-
-int launch_fma(const Fused& a) {
-  return launch(fused_f32_kernel<FMA_D, FMA_BK>, dim3(a.n_items * a.bh), NT,
-                FMA_SMEM, a.stream, static_cast<const float*>(a.q),
-                static_cast<const float*>(a.k), static_cast<const float*>(a.v),
-                static_cast<const float*>(a.dout), a.lse, a.delta, a.dqp,
-                a.dkp, a.dvp, a.items, a.s, a.bh, a.bq, a.chunk, a.causal,
-                a.qscale, a.oscale);
+  return launch_cluster(fused_f32_sm90_kernel<CL>,
+                        dim3(CL * a.n_items * a.bh), CL, HT, P::SMEM,
+                        a.stream, m[0], m[1], m[2], m[3], a.lse, a.delta,
+                        a.dqp, a.dkp, a.dvp, a.items, a.s, a.bh, a.bq,
+                        a.chunk, a.causal, a.oscale);
 }
 
 // the kernel of (dh, parts) and its plan: KV tile rows (what the plan's
-// items are counted in) and dynamic shared memory; false if none
-bool route(int dh, int parts, int& bkv, int& smem) {
+// items are counted in), dynamic shared memory and the CTAs of a cluster;
+// false if none
+bool route(int dh, int parts, int& bkv, int& smem, int& cluster) {
+  cluster = 1;
   if (parts == 1 && (dh == 128 || dh == 256)) {
     bkv = dh == 128 ? Hy<128>::BKV : Hy<256>::BKV;
     smem = dh == 128 ? Hy<128>::SMEM : Hy<256>::SMEM;
-  } else if (parts == 3 && dh == F6::D) {
-    bkv = F6::BKV;
-    smem = F6::SMEM;
-  } else if (parts == 0 && dh == FMA_D) {
-    bkv = FMA_BK;
-    smem = FMA_SMEM;
+  } else if (parts == 3 && dh == F6<1>::D) {
+    bkv = F6<1>::BKV;
+    smem = F6<1>::SMEM;
+  } else if (parts == 3 && dh == F6<2>::D) {
+    bkv = F6<2>::BKV;
+    smem = F6<2>::SMEM;
+    cluster = 2;
   } else {
     return false;
   }
@@ -1023,34 +1005,59 @@ bool route(int dh, int parts, int& bkv, int& smem) {
 
 }  // namespace
 
-// q, k, v, dout: the hybrid class's casts [bh, s, dh] bf16 (parts 1; q
-// already times scale*log2e), the f32 class's parts at dh 128 [3, bh, s,
-// 128] bf16 (parts 3: t4_split_bwd of flash_bwd.cu), or at dh 256 f32
-// [bh, s, 256] (parts 0: the FMA kernel, q times qscale as it is loaded);
-// lse and delta [bh, s] f32; dqp [s / (bkv * chunk) rounded up, bh, s, dh]
-// f32 (one dq partial per KV chunk), dkp and dvp [bh, s / bq, s, dh] f32.
-// items holds n_items pairs (Q block, KV chunk) on the device; the grid is
-// n_items * bh CTAs.  (bkv, smem) name the kernel's plan (route above;
-// ops/attn.py:fused_plan): another is refused.  dq = oscale * ds k.
-// Launches on `stream` and returns the launch's cudaError_t (0 on
-// success).
+// q, k, v, dout: the hybrid class's casts [bh, s, dh] bf16 (parts 1) or
+// the f32 class's parts [3, bh, s, dh] bf16 (parts 3: t4_split_bwd of
+// flash_bwd.cu; at dh 256 in clusters of two CTAs), q already times
+// scale*log2e; lse and delta [bh, s] f32; dqp [s / (bkv * chunk) rounded
+// up, bh, s, dh] f32 (one dq partial per KV chunk), dkp and dvp [bh, s /
+// bq, s, dh] f32.  items holds n_items pairs (Q block, KV chunk) on the
+// device; the grid is n_items * bh * cluster CTAs.  (bkv, smem, cluster)
+// name the kernel's plan (route above; ops/attn.py:fused_plan): another is
+// refused.  dq = oscale * ds k.  Launches on `stream` and returns the
+// launch's cudaError_t (0 on success).
 extern "C" int t4_flash_bwd_fused(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, void* dqp, void* dkp,
                                   void* dvp, const void* items, int n_items,
                                   int bh, int s, int dh, int bq, int bkv,
                                   int chunk, int causal, int parts, int smem,
-                                  float qscale, float oscale, void* stream) {
-  int want_bkv = 0, want_smem = 0;
+                                  int cluster, float oscale, void* stream) {
+  int want_bkv = 0, want_smem = 0, want_cluster = 0;
   if (bh <= 0 || s <= 0 || bq <= 0 || bq % QT != 0 || s % bq != 0 ||
-      n_items <= 0 || chunk <= 0 || !route(dh, parts, want_bkv, want_smem) ||
-      bkv != want_bkv || smem != want_smem)
+      n_items <= 0 || chunk <= 0 ||
+      !route(dh, parts, want_bkv, want_smem, want_cluster) ||
+      bkv != want_bkv || smem != want_smem || cluster != want_cluster)
     return static_cast<int>(cudaErrorInvalidValue);
   const Fused a{q, k, v, dout, static_cast<const float*>(lse),
                 static_cast<const float*>(delta), static_cast<float*>(dqp),
                 static_cast<float*>(dkp), static_cast<float*>(dvp),
                 static_cast<const int*>(items), n_items, bh, s, bq, chunk,
-                causal, qscale, oscale, static_cast<cudaStream_t>(stream)};
+                causal, oscale, static_cast<cudaStream_t>(stream)};
   if (parts == 1) return dh == 128 ? launch_sm90<128>(a) : launch_sm90<256>(a);
-  return parts == 3 ? launch_f32_sm90(a) : launch_fma(a);
+  return dh == 128 ? launch_f32_sm90<1>(a) : launch_f32_sm90<2>(a);
+}
+
+// the most clusters of the f32 class's dh-256 kernel (two CTAs each) that
+// the current device runs at once, into *n (an int): what
+// ops/attn.py:fused_plan sizes its chunk by.  Returns the query's
+// cudaError_t.
+extern "C" int t4_flash_bwd_fused_clusters(void* n) {
+  using P = F6<2>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      fused_f32_sm90_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      P::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2);
+  cfg.blockDim = dim3(HT);
+  cfg.dynamicSmemBytes = static_cast<size_t>(P::SMEM);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      static_cast<int*>(n), fused_f32_sm90_kernel<2>, &cfg));
 }

@@ -2,13 +2,14 @@
 // K7), flash_bwd_fused.cu (K3), flash_fwd.cu (K1), attn_dots.cu (K8) and
 // flash_bwd.cu (K2a, K2b) share: mbarriers with a trapping wait, TMA loads
 // (tiles and plain bulk copies), the cluster barrier and distributed
-// shared memory (flash_bwd.cu's dh-256 f32 route), wgmma's shared-memory
-// descriptors and its operand forms (m64n128, m64n64 and m64n32, A from
-// shared memory or registers, either operand transposed), the flash
-// kernels' exp2, the grouped raster of output tiles, the predicated
-// epilogue store, and on the host the tensor maps and the launches, plain
-// and in clusters.  Everything is in an anonymous namespace: each source
-// that includes it is a library of its own.
+// shared memory (the dh-256 f32 routes of flash_bwd.cu and
+// flash_bwd_fused.cu), wgmma's shared-memory descriptors and its operand
+// forms (m64n128, m64n64 and m64n32, A from shared memory or registers,
+// either operand transposed), the flash kernels' exp2, the grouped raster
+// of output tiles, the predicated epilogue store, and on the host the
+// tensor maps and the launches, plain and in clusters.  Everything is in
+// an anonymous namespace: each source that includes it is a library of its
+// own.
 //
 // Tiles are 128 x 256 (or 128 x 128): warpgroups 0 and 1 are consumers
 // that own 64 rows each and hold WN m64n128 accumulators.
@@ -183,6 +184,33 @@ __device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
       "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(
           bar)
       : "memory");
+}
+
+// a cluster's exchange of a thread's 16 partial floats (the dh-256 f32
+// routes of flash_bwd.cu and flash_bwd_fused.cu, THREADS threads a CTA):
+// to its twin's slot in the peer CTA (4 float4 from `at`, a shared::cluster
+// address, THREADS * 16 bytes apart), completing their bytes on the peer's
+// barrier at `bar`
+template <int THREADS>
+__device__ __forceinline__ void push(const float (&x)[16], uint32_t at,
+                                     uint32_t bar) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    st_async4(at + j * THREADS * 16, x[4 * j], x[4 * j + 1], x[4 * j + 2],
+              x[4 * j + 3], bar);
+}
+
+// ... and the twin's partial, from this thread's own slot at `at`, added
+template <int THREADS>
+__device__ __forceinline__ void add_peer(float (&x)[16], uint32_t at) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float4 y = ld_shared4(at + j * THREADS * 16);
+    x[4 * j] += y.x;
+    x[4 * j + 1] += y.y;
+    x[4 * j + 2] += y.z;
+    x[4 * j + 3] += y.w;
+  }
 }
 
 // ---- wgmma -----------------------------------------------------------------

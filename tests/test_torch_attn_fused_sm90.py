@@ -2,8 +2,8 @@
 csrc/flash_bwd_fused.cu) as far as the CPU can hold it: the host-side plan
 of its grid (attn.fused_plan), a plain PyTorch model of its decomposition
 and reduction order (attn.flash_attention_bwd_fused_slots_ref) against
-the plain version, why its f32 class stays on the CUDA cores, and what
-its wrapper refuses.  Inputs come from numpy seeds; tolerances are stated
+the plain version, why its f32 class takes six bf16 products and not
+three, and what its wrapper refuses.  Inputs come from numpy seeds; tolerances are stated
 at each test."""
 import math
 import os
@@ -185,8 +185,9 @@ def test_bf16x3_split_cannot_hold_the_f32_fused_equals_split_bound():
     taken as K5a 3pass's bf16 split, with exact products and sums, miss
     that bound on [2, 1024, 128] causal: the dropped lo lo term and the
     rounding of lo leave about 2^-17 of each product, and that is more
-    than 1e-5 of the small gradients.  So the kernel's f32 class keeps
-    f32 FMA on the CUDA cores; this test records the reason."""
+    than 1e-5 of the small gradients.  So the kernel's f32 class takes six
+    products of a three-part split (tests/test_torch_fused6.py); this test
+    records why three do not do."""
     b, s, dh = 2, 1024, 128
     q, k, v, o, lse, do, _ = _operands(0, b, s, dh, True, False, False)
     want = attn.flash_attention_bwd_ref(q, k, v, o, lse, do, True)
@@ -274,7 +275,7 @@ def test_kernel_source_has_no_atomics_and_names_its_tiles():
     code = re.sub(r"//[^\n]*", "", src)
     assert re.search(r"atomic|\bred\.", code) is None
     assert "BKV = D == 128 ? 128 : 64" in src
-    assert "static constexpr int BKV = 64;" in src          # f32, dh 128
-    assert "FMA_D = 256, FMA_BK = 32" in src                 # f32, dh 256
+    assert "static constexpr int BKV = 64;" in src   # f32, dh 128 and 256
+    assert "FMA_D" not in src and "FMA_BK" not in src
     assert attn.FUSED_KV_TILE == {(True, 128): 128, (True, 256): 64,
-                                  (False, 128): 64, (False, 256): 32}
+                                  (False, 128): 64, (False, 256): 64}

@@ -121,8 +121,8 @@ def test_six_products_match_the_pallas_backward(shape, causal):
 @pytest.mark.parametrize("shape,causal,with_dlse", CASES, ids=str)
 def test_six_products_keep_the_fused_equals_split_margin(shape, causal,
                                                          with_dlse):
-    """K3's f32 class (its plain version: the f32 FMA arithmetic) against
-    the six products: within 0.3 of chip_smoke.py's fused-equals-split
+    """K3's f32 class (its plain version: exact f32 products) against the
+    six products: within 0.3 of chip_smoke.py's fused-equals-split
     bound, 1e-5 + 1e-5 |x|, so the check keeps most of its margin for the
     tensor cores' sums"""
     q, k, v, o, lse, do, dlse = _case(shape, causal, 11, with_dlse)
@@ -232,6 +232,12 @@ def test_no_fma_body_is_left_at_dh128():
     for fma in ("fmaf", "FMA_D", "FMA_BK", "pds_tiles", "accum_dkv",
                 "accum_rows", "load_tile", "flash_bwd_tile.cuh"):
         assert fma not in code
+    # the FMA tiles' header is gone, and flash_tile.cuh keeps only the
+    # constants
+    assert not os.path.exists(os.path.join(CSRC, "flash_bwd_tile.cuh"))
+    with open(os.path.join(CSRC, "flash_tile.cuh")) as f:
+        tile = re.sub(r"//[^\n]*", "", f.read())
+    assert "__device__" not in tile and "fmaf" not in tile
     assert "wgmma_128_rs" in code and "wgmma_64_rs" in code
     routes = set(re.findall(r"if \(dh == (\d+) && parts == (\d)\) "
                             r"return T4_(DKV|DQ)\((\d+), (\d), (\d)\)",

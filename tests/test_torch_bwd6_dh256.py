@@ -116,8 +116,8 @@ def test_cluster_order_matches_the_pallas_backward(cluster, causal,
 @pytest.mark.parametrize("causal,with_dlse", MASKS, ids=str)
 def test_cluster_order_keeps_the_fused_equals_split_margin(causal,
                                                            with_dlse):
-    """K3's f32 class at dh 256 (its plain version: the f32 FMA
-    arithmetic) against the cluster's order: within 0.3 of chip_smoke.py's
+    """K3's f32 class at dh 256 (its plain version: exact f32 products)
+    against the cluster's order: within 0.3 of chip_smoke.py's
     fused-equals-split bound, 1e-5 + 1e-5 |x|, so the check on the card
     keeps most of its margin for the tensor cores' sums"""
     q, k, v, do, dlse = _inputs(causal, with_dlse, 23)
