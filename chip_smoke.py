@@ -32,6 +32,13 @@ Phases, one JSON line each:
           plain and library times (the bf16 library also with the two
           f32 -> bf16 casts; the library attention also through a 4-d
           call) and the card's least time for the same work (the bound)
+  kernel_wide  K1, K2a and K2b at dh 384 and 512 ([16, 2048, dh], the
+          dh-512 train slice's cores), both classes, causal and not (an
+          lse cotangent when not), on clusters of dh / 128 CTAs that split
+          dh: against their plain versions in the cluster's sum order, the
+          f32 class also against f64, each backward twice to the bit; the
+          causal cases timed, each kernel alone and with its split, beside
+          its bound, SDPA's 4-d call and the clusters the card runs at once
   serve   tiny_lm at bench_prefill's full width (dim 1024, 8 heads,
           4 layers, vocab 2048, batch 8, 2048-token prompt, 64 new
           tokens) through generate(), f32 and int8 KV caches: kernel
@@ -47,7 +54,15 @@ Phases, one JSON line each:
           forward / loss(CE) / backprop / adam on 8 x 2048 tokens:
           kernel launches counted in one step, the step's weight
           gradients held against the same step taken through the plain
-          attention path, the loss sequence, step timings and a profile
+          attention path, the loss sequence, step timings and a profile;
+          again with 4 heads (train_dh256, K2 on two-CTA clusters)
+  serve_dh512, train_dh512  the same model with 2 heads (dh 512): a
+          generate (one K1 launch a layer on four-CTA clusters, by the
+          host counter and the profiler; tokens against the uncaptured
+          step and the strict replay; the prefill beside the einsum
+          path's) and six train steps (8 K1, 4 K2a and 4 K2b a step, by
+          both counts; gradients against the plain attention path; the
+          same step on the einsum path timed beside it)
   tensor  the port's Forth REPL on the card, fed from strings:
           examples/t4_20a.4th whole (its verify lines, the inverse
           round trip, msec/cycle of its 1000-product loop), the larger
@@ -212,6 +227,8 @@ NO_SPILL = ("flash_fwd", "flash_bwd", "flash_bwd_fused", "attn_dots",
 LM = dict(batch=8, vocab=2048, dim=1024, heads=8, layers=4, rope=True)
 N_PROMPT, N_NEW = 2048, 64
 MOE_LM = dict(LM, layers=2)      # the MoE LM's depth, cut from 4
+LM_DH512 = dict(LM, heads=2)     # tiny_lm with dh 512: K1, K2a, K2b on
+#                                  clusters of four CTAs
 TOL_F32 = 1e-4     # f32 sums in another order than the plain version's
 # the f32 forward against f64, absolute plus relative: the JAX package's
 # own tolerance for its flash forward in f32 (tests/test_attention.py)
@@ -267,6 +284,13 @@ TRAIN_LR = 1e-4    # Adam.  The reference's Adam has no bias correction,
 #                    so its first steps move every weight by about 3 lr;
 #                    at dim 1024 the small tests' 1e-2 and 1e-3 overshoot
 FLASH_NAMES = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+# the dh-384 and dh-512 routes (clusters of 3 and 4 CTAs that split dh),
+# both classes: the build's instances, whose registers the build records
+FWD_CLUSTER_KERNELS = ("flash_fwd_kernel<384,3,3>", "flash_fwd_kernel<384,1,3>",
+                       "flash_fwd_kernel<512,3,4>", "flash_fwd_kernel<512,1,4>")
+BWD_CLUSTER_KERNELS = tuple(
+    f"flash_bwd_{w}_sm90_kernel<{dh},{np_},{dh // 128}>"
+    for w in ("dkv", "dq") for dh in (384, 512) for np_ in (3, 1))
 PROBE_NAMES = ("flash_bwd_fused", "attn_dots")   # the measurement path's own
 BENCH = dict(nh=16, s=2048, dh=128)   # bench.py's attention shape
 BENCH_ITERS, BENCH_REPS = 4, 7        # calls per chain, timed chains
@@ -487,6 +511,7 @@ def bwd_peak(parts: int) -> float:
     return {1: PEAK_BF16_FLOPS, 3: PEAK_BF16_FLOPS / 6}[parts]
 
 
+CTAS = {2: "two", 3: "three", 4: "four"}   # a cluster's CTAs, in words
 BWD_ROUTES = {1: "bf16 wgmma, one product",
               3: "bf16 wgmma, six products of a three-part split"}
 
@@ -494,7 +519,8 @@ BWD_ROUTES = {1: "bf16 wgmma, one product",
 def bwd_route(parts: int, cluster: int) -> str:
     """a backward route, from its plan's parts and cluster"""
     return BWD_ROUTES[parts] + (
-        ", dh split over a cluster of two CTAs" if cluster == 2 else "")
+        f", dh split over a cluster of {CTAS[cluster]} CTAs" if cluster > 1
+        else "")
 
 
 def kernel_names(fn, top=3):
@@ -579,7 +605,7 @@ def phase_build():
         "parts": attn.fused_parts(dh, hy), "kv_tile": attn.FUSED_KV_TILE[(
             hy, dh)], "smem": attn.fused_smem(dh, attn.fused_parts(dh, hy)),
         "cluster": attn.fused_cluster(dh, hy)}
-        for dh in attn.KERNEL_DH for hy in (False, True)}
+        for dh in attn.SMALL_DH for hy in (False, True)}
     bwd_plans = {f"dh{dh}_{'hybrid' if hy else 'f32'}": {
         key: (val._asdict() if hasattr(val, "_asdict") else val)
         for key, val in attn.bwd_plan(64, 2048, dh, hy)._asdict().items()}
@@ -610,10 +636,11 @@ def phase_build():
                                             "fused_f32_sm90_kernel<2>")),
                        ("attn_dots", ("attn_dots_kernel<128>",
                                       "attn_dots_kernel<256>")),
-                       ("flash_fwd", ("flash_fwd_kernel<128,3>",
-                                      "flash_fwd_kernel<128,1>",
-                                      "flash_fwd_kernel<256,3>",
-                                      "flash_fwd_kernel<256,1>",
+                       ("flash_fwd", ("flash_fwd_kernel<128,3,1>",
+                                      "flash_fwd_kernel<128,1,1>",
+                                      "flash_fwd_kernel<256,3,1>",
+                                      "flash_fwd_kernel<256,1,1>",
+                                      *FWD_CLUSTER_KERNELS,
                                       "split_kernel<3>")),
                        ("flash_bwd", ("flash_bwd_dkv_sm90_kernel<128,3,1>",
                                       "flash_bwd_dq_sm90_kernel<128,3,1>",
@@ -623,6 +650,7 @@ def phase_build():
                                       "flash_bwd_dq_sm90_kernel<256,1,1>",
                                       "flash_bwd_dkv_sm90_kernel<256,3,2>",
                                       "flash_bwd_dq_sm90_kernel<256,3,2>",
+                                      *BWD_CLUSTER_KERNELS,
                                       "split_kernel<3>"))):
         for kern in want:
             if not any(kern in k["kernel"] for k in by_source[name]):
@@ -1195,17 +1223,36 @@ def phase_kernel(seed: int):
             failed.append("flash_bwd_fused " + name)
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
-    # the gate: a head dim the kernels are not compiled for takes the
-    # einsum path on the card and launches nothing
+    # the gate: a head dim the kernels are not built for (dh 640) takes
+    # the einsum path on the card and launches nothing; the wrapper and
+    # both C entries refuse it
     from tensorforth_tpu_torch.nn import funcs
     x = torch.from_numpy(np.random.RandomState(seed).randn(
-        2, 512, 384).astype(np.float32)).cuda()
+        2, 512, 640).astype(np.float32)).cuda()
     before = flash_counts()
     gate_ok = (torch.equal(funcs.sdpa(x, x, x, True),
                            funcs._sdpa_ref(x, x, x, True))
                and flash_counts() == before)
+    try:
+        attn.flash_attention(x, x, x, True)
+        gate_ok = False
+    except ValueError:
+        pass
+    p512 = attn.fwd_plan(2, 512, 512, False)
+    b512 = attn.bwd_plan(2, 512, 512, False).dq
+    xp = x.data_ptr()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        gate_ok = gate_ok and attn._lib("flash_fwd").t4_flash_fwd(
+            xp, xp, xp, xp, xp, 2, 512, 640, 1, 3, p512.bq, p512.bkv,
+            p512.stages, p512.smem, p512.cluster, 1.0, stream) != 0
+        gate_ok = gate_ok and attn._lib("flash_bwd").t4_flash_bwd_dq(
+            xp, xp, xp, xp, xp, xp, xp, 2, 512, 640, 1, 3, b512.rows,
+            b512.tile, b512.stages, b512.smem, b512.cluster, 1.0,
+            stream) != 0
+    torch.cuda.synchronize()
     if not gate_ok:
-        failed.append("sdpa gate at dh=384")
+        failed.append("sdpa gate and launch at dh=640")
     common = {"phase": "kernel", "peak_f32_tflops": PEAK_F32_FLOPS / 1e12,
               "peak_tb_s": PEAK_BYTES / 1e12}
     emit(dict(common, kernel="flash_fwd", cases=rows,
@@ -1213,7 +1260,7 @@ def phase_kernel(seed: int):
               precision="bf16 wgmma, f32 sums: f32 class six products of a "
                         "three-part split (bound at a sixth of the bf16 "
                         "rate), hybrid one product",
-              dh384_takes_the_einsum_path=gate_ok))
+              dh640_takes_the_einsum_path_and_is_refused=gate_ok))
     emit(dict(common, kernel="flash_bwd (dkv, dq) and flash_bwd_fused",
               cases=bwd_rows, peak_bf16_tflops=PEAK_BF16_FLOPS / 1e12,
               precision="dkv, dq: bf16 wgmma, f32 sums: f32 class six "
@@ -1233,6 +1280,178 @@ def phase_kernel(seed: int):
         raise RuntimeError(f"kernels disagree with their plain versions: "
                            f"{failed}")
     return main
+
+
+# the wide head dims' cases (K1, K2a, K2b on clusters of dh / 128 CTAs):
+# the dh-512 train slice's cores ([16, 2048, 512]: tiny_lm at
+# bench_prefill's widths with 2 heads) and dh 384 at the same B*h and S
+WIDE_CASES = tuple((dh, causal, hybrid) for dh in (384, 512)
+                   for hybrid in (False, True) for causal in (True, False))
+WIDE_BH, WIDE_S = 16, 2048
+
+
+def phase_kernel_wide(seed: int, bh=WIDE_BH, s=WIDE_S, cases=WIDE_CASES):
+    """K1, K2a and K2b at dh 384 and 512, both classes, causal and not,
+    against their plain versions (the class's tolerance; the f32 class
+    also against f64, and each backward twice, bit for bit), with an lse
+    cotangent in the non-causal cases; the causal f32 and hybrid cases
+    timed: each kernel alone and with its split, beside its bound and
+    SDPA's f32 forward and backward through a 4-d call on the same
+    operands.  Returns the `kernels` line's entries by kernel name"""
+    import torch
+    import torch.nn.functional as F
+    from tensorforth_tpu_torch.ops import attn
+    rows, failed, entries = [], [], {}
+    for i, (dh, causal, hybrid) in enumerate(cases):
+        rs = np.random.RandomState(seed + 100 + i)
+        q, k, v, do = (torch.from_numpy(rs.randn(bh, s, dh).astype(
+            np.float32)).cuda() for _ in range(4))
+        dlse = (None if causal else torch.from_numpy(
+            rs.randn(bh, s).astype(np.float32)).cuda())
+        cl = attn.fwd_cluster(dh)
+        fplan = attn.fwd_plan(bh, s, dh, hybrid)
+        bplan = attn.bwd_plan(bh, s, dh, hybrid)
+        name = f"dh{dh}_{'causal' if causal else 'noncausal'}_" + (
+            "hybrid" if hybrid else "f32")
+        row = {"case": name, "shape": [bh, s, dh], "causal": causal,
+               "hybrid": hybrid, "dlse": dlse is not None,
+               "route": bwd_route(fplan.parts, cl),
+               "fwd_plan": fplan._asdict(),
+               "bwd_plan": {key: (val._asdict() if hasattr(val, "_asdict")
+                                  else val)
+                            for key, val in bplan._asdict().items()},
+               "clusters_at_once": {
+                   kern: attn.flash_clusters(kern, dh, hybrid,
+                                             q.device.index or 0)
+                   for kern in ("fwd", "dkv", "dq")}}
+        # --- forward, against the plain version in the kernel's sum order
+        o, lse = attn.flash_attention(q, k, v, causal=causal, hybrid=hybrid)
+        torch.cuda.synchronize()
+        o_r, lse_r = attn.flash_attention_ref(q, k, v, causal, hybrid,
+                                              cl if hybrid else 1)
+        tol = TOL_HYBRID if hybrid else TOL_F32
+        row["fwd_max_abs_err"] = [(o - o_r).abs().max().item(),
+                                  (lse - lse_r).abs().max().item()]
+        ok = (max(row["fwd_max_abs_err"]) <= tol
+              and bool(torch.isfinite(o).all()))
+        del o_r, lse_r
+        if not hybrid:
+            o64, l64 = f64_attention(q, k, v, causal)
+            row["fwd_f64_ratio"] = max(f64_ratio(o, o64), f64_ratio(lse, l64))
+            ok = ok and row["fwd_f64_ratio"] <= 1
+            del o64, l64
+        # --- backward, from the forward kernel's o and lse
+        call = (q, k, v, o, lse, do, causal, hybrid)
+        got = attn.flash_attention_bwd(*call, dlse=dlse)
+        again = attn.flash_attention_bwd(*call, dlse=dlse)
+        torch.cuda.synchronize()
+        row["bwd_two_runs_bit_equal"] = all(
+            torch.equal(g, a) for g, a in zip(got, again))
+        del again
+        want = attn.flash_attention_bwd_ref(*call, dlse=dlse,
+                                            cluster=cl if hybrid else 1)
+        names = ("dq", "dk", "dv")
+        row["bwd_max_abs_err"] = {nm: (g - w).abs().max().item()
+                                  for nm, g, w in zip(names, got, want)}
+        row["bwd_largest_reference_value"] = {
+            nm: w.abs().max().item() for nm, w in zip(names, want)}
+        del want
+        bok = row["bwd_two_runs_bit_equal"] and all(
+            bool(torch.isfinite(g).all()) and row["bwd_max_abs_err"][nm] <= (
+                TOL_BWD_HYBRID * row["bwd_largest_reference_value"][nm]
+                if hybrid else TOL_BWD_F32) for nm, g in zip(names, got))
+        if not hybrid:
+            w64 = f64_grads(q, k, v, do, dlse, causal)
+            row["bwd_max_abs_err_vs_f64"] = max(
+                (g.double() - w).abs().max().item() for g, w in zip(got, w64))
+            row["bwd_f64_ratio"] = max(f64_ratio(g, w, TOL_BWD_F32)
+                                       for g, w in zip(got, w64))
+            bok = bok and row["bwd_max_abs_err_vs_f64"] <= TOL_BWD_F32
+            del w64
+        row["tol"] = {"fwd": tol, "bwd": (
+            f"{TOL_BWD_HYBRID} of the largest reference value" if hybrid
+            else TOL_BWD_F32)}
+        row["ok"] = ok and bok
+        del got
+        if causal:
+            # --- the times the kernel table keeps
+            qscale = attn.LOG2E / math.sqrt(dh)
+            ops, nbytes, split_bytes = attn_work(bh, s, dh, causal, hybrid)
+            fb, fby = bound_ms(ops, nbytes, fwd_peak(hybrid))
+            fwd = {"ms": time_ms(lambda: attn.flash_attention(
+                q, k, v, causal=causal, hybrid=hybrid)),
+                "bound_ms": fb, "bound_by": fby, "gflop": ops / 1e9}
+            if hybrid:
+                bf = torch.bfloat16
+                ops3 = ((q * qscale).to(bf), k.to(bf), v.to(bf))
+            else:
+                fwd["split_ms"] = time_ms(lambda: attn._split_qkv(
+                    q, k, v, qscale))
+                fwd["split_bound_ms"] = split_bytes / PEAK_BYTES * 1e3
+                ops3 = attn._split_qkv(q, k, v, qscale)
+            fwd["kernel_ms"] = time_ms(lambda: attn._launch_fwd(
+                *ops3, causal, hybrid))
+            del ops3
+            fwd["plain_ms"] = time_ms(lambda: attn.flash_attention_ref(
+                q, k, v, causal, hybrid), reps=5)
+            cast = (lambda x: x.to(torch.bfloat16)) if hybrid else (
+                lambda x: x)
+            fwd["library_ms_4d"] = time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    *(cast(x)[None] for x in (q, k, v)), is_causal=causal))
+            args = attn._prepare_bwd(q, k, v, o, lse, do, causal, hybrid,
+                                     dlse)
+            bwd = {}
+            for which in ("dkv", "dq"):
+                kops, kbytes, bsplit = attn_bwd_work(which, bh, s, dh, causal,
+                                                     bplan.parts)
+                kb, kby = bound_ms(kops, kbytes, bwd_peak(bplan.parts))
+                bwd[which] = {
+                    "kernel_ms": time_ms(lambda: attn._launch_bwd(
+                        which, *args)),
+                    "ms": time_ms(lambda: attn.flash_attention_bwd(
+                        *call, dlse=dlse, only=which)),
+                    "bound_ms": kb, "bound_by": kby, "gflop": kops / 1e9}
+            del args
+            common = {"ms_whole_backward": time_ms(
+                lambda: attn.flash_attention_bwd(*call, dlse=dlse)),
+                "plain_ms": time_ms(lambda: attn.flash_attention_bwd_ref(
+                    *call, dlse=dlse), reps=5),
+                "library_ms_4d": time_ms(sdpa_grads(
+                    *(cast(x)[None] for x in (q, k, v, do)), causal))}
+            if not hybrid:
+                common["split_ms"] = time_ms(lambda: attn._split_bwd(
+                    q, k, v, do, qscale, attn.flash_attention_bwd))
+                common["split_bound_ms"] = bsplit / PEAK_BYTES * 1e3
+            row["timed"] = {"fwd": fwd, "bwd": dict(bwd, **common)}
+            tag = f"{'hybrid' if hybrid else 'f32'}_dh{dh}"
+            keep = {"shape": [bh, s, dh], "causal": causal,
+                    "route": row["route"],
+                    "clusters_at_once": row["clusters_at_once"]}
+            entries.setdefault("flash_fwd", {})[tag] = dict(
+                fwd, max_abs_err=max(row["fwd_max_abs_err"]),
+                f64_ratio=row.get("fwd_f64_ratio"), plan=row["fwd_plan"],
+                **keep)
+            for which, errs_of in (("dkv", ("dk", "dv")), ("dq", ("dq",))):
+                entries.setdefault(f"flash_bwd_{which}", {})[tag] = dict(
+                    bwd[which], **common, plan=row["bwd_plan"][which],
+                    max_abs_err=max(row["bwd_max_abs_err"][e]
+                                    for e in errs_of),
+                    f64_ratio=row.get("bwd_f64_ratio"), **keep)
+        rows.append(row)
+        if not row["ok"]:
+            failed.append(name)
+        del q, k, v, do, o, lse, dlse
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel_wide", "cases": rows,
+          "peak_bf16_tflops": PEAK_BF16_FLOPS / 1e12,
+          "precision": "bf16 wgmma, f32 sums: f32 class six products of a "
+                       "three-part split (bound at a sixth of the bf16 "
+                       "rate), hybrid one product; dh over a cluster of "
+                       "dh / 128 CTAs"})
+    if failed:
+        raise RuntimeError(f"the wide head dims' kernels disagree: {failed}")
+    return entries
 
 
 def gemm_cases(m, k, n):
@@ -2029,6 +2248,98 @@ def phase_serve(seed: int, device="cuda", lm=LM, n_prompt=N_PROMPT,
     return {"flash_fwd": launches, "flash_fwd_split": split}
 
 
+class flash_gate_closed:
+    """funcs._flash_ok closed inside the block, put back after: every
+    attention core takes the einsum path (the LM tier's class), as the
+    JAX package's does off the TPU"""
+
+    def __enter__(self):
+        from tensorforth_tpu_torch.nn import funcs
+        self.kept, funcs._flash_ok = funcs._flash_ok, lambda q: False
+
+    def __exit__(self, *exc):
+        from tensorforth_tpu_torch.nn import funcs
+        funcs._flash_ok = self.kept
+
+
+def phase_serve_wide(seed: int, device="cuda", lm=LM_DH512,
+                     n_prompt=N_PROMPT, n_new=N_NEW):
+    """generate at a wide head dim (dh 512: tiny_lm at bench_prefill's
+    widths with 2 heads), greedy: the prefill's attention cores go through
+    K1's cluster route, one launch a layer, counted by the host counter
+    and by the profiler on the device; the tokens against the uncaptured
+    step's and, under strict, against the teacher-forced replay; the
+    prefill and the generate timed, and the prefill beside it on the
+    einsum path.  Returns the launches of the counted generate"""
+    import torch
+    from tensorforth_tpu_torch.models import tiny_lm
+    from tensorforth_tpu_torch.nn import serve
+    from tensorforth_tpu_torch.ops import attn
+    from tensorforth_tpu_torch.system import System
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    System.get_sys().seed(seed)
+    m = tiny_lm(seq=n_prompt, device=device, **lm)
+    n, layers = lm["batch"], lm["layers"]
+    dh = lm["dim"] // lm["heads"]
+    prompt = np.random.RandomState(seed).randint(0, lm["vocab"],
+                                                 (n, n_prompt))
+    # --- the main path, counted: every count to 0 just before, read after
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    out = serve.generate(m, prompt, n_new, temp=0.0)
+    sync()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(flash_counts(),
+                    flash_fwd_split=attn.flash_attention.split_launches)
+    checks = {"shape": out.shape == (n, n_prompt + n_new),
+              "prompt_kept": bool((out[:, :n_prompt] == prompt).all()),
+              # (a CPU run takes the plain attention and launches none)
+              "launches_per_generate": launches == {
+                  "flash_fwd": layers * on_card, "flash_bwd_dkv": 0,
+                  "flash_bwd_dq": 0, "flash_fwd_split": layers * on_card}}
+    eager = serve._generate_ids(m, prompt, n_new, temp=0.0, graphs=False)
+    checks["tokens_equal_eager_body"] = bool((eager == out).all())
+    with precision_set(CHECK_CLASS):
+        strict = serve.generate(m, prompt, n_new, temp=0.0)
+        checked, flips, ties = replay_check(m, strict, device, lm, n_prompt)
+    checks["replay_tokens"] = flips == 0
+    prefill_ms, total_ms, pre, tot = time_generate(m, prompt, n_new, sync,
+                                                   graphs=on_card)
+    prof = profile_generate(m, prompt, n_new, device, total_ms,
+                            graphs=on_card)
+    if on_card:
+        checks["profiled_launches"] = (
+            prof["flash_fwd_launches"] == layers
+            and prof["flash_bwd_dkv_launches"] == 0
+            and prof["flash_bwd_dq_launches"] == 0)
+    with flash_gate_closed():
+        reset_flash_counts()
+        plain_prefill = time_generate(m, prompt, 0, sync, graphs=on_card)
+        checks["einsum_prefill_launches_nothing"] = (
+            attn.flash_attention.launches == 0)
+    emit({"phase": "serve_wide", "model": dict(lm, n_prompt=n_prompt,
+                                               n_new=n_new),
+          "head_dim": dh, "cluster": attn.fwd_cluster(dh),
+          "launches": launches, "first_generate_ms": first_ms,
+          "prefill_ms": prefill_ms, "total_ms_per_generate": total_ms,
+          "einsum_prefill_ms": plain_prefill[0],
+          "timing_samples": {"prefill_ms": pre, "total_ms": tot,
+                             "einsum_prefill_ms": plain_prefill[2]},
+          "replay_class": CHECK_CLASS, "replay_checked": checked,
+          "replay_flips": flips, "replay_ties_below_margin": ties,
+          "eager_token_agreement": float((eager == out).mean()),
+          "profile": prof, "checks": checks})
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise RuntimeError(f"serve_wide checks failed: {bad}")
+    return launches
+
+
 def moe_lm_check(seed, device, lm, n_prompt, n_new, sync, checks):
     """the MoE LM (moe_lm) served: its captured decode's tokens against
     the uncaptured body's, greedy, on the route moe_select picks (soft:
@@ -2083,10 +2394,22 @@ def reset_flash_counts():
     attn.attn_dots.launches = 0
 
 
+def launches_per_step(layers: int) -> dict:
+    """a train step launches the forward kernel twice per attention layer
+    (the layer backward runs the layer forward again), each after its
+    split (the f32 class), and each backward kernel once, both after one
+    split"""
+    return {"flash_fwd": 2 * layers, "flash_fwd_split": 2 * layers,
+            "flash_bwd_dkv": layers, "flash_bwd_dq": layers,
+            "flash_bwd_split": layers}
+
+
 def phase_train(seed: int, device="cuda", lm=LM, seq=N_PROMPT,
-                steps=TRAIN_STEPS, expect_launches=None):
+                steps=TRAIN_STEPS, expect_launches=None, wide=False):
     """the training path: returns the flash kernels' launches in one
-    step"""
+    step.  wide (the dh-384/512 routes): the profiled step's K1, K2a and
+    K2b launches are checked on the device too, and the same step on the
+    einsum attention path is timed beside it"""
     import torch
     from tensorforth_tpu_torch import weights
     from tensorforth_tpu_torch.models import tiny_lm
@@ -2185,6 +2508,28 @@ def phase_train(seed: int, device="cuda", lm=LM, seq=N_PROMPT,
     n_timed = len(losses)
     prof = profile_run(step, device, med)
     del losses[n_timed:]               # the profiled step's loss
+    plain = None
+    if wide:
+        if on_card:
+            want = launches_per_step(lm["layers"])
+            checks["profiled_launches"] = all(
+                prof[name + "_launches"] == want[name]
+                for name in FLASH_NAMES)
+        # the same step with every attention core on the einsum path (its
+        # S x S scores in device memory), after the counted and timed ones
+        with flash_gate_closed():
+            reset_flash_counts()
+            by_word = {}
+            for _ in range(2):
+                step(by_word)
+            plain = {"ms_per_step": statistics.median(
+                sum(ts) for ts in zip(*by_word.values())),
+                "split_ms": {k: statistics.median(v)
+                             for k, v in by_word.items()},
+                "launches": flash_counts()}
+        checks["einsum_step_launches_nothing"] = not any(
+            plain["launches"].values())
+        del losses[n_timed:]
     dh = lm["dim"] // lm["heads"]
     bplan = (attn.bwd_plan(n * lm["heads"], seq, dh, False)
              if dh in attn.KERNEL_DH else None)
@@ -2201,7 +2546,7 @@ def phase_train(seed: int, device="cuda", lm=LM, seq=N_PROMPT,
           "split_ms": {k: statistics.median(v) for k, v in split.items()},
           "trained_tokens_per_s": n * seq / med * 1e3,
           "timing_samples": dict(split, step_ms=step_ms),
-          "profile": prof,
+          "profile": prof, "einsum_attention_step": plain,
           "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
                           if on_card else None),
           "checks": checks})
@@ -5241,17 +5586,13 @@ def main(argv=None) -> int:
 
     timed("build", phase_build)
     rec = timed("kernel_flash", phase_kernel, args.seed)
+    wide = timed("kernel_wide", phase_kernel_wide, args.seed)
     rec["attn_dots"] = timed("kernel_dots", phase_kernel_dots, args.seed)
     gemm_rec = timed("kernel_gemm", phase_kernel_gemm, args.seed)
     layers = LM["layers"]
     ran = dict(timed("serve", phase_serve, args.seed,
                      expect_launches=layers))
-    # a step launches the forward kernel twice per attention layer (the
-    # layer backward runs the layer forward again), each after its split
-    # (the f32 class), and each backward kernel once, both after one split
-    step_launches = {"flash_fwd": 2 * layers, "flash_fwd_split": 2 * layers,
-                     "flash_bwd_dkv": layers, "flash_bwd_dq": layers,
-                     "flash_bwd_split": layers}
+    step_launches = launches_per_step(layers)
     per_step = timed("train", phase_train, args.seed,
                      expect_launches=step_launches)
     for name, n in per_step.items():
@@ -5260,6 +5601,14 @@ def main(argv=None) -> int:
     # cluster kernels
     per_step = timed("train_dh256", phase_train, args.seed,
                      lm=dict(LM, heads=4), expect_launches=step_launches)
+    for name, n in per_step.items():
+        ran[name] = ran.get(name, 0) + n
+    # with 2 heads: dh 512, K1, K2a and K2b on clusters of four CTAs,
+    # served and trained
+    for name, n in timed("serve_dh512", phase_serve_wide, args.seed).items():
+        ran[name] = ran.get(name, 0) + n
+    per_step = timed("train_dh512", phase_train, args.seed, lm=LM_DH512,
+                     expect_launches=step_launches, wide=True)
     for name, n in per_step.items():
         ran[name] = ran.get(name, 0) + n
     on_tensor_path = timed("tensor", phase_tensor, args.seed)
@@ -5294,7 +5643,9 @@ def main(argv=None) -> int:
     emit({"phase_seconds": seconds})
     # no word of either package reaches K5b or K7: the tensor phase calls
     # their wrappers on the words' operands
-    launched_by = {"flash_fwd": "generate, the train step, attn_bench, "
+    launched_by = {"flash_fwd": "generate (dh 128; dh 512 in serve_dh512 "
+                                "on clusters of four CTAs), the train "
+                                "steps (dh 128, 256 and 512), attn_bench, "
                                 "net_gen (the REPL's nn.gen prefill "
                                 "and its word-path step; in the f32 class "
                                 "after its split, split_launches on "
@@ -5310,7 +5661,8 @@ def main(argv=None) -> int:
                                 "microbatches of the first pp4 stage "
                                 "that train_pipeline starts)",
                    "flash_bwd_dkv": "the train steps (dh 128, and dh 256 "
-                                    "on the cluster route), attn_bench, "
+                                    "and 512 on the cluster routes), "
+                                    "attn_bench, "
                                     "net_gen's word-path step (in the f32 "
                                     "class after the backward's split, "
                                     "split_launches on the train step and "
@@ -5320,7 +5672,8 @@ def main(argv=None) -> int:
                                     "parallel phase's rank 0 (the ring's "
                                     "backward, the nn.pipe stage's)",
                    "flash_bwd_dq": "the train steps (dh 128, and dh 256 "
-                                   "on the cluster route), attn_bench, "
+                                   "and 512 on the cluster routes), "
+                                   "attn_bench, "
                                    "net_gen's word-path step (after the "
                                    "same split), net_train's graph, the "
                                    "mesh phase's rank 0 (its dp2 "
@@ -5371,6 +5724,8 @@ def main(argv=None) -> int:
     rec["flash_fwd"]["split_launches"] = ran["flash_fwd_split"]
     rec["flash_fwd"]["hybrid"] = rec.pop("flash_fwd_hybrid")
     rec["flash_fwd"]["f32_dh256"] = rec.pop("flash_fwd_dh256")
+    for name, by_tag in wide.items():
+        rec[name].update(by_tag)
     rec["flash_bwd_fused"]["f32"] = rec.pop("flash_bwd_fused_f32")
     rec["flash_bwd_fused"]["f32_dh256"] = rec.pop(
         "flash_bwd_fused_f32_dh256")
@@ -5380,18 +5735,22 @@ def main(argv=None) -> int:
     for which, hy in rec.pop("flash_bwd_hybrid").items():
         rec[f"flash_bwd_{which}"].update(
             hybrid=hy, split_launches=ran["flash_bwd_split"])
+    # the wide head dims' routes (phase_kernel_wide), each kernel's entry
+    wide_tags = ("f32_dh384", "f32_dh512", "hybrid_dh384", "hybrid_dh512")
     extra = {"flash_fwd": ("kernel_ms", "split_ms", "split_bound_ms",
                            "split_launches", "library_ms_4d", "route",
                            "f64_ratio_o", "f64_ratio_lse", "hybrid",
-                           "f32_dh256"),
+                           "f32_dh256") + wide_tags,
              "flash_bwd_dkv": ("kernel_ms", "split_ms", "split_bound_ms",
                                "split_launches", "kernels_and_split_ms",
                                "ms_whole_backward", "library_ms_4d", "route",
-                               "f64_ratio_kernel", "hybrid", "f32_dh256"),
+                               "f64_ratio_kernel", "hybrid", "f32_dh256")
+             + wide_tags,
              "flash_bwd_dq": ("kernel_ms", "split_ms", "split_bound_ms",
                               "split_launches", "kernels_and_split_ms",
                               "ms_whole_backward", "library_ms_4d", "route",
-                              "f64_ratio_kernel", "hybrid", "f32_dh256"),
+                              "f64_ratio_kernel", "hybrid", "f32_dh256")
+             + wide_tags,
              "flash_bwd_fused": ("kernel_ms", "ms_before_the_sums",
                                  "library_bf16_ms", "library_ms_4d",
                                  "blocks", "grid", "f32", "f32_dh256"),

@@ -9,9 +9,13 @@ with the S x S scores kept on chip.  On this card it is bound by
 operations, and both its products run on bf16 ``wgmma`` fed by TMA: in
 the f32 class as six products of a three-part split (q*scale*log2e, k and
 v split by one launch of the same source, ``_split_qkv``; p in registers),
-in the hybrid class as one product of the wrapper's casts.  Its tile plan
-is ``fwd_plan``.  lse is stored [B*h, S]; the Pallas kernel's 128-lane
-copy was a TPU layout artefact.
+in the hybrid class as one product of the wrapper's casts.  At dh 384 and
+512, in both classes, a cluster of dh / 128 CTAs splits dh: each holds the
+dh-128 tiles over its 128 columns, and the CTAs add their partial scores
+through distributed shared memory in a fixed order of pairs
+(``cluster_sum``), so that each runs the same softmax on the same bits.
+Its tile plan is ``fwd_plan``.  lse is stored [B*h, S]; the Pallas
+kernel's 128-lane copy was a TPU layout artefact.
 
 The two backward kernels, ``csrc/flash_bwd.cu``, replace
 attn_pallas.py:_flash_bwd_dkv_kernel and :_flash_bwd_dq_kernel (launched
@@ -25,8 +29,10 @@ split (q*scale*log2e, k, v and do split by one launch of the same source,
 product of the wrapper's casts.  At dh 256 in the f32 class three parts
 of their tiles do not fit a CTA: there a cluster of two CTAs splits dh,
 each holding the dh-128 tiles over its half of the columns, and the two
-add their partial s2 and dp through distributed shared memory.  Their
-plan is ``bwd_plan``.  ``flash_attention_lse`` pairs forward and
+add their partial s2 and dp through distributed shared memory; at dh 384
+and 512, in both classes, clusters of three and four CTAs do the same,
+their partials added in ``cluster_sum``'s order.  Their plan is
+``bwd_plan``.  ``flash_attention_lse`` pairs forward and
 backward as a ``torch.autograd.Function`` that returns (o, lse),
 differentiable in both (attn_pallas.py:flash_attention_lse).
 
@@ -52,7 +58,8 @@ bf16 operands.
 
 Every wrapper launches its kernel for CUDA tensors and uses its plain
 version only for CPU tensors; anything else raises.  There is no
-fallback on the card.
+fallback on the card.  K1, K2a and K2b take dh 128 to 512 (KERNEL_DH);
+K3 and the probe dh 128 and 256.
 """
 from __future__ import annotations
 
@@ -68,18 +75,22 @@ from .gemm import SM90_ALIGN, _split3_ref
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 NEG_INF = -1.0e30          # the mask value of attn_pallas.py:25
-KERNEL_DH = (128, 256)     # head dims the kernel is compiled for
+KERNEL_DH = (128, 256, 384, 512)   # head dims K1, K2a, K2b are built for
+SMALL_DH = (128, 256)      # K3's and the probe's (no cluster route of dh 384+)
 TILE = 64                  # S must be a multiple of the kernel's tile
 N_SM = 132   # SMs of an H100 SXM: what a plan is made for off the card
 
 
-def flash_attention_ref(q, k, v, causal: bool = False, hybrid: bool = False):
+def flash_attention_ref(q, k, v, causal: bool = False, hybrid: bool = False,
+                        cluster: int = 1):
     """plain PyTorch version: (o [B,S,dh], lse [B,S] in nats).
 
     f32: the exact einsum attention (nn/funcs.py _sdpa_ref) plus its
     log-sum-exp.  hybrid: the kernel's bf16 treatment — q*scale*log2(e),
     k and v rounded to bf16, base-2 softmax in f32, P rounded to bf16
-    before the PV product, f32 sums."""
+    before the PV product, f32 sums; with `cluster` 3 or 4 the scores as
+    the dh-384 and dh-512 route forms them, an f32 sum per CTA's 128
+    columns, added in cluster_sum's order."""
     s, dh = q.shape[1], q.shape[2]
     keep = (torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
             if causal else None)
@@ -92,7 +103,7 @@ def flash_attention_ref(q, k, v, causal: bool = False, hybrid: bool = False):
         return o, lse
     bf = torch.bfloat16
     q2 = (q * (LOG2E / math.sqrt(dh))).to(bf).float()
-    s2 = torch.einsum("nqd,nkd->nqk", q2, k.to(bf).float())
+    s2 = _cluster_scores(_einsum, q2, k.to(bf).float(), cluster)
     if causal:
         s2 = torch.where(keep, s2, torch.full_like(s2, NEG_INF))
     m = s2.amax(dim=-1, keepdim=True)
@@ -102,17 +113,52 @@ def flash_attention_ref(q, k, v, causal: bool = False, hybrid: bool = False):
     return o, ((m + torch.log2(l)) * LN2)[..., 0]
 
 
+def _einsum(x, y, eq):
+    return torch.einsum(eq, x, y)
+
+
+def cluster_sum(parts, rank: int = 0):
+    """the sum of a cluster's partials (one tensor per CTA, in rank order)
+    as CTA `rank` forms it (csrc/sm90_gemm.cuh: Xch): round 1 adds the
+    pair's partials (CTAs 0 and 1, 2 and 3), its own first; round 2 (3 or
+    4 CTAs) adds the other pair's sum as that pair formed it (at 3 CTAs
+    CTA 2's partial alone, which takes CTA 0's sum).  An f32 sum of two
+    terms is the same in either order, so every rank gets x0 + x1,
+    (x0 + x1) + x2 or (x0 + x1) + (x2 + x3), the same bits."""
+    cl = len(parts)
+
+    def pair_sum(r):
+        return parts[r] + parts[r ^ 1] if (r ^ 1) < cl else parts[r]
+
+    mine = pair_sum(rank)
+    if cl <= 2:
+        return mine
+    return mine + pair_sum(rank ^ 2 if cl == 4 else 2 if rank < 2 else 0)
+
+
+def _cluster_scores(prod, x, y, cluster: int):
+    """x y^T as a cluster of `cluster` CTAs that split dh forms it: each
+    CTA's sum over its columns (prod, exact) rounded to f32, the partials
+    added in cluster_sum's order"""
+    w = x.shape[-1] // cluster
+    return cluster_sum([prod(x[..., c * w:(c + 1) * w],
+                             y[..., c * w:(c + 1) * w],
+                             "nqd,nkd->nqk").float() for c in range(cluster)])
+
+
 def flash_attention_split_ref(q, k, v, causal: bool = False,
-                              parts: int = 3):
+                              parts: int = 3, cluster: int = 1):
     """the f32 class's arithmetic with its products taken exactly, in f64:
     q*scale*log2e (an f32 product), k and v split into the first `parts`
     of the three-part split (gemm._split3_ref), s2 = the products of
     parts (i, j) with i + j < parts (six for 3 parts: the kernel's; three
-    for 2: K5a 3pass's count) summed in f64, p = exp2(s2 - the row max)
-    rounded to f32 and split the same way, o = the products of p's and
-    v's parts over the row sum.  What it leaves out of the kernel: the
-    tensor cores' truncating sums, ex2.approx, the running max.  Returns
-    (o, lse in nats), f64."""
+    for 2: K5a 3pass's count) summed in f64 (with `cluster` 3 or 4, as the
+    dh-384 and dh-512 kernels form it: each CTA's sum over its 128 columns
+    rounded to f32, the partials added in f32 in cluster_sum's order), p =
+    exp2(s2 - the row max) rounded to f32 and split the same way, o = the
+    products of p's and v's parts over the row sum.  What it leaves out of
+    the kernel: the tensor cores' truncating sums, ex2.approx, the running
+    max.  Returns (o, lse in nats), f64."""
     s, dh = q.shape[1], q.shape[2]
     pairs = [(i, j) for i in range(parts) for j in range(parts)
              if i + j < parts]
@@ -122,7 +168,9 @@ def flash_attention_split_ref(q, k, v, causal: bool = False,
         ys = [t.double() for t in _split3_ref(y)[:parts]]
         return sum(torch.einsum(eq, xs[i], ys[j]) for i, j in pairs)
 
-    s2 = prod(q * (LOG2E / math.sqrt(dh)), k, "nqd,nkd->nqk")
+    q2 = q * (LOG2E / math.sqrt(dh))
+    s2 = (prod(q2, k, "nqd,nkd->nqk") if cluster == 1
+          else _cluster_scores(prod, q2, k, cluster).double())
     if causal:
         keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
         s2 = torch.where(keep, s2, torch.full_like(s2, NEG_INF))
@@ -134,43 +182,64 @@ def flash_attention_split_ref(q, k, v, causal: bool = False,
 
 
 # --- the forward kernel's tile plan -----------------------------------------
-FWD_TILES = {128: (128, 64), 256: (64, 32)}   # dh -> (query rows, KV rows)
+# a CTA's columns of dh -> (query rows, KV rows)
+FWD_TILES = {128: (128, 64), 256: (64, 32)}
 FWD_STAGES = {3: 1, 1: 2}        # parts -> stages of K and of V each
+# a cluster's exchange slot (csrc/flash_fwd.cuh: Fwd::XCH): each of a CTA's
+# 256 threads' partial s2, 32 f32
+FWD_EXCHANGE = 256 * 32 * 4
+
+
+def fwd_cluster(dh: int) -> int:
+    """the CTAs of a cluster of the forward's route, from dh alone: dh /
+    128 at dh 384 and 512, in both classes (one CTA holds neither the
+    tiles nor, in a warpgroup's registers, 256 columns of o), else 1"""
+    return dh // 128 if dh > 256 else 1
 
 
 class FwdPlan(NamedTuple):
     """the forward kernel's plan for one shape (csrc/flash_fwd.cu: Fwd):
-    a CTA of two warpgroups per (head, `bq` query rows); K and V in tiles
-    of `bkv` rows, `stages` of each in flight; every operand in `parts`
-    bf16 parts (3: the f32 class's split; 1: the hybrid casts)"""
+    a CTA of two warpgroups per (head, `bq` query rows, dh / `cluster`
+    columns); K and V in tiles of `bkv` rows, `stages` of each in flight;
+    every operand in `parts` bf16 parts (3: the f32 class's split; 1: the
+    hybrid casts); `cluster` CTAs (1, 3 or 4) share the rows and split dh"""
     parts: int
     bq: int
     bkv: int
     stages: int
-    smem: int           # dynamic shared memory, bytes
+    smem: int           # dynamic shared memory of a CTA, bytes
     ctas: int
+    cluster: int
 
 
 def fwd_plan(bh: int, s: int, dh: int, hybrid: bool) -> FwdPlan:
     """the plan t4_flash_fwd launches (it refuses any other): Q's parts
-    [bq, dh] stay for the CTA, K's and V's [bkv, dh] stream in `stages`
-    each, 1024 bytes of alignment slack, an 8-byte barrier for Q and for
-    each stage of K and of V"""
+    [bq, dh / cluster] stay for the CTA, K's and V's [bkv, dh / cluster]
+    stream in `stages` each, 1024 bytes of alignment slack, an 8-byte
+    barrier for Q and for each stage of K and of V; on a cluster route the
+    exchange slot and its three barriers"""
     parts = 1 if hybrid else 3
-    bq, bkv = FWD_TILES[dh]
+    cluster = fwd_cluster(dh)
+    cols = dh // cluster
+    bq, bkv = FWD_TILES[cols]
     stages = FWD_STAGES[parts]
-    smem = (SM90_ALIGN + parts * bq * dh * 2 + 2 * stages * parts * bkv * dh
-            * 2 + (1 + 2 * stages) * 8)
-    return FwdPlan(parts, bq, bkv, stages, smem, bh * -(-s // bq))
+    smem = (SM90_ALIGN + parts * bq * cols * 2
+            + 2 * stages * parts * bkv * cols * 2
+            + (FWD_EXCHANGE if cluster > 1 else 0)
+            + (1 + 2 * stages + (3 if cluster > 1 else 0)) * 8)
+    return FwdPlan(parts, bq, bkv, stages, smem,
+                   cluster * bh * -(-s // bq), cluster)
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {   # library -> exported function -> ctypes signature
-    "flash_fwd": {"t4_flash_fwd": [_P] * 5 + [_I] * 9 + [_F, _P],
-                  "t4_split_qkv": [_P] * 4 + [_I] * 2 + [_F, _P]},
+    "flash_fwd": {"t4_flash_fwd": [_P] * 5 + [_I] * 10 + [_F, _P],
+                  "t4_split_qkv": [_P] * 4 + [_I] * 2 + [_F, _P],
+                  "t4_flash_fwd_clusters": [_I] * 2 + [_P]},
     "flash_bwd": {"t4_flash_bwd_dkv": [_P] * 8 + [_I] * 10 + [_P],
                   "t4_flash_bwd_dq": [_P] * 7 + [_I] * 10 + [_F, _P],
-                  "t4_split_bwd": [_P] * 5 + [_I] * 2 + [_F, _P]},
+                  "t4_split_bwd": [_P] * 5 + [_I] * 2 + [_F, _P],
+                  "t4_flash_bwd_clusters": [_I] * 3 + [_P]},
     "flash_bwd_fused": {"t4_flash_bwd_fused": [_P] * 10 + [_I] * 11
                         + [_F, _P],
                         "t4_flash_bwd_fused_clusters": [_P]},
@@ -190,26 +259,26 @@ def _lib(name: str):
     return lib
 
 
-def _check_shape(what: str, tensors):
-    """the kernels' shapes: equal [B*h, S, dh], dh in KERNEL_DH,
-    S % TILE == 0"""
+def _check_shape(what: str, tensors, dims=KERNEL_DH):
+    """the kernels' shapes: equal [B*h, S, dh], dh in `dims` (KERNEL_DH, or
+    SMALL_DH for K3 and the probe), S % TILE == 0"""
     shape = tensors[0].shape
     if len(shape) != 3 or any(t.shape != shape for t in tensors):
         raise ValueError(f"{what}: shapes {[tuple(t.shape) for t in tensors]}"
                          f", want equal [B*h, S, dh]")
     _, s, dh = shape
-    if dh not in KERNEL_DH or s % TILE:
-        raise ValueError(f"{what}: kernel takes dh in {KERNEL_DH} "
+    if dh not in dims or s % TILE:
+        raise ValueError(f"{what}: kernel takes dh in {dims} "
                          f"and S % {TILE} == 0, got S={s} dh={dh}")
 
 
-def _check_cuda(what: str, tensors, dtype=torch.float32):
+def _check_cuda(what: str, tensors, dtype=torch.float32, dims=KERNEL_DH):
     """the kernels' contract: _check_shape, contiguous `dtype`, on one
     CUDA device"""
     devs = {t.device for t in tensors}
     if len(devs) != 1 or not tensors[0].is_cuda:
         raise ValueError(f"{what}: tensors on {sorted(map(str, devs))}")
-    _check_shape(what, tensors)
+    _check_shape(what, tensors, dims)
     for t in tensors:
         if t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous {dtype}, "
@@ -264,7 +333,8 @@ def _launch_fwd(q, k, v, causal: bool, hybrid: bool, qscale: float = 1.0):
         err = lib.t4_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                o.data_ptr(), lse.data_ptr(), b, s, dh,
                                int(causal), plan.parts, plan.bq, plan.bkv,
-                               plan.stages, plan.smem, qscale, stream)
+                               plan.stages, plan.smem, plan.cluster, qscale,
+                               stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {err}")
     flash_attention.launches += 1
@@ -314,13 +384,16 @@ def _bwd_operands(q, k, v, o, lse, do, hybrid, dlse):
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = False,
-                            hybrid: bool = False, dlse=None):
+                            hybrid: bool = False, dlse=None,
+                            cluster: int = 1):
     """plain PyTorch version of the two backward kernels: (dq, dk, dv)
     from the forward's residuals, with the S x S tiles materialised.  The
     same arithmetic as the kernels: base-2 scores from q*scale*log2e,
     p = exp2(s2 - lse*log2e), ds = p*(dp - delta); hybrid rounds the same
     multiplicands to bf16 (p and ds before their products, ds formed from
-    the unrounded p) and sums in f32."""
+    the unrounded p) and sums in f32.  `cluster` > 1: s2 and dp as a
+    cluster route forms them, an f32 sum per CTA's columns, added in
+    cluster_sum's order."""
     s, dh = q.shape[1], q.shape[2]
     q2, k, v, do, delta, qscale = _bwd_operands(q, k, v, o, lse, do,
                                                 hybrid, dlse)
@@ -330,13 +403,13 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = False,
     def rnd(x):
         return x.to(torch.bfloat16).float() if hybrid else x
 
-    s2 = torch.einsum("nqd,nkd->nqk", q2, k)
+    s2 = _cluster_scores(_einsum, q2, k, cluster)
     if causal:
         keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
         s2 = torch.where(keep, s2, torch.full_like(s2, NEG_INF))
     p = torch.exp2(s2 - (lse * LOG2E)[..., None])
     dv = torch.einsum("nqk,nqd->nkd", rnd(p), do)
-    dp = torch.einsum("nqd,nkd->nqk", do, v)
+    dp = _cluster_scores(_einsum, do, v, cluster)
     ds = rnd(p * (dp - delta[..., None]))
     dk = torch.einsum("nqk,nqd->nkd", ds, q2) * LN2
     dq = torch.einsum("nqk,nkd->nqd", ds, k) / math.sqrt(dh)
@@ -352,8 +425,9 @@ def flash_attention_bwd_split_ref(q, k, v, o, lse, do, causal: bool = False,
     (gemm._split3_ref), each product the sum of the products of parts
     (i, j) with i + j < parts (six for 3 parts: the kernels'; three for 2)
     in f64; s2 and dp rounded to f32 as the accumulators hold them (with
-    `cluster` 2, as the dh-256 kernels form them: each CTA's sum over its
-    half of dh rounded to f32, the halves added in f32), p = exp2(s2 -
+    `cluster` 2, 3 or 4, as the dh-256, dh-384 and dh-512 kernels form
+    them: each CTA's sum over its 128 columns rounded to f32, the partials
+    added in f32 in cluster_sum's order), p = exp2(s2 -
     lse*log2e) and ds = p (dp - delta) in f32 and split the same way.  What
     it leaves out of the kernels: the tensor cores' truncating sums and
     ex2.approx.  Returns (dq, dk, dv), f64."""
@@ -369,10 +443,7 @@ def flash_attention_bwd_split_ref(q, k, v, o, lse, do, causal: bool = False,
         return sum(torch.einsum(eq, xs[i], ys[j]) for i, j in pairs)
 
     def scores(x, y):
-        """x y^T, one f32 sum per CTA's columns, added in column order"""
-        w = dh // cluster
-        return sum(prod(x[..., c * w:(c + 1) * w], y[..., c * w:(c + 1) * w],
-                        "nqd,nkd->nqk").float() for c in range(cluster))
+        return _cluster_scores(prod, x, y, cluster)
 
     q2 = q * qscale
     s2 = scores(q2, k)
@@ -405,7 +476,7 @@ def flash_attention_bwd_fused_split_ref(q, k, v, o, lse, do, bq=None,
     fused_plan, times 1/sqrt(dh), the chunks' slots added in f32 in order.
     What it leaves out: the tensor cores' truncating sums and ex2.approx."""
     what = "flash_attention_bwd_fused_split_ref"
-    _check_shape(what, (q, k, v, o, do))
+    _check_shape(what, (q, k, v, o, do), SMALL_DH)
     b, s, dh = q.shape
     bq = _fused_bq(what, s, bq)
     plan = fused_plan(b, s, bq, causal, False, dh, sms)
@@ -421,11 +492,13 @@ def flash_attention_bwd_fused_split_ref(q, k, v, o, lse, do, bq=None,
         return sum(torch.einsum(eq, xs[i], ys[j]) for i, j in pairs).float()
 
     def scores(xs, ys):
-        """x y^T, one f32 sum per CTA's columns, added in column order"""
+        """x y^T, one f32 sum per CTA's columns, added in cluster_sum's
+        order"""
         w = dh // plan.cluster
-        return sum(prod([x[..., c * w:(c + 1) * w] for x in xs],
-                        [y[..., c * w:(c + 1) * w] for y in ys],
-                        "nqd,nkd->nqk") for c in range(plan.cluster))
+        return cluster_sum([prod([x[..., c * w:(c + 1) * w] for x in xs],
+                                 [y[..., c * w:(c + 1) * w] for y in ys],
+                                 "nqd,nkd->nqk")
+                            for c in range(plan.cluster)])
 
     q2 = q * qscale
     qs, ks, vs, dos = split(q2), split(k), split(v), split(do)
@@ -472,11 +545,19 @@ BWD_STAGES = {3: 1, 1: 2}        # parts -> stages of each streamed operand
 BWD_EXCHANGE = 256 * 32 * 4
 
 
+def bwd_cluster(dh: int, hybrid: bool) -> int:
+    """the CTAs of a cluster of the backward kernels' route, from dh and
+    the class alone: 2 at dh 256 in the f32 class (its three parts do not
+    fit one CTA), dh / 128 at dh 384 and 512 in both classes (as the
+    forward's), else 1"""
+    return 2 if dh == 256 and not hybrid else fwd_cluster(dh)
+
+
 class BwdTiles(NamedTuple):
     """one backward kernel's plan: a CTA holds `rows` stationary rows of
     one head (dK/dV: key rows; dQ: query rows) over dh / `cluster` of its
     columns and streams the other side in tiles of `tile` rows, `stages`
-    of each streamed operand in flight; `cluster` CTAs (1 or 2) share the
+    of each streamed operand in flight; `cluster` CTAs (1 to 4) share the
     rows and split dh"""
     rows: int
     tile: int
@@ -502,18 +583,19 @@ def bwd_plan(bh: int, s: int, dh: int, hybrid: bool) -> BwdPlan:
     cluster] in `stages` each, with 1024 bytes of alignment slack, an
     8-byte barrier for the stationary operands and for each stage of each
     streamed one; dK/dV also holds its streamed rows' lse and delta.  The
-    route is picked by dh and the class alone: at dh 256 the f32 class's
-    three parts do not fit a CTA, so a cluster of two CTAs splits dh, each
-    with the dh-128 tiles, an exchange slot that receives the peer's
-    partial scores and the slot's two barriers."""
+    route is picked by dh and the class alone (bwd_cluster): on a cluster
+    route the CTAs split dh, each with the dh-128 tiles of the class, an
+    exchange slot that receives a peer's partial scores and the slot's
+    barriers (two for a pair; three at 3 and 4 CTAs, whose sums take two
+    rounds)."""
     parts = 1 if hybrid else 3
-    cluster = 2 if dh == 256 and not hybrid else 1
+    cluster = bwd_cluster(dh, hybrid)
     cols = dh // cluster
     tile, stages = BWD_TILES[cols], BWD_STAGES[parts]
     smem = (SM90_ALIGN + 2 * parts * BWD_ROWS * cols * 2
             + 2 * stages * parts * tile * cols * 2
-            + (BWD_EXCHANGE if cluster == 2 else 0)
-            + (1 + 2 * stages + (2 if cluster == 2 else 0)) * 8)
+            + (BWD_EXCHANGE if cluster > 1 else 0)
+            + (1 + 2 * stages + {1: 0, 2: 2}.get(cluster, 3)) * 8)
     dq = BwdTiles(BWD_ROWS, tile, stages, smem,
                   cluster * bh * (s // BWD_ROWS), cluster)
     return BwdPlan(parts, dq._replace(smem=smem + 2 * stages * tile * 4), dq)
@@ -825,6 +907,27 @@ def _active_clusters(index: int) -> int:
     return n.value
 
 
+@functools.lru_cache(maxsize=32)
+def flash_clusters(kernel: str, dh: int, hybrid: bool, index: int) -> int:
+    """the most clusters of K1's ("fwd"), K2a's ("dkv") or K2b's ("dq")
+    route at dh in the class that CUDA device `index` runs at once
+    (cudaOccupancyMaxActiveClusters; a cluster of one CTA off the cluster
+    routes): times the route's cluster, the SMs its grid keeps busy"""
+    parts = 1 if hybrid else 3
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        if kernel == "fwd":
+            err = _lib("flash_fwd").t4_flash_fwd_clusters(
+                dh, parts, ctypes.addressof(n))
+        else:
+            err = _lib("flash_bwd").t4_flash_bwd_clusters(
+                dh, parts, int(kernel == "dkv"), ctypes.addressof(n))
+    if err != 0:
+        raise RuntimeError(f"flash_{kernel} occupancy query failed: "
+                           f"cudaError {err}")
+    return n.value
+
+
 def fused_plan_on(device, bh: int, s: int, bq: int, causal: bool,
                   hybrid: bool, dh: int) -> FusedPlan:
     """fused_plan for the card the tensors lie on: its SMs and, on the
@@ -951,13 +1054,13 @@ def flash_attention_bwd_fused_parts(q, k, v, o, lse, do, bq=None,
     q*scale*log2e, k, v and do); CPU tensors take the plain version;
     anything else raises."""
     what = "flash_attention_bwd_fused"
-    _check_shape(what, (q, k, v, o, do))
+    _check_shape(what, (q, k, v, o, do), SMALL_DH)
     bq = _fused_bq(what, q.shape[1], bq)
     extra = (lse,) if dlse is None else (lse, dlse)
     if all(t.device.type == "cpu" for t in (q, k, v, o, do) + extra):
         return flash_attention_bwd_fused_parts_ref(q, k, v, o, lse, do, bq,
                                                    causal, hybrid, dlse)
-    _check_cuda(what, (q, k, v, o, do))
+    _check_cuda(what, (q, k, v, o, do), dims=SMALL_DH)
     _check_rows(what, q, extra)
     slots, dkp, dvp = _launch_fused(
         *_prepare_fused(q, k, v, o, lse, do, hybrid, dlse), bq, causal,
@@ -1008,12 +1111,12 @@ def attn_dots_ref(q, k, v):
 
 def _launch_dots(q, k, v):
     """launch the probe kernel on contiguous bf16 [B*h, S, dh] operands of
-    one shape (S % TILE == 0, dh in KERNEL_DH): o [B*h, S, dh] f32"""
+    one shape (S % TILE == 0, dh in SMALL_DH): o [B*h, S, dh] f32"""
     if any(t.dtype != torch.bfloat16 or not t.is_contiguous()
            or t.shape != q.shape for t in (q, k, v)):
         raise ValueError("attn_dots: operands must be contiguous bf16 of "
                          "one shape [B*h, S, dh]")
-    _check_shape("attn_dots", (q, k, v))
+    _check_shape("attn_dots", (q, k, v), SMALL_DH)
     b, s, dh = q.shape
     lib = _lib("attn_dots")
     o = torch.empty((b, s, dh), dtype=torch.float32, device=q.device)
@@ -1032,13 +1135,13 @@ def attn_dots(q, k, v):
     forward's two products with no scale, no mask and no softmax.  CUDA
     tensors launch the kernel; CPU tensors take the plain version;
     anything else raises."""
-    _check_shape("attn_dots", (q, k, v))
+    _check_shape("attn_dots", (q, k, v), SMALL_DH)
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
         raise ValueError(f"attn_dots: tensors must be bfloat16, got "
                          f"{[t.dtype for t in (q, k, v)]}")
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return attn_dots_ref(q, k, v)
-    _check_cuda("attn_dots", (q, k, v), torch.bfloat16)
+    _check_cuda("attn_dots", (q, k, v), torch.bfloat16, SMALL_DH)
     return _launch_dots(q, k, v)
 
 

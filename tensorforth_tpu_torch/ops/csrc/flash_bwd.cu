@@ -16,7 +16,7 @@
 // Layout: q2, k, v, do as bf16 parts [NP, B*h, S, dh] (NP 3: hi, mid, lo
 // from t4_split_bwd, the f32 class; 1: the hybrid class's casts); lse and
 // delta [B*h, S] f32; dq, dk, dv [B*h, S, dh] f32.  S % 64 == 0, dh in
-// {128, 256}.
+// {128, 256, 384, 512}.
 //
 // Two classes, one pair of kernels (NP, the parts of each operand):
 //   f32 (NP 3): each product is six bf16 products of the three-part split
@@ -30,10 +30,13 @@
 //     the running accumulator; p and ds round to bf16 (cvt.rn) before their
 //     products, ds formed from the unrounded p, as the Pallas kernels' bf16
 //     multiplicands are.
-// dh 256 in the f32 class runs on a cluster of two CTAs that split dh
-// (the cluster kernels below): three parts of a stationary and of a
-// streamed tile at dh 256 do not fit one CTA's 227 KB, so each CTA of the
-// pair holds what the dh-128 f32 body holds, over its half of the columns.
+// dh 256 in the f32 class, and dh 384 and 512 in both classes, run on a
+// cluster of CL = dh / 128 CTAs that split dh (the cluster kernels below):
+// three parts of a stationary and of a streamed tile at dh 256 do not fit
+// one CTA's 227 KB, nor one part of them at dh 512 in two stages, nor
+// would a warpgroup's 256 columns of dk and dv fit its registers; so each
+// CTA of the cluster holds what the dh-128 body of its class holds, over
+// its 128 columns.
 //
 // What bounds them on this card: operations.  At the training slice's
 // shape ([64, 2048, 128] causal) dK/dV does 4 products = 137.5 GFLOP and
@@ -80,32 +83,31 @@
 // and dp (16 each), p's and ds's parts (24 each); dQ holds dq and a fresh
 // m64n128 accumulator (64 each) and ds's parts.
 //
-// dh 256, f32: a cluster of two CTAs per 64 stationary rows (CL 2; the grid
-// has two CTAs per row block, blockIdx.x / 2 picks the block and the
-// CTA's rank in the cluster its 128 columns of dh).  Each CTA runs the dh
-// 128 f32 body over its columns: the maps' boxes start at column 128 rank,
-// so its tiles hold exactly what that body's hold (three parts of both
-// stationary operands, 96 KB; one stage of both streamed operands in
-// 64-row tiles, 96 KB).  Its s2 and dp are then partial sums over half of
-// dh.  Per tile each thread stores its two partials (32 floats) into its
-// twin's exchange slot in the peer CTA through distributed shared memory
-// (mapa, st.async: dp's while s2's products still run), the bytes
-// completing a transaction on the peer's `full` barrier, so no store waits
-// for an acknowledgement; each thread's own arrival on `full` expects the
-// 128 bytes its twin sends.  Once its `full` completes it adds its twin's
-// partials from its own slot and arrives on the peer's `empty` barrier,
-// which the peer waits for before it stores the next tile (32 KB of slots
-// a CTA).  Both waits are local mbarrier waits that trap as the others
-// do.  An f32 sum of two terms is the same bits in either order, so p and
-// ds are the same in both CTAs.  The gradient products then run over the
-// CTA's own columns (dk[:, half] += ds^T Q2[:, half], dv[:, half] += p^T
-// dO[:, half]; dq[:, half] += ds K[:, half]): every output element keeps
-// one writer.  A cluster barrier after the barriers' set-up comes before
-// any remote store or arrival, and the wait for the last tile's `empty`
-// after the loop keeps a CTA's shared memory alive until its peer is done
-// with it.  Shared memory: 1,024 alignment + 196,608 tiles + 32,768
-// exchange + 512 lse and delta (dK/dV) + 40 barriers = 230,952 of 232,448
-// bytes.
+// The cluster route: CL CTAs per 64 stationary rows (CL 2 at dh 256 in the
+// f32 class, 3 at dh 384, 4 at dh 512; the grid has CL CTAs per row block,
+// blockIdx.x / CL picks the block and the CTA's rank in the cluster its
+// 128 columns of dh).  Each CTA runs the dh-128 body of its class over its
+// columns: the maps' boxes start at column 128 rank, so its tiles hold
+// exactly what that body's hold (f32: three parts of both stationary
+// operands, 96 KB, and one stage of both streamed operands in 64-row
+// tiles, 96 KB; hybrid: one part, two stages, 96 KB in all).  Its s2 and
+// dp are then partial sums over its columns.  Per tile the CTAs add them
+// through distributed shared memory (sm90_gemm.cuh: Xch): each thread
+// sends its two partials (32 floats: dp's while s2's products still run)
+// to its twin in the pair's CTA, adds the pair's, and at CL 3 and 4 swaps
+// the pair's sum with the other pair's in a second round, so every CTA
+// forms x0 + x1, (x0 + x1) + x2 or (x0 + x1) + (x2 + x3) and p and ds are
+// the same bits in all of them.  ONE 32 KB SLOT a CTA receives both
+// rounds' messages in turn: three peers' slots (96 KB) do not fit beside
+// the f32 tiles.  The gradient products then run over the CTA's own
+// columns (dk[:, cols] += ds^T Q2[:, cols], dv[:, cols] += p^T dO[:, cols];
+// dq[:, cols] += ds K[:, cols]): every output element keeps one writer.  A
+// cluster barrier after the barriers' set-up comes before any remote store
+// or arrival, and the wait for the last reads of its messages after the
+// loop keeps a CTA's shared memory alive until its peers are done with it.
+// Shared memory in the f32 class: 1,024 alignment + 196,608 tiles + 32,768
+// exchange + 512 lse and delta (dK/dV) + 40 barriers (48 at CL 3, 4: a
+// third exchange barrier) = 230,952 (230,960) of 232,448 bytes.
 
 #include "flash_tile.cuh"
 #include "sm90_gemm.cuh"
@@ -144,12 +146,12 @@ struct Bwd {
   static constexpr int T_BYTES = NP * T_PART;        // a streamed stage
   static constexpr int ROWS_WG = DC == 128 ? 32 : 0; // streamed rows' offset
   static constexpr int COLS_WG = DC == 128 ? 0 : 128;// output columns' offset
-  // a cluster's exchange slots: the peer's partial s2 and dp, 32 floats
-  // for each thread
-  static constexpr int XCH = CL == 2 ? NT * 32 * 4 : 0;
+  // a cluster's exchange slot: a peer's partial s2 and dp, 32 floats for
+  // each thread
+  static constexpr int XCH = CL > 1 ? NT * 32 * 4 : 0;
   // barriers: the stationary operands', each stage's of each streamed
-  // operand, and a cluster's two of the exchange (full, empty)
-  static constexpr int NBAR = 1 + 2 * ST + (CL == 2 ? 2 : 0);
+  // operand, and a cluster's of the exchange (full, e1; e2 at CL 3, 4)
+  static constexpr int NBAR = 1 + 2 * ST + (CL == 1 ? 0 : CL == 2 ? 2 : 3);
   // both stationary operands, ST stages of both streamed ones, the exchange
   // slots, (dK/dV) the streamed rows' lse and delta of each stage, then the
   // barriers
@@ -164,6 +166,15 @@ static_assert(Bwd<128, 3>::SMEM_DKV <= SMEM_LIMIT &&
                   Bwd<256, 3, 2>::SMEM_DKV <= SMEM_LIMIT,
               "shared memory");
 static_assert(Bwd<256, 3, 2>::SMEM_DKV == 230952, "the cluster's budget");
+// dh 384 and 512, both classes, on clusters of 3 and 4 CTAs: the f32
+// class's budget is the dh-256 route's and one barrier; the hybrid class's
+// CTA holds the dh-128 hybrid tiles and the slot
+static_assert(Bwd<384, 3, 3>::SMEM_DKV == 230960 &&
+                  Bwd<512, 3, 4>::SMEM_DKV == 230960,
+              "the f32 clusters' budget");
+static_assert(Bwd<384, 1, 3>::SMEM_DKV == 133184 &&
+                  Bwd<512, 1, 4>::SMEM_DKV == 133184,
+              "the hybrid clusters' budget");
 // dh 128 adds warpgroup 1's dk and dv (64 KB) to warpgroup 0's through the
 // tiles' space
 static_assert(Bwd<128, 1>::TILES - ALIGN >= 2 * 64 * 128 * 4, "reduction");
@@ -292,6 +303,63 @@ __device__ __forceinline__ void grad_products(float (&acc)[64],
     for (int i = 0; i < 8; ++i) asm volatile("" : "+r"(f[p][i])::"memory");
 }
 
+// a cluster's sum of a tile's partial s2 and dp (sm90_gemm.cuh: Xch), this
+// thread's floats at the slot's start (s2) and DP_AT bytes on (dp)
+constexpr uint32_t DP_AT = 4 * NT * 16;
+
+// round 1's dp leaves for the pair while s2's products run, once the pair
+// has read its slot's last message
+template <class X>
+__device__ __forceinline__ void send_dp(const X& x, const float (&dp)[16],
+                                        int it) {
+  if (x.pair() >= 0) {
+    x.free1(it);
+    x.send(dp, x.pair(), DP_AT);
+  }
+}
+
+// then s2's; this thread's arrival on `full` expects the 128 bytes its twin
+// sends; the pair's sums, and at CL 3, 4 the other pair's added in a
+// second round: both sums are over all of dh, the same bits in every CTA
+template <int CL, class X>
+__device__ __forceinline__ void sum_scores(const X& x, float (&s)[16],
+                                           float (&dp)[16], int it) {
+  if (x.pair() >= 0) {
+    x.send(s, x.pair(), 0);
+    x.receive(32 * 4, it, 1);
+    x.add(s, 0);
+    x.add(dp, DP_AT);
+    x.read1();
+  }
+  if constexpr (CL > 2) {
+    x.free2(it);
+    x.send2(s, &dp);
+    x.receive(32 * 4, it, 2);
+    x.add(s, 0);
+    x.add(dp, DP_AT);
+    x.read2();
+  }
+}
+
+// `stmt` with xc the cluster's Xch: at CL 3 a copy compiled for each rank
+#define T4_XCH(stmt)                                          \
+  if constexpr (CL == 3) {                                    \
+    const uint32_t rk = cluster_ctarank();                    \
+    if (rk == 0) {                                            \
+      const Xch<3, NT, 0> xc{xslot, xfull};                   \
+      stmt;                                                   \
+    } else if (rk == 1) {                                     \
+      const Xch<3, NT, 1> xc{xslot, xfull};                   \
+      stmt;                                                   \
+    } else {                                                  \
+      const Xch<3, NT, 2> xc{xslot, xfull};                   \
+      stmt;                                                   \
+    }                                                         \
+  } else {                                                    \
+    const Xch<CL, NT> xc{xslot, xfull};                       \
+    stmt;                                                     \
+  }
+
 // both kernels' body (DKV: dK/dV, else dQ), on the maps of the stationary
 // operands a0, a1 (dQ: Q2, dO; dK/dV: K, V) and of the streamed ones b0,
 // b1 (dQ: K, V; dK/dV: Q2, dO): s2 = a0 b0^T, dp = a1 b1^T, then
@@ -317,11 +385,13 @@ __device__ __forceinline__ void bwd_body(
                                                    // delta][TILE]
   const uint32_t afull = sRows + (DKV ? 2 * ST * TILE * 4 : 0);
   const uint32_t b0full = afull + 8, b1full = b0full + 8 * ST;
-  const uint32_t xfull = b1full + 8 * ST, xempty = xfull + 8;  // a cluster
+  const uint32_t xfull = b1full + 8 * ST;   // a cluster's: full, e1, e2
 
   // the CTA's rank in its cluster picks its columns, the cluster its rows
   const int rank = CL == 1 ? 0 : static_cast<int>(cluster_ctarank());
   const int col0 = rank * P::DC;
+  // a cluster: this thread's place in the exchange slot
+  const uint32_t xslot = sX + threadIdx.x * 16;
   const int blk = static_cast<int>(blockIdx.x / CL);
   const int n_t = S / P::ROWS;
   const int cta_t = blk / BH;
@@ -342,9 +412,8 @@ __device__ __forceinline__ void bwd_body(
       mbar_init(b0full + 8 * s, 1);
       mbar_init(b1full + 8 * s, 1);
     }
-    if (CL == 2) {
-      mbar_init(xfull, NT);
-      mbar_init(xempty, NT);
+    if constexpr (CL > 1) {
+      T4_XCH(xc.init())
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     mbar_expect_tx(afull, 2 * P::R_BYTES);
@@ -363,18 +432,14 @@ __device__ __forceinline__ void bwd_body(
     }
   }
   __syncthreads();
-  // a cluster: the peer's exchange barriers are set up before any arrival
-  if constexpr (CL == 2) cluster_sync();
+  // a cluster: the peers' exchange barriers are set up before any arrival
+  if constexpr (CL > 1) cluster_sync();
 
   const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int fr = warp * 16 + g;          // its fragment rows fr and fr + 8
   const int wr = wg * P::ROWS_WG;        // its rows of a streamed tile
   const int dn = wg * P::COLS_WG;        // its output columns
-  // a cluster: its exchange slot (its twin's is at the same address in
-  // the peer CTA)
-  const uint32_t xmine = sX + threadIdx.x * 16;
-  const uint32_t peer = rank ^ 1;
 
   // dQ: the base-2 lse and the delta of its two stationary rows
   float l2[2] = {0.f, 0.f}, de[2] = {0.f, 0.f};
@@ -417,14 +482,11 @@ __device__ __forceinline__ void bwd_body(
     mbar_wait(b0full + 8 * st, phase);
     score_products<P>(s, sA0, b0);
     wgmma_commit();
-    if constexpr (CL == 2) {
-      // ---- a cluster: dp's partial leaves while s2's products run, once
-      //      the peer has read the slot's last tile
+    if constexpr (CL > 1) {
+      // ---- a cluster: dp's partial leaves while s2's products run
       wgmma_wait<1>();
       pin(dp);
-      if (it > 0) mbar_wait<true>(xempty, (it - 1) & 1);
-      push<NT>(dp, cluster_addr(xmine + 4 * NT * 16, peer),
-           cluster_addr(xfull, peer));
+      T4_XCH(send_dp(xc, dp, it))
     }
     wgmma_wait<0>();
     pin(dp);
@@ -435,17 +497,9 @@ __device__ __forceinline__ void bwd_body(
         load_stream<P, DKV>(sB1 + st * P::T_BYTES, b1full + 8 * st, mb1,
                             part_rows, next, col0, nullptr, 0);
     }
-    // ---- a cluster: s2's partial leaves too; this thread's arrival on
-    //      `full` expects the 128 bytes its twin sends; then both sums are
-    //      over all of dh (an f32 sum of two terms is the same bits in
-    //      either CTA)
-    if constexpr (CL == 2) {
-      push<NT>(s, cluster_addr(xmine, peer), cluster_addr(xfull, peer));
-      mbar_expect_tx(xfull, 32 * 4);
-      mbar_wait<true>(xfull, it & 1);
-      add_peer<NT>(s, xmine);
-      add_peer<NT>(dp, xmine + 4 * NT * 16);
-      mbar_arrive_remote(cluster_addr(xempty, peer));
+    // ---- a cluster: s2's partial leaves too, and both are summed
+    if constexpr (CL > 1) {
+      T4_XCH(sum_scores<CL>(xc, s, dp, it))
     }
 
     // ---- p and ds in place: element 4 jn + 2 i + c is stationary row
@@ -494,9 +548,11 @@ __device__ __forceinline__ void bwd_body(
                           part_rows, next, col0, lse,
                           sRows + 2 * st * TILE * 4);
   }
-  // ---- a cluster: the peer has read its slot for the last time, so no
-  //      access to this CTA's shared memory is left
-  if constexpr (CL == 2) mbar_wait<true>(xempty, (n_it - 1) & 1);
+  // ---- a cluster: its peers have read its messages for the last time, so
+  //      no access to this CTA's shared memory is left
+  if constexpr (CL > 1) {
+    T4_XCH(xc.drain(n_it))
+  }
 
   // ---- 128 columns a CTA: warpgroup 1's sums to warpgroup 0 through the
   //      tiles' space, which no product reads after the loop's last barrier
@@ -539,8 +595,8 @@ __device__ __forceinline__ void bwd_body(
 }
 
 // two warpgroups and no producer warp, so that a thread may hold 255
-// registers; thread 0 issues the TMA loads.  CL 2: launched in clusters of
-// two CTAs that split dh.
+// registers; thread 0 issues the TMA loads.  CL > 1: launched in clusters
+// of CL CTAs that split dh.
 template <int D, int NP, int CL>
 __global__ void __launch_bounds__(NT, 1)
     flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap mk,
@@ -601,10 +657,12 @@ int launch_sm90(const BwdArgs& a, bool dkv, float* out0, float* out1,
                         a.delta, out0, a.s, a.bh, a.causal, oscale);
 }
 
+#undef T4_XCH
+
 // shapes the kernels take, operands 16-byte and outputs 8-byte aligned
 bool bad_args(int bh, int s, int dh, std::initializer_list<const void*> in,
               std::initializer_list<const void*> out) {
-  if (bh <= 0 || s <= 0 || s % 64 != 0 || (dh != 128 && dh != 256))
+  if (bh <= 0 || s <= 0 || s % 64 != 0 || dh % 128 != 0 || dh > 512)
     return true;
   for (const void* p : in)
     if (!aligned(p, 16)) return true;
@@ -617,7 +675,9 @@ bool bad_args(int bh, int s, int dh, std::initializer_list<const void*> in,
 
 // q2, k, v, dout: the f32 class's parts [3, bh, s, dh] bf16 (t4_split_bwd;
 // parts 3; at dh 256 on a cluster of two CTAs), the hybrid class's casts
-// [bh, s, dh] bf16 (parts 1), q already times scale*log2e, 16-byte
+// [bh, s, dh] bf16 (parts 1); both classes at dh 384 and 512 on clusters
+// of dh / 128 CTAs (dh 640 and wider are refused); q already times
+// scale*log2e, 16-byte
 // aligned; lse and delta [bh, s] f32, 16-byte aligned; dk and dv [bh, s,
 // dh] f32.  (rows, tile, stages, smem, cluster) name the plan
 // (ops/attn.py:bwd_plan); another is refused.  Launches on `stream` and
@@ -642,6 +702,10 @@ extern "C" int t4_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (dh == 128 && parts == 1) return T4_DKV(128, 1, 1);
   if (dh == 256 && parts == 3) return T4_DKV(256, 3, 2);
   if (dh == 256 && parts == 1) return T4_DKV(256, 1, 1);
+  if (dh == 384 && parts == 3) return T4_DKV(384, 3, 3);
+  if (dh == 384 && parts == 1) return T4_DKV(384, 1, 3);
+  if (dh == 512 && parts == 3) return T4_DKV(512, 3, 4);
+  if (dh == 512 && parts == 1) return T4_DKV(512, 1, 4);
 #undef T4_DKV
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -666,7 +730,33 @@ extern "C" int t4_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (dh == 128 && parts == 1) return T4_DQ(128, 1, 1);
   if (dh == 256 && parts == 3) return T4_DQ(256, 3, 2);
   if (dh == 256 && parts == 1) return T4_DQ(256, 1, 1);
+  if (dh == 384 && parts == 3) return T4_DQ(384, 3, 3);
+  if (dh == 384 && parts == 1) return T4_DQ(384, 1, 3);
+  if (dh == 512 && parts == 3) return T4_DQ(512, 3, 4);
+  if (dh == 512 && parts == 1) return T4_DQ(512, 1, 4);
 #undef T4_DQ
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the most clusters of a backward kernel's route at (dh, parts) that the
+// card runs at once, into *n (dkv != 0: dK/dV, else dQ; one CTA a cluster
+// off the cluster routes); 0 or the query's cudaError_t
+extern "C" int t4_flash_bwd_clusters(int dh, int parts, int dkv, void* n) {
+  int* out = static_cast<int*>(n);
+#define T4_BWD_CL(D, NP, CL)                                                 \
+  (dkv ? max_clusters(flash_bwd_dkv_sm90_kernel<D, NP, CL>, CL, NT,          \
+                      Bwd<D, NP, CL>::SMEM_DKV, out)                         \
+       : max_clusters(flash_bwd_dq_sm90_kernel<D, NP, CL>, CL, NT,           \
+                      Bwd<D, NP, CL>::SMEM_DQ, out))
+  if (dh == 128 && parts == 3) return T4_BWD_CL(128, 3, 1);
+  if (dh == 128 && parts == 1) return T4_BWD_CL(128, 1, 1);
+  if (dh == 256 && parts == 3) return T4_BWD_CL(256, 3, 2);
+  if (dh == 256 && parts == 1) return T4_BWD_CL(256, 1, 1);
+  if (dh == 384 && parts == 3) return T4_BWD_CL(384, 3, 3);
+  if (dh == 384 && parts == 1) return T4_BWD_CL(384, 1, 3);
+  if (dh == 512 && parts == 3) return T4_BWD_CL(512, 3, 4);
+  if (dh == 512 && parts == 1) return T4_BWD_CL(512, 1, 4);
+#undef T4_BWD_CL
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1042,22 +1042,6 @@ extern "C" int t4_flash_bwd_fused(const void* q, const void* k, const void* v,
 // ops/attn.py:fused_plan sizes its chunk by.  Returns the query's
 // cudaError_t.
 extern "C" int t4_flash_bwd_fused_clusters(void* n) {
-  using P = F6<2>;
-  const cudaError_t e = cudaFuncSetAttribute(
-      fused_f32_sm90_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      P::SMEM);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 2;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(2);
-  cfg.blockDim = dim3(HT);
-  cfg.dynamicSmemBytes = static_cast<size_t>(P::SMEM);
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return static_cast<int>(cudaOccupancyMaxActiveClusters(
-      static_cast<int*>(n), fused_f32_sm90_kernel<2>, &cfg));
+  return max_clusters(fused_f32_sm90_kernel<2>, 2, HT, F6<2>::SMEM,
+                      static_cast<int*>(n));
 }

@@ -10,7 +10,9 @@
 // score matrix never reaches device memory.
 //
 // Layout: q, k, v each [NP, B*h, S, dh] bf16 parts, row-major; o
-// [B*h, S, dh] f32; lse [B*h, S] f32.  S % 64 == 0, dh in {128, 256}.
+// [B*h, S, dh] f32; lse [B*h, S] f32.  S % 64 == 0, dh in {128, 256, 384,
+// 512}: at 384 and 512, in both classes, on a cluster of dh / 128 CTAs
+// that split dh and add their partial scores (flash_fwd.cuh).
 //
 // Two classes, one kernel (NP, the parts of each operand):
 //   f32 (NP 3): q*scale*log2e, k and v arrive split into three bf16 parts
@@ -41,7 +43,8 @@
 
 namespace {
 
-template <int D, int NP>
+// CL > 1: launched in clusters of CL CTAs that split dh
+template <int D, int NP, int CL>
 __global__ void __launch_bounds__(NT, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
                      const __grid_constant__ CUtensorMap mk,
@@ -49,23 +52,25 @@ __global__ void __launch_bounds__(NT, 1)
                      float* __restrict__ o, float* __restrict__ lse, int S,
                      int BH, int causal, float qscale) {
   extern __shared__ unsigned char smem_raw[];
-  fwd_body<D, NP, false>(smem_raw, &mq, &mk, &mv, o, lse, S, BH, causal,
-                         qscale);
+  fwd_body<D, NP, false, CL>(smem_raw, &mq, &mk, &mv, o, lse, S, BH,
+                             causal, qscale);
 }
 
-template <int D, int NP>
+template <int D, int NP, int CL>
 int launch_fwd(const void* q, const void* k, const void* v, float* o,
                float* lse, int bh, int s, int causal, int bq, int bkv,
-               int stages, int smem, float qscale, cudaStream_t stream) {
-  using P = Fwd<D, NP>;
-  if (bq != P::BQ || bkv != P::BKV || stages != P::ST || smem != P::SMEM)
+               int stages, int smem, int cluster, float qscale,
+               cudaStream_t stream) {
+  using P = Fwd<D, NP, CL>;
+  if (bq != P::BQ || bkv != P::BKV || stages != P::ST || smem != P::SMEM ||
+      cluster != CL)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap m[3];
-  const int e = fwd_maps<D, NP>(q, k, v, bh, s, m);
+  const int e = fwd_maps<D, NP, CL>(q, k, v, bh, s, m);
   if (e != 0) return e;
-  return launch(flash_fwd_kernel<D, NP>, fwd_grid<D, NP>(bh, s), NT,
-                P::SMEM, stream, m[0], m[1], m[2], o, lse, s, bh, causal,
-                qscale);
+  return launch_cluster(flash_fwd_kernel<D, NP, CL>,
+                        fwd_grid<D, NP, CL>(bh, s), CL, NT, P::SMEM, stream,
+                        m[0], m[1], m[2], o, lse, s, bh, causal, qscale);
 }
 
 }  // namespace
@@ -73,14 +78,14 @@ int launch_fwd(const void* q, const void* k, const void* v, float* o,
 // q, k, v [parts, bh, s, dh] bf16 (parts 3: hi, mid, lo from t4_split_qkv,
 // the f32 class; 1: the hybrid class's casts), 16-byte aligned; o [bh, s,
 // dh] f32, lse [bh, s] f32.  The scores are qscale (q k^T): the wrappers
-// fold the scale into q and pass 1.  (bq, bkv, stages, smem) name the tile
-// plan (ops/attn.py:fwd_plan); one the library was not built with is
-// refused.  Launches on `stream` and returns the launch's cudaError_t (0 on
-// success).
+// fold the scale into q and pass 1.  (bq, bkv, stages, smem, cluster) name
+// the tile plan (ops/attn.py:fwd_plan); one the library was not built with
+// is refused, and so is dh 640 or wider.  Launches on `stream` and returns
+// the launch's cudaError_t (0 on success).
 extern "C" int t4_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int bh, int s, int dh,
                             int causal, int parts, int bq, int bkv,
-                            int stages, int smem, float qscale,
+                            int stages, int smem, int cluster, float qscale,
                             void* stream) {
   if (bh <= 0 || s <= 0 || s % 64 != 0 || !aligned(q, 16) ||
       !aligned(k, 16) || !aligned(v, 16) || !aligned(o, 8))
@@ -88,14 +93,37 @@ extern "C" int t4_flash_fwd(const void* q, const void* k, const void* v,
   float* of = static_cast<float*>(o);
   float* lf = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define T4_FWD(D, NP)                                                     \
-  launch_fwd<D, NP>(q, k, v, of, lf, bh, s, causal, bq, bkv, stages, smem, \
-                    qscale, st)
-  if (dh == 128 && parts == 3) return T4_FWD(128, 3);
-  if (dh == 128 && parts == 1) return T4_FWD(128, 1);
-  if (dh == 256 && parts == 3) return T4_FWD(256, 3);
-  if (dh == 256 && parts == 1) return T4_FWD(256, 1);
+#define T4_FWD(D, NP, CL)                                                  \
+  launch_fwd<D, NP, CL>(q, k, v, of, lf, bh, s, causal, bq, bkv, stages,   \
+                        smem, cluster, qscale, st)
+  if (dh == 128 && parts == 3) return T4_FWD(128, 3, 1);
+  if (dh == 128 && parts == 1) return T4_FWD(128, 1, 1);
+  if (dh == 256 && parts == 3) return T4_FWD(256, 3, 1);
+  if (dh == 256 && parts == 1) return T4_FWD(256, 1, 1);
+  if (dh == 384 && parts == 3) return T4_FWD(384, 3, 3);
+  if (dh == 384 && parts == 1) return T4_FWD(384, 1, 3);
+  if (dh == 512 && parts == 3) return T4_FWD(512, 3, 4);
+  if (dh == 512 && parts == 1) return T4_FWD(512, 1, 4);
 #undef T4_FWD
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the most clusters of the forward's route at (dh, parts) that the card
+// runs at once, into *n (1 CTA a cluster at dh 128 and 256); 0 or the
+// query's cudaError_t
+extern "C" int t4_flash_fwd_clusters(int dh, int parts, void* n) {
+  int* out = static_cast<int*>(n);
+#define T4_FWD_CL(D, NP, CL) \
+  max_clusters(flash_fwd_kernel<D, NP, CL>, CL, NT, Fwd<D, NP, CL>::SMEM, out)
+  if (dh == 128 && parts == 3) return T4_FWD_CL(128, 3, 1);
+  if (dh == 128 && parts == 1) return T4_FWD_CL(128, 1, 1);
+  if (dh == 256 && parts == 3) return T4_FWD_CL(256, 3, 1);
+  if (dh == 256 && parts == 1) return T4_FWD_CL(256, 1, 1);
+  if (dh == 384 && parts == 3) return T4_FWD_CL(384, 3, 3);
+  if (dh == 384 && parts == 1) return T4_FWD_CL(384, 1, 3);
+  if (dh == 512 && parts == 3) return T4_FWD_CL(512, 3, 4);
+  if (dh == 512 && parts == 1) return T4_FWD_CL(512, 1, 4);
+#undef T4_FWD_CL
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -8,7 +8,8 @@
 //       raw s2 accumulator rounded to bf16 (cvt.rn), and no lse is written.
 //
 // Layout: q, k, v each [NP, B*h, S, dh] bf16 parts, row-major; o [B*h, S,
-// dh] f32; lse [B*h, S] f32.  S % 64 == 0, dh in {128, 256}.
+// dh] f32; lse [B*h, S] f32.  S % 64 == 0, dh in {128, 256} (K8) and 384,
+// 512 (K1's cluster route).
 //
 // The design.  A CTA of two warpgroups owns BQ query rows of one head; K
 // and V stream through shared memory in BKV-row tiles (K and V in a ring
@@ -38,6 +39,18 @@
 //     split between the warpgroups.
 //   hybrid and the probe (NP 1): the same tiles in a third of the bytes,
 //     two stages each.
+//   dh 384 and 512 (K1, both classes): a cluster of CL = dh / 128 CTAs per
+//     128 query rows, each the dh-128 body over its 128 columns of dh (the
+//     maps' boxes start at column 128 rank): Q 96 KB + K 48 KB + V 48 KB in
+//     the f32 class, as at dh 128.  One CTA cannot hold them (Q's three
+//     parts alone are 192 KB at dh 256), nor would a warpgroup's 256
+//     columns of o fit its registers.  Each CTA's s2 is a partial sum over
+//     its columns; the cluster adds the partials through distributed
+//     shared memory in pairs (sm90_gemm.cuh: Xch, one 32 KB slot a CTA), so
+//     every CTA holds the same bits of s2, runs the same online softmax and
+//     forms the same p, and does P V over its own columns of V and o.  Rank
+//     0 writes lse.  A tile that a warpgroup's rows do not see still takes
+//     part in the sum (as zeros), so every thread's twin sends to it.
 // Registers at dh 128, f32: o 64, the fresh PV accumulator 64, P's three
 // parts 48 (the s2 accumulator, 32, dies as they form).
 // The grid hands out the longest (last) causal query tiles first; a
@@ -54,21 +67,28 @@ constexpr int NT = 256;                  // two warpgroups; thread 0 loads
 constexpr float NEG_INF = -1.0e30f;      // attn_pallas.py:25
 constexpr float LN2 = 0.6931471805599453f;
 
-template <int D, int NP>
+// head dim D, NP parts of each operand, CL CTAs of a cluster that split dh
+// (each holds DC = D / CL of its columns)
+template <int D, int NP, int CL = 1>
 struct Fwd {
-  static constexpr int BQ = D == 128 ? 128 : 64;    // query rows of a CTA
-  static constexpr int BKV = D == 128 ? 64 : 32;    // rows of a KV tile
+  static constexpr int DC = D / CL;                 // a CTA's columns
+  static constexpr int BQ = DC == 128 ? 128 : 64;   // query rows of a CTA
+  static constexpr int BKV = DC == 128 ? 64 : 32;   // rows of a KV tile
   static constexpr int ST = NP == 1 ? 2 : 1;        // stages of K and of V
-  static constexpr int NB = D / 64;                 // 128-byte column boxes
+  static constexpr int NB = DC / 64;                // 128-byte column boxes
   static constexpr int QBOX = BQ * 128;             // a Q box [64 d x BQ]
   static constexpr int KBOX = BKV * 128;            // a K/V box [64 d x BKV]
   static constexpr int Q_PART = NB * QBOX;
   static constexpr int KV_PART = NB * KBOX;
   static constexpr int KV_BYTES = NP * KV_PART;     // a stage of K (or V)
+  // a cluster's exchange slot: a peer's partial s2, BKV / 2 floats for
+  // each thread; its barriers (full, e1, e2)
+  static constexpr int XCH = CL > 1 ? NT * (BKV / 2) * 4 : 0;
+  static constexpr int NBAR = 1 + 2 * ST + (CL > 1 ? 3 : 0);
   static constexpr int SMEM =
-      ALIGN + NP * Q_PART + 2 * ST * KV_BYTES + (1 + 2 * ST) * 8;
-  static constexpr int ROWS_WG = D == 128 ? 64 : 0;   // rows' offset by wg
-  static constexpr int COLS_WG = D == 128 ? 0 : 128;  // o columns' offset
+      ALIGN + NP * Q_PART + 2 * ST * KV_BYTES + XCH + NBAR * 8;
+  static constexpr int ROWS_WG = DC == 128 ? 64 : 0;   // rows' offset by wg
+  static constexpr int COLS_WG = DC == 128 ? 0 : 128;  // o columns' offset
   static constexpr int P0 = NP == 3 ? 0 : 5;   // first of prod_a/prod_b's
 };
 static_assert(Fwd<128, 3>::SMEM <= SMEM_LIMIT &&
@@ -76,6 +96,15 @@ static_assert(Fwd<128, 3>::SMEM <= SMEM_LIMIT &&
                   Fwd<128, 1>::SMEM <= SMEM_LIMIT &&
                   Fwd<256, 1>::SMEM <= SMEM_LIMIT,
               "shared memory");
+// K1 at dh 384 and 512 on clusters of 3 and 4 CTAs: the dh-128 tiles of
+// the class, the slot and three barriers more
+static_assert(Fwd<384, 3, 3>::SMEM == 230448 &&
+                  Fwd<512, 3, 4>::SMEM == 230448 &&
+                  Fwd<512, 3, 4>::SMEM <= SMEM_LIMIT,
+              "the f32 clusters' budget");
+static_assert(Fwd<384, 1, 3>::SMEM == 132160 &&
+                  Fwd<512, 1, 4>::SMEM == 132160,
+              "the hybrid clusters' budget");
 
 // s2 (+)= A B^T over 16 of dh, m64nBKV, both K-major from shared memory
 template <int BKV>
@@ -87,28 +116,30 @@ __device__ __forceinline__ void score_mma(float (&d)[BKV / 2], uint64_t da,
     wgmma_32<0, 0>(d, da, db, scale_d);
 }
 
-// one tile of an operand (the map's box of rows, from `row` on) in each
-// of its NP parts, by TMA into shared memory at dst (part p at p
-// part_bytes, its 64-column boxes box_bytes apart; part p's rows start
-// p part_rows down the map), against `bar`; one thread issues them
-template <int D, int NP>
+// one tile of an operand (the map's box of rows, from `row` on; NB boxes
+// of 64 columns from column `col` on) in each of its NP parts, by TMA into
+// shared memory at dst (part p at p part_bytes, its 64-column boxes
+// box_bytes apart; part p's rows start p part_rows down the map), against
+// `bar`; one thread issues them
+template <int NB, int NP>
 __device__ __forceinline__ void load_parts(uint32_t dst, uint32_t bar,
                                            const CUtensorMap* map,
-                                           int part_rows, int row,
+                                           int part_rows, int row, int col,
                                            int part_bytes, int box_bytes) {
   mbar_expect_tx(bar, NP * part_bytes);
 #pragma unroll
   for (int p = 0; p < NP; ++p)
 #pragma unroll
-    for (int b = 0; b < D / 64; ++b)
-      tma_load(dst + p * part_bytes + b * box_bytes, map, bar, 64 * b,
+    for (int b = 0; b < NB; ++b)
+      tma_load(dst + p * part_bytes + b * box_bytes, map, bar, col + 64 * b,
                p * part_rows + row);
 }
 
 // the body of a kernel of NT threads over the maps of q, k and v (their
 // parts' rows one after another) into o (and, unless DOTS, lse); smem_raw
-// is the kernel's dynamic shared memory, Fwd<D, NP>::SMEM bytes
-template <int D, int NP, bool DOTS>
+// is the kernel's dynamic shared memory, Fwd<D, NP, CL>::SMEM bytes; CL > 1
+// (not with DOTS): a CTA of a cluster of CL that split dh
+template <int D, int NP, bool DOTS, int CL = 1>
 __device__ __forceinline__ void fwd_body(unsigned char* smem_raw,
                                          const CUtensorMap* mq,
                                          const CUtensorMap* mk,
@@ -116,20 +147,28 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw,
                                          float* __restrict__ o,
                                          float* __restrict__ lse, int S,
                                          int BH, int causal, float qscale) {
-  using P = Fwd<D, NP>;
+  static_assert(CL == 1 || !DOTS, "the probe has no cluster route");
+  using P = Fwd<D, NP, CL>;
   constexpr int BQ = P::BQ, BKV = P::BKV, ST = P::ST;
   constexpr int SA = BKV / 2;            // s2 accumulators a thread
   constexpr int NF = BKV / 4;            // P's A-fragment registers a part
   const uint32_t sQ = aligned_base(smem_raw);
   const uint32_t sK = sQ + NP * P::Q_PART;          // K stages, V stages
   const uint32_t sV = sK + ST * P::KV_BYTES;
-  const uint32_t qfull = sV + ST * P::KV_BYTES;     // then kfull[ST],
-  const uint32_t kfull0 = qfull + 8;                // vfull[ST]
-  const uint32_t vfull0 = kfull0 + 8 * ST;
+  const uint32_t sX = sV + ST * P::KV_BYTES;        // a cluster's slot
+  const uint32_t qfull = sX + P::XCH;               // then kfull[ST],
+  const uint32_t kfull0 = qfull + 8;                // vfull[ST], a
+  const uint32_t vfull0 = kfull0 + 8 * ST;          // cluster's full, e1,
+  const uint32_t xfull = vfull0 + 8 * ST;           // e2
 
+  // the CTA's rank in its cluster picks its columns, the cluster its rows
+  const int rank = CL == 1 ? 0 : static_cast<int>(cluster_ctarank());
+  const int col0 = rank * P::DC;
+  const int blk = static_cast<int>(blockIdx.x / CL);
+  const Xch<CL, NT> x{sX + threadIdx.x * 16, xfull};
   const int n_qt = (S + BQ - 1) / BQ;
-  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x / BH);
-  const int bh = static_cast<int>(blockIdx.x % BH);
+  const int qt = n_qt - 1 - blk / BH;
+  const int bh = blk % BH;
   const int q0 = qt * BQ;
   const int part_rows = BH * S;          // rows of one part in the maps
   const int row0 = bh * S;               // the head's first row
@@ -141,17 +180,22 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw,
       mbar_init(kfull0 + 8 * s, 1);
       mbar_init(vfull0 + 8 * s, 1);
     }
+    if constexpr (CL > 1) x.init();
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    load_parts<D, NP>(sQ, qfull, mq, part_rows, row0 + q0, P::Q_PART,
-                      P::QBOX);
+    load_parts<P::NB, NP>(sQ, qfull, mq, part_rows, row0 + q0, col0,
+                          P::Q_PART, P::QBOX);
     for (int s = 0; s < ST && s < n_kv; ++s) {
-      load_parts<D, NP>(sK + s * P::KV_BYTES, kfull0 + 8 * s, mk,
-                        part_rows, row0 + s * BKV, P::KV_PART, P::KBOX);
-      load_parts<D, NP>(sV + s * P::KV_BYTES, vfull0 + 8 * s, mv,
-                        part_rows, row0 + s * BKV, P::KV_PART, P::KBOX);
+      load_parts<P::NB, NP>(sK + s * P::KV_BYTES, kfull0 + 8 * s, mk,
+                            part_rows, row0 + s * BKV, col0, P::KV_PART,
+                            P::KBOX);
+      load_parts<P::NB, NP>(sV + s * P::KV_BYTES, vfull0 + 8 * s, mv,
+                            part_rows, row0 + s * BKV, col0, P::KV_PART,
+                            P::KBOX);
     }
   }
   __syncthreads();
+  // a cluster: the peers' exchange barriers are set up before any arrival
+  if constexpr (CL > 1) cluster_sync();
 
   const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
@@ -184,7 +228,7 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw,
 #pragma unroll
       for (int p = P::P0; p < 6; ++p)
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < P::DC / 16; ++kk) {
           const uint32_t col = (kk % 4) * 32;   // 16 of dh in a box
           score_mma<BKV>(
               s,
@@ -199,8 +243,18 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw,
     // both warpgroups are done with this K stage: it takes tile j + ST
     named_barrier(1, NT);
     if (threadIdx.x == 0 && j + ST < n_kv)
-      load_parts<D, NP>(sk, kfull0 + 8 * st, mk, part_rows,
-                        row0 + (j + ST) * BKV, P::KV_PART, P::KBOX);
+      load_parts<P::NB, NP>(sk, kfull0 + 8 * st, mk, part_rows,
+                            row0 + (j + ST) * BKV, col0, P::KV_PART,
+                            P::KBOX);
+    // ---- a cluster: the partial s2 over the CTA's columns, summed over
+    //      the cluster's (zeros where the rows see no key of the tile)
+    if constexpr (CL > 1) {
+      if (!live) {
+#pragma unroll
+        for (int i = 0; i < SA; ++i) s[i] = 0.f;
+      }
+      x.sum(s, j);
+    }
 
     // ---- online softmax; element 4 jn + 2 i + c of s is query row
     //      qw + fr + 8 i, key kv0 + 8 jn + 2 t + c
@@ -292,9 +346,13 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw,
     // both warpgroups are done with this V stage: it takes tile j + ST
     named_barrier(1, NT);
     if (threadIdx.x == 0 && j + ST < n_kv)
-      load_parts<D, NP>(sv, vfull0 + 8 * st, mv, part_rows,
-                        row0 + (j + ST) * BKV, P::KV_PART, P::KBOX);
+      load_parts<P::NB, NP>(sv, vfull0 + 8 * st, mv, part_rows,
+                            row0 + (j + ST) * BKV, col0, P::KV_PART,
+                            P::KBOX);
   }
+  // a cluster: its peers have read its messages for the last time, so no
+  // access to this CTA's shared memory is left
+  if constexpr (CL > 1) x.drain(n_kv);
   if (!rows_in) return;
 
   // ---- flush: the row sum is spread over the 4 lanes of a row (DOTS: o
@@ -302,7 +360,8 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = qw + fr + 8 * i;
-    float* orow = o + (static_cast<size_t>(row0) + row) * D + dn + 2 * t;
+    float* orow =
+        o + (static_cast<size_t>(row0) + row) * D + col0 + dn + 2 * t;
     if constexpr (DOTS) {
 #pragma unroll
       for (int jn = 0; jn < 16; ++jn)
@@ -316,7 +375,7 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw,
       for (int jn = 0; jn < 16; ++jn)
         *reinterpret_cast<float2*>(orow + 8 * jn) = make_float2(
             acc[4 * jn + 2 * i] / lt, acc[4 * jn + 2 * i + 1] / lt);
-      if (t == 0 && (P::COLS_WG == 0 || wg == 0))
+      if (t == 0 && (P::COLS_WG == 0 || wg == 0) && rank == 0)
         lse[static_cast<size_t>(row0) + row] = (m_run[i] + log2f(lt)) * LN2;
     }
   }
@@ -324,10 +383,10 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw,
 
 // the body's maps of q, k and v (every part's rows, NP bh s, in one map
 // each; boxes of BQ and BKV rows) into m[0..2]; 0 or a cudaError_t
-template <int D, int NP>
+template <int D, int NP, int CL = 1>
 int fwd_maps(const void* q, const void* k, const void* v, int bh, int s,
              CUtensorMap* m) {
-  using P = Fwd<D, NP>;
+  using P = Fwd<D, NP, CL>;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const int rows = NP * bh * s;
@@ -338,11 +397,11 @@ int fwd_maps(const void* q, const void* k, const void* v, int bh, int s,
   return 0;
 }
 
-// the body's grid: a CTA per (head, BQ query rows)
-template <int D, int NP>
+// the body's grid: a CTA per (head, BQ query rows), CL of them in a cluster
+template <int D, int NP, int CL = 1>
 dim3 fwd_grid(int bh, int s) {
-  return dim3(static_cast<unsigned>(bh) *
-              ((s + Fwd<D, NP>::BQ - 1) / Fwd<D, NP>::BQ));
+  constexpr int BQ = Fwd<D, NP, CL>::BQ;
+  return dim3(static_cast<unsigned>(CL * bh) * ((s + BQ - 1) / BQ));
 }
 
 }  // namespace

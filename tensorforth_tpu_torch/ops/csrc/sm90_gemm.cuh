@@ -2,8 +2,8 @@
 // K7), flash_bwd_fused.cu (K3), flash_fwd.cu (K1), attn_dots.cu (K8) and
 // flash_bwd.cu (K2a, K2b) share: mbarriers with a trapping wait, TMA loads
 // (tiles and plain bulk copies), the cluster barrier and distributed
-// shared memory (the dh-256 f32 routes of flash_bwd.cu and
-// flash_bwd_fused.cu), wgmma's shared-memory descriptors and its operand
+// shared memory with the sum of a cluster's partials (the dh-split routes
+// of flash_fwd.cuh, flash_bwd.cu and flash_bwd_fused.cu), wgmma's shared-memory descriptors and its operand
 // forms (m64n128, m64n64 and m64n32, A from shared memory or registers,
 // either operand transposed), the flash kernels' exp2, the grouped raster
 // of output tiles, the predicated epilogue store, and on the host the
@@ -186,25 +186,26 @@ __device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
       : "memory");
 }
 
-// a cluster's exchange of a thread's 16 partial floats (the dh-256 f32
-// routes of flash_bwd.cu and flash_bwd_fused.cu, THREADS threads a CTA):
-// to its twin's slot in the peer CTA (4 float4 from `at`, a shared::cluster
-// address, THREADS * 16 bytes apart), completing their bytes on the peer's
-// barrier at `bar`
-template <int THREADS>
-__device__ __forceinline__ void push(const float (&x)[16], uint32_t at,
+// a cluster's exchange of a thread's N partial floats (N % 4 == 0; the
+// dh-split routes of flash_fwd.cuh, flash_bwd.cu and flash_bwd_fused.cu,
+// THREADS threads a CTA): to its twin's slot in another CTA (N / 4 float4
+// from `at`, a shared::cluster address, THREADS * 16 bytes apart),
+// completing their bytes on that CTA's barrier at `bar`
+template <int THREADS, int N>
+__device__ __forceinline__ void push(const float (&x)[N], uint32_t at,
                                      uint32_t bar) {
+  static_assert(N % 4 == 0, "whole float4");
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < N / 4; ++j)
     st_async4(at + j * THREADS * 16, x[4 * j], x[4 * j + 1], x[4 * j + 2],
               x[4 * j + 3], bar);
 }
 
 // ... and the twin's partial, from this thread's own slot at `at`, added
-template <int THREADS>
-__device__ __forceinline__ void add_peer(float (&x)[16], uint32_t at) {
+template <int THREADS, int N>
+__device__ __forceinline__ void add_peer(float (&x)[N], uint32_t at) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     const float4 y = ld_shared4(at + j * THREADS * 16);
     x[4 * j] += y.x;
     x[4 * j + 1] += y.y;
@@ -212,6 +213,157 @@ __device__ __forceinline__ void add_peer(float (&x)[16], uint32_t at) {
     x[4 * j + 3] += y.w;
   }
 }
+
+// The sum of a cluster's partials on the dh-split routes of flash_fwd.cuh
+// (K1) and flash_bwd.cu (K2a, K2b): CL CTAs (2, 3 or 4) of THREADS threads,
+// each thread holding its CTA's partial sums over the CTA's columns of dh,
+// each leaving with the sum over all of them, THE SAME BITS IN EVERY CTA.
+// The sums are taken in pairs, so that every CTA forms x0 + x1 (CL 2),
+// (x0 + x1) + x2 (CL 3) or (x0 + x1) + (x2 + x3) (CL 4): an f32 sum of two
+// terms is the same in either order.  Round 1: the CTAs of a pair (0 and 1,
+// 2 and 3) swap their partials.  Round 2 (CL 3, 4): each CTA receives the
+// other pair's sum; at CL 3 CTA 2 (no pair) sends its partial to 0 and 1
+// and receives the sum from 0.  A message is each thread's floats, stored
+// into its twin's place in the target's slot through distributed shared
+// memory (st.async), the bytes completing a transaction on the target's
+// `full` barrier, so no store waits for an acknowledgement; each thread's
+// own arrival on `full` expects the bytes its twin sends.  A CTA's slot
+// holds one message (THREADS x the message's floats; the round-2 message
+// follows round 1's through it), so the slot's reader, once it has added a
+// message, arrives on a barrier of the writer of the slot's next message:
+// `e1` guards a CTA's round-1 writes, `e2` its round-2 writes.  Every wait
+// is a local mbarrier wait that traps as the others do.  At CL 2 this is
+// the dh-256 route's exchange as it was: `full` and `e1` (its `empty`).
+// RK: the CTA's rank where the caller compiled a copy for each (CL 3's
+// ranks play three parts: K2a, at 255 registers, keeps no rank-dependent
+// branch in its loop that way); -1 reads the rank again where it is needed
+// (a special register), so that no register holds it.
+template <int CL, int THREADS, int RK = -1>
+struct Xch {
+  static_assert(CL >= 1 && CL <= 4, "a pair, or two rounds (1: unused)");
+  uint32_t slot;   // this thread's place in its own slot
+  uint32_t full;   // this CTA's barriers: full, then e1, then e2 (CL 3, 4)
+
+  __device__ int rank() const {
+    return RK >= 0 ? RK : static_cast<int>(cluster_ctarank());
+  }
+  __device__ uint32_t e1() const { return full + 8; }
+  __device__ uint32_t e2() const { return full + 16; }
+  // round 1's peer (the other CTA of the pair), or -1 (CL 3, CTA 2)
+  __device__ int pair() const {
+    const int r = rank();
+    return (r ^ 1) < CL ? r ^ 1 : -1;
+  }
+  // the writer of round 2's message
+  __device__ int src2() const {
+    const int r = rank();
+    return CL == 4 ? r ^ 2 : r < 2 ? 2 : 0;
+  }
+  // the targets of round 2's message, a mask of ranks
+  __device__ unsigned dst2() const {
+    const int r = rank();
+    return CL == 4 ? 1u << (r ^ 2) : r == 0 ? 4u : r == 1 ? 0u : 3u;
+  }
+  // CL 3's CTA 2: no pair, one message a tile, two round-2 targets
+  __device__ bool odd() const { return CL == 3 && rank() == 2; }
+  // the parity of `full`'s phase that completes with tile it's round-1
+  // (round 1) or round-2 message: a CTA receives one message a tile (CL 2;
+  // CTA 2 of 3) or two
+  __device__ uint32_t parity(int it, int round) const {
+    return CL == 2 || odd() ? it & 1 : round == 2;
+  }
+  // thread 0, before the cluster barrier that precedes any message
+  __device__ void init() const {
+    mbar_init(full, THREADS);
+    mbar_init(e1(), THREADS);
+    if constexpr (CL > 2) mbar_init(e2(), THREADS * (odd() ? 2 : 1));
+  }
+  // before tile it's round-1 message: the pair has read its slot's last
+  // message (the previous tile's)
+  __device__ void free1(int it) const {
+    if (it > 0) mbar_wait<true>(e1(), (it - 1) & 1);
+  }
+  // before tile it's round-2 message: its targets have read round 1's
+  // (at CL 3 CTA 2's slot holds round 2's alone: the previous tile's)
+  __device__ void free2(int it) const {
+    if (CL == 3 && rank() == 0) {
+      if (it > 0) mbar_wait<true>(e2(), (it - 1) & 1);
+    } else if (dst2() != 0) {
+      mbar_wait<true>(e2(), it & 1);
+    }
+  }
+  // x into the twin's place of CTA `to`'s slot, `off` bytes on
+  template <int N>
+  __device__ void send(const float (&x)[N], int to, uint32_t off) const {
+    push<THREADS>(x, cluster_addr(slot + off, to), cluster_addr(full, to));
+  }
+  // x, then y, into the twin's place of CTA `to`'s slot
+  template <int N>
+  __device__ void send(const float (&x)[N], const float (&y)[N],
+                       int to) const {
+    const uint32_t at = cluster_addr(slot, to), bar = cluster_addr(full, to);
+    push<THREADS>(x, at, bar);
+    push<THREADS>(y, at + N / 4 * THREADS * 16, bar);
+  }
+  // round 2's message (x, and y unless null) to its targets, one at a time
+  template <int N>
+  __device__ void send2(const float (&x)[N], const float (*y)[N]) const {
+    const unsigned to = dst2();
+#pragma unroll 1
+    for (int r = 0; r < CL; ++r)
+      if (to >> r & 1) {
+        if (y != nullptr)
+          send(x, *y, r);
+        else
+          send(x, r, 0);
+      }
+  }
+  // wait for tile it's round-`round` message, `bytes` from the twin
+  __device__ void receive(uint32_t bytes, int it, int round) const {
+    mbar_expect_tx(full, bytes);
+    mbar_wait<true>(full, parity(it, round));
+  }
+  // the message's floats at `off`, added to x
+  template <int N>
+  __device__ void add(float (&x)[N], uint32_t off) const {
+    add_peer<THREADS>(x, slot + off);
+  }
+  // round 1's message is read: its slot takes round 2's (CL 2: the next
+  // tile's round 1)
+  __device__ void read1() const {
+    mbar_arrive_remote(CL == 2 ? cluster_addr(e1(), rank() ^ 1)
+                               : cluster_addr(e2(), src2()));
+  }
+  // round 2's message is read: the slot takes the next tile's first
+  __device__ void read2() const {
+    mbar_arrive_remote(pair() >= 0 ? cluster_addr(e1(), pair())
+                                   : cluster_addr(e2(), 0));
+  }
+  // after the last of n tiles: every message this CTA sent has been read,
+  // so no other CTA accesses its shared memory any more
+  __device__ void drain(int n) const {
+    if (pair() >= 0) mbar_wait<true>(e1(), (n - 1) & 1);
+    if (CL > 2 && dst2() != 0) mbar_wait<true>(e2(), (n - 1) & 1);
+  }
+  // tile it's sum of an N-float partial x, both rounds (K1's scores)
+  template <int N>
+  __device__ void sum(float (&x)[N], int it) const {
+    if (pair() >= 0) {
+      free1(it);
+      send(x, pair(), 0);
+      receive(N * 4, it, 1);
+      add(x, 0);
+      read1();
+    }
+    if constexpr (CL > 2) {
+      free2(it);
+      send2<N>(x, nullptr);
+      receive(N * 4, it, 2);
+      add(x, 0);
+      read2();
+    }
+  }
+};
 
 // ---- wgmma -----------------------------------------------------------------
 // shared-memory matrix descriptor of a 128-byte-swizzled tile: start
@@ -550,6 +702,29 @@ int launch_cluster(void (*kernel)(Params...), dim3 grid, int cluster,
   e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the most clusters of `cluster` CTAs of `threads` threads and `smem` bytes
+// of dynamic shared memory each that the card runs at once, into *n; the
+// query's cudaError_t as int
+template <typename... Params>
+int max_clusters(void (*kernel)(Params...), int cluster, int threads,
+                 int smem, int* n) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(cluster));
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(n, kernel, &cfg));
 }
 
 }  // namespace

@@ -172,12 +172,13 @@ def test_sdpa_takes_the_einsum_branch_for_an_ineligible_shape():
 
 @pytest.mark.parametrize("s,dh,ok", [
     (512, 128, True), (2048, 128, True), (1024, 256, True),
-    (1536, 128, True), (512, 384, False), (512, 512, False),
-    (256, 128, False), (640, 128, False), (512, 64, False)])
+    (1536, 128, True), (512, 384, True), (512, 512, True),
+    (256, 128, False), (640, 128, False), (512, 64, False),
+    (512, 640, False)])
 def test_flash_gate_admits_only_compiled_head_dims(s, dh, ok):
     """the shape half of the gate: long aligned sequences at a head dim
-    the kernels are compiled for.  dh = 384 and 512 take the einsum path
-    (the kernels are built for 128 and 256 only)."""
+    the kernels are compiled for, 128 to 512 (dh 384 and 512 on clusters
+    of dh / 128 CTAs); dh 640 takes the einsum path."""
     assert tfuncs._flash_shape_ok(s, dh) is ok
     # the device half: a CPU tensor never passes
     assert not tfuncs._flash_ok(torch.zeros(1, s, dh))

@@ -173,18 +173,20 @@ def test_bwd_plan_fits_an_sm_and_matches_the_source(dh, hybrid):
     Bwd; dh 256 in the f32 class takes a cluster of two CTAs that split
     dh, each with the dh-128 f32 tiles, the exchange slots and their two
     barriers (1,024 + 196,608 + 32,768 + 512 + 40 = 230,952 bytes for
-    dK/dV)"""
+    dK/dV); dh 384 and 512, both classes, clusters of dh / 128 CTAs with
+    the dh-128 tiles of the class and a third exchange barrier"""
     plan = attn.bwd_plan(64, 2048, dh, hybrid)
     with open(os.path.join(CSRC, "flash_bwd.cu")) as f:
         src = f.read()
     for tiles in (plan.dkv, plan.dq):
         assert tiles.smem <= gemm.SM90_SMEM_LIMIT == 232448
     assert plan.parts == (1 if hybrid else 3)
-    cluster = 2 if dh == 256 and not hybrid else 1
+    cluster = (2 if dh == 256 and not hybrid else dh // 128 if dh > 256
+               else 1)
     assert plan.dq.cluster == plan.dkv.cluster == cluster
     assert "ROWS = 64" in src and "TILE = DC == 128 ? 64 : 32" in src
     assert "DC = D / CL" in src and "ST = NP == 1 ? 2 : 1" in src
-    assert "XCH = CL == 2 ? NT * 32 * 4 : 0" in src
+    assert "XCH = CL > 1 ? NT * 32 * 4 : 0" in src
     assert attn.BWD_EXCHANGE == 256 * 32 * 4 == 32768
     assert attn.BWD_TILES == {128: 64, 256: 32}
     assert attn.BWD_STAGES == {3: 1, 1: 2}
@@ -192,16 +194,19 @@ def test_bwd_plan_fits_an_sm_and_matches_the_source(dh, hybrid):
     p, st, tile = plan.parts, plan.dq.stages, plan.dq.tile
     assert tile == (64 if cols == 128 else 32)
     tiles = 2 * p * 64 * cols * 2 + 2 * st * p * tile * cols * 2
-    xch = 32768 if cluster == 2 else 0
-    bars = 1 + 2 * st + (2 if cluster == 2 else 0)
+    xch = 32768 if cluster > 1 else 0
+    bars = 1 + 2 * st + {1: 0, 2: 2}.get(cluster, 3)
     assert plan.dq.smem == 1024 + tiles + xch + bars * 8
     assert plan.dkv.smem == plan.dq.smem + 2 * st * tile * 4
     assert plan.dkv._replace(smem=0) == plan.dq._replace(smem=0)
     assert plan.dq.ctas == cluster * 64 * 2048 // 64
+    assert "NBAR = 1 + 2 * ST + (CL == 1 ? 0 : CL == 2 ? 2 : 3)" in src
     if cluster == 2:
         assert plan.dkv.smem == 230952
         assert "Bwd<256, 3, 2>::SMEM_DKV == 230952" in src
-        assert "NBAR = 1 + 2 * ST + (CL == 2 ? 2 : 0)" in src
+    if cluster > 2:
+        assert (f"Bwd<{dh}, {p}, {cluster}>::SMEM_DKV == {plan.dkv.smem}"
+                in src)
 
 
 def _c_params(src: str, fn: str):
@@ -224,8 +229,9 @@ def test_ctypes_tables_match_the_c_entries(fn):
 
 def test_no_fma_body_is_left_at_dh128():
     """no FMA body is left in flash_bwd.cu: every route of both kernels
-    (dh 128 and 256, both classes) is a wgmma instance, dh 256 in the f32
-    class on a cluster of two CTAs"""
+    (dh 128 to 512, both classes) is a wgmma instance, dh 256 in the f32
+    class on a cluster of two CTAs, dh 384 and 512 in both classes on
+    clusters of three and four"""
     with open(os.path.join(CSRC, "flash_bwd.cu")) as f:
         code = re.sub(r"//[^\n]*", "", f.read())
     assert re.search(r"flash_bwd_(?:dkv|dq)_kernel\b", code) is None
@@ -244,8 +250,10 @@ def test_no_fma_body_is_left_at_dh128():
                             code))
     assert routes == {(dh, p, k, dh, p, cl) for k in ("DKV", "DQ")
                       for dh, p, cl in (("128", "3", "1"), ("128", "1", "1"),
-                                        ("256", "3", "2"),
-                                        ("256", "1", "1"))}
+                                        ("256", "3", "2"), ("256", "1", "1"),
+                                        ("384", "3", "3"), ("384", "1", "3"),
+                                        ("512", "3", "4"),
+                                        ("512", "1", "4"))}
     assert "launch_cluster(flash_bwd_dkv_sm90_kernel<D, NP, CL>" in code
     assert "launch_cluster(flash_bwd_dq_sm90_kernel<D, NP, CL>" in code
 

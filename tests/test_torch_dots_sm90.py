@@ -148,7 +148,7 @@ def test_truncating_score_sums_need_the_derived_tolerance(shape):
 # ---------------------------------------------------------------------------
 # (b) the plan, the source and the C entry
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("dh", attn.KERNEL_DH)
+@pytest.mark.parametrize("dh", attn.SMALL_DH)
 def test_probe_plan_is_the_hybrid_forwards_and_fits_an_sm(dh):
     """the probe takes the forward's hybrid plan (one part, two stages of
     K and V): under 227 KB, and the source launches the body with one part

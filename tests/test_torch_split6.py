@@ -220,18 +220,26 @@ def _forward_source() -> str:
 @pytest.mark.parametrize("hybrid", [False, True])
 def test_fwd_plan_fits_an_sm_and_matches_the_source(dh, hybrid):
     """the forward's plan stays under 227 KB in both classes, and its tiles
-    are the ones flash_fwd.cu's Fwd is built with"""
+    are the ones flash_fwd.cu's Fwd is built with; dh 384 and 512 take a
+    cluster of dh / 128 CTAs, each with the dh-128 tiles over its columns,
+    the exchange slot and its three barriers"""
     plan = attn.fwd_plan(64, 2048, dh, hybrid)
     assert plan.smem <= gemm.SM90_SMEM_LIMIT == 232448
     assert plan.parts == (1 if hybrid else 3)
     assert plan.bq % 64 == 0 and plan.bq % plan.bkv == 0
-    assert plan.ctas == 64 * 2048 // plan.bq
-    tiles = plan.parts * (plan.bq + 2 * plan.stages * plan.bkv) * dh * 2
-    assert plan.smem == 1024 + tiles + (1 + 2 * plan.stages) * 8
+    cluster = dh // 128 if dh > 256 else 1
+    assert plan.cluster == cluster
+    assert plan.ctas == cluster * 64 * 2048 // plan.bq
+    cols = dh // cluster
+    tiles = plan.parts * (plan.bq + 2 * plan.stages * plan.bkv) * cols * 2
+    xch, bars = (32768, 3) if cluster > 1 else (0, 0)
+    assert plan.smem == 1024 + tiles + xch + (1 + 2 * plan.stages + bars) * 8
     src = _forward_source()
-    assert "BQ = D == 128 ? 128 : 64" in src
-    assert "BKV = D == 128 ? 64 : 32" in src
+    assert "DC = D / CL" in src
+    assert "BQ = DC == 128 ? 128 : 64" in src
+    assert "BKV = DC == 128 ? 64 : 32" in src
     assert "ST = NP == 1 ? 2 : 1" in src
+    assert "XCH = CL > 1 ? NT * (BKV / 2) * 4 : 0" in src
     assert attn.FWD_TILES == {128: (128, 64), 256: (64, 32)}
     assert attn.FWD_STAGES == {3: 1, 1: 2}
 
