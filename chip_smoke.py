@@ -32,13 +32,15 @@ Phases, one JSON line each:
           plain and library times (the bf16 library also with the two
           f32 -> bf16 casts; the library attention also through a 4-d
           call) and the card's least time for the same work (the bound)
-  kernel_wide  K1, K2a and K2b at dh 384 and 512 ([16, 2048, dh], the
-          dh-512 train slice's cores), both classes, causal and not (an
-          lse cotangent when not), on clusters of dh / 128 CTAs that split
+  kernel_wide  K1, K2a and K2b at dh 384 to 1024 ([16, 2048, dh]: the
+          dh-512 train slice's cores, and the dh-1024 slice's at twice its
+          B*h), both classes, causal (dh 640 to 1024 also not, with an
+          lse cotangent), on clusters of dh / 128 CTAs that split
           dh: against their plain versions in the cluster's sum order, the
           f32 class also against f64, each backward twice to the bit; the
           causal cases timed, each kernel alone and with its split, beside
-          its bound, SDPA's 4-d call and the clusters the card runs at once
+          its bound, SDPA's 4-d call, the clusters the card runs at once
+          and the SMs they leave idle
   serve   tiny_lm at bench_prefill's full width (dim 1024, 8 heads,
           4 layers, vocab 2048, batch 8, 2048-token prompt, 64 new
           tokens) through generate(), f32 and int8 KV caches: kernel
@@ -56,13 +58,16 @@ Phases, one JSON line each:
           gradients held against the same step taken through the plain
           attention path, the loss sequence, step timings and a profile;
           again with 4 heads (train_dh256, K2 on two-CTA clusters)
-  serve_dh512, train_dh512  the same model with 2 heads (dh 512): a
-          generate (one K1 launch a layer on four-CTA clusters, by the
-          host counter and the profiler; tokens against the uncaptured
-          step and the strict replay; the prefill beside the einsum
-          path's) and six train steps (8 K1, 4 K2a and 4 K2b a step, by
-          both counts; gradients against the plain attention path; the
-          same step on the einsum path timed beside it)
+  serve_dh512, train_dh512  the same model with 2 heads (dh 512) at 2
+          layers: a generate (one K1 launch a layer on four-CTA
+          clusters, by the host counter and the profiler; tokens against
+          the uncaptured step and the strict replay; the prefill beside
+          the einsum path's) and six train steps (4 K1, 2 K2a and 2 K2b
+          a step, by both counts; gradients against the plain attention
+          path; the same step on the einsum path timed beside it)
+  serve_dh1024, train_dh1024  the same with 1 head at the full 4 layers
+          (dh 1024, K1, K2a and K2b on clusters of eight CTAs: 4 K1 a
+          generate, 8 K1 and 4 K2a and K2b a step)
   tensor  the port's Forth REPL on the card, fed from strings:
           examples/t4_20a.4th whole (its verify lines, the inverse
           round trip, msec/cycle of its 1000-product loop), the larger
@@ -201,6 +206,7 @@ any check fails.  Nothing is caught and turned into a pass.
 from __future__ import annotations
 
 import argparse
+import functools
 import io
 import json
 import math
@@ -227,8 +233,9 @@ NO_SPILL = ("flash_fwd", "flash_bwd", "flash_bwd_fused", "attn_dots",
 LM = dict(batch=8, vocab=2048, dim=1024, heads=8, layers=4, rope=True)
 N_PROMPT, N_NEW = 2048, 64
 MOE_LM = dict(LM, layers=2)      # the MoE LM's depth, cut from 4
-LM_DH512 = dict(LM, heads=2)     # tiny_lm with dh 512: K1, K2a, K2b on
-#                                  clusters of four CTAs
+LM_DH512 = dict(LM, heads=2, layers=2)   # tiny_lm with dh 512: K1, K2a,
+#                        K2b on clusters of four CTAs; depth cut from 4
+LM_DH1024 = dict(LM, heads=1)    # ... with dh 1024: on clusters of eight
 TOL_F32 = 1e-4     # f32 sums in another order than the plain version's
 # the f32 forward against f64, absolute plus relative: the JAX package's
 # own tolerance for its flash forward in f32 (tests/test_attention.py)
@@ -284,13 +291,14 @@ TRAIN_LR = 1e-4    # Adam.  The reference's Adam has no bias correction,
 #                    so its first steps move every weight by about 3 lr;
 #                    at dim 1024 the small tests' 1e-2 and 1e-3 overshoot
 FLASH_NAMES = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
-# the dh-384 and dh-512 routes (clusters of 3 and 4 CTAs that split dh),
+# the dh-384 to dh-1024 routes (clusters of 3 to 8 CTAs that split dh),
 # both classes: the build's instances, whose registers the build records
-FWD_CLUSTER_KERNELS = ("flash_fwd_kernel<384,3,3>", "flash_fwd_kernel<384,1,3>",
-                       "flash_fwd_kernel<512,3,4>", "flash_fwd_kernel<512,1,4>")
+WIDE_DH = (384, 512, 640, 768, 896, 1024)
+FWD_CLUSTER_KERNELS = tuple(f"flash_fwd_kernel<{dh},{np_},{dh // 128}>"
+                            for dh in WIDE_DH for np_ in (3, 1))
 BWD_CLUSTER_KERNELS = tuple(
     f"flash_bwd_{w}_sm90_kernel<{dh},{np_},{dh // 128}>"
-    for w in ("dkv", "dq") for dh in (384, 512) for np_ in (3, 1))
+    for w in ("dkv", "dq") for dh in WIDE_DH for np_ in (3, 1))
 PROBE_NAMES = ("flash_bwd_fused", "attn_dots")   # the measurement path's own
 BENCH = dict(nh=16, s=2048, dh=128)   # bench.py's attention shape
 BENCH_ITERS, BENCH_REPS = 4, 7        # calls per chain, timed chains
@@ -511,7 +519,8 @@ def bwd_peak(parts: int) -> float:
     return {1: PEAK_BF16_FLOPS, 3: PEAK_BF16_FLOPS / 6}[parts]
 
 
-CTAS = {2: "two", 3: "three", 4: "four"}   # a cluster's CTAs, in words
+CTAS = {2: "two", 3: "three", 4: "four", 5: "five", 6: "six", 7: "seven",
+        8: "eight"}   # a cluster's CTAs, in words
 BWD_ROUTES = {1: "bf16 wgmma, one product",
               3: "bf16 wgmma, six products of a three-part split"}
 
@@ -1223,12 +1232,12 @@ def phase_kernel(seed: int):
             failed.append("flash_bwd_fused " + name)
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
-    # the gate: a head dim the kernels are not built for (dh 640) takes
+    # the gate: a head dim the kernels are not built for (dh 1152) takes
     # the einsum path on the card and launches nothing; the wrapper and
-    # both C entries refuse it
+    # both C entries refuse it, given the widest route's plan
     from tensorforth_tpu_torch.nn import funcs
     x = torch.from_numpy(np.random.RandomState(seed).randn(
-        2, 512, 640).astype(np.float32)).cuda()
+        2, 512, 1152).astype(np.float32)).cuda()
     before = flash_counts()
     gate_ok = (torch.equal(funcs.sdpa(x, x, x, True),
                            funcs._sdpa_ref(x, x, x, True))
@@ -1238,21 +1247,21 @@ def phase_kernel(seed: int):
         gate_ok = False
     except ValueError:
         pass
-    p512 = attn.fwd_plan(2, 512, 512, False)
-    b512 = attn.bwd_plan(2, 512, 512, False).dq
+    pw = attn.fwd_plan(2, 512, 1024, False)
+    bw = attn.bwd_plan(2, 512, 1024, False).dq
     xp = x.data_ptr()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         gate_ok = gate_ok and attn._lib("flash_fwd").t4_flash_fwd(
-            xp, xp, xp, xp, xp, 2, 512, 640, 1, 3, p512.bq, p512.bkv,
-            p512.stages, p512.smem, p512.cluster, 1.0, stream) != 0
+            xp, xp, xp, xp, xp, 2, 512, 1152, 1, 3, pw.bq, pw.bkv,
+            pw.stages, pw.smem, pw.cluster, 1.0, stream) != 0
         gate_ok = gate_ok and attn._lib("flash_bwd").t4_flash_bwd_dq(
-            xp, xp, xp, xp, xp, xp, xp, 2, 512, 640, 1, 3, b512.rows,
-            b512.tile, b512.stages, b512.smem, b512.cluster, 1.0,
+            xp, xp, xp, xp, xp, xp, xp, 2, 512, 1152, 1, 3, bw.rows,
+            bw.tile, bw.stages, bw.smem, bw.cluster, 1.0,
             stream) != 0
     torch.cuda.synchronize()
     if not gate_ok:
-        failed.append("sdpa gate and launch at dh=640")
+        failed.append("sdpa gate and launch at dh=1152")
     common = {"phase": "kernel", "peak_f32_tflops": PEAK_F32_FLOPS / 1e12,
               "peak_tb_s": PEAK_BYTES / 1e12}
     emit(dict(common, kernel="flash_fwd", cases=rows,
@@ -1260,7 +1269,7 @@ def phase_kernel(seed: int):
               precision="bf16 wgmma, f32 sums: f32 class six products of a "
                         "three-part split (bound at a sixth of the bf16 "
                         "rate), hybrid one product",
-              dh640_takes_the_einsum_path_and_is_refused=gate_ok))
+              dh1152_takes_the_einsum_path_and_is_refused=gate_ok))
     emit(dict(common, kernel="flash_bwd (dkv, dq) and flash_bwd_fused",
               cases=bwd_rows, peak_bf16_tflops=PEAK_BF16_FLOPS / 1e12,
               precision="dkv, dq: bf16 wgmma, f32 sums: f32 class six "
@@ -1283,18 +1292,22 @@ def phase_kernel(seed: int):
 
 
 # the wide head dims' cases (K1, K2a, K2b on clusters of dh / 128 CTAs):
-# the dh-512 train slice's cores ([16, 2048, 512]: tiny_lm at
-# bench_prefill's widths with 2 heads) and dh 384 at the same B*h and S
-WIDE_CASES = tuple((dh, causal, hybrid) for dh in (384, 512)
+# [16, 2048, 512] (tiny_lm at bench_prefill's widths with 2 heads: the
+# cores of its full depth), and dh 384 and 640 to 1024 at the same B*h and
+# S (the dh-1024 slice's cores are [8, 2048, 1024]); every route causal
+# and not (each cluster size is an exchange of its own)
+WIDE_CASES = tuple((dh, causal, hybrid) for dh in WIDE_DH
                    for hybrid in (False, True) for causal in (True, False))
 WIDE_BH, WIDE_S = 16, 2048
+WIDE_REPS = 7      # timed runs a kernel_wide time is the median of
 
 
 def phase_kernel_wide(seed: int, bh=WIDE_BH, s=WIDE_S, cases=WIDE_CASES):
-    """K1, K2a and K2b at dh 384 and 512, both classes, causal and not,
-    against their plain versions (the class's tolerance; the f32 class
-    also against f64, and each backward twice, bit for bit), with an lse
-    cotangent in the non-causal cases; the causal f32 and hybrid cases
+    """K1, K2a and K2b at dh 384 to 1024, both classes, causal and not,
+    against their plain versions (the class's
+    tolerance; the f32 class also against f64, and each backward twice,
+    bit for bit), with an lse cotangent in the non-causal cases; the
+    causal f32 and hybrid cases
     timed: each kernel alone and with its split, beside its bound and
     SDPA's f32 forward and backward through a 4-d call on the same
     operands.  Returns the `kernels` line's entries by kernel name"""
@@ -1302,12 +1315,18 @@ def phase_kernel_wide(seed: int, bh=WIDE_BH, s=WIDE_S, cases=WIDE_CASES):
     import torch.nn.functional as F
     from tensorforth_tpu_torch.ops import attn
     rows, failed, entries = [], [], {}
+
+    wide_ms = functools.partial(time_ms, reps=WIDE_REPS)
+
     for i, (dh, causal, hybrid) in enumerate(cases):
-        rs = np.random.RandomState(seed + 100 + i)
-        q, k, v, do = (torch.from_numpy(rs.randn(bh, s, dh).astype(
-            np.float32)).cuda() for _ in range(4))
-        dlse = (None if causal else torch.from_numpy(
-            rs.randn(bh, s).astype(np.float32)).cuda())
+        t0 = time.perf_counter()
+        # numpy's float32 normal generator: the inputs at dh 1024 are 134 M
+        # values, which RandomState.randn makes in seconds
+        rs = np.random.default_rng(seed + 100 + i)
+        q, k, v, do = (torch.from_numpy(rs.standard_normal(
+            (bh, s, dh), dtype=np.float32)).cuda() for _ in range(4))
+        dlse = (None if causal else torch.from_numpy(rs.standard_normal(
+            (bh, s), dtype=np.float32)).cuda())
         cl = attn.fwd_cluster(dh)
         fplan = attn.fwd_plan(bh, s, dh, hybrid)
         bplan = attn.bwd_plan(bh, s, dh, hybrid)
@@ -1324,6 +1343,11 @@ def phase_kernel_wide(seed: int, bh=WIDE_BH, s=WIDE_S, cases=WIDE_CASES):
                    kern: attn.flash_clusters(kern, dh, hybrid,
                                              q.device.index or 0)
                    for kern in ("fwd", "dkv", "dq")}}
+        # the SMs that many clusters of the route leave without a CTA
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        row["idle_sms"] = {kern: sms - n * (fplan.cluster if kern == "fwd"
+                                            else bplan.dq.cluster)
+                           for kern, n in row["clusters_at_once"].items()}
         # --- forward, against the plain version in the kernel's sum order
         o, lse = attn.flash_attention(q, k, v, causal=causal, hybrid=hybrid)
         torch.cuda.synchronize()
@@ -1378,25 +1402,25 @@ def phase_kernel_wide(seed: int, bh=WIDE_BH, s=WIDE_S, cases=WIDE_CASES):
             qscale = attn.LOG2E / math.sqrt(dh)
             ops, nbytes, split_bytes = attn_work(bh, s, dh, causal, hybrid)
             fb, fby = bound_ms(ops, nbytes, fwd_peak(hybrid))
-            fwd = {"ms": time_ms(lambda: attn.flash_attention(
+            fwd = {"ms": wide_ms(lambda: attn.flash_attention(
                 q, k, v, causal=causal, hybrid=hybrid)),
                 "bound_ms": fb, "bound_by": fby, "gflop": ops / 1e9}
             if hybrid:
                 bf = torch.bfloat16
                 ops3 = ((q * qscale).to(bf), k.to(bf), v.to(bf))
             else:
-                fwd["split_ms"] = time_ms(lambda: attn._split_qkv(
+                fwd["split_ms"] = wide_ms(lambda: attn._split_qkv(
                     q, k, v, qscale))
                 fwd["split_bound_ms"] = split_bytes / PEAK_BYTES * 1e3
                 ops3 = attn._split_qkv(q, k, v, qscale)
-            fwd["kernel_ms"] = time_ms(lambda: attn._launch_fwd(
+            fwd["kernel_ms"] = wide_ms(lambda: attn._launch_fwd(
                 *ops3, causal, hybrid))
             del ops3
-            fwd["plain_ms"] = time_ms(lambda: attn.flash_attention_ref(
+            fwd["plain_ms"] = wide_ms(lambda: attn.flash_attention_ref(
                 q, k, v, causal, hybrid), reps=5)
             cast = (lambda x: x.to(torch.bfloat16)) if hybrid else (
                 lambda x: x)
-            fwd["library_ms_4d"] = time_ms(
+            fwd["library_ms_4d"] = wide_ms(
                 lambda: F.scaled_dot_product_attention(
                     *(cast(x)[None] for x in (q, k, v)), is_causal=causal))
             args = attn._prepare_bwd(q, k, v, o, lse, do, causal, hybrid,
@@ -1407,27 +1431,28 @@ def phase_kernel_wide(seed: int, bh=WIDE_BH, s=WIDE_S, cases=WIDE_CASES):
                                                      bplan.parts)
                 kb, kby = bound_ms(kops, kbytes, bwd_peak(bplan.parts))
                 bwd[which] = {
-                    "kernel_ms": time_ms(lambda: attn._launch_bwd(
+                    "kernel_ms": wide_ms(lambda: attn._launch_bwd(
                         which, *args)),
-                    "ms": time_ms(lambda: attn.flash_attention_bwd(
+                    "ms": wide_ms(lambda: attn.flash_attention_bwd(
                         *call, dlse=dlse, only=which)),
                     "bound_ms": kb, "bound_by": kby, "gflop": kops / 1e9}
             del args
-            common = {"ms_whole_backward": time_ms(
+            common = {"ms_whole_backward": wide_ms(
                 lambda: attn.flash_attention_bwd(*call, dlse=dlse)),
-                "plain_ms": time_ms(lambda: attn.flash_attention_bwd_ref(
+                "plain_ms": wide_ms(lambda: attn.flash_attention_bwd_ref(
                     *call, dlse=dlse), reps=5),
-                "library_ms_4d": time_ms(sdpa_grads(
+                "library_ms_4d": wide_ms(sdpa_grads(
                     *(cast(x)[None] for x in (q, k, v, do)), causal))}
             if not hybrid:
-                common["split_ms"] = time_ms(lambda: attn._split_bwd(
+                common["split_ms"] = wide_ms(lambda: attn._split_bwd(
                     q, k, v, do, qscale, attn.flash_attention_bwd))
                 common["split_bound_ms"] = bsplit / PEAK_BYTES * 1e3
             row["timed"] = {"fwd": fwd, "bwd": dict(bwd, **common)}
             tag = f"{'hybrid' if hybrid else 'f32'}_dh{dh}"
             keep = {"shape": [bh, s, dh], "causal": causal,
                     "route": row["route"],
-                    "clusters_at_once": row["clusters_at_once"]}
+                    "clusters_at_once": row["clusters_at_once"],
+                    "idle_sms": row["idle_sms"]}
             entries.setdefault("flash_fwd", {})[tag] = dict(
                 fwd, max_abs_err=max(row["fwd_max_abs_err"]),
                 f64_ratio=row.get("fwd_f64_ratio"), plan=row["fwd_plan"],
@@ -1438,6 +1463,7 @@ def phase_kernel_wide(seed: int, bh=WIDE_BH, s=WIDE_S, cases=WIDE_CASES):
                     max_abs_err=max(row["bwd_max_abs_err"][e]
                                     for e in errs_of),
                     f64_ratio=row.get("bwd_f64_ratio"), **keep)
+        row["seconds"] = time.perf_counter() - t0
         rows.append(row)
         if not row["ok"]:
             failed.append(name)
@@ -2264,8 +2290,8 @@ class flash_gate_closed:
 
 def phase_serve_wide(seed: int, device="cuda", lm=LM_DH512,
                      n_prompt=N_PROMPT, n_new=N_NEW):
-    """generate at a wide head dim (dh 512: tiny_lm at bench_prefill's
-    widths with 2 heads), greedy: the prefill's attention cores go through
+    """generate at a wide head dim (dh 512 or 1024: tiny_lm at
+    bench_prefill's widths with 2 heads or 1), greedy: the prefill's attention cores go through
     K1's cluster route, one launch a layer, counted by the host counter
     and by the profiler on the device; the tokens against the uncaptured
     step's and, under strict, against the teacher-forced replay; the
@@ -2407,7 +2433,8 @@ def launches_per_step(layers: int) -> dict:
 def phase_train(seed: int, device="cuda", lm=LM, seq=N_PROMPT,
                 steps=TRAIN_STEPS, expect_launches=None, wide=False):
     """the training path: returns the flash kernels' launches in one
-    step.  wide (the dh-384/512 routes): the profiled step's K1, K2a and
+    step.  wide (the cluster routes of dh 384 to 1024): the profiled
+    step's K1, K2a and
     K2b launches are checked on the device too, and the same step on the
     einsum attention path is timed beside it"""
     import torch
@@ -5604,13 +5631,16 @@ def main(argv=None) -> int:
     for name, n in per_step.items():
         ran[name] = ran.get(name, 0) + n
     # with 2 heads: dh 512, K1, K2a and K2b on clusters of four CTAs,
-    # served and trained
-    for name, n in timed("serve_dh512", phase_serve_wide, args.seed).items():
-        ran[name] = ran.get(name, 0) + n
-    per_step = timed("train_dh512", phase_train, args.seed, lm=LM_DH512,
-                     expect_launches=step_launches, wide=True)
-    for name, n in per_step.items():
-        ran[name] = ran.get(name, 0) + n
+    # served and trained; with 1 head: dh 1024, on clusters of eight
+    for tag, lm in (("dh512", LM_DH512), ("dh1024", LM_DH1024)):
+        for name, n in timed(f"serve_{tag}", phase_serve_wide, args.seed,
+                             lm=lm).items():
+            ran[name] = ran.get(name, 0) + n
+        per_step = timed(f"train_{tag}", phase_train, args.seed, lm=lm,
+                         expect_launches=launches_per_step(lm["layers"]),
+                         wide=True)
+        for name, n in per_step.items():
+            ran[name] = ran.get(name, 0) + n
     on_tensor_path = timed("tensor", phase_tensor, args.seed)
     timed("nn", phase_nn, args.seed)
     # the per-word control, cut to its first epochs; then t4_30e whole at
@@ -5643,9 +5673,11 @@ def main(argv=None) -> int:
     emit({"phase_seconds": seconds})
     # no word of either package reaches K5b or K7: the tensor phase calls
     # their wrappers on the words' operands
-    launched_by = {"flash_fwd": "generate (dh 128; dh 512 in serve_dh512 "
-                                "on clusters of four CTAs), the train "
-                                "steps (dh 128, 256 and 512), attn_bench, "
+    launched_by = {"flash_fwd": "generate (dh 128; dh 512 and 1024 in "
+                                "serve_dh512 and serve_dh1024 on clusters "
+                                "of four and eight CTAs), the train "
+                                "steps (dh 128, 256, 512 and 1024), "
+                                "attn_bench, "
                                 "net_gen (the REPL's nn.gen prefill "
                                 "and its word-path step; in the f32 class "
                                 "after its split, split_launches on "
@@ -5660,8 +5692,8 @@ def main(argv=None) -> int:
                                 "forward's attention layers, and the "
                                 "microbatches of the first pp4 stage "
                                 "that train_pipeline starts)",
-                   "flash_bwd_dkv": "the train steps (dh 128, and dh 256 "
-                                    "and 512 on the cluster routes), "
+                   "flash_bwd_dkv": "the train steps (dh 128, and dh 256, "
+                                    "512 and 1024 on the cluster routes), "
                                     "attn_bench, "
                                     "net_gen's word-path step (in the f32 "
                                     "class after the backward's split, "
@@ -5671,8 +5703,8 @@ def main(argv=None) -> int:
                                     "ShardedTrainer gradient) and the "
                                     "parallel phase's rank 0 (the ring's "
                                     "backward, the nn.pipe stage's)",
-                   "flash_bwd_dq": "the train steps (dh 128, and dh 256 "
-                                   "and 512 on the cluster routes), "
+                   "flash_bwd_dq": "the train steps (dh 128, and dh 256, "
+                                   "512 and 1024 on the cluster routes), "
                                    "attn_bench, "
                                    "net_gen's word-path step (after the "
                                    "same split), net_train's graph, the "
@@ -5736,7 +5768,8 @@ def main(argv=None) -> int:
         rec[f"flash_bwd_{which}"].update(
             hybrid=hy, split_launches=ran["flash_bwd_split"])
     # the wide head dims' routes (phase_kernel_wide), each kernel's entry
-    wide_tags = ("f32_dh384", "f32_dh512", "hybrid_dh384", "hybrid_dh512")
+    wide_tags = tuple(f"{cls}_dh{dh}" for cls in ("f32", "hybrid")
+                      for dh in WIDE_DH)
     extra = {"flash_fwd": ("kernel_ms", "split_ms", "split_bound_ms",
                            "split_launches", "library_ms_4d", "route",
                            "f64_ratio_o", "f64_ratio_lse", "hybrid",

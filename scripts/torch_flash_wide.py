@@ -1,18 +1,20 @@
 """Time the flash kernels K1, K2a and K2b in the f32 class over head dims
-128 to 512 at the same work, on the card, in the tree it is run from.
+128 to 1024, on the card, in the tree it is run from.
 
 Run from the root of a checkout:
 
     python3 scripts/torch_flash_wide.py --tag NAME
 
-At [64, 2048, 128], [32, 2048, 256], [16, 2048, 384] and [16, 2048, 512]
-causal (the first, second and last do the same operations) it times each
-kernel alone on its prepared operands (K1 on its split's parts, K2a and
-K2b after the backward's split and delta), and prints the SHA-1 of each
-kernel's output bits.  A head dim the tree's kernels do not take
-(ops.attn.KERNEL_DH) is skipped, so one call to the card can hold two
-trees against each other in turns (parent, change, change, parent).
-Prints one JSON line; exits 2 without a card.
+At [64, 2048, 128], [32, 2048, 256], [16, 2048, 384], [16, 2048, 512],
+[8, 2048, 1024] (these five do the same operations but dh 384's) and
+[16, 2048, dh] for dh 640 to 1024, causal, it times each kernel alone on
+its prepared operands (K1 on its split's parts, K2a and K2b after the
+backward's split and delta), and prints the SHA-1 of each kernel's output
+bits and the clusters the card runs at once.  A head dim the tree's
+kernels do not take (ops.attn.KERNEL_DH) is skipped, so one call to the
+card can hold two trees against each other in turns (parent, change,
+change, parent): copy this script into the parent's tree, so both draw
+the same inputs.  Prints one JSON line; exits 2 without a card.
 """
 import argparse
 import hashlib
@@ -22,7 +24,8 @@ import os
 import sys
 
 SHAPES = ((64, 2048, 128), (32, 2048, 256), (16, 2048, 384),
-          (16, 2048, 512))
+          (16, 2048, 512), (8, 2048, 1024), (16, 2048, 640),
+          (16, 2048, 768), (16, 2048, 896), (16, 2048, 1024))
 
 
 def _sha1(tensors) -> str:
@@ -50,10 +53,14 @@ def main(argv=None) -> int:
     for b, s, dh in SHAPES:
         if dh not in attn.KERNEL_DH:
             continue
-        rs = np.random.RandomState(b + s + dh)
-        q, k, v, do = (torch.from_numpy(rs.randn(b, s, dh).astype(
-            np.float32)).cuda() for _ in range(4))
+        rs = np.random.default_rng(b + s + dh)
+        q, k, v, do = (torch.from_numpy(rs.standard_normal(
+            (b, s, dh), dtype=np.float32)).cuda() for _ in range(4))
         row = {"shape": [b, s, dh]}
+        if hasattr(attn, "flash_clusters"):
+            row["clusters_at_once"] = {
+                kern: attn.flash_clusters(kern, dh, False, 0)
+                for kern in ("fwd", "dkv", "dq")}
         parts = attn._split_qkv(q, k, v, attn.LOG2E / math.sqrt(dh))
         row["fwd_kernel_ms"] = cs.time_ms(
             lambda: attn._launch_fwd(*parts, True, False), reps=args.reps)

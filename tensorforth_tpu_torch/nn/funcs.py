@@ -393,9 +393,10 @@ def rope_apply(x, pos):
 
 def _flash_shape_ok(s: int, dh: int) -> bool:
     """shapes the flash kernels take: long, aligned sequences at a head
-    dim they are built for, 128 to 512 (dh 384 and 512 on clusters of
-    dh / 128 CTAs).  (The JAX gate admits any dh % 128 == 0,
-    funcs.py:163-165; dh 640 and wider take the einsum path here.)"""
+    dim they are built for, 128 to 1024 in steps of 128 (dh 384 to 1024
+    on clusters of dh / 128 CTAs, 8 at most).  (The JAX gate admits any
+    dh % 128 == 0, funcs.py:163-165; dh 1152 and wider take the einsum
+    path here.)"""
     return s >= 512 and s % 256 == 0 and dh in _attn.KERNEL_DH
 
 

@@ -9,10 +9,10 @@ with the S x S scores kept on chip.  On this card it is bound by
 operations, and both its products run on bf16 ``wgmma`` fed by TMA: in
 the f32 class as six products of a three-part split (q*scale*log2e, k and
 v split by one launch of the same source, ``_split_qkv``; p in registers),
-in the hybrid class as one product of the wrapper's casts.  At dh 384 and
-512, in both classes, a cluster of dh / 128 CTAs splits dh: each holds the
-dh-128 tiles over its 128 columns, and the CTAs add their partial scores
-through distributed shared memory in a fixed order of pairs
+in the hybrid class as one product of the wrapper's casts.  At dh 384 to
+1024, in both classes, a cluster of dh / 128 CTAs (3 to 8) splits dh:
+each holds the dh-128 tiles over its 128 columns, and the CTAs add their
+partial scores through distributed shared memory in a fixed tree of pairs
 (``cluster_sum``), so that each runs the same softmax on the same bits.
 Its tile plan is ``fwd_plan``.  lse is stored [B*h, S]; the Pallas
 kernel's 128-lane copy was a TPU layout artefact.
@@ -30,7 +30,7 @@ product of the wrapper's casts.  At dh 256 in the f32 class three parts
 of their tiles do not fit a CTA: there a cluster of two CTAs splits dh,
 each holding the dh-128 tiles over its half of the columns, and the two
 add their partial s2 and dp through distributed shared memory; at dh 384
-and 512, in both classes, clusters of three and four CTAs do the same,
+to 1024, in both classes, clusters of dh / 128 CTAs (3 to 8) do the same,
 their partials added in ``cluster_sum``'s order.  Their plan is
 ``bwd_plan``.  ``flash_attention_lse`` pairs forward and
 backward as a ``torch.autograd.Function`` that returns (o, lse),
@@ -58,7 +58,7 @@ bf16 operands.
 
 Every wrapper launches its kernel for CUDA tensors and uses its plain
 version only for CPU tensors; anything else raises.  There is no
-fallback on the card.  K1, K2a and K2b take dh 128 to 512 (KERNEL_DH);
+fallback on the card.  K1, K2a and K2b take dh 128 to 1024 (KERNEL_DH);
 K3 and the probe dh 128 and 256.
 """
 from __future__ import annotations
@@ -75,7 +75,9 @@ from .gemm import SM90_ALIGN, _split3_ref
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 NEG_INF = -1.0e30          # the mask value of attn_pallas.py:25
-KERNEL_DH = (128, 256, 384, 512)   # head dims K1, K2a, K2b are built for
+# head dims K1, K2a, K2b are built for: a cluster holds at most 8 CTAs of
+# 128 columns
+KERNEL_DH = tuple(range(128, 1025, 128))
 SMALL_DH = (128, 256)      # K3's and the probe's (no cluster route of dh 384+)
 TILE = 64                  # S must be a multiple of the kernel's tile
 N_SM = 132   # SMs of an H100 SXM: what a plan is made for off the card
@@ -88,8 +90,8 @@ def flash_attention_ref(q, k, v, causal: bool = False, hybrid: bool = False,
     f32: the exact einsum attention (nn/funcs.py _sdpa_ref) plus its
     log-sum-exp.  hybrid: the kernel's bf16 treatment — q*scale*log2(e),
     k and v rounded to bf16, base-2 softmax in f32, P rounded to bf16
-    before the PV product, f32 sums; with `cluster` 3 or 4 the scores as
-    the dh-384 and dh-512 route forms them, an f32 sum per CTA's 128
+    before the PV product, f32 sums; with `cluster` 3 to 8 the scores as
+    the dh-384 to dh-1024 routes form them, an f32 sum per CTA's 128
     columns, added in cluster_sum's order."""
     s, dh = q.shape[1], q.shape[2]
     keep = (torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
@@ -119,21 +121,30 @@ def _einsum(x, y, eq):
 
 def cluster_sum(parts, rank: int = 0):
     """the sum of a cluster's partials (one tensor per CTA, in rank order)
-    as CTA `rank` forms it (csrc/sm90_gemm.cuh: Xch): round 1 adds the
-    pair's partials (CTAs 0 and 1, 2 and 3), its own first; round 2 (3 or
-    4 CTAs) adds the other pair's sum as that pair formed it (at 3 CTAs
-    CTA 2's partial alone, which takes CTA 0's sum).  An f32 sum of two
-    terms is the same in either order, so every rank gets x0 + x1,
-    (x0 + x1) + x2 or (x0 + x1) + (x2 + x3), the same bits."""
+    as CTA `rank` forms it (csrc/sm90_gemm.cuh: Xch): a tree of pairs.
+    Round k (h = 2^(k-1)) adds to the sum over the CTA's block of h ranks
+    the sum over the block beside it (ranks (rank ^ h) & ~(h - 1) on, those
+    below the cluster's size), as that block formed it; a block with no
+    CTA adds nothing.  An f32 sum of two terms is the same in either order,
+    so every rank gets x0 + x1, (x0 + x1) + x2, (x0 + x1) + (x2 + x3),
+    ((x0 + x1) + (x2 + x3)) + x4, ..., ((x0 + x1) + (x2 + x3)) + ((x4 +
+    x5) + (x6 + x7)), the same bits."""
     cl = len(parts)
 
-    def pair_sum(r):
-        return parts[r] + parts[r ^ 1] if (r ^ 1) < cl else parts[r]
+    def block(b, h):
+        """the sum over ranks b .. b + h - 1 (those below cl), as formed"""
+        if h == 1:
+            return parts[b]
+        lo = block(b, h // 2)
+        return lo + block(b + h // 2, h // 2) if b + h // 2 < cl else lo
 
-    mine = pair_sum(rank)
-    if cl <= 2:
-        return mine
-    return mine + pair_sum(rank ^ 2 if cl == 4 else 2 if rank < 2 else 0)
+    mine, h = parts[rank], 1
+    while h < cl:
+        b = (rank ^ h) & ~(h - 1)
+        if b < cl:
+            mine = mine + block(b, h)
+        h *= 2
+    return mine
 
 
 def _cluster_scores(prod, x, y, cluster: int):
@@ -152,8 +163,8 @@ def flash_attention_split_ref(q, k, v, causal: bool = False,
     q*scale*log2e (an f32 product), k and v split into the first `parts`
     of the three-part split (gemm._split3_ref), s2 = the products of
     parts (i, j) with i + j < parts (six for 3 parts: the kernel's; three
-    for 2: K5a 3pass's count) summed in f64 (with `cluster` 3 or 4, as the
-    dh-384 and dh-512 kernels form it: each CTA's sum over its 128 columns
+    for 2: K5a 3pass's count) summed in f64 (with `cluster` 3 to 8, as the
+    dh-384 to dh-1024 kernels form it: each CTA's sum over its 128 columns
     rounded to f32, the partials added in f32 in cluster_sum's order), p =
     exp2(s2 - the row max) rounded to f32 and split the same way, o = the
     products of p's and v's parts over the row sum.  What it leaves out of
@@ -182,6 +193,17 @@ def flash_attention_split_ref(q, k, v, causal: bool = False,
 
 
 # --- the forward kernel's tile plan -----------------------------------------
+def xch_rounds(cluster: int) -> int:
+    """the rounds of cluster_sum's tree at `cluster` CTAs (Xch::ROUNDS)"""
+    return (cluster - 1).bit_length()
+
+
+def xch_barriers(cluster: int) -> int:
+    """a cluster route's exchange barriers: `full` and one a round"""
+    return 1 + xch_rounds(cluster) if cluster > 1 else 0
+
+
+
 # a CTA's columns of dh -> (query rows, KV rows)
 FWD_TILES = {128: (128, 64), 256: (64, 32)}
 FWD_STAGES = {3: 1, 1: 2}        # parts -> stages of K and of V each
@@ -192,7 +214,7 @@ FWD_EXCHANGE = 256 * 32 * 4
 
 def fwd_cluster(dh: int) -> int:
     """the CTAs of a cluster of the forward's route, from dh alone: dh /
-    128 at dh 384 and 512, in both classes (one CTA holds neither the
+    128 at dh 384 to 1024, in both classes (one CTA holds neither the
     tiles nor, in a warpgroup's registers, 256 columns of o), else 1"""
     return dh // 128 if dh > 256 else 1
 
@@ -202,7 +224,8 @@ class FwdPlan(NamedTuple):
     a CTA of two warpgroups per (head, `bq` query rows, dh / `cluster`
     columns); K and V in tiles of `bkv` rows, `stages` of each in flight;
     every operand in `parts` bf16 parts (3: the f32 class's split; 1: the
-    hybrid casts); `cluster` CTAs (1, 3 or 4) share the rows and split dh"""
+    hybrid casts); `cluster` CTAs (1, or 3 to 8) share the rows and split
+    dh"""
     parts: int
     bq: int
     bkv: int
@@ -217,7 +240,7 @@ def fwd_plan(bh: int, s: int, dh: int, hybrid: bool) -> FwdPlan:
     [bq, dh / cluster] stay for the CTA, K's and V's [bkv, dh / cluster]
     stream in `stages` each, 1024 bytes of alignment slack, an 8-byte
     barrier for Q and for each stage of K and of V; on a cluster route the
-    exchange slot and its three barriers"""
+    exchange slot and its barriers (one, and one a round of the sum)"""
     parts = 1 if hybrid else 3
     cluster = fwd_cluster(dh)
     cols = dh // cluster
@@ -226,7 +249,7 @@ def fwd_plan(bh: int, s: int, dh: int, hybrid: bool) -> FwdPlan:
     smem = (SM90_ALIGN + parts * bq * cols * 2
             + 2 * stages * parts * bkv * cols * 2
             + (FWD_EXCHANGE if cluster > 1 else 0)
-            + (1 + 2 * stages + (3 if cluster > 1 else 0)) * 8)
+            + (1 + 2 * stages + xch_barriers(cluster)) * 8)
     return FwdPlan(parts, bq, bkv, stages, smem,
                    cluster * bh * -(-s // bq), cluster)
 
@@ -425,7 +448,7 @@ def flash_attention_bwd_split_ref(q, k, v, o, lse, do, causal: bool = False,
     (gemm._split3_ref), each product the sum of the products of parts
     (i, j) with i + j < parts (six for 3 parts: the kernels'; three for 2)
     in f64; s2 and dp rounded to f32 as the accumulators hold them (with
-    `cluster` 2, 3 or 4, as the dh-256, dh-384 and dh-512 kernels form
+    `cluster` 2 to 8, as the dh-256 to dh-1024 kernels form
     them: each CTA's sum over its 128 columns rounded to f32, the partials
     added in f32 in cluster_sum's order), p = exp2(s2 -
     lse*log2e) and ds = p (dp - delta) in f32 and split the same way.  What
@@ -548,7 +571,7 @@ BWD_EXCHANGE = 256 * 32 * 4
 def bwd_cluster(dh: int, hybrid: bool) -> int:
     """the CTAs of a cluster of the backward kernels' route, from dh and
     the class alone: 2 at dh 256 in the f32 class (its three parts do not
-    fit one CTA), dh / 128 at dh 384 and 512 in both classes (as the
+    fit one CTA), dh / 128 at dh 384 to 1024 in both classes (as the
     forward's), else 1"""
     return 2 if dh == 256 and not hybrid else fwd_cluster(dh)
 
@@ -557,7 +580,7 @@ class BwdTiles(NamedTuple):
     """one backward kernel's plan: a CTA holds `rows` stationary rows of
     one head (dK/dV: key rows; dQ: query rows) over dh / `cluster` of its
     columns and streams the other side in tiles of `tile` rows, `stages`
-    of each streamed operand in flight; `cluster` CTAs (1 to 4) share the
+    of each streamed operand in flight; `cluster` CTAs (1 to 8) share the
     rows and split dh"""
     rows: int
     tile: int
@@ -586,8 +609,8 @@ def bwd_plan(bh: int, s: int, dh: int, hybrid: bool) -> BwdPlan:
     route is picked by dh and the class alone (bwd_cluster): on a cluster
     route the CTAs split dh, each with the dh-128 tiles of the class, an
     exchange slot that receives a peer's partial scores and the slot's
-    barriers (two for a pair; three at 3 and 4 CTAs, whose sums take two
-    rounds)."""
+    barriers (`full` and one a round of the sum: two for a pair, three at
+    3 and 4 CTAs, four at 5 to 8)."""
     parts = 1 if hybrid else 3
     cluster = bwd_cluster(dh, hybrid)
     cols = dh // cluster
@@ -595,7 +618,7 @@ def bwd_plan(bh: int, s: int, dh: int, hybrid: bool) -> BwdPlan:
     smem = (SM90_ALIGN + 2 * parts * BWD_ROWS * cols * 2
             + 2 * stages * parts * tile * cols * 2
             + (BWD_EXCHANGE if cluster > 1 else 0)
-            + (1 + 2 * stages + {1: 0, 2: 2}.get(cluster, 3)) * 8)
+            + (1 + 2 * stages + xch_barriers(cluster)) * 8)
     dq = BwdTiles(BWD_ROWS, tile, stages, smem,
                   cluster * bh * (s // BWD_ROWS), cluster)
     return BwdPlan(parts, dq._replace(smem=smem + 2 * stages * tile * 4), dq)

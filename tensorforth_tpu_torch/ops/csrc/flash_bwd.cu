@@ -16,7 +16,7 @@
 // Layout: q2, k, v, do as bf16 parts [NP, B*h, S, dh] (NP 3: hi, mid, lo
 // from t4_split_bwd, the f32 class; 1: the hybrid class's casts); lse and
 // delta [B*h, S] f32; dq, dk, dv [B*h, S, dh] f32.  S % 64 == 0, dh in
-// {128, 256, 384, 512}.
+// {128, 256, ..., 1024} (a multiple of 128).
 //
 // Two classes, one pair of kernels (NP, the parts of each operand):
 //   f32 (NP 3): each product is six bf16 products of the three-part split
@@ -30,7 +30,7 @@
 //     the running accumulator; p and ds round to bf16 (cvt.rn) before their
 //     products, ds formed from the unrounded p, as the Pallas kernels' bf16
 //     multiplicands are.
-// dh 256 in the f32 class, and dh 384 and 512 in both classes, run on a
+// dh 256 in the f32 class, and dh 384 to 1024 in both classes, run on a
 // cluster of CL = dh / 128 CTAs that split dh (the cluster kernels below):
 // three parts of a stationary and of a streamed tile at dh 256 do not fit
 // one CTA's 227 KB, nor one part of them at dh 512 in two stages, nor
@@ -84,7 +84,7 @@
 // m64n128 accumulator (64 each) and ds's parts.
 //
 // The cluster route: CL CTAs per 64 stationary rows (CL 2 at dh 256 in the
-// f32 class, 3 at dh 384, 4 at dh 512; the grid has CL CTAs per row block,
+// f32 class, 3 to 8 at dh 384 to 1024; the grid has CL CTAs per row block,
 // blockIdx.x / CL picks the block and the CTA's rank in the cluster its
 // 128 columns of dh).  Each CTA runs the dh-128 body of its class over its
 // columns: the maps' boxes start at column 128 rank, so its tiles hold
@@ -94,20 +94,23 @@
 // dp are then partial sums over its columns.  Per tile the CTAs add them
 // through distributed shared memory (sm90_gemm.cuh: Xch): each thread
 // sends its two partials (32 floats: dp's while s2's products still run)
-// to its twin in the pair's CTA, adds the pair's, and at CL 3 and 4 swaps
-// the pair's sum with the other pair's in a second round, so every CTA
-// forms x0 + x1, (x0 + x1) + x2 or (x0 + x1) + (x2 + x3) and p and ds are
-// the same bits in all of them.  ONE 32 KB SLOT a CTA receives both
-// rounds' messages in turn: three peers' slots (96 KB) do not fit beside
-// the f32 tiles.  The gradient products then run over the CTA's own
+// to its twin in the pair's CTA, adds the pair's, and at CL 3 to 8 adds
+// the sums of the blocks beside its own in a second (and, at CL 5 to 8, a
+// third) round, a tree of pairs, so every CTA forms x0 + x1, (x0 + x1) +
+// x2, (x0 + x1) + (x2 + x3), ..., ((x0 + x1) + (x2 + x3)) + ((x4 + x5) +
+// (x6 + x7)) and p and ds are the same bits in all of them.  ONE 32 KB
+// SLOT a CTA receives every round's message in turn: a second slot does
+// not fit beside the f32 tiles, so each round waits for the last one's
+// reads.  The gradient products then run over the CTA's own
 // columns (dk[:, cols] += ds^T Q2[:, cols], dv[:, cols] += p^T dO[:, cols];
 // dq[:, cols] += ds K[:, cols]): every output element keeps one writer.  A
 // cluster barrier after the barriers' set-up comes before any remote store
 // or arrival, and the wait for the last reads of its messages after the
 // loop keeps a CTA's shared memory alive until its peers are done with it.
 // Shared memory in the f32 class: 1,024 alignment + 196,608 tiles + 32,768
-// exchange + 512 lse and delta (dK/dV) + 40 barriers (48 at CL 3, 4: a
-// third exchange barrier) = 230,952 (230,960) of 232,448 bytes.
+// exchange + 512 lse and delta (dK/dV) + 40 barriers (48 at CL 3, 4, 56 at
+// CL 5 to 8: an exchange barrier a round) = 230,952 (230,960, 230,968) of
+// 232,448 bytes.
 
 #include "flash_tile.cuh"
 #include "sm90_gemm.cuh"
@@ -150,8 +153,9 @@ struct Bwd {
   // each thread
   static constexpr int XCH = CL > 1 ? NT * 32 * 4 : 0;
   // barriers: the stationary operands', each stage's of each streamed
-  // operand, and a cluster's of the exchange (full, e1; e2 at CL 3, 4)
-  static constexpr int NBAR = 1 + 2 * ST + (CL == 1 ? 0 : CL == 2 ? 2 : 3);
+  // operand, and a cluster's of the exchange (full, and one a round)
+  static constexpr int NBAR =
+      1 + 2 * ST + (CL == 1 ? 0 : 1 + Xch<CL, NT, 0>::ROUNDS);
   // both stationary operands, ST stages of both streamed ones, the exchange
   // slots, (dK/dV) the streamed rows' lse and delta of each stage, then the
   // barriers
@@ -175,6 +179,19 @@ static_assert(Bwd<384, 3, 3>::SMEM_DKV == 230960 &&
 static_assert(Bwd<384, 1, 3>::SMEM_DKV == 133184 &&
                   Bwd<512, 1, 4>::SMEM_DKV == 133184,
               "the hybrid clusters' budget");
+// dh 640 to 1024 on clusters of 5 to 8 CTAs: the same tiles, a fourth
+// exchange barrier for the third round
+static_assert(Bwd<640, 3, 5>::SMEM_DKV == 230968 &&
+                  Bwd<768, 3, 6>::SMEM_DKV == 230968 &&
+                  Bwd<896, 3, 7>::SMEM_DKV == 230968 &&
+                  Bwd<1024, 3, 8>::SMEM_DKV == 230968 &&
+                  Bwd<1024, 3, 8>::SMEM_DKV <= SMEM_LIMIT,
+              "the f32 clusters' budget at CL 5 to 8");
+static_assert(Bwd<640, 1, 5>::SMEM_DKV == 133192 &&
+                  Bwd<768, 1, 6>::SMEM_DKV == 133192 &&
+                  Bwd<896, 1, 7>::SMEM_DKV == 133192 &&
+                  Bwd<1024, 1, 8>::SMEM_DKV == 133192,
+              "the hybrid clusters' budget at CL 5 to 8");
 // dh 128 adds warpgroup 1's dk and dv (64 KB) to warpgroup 0's through the
 // tiles' space
 static_assert(Bwd<128, 1>::TILES - ALIGN >= 2 * 64 * 128 * 4, "reduction");
@@ -313,15 +330,16 @@ template <class X>
 __device__ __forceinline__ void send_dp(const X& x, const float (&dp)[16],
                                         int it) {
   if (x.pair() >= 0) {
-    x.free1(it);
+    x.wait_free(1, it);
     x.send(dp, x.pair(), DP_AT);
   }
 }
 
 // then s2's; this thread's arrival on `full` expects the 128 bytes its twin
-// sends; the pair's sums, and at CL 3, 4 the other pair's added in a
-// second round: both sums are over all of dh, the same bits in every CTA
-template <int CL, class X>
+// sends; the pair's sums, and at CL 3 to 8 the other blocks' added in the
+// later rounds (s2 and dp in one message): both sums are over all of dh,
+// the same bits in every CTA
+template <class X>
 __device__ __forceinline__ void sum_scores(const X& x, float (&s)[16],
                                            float (&dp)[16], int it) {
   if (x.pair() >= 0) {
@@ -329,36 +347,20 @@ __device__ __forceinline__ void sum_scores(const X& x, float (&s)[16],
     x.receive(32 * 4, it, 1);
     x.add(s, 0);
     x.add(dp, DP_AT);
-    x.read1();
+    x.read(1);
   }
-  if constexpr (CL > 2) {
-    x.free2(it);
-    x.send2(s, &dp);
-    x.receive(32 * 4, it, 2);
-    x.add(s, 0);
-    x.add(dp, DP_AT);
-    x.read2();
+#pragma unroll
+  for (int k = 2; k <= X::ROUNDS; ++k) {
+    x.wait_free(k, it);
+    x.send_round(k, s, &dp);
+    if (x.has(k)) {
+      x.receive(32 * 4, it, k);
+      x.add(s, 0);
+      x.add(dp, DP_AT);
+      x.read(k);
+    }
   }
 }
-
-// `stmt` with xc the cluster's Xch: at CL 3 a copy compiled for each rank
-#define T4_XCH(stmt)                                          \
-  if constexpr (CL == 3) {                                    \
-    const uint32_t rk = cluster_ctarank();                    \
-    if (rk == 0) {                                            \
-      const Xch<3, NT, 0> xc{xslot, xfull};                   \
-      stmt;                                                   \
-    } else if (rk == 1) {                                     \
-      const Xch<3, NT, 1> xc{xslot, xfull};                   \
-      stmt;                                                   \
-    } else {                                                  \
-      const Xch<3, NT, 2> xc{xslot, xfull};                   \
-      stmt;                                                   \
-    }                                                         \
-  } else {                                                    \
-    const Xch<CL, NT> xc{xslot, xfull};                       \
-    stmt;                                                     \
-  }
 
 // both kernels' body (DKV: dK/dV, else dQ), on the maps of the stationary
 // operands a0, a1 (dQ: Q2, dO; dK/dV: K, V) and of the streamed ones b0,
@@ -413,7 +415,7 @@ __device__ __forceinline__ void bwd_body(
       mbar_init(b1full + 8 * s, 1);
     }
     if constexpr (CL > 1) {
-      T4_XCH(xc.init())
+      T4_XCH(CL, NT, xslot, xfull, xc.init())
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     mbar_expect_tx(afull, 2 * P::R_BYTES);
@@ -486,7 +488,7 @@ __device__ __forceinline__ void bwd_body(
       // ---- a cluster: dp's partial leaves while s2's products run
       wgmma_wait<1>();
       pin(dp);
-      T4_XCH(send_dp(xc, dp, it))
+      T4_XCH(CL, NT, xslot, xfull, send_dp(xc, dp, it))
     }
     wgmma_wait<0>();
     pin(dp);
@@ -499,7 +501,7 @@ __device__ __forceinline__ void bwd_body(
     }
     // ---- a cluster: s2's partial leaves too, and both are summed
     if constexpr (CL > 1) {
-      T4_XCH(sum_scores<CL>(xc, s, dp, it))
+      T4_XCH(CL, NT, xslot, xfull, sum_scores(xc, s, dp, it))
     }
 
     // ---- p and ds in place: element 4 jn + 2 i + c is stationary row
@@ -551,7 +553,7 @@ __device__ __forceinline__ void bwd_body(
   // ---- a cluster: its peers have read its messages for the last time, so
   //      no access to this CTA's shared memory is left
   if constexpr (CL > 1) {
-    T4_XCH(xc.drain(n_it))
+    T4_XCH(CL, NT, xslot, xfull, xc.drain(n_it))
   }
 
   // ---- 128 columns a CTA: warpgroup 1's sums to warpgroup 0 through the
@@ -657,12 +659,10 @@ int launch_sm90(const BwdArgs& a, bool dkv, float* out0, float* out1,
                         a.delta, out0, a.s, a.bh, a.causal, oscale);
 }
 
-#undef T4_XCH
-
 // shapes the kernels take, operands 16-byte and outputs 8-byte aligned
 bool bad_args(int bh, int s, int dh, std::initializer_list<const void*> in,
               std::initializer_list<const void*> out) {
-  if (bh <= 0 || s <= 0 || s % 64 != 0 || dh % 128 != 0 || dh > 512)
+  if (bh <= 0 || s <= 0 || s % 64 != 0 || dh % 128 != 0 || dh > 1024)
     return true;
   for (const void* p : in)
     if (!aligned(p, 16)) return true;
@@ -675,11 +675,11 @@ bool bad_args(int bh, int s, int dh, std::initializer_list<const void*> in,
 
 // q2, k, v, dout: the f32 class's parts [3, bh, s, dh] bf16 (t4_split_bwd;
 // parts 3; at dh 256 on a cluster of two CTAs), the hybrid class's casts
-// [bh, s, dh] bf16 (parts 1); both classes at dh 384 and 512 on clusters
-// of dh / 128 CTAs (dh 640 and wider are refused); q already times
-// scale*log2e, 16-byte
-// aligned; lse and delta [bh, s] f32, 16-byte aligned; dk and dv [bh, s,
-// dh] f32.  (rows, tile, stages, smem, cluster) name the plan
+// [bh, s, dh] bf16 (parts 1); both classes at dh 384 to 1024 on clusters
+// of dh / 128 CTAs (dh 1152 and wider are refused); q already times
+// scale*log2e, 16-byte aligned; lse and delta [bh, s] f32, 16-byte
+// aligned; dk and dv [bh, s, dh] f32.  (rows, tile, stages, smem, cluster)
+// name the plan
 // (ops/attn.py:bwd_plan); another is refused.  Launches on `stream` and
 // returns the launch's cudaError_t (0 on success).
 extern "C" int t4_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -706,6 +706,14 @@ extern "C" int t4_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (dh == 384 && parts == 1) return T4_DKV(384, 1, 3);
   if (dh == 512 && parts == 3) return T4_DKV(512, 3, 4);
   if (dh == 512 && parts == 1) return T4_DKV(512, 1, 4);
+  if (dh == 640 && parts == 3) return T4_DKV(640, 3, 5);
+  if (dh == 640 && parts == 1) return T4_DKV(640, 1, 5);
+  if (dh == 768 && parts == 3) return T4_DKV(768, 3, 6);
+  if (dh == 768 && parts == 1) return T4_DKV(768, 1, 6);
+  if (dh == 896 && parts == 3) return T4_DKV(896, 3, 7);
+  if (dh == 896 && parts == 1) return T4_DKV(896, 1, 7);
+  if (dh == 1024 && parts == 3) return T4_DKV(1024, 3, 8);
+  if (dh == 1024 && parts == 1) return T4_DKV(1024, 1, 8);
 #undef T4_DKV
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -734,6 +742,14 @@ extern "C" int t4_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (dh == 384 && parts == 1) return T4_DQ(384, 1, 3);
   if (dh == 512 && parts == 3) return T4_DQ(512, 3, 4);
   if (dh == 512 && parts == 1) return T4_DQ(512, 1, 4);
+  if (dh == 640 && parts == 3) return T4_DQ(640, 3, 5);
+  if (dh == 640 && parts == 1) return T4_DQ(640, 1, 5);
+  if (dh == 768 && parts == 3) return T4_DQ(768, 3, 6);
+  if (dh == 768 && parts == 1) return T4_DQ(768, 1, 6);
+  if (dh == 896 && parts == 3) return T4_DQ(896, 3, 7);
+  if (dh == 896 && parts == 1) return T4_DQ(896, 1, 7);
+  if (dh == 1024 && parts == 3) return T4_DQ(1024, 3, 8);
+  if (dh == 1024 && parts == 1) return T4_DQ(1024, 1, 8);
 #undef T4_DQ
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -756,6 +772,14 @@ extern "C" int t4_flash_bwd_clusters(int dh, int parts, int dkv, void* n) {
   if (dh == 384 && parts == 1) return T4_BWD_CL(384, 1, 3);
   if (dh == 512 && parts == 3) return T4_BWD_CL(512, 3, 4);
   if (dh == 512 && parts == 1) return T4_BWD_CL(512, 1, 4);
+  if (dh == 640 && parts == 3) return T4_BWD_CL(640, 3, 5);
+  if (dh == 640 && parts == 1) return T4_BWD_CL(640, 1, 5);
+  if (dh == 768 && parts == 3) return T4_BWD_CL(768, 3, 6);
+  if (dh == 768 && parts == 1) return T4_BWD_CL(768, 1, 6);
+  if (dh == 896 && parts == 3) return T4_BWD_CL(896, 3, 7);
+  if (dh == 896 && parts == 1) return T4_BWD_CL(896, 1, 7);
+  if (dh == 1024 && parts == 3) return T4_BWD_CL(1024, 3, 8);
+  if (dh == 1024 && parts == 1) return T4_BWD_CL(1024, 1, 8);
 #undef T4_BWD_CL
   return static_cast<int>(cudaErrorInvalidValue);
 }

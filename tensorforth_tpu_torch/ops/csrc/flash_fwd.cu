@@ -10,9 +10,10 @@
 // score matrix never reaches device memory.
 //
 // Layout: q, k, v each [NP, B*h, S, dh] bf16 parts, row-major; o
-// [B*h, S, dh] f32; lse [B*h, S] f32.  S % 64 == 0, dh in {128, 256, 384,
-// 512}: at 384 and 512, in both classes, on a cluster of dh / 128 CTAs
-// that split dh and add their partial scores (flash_fwd.cuh).
+// [B*h, S, dh] f32; lse [B*h, S] f32.  S % 64 == 0, dh in {128, 256, ...,
+// 1024} (a multiple of 128): at 384 to 1024, in both classes, on a cluster
+// of dh / 128 CTAs that split dh and add their partial scores
+// (flash_fwd.cuh).
 //
 // Two classes, one kernel (NP, the parts of each operand):
 //   f32 (NP 3): q*scale*log2e, k and v arrive split into three bf16 parts
@@ -80,7 +81,7 @@ int launch_fwd(const void* q, const void* k, const void* v, float* o,
 // dh] f32, lse [bh, s] f32.  The scores are qscale (q k^T): the wrappers
 // fold the scale into q and pass 1.  (bq, bkv, stages, smem, cluster) name
 // the tile plan (ops/attn.py:fwd_plan); one the library was not built with
-// is refused, and so is dh 640 or wider.  Launches on `stream` and returns
+// is refused, and so is dh 1152 or wider.  Launches on `stream` and returns
 // the launch's cudaError_t (0 on success).
 extern "C" int t4_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int bh, int s, int dh,
@@ -104,6 +105,14 @@ extern "C" int t4_flash_fwd(const void* q, const void* k, const void* v,
   if (dh == 384 && parts == 1) return T4_FWD(384, 1, 3);
   if (dh == 512 && parts == 3) return T4_FWD(512, 3, 4);
   if (dh == 512 && parts == 1) return T4_FWD(512, 1, 4);
+  if (dh == 640 && parts == 3) return T4_FWD(640, 3, 5);
+  if (dh == 640 && parts == 1) return T4_FWD(640, 1, 5);
+  if (dh == 768 && parts == 3) return T4_FWD(768, 3, 6);
+  if (dh == 768 && parts == 1) return T4_FWD(768, 1, 6);
+  if (dh == 896 && parts == 3) return T4_FWD(896, 3, 7);
+  if (dh == 896 && parts == 1) return T4_FWD(896, 1, 7);
+  if (dh == 1024 && parts == 3) return T4_FWD(1024, 3, 8);
+  if (dh == 1024 && parts == 1) return T4_FWD(1024, 1, 8);
 #undef T4_FWD
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -123,6 +132,14 @@ extern "C" int t4_flash_fwd_clusters(int dh, int parts, void* n) {
   if (dh == 384 && parts == 1) return T4_FWD_CL(384, 1, 3);
   if (dh == 512 && parts == 3) return T4_FWD_CL(512, 3, 4);
   if (dh == 512 && parts == 1) return T4_FWD_CL(512, 1, 4);
+  if (dh == 640 && parts == 3) return T4_FWD_CL(640, 3, 5);
+  if (dh == 640 && parts == 1) return T4_FWD_CL(640, 1, 5);
+  if (dh == 768 && parts == 3) return T4_FWD_CL(768, 3, 6);
+  if (dh == 768 && parts == 1) return T4_FWD_CL(768, 1, 6);
+  if (dh == 896 && parts == 3) return T4_FWD_CL(896, 3, 7);
+  if (dh == 896 && parts == 1) return T4_FWD_CL(896, 1, 7);
+  if (dh == 1024 && parts == 3) return T4_FWD_CL(1024, 3, 8);
+  if (dh == 1024 && parts == 1) return T4_FWD_CL(1024, 1, 8);
 #undef T4_FWD_CL
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,8 +8,8 @@
 //       raw s2 accumulator rounded to bf16 (cvt.rn), and no lse is written.
 //
 // Layout: q, k, v each [NP, B*h, S, dh] bf16 parts, row-major; o [B*h, S,
-// dh] f32; lse [B*h, S] f32.  S % 64 == 0, dh in {128, 256} (K8) and 384,
-// 512 (K1's cluster route).
+// dh] f32; lse [B*h, S] f32.  S % 64 == 0, dh in {128, 256} (K8) and 384
+// to 1024 in steps of 128 (K1's cluster route).
 //
 // The design.  A CTA of two warpgroups owns BQ query rows of one head; K
 // and V stream through shared memory in BKV-row tiles (K and V in a ring
@@ -39,14 +39,15 @@
 //     split between the warpgroups.
 //   hybrid and the probe (NP 1): the same tiles in a third of the bytes,
 //     two stages each.
-//   dh 384 and 512 (K1, both classes): a cluster of CL = dh / 128 CTAs per
+//   dh 384 to 1024 (K1, both classes): a cluster of CL = dh / 128 CTAs per
 //     128 query rows, each the dh-128 body over its 128 columns of dh (the
 //     maps' boxes start at column 128 rank): Q 96 KB + K 48 KB + V 48 KB in
 //     the f32 class, as at dh 128.  One CTA cannot hold them (Q's three
 //     parts alone are 192 KB at dh 256), nor would a warpgroup's 256
 //     columns of o fit its registers.  Each CTA's s2 is a partial sum over
 //     its columns; the cluster adds the partials through distributed
-//     shared memory in pairs (sm90_gemm.cuh: Xch, one 32 KB slot a CTA), so
+//     shared memory in a tree of pairs (sm90_gemm.cuh: Xch, one 32 KB slot
+//     a CTA; two rounds at CL 3 and 4, three at CL 5 to 8), so
 //     every CTA holds the same bits of s2, runs the same online softmax and
 //     forms the same p, and does P V over its own columns of V and o.  Rank
 //     0 writes lse.  A tile that a warpgroup's rows do not see still takes
@@ -82,9 +83,10 @@ struct Fwd {
   static constexpr int KV_PART = NB * KBOX;
   static constexpr int KV_BYTES = NP * KV_PART;     // a stage of K (or V)
   // a cluster's exchange slot: a peer's partial s2, BKV / 2 floats for
-  // each thread; its barriers (full, e1, e2)
+  // each thread; its barriers (full, and one a round)
   static constexpr int XCH = CL > 1 ? NT * (BKV / 2) * 4 : 0;
-  static constexpr int NBAR = 1 + 2 * ST + (CL > 1 ? 3 : 0);
+  static constexpr int NBAR =
+      1 + 2 * ST + (CL > 1 ? 1 + Xch<CL, NT, 0>::ROUNDS : 0);
   static constexpr int SMEM =
       ALIGN + NP * Q_PART + 2 * ST * KV_BYTES + XCH + NBAR * 8;
   static constexpr int ROWS_WG = DC == 128 ? 64 : 0;   // rows' offset by wg
@@ -105,6 +107,19 @@ static_assert(Fwd<384, 3, 3>::SMEM == 230448 &&
 static_assert(Fwd<384, 1, 3>::SMEM == 132160 &&
                   Fwd<512, 1, 4>::SMEM == 132160,
               "the hybrid clusters' budget");
+// K1 at dh 640 to 1024 on clusters of 5 to 8 CTAs: a fourth exchange
+// barrier for the third round
+static_assert(Fwd<640, 3, 5>::SMEM == 230456 &&
+                  Fwd<768, 3, 6>::SMEM == 230456 &&
+                  Fwd<896, 3, 7>::SMEM == 230456 &&
+                  Fwd<1024, 3, 8>::SMEM == 230456 &&
+                  Fwd<1024, 3, 8>::SMEM <= SMEM_LIMIT,
+              "the f32 clusters' budget at CL 5 to 8");
+static_assert(Fwd<640, 1, 5>::SMEM == 132168 &&
+                  Fwd<768, 1, 6>::SMEM == 132168 &&
+                  Fwd<896, 1, 7>::SMEM == 132168 &&
+                  Fwd<1024, 1, 8>::SMEM == 132168,
+              "the hybrid clusters' budget at CL 5 to 8");
 
 // s2 (+)= A B^T over 16 of dh, m64nBKV, both K-major from shared memory
 template <int BKV>
@@ -159,13 +174,14 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw,
   const uint32_t qfull = sX + P::XCH;               // then kfull[ST],
   const uint32_t kfull0 = qfull + 8;                // vfull[ST], a
   const uint32_t vfull0 = kfull0 + 8 * ST;          // cluster's full, e1,
-  const uint32_t xfull = vfull0 + 8 * ST;           // e2
+  const uint32_t xfull = vfull0 + 8 * ST;           // e2 (, e3)
 
   // the CTA's rank in its cluster picks its columns, the cluster its rows
   const int rank = CL == 1 ? 0 : static_cast<int>(cluster_ctarank());
   const int col0 = rank * P::DC;
   const int blk = static_cast<int>(blockIdx.x / CL);
-  const Xch<CL, NT> x{sX + threadIdx.x * 16, xfull};
+  // a cluster: this thread's place in the exchange slot
+  [[maybe_unused]] const uint32_t xslot = sX + threadIdx.x * 16;
   const int n_qt = (S + BQ - 1) / BQ;
   const int qt = n_qt - 1 - blk / BH;
   const int bh = blk % BH;
@@ -180,7 +196,9 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw,
       mbar_init(kfull0 + 8 * s, 1);
       mbar_init(vfull0 + 8 * s, 1);
     }
-    if constexpr (CL > 1) x.init();
+    if constexpr (CL > 1) {
+      T4_XCH(CL, NT, xslot, xfull, xc.init())
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     load_parts<P::NB, NP>(sQ, qfull, mq, part_rows, row0 + q0, col0,
                           P::Q_PART, P::QBOX);
@@ -253,7 +271,7 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw,
 #pragma unroll
         for (int i = 0; i < SA; ++i) s[i] = 0.f;
       }
-      x.sum(s, j);
+      T4_XCH(CL, NT, xslot, xfull, xc.sum(s, j))
     }
 
     // ---- online softmax; element 4 jn + 2 i + c of s is query row
@@ -352,7 +370,9 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw,
   }
   // a cluster: its peers have read its messages for the last time, so no
   // access to this CTA's shared memory is left
-  if constexpr (CL > 1) x.drain(n_kv);
+  if constexpr (CL > 1) {
+    T4_XCH(CL, NT, xslot, xfull, xc.drain(n_kv))
+  }
   if (!rows_in) return;
 
   // ---- flush: the row sum is spread over the 4 lanes of a row (DOTS: o

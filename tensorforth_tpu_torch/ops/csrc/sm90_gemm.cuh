@@ -215,81 +215,123 @@ __device__ __forceinline__ void add_peer(float (&x)[N], uint32_t at) {
 }
 
 // The sum of a cluster's partials on the dh-split routes of flash_fwd.cuh
-// (K1) and flash_bwd.cu (K2a, K2b): CL CTAs (2, 3 or 4) of THREADS threads,
+// (K1) and flash_bwd.cu (K2a, K2b): CL CTAs (2 to 8) of THREADS threads,
 // each thread holding its CTA's partial sums over the CTA's columns of dh,
 // each leaving with the sum over all of them, THE SAME BITS IN EVERY CTA.
-// The sums are taken in pairs, so that every CTA forms x0 + x1 (CL 2),
-// (x0 + x1) + x2 (CL 3) or (x0 + x1) + (x2 + x3) (CL 4): an f32 sum of two
-// terms is the same in either order.  Round 1: the CTAs of a pair (0 and 1,
-// 2 and 3) swap their partials.  Round 2 (CL 3, 4): each CTA receives the
-// other pair's sum; at CL 3 CTA 2 (no pair) sends its partial to 0 and 1
-// and receives the sum from 0.  A message is each thread's floats, stored
-// into its twin's place in the target's slot through distributed shared
-// memory (st.async), the bytes completing a transaction on the target's
-// `full` barrier, so no store waits for an acknowledgement; each thread's
-// own arrival on `full` expects the bytes its twin sends.  A CTA's slot
-// holds one message (THREADS x the message's floats; the round-2 message
-// follows round 1's through it), so the slot's reader, once it has added a
-// message, arrives on a barrier of the writer of the slot's next message:
-// `e1` guards a CTA's round-1 writes, `e2` its round-2 writes.  Every wait
+// The sums are taken as a tree of pairs over the ranks: round k (1, 2, 3;
+// h = 2^(k-1)) adds to a CTA's sum over its block of h ranks the sum over
+// the block of h ranks beside it (ranks (r ^ h) & ~(h - 1) on, those below
+// CL), as that block formed it.  An f32 sum of two terms is the same in
+// either order, so every CTA forms x0 + x1 (CL 2), (x0 + x1) + x2 (CL 3),
+// (x0 + x1) + (x2 + x3) (CL 4), ((x0 + x1) + (x2 + x3)) + x4 (CL 5), ...,
+// ((x0 + x1) + (x2 + x3)) + ((x4 + x5) + (x6 + x7)) (CL 8): one round at
+// CL 2, two at CL 3 and 4, three at CL 5 to 8 (ops/attn.py: cluster_sum
+// is the same order).  A CTA's round-k message comes from its twin r ^ h
+// in the block beside, or, where the twin is past CL, from CTA CL - 1 (so
+// CTA CL - 1 may send one round's message to several CTAs: at CL 3 CTA 2
+// to 0 and 1, at CL 5 CTA 4 to 0, 1, 2 and 3); a CTA whose block beside is
+// empty (CL 3's CTA 2 in round 1, CL 5's CTA 4 in rounds 1 and 2) receives
+// nothing that round.  A message is each thread's floats, stored into its
+// twin's place in the target's slot through distributed shared memory
+// (st.async), the bytes completing a transaction on the target's `full`
+// barrier, so no store waits for an acknowledgement; each thread's own
+// arrival on `full` expects the bytes its twin sends.  A CTA's slot holds
+// one message (THREADS x the message's floats; a round's message follows
+// the one before through it), so the slot's reader, once it has added a
+// message, arrives on a barrier of the writer of the slot's next message
+// (the next round's, or the next tile's first): e(k) guards a CTA's
+// round-k writes, and counts the arrivals of all its targets.  Every wait
 // is a local mbarrier wait that traps as the others do.  At CL 2 this is
-// the dh-256 route's exchange as it was: `full` and `e1` (its `empty`).
-// RK: the CTA's rank where the caller compiled a copy for each (CL 3's
-// ranks play three parts: K2a, at 255 registers, keeps no rank-dependent
-// branch in its loop that way); -1 reads the rank again where it is needed
-// (a special register), so that no register holds it.
+// the dh-256 route's exchange as it was: `full` and e(1) (its `empty`).
+// RK: the CTA's rank where the caller compiled a copy for each (T4_XCH
+// below: every choice of the exchange is then a constant, and K2a, at 255
+// registers, keeps no rank-dependent branch in its loop); -1 (CL 2 only)
+// reads the rank again where it is needed (a special register), so that
+// no register holds it.
 template <int CL, int THREADS, int RK = -1>
 struct Xch {
-  static_assert(CL >= 1 && CL <= 4, "a pair, or two rounds (1: unused)");
+  static_assert(CL >= 1 && CL <= 8, "a portable cluster (1: unused)");
+  static_assert(RK >= 0 || CL <= 2, "a copy for each rank above CL 2");
+  static constexpr int ROUNDS = CL <= 1 ? 0 : CL == 2 ? 1 : CL <= 4 ? 2 : 3;
   uint32_t slot;   // this thread's place in its own slot
-  uint32_t full;   // this CTA's barriers: full, then e1, then e2 (CL 3, 4)
+  uint32_t full;   // this CTA's barriers: full, then e(1) .. e(ROUNDS)
+
+  // ---- the schedule, of rank r and round k (1 .. ROUNDS)
+  __host__ __device__ static constexpr int half(int k) {
+    return 1 << (k - 1);
+  }
+  // r receives a message in round k: the block beside its own has a CTA
+  __host__ __device__ static constexpr bool has_at(int r, int k) {
+    return CL == 2 || ((r ^ half(k)) & ~(half(k) - 1)) < CL;
+  }
+  // the writer of r's round-k message
+  __host__ __device__ static constexpr int src_at(int r, int k) {
+    return CL == 2 || (r ^ half(k)) < CL ? r ^ half(k) : CL - 1;
+  }
+  // the targets of r's round-k message, a mask of ranks
+  __host__ __device__ static constexpr unsigned dst_at(int r, int k) {
+    if (CL == 2) return 1u << (r ^ 1);
+    const int h = half(k), b = (r ^ h) & ~(h - 1);
+    unsigned m = (r ^ h) < CL ? 1u << (r ^ h) : 0u;
+    if (r == CL - 1)
+      for (int t = b; t < b + h && t < CL; ++t)
+        if ((t ^ h) >= CL) m |= 1u << t;
+    return m;
+  }
+  // the rounds before k in which r receives (round k's place in its tile)
+  __host__ __device__ static constexpr int idx_at(int r, int k) {
+    int n = 0;
+    for (int j = 1; j < k; ++j) n += has_at(r, j) ? 1 : 0;
+    return n;
+  }
+  // r's round after k in which it receives, else its first (the next tile's)
+  __host__ __device__ static constexpr int next_at(int r, int k) {
+    for (int j = k + 1; j <= ROUNDS; ++j)
+      if (has_at(r, j)) return j;
+    for (int j = 1; j <= ROUNDS; ++j)
+      if (has_at(r, j)) return j;
+    return 1;
+  }
+  // round k is the first of a tile in which r's targets receive (then
+  // their slots were last read in the previous tile); every target agrees:
+  // one target, or CTA CL - 1's of a whole block, which all receive from
+  // round 1 on
+  __host__ __device__ static constexpr bool tfirst_at(int r, int k) {
+    const unsigned m = dst_at(r, k);
+    int t = 0;
+    while (t < CL && !(m >> t & 1)) ++t;
+    return next_at(t, 0) == k;
+  }
+  __host__ __device__ static constexpr int bits(unsigned m) {
+    int n = 0;
+    for (int t = 0; t < CL; ++t) n += static_cast<int>(m >> t & 1);
+    return n;
+  }
 
   __device__ int rank() const {
     return RK >= 0 ? RK : static_cast<int>(cluster_ctarank());
   }
-  __device__ uint32_t e1() const { return full + 8; }
-  __device__ uint32_t e2() const { return full + 16; }
-  // round 1's peer (the other CTA of the pair), or -1 (CL 3, CTA 2)
-  __device__ int pair() const {
-    const int r = rank();
-    return (r ^ 1) < CL ? r ^ 1 : -1;
-  }
-  // the writer of round 2's message
-  __device__ int src2() const {
-    const int r = rank();
-    return CL == 4 ? r ^ 2 : r < 2 ? 2 : 0;
-  }
-  // the targets of round 2's message, a mask of ranks
-  __device__ unsigned dst2() const {
-    const int r = rank();
-    return CL == 4 ? 1u << (r ^ 2) : r == 0 ? 4u : r == 1 ? 0u : 3u;
-  }
-  // CL 3's CTA 2: no pair, one message a tile, two round-2 targets
-  __device__ bool odd() const { return CL == 3 && rank() == 2; }
-  // the parity of `full`'s phase that completes with tile it's round-1
-  // (round 1) or round-2 message: a CTA receives one message a tile (CL 2;
-  // CTA 2 of 3) or two
-  __device__ uint32_t parity(int it, int round) const {
-    return CL == 2 || odd() ? it & 1 : round == 2;
-  }
+  __device__ uint32_t e(int k) const { return full + 8 * k; }
+  // round 1's peer (the other CTA of the pair), or -1 (no pair)
+  __device__ int pair() const { return has_at(rank(), 1) ? rank() ^ 1 : -1; }
+  __device__ bool has(int k) const { return has_at(rank(), k); }
   // thread 0, before the cluster barrier that precedes any message
   __device__ void init() const {
     mbar_init(full, THREADS);
-    mbar_init(e1(), THREADS);
-    if constexpr (CL > 2) mbar_init(e2(), THREADS * (odd() ? 2 : 1));
+#pragma unroll
+    for (int k = 1; k <= ROUNDS; ++k) {
+      const int n = bits(dst_at(rank(), k));
+      mbar_init(e(k), THREADS * (n > 0 ? n : 1));
+    }
   }
-  // before tile it's round-1 message: the pair has read its slot's last
-  // message (the previous tile's)
-  __device__ void free1(int it) const {
-    if (it > 0) mbar_wait<true>(e1(), (it - 1) & 1);
-  }
-  // before tile it's round-2 message: its targets have read round 1's
-  // (at CL 3 CTA 2's slot holds round 2's alone: the previous tile's)
-  __device__ void free2(int it) const {
-    if (CL == 3 && rank() == 0) {
-      if (it > 0) mbar_wait<true>(e2(), (it - 1) & 1);
-    } else if (dst2() != 0) {
-      mbar_wait<true>(e2(), it & 1);
+  // before tile it's round-k message: its targets have read their slots'
+  // last message (this tile's earlier round, or the previous tile's last)
+  __device__ void wait_free(int k, int it) const {
+    if (dst_at(rank(), k) == 0) return;
+    if (tfirst_at(rank(), k)) {
+      if (it > 0) mbar_wait<true>(e(k), (it - 1) & 1);
+    } else {
+      mbar_wait<true>(e(k), it & 1);
     }
   }
   // x into the twin's place of CTA `to`'s slot, `off` bytes on
@@ -305,11 +347,12 @@ struct Xch {
     push<THREADS>(x, at, bar);
     push<THREADS>(y, at + N / 4 * THREADS * 16, bar);
   }
-  // round 2's message (x, and y unless null) to its targets, one at a time
+  // round k's message (x, and y unless null) to its targets, one at a time
   template <int N>
-  __device__ void send2(const float (&x)[N], const float (*y)[N]) const {
-    const unsigned to = dst2();
-#pragma unroll 1
+  __device__ void send_round(int k, const float (&x)[N],
+                             const float (*y)[N]) const {
+    const unsigned to = dst_at(rank(), k);
+#pragma unroll
     for (int r = 0; r < CL; ++r)
       if (to >> r & 1) {
         if (y != nullptr)
@@ -318,52 +361,74 @@ struct Xch {
           send(x, r, 0);
       }
   }
-  // wait for tile it's round-`round` message, `bytes` from the twin
-  __device__ void receive(uint32_t bytes, int it, int round) const {
+  // wait for tile it's round-k message, `bytes` from the twin: the phase
+  // of `full` that completes with it (one a message, those of a tile in
+  // round order)
+  __device__ void receive(uint32_t bytes, int it, int k) const {
+    int n = 0;
+#pragma unroll
+    for (int j = 1; j <= ROUNDS; ++j) n += has_at(rank(), j) ? 1 : 0;
     mbar_expect_tx(full, bytes);
-    mbar_wait<true>(full, parity(it, round));
+    mbar_wait<true>(full, (n * it + idx_at(rank(), k)) & 1);
   }
   // the message's floats at `off`, added to x
   template <int N>
   __device__ void add(float (&x)[N], uint32_t off) const {
     add_peer<THREADS>(x, slot + off);
   }
-  // round 1's message is read: its slot takes round 2's (CL 2: the next
-  // tile's round 1)
-  __device__ void read1() const {
-    mbar_arrive_remote(CL == 2 ? cluster_addr(e1(), rank() ^ 1)
-                               : cluster_addr(e2(), src2()));
+  // round k's message is read: the slot takes the next one
+  __device__ void read(int k) const {
+    const int nk = next_at(rank(), k);
+    mbar_arrive_remote(cluster_addr(e(nk), src_at(rank(), nk)));
   }
-  // round 2's message is read: the slot takes the next tile's first
-  __device__ void read2() const {
-    mbar_arrive_remote(pair() >= 0 ? cluster_addr(e1(), pair())
-                                   : cluster_addr(e2(), 0));
-  }
-  // after the last of n tiles: every message this CTA sent has been read,
-  // so no other CTA accesses its shared memory any more
+  // after the last of n tiles: every reader of this CTA's messages has
+  // arrived for the last time, so no other CTA accesses its shared memory
+  // any more
   __device__ void drain(int n) const {
-    if (pair() >= 0) mbar_wait<true>(e1(), (n - 1) & 1);
-    if (CL > 2 && dst2() != 0) mbar_wait<true>(e2(), (n - 1) & 1);
+#pragma unroll
+    for (int k = 1; k <= ROUNDS; ++k)
+      if (dst_at(rank(), k) != 0) mbar_wait<true>(e(k), (n - 1) & 1);
   }
-  // tile it's sum of an N-float partial x, both rounds (K1's scores)
+  // tile it's sum of an N-float partial x, every round (K1's scores)
   template <int N>
   __device__ void sum(float (&x)[N], int it) const {
-    if (pair() >= 0) {
-      free1(it);
-      send(x, pair(), 0);
-      receive(N * 4, it, 1);
-      add(x, 0);
-      read1();
-    }
-    if constexpr (CL > 2) {
-      free2(it);
-      send2<N>(x, nullptr);
-      receive(N * 4, it, 2);
-      add(x, 0);
-      read2();
+#pragma unroll
+    for (int k = 1; k <= ROUNDS; ++k) {
+      wait_free(k, it);
+      send_round<N>(k, x, nullptr);
+      if (has(k)) {
+        receive(N * 4, it, k);
+        add(x, 0);
+        read(k);
+      }
     }
   }
 };
+
+// `stmt` with `xc` the CTA's Xch<CL, THREADS> on (slot, full): at CL 3 to 8
+// a copy compiled for each rank (Xch's RK), picked by the CTA's rank
+#define T4_XCH_AT(R, CL, THREADS, SLOT, FULL, stmt)                        \
+  if constexpr ((R) < (CL)) {                                             \
+    if (t4_rank == (R)) {                                                 \
+      const Xch<(CL), (THREADS), ((R) < (CL) ? (R) : 0)> xc{SLOT, FULL};  \
+      stmt;                                                               \
+    }                                                                     \
+  }
+#define T4_XCH(CL, THREADS, SLOT, FULL, stmt)                             \
+  if constexpr ((CL) <= 2) {                                              \
+    const Xch<((CL) <= 2 ? (CL) : 2), (THREADS)> xc{SLOT, FULL};          \
+    stmt;                                                                 \
+  } else {                                                                \
+    const int t4_rank = static_cast<int>(cluster_ctarank());              \
+    T4_XCH_AT(0, CL, THREADS, SLOT, FULL, stmt)                           \
+    T4_XCH_AT(1, CL, THREADS, SLOT, FULL, stmt)                           \
+    T4_XCH_AT(2, CL, THREADS, SLOT, FULL, stmt)                           \
+    T4_XCH_AT(3, CL, THREADS, SLOT, FULL, stmt)                           \
+    T4_XCH_AT(4, CL, THREADS, SLOT, FULL, stmt)                           \
+    T4_XCH_AT(5, CL, THREADS, SLOT, FULL, stmt)                           \
+    T4_XCH_AT(6, CL, THREADS, SLOT, FULL, stmt)                           \
+    T4_XCH_AT(7, CL, THREADS, SLOT, FULL, stmt)                           \
+  }
 
 // ---- wgmma -----------------------------------------------------------------
 // shared-memory matrix descriptor of a 128-byte-swizzled tile: start

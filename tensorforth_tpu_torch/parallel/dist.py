@@ -18,6 +18,7 @@ ranks' (parallel/launch.py), so ranks may share a card.
 """
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
 import socket
@@ -33,6 +34,15 @@ _initialized = False
 def _count():
     up = dist.is_available() and dist.is_initialized()
     return (dist.get_rank(), dist.get_world_size()) if up else (0, 1)
+
+
+def _shutdown():
+    """the group's end when the process exits: its threads are torn down
+    before the interpreter's (left to its exit, a thread of gloo's still
+    joinable aborts the process).  No barrier: a rank that failed, or one
+    whose peers are gone, exits at once"""
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def init_distributed() -> tuple[int, int]:
@@ -54,6 +64,8 @@ def init_distributed() -> tuple[int, int]:
                                     init_method=f"tcp://{coord}",
                                     world_size=nproc, rank=rank,
                                     timeout=timeout)
+    if dist.is_initialized():
+        atexit.register(_shutdown)
     _initialized = True
     return _count()
 

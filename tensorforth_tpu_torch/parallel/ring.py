@@ -13,7 +13,7 @@ positions get lse NEG_INF and drop out of the merge.
 A chunk's partial goes through the flash kernels' differentiable (o, lse)
 pair (`ops/attn.flash_attention_lse`: K1 forward, K2a/K2b backward with
 the lse cotangent in delta) when the chunk is square and `funcs._flash_ok`
-takes it (a CUDA tensor, S/sp >= 512, S/sp % 256 == 0, dh 128 to 512),
+takes it (a CUDA tensor, S/sp >= 512, S/sp % 256 == 0, dh 128 to 1024),
 and through the einsum branch otherwise.  The hop is an autograd Function
 whose backward is the reverse hop, so autograd through the ring trains.
 """

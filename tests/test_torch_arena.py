@@ -13,6 +13,7 @@ import pytest
 from tests.test_torch_fusion import (  # noqa: F401
     MODEL, models, pin, same_data_roots, snap, t4p)
 from tests.test_torch_chunk import LOOP, run_epochs
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture()

@@ -14,15 +14,7 @@ from tensorforth_tpu.ops.attn_pallas import flash_attention as jax_flash
 from tensorforth_tpu_torch.nn import funcs as tfuncs
 from tensorforth_tpu_torch.ops import attn
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """small CPU products: one thread, so the suite's other workers keep
-    their cores"""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _qkv(seed, b, s, dh):

@@ -19,15 +19,7 @@ from tensorforth_tpu.ops.attn_pallas import (
 from tensorforth_tpu_torch.nn import funcs as tfuncs
 from tensorforth_tpu_torch.ops import attn
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """small CPU products: one thread, so the suite's other workers keep
-    their cores"""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _inputs(seed, b, s, dh, n=4):
@@ -174,11 +166,11 @@ def test_sdpa_takes_the_einsum_branch_for_an_ineligible_shape():
     (512, 128, True), (2048, 128, True), (1024, 256, True),
     (1536, 128, True), (512, 384, True), (512, 512, True),
     (256, 128, False), (640, 128, False), (512, 64, False),
-    (512, 640, False)])
+    (512, 640, True), (512, 1024, True), (512, 1152, False)])
 def test_flash_gate_admits_only_compiled_head_dims(s, dh, ok):
     """the shape half of the gate: long aligned sequences at a head dim
-    the kernels are compiled for, 128 to 512 (dh 384 and 512 on clusters
-    of dh / 128 CTAs); dh 640 takes the einsum path."""
+    the kernels are compiled for, 128 to 1024 (dh 384 to 1024 on
+    clusters of dh / 128 CTAs); dh 1152 takes the einsum path."""
     assert tfuncs._flash_shape_ok(s, dh) is ok
     # the device half: a CPU tensor never passes
     assert not tfuncs._flash_ok(torch.zeros(1, s, dh))

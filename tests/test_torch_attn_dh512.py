@@ -8,7 +8,7 @@ f32, are added in f32 in pairs, (x0 + x1) + x2 at three CTAs and
 in both classes, holds the class's tolerance against f64 and against the
 JAX package's Pallas kernels in interpret mode at [1, 512, 384] and
 [1, 512, 512]; every rank of a cluster forms the same bits; the plans
-and the source agree; the gate admits 384 and 512 and refuses 640; the
+and the source agree; the gate admits 128 to 1024 and refuses 1152; the
 CPU path launches nothing; and a tiny_lm with one head of 512 trains a
 step and decodes as the JAX package's does.  Inputs come from numpy
 seeds; tolerances are stated at each test.
@@ -29,6 +29,8 @@ from tensorforth_tpu.ops.attn_pallas import (
 from tensorforth_tpu_torch.nn import funcs
 from tensorforth_tpu_torch.ops import attn, gemm
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
 CSRC = os.path.join(os.path.dirname(attn.__file__), "csrc")
 TOL_FWD = 2e-5     # absolute plus relative: tests/test_torch_attn.py
 TOL_FWD_HYBRID = 3e-2  # the hybrid forward's: tests/test_torch_attn.py
@@ -36,16 +38,6 @@ TOL_BWD = 2e-4     # absolute plus relative: tests/test_attention.py:185
 TOL_BWD_HYBRID = 0.05  # of the largest value: tests/test_torch_attn_bwd.py
 DHS = (384, 512)
 MASKS = [(True, True), (False, True)]   # (causal, with an lse cotangent)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """small CPU products: one thread, so the suite's other workers keep
-    their cores"""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _inputs(dh, seed, with_dlse=True):
@@ -229,23 +221,38 @@ def test_ctypes_tables_match_the_c_entries(source, fn):
             == _c_params(_source(source + ".cu"), fn))
 
 
-def test_gate_admits_384_and_512_and_refuses_640():
+def test_gate_admits_up_to_1024_and_refuses_1152():
     """sdpa's gate (and with it generate's prefill, nn.attn, nn.train's
-    graphs and the ring's chunks) admits dh 384 and 512 at S >= 512, S %
-    256 == 0; dh 640 takes the einsum path, the wrappers refuse it, and
-    neither C entry has a route for it"""
-    for dh in (384, 512):
+    graphs and the ring's chunks) admits every dh % 128 == 0 from 128 to
+    1024 at S >= 512, S % 256 == 0 (dh 384 to 1024 on clusters of dh /
+    128 CTAs, 8 at most); dh 1152 takes the einsum path, the wrappers
+    refuse it, bad_args refuses dh > 1024, and neither C entry has a
+    route for it"""
+    for dh in range(128, 1025, 128):
         assert funcs._flash_shape_ok(512, dh)
         assert funcs._flash_shape_ok(2048, dh)
         assert not funcs._flash_shape_ok(256, dh)
-    assert not funcs._flash_shape_ok(2048, 640)
-    assert 640 not in attn.KERNEL_DH and 512 in attn.KERNEL_DH
-    x = torch.zeros(1, 512, 640)
+        assert not funcs._flash_shape_ok(640, dh)
+    assert not funcs._flash_shape_ok(2048, 1152)
+    assert attn.KERNEL_DH == tuple(range(128, 1025, 128))
+    x = torch.zeros(1, 512, 1152)
     with pytest.raises(ValueError, match="dh in"):
         attn._check_shape("flash_attention", (x, x, x))
-    assert "dh % 128 != 0 || dh > 512" in _source("flash_bwd.cu")
+    # the wrappers on a tensor of the card (its shape and device alone:
+    # the contract is checked before any data is read)
+    cuda = SimpleNamespace(shape=x.shape, device=torch.device("cuda", 0),
+                           is_cuda=True)
+    lse = SimpleNamespace(shape=x.shape[:2], device=cuda.device,
+                          is_cuda=True)
+    with pytest.raises(ValueError, match="dh in"):
+        attn.flash_attention(cuda, cuda, cuda, True)
+    for only in (None, "dkv", "dq"):
+        with pytest.raises(ValueError, match="dh in"):
+            attn.flash_attention_bwd(cuda, cuda, cuda, cuda, lse, cuda,
+                                     True, only=only)
+    assert "dh % 128 != 0 || dh > 1024" in _source("flash_bwd.cu")
     for name in ("flash_fwd.cu", "flash_bwd.cu"):
-        assert not re.search(r"dh == (6[4-9]\d|[7-9]\d\d|1\d{3})",
+        assert not re.search(r"dh == (11[5-9]\d|1[2-9]\d\d|[2-9]\d{3})",
                              _source(name))
 
 

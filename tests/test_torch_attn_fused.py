@@ -22,17 +22,9 @@ from tensorforth_tpu.ops import attn_pallas
 from tensorforth_tpu_torch import attn_bench
 from tensorforth_tpu_torch.ops import _build, attn
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """small CPU products: one thread, so the suite's other workers keep
-    their cores"""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _inputs(seed, b, s, dh, n=4):

@@ -16,19 +16,11 @@ import torch
 
 from tensorforth_tpu_torch.ops import _build, attn
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "tensorforth_tpu_torch", "ops", "csrc",
                    "flash_bwd_fused.cu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """small CPU products: one thread, so the suite's other workers keep
-    their cores"""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _operands(seed, b, s, dh, causal, hybrid, with_dlse=True):

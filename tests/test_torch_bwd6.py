@@ -26,19 +26,11 @@ from tensorforth_tpu.ops.attn_pallas import (
     flash_attention as jax_flash, flash_attention_bwd as jax_flash_bwd)
 from tensorforth_tpu_torch.ops import attn, gemm
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "tensorforth_tpu_torch", "ops", "csrc")
 TOL_BWD = 2e-4     # absolute plus relative: tests/test_attention.py:185
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """small CPU products: one thread, so the suite's other workers keep
-    their cores"""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _case(shape, causal, seed, with_dlse=False):
@@ -173,8 +165,9 @@ def test_bwd_plan_fits_an_sm_and_matches_the_source(dh, hybrid):
     Bwd; dh 256 in the f32 class takes a cluster of two CTAs that split
     dh, each with the dh-128 f32 tiles, the exchange slots and their two
     barriers (1,024 + 196,608 + 32,768 + 512 + 40 = 230,952 bytes for
-    dK/dV); dh 384 and 512, both classes, clusters of dh / 128 CTAs with
-    the dh-128 tiles of the class and a third exchange barrier"""
+    dK/dV); dh 384 to 1024, both classes, clusters of dh / 128 CTAs with
+    the dh-128 tiles of the class and an exchange barrier a round of the
+    cluster's sum (two rounds at 3 and 4 CTAs, three at 5 to 8)"""
     plan = attn.bwd_plan(64, 2048, dh, hybrid)
     with open(os.path.join(CSRC, "flash_bwd.cu")) as f:
         src = f.read()
@@ -195,12 +188,13 @@ def test_bwd_plan_fits_an_sm_and_matches_the_source(dh, hybrid):
     assert tile == (64 if cols == 128 else 32)
     tiles = 2 * p * 64 * cols * 2 + 2 * st * p * tile * cols * 2
     xch = 32768 if cluster > 1 else 0
-    bars = 1 + 2 * st + {1: 0, 2: 2}.get(cluster, 3)
+    bars = 1 + 2 * st + {1: 0, 2: 2}.get(cluster, 3 if cluster <= 4 else 4)
     assert plan.dq.smem == 1024 + tiles + xch + bars * 8
     assert plan.dkv.smem == plan.dq.smem + 2 * st * tile * 4
     assert plan.dkv._replace(smem=0) == plan.dq._replace(smem=0)
     assert plan.dq.ctas == cluster * 64 * 2048 // 64
-    assert "NBAR = 1 + 2 * ST + (CL == 1 ? 0 : CL == 2 ? 2 : 3)" in src
+    assert ("NBAR =\n      1 + 2 * ST + (CL == 1 ? 0 : 1 + Xch<CL, NT, 0>::"
+            "ROUNDS)") in src
     if cluster == 2:
         assert plan.dkv.smem == 230952
         assert "Bwd<256, 3, 2>::SMEM_DKV == 230952" in src
@@ -229,9 +223,9 @@ def test_ctypes_tables_match_the_c_entries(fn):
 
 def test_no_fma_body_is_left_at_dh128():
     """no FMA body is left in flash_bwd.cu: every route of both kernels
-    (dh 128 to 512, both classes) is a wgmma instance, dh 256 in the f32
-    class on a cluster of two CTAs, dh 384 and 512 in both classes on
-    clusters of three and four"""
+    (dh 128 to 1024, both classes) is a wgmma instance, dh 256 in the f32
+    class on a cluster of two CTAs, dh 384 to 1024 in both classes on
+    clusters of three to eight"""
     with open(os.path.join(CSRC, "flash_bwd.cu")) as f:
         code = re.sub(r"//[^\n]*", "", f.read())
     assert re.search(r"flash_bwd_(?:dkv|dq)_kernel\b", code) is None
@@ -251,9 +245,9 @@ def test_no_fma_body_is_left_at_dh128():
     assert routes == {(dh, p, k, dh, p, cl) for k in ("DKV", "DQ")
                       for dh, p, cl in (("128", "3", "1"), ("128", "1", "1"),
                                         ("256", "3", "2"), ("256", "1", "1"),
-                                        ("384", "3", "3"), ("384", "1", "3"),
-                                        ("512", "3", "4"),
-                                        ("512", "1", "4"))}
+                                        *((str(dh), p, str(dh // 128))
+                                          for dh in range(384, 1025, 128)
+                                          for p in ("3", "1")))}
     assert "launch_cluster(flash_bwd_dkv_sm90_kernel<D, NP, CL>" in code
     assert "launch_cluster(flash_bwd_dq_sm90_kernel<D, NP, CL>" in code
 

@@ -24,20 +24,12 @@ from tensorforth_tpu.ops.attn_pallas import (
     flash_attention as jax_flash, flash_attention_bwd as jax_flash_bwd)
 from tensorforth_tpu_torch.ops import attn
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
 TOL_BWD = 2e-4     # absolute plus relative: tests/test_attention.py:185
 SHAPE = (1, 512, 256)
 # (causal, with an lse cotangent)
 MASKS = [(True, False), (True, True), (False, True)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """small CPU products: one thread, so the suite's other workers keep
-    their cores"""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _inputs(causal, with_dlse, seed):

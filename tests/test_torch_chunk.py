@@ -14,6 +14,7 @@ import pytest
 from tests.test_torch_fusion import (  # noqa: F401
     DEFAULT, MODEL, MODES, PER_WORD, first_word, fresh_jax_chunk_programs,
     models, paired_runs, pin, same_data_roots, set_env, snap, t4p, weights)
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 LOOP = ("variable {v}h 0 {v}h ! variable {v}l\n"
         ": {v}ep for forward loss.ce {v}l ! nn.hit {v}h +! "

@@ -16,19 +16,12 @@ import pytest
 import torch
 
 from tests.test_torch_serve import _pair
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 # a named class's products against f64 of the class's bf16 parts: the
 # parts multiply exactly in f32, so only the f32 sums round (K ≤ 64 terms
 # here: 64 · 2⁻²⁴ of the largest term)
 TOL_CLASS = 1e-5
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _both(mj, mt, prompt, n_new, **kw):

@@ -19,6 +19,8 @@ import sys
 import numpy as np
 import pytest
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL_PROCS = 1e-5        # test_dist.py's: two processes against one
 TOL_JAX = 1e-4          # one process against the JAX package's one device
@@ -134,15 +136,29 @@ def worker(out_path: str) -> None:
                    "wsum": wsum}, f)
 
 
-def test_two_process_train_matches_single(tmp_path):
-    """two processes form a cluster from T4_COORD/T4_NPROC/T4_RANK (gloo
-    over tcp://localhost) and train on its dp2 mesh: their losses and
-    weights agree, and agree with one process's run; that one with the
-    JAX package's on one device"""
+def early_worker(out_path: str) -> None:
+    """a cluster whose rank 1 raises right after start-up while rank 0
+    waits in an all-reduce: rank 0's wait ends with an error, it does not
+    sit out the group's timeout"""
+    import torch
+    import torch.distributed as tdist
+    from tensorforth_tpu_torch.parallel.dist import init_distributed
+    rank, _ = init_distributed()
+    if rank == 1:
+        raise RuntimeError("rank 1 fails before its first collective")
+    try:
+        tdist.all_reduce(torch.ones(4))
+        said = "returned"
+    except RuntimeError:                # gloo: the peer's connection closed
+        said = "raised"
+    with open(out_path, "w") as f:
+        json.dump({"rank": rank, "all_reduce": said}, f)
+
+
+def _cluster_env():
+    """env_for(rank, nproc): the environment of one process of a cluster
+    on a free localhost port (nproc 1: a single process)"""
     import socket
-    import subprocess
-    from tensorforth_tpu.models import tiny_transformer
-    from tensorforth_tpu.nn.train import train_epochs
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -157,7 +173,18 @@ def test_two_process_train_matches_single(tmp_path):
             env.update(T4_COORD=f"localhost:{port}", T4_NPROC=str(nproc),
                        T4_RANK=str(rank), T4_MESH="dp2")
         return env
+    return env_for
 
+
+def test_two_process_train_matches_single(tmp_path):
+    """two processes form a cluster from T4_COORD/T4_NPROC/T4_RANK (gloo
+    over tcp://localhost) and train on its dp2 mesh: their losses and
+    weights agree, and agree with one process's run; that one with the
+    JAX package's on one device"""
+    import subprocess
+    from tensorforth_tpu.models import tiny_transformer
+    from tensorforth_tpu.nn.train import train_epochs
+    env_for = _cluster_env()
     outs = [str(tmp_path / f"r{i}.json") for i in range(3)]
     procs = [subprocess.Popen([sys.executable, __file__, outs[i]],
                               env=env_for(i, 2 if i < 2 else 1),
@@ -186,6 +213,33 @@ def test_two_process_train_matches_single(tmp_path):
     np.testing.assert_allclose(one["wsum"], jw, rtol=TOL_JAX)
 
 
+def test_a_rank_that_fails_early_does_not_hold_the_others(tmp_path):
+    """rank 1 raises after start-up, rank 0 is then in an all-reduce: both
+    exit well inside the group's timeout (launch.TIMEOUT_S), rank 1 with
+    its error and rank 0 with the collective's, and nothing waits for the
+    dead rank at exit"""
+    import subprocess
+    import time
+    from tensorforth_tpu_torch.parallel import launch
+    env_for = _cluster_env()
+    outs = [str(tmp_path / f"r{i}.json") for i in range(2)]
+    t0 = time.monotonic()
+    procs = [subprocess.Popen([sys.executable, __file__, "--early", outs[i]],
+                              env=env_for(i, 2), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for i in range(2)]
+    logs = [p.communicate(timeout=120)[0].decode(errors="replace")
+            for p in procs]
+    took = time.monotonic() - t0
+    assert took < launch.TIMEOUT_S / 10, f"the ranks took {took:.1f} s"
+    assert procs[1].returncode != 0
+    assert "rank 1 fails before its first collective" in logs[1]
+    assert procs[0].returncode == 0, logs[0][-2500:]
+    assert json.load(open(outs[0])) == {"rank": 0, "all_reduce": "raised"}
+
+
 if __name__ == "__main__":
     sys.path.insert(0, ROOT)
-    worker(sys.argv[1])
+    if sys.argv[1] == "--early":
+        early_worker(sys.argv[2])
+    else:
+        worker(sys.argv[1])

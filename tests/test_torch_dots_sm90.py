@@ -24,18 +24,10 @@ from jax.experimental import pallas as pl
 
 from tensorforth_tpu_torch.ops import attn, gemm
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "tensorforth_tpu_torch", "ops", "csrc")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """small CPU products: one thread, so the suite's other workers keep
-    their cores"""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _source(name: str) -> str:

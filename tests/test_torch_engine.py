@@ -18,6 +18,8 @@ from tensorforth_tpu_torch.mu.mmu import MMU
 from tensorforth_tpu_torch.mu.tensor import Tensor as TTensor
 from tensorforth_tpu_torch.ops import engine, linalg
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
 TOL = 1e-5
 MAP_OPS = ["abs", "neg", "exp", "ln", "log", "tanh", "relu", "sigm", "sqrt",
            "rcp", "sat", "fill", "gfill", "scale", "pow", "sin", "cos",

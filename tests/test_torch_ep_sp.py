@@ -23,6 +23,8 @@ import os
 import numpy as np
 import pytest
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
 # test_pipeline.py's expert-parallel bounds
 TOL_EP_FWD = dict(rtol=2e-5, atol=2e-6)
 TOL_EP_GRAD = dict(rtol=5e-4, atol=5e-5)

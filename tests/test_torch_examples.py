@@ -12,6 +12,7 @@ import pytest
 
 from tests.test_torch_repl import (_MSEC, _mask, run_lines,  # noqa: F401
                                    script_lines, t4p)
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 # `epoch=0 done, 1.23 sec` and `time=3.52459` are the host's clock
 CLOCK = [(_MSEC, "=> #  msec/cycle"),

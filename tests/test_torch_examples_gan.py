@@ -7,6 +7,7 @@ import pytest
 
 from tests.test_torch_examples import CLOCK, both, same_data_roots  # noqa
 from tests.test_torch_repl import script_lines, t4p  # noqa: F401
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

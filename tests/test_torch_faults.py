@@ -27,6 +27,8 @@ from tensorforth_tpu.ops import linalg as jlinalg
 from tensorforth_tpu_torch.ops import linalg as tlinalg
 from tensorforth_tpu_torch.ops import xla_math
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
 F32_MIN = np.float32(1.17549435e-38)
 
 

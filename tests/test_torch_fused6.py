@@ -32,20 +32,12 @@ from chip_smoke import TOL_FUSED_SPLIT
 from tensorforth_tpu.ops import attn_pallas
 from tensorforth_tpu_torch.ops import attn, gemm
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "tensorforth_tpu_torch", "ops", "csrc",
                    "flash_bwd_fused.cu")
 TOL_BWD = 2e-4     # absolute plus relative: tests/test_attention.py:185
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """small CPU products: one thread, so the suite's other workers keep
-    their cores"""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _case(shape, causal, seed, with_dlse=False):

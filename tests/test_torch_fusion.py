@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from tests.test_torch_repl import t4p  # noqa: F401
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 MODEL = """0 trace
 8 28 28 1 nn.model

@@ -14,6 +14,7 @@ import pytest
 import tests.test_fuzz as fuzz
 from tests.test_real_idx import _write_cifar, _write_mnist
 from tests.test_torch_repl import t4p  # noqa: F401
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 class Recording:

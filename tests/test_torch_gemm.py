@@ -22,6 +22,8 @@ from tensorforth_tpu.ops.gemm_pallas import _mm_pallas
 from tensorforth_tpu_torch.config import Config
 from tensorforth_tpu_torch.ops import gemm
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
 SHAPES = [(300, 200, 260), (128, 256, 128), (37, 53, 29), (2, 3, 2),
           (1, 1, 1)]                                     # m, k, n
 TOL_BF16 = 1e-5      # only the order of the f32 sums differs

@@ -19,6 +19,8 @@ from chip_smoke import GEMM_SHAPES, ROUNDING_CORNERS, rounding_corners
 from tensorforth_tpu.ops.gemm_pallas import _mm_pallas
 from tensorforth_tpu_torch.ops import gemm
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
 PLAN_SHAPES = [(4096, 4096, 4096), (2048, 2048, 2048), (1030, 1000, 1290),
                (1, 7, 3)]                                     # m, k, n
 KERNELS = ["mm_bf16", "mm_db"]

@@ -18,6 +18,8 @@ from chip_smoke import GEMM_SHAPES, ROUNDING_CORNERS, rounding_corners
 from tensorforth_tpu.ops.gemm_pallas import _kdot
 from tensorforth_tpu_torch.ops import gemm
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
 SHAPES = list(GEMM_SHAPES) + [(1, 1, 1)]            # m, k, n
 KINDS = ROUNDING_CORNERS + ("mixed",)
 

@@ -13,6 +13,7 @@ import pytest
 from tensorforth_tpu_torch.io import gui
 from tensorforth_tpu_torch.io.loader import Loader
 from tests.test_gui import FakeDisplay
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _corpus():

@@ -10,6 +10,8 @@ import pytest
 
 import chip_smoke as cs
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture(autouse=True)
 def no_batch_cut(monkeypatch):

@@ -15,6 +15,7 @@ import pytest
 from tests.test_torch_fusion import (  # noqa: F401
     JAX_ATOL, MODEL, MODES, first_word, fresh_jax_chunk_programs, models,
     paired_runs, pin, same_data_roots, set_env, snap, t4p, weights)
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 CANON = ("variable {v}h 0 {v}h ! variable {v}l\n"
          ": {v}ep for forward loss.ce {v}l ! nn.hit {v}h +! "

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
 # gradients and updated weights of a dp/tp step against one rank's, and
 # one rank's against the JAX package's step (f32 sums in other orders)
 TOL_STEP = dict(rtol=2e-5, atol=2e-6)

@@ -17,6 +17,8 @@ from tensorforth_tpu.system import System as JSystem
 from tensorforth_tpu_torch.mu.mmu import MMU as TMMU
 from tensorforth_tpu_torch.system import System as TSystem
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
 # (case, input [N, H, W, C], layer, n, bias): the reference's early
 # returns in _iattn (model.py:349-354) and _iembed (420-422), and a softmax
 CASES = [

@@ -26,6 +26,7 @@ from tests.test_torch_fusion import (  # noqa: F401
 from tests.test_torch_nn_models import (TOL, TOL_LATER, _io, _layers_close,
                                         _seed, _state_close, _zoo)
 from tests.test_torch_repl import run_lines, script_lines
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 # the two packages' f32 sums run in another order: outputs and gradients
 # lie within 1e-5 of their largest value (1.4e-7 and 8.9e-7 seen at the
@@ -36,14 +37,6 @@ TOL_MOE = 1e-5
 # differ by at most a few ulps of ~0.3 (≈ 1e-7) where the scores' sums
 # differ in their last bit
 GATE_MARGIN = 1e-5
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _moe_rand(seed, n=4, t=16, d=8, e=4, f=16):

@@ -12,6 +12,7 @@ import time
 import pytest
 
 from tests.test_torch_repl import t4p  # noqa: F401  (fixture)
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 TIMEOUT = 60          # seconds any join or wait here may take
 

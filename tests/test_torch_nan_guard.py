@@ -22,6 +22,7 @@ import pytest
 from tests.test_torch_fusion import (  # noqa: F401
     DEFAULT, MODES, PER_WORD, first_word, fresh_jax_chunk_programs, models,
     pin, same_data_roots, set_env, snap, t4p, weights)
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 MODEL = """0 trace
 8 28 28 1 nn.model

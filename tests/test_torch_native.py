@@ -12,6 +12,7 @@ import pytest
 
 from tests.test_torch_repl import (  # noqa: F401  (fixtures)
     ROOT, run_lines, script_lines, t4p)
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _alloc():

@@ -13,6 +13,7 @@ import torch
 
 from tests.test_torch_net_repl import same_data_roots  # noqa: F401
 from tests.test_torch_repl import t4p  # noqa: F401
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -15,6 +15,7 @@ import pytest
 
 from tests.test_torch_repl import (GOLDEN, HERE, _forth_calls,  # noqa: F401
                                    run_lines, script_lines, t4p)
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
@@ -69,11 +70,14 @@ def assert_close_transcripts(got, want, rtol):
 # left out: none (the TB words are in the port; without -t they log
 # nothing, and test_torch_tb.py holds what they write)
 FUTURE_LEFT_OUT = ()
-# trained through Adam over real-sized batches, where the loss is held to
-# a relative 1e-4: the two packages' f32 matmuls sum in another order,
-# and Adam's m / sqrt(v) magnifies that last bit wherever a gradient is
-# near zero (the hit count stays equal)
-FUTURE_TRAINED = {"test_epoch_loop_single_readback_semantics": 1e-4}
+# trained through an epoch of Adam over real-sized batches: the two
+# packages' f32 matmuls sum in another order (ROADMAP C11), and Adam's
+# m / sqrt(v) magnifies that last bit wherever a gradient is near zero, so
+# the hit count and the last loss part by up to a relative 2.3e-3 and
+# 1.8e-3 over T4_SEED 1, 2, 3, 7, 11 and 42 and 1, 2, 4 and 8 torch
+# threads (`python -m tests.test_torch_net_repl <jax|port> <threads>
+# <seed>` prints both numbers); held to 5e-3, over twice that spread
+FUTURE_TRAINED = {"test_epoch_loop_single_readback_semantics": 5e-3}
 
 
 def _future_cases():
@@ -289,3 +293,36 @@ def test_t4_30e_truncated_matches_jax(t4, t4p, monkeypatch, tmp_path,
     assert "ERROR" not in got
     assert re.search(r"b=0 t=T acc=\S+ loss=\S+", got)
     assert "NN Model[8/128]" in got
+
+
+def _trained_case(package: str, threads: int, seed: str) -> str:
+    """FUTURE_TRAINED's case through one package (per-word path, torch at
+    `threads`, T4_SEED `seed`): the numbers its last line prints"""
+    import io
+    import torch
+    os.environ.update(T4_NO_FUSE="1", T4_NO_MACRO="1", T4_SEED=seed)
+    torch.set_num_threads(threads)
+    if package == "port":
+        from tensorforth_tpu_torch.cli import TensorForth
+        kw = {"device": "cpu"}
+    else:
+        from tensorforth_tpu.cli import TensorForth
+        from tensorforth_tpu.config import Config as JConfig
+        from tensorforth_tpu_torch.config import Config
+        JConfig.DATA_ROOTS = list(Config.DATA_ROOTS)
+        kw = {}
+    buf = io.StringIO()
+    inst = TensorForth(fin=io.StringIO(""), fout=buf, **kw)
+    for script in _forth_calls(os.path.join(HERE, "test_future.py"))[
+            next(iter(FUTURE_TRAINED))]:
+        start = buf.tell()
+        for line in script.split("\n"):
+            inst.run_line(line)
+    return buf.getvalue()[start:]
+
+
+if __name__ == "__main__":
+    import sys
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    print(*sys.argv[1:], _trained_case(sys.argv[1], int(sys.argv[2]),
+                                       sys.argv[3]).split()[:2])

@@ -8,6 +8,8 @@ import pytest
 
 import chip_smoke as cs
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
 TINY_LM = dict(batch=2, vocab=16, dim=32, heads=4, layers=2, rope=True)
 TINY_WORDS = ("2 16 1 1 nn.model 32 16 nn.embed\n"
               + "layernorm 3 4 nn.attn tanh\n" * 2

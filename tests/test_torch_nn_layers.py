@@ -16,6 +16,8 @@ from tensorforth_tpu.nn.ntypes import Layer
 from tensorforth_tpu_torch.nn import funcs as tf
 from tensorforth_tpu_torch.ops import rng
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
 TOL = 1e-5
 
 

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 from tests.test_torch_repl import t4p  # noqa: F401  (fixture)
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 # test_pipeline.py's bounds
 TOL_VALUES = dict(rtol=2e-5, atol=2e-6)

@@ -7,6 +7,7 @@ import json
 import os
 
 from tests.test_torch_repl import t4p  # noqa: F401  (fixture)
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _traces(root):

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
 SUM_SHAPES = [
     (8,), (32,), (33,), (100,), (1000,), (10000,), (2, 3), (2, 1, 4, 1),
     (4, 4), (8, 8), (10, 10), (16, 2), (17, 24), (28, 4), (2, 32, 2),

@@ -11,6 +11,8 @@ import re
 
 import pytest
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
 HERE = os.path.dirname(__file__)
 ROOT = os.path.join(HERE, "..")
 EXAMPLES = os.path.join(ROOT, "examples")

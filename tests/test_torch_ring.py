@@ -9,6 +9,8 @@ JAX test runs (dp2, sp4) on 8 devices."""
 import numpy as np
 import pytest
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
 # test_ring.py's bounds
 TOL_OUT = dict(rtol=2e-5, atol=2e-5)
 TOL_GRAD = dict(rtol=2e-4, atol=2e-4)

@@ -11,6 +11,8 @@ from tensorforth_tpu.system import System as JSystem
 from tensorforth_tpu_torch.ops import rng as trng
 from tensorforth_tpu_torch.system import System as TSystem
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
 SEEDS = [0, 42, 2280545969, 1258627373665771185, 0x7FFFFFFFFFFFFFFF]
 SHAPES = [(1,), (7,), (3, 5), (2, 3, 5, 7), (1025,), (64, 33)]
 

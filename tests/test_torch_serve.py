@@ -15,17 +15,9 @@ from tensorforth_tpu.nn import serve as jserve
 from tensorforth_tpu_torch.nn import serve as tserve
 from tensorforth_tpu_torch.weights import load_jax_params
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
 LM = dict(batch=2, seq=24, vocab=32, dim=32, heads=4, layers=2)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """tiny CPU matmuls: one thread, so the suite's other workers keep
-    their cores"""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _pair(rope, seed=0):
@@ -177,10 +169,18 @@ def test_gumbel_and_keys_match_jax():
 
 
 @pytest.mark.parametrize("kv,tol", [("bfloat16", 2e-2), ("int8", 3e-2)])
-def test_step_token_low_precision_cache_matches_jax(kv, tol):
+def test_step_token_low_precision_cache_matches_jax(kv, tol, monkeypatch):
     """bf16 and int8 caches: _step_token logits for identical inputs
     (2e-2 bf16, 3e-2 int8 — the packages round to bf16/int8 at other
-    places); the stored K/V agree too"""
+    places); the stored K/V agree too, layer by layer: layer 0's within
+    the same bounds (one rounding of f32 values that may differ in their
+    last bit), and layer 1's from the same layer-0 entries.  (The two
+    packages' f32 GEMMs sum in another order (ROADMAP C11), so a layer-0
+    value within that last bit of a bf16 rounding point may round to the
+    neighbouring bf16 value in one of them; layer 1 reads it through
+    attention, wo, layernorm and wqkv, which carry that one step to 0.125
+    in its own entries.  Where layer 0's entries differ, layer 1 is held
+    on a step whose layer-0 entries are the JAX package's.)"""
     mj, mt = _pair(rope=True, seed=3)
     program = mj._program()
     rs = np.random.RandomState(4)
@@ -212,6 +212,33 @@ def test_step_token_low_precision_cache_matches_jax(kv, tol):
         c = torch.from_numpy(kv_prefix).to(torch.bfloat16)
         return [(c[0].clone(), c[1].clone(), None, None) for _ in range(2)]
 
+    def close(ct, cj, layer):
+        for a, b in zip(ct[layer], cj[layer]):
+            if a is not None:
+                np.testing.assert_allclose(a.float().numpy(),
+                                           np.asarray(b, np.float32),
+                                           rtol=tol, atol=tol)
+
+    def same(ct, cj, layer):
+        return all(np.array_equal(a.float().numpy(),
+                                  np.asarray(b, np.float32))
+                   for a, b in zip(ct[layer], cj[layer]) if a is not None)
+
+    def jax_layer0(cj):
+        """tserve._store_at, whose first store (layer 0's) then takes the
+        JAX package's entries at t"""
+        real, calls = tserve._store_at, []
+
+        def store(cache, tt, k1, v1):
+            real(cache, tt, k1, v1)
+            if not calls:
+                for c, b in zip(cache, cj[0]):
+                    if c is not None:
+                        c[:, :, t] = torch.from_numpy(np.asarray(b)[
+                            :, :, t].astype(np.float32)).to(c.dtype)
+            calls.append(1)
+        return store
+
     for w in (0, 16):
         lj, cj = jserve._step_token(program, mj._params(), jax_caches(),
                                     jnp.asarray(tok, jnp.int32), t, s_max,
@@ -220,11 +247,18 @@ def test_step_token_low_precision_cache_matches_jax(kv, tol):
                                     torch.from_numpy(tok), t, s_max, w=w)
         np.testing.assert_allclose(lt.numpy(), np.asarray(lj),
                                    rtol=tol, atol=tol)
-        for a, b in zip(ct[1], cj[1]):
-            if a is not None:
-                np.testing.assert_allclose(a.float().numpy(),
-                                           np.asarray(b, np.float32),
-                                           rtol=tol, atol=tol)
+        close(ct, cj, 0)
+        if not same(ct, cj, 0):
+            with monkeypatch.context() as mp:
+                mp.setattr(tserve, "_store_at", jax_layer0(cj))
+                lt, ct = tserve._step_token(program, mt._params(),
+                                            torch_caches(),
+                                            torch.from_numpy(tok), t,
+                                            s_max, w=w)
+            assert same(ct, cj, 0)
+            np.testing.assert_allclose(lt.numpy(), np.asarray(lj),
+                                       rtol=tol, atol=tol)
+        close(ct, cj, 1)
 
 
 def test_load_jax_params_rejects_mismatch(t4):

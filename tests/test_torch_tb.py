@@ -22,6 +22,7 @@ from tests.test_torch_net_repl import (  # noqa: F401  (autouse fixture)
     assert_close_transcripts, same_data_roots)
 from tests.test_torch_repl import (  # noqa: F401  (fixtures)
     ROOT, run_lines, script_lines, t4p)
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 TIMEOUT = 60          # seconds a test holds the worker at most

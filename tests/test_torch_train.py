@@ -12,18 +12,10 @@ import torch
 from tensorforth_tpu_torch import weights
 from tensorforth_tpu_torch.nn.ntypes import Loss
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
 LM = dict(batch=2, seq=8, vocab=8, dim=16, heads=4)
 TOL = 1e-5      # f32 sums in another order (XLA on the CPU against ATen)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """tiny CPU matmuls: one thread, so the suite's other workers keep
-    their cores"""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _data(seed=3, **lm):
@@ -86,13 +78,29 @@ def _jax_state(mj):
     return out
 
 
-def _state_close(mj, mt, what, keys=weights.STATE_KEYS, adam_grads=None):
+def _adam_cond(g_jax, g_port, lr):
+    """the most by which Adam's first update moves when its gradient moves
+    from one package's g to the other's: the update is lr (1 - b1) g /
+    (sqrt(1 - b2) |g| + eps) (no bias correction, b1 0.9, b2 0.999, eps
+    1e-6), whose slope lr (1 - b1) eps / (sqrt(1 - b2) |g| + eps)^2 is
+    largest at the smaller |g| of the two; times |g_port - g_jax|"""
+    gmin = np.minimum(np.abs(g_jax), np.abs(g_port)).astype(np.float64)
+    slope = lr * 0.1 * 1e-6 / (np.sqrt(0.001) * gmin + 1e-6) ** 2
+    return slope * np.abs(g_port.astype(np.float64) - g_jax)
+
+
+def _state_close(mj, mt, what, keys=weights.STATE_KEYS, adam_grads=None,
+                 port_grads=None, lr=None):
     """adam_grads: the gradients the Adam step just consumed.  Adam's
     update m/(sqrt(v)+1e-6) is ill-conditioned where |g| is near its eps:
     there d(update)/dg reaches 0.1/eps = 1e5, so the 1e-8 by which the
     two packages' f32 gradients differ moves a weight by lr*1e-3.  Weights
     whose gradient lies within 100 eps of zero are held to 1e-4, all
-    others to 1e-5."""
+    others to 1e-5.  With the port's own gradients (`port_grads`) and the
+    step's `lr`, the others are held to 1e-5 plus the move of Adam's
+    update between the two packages' gradients (_adam_cond): at |g| just
+    above 1e-4 its slope is still 58, so the packages' 1e-7 gradient
+    differences there move a weight by up to 1e-5 themselves."""
     sj, st = _jax_state(mj), weights.dump_state(mt)
     assert len(sj) == len(st)
     for j, (a, b) in enumerate(zip(sj, st)):
@@ -107,13 +115,25 @@ def _state_close(mj, mt, what, keys=weights.STATE_KEYS, adam_grads=None):
                     got[near0], want[near0], rtol=1e-4, atol=1e-4,
                     err_msg=f"{what}: trainable {j} 'w' (gradient near 0)")
                 got, want = got[~near0], want[~near0]
+                if port_grads is not None:
+                    cond = _adam_cond(adam_grads[j].reshape(-1)[~near0],
+                                      port_grads[j].reshape(-1)[~near0], lr)
+                    bad = np.abs(got.astype(np.float64) - want) > (
+                        TOL + TOL * np.abs(want) + cond)
+                    assert not bad.any(), (
+                        f"{what}: trainable {j} 'w': {int(bad.sum())} "
+                        f"beyond 1e-5 and Adam's move, e.g. {got[bad][:3]} "
+                        f"against {want[bad][:3]}")
+                    continue
             np.testing.assert_allclose(
                 got, want, rtol=TOL, atol=TOL,
                 err_msg=f"{what}: trainable {j} '{k}'")
 
 
-def _step_matches(layers, rope, **lm):
-    """one step of both models, compared after each word"""
+def _step_matches(layers, rope, adam_cond=False, **lm):
+    """one step of both models, compared after each word (adam_cond: the
+    weights after Adam also within the move of its update between the
+    packages' gradients, _state_close)"""
     mj, mt, (inp_j, hot_j), (inp_t, hot_t) = _pair(layers, rope, **lm)
     mj.forward(inp_j)
     mt.forward(inp_t)
@@ -125,9 +145,11 @@ def _step_matches(layers, rope, **lm):
     _layers_close(mj, mt, "backprop dx")
     _state_close(mj, mt, "backprop", keys=("w", "dw"))
     grads = [e["dw"] for e in _jax_state(mj)]
+    port = [e["dw"].copy() for e in weights.dump_state(mt)]
     mj.adam(0.01)
     mt.adam(0.01)
-    _state_close(mj, mt, "adam", adam_grads=grads)
+    _state_close(mj, mt, "adam", adam_grads=grads,
+                 port_grads=port if adam_cond else None, lr=0.01)
     assert all(not e["dw"].any() for e in weights.dump_state(mt))
 
 
@@ -143,8 +165,11 @@ def test_train_step_matches_jax_word_by_word(t4, layers, rope):
 def test_train_step_at_dh256_matches_jax(t4):
     """the same step at dh 256 (dim 256, one head: the head dim whose flash
     backward runs on a cluster of two CTAs on the card), each value within
-    1e-5 (1e-4 near zero)"""
-    _step_matches(1, True, dim=256, heads=1)
+    1e-5 (1e-4 near zero); the weights after Adam within 1e-5 plus the
+    move of Adam's update between the packages' gradients (at dim 256 the
+    f32 GEMMs' other order leaves gradients 1e-7 apart where Adam's slope
+    is 58: ROADMAP C11)"""
+    _step_matches(1, True, adam_cond=True, dim=256, heads=1)
 
 
 @pytest.mark.parametrize("opt", ["adam", "sgd", "sgdm", "adamw"])

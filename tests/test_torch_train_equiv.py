@@ -17,6 +17,7 @@ import pytest
 from tests.test_torch_fusion import (  # noqa: F401
     fresh_jax_chunk_programs, host, same_data_roots, t4p)
 from tests.test_torch_net_repl import assert_close_transcripts
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 # the two packages' f32 GEMMs and Adam round in another order, and Adam's
