@@ -40,7 +40,13 @@ Phases, one JSON line each:
           f32 class also against f64, each backward twice to the bit; the
           causal cases timed, each kernel alone and with its split, beside
           its bound, SDPA's 4-d call, the clusters the card runs at once
-          and the SMs they leave idle
+          and the SMs they leave idle.  Then K3 (both classes) and K8 at
+          every dh 384 to 1024 on [2, 512, dh] (K3 causal and not, bq
+          256): against their plain versions in the cluster's order, K3
+          also against K2a + K2b (TOL_FUSED_SPLIT; hybrid
+          TOL_FUSED_SPLIT_HYBRID), f64 (f32 class) and itself run again;
+          and causal [16, 2048, dh] at dh 512 and 1024 timed beside their
+          bounds, SDPA's backward (K3) and two cuBLAS bmm (K8)
   serve   tiny_lm at bench_prefill's full width (dim 1024, 8 heads,
           4 layers, vocab 2048, batch 8, 2048-token prompt, 64 new
           tokens) through generate(), f32 and int8 KV caches: kernel
@@ -143,6 +149,11 @@ Phases, one JSON line each:
           and partial bytes.  Then, uncounted, the fused backward at
           every (shape, mask, Q block) the sweep launched it at, against
           its plain version and the split.  It asserts no speed.
+  attn_bench_dh512  the same four entry points at dh 512 (4 heads, S
+          2048, one sweep shape 4 x 2048, 2 calls a chain, 2 timed
+          chains): K3's hybrid class and K8 on clusters of four CTAs,
+          counted from 0 as the phase before, the fused backward held as
+          there.
   host    the host tier: examples/t4_40a.4th whole through ten4_torch's
           main() with -t (and once without, and once more with): 21
           epochs at batch 256 on the fused path, its event file read
@@ -299,9 +310,19 @@ FWD_CLUSTER_KERNELS = tuple(f"flash_fwd_kernel<{dh},{np_},{dh // 128}>"
 BWD_CLUSTER_KERNELS = tuple(
     f"flash_bwd_{w}_sm90_kernel<{dh},{np_},{dh // 128}>"
     for w in ("dkv", "dq") for dh in WIDE_DH for np_ in (3, 1))
+# K3 and K8 on the same clusters: the fused backward's split body in both
+# classes, the probe's forward body
+FUSED_CLUSTER_KERNELS = tuple(f"fused_{cls}_sm90_kernel<{dh // 128}>"
+                              for cls in ("f32", "hybrid") for dh in WIDE_DH)
+DOTS_CLUSTER_KERNELS = tuple(f"attn_dots_kernel<{dh},{dh // 128}>"
+                             for dh in WIDE_DH)
 PROBE_NAMES = ("flash_bwd_fused", "attn_dots")   # the measurement path's own
 BENCH = dict(nh=16, s=2048, dh=128)   # bench.py's attention shape
 BENCH_ITERS, BENCH_REPS = 4, 7        # calls per chain, timed chains
+# the measurement path again at dh 512 (the clusters of four CTAs): 4
+# heads, one sweep shape, 2 calls a chain, 2 timed chains
+ATTN_BENCH_WIDE = dict(nh=4, s=2048, dh=512, n_iter=2, reps=2,
+                       shapes={"2048": (4, 2048)})
 GEMM_NAMES = ("mm_f32io", "mm_bf16", "mm_v8", "mm_db", "mm_round")
 # GEMM tolerances, of the largest value of an f64 product of the same
 # operands.  The bf16 classes against their plain version: only the order
@@ -614,7 +635,7 @@ def phase_build():
         "parts": attn.fused_parts(dh, hy), "kv_tile": attn.FUSED_KV_TILE[(
             hy, dh)], "smem": attn.fused_smem(dh, attn.fused_parts(dh, hy)),
         "cluster": attn.fused_cluster(dh, hy)}
-        for dh in attn.SMALL_DH for hy in (False, True)}
+        for dh in attn.KERNEL_DH for hy in (False, True)}
     bwd_plans = {f"dh{dh}_{'hybrid' if hy else 'f32'}": {
         key: (val._asdict() if hasattr(val, "_asdict") else val)
         for key, val in attn.bwd_plan(64, 2048, dh, hy)._asdict().items()}
@@ -642,9 +663,11 @@ def phase_build():
                        ("flash_bwd_fused", ("fused_sm90_kernel<128>",
                                             "fused_sm90_kernel<256>",
                                             "fused_f32_sm90_kernel<1>",
-                                            "fused_f32_sm90_kernel<2>")),
-                       ("attn_dots", ("attn_dots_kernel<128>",
-                                      "attn_dots_kernel<256>")),
+                                            "fused_f32_sm90_kernel<2>",
+                                            *FUSED_CLUSTER_KERNELS)),
+                       ("attn_dots", ("attn_dots_kernel<128,1>",
+                                      "attn_dots_kernel<256,1>",
+                                      *DOTS_CLUSTER_KERNELS)),
                        ("flash_fwd", ("flash_fwd_kernel<128,3,1>",
                                       "flash_fwd_kernel<128,1,1>",
                                       "flash_fwd_kernel<256,3,1>",
@@ -769,7 +792,9 @@ def fused_case(args, split, bq, f64, sdpa_bwd, timed=True):
                             if on_card else {"kernel": 0, "split": 0})
     if q.is_cuda:
         torch.cuda.synchronize()
-    want = attn.flash_attention_bwd_fused_parts_ref(*call)
+    # the plain version with the scores in the kernel's cluster order
+    want = attn.flash_attention_bwd_fused_parts_ref(
+        *call, cluster=attn.fused_cluster(dh, hybrid))
     names = ("dq", "dk_parts", "dv_parts")
     errs = {nm: (g - w).abs().max().item()
             for nm, g, w in zip(names, (dq, dkp, dvp), want)}
@@ -884,66 +909,89 @@ def dots_library(q, k, v):
     return torch.bmm(s2.to(torch.bfloat16), v, out_dtype=torch.float32)
 
 
+def dots_case(q, k, v, timed=True):
+    """the probe on one case's bf16 operands against its plain version
+    (TOL_DOTS of the largest term), with its times, bound and the
+    library's when `timed`"""
+    import torch
+    from tensorforth_tpu_torch.ops import attn
+    b, s, dh = q.shape
+    before = attn.attn_dots.launches
+    o = attn.attn_dots(q, k, v)
+    torch.cuda.synchronize()
+    launched = attn.attn_dots.launches - before
+    want = attn.attn_dots_ref(q, k, v)
+    err, top = (o - want).abs().max().item(), want.abs().max().item()
+    # the largest term |s2| |v|, eight heads at a time
+    term = max(torch.einsum("nqd,nkd->nqk", q[i:i + 8].float(),
+                            k[i:i + 8].float()).abs().max().item()
+               for i in range(0, b, 8)) * v.float().abs().max().item()
+    row = {"shape": [b, s, dh], "max_abs_err": err,
+           "largest_reference_value": top, "largest_term": term,
+           "err_over_largest_value": err / top,
+           "err_over_largest_term": err / term, "tol": TOL_DOTS,
+           "launches_of_one_call": launched,
+           "cluster": attn.fwd_cluster(dh),
+           "clusters_at_once": attn.flash_clusters(
+               "dots", dh, True, q.device.index or 0),
+           "ok": (err <= TOL_DOTS * term and bool(torch.isfinite(o).all())
+                  and tuple(o.shape) == (b, s, dh)
+                  and o.dtype == torch.float32 and launched == 1),
+           "route": "bf16 wgmma: the hybrid forward's body, softmax "
+                    "compiled out" + (
+                        f", dh split over a cluster of "
+                        f"{CTAS[attn.fwd_cluster(dh)]} CTAs"
+                        if attn.fwd_cluster(dh) > 1 else "")}
+    del o, want
+    if not timed:
+        return row
+    # the yardstick on the same operands, for the record
+    lib_err = (dots_library(q, k, v) - attn.attn_dots_ref(q, k, v)).abs(
+    ).max().item()
+    ops, nbytes = attn_dots_work(b, s, dh)
+    bms, by = bound_ms(ops, nbytes, PEAK_BF16_FLOPS)
+    ms = time_ms(lambda: attn.attn_dots(q, k, v))
+    # the forward kernel alone on the same bf16 operands, q scaled as it
+    # is loaded: what the softmax adds to the two products
+    fwd_ms = time_ms(lambda: attn._launch_fwd(
+        q, k, v, False, True, attn.LOG2E / math.sqrt(dh)))
+    row.update({
+        "flash_fwd_ms_on_the_same_operands": fwd_ms,
+        "flash_fwd_over_attn_dots": fwd_ms / ms,
+        "ms": ms, "plain_ms": time_ms(
+            lambda: attn.attn_dots_ref(q, k, v), reps=5),
+        "library_ms": time_ms(lambda: dots_library(q, k, v)),
+        "library_max_abs_err": lib_err,
+        "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
+        "tflops": ops / ms / 1e9, "bound_ms": bms, "bound_by": by})
+    return row
+
+
 def phase_kernel_dots(seed: int):
     """the dots-only probe (the forward's wgmma body with the softmax
     compiled out) against its plain version; returns its record at the
     bench shape"""
     import torch
-    from tensorforth_tpu_torch.ops import attn
     rows, main = [], None
     for i, (b, s, dh) in enumerate(((BENCH["nh"], BENCH["s"], BENCH["dh"]),
                                     (64, 2048, 128), (8, 1024, 256))):
         rs = np.random.RandomState(seed + 200 + i)
         q, k, v = (torch.from_numpy(rs.randn(b, s, dh).astype(
             np.float32)).cuda().to(torch.bfloat16) for _ in range(3))
-        before = attn.attn_dots.launches
-        o = attn.attn_dots(q, k, v)
-        torch.cuda.synchronize()
-        launched = attn.attn_dots.launches - before
-        want = attn.attn_dots_ref(q, k, v)
-        err, top = (o - want).abs().max().item(), want.abs().max().item()
-        # the largest term |s2| |v|, eight heads at a time
-        term = max(torch.einsum("nqd,nkd->nqk", q[i:i + 8].float(),
-                                k[i:i + 8].float()).abs().max().item()
-                   for i in range(0, b, 8)) * v.float().abs().max().item()
-        # the yardstick on the same operands, for the record
-        lib_err = (dots_library(q, k, v) - want).abs().max().item()
-        ops, nbytes = attn_dots_work(b, s, dh)
-        bms, by = bound_ms(ops, nbytes, PEAK_BF16_FLOPS)
-        ms = time_ms(lambda: attn.attn_dots(q, k, v))
-        # the forward kernel alone on the same bf16 operands, q scaled as
-        # it is loaded: what the softmax adds to the two products
-        fwd_ms = time_ms(lambda: attn._launch_fwd(
-            q, k, v, False, True, attn.LOG2E / math.sqrt(dh)))
-        rows.append({
-            "flash_fwd_ms_on_the_same_operands": fwd_ms,
-            "flash_fwd_over_attn_dots": fwd_ms / ms,
-            "shape": [b, s, dh], "max_abs_err": err,
-            "largest_reference_value": top, "largest_term": term,
-            "err_over_largest_value": err / top,
-            "err_over_largest_term": err / term, "tol": TOL_DOTS,
-            "launches_of_one_call": launched,
-            "ok": (err <= TOL_DOTS * term and bool(torch.isfinite(o).all())
-                   and tuple(o.shape) == (b, s, dh)
-                   and o.dtype == torch.float32 and launched == 1),
-            "ms": ms, "plain_ms": time_ms(
-                lambda: attn.attn_dots_ref(q, k, v), reps=5),
-            "library_ms": time_ms(lambda: dots_library(q, k, v)),
-            "library_max_abs_err": lib_err,
-            "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
-            "tflops": ops / ms / 1e9, "bound_ms": bms, "bound_by": by,
-            "route": "bf16 wgmma: the hybrid forward's body, softmax "
-                     "compiled out"})
+        rows.append(dots_case(q, k, v))
         main = main or rows[-1]
-        del q, k, v, o, want
+        del q, k, v
         torch.cuda.empty_cache()
     emit({"phase": "kernel", "kernel": "attn_dots", "cases": rows,
           "tol": f"{TOL_DOTS} of the largest term |s2| |v|",
-          "library": "two cuBLAS calls: torch.bmm(q, k^T, out_dtype=f32), "
-                     ".to(bf16), torch.bmm(., v, out_dtype=f32)"})
+          "library": DOTS_LIBRARY})
     if not all(r["ok"] for r in rows):
         raise RuntimeError("attn_dots disagrees with its plain version")
     return main
+
+
+DOTS_LIBRARY = ("two cuBLAS calls: torch.bmm(q, k^T, out_dtype=f32), "
+                ".to(bf16), torch.bmm(., v, out_dtype=f32)")
 
 
 def phase_kernel(seed: int):
@@ -1469,15 +1517,160 @@ def phase_kernel_wide(seed: int, bh=WIDE_BH, s=WIDE_S, cases=WIDE_CASES):
             failed.append(name)
         del q, k, v, do, o, lse, dlse
         torch.cuda.empty_cache()
+    probe_rows, probe_entries = wide_probes(seed)
+    entries.update(probe_entries)
+    failed += [f"{r['kernel']} {r['shape']} causal={r.get('causal')} "
+               f"hybrid={r.get('hybrid')}" for r in probe_rows if not r["ok"]]
     emit({"phase": "kernel_wide", "cases": rows,
+          "fused_and_dots_cases": probe_rows,
           "peak_bf16_tflops": PEAK_BF16_FLOPS / 1e12,
           "precision": "bf16 wgmma, f32 sums: f32 class six products of a "
                        "three-part split (bound at a sixth of the bf16 "
                        "rate), hybrid one product; dh over a cluster of "
-                       "dh / 128 CTAs"})
+                       "dh / 128 CTAs",
+          "tol_fused_vs_split": f"f32 {TOL_FUSED_SPLIT} absolute plus "
+                                f"{TOL_FUSED_SPLIT} relative; hybrid "
+                                f"{TOL_FUSED_SPLIT_HYBRID} of the largest "
+                                "split value",
+          "tol_dots": f"{TOL_DOTS} of the largest term |s2| |v|",
+          "dots_library": DOTS_LIBRARY})
     if failed:
         raise RuntimeError(f"the wide head dims' kernels disagree: {failed}")
     return entries
+
+
+# K3 (both classes) and K8 at dh 384 to 1024, on clusters of dh / 128 CTAs:
+# every dh held on a small shape (two Q blocks, so the never-visited
+# partial blocks show), then causal [WIDE_BH, WIDE_S, dh] timed at
+# WIDE_PROBE_TIMED beside the library's call
+WIDE_PROBE_SMALL = (2, 512)      # (B*h, S) of the held cases
+WIDE_PROBE_BQ = 256
+WIDE_PROBE_TIMED = (512, 1024)
+
+
+def wide_probes(seed: int, small=WIDE_PROBE_SMALL, timed_dh=WIDE_PROBE_TIMED,
+                bh=WIDE_BH, s=WIDE_S):
+    """K3 and K8 at dh 384 to 1024: K3 in both classes, causal and not
+    (an lse cotangent in the non-causal cases), against its plain version
+    in the cluster's sum order (dq and both partials, the never-visited
+    blocks), against the two-kernel split K2a + K2b (TOL_FUSED_SPLIT; the
+    hybrid class TOL_FUSED_SPLIT_HYBRID), the f32 class against f64, and
+    against itself run again; K8 against its plain version (TOL_DOTS).
+    Then the causal [bh, s, dh] cases at `timed_dh`: K3's and K8's times,
+    bounds and library calls (SDPA's backward; two cuBLAS bmm), K3 beside
+    the split's.  Returns (rows, the `kernels` line's entries)"""
+    import torch
+    from tensorforth_tpu_torch.ops import attn
+    rows, entries = [], {}
+    b, sm = small
+    index = torch.cuda.current_device()
+    for i, dh in enumerate(WIDE_DH):
+        t0 = time.perf_counter()
+        rs = np.random.default_rng(seed + 300 + i)
+        q, k, v, do = (torch.from_numpy(rs.standard_normal(
+            (b, sm, dh), dtype=np.float32)).cuda() for _ in range(4))
+        dlse = torch.from_numpy(rs.standard_normal(
+            (b, sm), dtype=np.float32)).cuda()
+        for hybrid in (False, True):
+            for causal in (True, False):
+                cot = None if causal else dlse
+                o, lse = attn.flash_attention(q, k, v, causal=causal,
+                                              hybrid=hybrid)
+                split = attn.flash_attention_bwd(q, k, v, o, lse, do, causal,
+                                                 hybrid, dlse=cot)
+                f64 = None if hybrid else f64_grads(q, k, v, do, cot, causal)
+                row = fused_case((q, k, v, o, lse, do, causal, hybrid, cot),
+                                 split, WIDE_PROBE_BQ, f64, None,
+                                 timed=False)
+                rows.append(dict(
+                    row, kernel="flash_bwd_fused", shape=[b, sm, dh],
+                    causal=causal, hybrid=hybrid, dlse=cot is not None,
+                    clusters_at_once=attn._active_clusters(index, dh,
+                                                           hybrid)))
+                del o, lse, split, f64
+        bf = torch.bfloat16
+        rows.append(dict(dots_case(q.to(bf), k.to(bf), v.to(bf),
+                                   timed=False), kernel="attn_dots"))
+        rows[-1]["seconds"] = time.perf_counter() - t0
+        del q, k, v, do, dlse
+    for i, dh in enumerate(timed_dh):
+        rs = np.random.default_rng(seed + 400 + i)
+        q, k, v, do = (torch.from_numpy(rs.standard_normal(
+            (bh, s, dh), dtype=np.float32)).cuda() for _ in range(4))
+        for hybrid in (False, True):
+            t0 = time.perf_counter()
+            o, lse = attn.flash_attention(q, k, v, causal=True,
+                                          hybrid=hybrid)
+            bq = attn._fused_bq("chip_smoke", s, None)
+            plan = attn.fused_plan_on(q.device, bh, s, bq, True, hybrid, dh)
+            call = (q, k, v, o, lse, do, bq, True, hybrid, None)
+            got = attn.flash_attention_bwd_fused(*call)
+            split = attn.flash_attention_bwd(q, k, v, o, lse, do, True,
+                                             hybrid)
+            want = attn.flash_attention_bwd_fused_ref(*call,
+                                                      cluster=plan.cluster)
+            names = ("dq", "dk", "dv")
+            errs = {nm: (g - w).abs().max().item()
+                    for nm, g, w in zip(names, got, want)}
+            tops = {nm: w.abs().max().item() for nm, w in zip(names, want)}
+            ok = fused_equals_split(got, split, hybrid) and all(
+                bool(torch.isfinite(g).all()) and (
+                    errs[nm] <= TOL_BWD_HYBRID * tops[nm] if hybrid
+                    else errs[nm] <= TOL_BWD_F32)
+                for nm, g in zip(names, got))
+            del got, split, want
+            parts = plan.parts
+            ops, nbytes = attn_bwd_fused_work(bh, s, dh, bq, True, 2 * parts)
+            bms, by = bound_ms(ops, nbytes, bwd_peak(parts))
+            prep = attn._prepare_fused(q, k, v, o, lse, do, hybrid, None)
+            cast = (lambda x: x.to(torch.bfloat16)) if hybrid else (
+                lambda x: x)
+            tag = f"{'hybrid' if hybrid else 'f32'}_dh{dh}"
+            ent = {
+                "shape": [bh, s, dh], "causal": True, "bq": bq,
+                "route": bwd_route(parts, plan.cluster),
+                "grid": {"ctas": plan.ctas, "kv_tiles_per_cta": plan.chunk,
+                         "dq_partials": plan.n_slots, "smem": plan.smem,
+                         "cluster": plan.cluster},
+                "clusters_at_once": attn._active_clusters(index, dh, hybrid),
+                "max_abs_err": max(errs.values()),
+                "max_abs_err_by_output": errs,
+                "largest_reference_value": tops,
+                "fused_equals_split": ok,
+                "ms": time_ms(lambda: attn.flash_attention_bwd_fused(*call),
+                              reps=WIDE_REPS),
+                "kernel_ms": time_ms(lambda: attn._launch_fused(
+                    *prep, bq, True, hybrid), reps=WIDE_REPS),
+                "split_k2a_k2b_ms": time_ms(lambda: attn.flash_attention_bwd(
+                    q, k, v, o, lse, do, True, hybrid), reps=WIDE_REPS),
+                "plain_ms": time_ms(lambda: attn.flash_attention_bwd_fused_ref(
+                    *call, cluster=plan.cluster), reps=3),
+                "library_ms": time_ms(sdpa_grads(
+                    *(cast(x)[None] for x in (q, k, v, do)), True),
+                    reps=WIDE_REPS),
+                "library": "scaled_dot_product_attention's backward through "
+                           "a 4-d call" + (" on bf16 operands" if hybrid
+                                           else ""),
+                "bound_ms": bms, "bound_by": by, "gflop": ops / 1e9,
+                "mbytes": nbytes / 1e6, "ok": ok}
+            del prep
+            if parts == 3:
+                ent["split_ms"] = time_ms(lambda: attn._split_bwd(
+                    q, k, v, do, attn.LOG2E / math.sqrt(dh),
+                    attn.flash_attention_bwd_fused), reps=WIDE_REPS)
+            ent["seconds"] = time.perf_counter() - t0
+            entries.setdefault("flash_bwd_fused", {})[tag] = ent
+            rows.append(dict(ent, kernel="flash_bwd_fused", hybrid=hybrid))
+            del o, lse
+        bf = torch.bfloat16
+        t0 = time.perf_counter()
+        ent = dots_case(q.to(bf), k.to(bf), v.to(bf))
+        ent["seconds"] = time.perf_counter() - t0
+        entries.setdefault("attn_dots", {})[f"dh{dh}"] = ent
+        rows.append(dict(ent, kernel="attn_dots"))
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return rows, entries
 
 
 def gemm_cases(m, k, n):
@@ -5664,6 +5857,11 @@ def main(argv=None) -> int:
     timed("moe", phase_moe, args.seed)
     for name, n in timed("attn_bench", phase_attn_bench, args.seed).items():
         ran[name] = ran.get(name, 0) + n
+    # the same entry points at a wide head dim: K3's hybrid class and K8
+    # on clusters of four CTAs (depth cut: 4 heads, one sweep shape)
+    for name, n in timed("attn_bench_dh512", phase_attn_bench, args.seed,
+                         **ATTN_BENCH_WIDE).items():
+        ran[name] = ran.get(name, 0) + n
     timed("host", phase_host)
     timed("arena", phase_arena)
     for name, n in timed("mesh", phase_mesh, args.seed).items():
@@ -5713,11 +5911,14 @@ def main(argv=None) -> int:
                                    "parallel phase's rank 0 (the ring's "
                                    "backward, the nn.pipe stage's)",
                    "flash_bwd_fused": "attn_bench.sweep_bwd_fused (the "
-                                      "hybrid class; the f32 class's "
-                                      "kernels and its split in the kernel "
-                                      "phase, `f32` here)",
+                                      "hybrid class, at dh 128 and at dh "
+                                      "512 on clusters of four CTAs; the "
+                                      "f32 class's kernels and its split "
+                                      "in the kernel phases, `f32` and "
+                                      "`f32_dh*` here)",
                    "attn_dots": "attn_bench.bench_attention_oracle (its "
-                                "dots-only probe)",
+                                "dots-only probe, at dh 128 and at dh 512 "
+                                "on clusters of four CTAs)",
                    "mm_f32io": "the gemm2 and gemm3 words (classes default "
                                "and 3pass; highest, which no word reaches, "
                                "in the kernel phase)",
@@ -5786,9 +5987,12 @@ def main(argv=None) -> int:
              + wide_tags,
              "flash_bwd_fused": ("kernel_ms", "ms_before_the_sums",
                                  "library_bf16_ms", "library_ms_4d",
-                                 "blocks", "grid", "f32", "f32_dh256"),
+                                 "blocks", "grid", "f32", "f32_dh256")
+             + tuple(f"{cls}_dh{dh}" for cls in ("f32", "hybrid")
+                     for dh in WIDE_PROBE_TIMED),
              "attn_dots": ("route", "flash_fwd_ms_on_the_same_operands",
-                           "flash_fwd_over_attn_dots"),
+                           "flash_fwd_over_attn_dots")
+             + tuple(f"dh{dh}" for dh in WIDE_PROBE_TIMED),
              "mm_f32io": ("rounding_pass_ms", "ms_includes_rounding_pass",
                           "library_ms_with_casts", "highest"),
              "mm_bf16": ("k5a_default_with_pass_ms", "library_ms_with_casts"),

@@ -4,11 +4,13 @@ bench_attention_oracle (with its dots-only probe) and of the sweep
 scripts/sweep_bwd_fused_r5.py over scripts/sweep_attn_r4b.py:sweep.
 
     python -m tensorforth_tpu_torch.attn_bench [fwd|bwd|oracle|sweep|all]
-        [--device cpu] [--tiny]
+        [--device cpu] [--tiny] [--dh DH]
 
 prints one JSON line per function.  Without --device it runs on the CUDA
 card and raises where there is none.  --tiny runs every function at the
-size of TINY (for a CPU), not at its full width.
+size of TINY (for a CPU), not at its full width.  --dh picks the head dim
+(128, the default, to 1024 in steps of 128; at 384 and wider the kernels
+run on clusters of dh / 128 CTAs).
 
 Every function makes its inputs from a numpy seed, runs each candidate as
 a chain of `n_iter` dependent calls (the output feeds the next call's
@@ -268,9 +270,8 @@ def sweep_bwd_fused(which: str = "all", n_iter: int = 24, reps: int = 9,
                 hybrid=True)) for bq in cand]
             rec = sweep(tag_fns, b, s, dh, causal, n_iter, reps, device)
             rec.update(b=b, s=s, dh=dh, causal=causal, blocks={
-                f"fused bq={bq}": attn.fused_plan(
-                    b, s, bq, causal, True, dh,
-                    attn.sm_count(resolve_device(device))).ctas
+                f"fused bq={bq}": attn.fused_plan_on(
+                    resolve_device(device), b, s, bq, causal, True, dh).ctas
                 for bq in cand},
                 partial_bytes_written_and_read={
                     f"fused bq={bq}": 2 * 2 * (s // bq) * b * s * dh * 4
@@ -287,9 +288,11 @@ def main(argv=None) -> int:
                     help="cuda (the default; raises without a card) or cpu")
     ap.add_argument("--tiny", action="store_true",
                     help="the size of TINY, not the full width")
+    ap.add_argument("--dh", type=int, default=128,
+                    help="head dim, 128 to 1024 in steps of 128")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
-    size = dict(TINY if args.tiny else {}, device=device)
+    size = dict(TINY if args.tiny else {}, device=device, dh=args.dh)
     if args.what in ("fwd", "all"):
         print(json.dumps({"bench_attention": bench_attention(**size)}),
               flush=True)
@@ -301,7 +304,8 @@ def main(argv=None) -> int:
                           bench_attention_oracle(**size)}), flush=True)
     if args.what in ("sweep", "all"):
         print(json.dumps({"sweep_bwd_fused": sweep_bwd_fused(
-            device=device, **(TINY_SWEEP if args.tiny else {}))}), flush=True)
+            device=device, dh=args.dh, **(TINY_SWEEP if args.tiny else {}))}),
+              flush=True)
     return 0
 
 

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 
 from ..config import Config
 from ..ops import attn as _attn
-from ..ops import rng, xla_math, xla_reduce
+from ..ops import rng, xla_dot, xla_math, xla_reduce
 from .ntypes import Layer
 
 SELU_L = 1.0507009873554805
@@ -152,6 +152,18 @@ def class_dot(op, a, b, cls=None):
 
 def _mm(a, b):
     return a @ b
+
+
+def _linear_mm(a, b):
+    """a @ b of the linear layer, forward and backward (the JAX package's
+    jnp.dot of x and w.T, dy.T and x, dy and w): on CPU tensors in XLA
+    CPU's order where ops/xla_dot.py has the class, else a @ b.  Under the
+    word mesh (T4_MESH, and chip_smoke's emulation of it) a @ b: the JAX
+    package's mesh runs are programs partitioned over devices, whose dots
+    are others.  The conv's products (XLA's convolution, not a dot) and
+    the LM tier's keep _mm"""
+    y = xla_dot.mm(a, b) if word_mesh() is None else None
+    return a @ b if y is None else y
 
 
 def _einsum_op(spec):
@@ -297,7 +309,7 @@ def _dconv_fwd(x, w, b, S, P):
 def _linear_fwd(x, w, b):
     """y[N,E0] = x[N,E1] @ w^T[E1,E0] + b (reference _flinear)"""
     n = x.shape[0]
-    return class_dot(_mm, x.reshape(n, -1), w.T) + b
+    return class_dot(_linear_mm, x.reshape(n, -1), w.T) + b
 
 
 def _dropout_fwd(x, rate, key):
@@ -963,8 +975,11 @@ def _split_grads(m, kind, x_in, w, dy, opts, out_shape):
         if m is not None:
             dyf = m.chunk(dyf, 1, "tp")
         db = dyf.sum(dim=0)
-        dw = class_dot(_mm, dyf.T, x_in.reshape(rows, -1))
-        dx = class_dot(_mm, dyf, w)
+        # a linear layer's products as the JAX package's jnp.dot sums them
+        # on the CPU (one process: a rank's shards are other dots)
+        op = _linear_mm if kind == Layer.LINEAR and m is None else _mm
+        dw = class_dot(op, dyf.T, x_in.reshape(rows, -1))
+        dx = class_dot(op, dyf, w)
     if m is not None:                   # the features' parts of dx
         dx = m.all_reduce(dx.contiguous(), "tp")
     return dx, dw, db

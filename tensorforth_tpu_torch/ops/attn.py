@@ -45,21 +45,24 @@ Its grid is planned here (``fused_plan``): a CTA owns a (head, Q block,
 KV chunk) item, so the grid fills the card whatever bq is, and dq leaves
 as one partial per KV chunk that the wrapper sums.  Hybrid mode runs on
 bf16 ``wgmma``; the f32 class too, as six products of the backward's
-three-part split (``_split_bwd``, counted as the fused path's own), at dh
-256 on a cluster of two CTAs that split dh, as the two-kernel backward's
-route there does.  It is a measurement path
+three-part split (``_split_bwd``, counted as the fused path's own).  The
+f32 class at dh 256 to 1024 and the hybrid class at dh 384 to 1024 run on
+clusters of dh / 128 CTAs that split dh, as the two-kernel backward's
+routes there do, their partial scores added in ``cluster_sum``'s order.
+It is a measurement path
 (``attn_bench``): ``flash_attention_lse`` keeps the two-kernel backward,
 as in the JAX package.
 
 The dots-only probe, ``csrc/attn_dots.cu``, replaces the Pallas kernel
 inside bench.py:_attn_dots_probe: the forward kernel's own body at the
 hybrid plan (``csrc/flash_fwd.cuh``) with the softmax compiled out, on
-bf16 operands.
+bf16 operands; at dh 384 to 1024 on the forward's cluster route.
 
 Every wrapper launches its kernel for CUDA tensors and uses its plain
 version only for CPU tensors; anything else raises.  There is no
-fallback on the card.  K1, K2a and K2b take dh 128 to 1024 (KERNEL_DH);
-K3 and the probe dh 128 and 256.
+fallback on the card.  Every kernel takes dh 128 to 1024 (KERNEL_DH); dh
+1152 and wider are refused (a deliberate deviation: a cluster of 9 or more
+CTAs is past the 8 of a portable cluster).
 """
 from __future__ import annotations
 
@@ -75,10 +78,9 @@ from .gemm import SM90_ALIGN, _split3_ref
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 NEG_INF = -1.0e30          # the mask value of attn_pallas.py:25
-# head dims K1, K2a, K2b are built for: a cluster holds at most 8 CTAs of
+# head dims the kernels are built for: a cluster holds at most 8 CTAs of
 # 128 columns
 KERNEL_DH = tuple(range(128, 1025, 128))
-SMALL_DH = (128, 256)      # K3's and the probe's (no cluster route of dh 384+)
 TILE = 64                  # S must be a multiple of the kernel's tile
 N_SM = 132   # SMs of an H100 SXM: what a plan is made for off the card
 
@@ -265,8 +267,9 @@ _ARGTYPES = {   # library -> exported function -> ctypes signature
                   "t4_flash_bwd_clusters": [_I] * 3 + [_P]},
     "flash_bwd_fused": {"t4_flash_bwd_fused": [_P] * 10 + [_I] * 11
                         + [_F, _P],
-                        "t4_flash_bwd_fused_clusters": [_P]},
-    "attn_dots": {"t4_attn_dots": [_P] * 4 + [_I] * 3 + [_P]},
+                        "t4_flash_bwd_fused_clusters": [_I] * 2 + [_P]},
+    "attn_dots": {"t4_attn_dots": [_P] * 4 + [_I] * 3 + [_P],
+                  "t4_attn_dots_clusters": [_I, _P]},
 }
 
 
@@ -283,16 +286,20 @@ def _lib(name: str):
 
 
 def _check_shape(what: str, tensors, dims=KERNEL_DH):
-    """the kernels' shapes: equal [B*h, S, dh], dh in `dims` (KERNEL_DH, or
-    SMALL_DH for K3 and the probe), S % TILE == 0"""
+    """the kernels' shapes: equal [B*h, S, dh], dh in `dims`, S % TILE ==
+    0; a dh % 128 == 0 past 1024 names the deviation"""
     shape = tensors[0].shape
     if len(shape) != 3 or any(t.shape != shape for t in tensors):
         raise ValueError(f"{what}: shapes {[tuple(t.shape) for t in tensors]}"
                          f", want equal [B*h, S, dh]")
     _, s, dh = shape
     if dh not in dims or s % TILE:
+        wide = (" (dh 1152 and wider would need a cluster of 9 or more "
+                "CTAs, past the 8 of a portable cluster: a deliberate "
+                "deviation from the JAX package)"
+                if dh % 128 == 0 and dh > max(dims) else "")
         raise ValueError(f"{what}: kernel takes dh in {dims} "
-                         f"and S % {TILE} == 0, got S={s} dh={dh}")
+                         f"and S % {TILE} == 0, got S={s} dh={dh}{wide}")
 
 
 def _check_cuda(what: str, tensors, dtype=torch.float32, dims=KERNEL_DH):
@@ -487,9 +494,10 @@ def flash_attention_bwd_fused_split_ref(q, k, v, o, lse, do, bq=None,
     """a model of the fused kernel's f32 class (six products of the
     three-part split): (dq [B, S, dh], dk_parts, dv_parts [B, n_q, S, dh]),
     f32.  s2, p, dp and ds as flash_attention_bwd_split_ref forms them (the
-    products of parts exact in f64, rounded to f32; at dh 256 with its
-    `cluster` 2, each CTA's half of dh rounded to f32 and the halves added
-    in f32; p and ds split in turn); then the gradients as the kernel sums
+    products of parts exact in f64, rounded to f32; at dh 256 to 1024 with
+    the plan's `cluster` of dh / 128, each CTA's 128 columns rounded to f32
+    and the partials added in f32 in cluster_sum's order; p and ds split in
+    turn); then the gradients as the kernel sums
     them, each column on its own: each warpgroup's 32 queries of a (Q tile,
     KV tile) pair give one exact product for the tile's 64 keys (dv = p^T
     do, dk = ds^T q2), rounded to f32 and added in f32 one Q tile after
@@ -499,7 +507,7 @@ def flash_attention_bwd_fused_split_ref(q, k, v, o, lse, do, bq=None,
     fused_plan, times 1/sqrt(dh), the chunks' slots added in f32 in order.
     What it leaves out: the tensor cores' truncating sums and ex2.approx."""
     what = "flash_attention_bwd_fused_split_ref"
-    _check_shape(what, (q, k, v, o, do), SMALL_DH)
+    _check_shape(what, (q, k, v, o, do))
     b, s, dh = q.shape
     bq = _fused_bq(what, s, bq)
     plan = fused_plan(b, s, bq, causal, False, dh, sms)
@@ -743,13 +751,17 @@ def _fused_bq(what: str, s: int, bq) -> int:
 
 def flash_attention_bwd_fused_parts_ref(q, k, v, o, lse, do, bq=None,
                                         causal: bool = False,
-                                        hybrid: bool = False, dlse=None):
+                                        hybrid: bool = False, dlse=None,
+                                        cluster: int = 1):
     """plain PyTorch version of the fused backward kernel: (dq [B,S,dh],
     dk_parts, dv_parts [B, n_q, S, dh]).  flash_attention_bwd_ref's
     arithmetic, one Q block of bq rows at a time against the keys that the
     block sees; under the causal mask the keys after the block are never
-    visited and their rows of the block's partials stay zero."""
+    visited and their rows of the block's partials stay zero.  `cluster` >
+    1 (fused_cluster): s2 and dp as a cluster route forms them, an f32 sum
+    per CTA's 128 columns, added in cluster_sum's order."""
     b, s, dh = q.shape
+    _check_shape("flash_attention_bwd_fused_parts_ref", (q, k, v, o, do))
     bq = _fused_bq("flash_attention_bwd_fused_parts_ref", s, bq)
     n_q = s // bq
     q2, k, v, do, delta, qscale = _bwd_operands(q, k, v, o, lse, do,
@@ -768,14 +780,14 @@ def flash_attention_bwd_fused_parts_ref(q, k, v, o, lse, do, bq=None,
         rows = slice(qi * bq, (qi + 1) * bq)
         n_k = (qi + 1) * bq if causal else s
         kb, vb = k[:, :n_k], v[:, :n_k]
-        s2 = torch.einsum("nqd,nkd->nqk", q2[:, rows], kb)
+        s2 = _cluster_scores(_einsum, q2[:, rows], kb, cluster)
         if causal:
             keep = (torch.arange(n_k, device=q.device)[None, :]
                     <= torch.arange(qi * bq, (qi + 1) * bq,
                                     device=q.device)[:, None])
             s2 = torch.where(keep, s2, torch.full_like(s2, NEG_INF))
         p = torch.exp2(s2 - lse2[:, rows, None])
-        dp = torch.einsum("nqd,nkd->nqk", do[:, rows], vb)
+        dp = _cluster_scores(_einsum, do[:, rows], vb, cluster)
         ds = rnd(p * (dp - delta[:, rows, None]))
         dq[:, rows] = torch.einsum("nqk,nkd->nqd", ds, kb) / math.sqrt(dh)
         dvp[:, qi, :n_k] = torch.einsum("nqk,nqd->nkd", rnd(p), do[:, rows])
@@ -786,13 +798,18 @@ def flash_attention_bwd_fused_parts_ref(q, k, v, o, lse, do, bq=None,
 
 # --- the fused kernel's grid ------------------------------------------------
 # KV tile rows of the kernel by (hybrid, dh) (csrc/flash_bwd_fused.cu:
-# route): hybrid's wgmma kernel and the f32 class's six-product wgmma
-# kernel (at dh 256 on a cluster of two CTAs that split dh)
-FUSED_KV_TILE = {(True, 128): 128, (True, 256): 64,
-                 (False, 128): 64, (False, 256): 64}
-# a cluster's exchange slots (csrc/flash_bwd_fused.cu: F6::XCH): each of a
-# CTA's 256 threads' partial s2 and dp, 32 f32; ds^T's parts live in them
+# route): hybrid's one-CTA wgmma kernel at dh 128 and 256 (Hy), and the
+# split body (F6: the f32 class's six products at every dh, the hybrid
+# class's one product at dh 384 to 1024, on clusters of dh / 128 CTAs from
+# dh 256 in the f32 class and 384 in the hybrid class)
+FUSED_KV_TILE = {(hy, dh): 128 if hy and dh == 128 else 64
+                 for hy in (True, False) for dh in KERNEL_DH}
+# a cluster's exchange slot (csrc/flash_bwd_fused.cu: F6::XCH): each of a
+# CTA's 256 threads' partial s2 and dp, 32 f32; ds^T's parts live in it
 FUSED_EXCHANGE = 256 * 32 * 4
+# warpgroup 1's dk and dv [64, 128] f32 pass to warpgroup 0 through K's and
+# V's space in the split body (F6::RED), which is at least their size
+FUSED_REDUCTION = 2 * 64 * 128 * 4
 
 
 def fused_parts(dh: int, hybrid: bool) -> int:
@@ -803,25 +820,29 @@ def fused_parts(dh: int, hybrid: bool) -> int:
 
 def fused_cluster(dh: int, hybrid: bool) -> int:
     """the CTAs of a cluster of the fused kernel's route, from dh and the
-    class alone: 2 for the f32 class at dh 256, whose three parts do not
-    fit one CTA (two CTAs split dh), else 1"""
-    return 2 if dh == 256 and not hybrid else 1
+    class alone, as the two-kernel backward's (bwd_cluster): 2 for the f32
+    class at dh 256, whose three parts do not fit one CTA, dh / 128 at dh
+    384 to 1024 in both classes, else 1"""
+    return bwd_cluster(dh, hybrid)
 
 
 def fused_smem(dh: int, parts: int) -> int:
     """dynamic shared memory of a CTA of the fused kernel of (dh, parts),
-    bytes (csrc/flash_bwd_fused.cu: Hy, F6).  hybrid: K and V of a KV
-    tile, two ds^T tiles, a ring of Q-side stages (Q, dO, then lse and
-    delta in 1024 aligned bytes) and a barrier per stage and one for K and
-    V.  f32: the three parts of K, V, Q and dO (64 rows of the CTA's 128
-    columns each), of ds^T [64, 64], lse and delta of a Q tile, three
-    barriers; at dh 256 (a cluster) ds^T's parts live in the exchange
-    slots, and two barriers more guard them."""
-    if parts == 3:
-        cluster = fused_cluster(dh, False)
-        return (SM90_ALIGN + 4 * 3 * TILE * 128 * 2
-                + (FUSED_EXCHANGE if cluster == 2 else 3 * TILE * TILE * 2)
-                + 2 * TILE * 4 + (5 if cluster == 2 else 3) * 8)
+    bytes (csrc/flash_bwd_fused.cu: Hy, F6).  hybrid at dh 128 and 256
+    (Hy): K and V of a KV tile, two ds^T tiles, a ring of Q-side stages
+    (Q, dO, then lse and delta in 1024 aligned bytes) and a barrier per
+    stage and one for K and V.  The split body (F6; the f32 class, and the
+    hybrid class at dh 384 to 1024): the parts of K and V (at least the
+    FUSED_REDUCTION bytes that pass through their space), Q and dO (64 rows
+    of the CTA's 128 columns each), of ds^T [64, 64], lse and delta of a Q
+    tile, three barriers; on a cluster ds^T's parts live in the exchange
+    slot, guarded by its barriers (`full` and one a round)."""
+    cluster = fused_cluster(dh, parts == 1)
+    if parts == 3 or cluster > 1:
+        tile = parts * TILE * 128 * 2
+        return (SM90_ALIGN + max(2 * tile, FUSED_REDUCTION) + 2 * tile
+                + (FUSED_EXCHANGE if cluster > 1 else parts * TILE * TILE * 2)
+                + 2 * TILE * 4 + (3 + xch_barriers(cluster)) * 8)
     bkv, stages = FUSED_KV_TILE[(True, dh)], (3 if dh == 128 else 2)
     return (SM90_ALIGN + 2 * bkv * dh * 2 + 2 * bkv * TILE * 2
             + stages * (2 * TILE * dh * 2 + SM90_ALIGN) + (stages + 1) * 8)
@@ -873,9 +894,9 @@ def fused_plan(bh: int, s: int, bq: int, causal: bool, hybrid: bool,
                dh: int, sms: int = N_SM, clusters=None) -> FusedPlan:
     """the fused kernel's grid on a card of `sms` SMs.  The chunk is the
     largest power of two of KV tiles that still gives every slot an item
-    with work (one tile if none does): a slot is an SM, or on the cluster
-    route a pair of SMs (at most `clusters`, the clusters the card runs at
-    once, which fused_plan_on asks the card for).  A longer
+    with work (one tile if none does): a slot is an SM, or on a cluster
+    route a cluster of its CTAs' SMs (at most `clusters`, the clusters the
+    card runs at once, which fused_plan_on asks the card for).  A longer
     chunk means fewer dq partials to write and sum, a shorter one more
     items to even out the causal load (PERF.md, section 6).  Items with no
     work (KV chunks that a causal Q block never sees) stay in the grid:
@@ -883,8 +904,8 @@ def fused_plan(bh: int, s: int, bq: int, causal: bool, hybrid: bool,
     plan is made once."""
     kv_tile = FUSED_KV_TILE[(bool(hybrid), dh)]
     cluster = fused_cluster(dh, hybrid)
-    slots = sms if cluster == 1 else max(1, min(sms // 2,
-                                                clusters or sms // 2))
+    slots = sms if cluster == 1 else max(1, min(sms // cluster,
+                                                clusters or sms // cluster))
     n_kv = -(-s // kv_tile)
     chunk = 1
     while chunk * 2 <= n_kv:
@@ -916,14 +937,15 @@ def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-@functools.lru_cache(maxsize=8)
-def _active_clusters(index: int) -> int:
-    """the most clusters of the f32 class's dh-256 fused kernel that CUDA
-    device `index` runs at once (t4_flash_bwd_fused_clusters)"""
+@functools.lru_cache(maxsize=32)
+def _active_clusters(index: int, dh: int, hybrid: bool) -> int:
+    """the most clusters of the fused kernel's route at dh in the class
+    that CUDA device `index` runs at once (t4_flash_bwd_fused_clusters)"""
     lib = _lib("flash_bwd_fused")
     n = ctypes.c_int(0)
     with torch.cuda.device(index):
-        err = lib.t4_flash_bwd_fused_clusters(ctypes.addressof(n))
+        err = lib.t4_flash_bwd_fused_clusters(
+            dh, fused_parts(dh, hybrid), ctypes.addressof(n))
     if err != 0:
         raise RuntimeError(f"flash_bwd_fused occupancy query failed: "
                            f"cudaError {err}")
@@ -932,14 +954,18 @@ def _active_clusters(index: int) -> int:
 
 @functools.lru_cache(maxsize=32)
 def flash_clusters(kernel: str, dh: int, hybrid: bool, index: int) -> int:
-    """the most clusters of K1's ("fwd"), K2a's ("dkv") or K2b's ("dq")
-    route at dh in the class that CUDA device `index` runs at once
-    (cudaOccupancyMaxActiveClusters; a cluster of one CTA off the cluster
-    routes): times the route's cluster, the SMs its grid keeps busy"""
+    """the most clusters of K1's ("fwd"), K2a's ("dkv"), K2b's ("dq") or
+    the probe's ("dots", bf16 only) route at dh in the class that CUDA
+    device `index` runs at once (cudaOccupancyMaxActiveClusters; a
+    cluster of one CTA off the cluster routes): times the route's cluster,
+    the SMs its grid keeps busy"""
     parts = 1 if hybrid else 3
     n = ctypes.c_int(0)
     with torch.cuda.device(index):
-        if kernel == "fwd":
+        if kernel == "dots":
+            err = _lib("attn_dots").t4_attn_dots_clusters(
+                dh, ctypes.addressof(n))
+        elif kernel == "fwd":
             err = _lib("flash_fwd").t4_flash_fwd_clusters(
                 dh, parts, ctypes.addressof(n))
         else:
@@ -957,8 +983,9 @@ def fused_plan_on(device, bh: int, s: int, bq: int, causal: bool,
     cluster route, the clusters it runs at once"""
     device = torch.device(device)
     clusters = (_active_clusters(device.index if device.index is not None
-                                 else torch.cuda.current_device())
-                if device.type == "cuda" and fused_cluster(dh, hybrid) == 2
+                                 else torch.cuda.current_device(), dh,
+                                 bool(hybrid))
+                if device.type == "cuda" and fused_cluster(dh, hybrid) > 1
                 else None)
     return fused_plan(bh, s, bq, causal, hybrid, dh, sm_count(device),
                       clusters)
@@ -967,14 +994,16 @@ def fused_plan_on(device, bh: int, s: int, bq: int, causal: bool,
 def flash_attention_bwd_fused_slots_ref(q, k, v, o, lse, do, bq=None,
                                         causal: bool = False,
                                         hybrid: bool = False, dlse=None,
-                                        sms: int = N_SM):
+                                        sms: int = N_SM, cluster: int = 1):
     """plain PyTorch model of the fused kernel's decomposition: (dq_slots
     [n_slots, B, S, dh], dk_parts, dv_parts [B, n_q, S, dh]).  Item by item
     of fused_plan, as the CTAs compute them: each (Q block, KV chunk) item
     gives its chunk's rows of the block's partials and its block's rows of
     the chunk's dq slot; rows that no item computes are zeros.  dq is
-    dq_slots summed over the slots, in order."""
+    dq_slots summed over the slots, in order.  `cluster` as in
+    flash_attention_bwd_fused_parts_ref."""
     b, s, dh = q.shape
+    _check_shape("flash_attention_bwd_fused_slots_ref", (q, k, v, o, do))
     bq = _fused_bq("flash_attention_bwd_fused_slots_ref", s, bq)
     plan = fused_plan(b, s, bq, causal, hybrid, dh, sms)
     q2, k, v, do, delta, qscale = _bwd_operands(q, k, v, o, lse, do,
@@ -996,14 +1025,14 @@ def flash_attention_bwd_fused_slots_ref(q, k, v, o, lse, do, bq=None,
             continue
         qr = slice(qi * bq, (qi + 1) * bq)
         kr = slice(c * rows, min((c + 1) * rows, s))
-        s2 = torch.einsum("nqd,nkd->nqk", q2[:, qr], k[:, kr])
+        s2 = _cluster_scores(_einsum, q2[:, qr], k[:, kr], cluster)
         if causal:
             keep = (torch.arange(kr.start, kr.stop, device=q.device)[None, :]
                     <= torch.arange(qr.start, qr.stop,
                                     device=q.device)[:, None])
             s2 = torch.where(keep, s2, torch.full_like(s2, NEG_INF))
         p = torch.exp2(s2 - lse2[:, qr, None])
-        dp = torch.einsum("nqd,nkd->nqk", do[:, qr], v[:, kr])
+        dp = _cluster_scores(_einsum, do[:, qr], v[:, kr], cluster)
         ds = rnd(p * (dp - delta[:, qr, None]))
         slots[c, :, qr] = torch.einsum("nqk,nkd->nqd", ds,
                                        k[:, kr]) / math.sqrt(dh)
@@ -1014,10 +1043,10 @@ def flash_attention_bwd_fused_slots_ref(q, k, v, o, lse, do, bq=None,
 
 def flash_attention_bwd_fused_ref(q, k, v, o, lse, do, bq=None,
                                   causal: bool = False, hybrid: bool = False,
-                                  dlse=None):
+                                  dlse=None, cluster: int = 1):
     """plain PyTorch version of flash_attention_bwd_fused: (dq, dk, dv)"""
     dq, dkp, dvp = flash_attention_bwd_fused_parts_ref(
-        q, k, v, o, lse, do, bq, causal, hybrid, dlse)
+        q, k, v, o, lse, do, bq, causal, hybrid, dlse, cluster)
     return dq, dkp.sum(dim=1), dvp.sum(dim=1)
 
 
@@ -1077,13 +1106,13 @@ def flash_attention_bwd_fused_parts(q, k, v, o, lse, do, bq=None,
     q*scale*log2e, k, v and do); CPU tensors take the plain version;
     anything else raises."""
     what = "flash_attention_bwd_fused"
-    _check_shape(what, (q, k, v, o, do), SMALL_DH)
+    _check_shape(what, (q, k, v, o, do))
     bq = _fused_bq(what, q.shape[1], bq)
     extra = (lse,) if dlse is None else (lse, dlse)
     if all(t.device.type == "cpu" for t in (q, k, v, o, do) + extra):
         return flash_attention_bwd_fused_parts_ref(q, k, v, o, lse, do, bq,
                                                    causal, hybrid, dlse)
-    _check_cuda(what, (q, k, v, o, do), dims=SMALL_DH)
+    _check_cuda(what, (q, k, v, o, do))
     _check_rows(what, q, extra)
     slots, dkp, dvp = _launch_fused(
         *_prepare_fused(q, k, v, o, lse, do, hybrid, dlse), bq, causal,
@@ -1119,14 +1148,17 @@ def attn_dots_ref(q, k, v):
     values, the scores rounded to bf16 before the second product, the sum
     over the keys taken one key tile after another, as the kernel takes
     it: its tile is the hybrid forward plan's KV tile (fwd_plan(...,
-    hybrid=True).bkv: 64 keys at dh 128, 32 at dh 256), each tile's
-    product summed apart and added to o in f32"""
+    hybrid=True).bkv: 64 keys at dh 128 and 384 to 1024, 32 at dh 256),
+    each tile's product summed apart and added to o in f32; at dh 384 to
+    1024 the scores as the forward's cluster route forms them, an f32 sum
+    per CTA's 128 columns, added in cluster_sum's order"""
     b, s, dh = q.shape
-    bkv = fwd_plan(b, s, dh, True).bkv
+    plan = fwd_plan(b, s, dh, True)
     qf, kf, vf = q.float(), k.float(), v.float()
     o = torch.zeros_like(qf)
+    bkv = plan.bkv
     for k0 in range(0, s, bkv):
-        s2 = torch.einsum("nqd,nkd->nqk", qf, kf[:, k0:k0 + bkv])
+        s2 = _cluster_scores(_einsum, qf, kf[:, k0:k0 + bkv], plan.cluster)
         o += torch.einsum("nqk,nkd->nqd", s2.to(torch.bfloat16).float(),
                           vf[:, k0:k0 + bkv])
     return o
@@ -1134,12 +1166,12 @@ def attn_dots_ref(q, k, v):
 
 def _launch_dots(q, k, v):
     """launch the probe kernel on contiguous bf16 [B*h, S, dh] operands of
-    one shape (S % TILE == 0, dh in SMALL_DH): o [B*h, S, dh] f32"""
+    one shape (S % TILE == 0, dh in KERNEL_DH): o [B*h, S, dh] f32"""
     if any(t.dtype != torch.bfloat16 or not t.is_contiguous()
            or t.shape != q.shape for t in (q, k, v)):
         raise ValueError("attn_dots: operands must be contiguous bf16 of "
                          "one shape [B*h, S, dh]")
-    _check_shape("attn_dots", (q, k, v), SMALL_DH)
+    _check_shape("attn_dots", (q, k, v))
     b, s, dh = q.shape
     lib = _lib("attn_dots")
     o = torch.empty((b, s, dh), dtype=torch.float32, device=q.device)
@@ -1158,13 +1190,13 @@ def attn_dots(q, k, v):
     forward's two products with no scale, no mask and no softmax.  CUDA
     tensors launch the kernel; CPU tensors take the plain version;
     anything else raises."""
-    _check_shape("attn_dots", (q, k, v), SMALL_DH)
+    _check_shape("attn_dots", (q, k, v))
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
         raise ValueError(f"attn_dots: tensors must be bfloat16, got "
                          f"{[t.dtype for t in (q, k, v)]}")
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return attn_dots_ref(q, k, v)
-    _check_cuda("attn_dots", (q, k, v), torch.bfloat16, SMALL_DH)
+    _check_cuda("attn_dots", (q, k, v), torch.bfloat16)
     return _launch_dots(q, k, v)
 
 

@@ -320,48 +320,6 @@ __device__ __forceinline__ void grad_products(float (&acc)[64],
     for (int i = 0; i < 8; ++i) asm volatile("" : "+r"(f[p][i])::"memory");
 }
 
-// a cluster's sum of a tile's partial s2 and dp (sm90_gemm.cuh: Xch), this
-// thread's floats at the slot's start (s2) and DP_AT bytes on (dp)
-constexpr uint32_t DP_AT = 4 * NT * 16;
-
-// round 1's dp leaves for the pair while s2's products run, once the pair
-// has read its slot's last message
-template <class X>
-__device__ __forceinline__ void send_dp(const X& x, const float (&dp)[16],
-                                        int it) {
-  if (x.pair() >= 0) {
-    x.wait_free(1, it);
-    x.send(dp, x.pair(), DP_AT);
-  }
-}
-
-// then s2's; this thread's arrival on `full` expects the 128 bytes its twin
-// sends; the pair's sums, and at CL 3 to 8 the other blocks' added in the
-// later rounds (s2 and dp in one message): both sums are over all of dh,
-// the same bits in every CTA
-template <class X>
-__device__ __forceinline__ void sum_scores(const X& x, float (&s)[16],
-                                           float (&dp)[16], int it) {
-  if (x.pair() >= 0) {
-    x.send(s, x.pair(), 0);
-    x.receive(32 * 4, it, 1);
-    x.add(s, 0);
-    x.add(dp, DP_AT);
-    x.read(1);
-  }
-#pragma unroll
-  for (int k = 2; k <= X::ROUNDS; ++k) {
-    x.wait_free(k, it);
-    x.send_round(k, s, &dp);
-    if (x.has(k)) {
-      x.receive(32 * 4, it, k);
-      x.add(s, 0);
-      x.add(dp, DP_AT);
-      x.read(k);
-    }
-  }
-}
-
 // both kernels' body (DKV: dK/dV, else dQ), on the maps of the stationary
 // operands a0, a1 (dQ: Q2, dO; dK/dV: K, V) and of the streamed ones b0,
 // b1 (dQ: K, V; dK/dV: Q2, dO): s2 = a0 b0^T, dp = a1 b1^T, then
@@ -488,7 +446,7 @@ __device__ __forceinline__ void bwd_body(
       // ---- a cluster: dp's partial leaves while s2's products run
       wgmma_wait<1>();
       pin(dp);
-      T4_XCH(CL, NT, xslot, xfull, send_dp(xc, dp, it))
+      T4_XCH(CL, NT, xslot, xfull, xch_send_dp(xc, dp, it))
     }
     wgmma_wait<0>();
     pin(dp);
@@ -501,7 +459,7 @@ __device__ __forceinline__ void bwd_body(
     }
     // ---- a cluster: s2's partial leaves too, and both are summed
     if constexpr (CL > 1) {
-      T4_XCH(CL, NT, xslot, xfull, sum_scores(xc, s, dp, it))
+      T4_XCH(CL, NT, xslot, xfull, xch_sum_scores(xc, s, dp, it))
     }
 
     // ---- p and ds in place: element 4 jn + 2 i + c is stationary row

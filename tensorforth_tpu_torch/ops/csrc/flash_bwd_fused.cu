@@ -17,8 +17,9 @@
 // Layout: q, k, v, do [B*h, S, dh] row-major (bf16 casts in hybrid mode;
 // in the f32 class three bf16 parts [3, B*h, S, dh] of q*scale*log2e, k, v
 // and do); lse, delta [B*h, S] f32; dq partials [n_slots, B*h, S, dh] f32;
-// dkp, dvp [B*h, n_q, S, dh] f32.  S % bq == 0, bq % 64 == 0, dh in {128,
-// 256}.
+// dkp, dvp [B*h, n_q, S, dh] f32.  S % bq == 0, bq % 64 == 0, dh 128 to
+// 1024 in steps of 128 (1152 and wider are refused: a cluster of 9+ CTAs
+// is past the 8 of a portable cluster).
 //
 // What bounds it on this card: operations, but for the partials' bytes.
 //   hybrid (bf16 multiplicands, f32 sums), at [16, 2048, 128] causal, bq
@@ -38,6 +39,11 @@
 //     products over the same 171.9 GFLOP, 1.04 ms; three parts of its
 //     tiles do not fit a block's 227 KB, so a cluster of two CTAs splits
 //     dh (below), and the two halves of s2 and dp cross between them.
+//   dh 384 to 1024, both classes, at [16, 2048, dh] causal, bq 1024: the
+//     same work per (query, key) pair times dh / 128, on clusters of dh /
+//     128 CTAs (below); at dh 1024 the f32 class's six products are 6 x
+//     171.9 GFLOP again, 1.04 ms, the hybrid class's one 0.17 ms, which
+//     the partials' 268 MB (0.08 ms) do not reach.
 //
 // The design.  One CTA (a cluster of two at dh 256 in the f32 class) owns
 // a work item (head, Q block, KV chunk): a run of `chunk` KV tiles of one
@@ -102,7 +108,23 @@
 // twin's partials (the pair's barrier before the ds^T stores), and
 // arrives on the peer's `empty` barrier, which lets the peer push the next
 // pair, only once its dq products, the last readers of ds^T, are done.
-// ops/attn.py:fused_plan picks the route from dh and the class.
+// dh 384 to 1024, both classes, the split body on clusters of CL = dh /
+// 128 CTAs (fused_f32_sm90_kernel<CL>, fused_hybrid_sm90_kernel<CL>): each
+// CTA holds the dh-128 tiles of its class over its 128 columns (the hybrid
+// class one part of each, K's and V's space kept at the 64 KB that
+// warpgroup 1's dk and dv pass through), and the partial s2 and dp are
+// summed through sm90_gemm.cuh's Xch, the tree of pairs of K2a and K2b (two
+// rounds at CL 3 and 4, three at 5 to 8), so p and ds are the same bits in
+// every CTA.  The one 32 KB slot takes each round's message in turn, then
+// ds^T's parts: a CTA writes them once every thread has added the last
+// round's message (the pair's barrier before the stores), and marks that
+// message read (Xch::read, which lets its writer send the next pair's
+// first round) only once its dq products are done.  The f32 class's
+// budget is the dh-256 route's and an exchange barrier a round: 230,960
+// bytes at CL 3 and 4, 230,968 at 5 to 8; the hybrid class's 132,656 and
+// 132,664.  At CL 2 the exchange is Xch's one round, as it was.
+// ops/attn.py:fused_plan picks the route from dh and the class, and counts
+// a cluster of CL SMs a slot.
 
 #include "flash_tile.cuh"
 #include "sm90_gemm.cuh"
@@ -516,104 +538,132 @@ __global__ void __launch_bounds__(HT, 1)
 
 
 // ===========================================================================
-// f32: six bf16 products of the three-part split on wgmma; dh 128 on one
-// CTA, dh 256 on a cluster of two that split dh
+// the split body: CL CTAs of a cluster, each over 128 columns of dh; the
+// f32 class (NP 3: six bf16 products of the three-part split) at dh 128 on
+// one CTA and dh 256 to 1024 on clusters of dh / 128, the hybrid class (NP
+// 1: one product of the casts) at dh 384 to 1024 on clusters of dh / 128
 // ===========================================================================
-// q2, k, v and do arrive as three bf16 parts each (t4_split_bwd); every
-// product is six products of parts, smallest first (prod_a / prod_b of
-// split_bf16.cuh), each over its whole reduction before the next, into one
+// q2, k, v and do arrive as NP bf16 parts each (t4_split_bwd, or the
+// hybrid casts); every product is the products of parts, smallest first
+// (prod_a / prod_b of split_bf16.cuh, from P0 on: six for NP 3, hi hi for
+// NP 1), each over its whole reduction before the next, into one
 // accumulator (the scores) or a fresh one that the CUDA cores add to the
 // running sum (the gradients).  The KV tile has 64 rows, all parts of K and
 // V stay for the tile; one stage of Q's and dO's parts streams per pair.
-// A CTA holds 128 columns of each: all of dh 128 (CL 1), or its half of dh
-// 256 (CL 2).
-template <int CL>
+// A CTA holds 128 columns of each: all of dh 128 (CL 1), or its 128 of dh
+// 128 CL.
+template <int CL, int NP = 3>
 struct F6 {
   static constexpr int D = 128 * CL;        // the head dim
   static constexpr int BKV = 64;            // KV tile rows
+  static constexpr int P0 = NP == 3 ? 0 : 5;   // first of prod_a/prod_b's
   static constexpr int BOX = 64 * 128;      // a [64 d x 64 rows] box, 8 KB
   static constexpr int PART = 2 * BOX;      // a part of a 64-row tile
-  static constexpr int TILE = 3 * PART;     // the three parts, 48 KB
+  static constexpr int TILE = NP * PART;    // the parts, 48 KB (NP 3)
   static constexpr int DS_PART = BKV * 128; // a part of ds^T [64 kv x 64 q]
   static constexpr int ROWS = QT * 4;       // lse (or delta) of a Q tile
-  // a cluster's exchange slots: each thread's twin's partial s2 and dp, 32
-  // floats; ds^T's three parts live in them
+  // warpgroup 1's dk and dv [64 x 128] f32 reach warpgroup 0 through K's
+  // and V's space, which is at least their size (NP 1: K and V leave room)
+  static constexpr int RED = 2 * 64 * 128 * 4;
+  static constexpr int KV = 2 * TILE > RED ? 2 * TILE : RED;
+  // a cluster's exchange slot: each thread's twin's partial s2 and dp, 32
+  // floats; ds^T's parts live in it once the last round is read
   static constexpr int XCH = HT * 32 * 4;
-  static constexpr int DS = CL == 2 ? XCH : 3 * DS_PART;   // ds^T's region
-  // K, V, Q, dO, ds^T's region, lse, delta, then kvfull, qfull, ofull and a
-  // cluster's xfull, xempty
-  static constexpr int SMEM = ALIGN + 4 * TILE + DS + 2 * ROWS +
-                              (CL == 2 ? 5 : 3) * 8;
+  static constexpr int DS = CL > 1 ? XCH : NP * DS_PART;   // ds^T's region
+  // the exchange's barriers: full, and one a round
+  static constexpr int XBAR = CL > 1 ? 1 + Xch<CL, HT, 0>::ROUNDS : 0;
+  // K and V, Q, dO, ds^T's region, lse, delta, then kvfull, qfull, ofull
+  // and a cluster's exchange barriers
+  static constexpr int SMEM = ALIGN + KV + 2 * TILE + DS + 2 * ROWS +
+                              (3 + XBAR) * 8;
 };
 static_assert(F6<1>::SMEM <= SMEM_LIMIT && F6<2>::SMEM <= SMEM_LIMIT,
               "shared memory");
 static_assert(F6<2>::SMEM == 230952, "the cluster's budget");
+// dh 384 to 1024: the dh-256 route's budget and a barrier a round more
+static_assert(F6<3>::SMEM == 230960 && F6<4>::SMEM == 230960 &&
+                  F6<5>::SMEM == 230968 && F6<6>::SMEM == 230968 &&
+                  F6<7>::SMEM == 230968 && F6<8>::SMEM == 230968 &&
+                  F6<8>::SMEM <= SMEM_LIMIT,
+              "the f32 clusters' budget at CL 3 to 8");
+// the hybrid class: one part of each tile, K's and V's space kept at the
+// 64 KB that warpgroup 1's dk and dv pass through
+static_assert(F6<3, 1>::SMEM == 132656 && F6<4, 1>::SMEM == 132656 &&
+                  F6<5, 1>::SMEM == 132664 && F6<6, 1>::SMEM == 132664 &&
+                  F6<7, 1>::SMEM == 132664 && F6<8, 1>::SMEM == 132664,
+              "the hybrid clusters' budget at CL 3 to 8");
 static_assert(F6<2>::XCH >= 3 * F6<2>::DS_PART, "ds^T in the slots");
-// warpgroup 1's dk and dv (64 KB) reach warpgroup 0 through K's and V's
-static_assert(2 * F6<1>::TILE >= 2 * 64 * 128 * 4, "reduction");
-using F6T = F6<1>;   // the tiles' sizes, the same in both
 
-// one 64-row tile of an operand in its three parts by TMA (part p's rows
+// one 64-row tile of an operand in its NP parts by TMA (part p's rows
 // start p part_rows down the map, the CTA's 128 columns from col on),
 // against `bar`, whose bytes the caller expects; one thread
-__device__ __forceinline__ void tma_tile3(uint32_t dst, uint32_t bar,
+template <int NP>
+__device__ __forceinline__ void tma_tiles(uint32_t dst, uint32_t bar,
                                           const CUtensorMap* map,
                                           int part_rows, int row, int col) {
+  using P = F6<1, NP>;
 #pragma unroll
-  for (int p = 0; p < 3; ++p)
+  for (int p = 0; p < NP; ++p)
 #pragma unroll
     for (int b = 0; b < 2; ++b)
-      tma_load(dst + p * F6T::PART + b * F6T::BOX, map, bar, col + 64 * b,
+      tma_load(dst + p * P::PART + b * P::BOX, map, bar, col + 64 * b,
                p * part_rows + row);
 }
 
 // a Q-side tile (Q's or dO's parts) and its rows of `rows_src` (lse or
 // delta), against `bar`; one thread
-__device__ __forceinline__ void load_side3(uint32_t dst, uint32_t rows_dst,
-                                           uint32_t bar,
-                                           const CUtensorMap* map,
-                                           const float* rows_src,
-                                           int part_rows, int row, int col) {
-  mbar_expect_tx(bar, F6T::TILE + F6T::ROWS);
-  tma_tile3(dst, bar, map, part_rows, row, col);
-  bulk_load(rows_dst, rows_src + row, F6T::ROWS, bar);
+template <int NP>
+__device__ __forceinline__ void load_side(uint32_t dst, uint32_t rows_dst,
+                                          uint32_t bar,
+                                          const CUtensorMap* map,
+                                          const float* rows_src,
+                                          int part_rows, int row, int col) {
+  using P = F6<1, NP>;
+  mbar_expect_tx(bar, P::TILE + P::ROWS);
+  tma_tiles<NP>(dst, bar, map, part_rows, row, col);
+  bulk_load(rows_dst, rows_src + row, P::ROWS, bar);
 }
 
-// s (=) A B^T over the CTA's 128 columns, m64n32, six products: A the 64
-// rows of a KV-side tile at a (K or V), B 32 rows of a Q-side tile at b,
-// both K-major
+// s (=) A B^T over the CTA's 128 columns, m64n32, the class's products: A
+// the 64 rows of a KV-side tile at a (K or V), B 32 rows of a Q-side tile
+// at b, both K-major
+template <int NP>
 __device__ __forceinline__ void score6(float (&s)[16], uint32_t a,
                                        uint32_t b) {
+  using P = F6<1, NP>;
 #pragma unroll
-  for (int p = 0; p < 6; ++p)
+  for (int p = P::P0; p < 6; ++p)
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
-      const uint32_t col = (kk / 4) * F6T::BOX + (kk % 4) * 32;
-      wgmma_32<0, 0>(s, desc_a(a + prod_a(p) * F6T::PART + col),
-                     desc_a(b + prod_b(p) * F6T::PART + col), p > 0 || kk > 0);
+      const uint32_t col = (kk / 4) * P::BOX + (kk % 4) * 32;
+      wgmma_32<0, 0>(s, desc_a(a + prod_a(p) * P::PART + col),
+                     desc_a(b + prod_b(p) * P::PART + col),
+                     p > P::P0 || kk > 0);
     }
 }
 
-// acc [64 kv x 128 d] += F B over 32 queries: F the three parts of a [64
-// x 32] A operand in registers, B those 32 rows of a Q-side tile at b,
-// MN-major; six products into a fresh m64n64 accumulator, 64 columns at a
+// acc [64 kv x 128 d] += F B over 32 queries: F the parts of a [64 x 32] A
+// operand in registers, B those 32 rows of a Q-side tile at b, MN-major;
+// the class's products into a fresh m64n64 accumulator, 64 columns at a
 // time, which the CUDA cores add to acc
-__device__ __forceinline__ void grad6(float (&acc)[64], uint32_t (&f)[3][8],
+template <int NP>
+__device__ __forceinline__ void grad6(float (&acc)[64], uint32_t (&f)[NP][8],
                                       uint32_t b) {
+  using P = F6<1, NP>;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const uint64_t bd = desc_b(b + h * F6T::BOX, F6T::BOX);
+    const uint64_t bd = desc_b(b + h * P::BOX, P::BOX);
     float fresh[32];
     pin(fresh);
     wgmma_fence();
 #pragma unroll
-    for (int p = 0; p < 6; ++p)
+    for (int p = P::P0; p < 6; ++p)
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk) {
         const uint32_t* a = f[prod_a(p)] + 4 * kk;
         wgmma_64_rs(fresh, a[0], a[1], a[2], a[3],
-                    bd + ((prod_b(p) * F6T::PART) >> 4) + kk * 128,
-                    p > 0 || kk > 0);
+                    bd + ((prod_b(p) * P::PART) >> 4) + kk * 128,
+                    p > P::P0 || kk > 0);
       }
     wgmma_commit();
     wgmma_wait<0>();
@@ -623,9 +673,20 @@ __device__ __forceinline__ void grad6(float (&acc)[64], uint32_t (&f)[3][8],
   }
   // the products that read f are done
 #pragma unroll
-  for (int p = 0; p < 3; ++p)
+  for (int p = 0; p < NP; ++p)
 #pragma unroll
     for (int i = 0; i < 8; ++i) asm volatile("" : "+r"(f[p][i])::"memory");
+}
+
+// every rank of a cluster of CL receives in the exchange's last round, so
+// each may keep its slot for ds^T until its dq products are done
+template <int CL>
+__host__ __device__ constexpr bool all_receive_last() {
+  if constexpr (CL > 1) {
+    for (int r = 0; r < CL; ++r)
+      if (!Xch<CL, HT, 0>::has_at(r, Xch<CL, HT, 0>::ROUNDS)) return false;
+  }
+  return true;
 }
 
 // two warpgroups and no producer warp, as fused_sm90_kernel: thread 0
@@ -633,12 +694,13 @@ __device__ __forceinline__ void grad6(float (&acc)[64], uint32_t (&f)[3][8],
 // warpgroups; each takes 32 of a Q tile's 64 queries (m64n32 scores) and
 // keeps its own dk and dv over them, and warpgroup 1's reach warpgroup 0
 // through shared memory once a KV tile, added in one order.  Per pair:
-//   dp^T = V dO^T, s2^T = K Q^T     six products each over the CTA's
-//                                   columns (CL 2: then the twins'
-//                                   partials are exchanged and added)
+//   dp^T = V dO^T, s2^T = K Q^T     the class's products over the CTA's
+//                                   columns (CL > 1: then the cluster's
+//                                   partials are summed, sm90_gemm.cuh:
+//                                   Xch, in cluster_sum's order)
 //   p, ds                           in the accumulators, then split into
-//                                   three bf16 A fragments each
-//   dv += p^T dO, dk += ds^T q2     six products over its 32 queries
+//                                   NP bf16 A fragments each (NP 1: rounded)
+//   dv += p^T dO, dk += ds^T q2     the products over its 32 queries
 //   dq += ds K                      each warpgroup 64 of the CTA's dq
 //                                   columns over the 64 keys: ds^T's parts
 //                                   (written to a swizzled tile by both
@@ -647,39 +709,35 @@ __device__ __forceinline__ void grad6(float (&acc)[64], uint32_t (&f)[3][8],
 // dO's next tile loads once both warpgroups' dv products have read it,
 // during the dk and dq products, Q's once their dk products have, during
 // the dq products and the next pair's dp^T; K and V once warpgroup 0 has
-// taken warpgroup 1's sums out of their space.  CL 2: launched in clusters
-// of two CTAs; each thread waits for the peer's `empty` (the peer's dq
-// products of the last pair are done with the slots) before its first
-// push, and arrives on it once its own dq products are.
-template <int CL>
-__global__ void __launch_bounds__(HT, 1)
-    fused_f32_sm90_kernel(const __grid_constant__ CUtensorMap mq,
-                          const __grid_constant__ CUtensorMap mk,
-                          const __grid_constant__ CUtensorMap mv,
-                          const __grid_constant__ CUtensorMap mo,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          float* __restrict__ dqp, float* __restrict__ dkp,
-                          float* __restrict__ dvp,
-                          const int* __restrict__ items, int S, int BH,
-                          int bq, int chunk, int causal, float oscale) {
-  using P = F6<CL>;
+// taken warpgroup 1's sums out of their space.  CL > 1: launched in
+// clusters of CL CTAs.  ds^T's parts live in the exchange slot: a CTA
+// writes them once every thread has added the last round's message (the
+// pair's barrier before the ds^T stores), and reads that round's message
+// as done (Xch::read, which lets its writer send the next pair's first)
+// only once its dq products, the last readers of ds^T, are done.
+template <int CL, int NP>
+__device__ __forceinline__ void fused6_body(
+    unsigned char* smem_raw, const CUtensorMap* mq, const CUtensorMap* mk,
+    const CUtensorMap* mv, const CUtensorMap* mo, const float* lse,
+    const float* delta, float* dqp, float* dkp, float* dvp, const int* items,
+    int S, int BH, int bq, int chunk, int causal, float oscale) {
+  using P = F6<CL, NP>;
+  static_assert(all_receive_last<CL>(), "the last round");
   constexpr int D = P::D, BKV = P::BKV;
-  extern __shared__ unsigned char smem_raw[];
   const uint32_t base = aligned_base(smem_raw);
   float* const fbase =
       reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)));
-  const uint32_t sK = base, sV = sK + P::TILE, sQ = sV + P::TILE;
-  const uint32_t sO = sQ + P::TILE, sDS = sO + P::TILE;  // CL 2: the slots
+  const uint32_t sK = base, sV = sK + P::TILE, sQ = sK + P::KV;
+  const uint32_t sO = sQ + P::TILE, sDS = sO + P::TILE;  // CL > 1: the slot
   const uint32_t sL = sDS + P::DS, sE = sL + P::ROWS;
   const uint32_t kvfull = sE + P::ROWS, qfull = kvfull + 8,
                  ofull = qfull + 8;
-  const uint32_t xfull = ofull + 8, xempty = xfull + 8;  // CL 2
+  const uint32_t xfull = ofull + 8;   // CL > 1: full, e1 (, e2, e3)
   const float* Lq = fbase + (sL - base) / 4;      // the pair's lse, delta
   const float* Eq = fbase + (sE - base) / 4;
 
   const Item w = item_of<CL>(items, BH);
-  // CL 2: the CTA's rank in its cluster picks its 128 columns
+  // CL > 1: the CTA's rank in its cluster picks its 128 columns
   const int rank = CL == 1 ? 0 : static_cast<int>(cluster_ctarank());
   const int col0 = 128 * rank;
   const int n_q = S / bq, n_kv = (S + BKV - 1) / BKV;
@@ -688,6 +746,8 @@ __global__ void __launch_bounds__(HT, 1)
   const int kv_vis = causal ? qb1 : S;
   const int jv = max(j0, min(j1, (kv_vis + BKV - 1) / BKV));
   const int row0 = w.bh * S, part_rows = BH * S;
+  // CL > 1: this thread's place in the exchange slot
+  [[maybe_unused]] const uint32_t xslot = sDS + threadIdx.x * 16;
 
   // the loads' cursor (thread 0's): the next pair whose Q side is to load
   Pairs ld{j0, q_first(qb0, j0 * BKV, causal), qb0, qb1, jv, BKV, causal};
@@ -695,23 +755,22 @@ __global__ void __launch_bounds__(HT, 1)
     mbar_init(kvfull, 1);
     mbar_init(qfull, 1);
     mbar_init(ofull, 1);
-    if (CL == 2) {
-      mbar_init(xfull, HT);
-      mbar_init(xempty, HT);
+    if constexpr (CL > 1) {
+      T4_XCH(CL, HT, xslot, xfull, xc.init())
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     if (jv > j0) {
       mbar_expect_tx(kvfull, 2 * P::TILE);
-      tma_tile3(sK, kvfull, &mk, part_rows, row0 + j0 * BKV, col0);
-      tma_tile3(sV, kvfull, &mv, part_rows, row0 + j0 * BKV, col0);
-      load_side3(sO, sE, ofull, &mo, delta, part_rows, row0 + ld.q0, col0);
-      load_side3(sQ, sL, qfull, &mq, lse, part_rows, row0 + ld.q0, col0);
+      tma_tiles<NP>(sK, kvfull, mk, part_rows, row0 + j0 * BKV, col0);
+      tma_tiles<NP>(sV, kvfull, mv, part_rows, row0 + j0 * BKV, col0);
+      load_side<NP>(sO, sE, ofull, mo, delta, part_rows, row0 + ld.q0, col0);
+      load_side<NP>(sQ, sL, qfull, mq, lse, part_rows, row0 + ld.q0, col0);
       ld.next();
     }
   }
   __syncthreads();
-  // CL 2: the peer's exchange barriers are set up before any arrival
-  if constexpr (CL == 2) cluster_sync();
+  // CL > 1: the peers' exchange barriers are set up before any arrival
+  if constexpr (CL > 1) cluster_sync();
 
   const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
@@ -724,10 +783,6 @@ __global__ void __launch_bounds__(HT, 1)
   // ds^T's parts, and the descriptors of dq's operands (step: 16 keys)
   const uint64_t ds_mn = desc_b(sDS, P::DS_PART);
   const uint64_t k_mn = desc_b(sK + wg * P::BOX, P::BOX);
-  // CL 2: this thread's exchange slot (its twin's is at the same address
-  // in the peer CTA, its s2 part first, then its dp part)
-  const uint32_t peer = rank ^ 1;
-  const uint32_t xmine = sDS + threadIdx.x * 16;
 
   float dk[64], dv[64], s[16], dp[16];
   int it = 0;
@@ -753,32 +808,25 @@ __global__ void __launch_bounds__(HT, 1)
       pin(s);
       mbar_wait(ofull, ph);
       wgmma_fence();
-      score6(dp, sV, sO + qw * 128);
+      score6<NP>(dp, sV, sO + qw * 128);
       wgmma_commit();
       mbar_wait(qfull, ph);
-      score6(s, sK, sQ + qw * 128);
+      score6<NP>(s, sK, sQ + qw * 128);
       wgmma_commit();
-      if constexpr (CL == 2) {
-        // dp's partial leaves while s2's products run, once the peer's dq
-        // products of the last pair are done with its slots
+      if constexpr (CL > 1) {
+        // dp's partial leaves while s2's products run
         wgmma_wait<1>();
         pin(dp);
-        if (it > 0) mbar_wait<true>(xempty, (it - 1) & 1);
-        push<HT>(dp, cluster_addr(xmine + 4 * HT * 16, peer),
-                 cluster_addr(xfull, peer));
+        T4_XCH(CL, HT, xslot, xfull, xch_send_dp(xc, dp, it))
       }
       wgmma_wait<0>();
       pin(dp);
       pin(s);
-      if constexpr (CL == 2) {
-        // s2's partial too; this thread's arrival on `full` expects the
-        // 128 bytes its twin sends; then both sums are over all of dh (an
-        // f32 sum of two terms is the same bits in either CTA)
-        push<HT>(s, cluster_addr(xmine, peer), cluster_addr(xfull, peer));
-        mbar_expect_tx(xfull, 32 * 4);
-        mbar_wait<true>(xfull, ph);
-        add_peer<HT>(s, xmine);
-        add_peer<HT>(dp, xmine + 4 * HT * 16);
+      if constexpr (CL > 1) {
+        // s2's too, and both summed over the cluster: the same bits in
+        // every CTA; the last round's message stays unread (ds^T's parts
+        // go into the slot)
+        T4_XCH(CL, HT, xslot, xfull, xch_sum_scores<false>(xc, s, dp, it))
       }
 
       // p and ds in place; only a tile that crosses the diagonal masks
@@ -788,33 +836,34 @@ __global__ void __launch_bounds__(HT, 1)
       else
         softmax_grad_frag<false>(s, dp, Lq + qw, Eq + qw, kv0 + fr,
                                  q0 + qw, S, causal, t);
-      uint32_t pf[3][8], df[3][8];
+      uint32_t pf[NP][8], df[NP][8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        uint32_t a[3], b[3];
-        split_pair<3>(s[2 * i], s[2 * i + 1], a);
-        split_pair<3>(dp[2 * i], dp[2 * i + 1], b);
+        uint32_t a[NP], b[NP];
+        split_pair<NP>(s[2 * i], s[2 * i + 1], a);
+        split_pair<NP>(dp[2 * i], dp[2 * i + 1], b);
 #pragma unroll
-        for (int p = 0; p < 3; ++p) {
+        for (int p = 0; p < NP; ++p) {
           pf[p][i] = a[p];
           df[p][i] = b[p];
         }
       }
       // dv += p^T dO over its 32 queries
-      grad6(dv, pf, sO + qw * 128);
+      grad6<NP>(dv, pf, sO + qw * 128);
       // both warpgroups are done with this pair's dO and delta: the stage
       // takes the next pair's; and their dq products of the previous pair
-      // have read ds^T (CL 2: and every thread has read its twin's
-      // partials from the slots): its parts take this pair's, row = key,
-      // 64 queries (128 bytes) a row, 16-byte unit u of row r at u ^ (r %
-      // 8); this warpgroup's queries are units 4 wg .. 4 wg + 3
+      // have read ds^T (CL > 1: and every thread has added the last
+      // round's message from the slot): its parts take this pair's, row =
+      // key, 64 queries (128 bytes) a row, 16-byte unit u of row r at u ^
+      // (r % 8); this warpgroup's queries are units 4 wg .. 4 wg + 3
       named_barrier(1, HT);
       if (threadIdx.x == 0 && !ld.done())
-        load_side3(sO, sE, ofull, &mo, delta, part_rows, row0 + ld.q0, col0);
-      // CL 2: generic stores where the peer's st.async wrote
-      if constexpr (CL == 2) fence_proxy_async();
+        load_side<NP>(sO, sE, ofull, mo, delta, part_rows, row0 + ld.q0,
+                      col0);
+      // CL > 1: generic stores where the peers' st.async wrote
+      if constexpr (CL > 1) fence_proxy_async();
 #pragma unroll
-      for (int p = 0; p < 3; ++p)
+      for (int p = 0; p < NP; ++p)
 #pragma unroll
         for (int jn = 0; jn < 4; ++jn)
 #pragma unroll
@@ -829,36 +878,39 @@ __global__ void __launch_bounds__(HT, 1)
       fence_proxy_async();
 
       // dk += ds^T q2 over its 32 queries
-      grad6(dk, df, sQ + qw * 128);
+      grad6<NP>(dk, df, sQ + qw * 128);
       // ds^T is whole, and both warpgroups are done with this pair's Q and
       // lse: the stage takes the next pair's
       named_barrier(1, HT);
       if (threadIdx.x == 0 && !ld.done()) {
-        load_side3(sQ, sL, qfull, &mq, lse, part_rows, row0 + ld.q0, col0);
+        load_side<NP>(sQ, sL, qfull, mq, lse, part_rows, row0 + ld.q0,
+                      col0);
         ld.next();
       }
 
-      // dq rows q0.. of the chunk's slot, its columns dc..: += ds K, six
-      // products into a fresh accumulator; the chunk's first tile stores,
-      // the others load, add and store; the last tile that the Q tile sees
-      // in the chunk scales by oscale
+      // dq rows q0.. of the chunk's slot, its columns dc..: += ds K, the
+      // class's products into a fresh accumulator; the chunk's first tile
+      // stores, the others load, add and store; the last tile that the Q
+      // tile sees in the chunk scales by oscale
       float fq[32];
       pin(fq);
       wgmma_fence();
 #pragma unroll
-      for (int p = 0; p < 6; ++p)
+      for (int p = P::P0; p < 6; ++p)
 #pragma unroll
         for (int kk = 0; kk < BKV / 16; ++kk)
           wgmma_64<1, 1>(fq,
                          ds_mn + ((prod_a(p) * P::DS_PART) >> 4) + kk * 128,
                          k_mn + ((prod_b(p) * P::PART) >> 4) + kk * 128,
-                         p > 0 || kk > 0);
+                         p > P::P0 || kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       pin(fq);
-      // CL 2: this thread's reads of ds^T are done, so the peer may push
-      // the next pair into the slots
-      if constexpr (CL == 2) mbar_arrive_remote(cluster_addr(xempty, peer));
+      // CL > 1: this thread's reads of ds^T are done, so the last round's
+      // writer may send the next pair's first message into the slot
+      if constexpr (CL > 1) {
+        T4_XCH(CL, HT, xslot, xfull, xc.read(xc.ROUNDS))
+      }
       const int last = causal ? min(jv - 1, (q0 + QT - 1) / BKV) : jv - 1;
       const float scale = j == last ? oscale : 1.f;
       float* rowp = dq_slot + (size_t)(q0 + fr) * D + dc + 2 * t;
@@ -896,8 +948,8 @@ __global__ void __launch_bounds__(HT, 1)
     named_barrier(1, HT);
     if (threadIdx.x == 0 && j + 1 < jv) {
       mbar_expect_tx(kvfull, 2 * P::TILE);
-      tma_tile3(sK, kvfull, &mk, part_rows, row0 + (j + 1) * BKV, col0);
-      tma_tile3(sV, kvfull, &mv, part_rows, row0 + (j + 1) * BKV, col0);
+      tma_tiles<NP>(sK, kvfull, mk, part_rows, row0 + (j + 1) * BKV, col0);
+      tma_tiles<NP>(sV, kvfull, mv, part_rows, row0 + (j + 1) * BKV, col0);
     }
     // this KV tile's rows of both partials over the CTA's columns (dK
     // times ln2: ds^T q2 = (scale log2e) ds^T q)
@@ -917,15 +969,47 @@ __global__ void __launch_bounds__(HT, 1)
       }
     }
   }
-  // CL 2: the peer's last arrival on `empty` is its last access to this
-  // CTA's shared memory
-  if constexpr (CL == 2) {
-    if (it > 0) mbar_wait<true>(xempty, (it - 1) & 1);
+  // CL > 1: the peers' last reads of this CTA's messages are its last
+  // accesses to its shared memory (a CTA of an item with no pair exchanges
+  // nothing, nor do its peers, which share the item)
+  if constexpr (CL > 1) {
+    if (it > 0) {
+      T4_XCH(CL, HT, xslot, xfull, xc.drain(it))
+    }
   }
   zero_unseen<D, 128>(dkp, dvp, dq_slot, part, jv * BKV, min(j1 * BKV, S),
                       qb0, min(qb1, q_first(qb0, j0 * BKV, causal)),
                       threadIdx.x, HT, col0);
 }
+
+#define T4_FUSED6_PARAMS                                                    \
+  const __grid_constant__ CUtensorMap mq,                                   \
+      const __grid_constant__ CUtensorMap mk,                               \
+      const __grid_constant__ CUtensorMap mv,                               \
+      const __grid_constant__ CUtensorMap mo, const float* __restrict__ lse, \
+      const float* __restrict__ delta, float* __restrict__ dqp,             \
+      float* __restrict__ dkp, float* __restrict__ dvp,                     \
+      const int* __restrict__ items, int S, int BH, int bq, int chunk,      \
+      int causal, float oscale
+
+// the f32 class on CL CTAs (dh 128 CL): six products
+template <int CL>
+__global__ void __launch_bounds__(HT, 1)
+    fused_f32_sm90_kernel(T4_FUSED6_PARAMS) {
+  extern __shared__ unsigned char smem_raw[];
+  fused6_body<CL, 3>(smem_raw, &mq, &mk, &mv, &mo, lse, delta, dqp, dkp, dvp,
+                     items, S, BH, bq, chunk, causal, oscale);
+}
+
+// the hybrid class on clusters of CL CTAs (dh 384 to 1024): one product
+template <int CL>
+__global__ void __launch_bounds__(HT, 1)
+    fused_hybrid_sm90_kernel(T4_FUSED6_PARAMS) {
+  extern __shared__ unsigned char smem_raw[];
+  fused6_body<CL, 1>(smem_raw, &mq, &mk, &mv, &mo, lse, delta, dqp, dkp, dvp,
+                     items, S, BH, bq, chunk, causal, oscale);
+}
+#undef T4_FUSED6_PARAMS
 
 // ---- host side -------------------------------------------------------------
 struct Fused {
@@ -967,54 +1051,112 @@ int launch_sm90(const Fused& a) {
                 a.chunk, a.causal, a.oscale);
 }
 
-// the operands are three parts each, [3, bh, s, dh] bf16: one map over
-// every part's rows; CL 2 launches an item's two CTAs as a cluster
-template <int CL>
-int launch_f32_sm90(const Fused& a) {
-  using P = F6<CL>;
-  CUtensorMap m[4];
-  if (!sm90_args(a) || !fused_maps<P::D>(a, 3 * a.bh * a.s, P::BKV, m))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch_cluster(fused_f32_sm90_kernel<CL>,
-                        dim3(CL * a.n_items * a.bh), CL, HT, P::SMEM,
-                        a.stream, m[0], m[1], m[2], m[3], a.lse, a.delta,
-                        a.dqp, a.dkp, a.dvp, a.items, a.s, a.bh, a.bq,
-                        a.chunk, a.causal, a.oscale);
+// the split body's kernel of (CL, NP)
+template <int CL, int NP>
+auto fused6_kernel() {
+  if constexpr (NP == 3)
+    return fused_f32_sm90_kernel<CL>;
+  else
+    return fused_hybrid_sm90_kernel<CL>;
 }
+
+// the operands are NP parts each, [NP, bh, s, dh] bf16: one map over every
+// part's rows; an item's CL CTAs launch as a cluster
+template <int CL, int NP>
+int launch_f6(const Fused& a) {
+  using P = F6<CL, NP>;
+  CUtensorMap m[4];
+  if (!sm90_args(a) || !fused_maps<P::D>(a, NP * a.bh * a.s, P::BKV, m))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_cluster(fused6_kernel<CL, NP>(), dim3(CL * a.n_items * a.bh),
+                        CL, HT, P::SMEM, a.stream, m[0], m[1], m[2], m[3],
+                        a.lse, a.delta, a.dqp, a.dkp, a.dvp, a.items, a.s,
+                        a.bh, a.bq, a.chunk, a.causal, a.oscale);
+}
+
+// the split body's routes by (dh, parts): F::run<CL, NP>(args) at dh =
+// 128 CL, parts = NP (the f32 class at dh 128 to 1024, the hybrid class at
+// dh 384 to 1024), else `otherwise`
+template <class F, class R, class... A>
+R with_f6(int dh, int parts, R otherwise, A... args) {
+  if (parts == 3) {
+    switch (dh) {
+      case 128: return F::template run<1, 3>(args...);
+      case 256: return F::template run<2, 3>(args...);
+      case 384: return F::template run<3, 3>(args...);
+      case 512: return F::template run<4, 3>(args...);
+      case 640: return F::template run<5, 3>(args...);
+      case 768: return F::template run<6, 3>(args...);
+      case 896: return F::template run<7, 3>(args...);
+      case 1024: return F::template run<8, 3>(args...);
+    }
+  } else if (parts == 1) {
+    switch (dh) {
+      case 384: return F::template run<3, 1>(args...);
+      case 512: return F::template run<4, 1>(args...);
+      case 640: return F::template run<5, 1>(args...);
+      case 768: return F::template run<6, 1>(args...);
+      case 896: return F::template run<7, 1>(args...);
+      case 1024: return F::template run<8, 1>(args...);
+    }
+  }
+  return otherwise;
+}
+
+// the split body's plan: (KV tile rows, shared memory, cluster)
+struct RouteF6 {
+  template <int CL, int NP>
+  static bool run(int* bkv, int* smem, int* cluster) {
+    *bkv = F6<CL, NP>::BKV;
+    *smem = F6<CL, NP>::SMEM;
+    *cluster = CL;
+    return true;
+  }
+};
+
+struct LaunchF6 {
+  template <int CL, int NP>
+  static int run(const Fused* a) {
+    return launch_f6<CL, NP>(*a);
+  }
+};
+
+struct ClustersF6 {
+  template <int CL, int NP>
+  static int run(int* n) {
+    return max_clusters(fused6_kernel<CL, NP>(), CL, HT, F6<CL, NP>::SMEM,
+                        n);
+  }
+};
 
 // the kernel of (dh, parts) and its plan: KV tile rows (what the plan's
 // items are counted in), dynamic shared memory and the CTAs of a cluster;
-// false if none
+// false if none (dh 1152 and wider: a cluster of 9+ CTAs is past the 8
+// of a portable cluster)
 bool route(int dh, int parts, int& bkv, int& smem, int& cluster) {
   cluster = 1;
   if (parts == 1 && (dh == 128 || dh == 256)) {
     bkv = dh == 128 ? Hy<128>::BKV : Hy<256>::BKV;
     smem = dh == 128 ? Hy<128>::SMEM : Hy<256>::SMEM;
-  } else if (parts == 3 && dh == F6<1>::D) {
-    bkv = F6<1>::BKV;
-    smem = F6<1>::SMEM;
-  } else if (parts == 3 && dh == F6<2>::D) {
-    bkv = F6<2>::BKV;
-    smem = F6<2>::SMEM;
-    cluster = 2;
-  } else {
-    return false;
+    return true;
   }
-  return true;
+  return with_f6<RouteF6>(dh, parts, false, &bkv, &smem, &cluster);
 }
 
 }  // namespace
 
 // q, k, v, dout: the hybrid class's casts [bh, s, dh] bf16 (parts 1) or
 // the f32 class's parts [3, bh, s, dh] bf16 (parts 3: t4_split_bwd of
-// flash_bwd.cu; at dh 256 in clusters of two CTAs), q already times
-// scale*log2e; lse and delta [bh, s] f32; dqp [s / (bkv * chunk) rounded
-// up, bh, s, dh] f32 (one dq partial per KV chunk), dkp and dvp [bh, s /
-// bq, s, dh] f32.  items holds n_items pairs (Q block, KV chunk) on the
-// device; the grid is n_items * bh * cluster CTAs.  (bkv, smem, cluster)
-// name the kernel's plan (route above; ops/attn.py:fused_plan): another is
-// refused.  dq = oscale * ds k.  Launches on `stream` and returns the
-// launch's cudaError_t (0 on success).
+// flash_bwd.cu), q already times scale*log2e; the f32 class at dh 256 to
+// 1024 and the hybrid class at dh 384 to 1024 run on clusters of dh / 128
+// CTAs (dh 1152 and wider are refused); lse and delta [bh, s] f32; dqp [s
+// / (bkv * chunk) rounded up, bh, s, dh] f32 (one dq partial per KV
+// chunk), dkp and dvp [bh, s / bq, s, dh] f32.  items holds n_items pairs
+// (Q block, KV chunk) on the device; the grid is n_items * bh * cluster
+// CTAs.  (bkv, smem, cluster) name the kernel's plan (route above;
+// ops/attn.py:fused_plan): another is refused.  dq = oscale * ds k.
+// Launches on `stream` and returns the launch's cudaError_t (0 on
+// success).
 extern "C" int t4_flash_bwd_fused(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, void* dqp, void* dkp,
@@ -1033,15 +1175,22 @@ extern "C" int t4_flash_bwd_fused(const void* q, const void* k, const void* v,
                 static_cast<float*>(dkp), static_cast<float*>(dvp),
                 static_cast<const int*>(items), n_items, bh, s, bq, chunk,
                 causal, oscale, static_cast<cudaStream_t>(stream)};
-  if (parts == 1) return dh == 128 ? launch_sm90<128>(a) : launch_sm90<256>(a);
-  return dh == 128 ? launch_f32_sm90<1>(a) : launch_f32_sm90<2>(a);
+  if (parts == 1 && dh == 128) return launch_sm90<128>(a);
+  if (parts == 1 && dh == 256) return launch_sm90<256>(a);
+  return with_f6<LaunchF6>(dh, parts,
+                           static_cast<int>(cudaErrorInvalidValue), &a);
 }
 
-// the most clusters of the f32 class's dh-256 kernel (two CTAs each) that
-// the current device runs at once, into *n (an int): what
-// ops/attn.py:fused_plan sizes its chunk by.  Returns the query's
-// cudaError_t.
-extern "C" int t4_flash_bwd_fused_clusters(void* n) {
-  return max_clusters(fused_f32_sm90_kernel<2>, 2, HT, F6<2>::SMEM,
-                      static_cast<int*>(n));
+// the most clusters of the fused kernel's route at (dh, parts) that the
+// current device runs at once, into *n (an int; a cluster of one CTA off
+// the cluster routes): what ops/attn.py:fused_plan sizes its chunk by.
+// Returns the query's cudaError_t.
+extern "C" int t4_flash_bwd_fused_clusters(int dh, int parts, void* n) {
+  int* out = static_cast<int*>(n);
+  if (parts == 1 && dh == 128)
+    return max_clusters(fused_sm90_kernel<128>, 1, HT, Hy<128>::SMEM, out);
+  if (parts == 1 && dh == 256)
+    return max_clusters(fused_sm90_kernel<256>, 1, HT, Hy<256>::SMEM, out);
+  return with_f6<ClustersF6>(dh, parts,
+                             static_cast<int>(cudaErrorInvalidValue), out);
 }

@@ -8,8 +8,8 @@
 //       raw s2 accumulator rounded to bf16 (cvt.rn), and no lse is written.
 //
 // Layout: q, k, v each [NP, B*h, S, dh] bf16 parts, row-major; o [B*h, S,
-// dh] f32; lse [B*h, S] f32.  S % 64 == 0, dh in {128, 256} (K8) and 384
-// to 1024 in steps of 128 (K1's cluster route).
+// dh] f32; lse [B*h, S] f32.  S % 64 == 0, dh 128 to 1024 in steps of 128
+// (384 and wider on the cluster route, K1 and K8).
 //
 // The design.  A CTA of two warpgroups owns BQ query rows of one head; K
 // and V stream through shared memory in BKV-row tiles (K and V in a ring
@@ -39,11 +39,12 @@
 //     split between the warpgroups.
 //   hybrid and the probe (NP 1): the same tiles in a third of the bytes,
 //     two stages each.
-//   dh 384 to 1024 (K1, both classes): a cluster of CL = dh / 128 CTAs per
-//     128 query rows, each the dh-128 body over its 128 columns of dh (the
-//     maps' boxes start at column 128 rank): Q 96 KB + K 48 KB + V 48 KB in
-//     the f32 class, as at dh 128.  One CTA cannot hold them (Q's three
-//     parts alone are 192 KB at dh 256), nor would a warpgroup's 256
+//   dh 384 to 1024 (K1, both classes; K8): a cluster of CL = dh / 128
+//     CTAs per 128 query rows, each the dh-128 body over its 128 columns
+//     of dh (the maps' boxes start at column 128 rank): Q 96 KB + K 48 KB
+//     + V 48 KB in the f32 class, as at dh 128.  One CTA cannot hold them
+//     (Q's three parts alone are 192 KB at dh 256), nor would a
+//     warpgroup's 256
 //     columns of o fit its registers.  Each CTA's s2 is a partial sum over
 //     its columns; the cluster adds the partials through distributed
 //     shared memory in a tree of pairs (sm90_gemm.cuh: Xch, one 32 KB slot
@@ -153,7 +154,7 @@ __device__ __forceinline__ void load_parts(uint32_t dst, uint32_t bar,
 // the body of a kernel of NT threads over the maps of q, k and v (their
 // parts' rows one after another) into o (and, unless DOTS, lse); smem_raw
 // is the kernel's dynamic shared memory, Fwd<D, NP, CL>::SMEM bytes; CL > 1
-// (not with DOTS): a CTA of a cluster of CL that split dh
+// (K1, and K8 at NP 1): a CTA of a cluster of CL that split dh
 template <int D, int NP, bool DOTS, int CL = 1>
 __device__ __forceinline__ void fwd_body(unsigned char* smem_raw,
                                          const CUtensorMap* mq,
@@ -162,7 +163,6 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw,
                                          float* __restrict__ o,
                                          float* __restrict__ lse, int S,
                                          int BH, int causal, float qscale) {
-  static_assert(CL == 1 || !DOTS, "the probe has no cluster route");
   using P = Fwd<D, NP, CL>;
   constexpr int BQ = P::BQ, BKV = P::BKV, ST = P::ST;
   constexpr int SA = BKV / 2;            // s2 accumulators a thread

@@ -253,6 +253,8 @@ struct Xch {
   static_assert(CL >= 1 && CL <= 8, "a portable cluster (1: unused)");
   static_assert(RK >= 0 || CL <= 2, "a copy for each rank above CL 2");
   static constexpr int ROUNDS = CL <= 1 ? 0 : CL == 2 ? 1 : CL <= 4 ? 2 : 3;
+  // the backward's message: 16 floats of s2, then (here) 16 of dp
+  static constexpr uint32_t DP_AT = 4 * THREADS * 16;
   uint32_t slot;   // this thread's place in its own slot
   uint32_t full;   // this CTA's barriers: full, then e(1) .. e(ROUNDS)
 
@@ -404,6 +406,49 @@ struct Xch {
     }
   }
 };
+
+// The backward kernels' use of Xch (flash_bwd.cu's K2a and K2b,
+// flash_bwd_fused.cu's K3): a tile's partial s2 and dp, 16 floats each a
+// thread, summed over the cluster; each thread's floats at the slot's
+// start (s2) and X::DP_AT bytes on (dp).  Round 1's dp leaves for the pair
+// while s2's products run, once the pair has read its slot's last message.
+template <class X>
+__device__ __forceinline__ void xch_send_dp(const X& x, const float (&dp)[16],
+                                            int it) {
+  if (x.pair() >= 0) {
+    x.wait_free(1, it);
+    x.send(dp, x.pair(), X::DP_AT);
+  }
+}
+
+// then s2's; this thread's arrival on `full` expects the 128 bytes its twin
+// sends; the pair's sums, and at CL 3 to 8 the other blocks' added in the
+// later rounds (s2 and dp in one message): both sums are over all of dh,
+// the same bits in every CTA.  READ_LAST false leaves the last round's
+// read() to the caller, which keeps the slot for its own use until then
+// (K3 writes ds^T's parts there)
+template <bool READ_LAST = true, class X>
+__device__ __forceinline__ void xch_sum_scores(const X& x, float (&s)[16],
+                                               float (&dp)[16], int it) {
+  if (x.pair() >= 0) {
+    x.send(s, x.pair(), 0);
+    x.receive(32 * 4, it, 1);
+    x.add(s, 0);
+    x.add(dp, X::DP_AT);
+    if (READ_LAST || X::ROUNDS > 1) x.read(1);
+  }
+#pragma unroll
+  for (int k = 2; k <= X::ROUNDS; ++k) {
+    x.wait_free(k, it);
+    x.send_round(k, s, &dp);
+    if (x.has(k)) {
+      x.receive(32 * 4, it, k);
+      x.add(s, 0);
+      x.add(dp, X::DP_AT);
+      if (READ_LAST || k < X::ROUNDS) x.read(k);
+    }
+  }
+}
 
 // `stmt` with `xc` the CTA's Xch<CL, THREADS> on (slot, full): at CL 3 to 8
 // a copy compiled for each rank (Xch's RK), picked by the CTA's rank

@@ -192,12 +192,13 @@ def _dots_call(s=512, dh=128, dtype=torch.bfloat16, device_of_k="cpu"):
 
 @pytest.mark.parametrize("call", [
     pytest.param(_fused_call(dh=64), id="fused-dh64"),
-    pytest.param(_fused_call(dh=384), id="fused-dh384"),
+    pytest.param(_fused_call(dh=1152), id="fused-dh1152"),
     pytest.param(_fused_call(s=480), id="fused-S-not-tiles"),
     pytest.param(_fused_call(bq=192), id="fused-S%bq"),
     pytest.param(_fused_call(bq=32), id="fused-bq-not-tiles"),
     pytest.param(_fused_call(device_of_k="meta"), id="fused-mixed-devices"),
     pytest.param(_dots_call(dh=64), id="dots-dh64"),
+    pytest.param(_dots_call(dh=1152), id="dots-dh1152"),
     pytest.param(_dots_call(s=100), id="dots-S-not-tiles"),
     pytest.param(_dots_call(dtype=torch.float32), id="dots-f32"),
     pytest.param(_dots_call(device_of_k="meta"), id="dots-mixed-devices"),

@@ -267,7 +267,8 @@ def test_kernel_source_has_no_atomics_and_names_its_tiles():
     code = re.sub(r"//[^\n]*", "", src)
     assert re.search(r"atomic|\bred\.", code) is None
     assert "BKV = D == 128 ? 128 : 64" in src
-    assert "static constexpr int BKV = 64;" in src   # f32, dh 128 and 256
+    assert "static constexpr int BKV = 64;" in src   # F6, every cluster
     assert "FMA_D" not in src and "FMA_BK" not in src
-    assert attn.FUSED_KV_TILE == {(True, 128): 128, (True, 256): 64,
-                                  (False, 128): 64, (False, 256): 64}
+    assert attn.FUSED_KV_TILE == {
+        (hy, dh): 128 if hy and dh == 128 else 64
+        for hy in (True, False) for dh in range(128, 1025, 128)}

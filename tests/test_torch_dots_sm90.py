@@ -140,19 +140,20 @@ def test_truncating_score_sums_need_the_derived_tolerance(shape):
 # ---------------------------------------------------------------------------
 # (b) the plan, the source and the C entry
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("dh", attn.SMALL_DH)
+@pytest.mark.parametrize("dh", (128, 256))
 def test_probe_plan_is_the_hybrid_forwards_and_fits_an_sm(dh):
     """the probe takes the forward's hybrid plan (one part, two stages of
     K and V): under 227 KB, and the source launches the body with one part
-    and the softmax compiled out at that plan's shared memory"""
+    and the softmax compiled out at that plan's shared memory (dh 384 to
+    1024, on the forward's clusters: tests/test_torch_dots_wide.py)"""
     plan = attn.fwd_plan(16, 2048, dh, True)
     assert plan.smem <= gemm.SM90_SMEM_LIMIT
-    assert (plan.parts, plan.stages) == (1, 2)
+    assert (plan.parts, plan.stages, plan.cluster) == (1, 2, 1)
     assert (plan.bq, plan.bkv) == attn.FWD_TILES[dh]
     src = _source("attn_dots.cu")
-    assert "fwd_body<D, 1, true>" in src
-    assert "Fwd<D, 1>::SMEM" in src and "fwd_grid<D, 1>" in src
-    assert f"launch_dots<{dh}>" in src
+    assert "fwd_body<D, 1, true, CL>" in src
+    assert "Fwd<D, 1, CL>::SMEM" in src and "fwd_grid<D, 1, CL>" in src
+    assert f"launch_dots<{dh}, 1>" in src
 
 
 def _c_params(src: str, fn: str):
@@ -194,7 +195,7 @@ def _meta(*shape, dtype=torch.bfloat16):
                                  "s_not_tiles"])
 def test_launch_refuses_what_the_kernel_does_not_take(bad):
     """the kernel takes contiguous bf16 [B*h, S, dh] of one shape, S % 64
-    == 0, dh 128 or 256; anything else raises before a library is built"""
+    == 0, dh 128 to 1024; anything else raises before a library is built"""
     ops = [_meta(2, 128, 128) for _ in range(3)]
     if bad == "f32":
         ops[0] = _meta(2, 128, 128, dtype=torch.float32)

@@ -269,9 +269,9 @@ def test_each_routes_shared_memory_fits_and_matches_the_source():
     """every route stays under a block's 227 KB, and the bytes the plan
     passes are the source's: F6 (K, V, Q, dO in three parts of 64 rows of
     the CTA's 128 columns, ds^T's three parts, lse, delta, three
-    barriers), at dh 256 with ds^T's parts inside the cluster's 32 KB of
-    exchange slots and two barriers more (the cluster's budget, which the
-    source states), and Hy"""
+    barriers), on a cluster with ds^T's parts inside the 32 KB exchange
+    slot and its barriers (`full` and one a round: the cluster's budget,
+    which the source states), and Hy"""
     with open(SRC) as f:
         src = f.read()
     sizes = {(dh, parts): attn.fused_smem(dh, parts)
@@ -282,13 +282,13 @@ def test_each_routes_shared_memory_fits_and_matches_the_source():
     assert sizes[(256, 3)] == 1024 + 4 * 3 * 64 * 128 * 2 + 256 * 32 * 4 \
         + 2 * 64 * 4 + 5 * 8 == 230952
     assert attn.FUSED_EXCHANGE == 256 * 32 * 4 >= 3 * 64 * 64 * 2
-    assert "SMEM = ALIGN + 4 * TILE + DS + 2 * ROWS +" in src
-    assert "(CL == 2 ? 5 : 3) * 8" in src
-    assert "DS = CL == 2 ? XCH : 3 * DS_PART" in src
+    assert "SMEM = ALIGN + KV + 2 * TILE + DS + 2 * ROWS +" in src
+    assert "(3 + XBAR) * 8" in src
+    assert "DS = CL > 1 ? XCH : NP * DS_PART" in src
     assert "XCH = HT * 32 * 4" in src
     assert 'static_assert(F6<2>::SMEM == 230952, "the cluster\'s budget")' \
         in src
-    assert "PART = 2 * BOX" in src and "TILE = 3 * PART" in src
+    assert "PART = 2 * BOX" in src and "TILE = NP * PART" in src
     # Hy<D>::SMEM at both head dims
     assert sizes[(128, 1)] == 1024 + 2 * 32768 + 2 * 16384 + 3 * 33792 + 32
     assert sizes[(256, 1)] == 1024 + 2 * 32768 + 2 * 8192 + 2 * 66560 + 24
@@ -298,9 +298,9 @@ def test_each_routes_shared_memory_fits_and_matches_the_source():
 
 def test_no_fma_body_is_left_at_dh128():
     """no FMA body is left at any dh: the f32 class routes to the wgmma
-    kernel at dh 128 (one CTA) and at dh 256 (a cluster of two, the
-    partial scores exchanged through distributed shared memory), and the
-    FMA tile header and helpers are gone"""
+    kernel at dh 128 (one CTA) and at dh 256 to 1024 (clusters of dh /
+    128, the partial scores summed through distributed shared memory), and
+    the FMA tile header and helpers are gone"""
     with open(SRC) as f:
         code = re.sub(r"//[^\n]*", "", f.read())
     csrc = os.path.dirname(SRC)
@@ -312,22 +312,21 @@ def test_no_fma_body_is_left_at_dh128():
                 "accum_dkv", "accum_rows", "load_tile", "dot_rows",
                 "atomic", "parts == 0"):
         assert fma not in code and fma not in tile
-    assert "parts == 3 && dh == F6<1>::D" in code
-    assert "parts == 3 && dh == F6<2>::D" in code
-    assert "dh == 128 ? launch_f32_sm90<1>(a) : launch_f32_sm90<2>(a)" \
-        in code
-    assert "launch_cluster(fused_f32_sm90_kernel<CL>" in code
-    start = code.index("fused_f32_sm90_kernel(")
+    for dh in range(128, 1025, 128):
+        assert f"case {dh}: return F::template run<{dh // 128}, 3>" in code
+    assert "launch_cluster(fused6_kernel<CL, NP>()" in code
+    assert "fused6_body<CL, 3>" in code
+    start = code.index("void fused6_body(")
     body = code[start:code.index("struct Fused", start)]
-    assert "score6" in body and "grad6" in body and "wgmma_64<1, 1>" in body
-    for step in ("cluster_sync()", "push<HT>(dp", "push<HT>(s",
-                 "add_peer<HT>(s", "add_peer<HT>(dp",
-                 "mbar_arrive_remote(cluster_addr(xempty, peer))",
-                 "mbar_wait<true>(xempty", "mbar_wait<true>(xfull"):
+    assert "score6<NP>" in body and "grad6<NP>" in body
+    assert "wgmma_64<1, 1>" in body
+    for step in ("cluster_sync()", "xch_send_dp(xc, dp, it)",
+                 "xch_sum_scores<false>(xc, s, dp, it)",
+                 "xc.read(xc.ROUNDS)", "xc.drain(it)"):
         assert step in body
-    # the peer's `empty` arrival follows the dq products, the last readers
-    # of ds^T in the slots
-    assert body.index("wgmma_64<1, 1>") < body.index("mbar_arrive_remote")
+    # the last round's read follows the dq products, the last readers of
+    # ds^T in the slot
+    assert body.index("wgmma_64<1, 1>") < body.index("xc.read(xc.ROUNDS)")
 
 
 def _meta(*shape, dtype=torch.bfloat16):
@@ -424,16 +423,18 @@ def test_cpu_path_at_dh256_launches_nothing():
 
 
 def test_cluster_query_entry_matches_its_ctypes_row():
-    """t4_flash_bwd_fused_clusters takes one pointer (an int it fills), as
-    its ctypes row says, and t4_flash_bwd_fused's row ends with the
-    cluster before oscale and the stream"""
+    """t4_flash_bwd_fused_clusters takes the route's (dh, parts) and one
+    pointer (an int it fills), as its ctypes row says, and
+    t4_flash_bwd_fused's row ends with the cluster before oscale and the
+    stream"""
     with open(SRC) as f:
         src = f.read()
     head = re.search(r'extern "C" int t4_flash_bwd_fused_clusters\((.*?)\)',
                      src, re.S).group(1)
-    assert head.strip() == "void* n"
+    assert head.strip() == "int dh, int parts, void* n"
     table = attn._ARGTYPES["flash_bwd_fused"]
-    assert table["t4_flash_bwd_fused_clusters"] == [attn._P]
+    assert table["t4_flash_bwd_fused_clusters"] == [attn._I, attn._I,
+                                                     attn._P]
     assert table["t4_flash_bwd_fused"][-3:] == [attn._I, attn._F, attn._P]
     assert re.search(r"int smem,\s+int cluster, float oscale, void\* stream",
                      src)
