@@ -36,17 +36,23 @@ Phases, one JSON line each:
           dh-512 train slice's cores, and the dh-1024 slice's at twice its
           B*h), both classes, causal (dh 640 to 1024 also not, with an
           lse cotangent), on clusters of dh / 128 CTAs that split
-          dh: against their plain versions in the cluster's sum order, the
+          dh (K1's hybrid class on its wide route: a warpgroup per 128
+          columns, one CTA to dh 512, a pair past it): against their
+          plain versions in the cluster's sum order, the
           f32 class also against f64, each backward twice to the bit; the
           causal cases timed, each kernel alone and with its split, beside
-          its bound, SDPA's 4-d call, the clusters the card runs at once
-          and the SMs they leave idle.  Then K3 (both classes) and K8 at
+          its bound, SDPA's 4-d call, the clusters the card runs at once,
+          the SMs they leave idle, the forward's registers and spills and
+          its output's SHA-1.  Then K3 (both classes) and K8 (non-causal,
+          on K1 hybrid's wide route) at
           every dh 384 to 1024 on [2, 512, dh] (K3 causal and not, bq
           256): against their plain versions in the cluster's order, K3
           also against K2a + K2b (TOL_FUSED_SPLIT; hybrid
           TOL_FUSED_SPLIT_HYBRID), f64 (f32 class) and itself run again;
           and causal [16, 2048, dh] at dh 512 and 1024 timed beside their
-          bounds, SDPA's backward (K3) and two cuBLAS bmm (K8)
+          bounds, SDPA's backward (K3) and two cuBLAS bmm (K8); the
+          SHA-1s of K8's and K1's outputs at dh 128 and 256 (`sha1`:
+          equal in a tree whose routes there kept their bits)
   serve   tiny_lm at bench_prefill's full width (dim 1024, 8 heads,
           4 layers, vocab 2048, batch 8, 2048-token prompt, 64 new
           tokens) through generate(), f32 and int8 KV caches: kernel
@@ -151,7 +157,8 @@ Phases, one JSON line each:
           its plain version and the split.  It asserts no speed.
   attn_bench_dh512  the same four entry points at dh 512 (4 heads, S
           2048, one sweep shape 4 x 2048, 2 calls a chain, 2 timed
-          chains): K3's hybrid class and K8 on clusters of four CTAs,
+          chains): K3's hybrid class on clusters of four CTAs and K8 on
+          the wide route (one CTA of four warpgroups),
           counted from 0 as the phase before, the fused backward held as
           there.
   host    the host tier: examples/t4_40a.4th whole through ten4_torch's
@@ -218,6 +225,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import hashlib
 import io
 import json
 import math
@@ -305,21 +313,24 @@ FLASH_NAMES = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 # the dh-384 to dh-1024 routes (clusters of 3 to 8 CTAs that split dh),
 # both classes: the build's instances, whose registers the build records
 WIDE_DH = (384, 512, 640, 768, 896, 1024)
-FWD_CLUSTER_KERNELS = tuple(f"flash_fwd_kernel<{dh},{np_},{dh // 128}>"
-                            for dh in WIDE_DH for np_ in (3, 1))
+FWD_CLUSTER_KERNELS = tuple(f"flash_fwd_kernel<{dh},3,{dh // 128}>"
+                            for dh in WIDE_DH)
+# the bf16 class's forward there (K1 hybrid, K8): the wide route, a
+# warpgroup per 128 columns of dh, one CTA to dh 512, a pair past it
+FWD_WIDE_KERNELS = tuple(f"flash_fwd_wide_kernel<{dh}>" for dh in WIDE_DH)
 BWD_CLUSTER_KERNELS = tuple(
     f"flash_bwd_{w}_sm90_kernel<{dh},{np_},{dh // 128}>"
     for w in ("dkv", "dq") for dh in WIDE_DH for np_ in (3, 1))
-# K3 and K8 on the same clusters: the fused backward's split body in both
-# classes, the probe's forward body
+# K3 on the same clusters: the fused backward's split body in both
+# classes; K8 on the forward's wide route
 FUSED_CLUSTER_KERNELS = tuple(f"fused_{cls}_sm90_kernel<{dh // 128}>"
                               for cls in ("f32", "hybrid") for dh in WIDE_DH)
-DOTS_CLUSTER_KERNELS = tuple(f"attn_dots_kernel<{dh},{dh // 128}>"
-                             for dh in WIDE_DH)
+DOTS_WIDE_KERNELS = tuple(f"attn_dots_wide_kernel<{dh}>" for dh in WIDE_DH)
 PROBE_NAMES = ("flash_bwd_fused", "attn_dots")   # the measurement path's own
 BENCH = dict(nh=16, s=2048, dh=128)   # bench.py's attention shape
 BENCH_ITERS, BENCH_REPS = 4, 7        # calls per chain, timed chains
-# the measurement path again at dh 512 (the clusters of four CTAs): 4
+# the measurement path again at dh 512 (K3 on clusters of four CTAs, K8
+# on the wide route): 4
 # heads, one sweep shape, 2 calls a chain, 2 timed chains
 ATTN_BENCH_WIDE = dict(nh=4, s=2048, dh=512, n_iter=2, reps=2,
                        shapes={"2048": (4, 2048)})
@@ -546,6 +557,39 @@ BWD_ROUTES = {1: "bf16 wgmma, one product",
               3: "bf16 wgmma, six products of a three-part split"}
 
 
+def fwd_route(dh: int, hybrid: bool) -> str:
+    """the forward's route (K1; K8 takes the hybrid one), from its plan"""
+    from tensorforth_tpu_torch.ops import attn
+    plan = attn.fwd_plan(1, 64, dh, hybrid)
+    if not attn.fwd_wide(dh, hybrid):
+        return bwd_route(plan.parts, plan.cluster)
+    wgs = " and ".join(str(len(b)) for b in attn.wide_blocks(dh))
+    return (BWD_ROUTES[1] + f", dh over warpgroups ({wgs}) of "
+            + ("one CTA" if plan.cluster == 1 else "a pair of CTAs")
+            + ", the partial scores summed in shared memory")
+
+
+def fwd_kernel(dh: int, hybrid: bool, dots: bool = False) -> str:
+    """the name of the forward's (or K8's) kernel instance at dh"""
+    from tensorforth_tpu_torch.ops import attn
+    plan = attn.fwd_plan(1, 64, dh, hybrid or dots)
+    if attn.fwd_wide(dh, hybrid or dots):
+        return f"{'attn_dots' if dots else 'flash_fwd'}_wide_kernel<{dh}>"
+    if dots:
+        return f"attn_dots_kernel<{dh}>"
+    return f"flash_fwd_kernel<{dh},{plan.parts},{plan.cluster}>"
+
+
+def ptxas_record(source: str, kernel: str) -> dict:
+    """the build's ptxas record of one kernel instance of csrc/<source>.cu
+    (registers, stack frame, spill bytes), or {} if it has none"""
+    from tensorforth_tpu_torch.ops import _build
+    log = _build.library_path(source).with_suffix(".log")
+    recs = [k for k in ptxas_by_kernel(log.read_text() if log.exists()
+                                       else "") if k["kernel"] == kernel]
+    return recs[0] if recs else {}
+
+
 def bwd_route(parts: int, cluster: int) -> str:
     """a backward route, from its plan's parts and cluster"""
     return BWD_ROUTES[parts] + (
@@ -665,14 +709,15 @@ def phase_build():
                                             "fused_f32_sm90_kernel<1>",
                                             "fused_f32_sm90_kernel<2>",
                                             *FUSED_CLUSTER_KERNELS)),
-                       ("attn_dots", ("attn_dots_kernel<128,1>",
-                                      "attn_dots_kernel<256,1>",
-                                      *DOTS_CLUSTER_KERNELS)),
+                       ("attn_dots", ("attn_dots_kernel<128>",
+                                      "attn_dots_kernel<256>",
+                                      *DOTS_WIDE_KERNELS)),
                        ("flash_fwd", ("flash_fwd_kernel<128,3,1>",
                                       "flash_fwd_kernel<128,1,1>",
                                       "flash_fwd_kernel<256,3,1>",
                                       "flash_fwd_kernel<256,1,1>",
                                       *FWD_CLUSTER_KERNELS,
+                                      *FWD_WIDE_KERNELS,
                                       "split_kernel<3>")),
                        ("flash_bwd", ("flash_bwd_dkv_sm90_kernel<128,3,1>",
                                       "flash_bwd_dq_sm90_kernel<128,3,1>",
@@ -916,6 +961,9 @@ def dots_case(q, k, v, timed=True):
     import torch
     from tensorforth_tpu_torch.ops import attn
     b, s, dh = q.shape
+    plan = attn.fwd_plan(b, s, dh, True)
+    kern = fwd_kernel(dh, True, dots=True)
+    clusters = attn.flash_clusters("dots", dh, True, q.device.index or 0)
     before = attn.attn_dots.launches
     o = attn.attn_dots(q, k, v)
     torch.cuda.synchronize()
@@ -931,17 +979,16 @@ def dots_case(q, k, v, timed=True):
            "err_over_largest_value": err / top,
            "err_over_largest_term": err / term, "tol": TOL_DOTS,
            "launches_of_one_call": launched,
-           "cluster": attn.fwd_cluster(dh),
-           "clusters_at_once": attn.flash_clusters(
-               "dots", dh, True, q.device.index or 0),
+           "cluster": plan.cluster, "warpgroups": plan.warpgroups,
+           "clusters_at_once": clusters,
+           "idle_sms": torch.cuda.get_device_properties(
+               q.device).multi_processor_count - clusters * plan.cluster,
+           "ptxas": dict(ptxas_record("attn_dots", kern), kernel=kern),
            "ok": (err <= TOL_DOTS * term and bool(torch.isfinite(o).all())
                   and tuple(o.shape) == (b, s, dh)
                   and o.dtype == torch.float32 and launched == 1),
-           "route": "bf16 wgmma: the hybrid forward's body, softmax "
-                    "compiled out" + (
-                        f", dh split over a cluster of "
-                        f"{CTAS[attn.fwd_cluster(dh)]} CTAs"
-                        if attn.fwd_cluster(dh) > 1 else "")}
+           "route": "the hybrid forward's body, softmax compiled out: "
+                    + fwd_route(dh, True)}
     del o, want
     if not timed:
         return row
@@ -1380,9 +1427,13 @@ def phase_kernel_wide(seed: int, bh=WIDE_BH, s=WIDE_S, cases=WIDE_CASES):
         bplan = attn.bwd_plan(bh, s, dh, hybrid)
         name = f"dh{dh}_{'causal' if causal else 'noncausal'}_" + (
             "hybrid" if hybrid else "f32")
+        kern = fwd_kernel(dh, hybrid)
         row = {"case": name, "shape": [bh, s, dh], "causal": causal,
                "hybrid": hybrid, "dlse": dlse is not None,
                "route": bwd_route(fplan.parts, cl),
+               "fwd_route": fwd_route(dh, hybrid),
+               "fwd_ptxas": dict(ptxas_record("flash_fwd", kern),
+                                 kernel=kern),
                "fwd_plan": fplan._asdict(),
                "bwd_plan": {key: (val._asdict() if hasattr(val, "_asdict")
                                   else val)
@@ -1399,6 +1450,8 @@ def phase_kernel_wide(seed: int, bh=WIDE_BH, s=WIDE_S, cases=WIDE_CASES):
         # --- forward, against the plain version in the kernel's sum order
         o, lse = attn.flash_attention(q, k, v, causal=causal, hybrid=hybrid)
         torch.cuda.synchronize()
+        # the output's bits, for holding two trees against each other
+        row["fwd_sha1"] = sha1_of(o, lse)
         o_r, lse_r = attn.flash_attention_ref(q, k, v, causal, hybrid,
                                               cl if hybrid else 1)
         tol = TOL_HYBRID if hybrid else TOL_F32
@@ -1504,7 +1557,8 @@ def phase_kernel_wide(seed: int, bh=WIDE_BH, s=WIDE_S, cases=WIDE_CASES):
             entries.setdefault("flash_fwd", {})[tag] = dict(
                 fwd, max_abs_err=max(row["fwd_max_abs_err"]),
                 f64_ratio=row.get("fwd_f64_ratio"), plan=row["fwd_plan"],
-                **keep)
+                **dict(keep, route=row["fwd_route"]),
+                ptxas=row["fwd_ptxas"])
             for which, errs_of in (("dkv", ("dk", "dv")), ("dq", ("dq",))):
                 entries.setdefault(f"flash_bwd_{which}", {})[tag] = dict(
                     bwd[which], **common, plan=row["bwd_plan"][which],
@@ -1519,6 +1573,7 @@ def phase_kernel_wide(seed: int, bh=WIDE_BH, s=WIDE_S, cases=WIDE_CASES):
         torch.cuda.empty_cache()
     probe_rows, probe_entries = wide_probes(seed)
     entries.update(probe_entries)
+    bits = route_sha1s(seed)
     failed += [f"{r['kernel']} {r['shape']} causal={r.get('causal')} "
                f"hybrid={r.get('hybrid')}" for r in probe_rows if not r["ok"]]
     emit({"phase": "kernel_wide", "cases": rows,
@@ -1533,10 +1588,43 @@ def phase_kernel_wide(seed: int, bh=WIDE_BH, s=WIDE_S, cases=WIDE_CASES):
                                 f"{TOL_FUSED_SPLIT_HYBRID} of the largest "
                                 "split value",
           "tol_dots": f"{TOL_DOTS} of the largest term |s2| |v|",
-          "dots_library": DOTS_LIBRARY})
+          "dots_library": DOTS_LIBRARY, "sha1": bits})
     if failed:
         raise RuntimeError(f"the wide head dims' kernels disagree: {failed}")
     return entries
+
+
+def sha1_of(*tensors) -> str:
+    """the SHA-1 of the tensors' bytes, one after another"""
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+# the routes whose bits the wide bf16 forward left alone: K8 and K1 (both
+# classes) at dh 128 and 256 on [4, 1024, dh]
+ROUTE_BITS_SHAPE = (4, 1024)
+
+
+def route_sha1s(seed: int, shape=ROUTE_BITS_SHAPE) -> dict:
+    """SHA-1s of K8's and K1's outputs at dh 128 and 256 on inputs made
+    from `seed`: equal in two trees where those routes kept their bits"""
+    import torch
+    from tensorforth_tpu_torch.ops import attn
+    out = {}
+    for dh in (128, 256):
+        rs = np.random.default_rng(seed + 500 + dh)
+        q, k, v = (torch.from_numpy(rs.standard_normal(
+            (*shape, dh), dtype=np.float32)).cuda() for _ in range(3))
+        bf = torch.bfloat16
+        out[f"attn_dots_dh{dh}"] = sha1_of(attn.attn_dots(
+            q.to(bf), k.to(bf), v.to(bf)))
+        for hybrid in (False, True):
+            out[f"flash_fwd_{'hybrid' if hybrid else 'f32'}_dh{dh}"] = (
+                sha1_of(*attn.flash_attention(q, k, v, causal=True,
+                                              hybrid=hybrid)))
+    return out
 
 
 # K3 (both classes) and K8 at dh 384 to 1024, on clusters of dh / 128 CTAs:
@@ -5857,8 +5945,9 @@ def main(argv=None) -> int:
     timed("moe", phase_moe, args.seed)
     for name, n in timed("attn_bench", phase_attn_bench, args.seed).items():
         ran[name] = ran.get(name, 0) + n
-    # the same entry points at a wide head dim: K3's hybrid class and K8
-    # on clusters of four CTAs (depth cut: 4 heads, one sweep shape)
+    # the same entry points at a wide head dim: K3's hybrid class on
+    # clusters of four CTAs, K8 on the wide route (depth cut: 4 heads, one
+    # sweep shape)
     for name, n in timed("attn_bench_dh512", phase_attn_bench, args.seed,
                          **ATTN_BENCH_WIDE).items():
         ran[name] = ran.get(name, 0) + n
@@ -5918,7 +6007,8 @@ def main(argv=None) -> int:
                                       "`f32_dh*` here)",
                    "attn_dots": "attn_bench.bench_attention_oracle (its "
                                 "dots-only probe, at dh 128 and at dh 512 "
-                                "on clusters of four CTAs)",
+                                "on the wide route, one CTA of four "
+                                "warpgroups)",
                    "mm_f32io": "the gemm2 and gemm3 words (classes default "
                                "and 3pass; highest, which no word reaches, "
                                "in the kernel phase)",

@@ -1,5 +1,6 @@
-"""Time the flash kernels K1, K2a and K2b in the f32 class over head dims
-128 to 1024, on the card, in the tree it is run from.
+"""Time the flash kernels K1, K2a and K2b in the f32 class, and K1 and K8
+in the bf16 class, over head dims 128 to 1024, on the card, in the tree it
+is run from.
 
 Run from the root of a checkout:
 
@@ -10,7 +11,10 @@ At [64, 2048, 128], [32, 2048, 256], [16, 2048, 384], [16, 2048, 512],
 [16, 2048, dh] for dh 640 to 1024, causal, it times each kernel alone on
 its prepared operands (K1 on its split's parts, K2a and K2b after the
 backward's split and delta), and prints the SHA-1 of each kernel's output
-bits and the clusters the card runs at once.  A head dim the tree's
+bits and the clusters the card runs at once; and, on the same inputs
+cast to bf16, K1's hybrid class alone (causal, q scaled as its wrapper
+scales it) and the dots-only probe K8 alone (not causal, as bench.py's
+probe), each with its SHA-1 and clusters.  A head dim the tree's
 kernels do not take (ops.attn.KERNEL_DH) is skipped, so one call to the
 card can hold two trees against each other in turns (parent, change,
 change, parent): copy this script into the parent's tree, so both draw
@@ -35,6 +39,30 @@ def _sha1(tensors) -> str:
     return h.hexdigest()[:12]
 
 
+def _bf16_cases(row, q, k, v, reps):
+    """K1 hybrid (causal) and K8 alone on the bf16 casts of q, k, v, with
+    their output bits and clusters, into row"""
+    import chip_smoke as cs
+    import torch
+    from tensorforth_tpu_torch.ops import attn
+    dh = q.shape[-1]
+    bf = torch.bfloat16
+    qs = (q * (attn.LOG2E / math.sqrt(dh))).to(bf)
+    kb, vb, qb = k.to(bf), v.to(bf), q.to(bf)
+    row["hybrid_fwd_kernel_ms"] = cs.time_ms(
+        lambda: attn._launch_fwd(qs, kb, vb, True, True), reps=reps)
+    row["hybrid_fwd_sha1"] = _sha1(attn._launch_fwd(qs, kb, vb, True, True))
+    row["dots_kernel_ms"] = cs.time_ms(
+        lambda: attn._launch_dots(qb, kb, vb), reps=reps)
+    row["dots_sha1"] = _sha1((attn._launch_dots(qb, kb, vb),))
+    row["hybrid_clusters_at_once"] = {
+        kern: attn.flash_clusters(kern, dh, True, 0)
+        for kern in ("fwd", "dots")}
+    plan = attn.fwd_plan(*q.shape, True)
+    row["hybrid_fwd_plan"] = {key: getattr(plan, key) for key in (
+        "cluster", "bq", "bkv", "smem", "ctas") if hasattr(plan, key)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tag", default="")
@@ -57,6 +85,7 @@ def main(argv=None) -> int:
         q, k, v, do = (torch.from_numpy(rs.standard_normal(
             (b, s, dh), dtype=np.float32)).cuda() for _ in range(4))
         row = {"shape": [b, s, dh]}
+        _bf16_cases(row, q, k, v, args.reps)
         if hasattr(attn, "flash_clusters"):
             row["clusters_at_once"] = {
                 kern: attn.flash_clusters(kern, dh, False, 0)

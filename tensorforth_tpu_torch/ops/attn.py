@@ -10,11 +10,15 @@ operations, and both its products run on bf16 ``wgmma`` fed by TMA: in
 the f32 class as six products of a three-part split (q*scale*log2e, k and
 v split by one launch of the same source, ``_split_qkv``; p in registers),
 in the hybrid class as one product of the wrapper's casts.  At dh 384 to
-1024, in both classes, a cluster of dh / 128 CTAs (3 to 8) splits dh:
-each holds the dh-128 tiles over its 128 columns, and the CTAs add their
-partial scores through distributed shared memory in a fixed tree of pairs
-(``cluster_sum``), so that each runs the same softmax on the same bits.
-Its tile plan is ``fwd_plan``.  lse is stored [B*h, S]; the Pallas
+1024 the f32 class runs on a cluster of dh / 128 CTAs (3 to 8) that
+splits dh: each holds the dh-128 tiles over its 128 columns, and the CTAs
+add their partial scores through distributed shared memory in a fixed
+tree of pairs (``cluster_sum``), so that each runs the same softmax on
+the same bits.  The hybrid class there takes the wide route: the
+warpgroups of one CTA split dh (128 columns each, ``wide_blocks``; a pair
+of CTAs past dh 512), their partial scores added in the CTA's shared
+memory in ``cluster_sum``'s order, so its scores are the cluster route's
+bits.  Its tile plan is ``fwd_plan``.  lse is stored [B*h, S]; the Pallas
 kernel's 128-lane copy was a TPU layout artefact.
 
 The two backward kernels, ``csrc/flash_bwd.cu``, replace
@@ -56,7 +60,7 @@ as in the JAX package.
 The dots-only probe, ``csrc/attn_dots.cu``, replaces the Pallas kernel
 inside bench.py:_attn_dots_probe: the forward kernel's own body at the
 hybrid plan (``csrc/flash_fwd.cuh``) with the softmax compiled out, on
-bf16 operands; at dh 384 to 1024 on the forward's cluster route.
+bf16 operands; at dh 384 to 1024 on the hybrid forward's wide route.
 
 Every wrapper launches its kernel for CUDA tensors and uses its plain
 version only for CPU tensors; anything else raises.  There is no
@@ -93,8 +97,11 @@ def flash_attention_ref(q, k, v, causal: bool = False, hybrid: bool = False,
     log-sum-exp.  hybrid: the kernel's bf16 treatment — q*scale*log2(e),
     k and v rounded to bf16, base-2 softmax in f32, P rounded to bf16
     before the PV product, f32 sums; with `cluster` 3 to 8 the scores as
-    the dh-384 to dh-1024 routes form them, an f32 sum per CTA's 128
-    columns, added in cluster_sum's order."""
+    the dh-384 to dh-1024 routes form them (the cluster route's CTAs, the
+    wide route's warpgroups), an f32 sum per 128 columns, added in
+    cluster_sum's order.  o is one f32 sum over all the keys after the
+    row max (the kernels rescale o by the running max a tile at a time,
+    and the wide route accumulates it on the tensor cores)."""
     s, dh = q.shape[1], q.shape[2]
     keep = (torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
             if causal else None)
@@ -212,22 +219,47 @@ FWD_STAGES = {3: 1, 1: 2}        # parts -> stages of K and of V each
 # a cluster's exchange slot (csrc/flash_fwd.cuh: Fwd::XCH): each of a CTA's
 # 256 threads' partial s2, 32 f32
 FWD_EXCHANGE = 256 * 32 * 4
+# the hybrid class's wide route at dh 384 to 1024 (csrc/flash_fwd.cuh:
+# Wide): (query rows, KV rows) of a CTA, and a warpgroup's slot of partial
+# s2 (128 threads' 16 f32), which is also the size of a pair's message
+WIDE_TILES = (64, 32)
+WIDE_SLOT = 128 * 16 * 4
 
 
 def fwd_cluster(dh: int) -> int:
-    """the CTAs of a cluster of the forward's route, from dh alone: dh /
-    128 at dh 384 to 1024, in both classes (one CTA holds neither the
-    tiles nor, in a warpgroup's registers, 256 columns of o), else 1"""
+    """the CTAs of a cluster of the f32 class's forward route (and the
+    backward's), from dh alone: dh / 128 at dh 384 to 1024 (one CTA holds
+    neither the tiles nor, in a warpgroup's registers, 256 columns of o),
+    else 1.  It is also the number of 128-column partial scores that every
+    route at dh 384 to 1024 adds in cluster_sum's order"""
     return dh // 128 if dh > 256 else 1
 
 
+def fwd_wide(dh: int, hybrid: bool) -> bool:
+    """the forward takes the wide route: the bf16 class at dh 384 to 1024
+    (K1 hybrid and K8), dh split between the warpgroups of one CTA"""
+    return hybrid and dh > 256
+
+
+def wide_blocks(dh: int):
+    """the wide route's column layout at dh 384 to 1024: for each CTA (one
+    to dh 512, a pair past it) the 128-column blocks of dh that its
+    warpgroups hold, warpgroup w the w-th; rank 0 of a pair the first
+    four, rank 1 the rest"""
+    n = dh // 128
+    return ((tuple(range(min(n, 4))),)
+            + ((tuple(range(4, n)),) if n > 4 else ()))
+
+
 class FwdPlan(NamedTuple):
-    """the forward kernel's plan for one shape (csrc/flash_fwd.cu: Fwd):
-    a CTA of two warpgroups per (head, `bq` query rows, dh / `cluster`
-    columns); K and V in tiles of `bkv` rows, `stages` of each in flight;
-    every operand in `parts` bf16 parts (3: the f32 class's split; 1: the
-    hybrid casts); `cluster` CTAs (1, or 3 to 8) share the rows and split
-    dh"""
+    """the forward kernel's plan for one shape (csrc/flash_fwd.cuh: Fwd,
+    Wide): a CTA of `warpgroups` warpgroups per (head, `bq` query rows,
+    dh / `cluster` columns); K and V in tiles of `bkv` rows, `stages` of K
+    and `v_stages` of V in flight; every operand in `parts` bf16 parts (3:
+    the f32 class's split; 1: the hybrid casts); `cluster` CTAs (1, 2 on
+    the wide route past dh 512, or 3 to 8 in the f32 class) share the rows
+    and split dh; the scores are the sum of `blocks` partials over 128
+    columns each (one at dh 128 and 256), added in cluster_sum's order"""
     parts: int
     bq: int
     bkv: int
@@ -235,6 +267,9 @@ class FwdPlan(NamedTuple):
     smem: int           # dynamic shared memory of a CTA, bytes
     ctas: int
     cluster: int
+    warpgroups: int
+    v_stages: int
+    blocks: int
 
 
 def fwd_plan(bh: int, s: int, dh: int, hybrid: bool) -> FwdPlan:
@@ -242,9 +277,26 @@ def fwd_plan(bh: int, s: int, dh: int, hybrid: bool) -> FwdPlan:
     [bq, dh / cluster] stay for the CTA, K's and V's [bkv, dh / cluster]
     stream in `stages` each, 1024 bytes of alignment slack, an 8-byte
     barrier for Q and for each stage of K and of V; on a cluster route the
-    exchange slot and its barriers (one, and one a round of the sum)"""
+    exchange slot and its barriers (one, and one a round of the sum).  The
+    wide route (fwd_wide): Q [64, 128 w] for w warpgroups (dh / 128 to
+    512, four a CTA of the pair past it), two stages of K [32, 128 w] and
+    two of V (one in a pair), a slot of partial s2 a warpgroup, and in a
+    pair the peer's message and two barriers (full, free)"""
     parts = 1 if hybrid else 3
-    cluster = fwd_cluster(dh)
+    blocks = fwd_cluster(dh)
+    if fwd_wide(dh, hybrid):
+        cluster = 2 if blocks > 4 else 1
+        wgs = min(blocks, 4)
+        cols = 128 * wgs
+        bq, bkv = WIDE_TILES
+        stages, v_stages = 2, 1 if cluster == 2 else 2
+        xch = WIDE_SLOT if cluster == 2 else 0
+        smem = (SM90_ALIGN + bq * cols * 2 + (stages + v_stages) * bkv * cols
+                * 2 + wgs * WIDE_SLOT + xch
+                + (1 + stages + v_stages + (2 if cluster == 2 else 0)) * 8)
+        return FwdPlan(parts, bq, bkv, stages, smem, cluster * bh * (s // bq),
+                       cluster, wgs, v_stages, blocks)
+    cluster = blocks
     cols = dh // cluster
     bq, bkv = FWD_TILES[cols]
     stages = FWD_STAGES[parts]
@@ -253,7 +305,7 @@ def fwd_plan(bh: int, s: int, dh: int, hybrid: bool) -> FwdPlan:
             + (FWD_EXCHANGE if cluster > 1 else 0)
             + (1 + 2 * stages + xch_barriers(cluster)) * 8)
     return FwdPlan(parts, bq, bkv, stages, smem,
-                   cluster * bh * -(-s // bq), cluster)
+                   cluster * bh * -(-s // bq), cluster, 2, stages, blocks)
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -1145,20 +1197,24 @@ flash_attention_bwd_fused.split_launches = 0   # its f32 class's splits
 # ===========================================================================
 def attn_dots_ref(q, k, v):
     """plain PyTorch version of the probe kernel: f32 products of the bf16
-    values, the scores rounded to bf16 before the second product, the sum
-    over the keys taken one key tile after another, as the kernel takes
-    it: its tile is the hybrid forward plan's KV tile (fwd_plan(...,
-    hybrid=True).bkv: 64 keys at dh 128 and 384 to 1024, 32 at dh 256),
-    each tile's product summed apart and added to o in f32; at dh 384 to
-    1024 the scores as the forward's cluster route forms them, an f32 sum
-    per CTA's 128 columns, added in cluster_sum's order"""
+    values, the scores rounded to bf16 before the second product.  At dh
+    128 and 256 the sum over the keys is taken one key tile after another,
+    as the kernel takes it: its tile is the hybrid forward plan's KV tile
+    (fwd_plan(..., hybrid=True).bkv: 64 keys at dh 128, 32 at dh 256), each
+    tile's product summed apart and added to o in f32.  At dh 384 to 1024
+    (the wide route) the scores are an f32 sum per 128 columns, added in
+    cluster_sum's order, and the tensor cores accumulate o over every key:
+    one f32 sum over all keys"""
     b, s, dh = q.shape
     plan = fwd_plan(b, s, dh, True)
     qf, kf, vf = q.float(), k.float(), v.float()
+    if plan.blocks > 1:
+        s2 = _cluster_scores(_einsum, qf, kf, plan.blocks)
+        return torch.einsum("nqk,nkd->nqd", s2.to(torch.bfloat16).float(), vf)
     o = torch.zeros_like(qf)
     bkv = plan.bkv
     for k0 in range(0, s, bkv):
-        s2 = _cluster_scores(_einsum, qf, kf[:, k0:k0 + bkv], plan.cluster)
+        s2 = torch.einsum("nqd,nkd->nqk", qf, kf[:, k0:k0 + bkv])
         o += torch.einsum("nqk,nkd->nqd", s2.to(torch.bfloat16).float(),
                           vf[:, k0:k0 + bkv])
     return o

@@ -11,9 +11,11 @@
 //
 // Layout: q, k, v each [NP, B*h, S, dh] bf16 parts, row-major; o
 // [B*h, S, dh] f32; lse [B*h, S] f32.  S % 64 == 0, dh in {128, 256, ...,
-// 1024} (a multiple of 128): at 384 to 1024, in both classes, on a cluster
-// of dh / 128 CTAs that split dh and add their partial scores
-// (flash_fwd.cuh).
+// 1024} (a multiple of 128): at 384 to 1024 the f32 class on a cluster of
+// dh / 128 CTAs that split dh and add their partial scores, the hybrid
+// class on the wide route, whose warpgroups split dh and add their
+// partial scores in the CTA's shared memory (one CTA to dh 512, a pair
+// past it; flash_fwd.cuh).
 //
 // Two classes, one kernel (NP, the parts of each operand):
 //   f32 (NP 3): q*scale*log2e, k and v arrive split into three bf16 parts
@@ -57,6 +59,37 @@ __global__ void __launch_bounds__(NT, 1)
                              causal, qscale);
 }
 
+// the hybrid class at dh 384 to 1024: the wide route, a CTA of dh / 128
+// warpgroups (a pair of CTAs of four past dh 512)
+template <int D>
+__global__ void __launch_bounds__(Wide<D>::THREADS, 1)
+    flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap mq,
+                          const __grid_constant__ CUtensorMap mk,
+                          const __grid_constant__ CUtensorMap mv,
+                          float* __restrict__ o, float* __restrict__ lse,
+                          int S, int BH, int causal, float qscale) {
+  extern __shared__ unsigned char smem_raw[];
+  fwd_wide_body<D, false>(smem_raw, &mq, &mk, &mv, o, lse, S, BH, causal,
+                          qscale);
+}
+
+template <int D>
+int launch_wide(const void* q, const void* k, const void* v, float* o,
+                float* lse, int bh, int s, int causal, int bq, int bkv,
+                int stages, int smem, int cluster, float qscale,
+                cudaStream_t stream) {
+  using W = Wide<D>;
+  if (bq != W::BQ || bkv != W::BKV || stages != W::KST || smem != W::SMEM ||
+      cluster != W::CL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap m[3];
+  const int e = wide_maps<D>(q, k, v, bh, s, m);
+  if (e != 0) return e;
+  return launch_cluster(flash_fwd_wide_kernel<D>, wide_grid<D>(bh, s), W::CL,
+                        W::THREADS, W::SMEM, stream, m[0], m[1], m[2], o,
+                        lse, s, bh, causal, qscale);
+}
+
 template <int D, int NP, int CL>
 int launch_fwd(const void* q, const void* k, const void* v, float* o,
                float* lse, int bh, int s, int causal, int bq, int bkv,
@@ -81,7 +114,8 @@ int launch_fwd(const void* q, const void* k, const void* v, float* o,
 // dh] f32, lse [bh, s] f32.  The scores are qscale (q k^T): the wrappers
 // fold the scale into q and pass 1.  (bq, bkv, stages, smem, cluster) name
 // the tile plan (ops/attn.py:fwd_plan); one the library was not built with
-// is refused, and so is dh 1152 or wider.  Launches on `stream` and returns
+// is refused, and so is dh 1152 or wider (the hybrid class at dh 384 to
+// 1024: stages are K's, cluster 1 or 2).  Launches on `stream` and returns
 // the launch's cudaError_t (0 on success).
 extern "C" int t4_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int bh, int s, int dh,
@@ -97,50 +131,59 @@ extern "C" int t4_flash_fwd(const void* q, const void* k, const void* v,
 #define T4_FWD(D, NP, CL)                                                  \
   launch_fwd<D, NP, CL>(q, k, v, of, lf, bh, s, causal, bq, bkv, stages,   \
                         smem, cluster, qscale, st)
+#define T4_WIDE(D)                                                         \
+  launch_wide<D>(q, k, v, of, lf, bh, s, causal, bq, bkv, stages, smem,    \
+                 cluster, qscale, st)
   if (dh == 128 && parts == 3) return T4_FWD(128, 3, 1);
   if (dh == 128 && parts == 1) return T4_FWD(128, 1, 1);
   if (dh == 256 && parts == 3) return T4_FWD(256, 3, 1);
   if (dh == 256 && parts == 1) return T4_FWD(256, 1, 1);
   if (dh == 384 && parts == 3) return T4_FWD(384, 3, 3);
-  if (dh == 384 && parts == 1) return T4_FWD(384, 1, 3);
+  if (dh == 384 && parts == 1) return T4_WIDE(384);
   if (dh == 512 && parts == 3) return T4_FWD(512, 3, 4);
-  if (dh == 512 && parts == 1) return T4_FWD(512, 1, 4);
+  if (dh == 512 && parts == 1) return T4_WIDE(512);
   if (dh == 640 && parts == 3) return T4_FWD(640, 3, 5);
-  if (dh == 640 && parts == 1) return T4_FWD(640, 1, 5);
+  if (dh == 640 && parts == 1) return T4_WIDE(640);
   if (dh == 768 && parts == 3) return T4_FWD(768, 3, 6);
-  if (dh == 768 && parts == 1) return T4_FWD(768, 1, 6);
+  if (dh == 768 && parts == 1) return T4_WIDE(768);
   if (dh == 896 && parts == 3) return T4_FWD(896, 3, 7);
-  if (dh == 896 && parts == 1) return T4_FWD(896, 1, 7);
+  if (dh == 896 && parts == 1) return T4_WIDE(896);
   if (dh == 1024 && parts == 3) return T4_FWD(1024, 3, 8);
-  if (dh == 1024 && parts == 1) return T4_FWD(1024, 1, 8);
+  if (dh == 1024 && parts == 1) return T4_WIDE(1024);
 #undef T4_FWD
+#undef T4_WIDE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // the most clusters of the forward's route at (dh, parts) that the card
-// runs at once, into *n (1 CTA a cluster at dh 128 and 256); 0 or the
-// query's cudaError_t
+// runs at once, into *n (1 CTA a cluster at dh 128 and 256, and on the
+// hybrid class's wide route to dh 512; a pair past it); 0 or the query's
+// cudaError_t
 extern "C" int t4_flash_fwd_clusters(int dh, int parts, void* n) {
   int* out = static_cast<int*>(n);
 #define T4_FWD_CL(D, NP, CL) \
   max_clusters(flash_fwd_kernel<D, NP, CL>, CL, NT, Fwd<D, NP, CL>::SMEM, out)
+#define T4_WIDE_CL(D)                                                    \
+  max_clusters(flash_fwd_wide_kernel<D>, Wide<D>::CL, Wide<D>::THREADS,  \
+               Wide<D>::SMEM, out)
   if (dh == 128 && parts == 3) return T4_FWD_CL(128, 3, 1);
   if (dh == 128 && parts == 1) return T4_FWD_CL(128, 1, 1);
   if (dh == 256 && parts == 3) return T4_FWD_CL(256, 3, 1);
   if (dh == 256 && parts == 1) return T4_FWD_CL(256, 1, 1);
   if (dh == 384 && parts == 3) return T4_FWD_CL(384, 3, 3);
-  if (dh == 384 && parts == 1) return T4_FWD_CL(384, 1, 3);
+  if (dh == 384 && parts == 1) return T4_WIDE_CL(384);
   if (dh == 512 && parts == 3) return T4_FWD_CL(512, 3, 4);
-  if (dh == 512 && parts == 1) return T4_FWD_CL(512, 1, 4);
+  if (dh == 512 && parts == 1) return T4_WIDE_CL(512);
   if (dh == 640 && parts == 3) return T4_FWD_CL(640, 3, 5);
-  if (dh == 640 && parts == 1) return T4_FWD_CL(640, 1, 5);
+  if (dh == 640 && parts == 1) return T4_WIDE_CL(640);
   if (dh == 768 && parts == 3) return T4_FWD_CL(768, 3, 6);
-  if (dh == 768 && parts == 1) return T4_FWD_CL(768, 1, 6);
+  if (dh == 768 && parts == 1) return T4_WIDE_CL(768);
   if (dh == 896 && parts == 3) return T4_FWD_CL(896, 3, 7);
-  if (dh == 896 && parts == 1) return T4_FWD_CL(896, 1, 7);
+  if (dh == 896 && parts == 1) return T4_WIDE_CL(896);
   if (dh == 1024 && parts == 3) return T4_FWD_CL(1024, 3, 8);
-  if (dh == 1024 && parts == 1) return T4_FWD_CL(1024, 1, 8);
+  if (dh == 1024 && parts == 1) return T4_WIDE_CL(1024);
 #undef T4_FWD_CL
+#undef T4_WIDE_CL
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -167,6 +167,13 @@ __device__ __forceinline__ void st_async4(uint32_t addr, float a, float b,
       : "memory");
 }
 
+__device__ __forceinline__ void st_shared4(uint32_t addr, float a, float b,
+                                           float c, float d) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+               "f"(a), "f"(b), "f"(c), "f"(d)
+               : "memory");
+}
+
 __device__ __forceinline__ float4 ld_shared4(uint32_t addr) {
   float4 v;
   asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"

@@ -77,3 +77,40 @@ extern "C" int t4_xla_dot(const float* a, const float* b, float* c, int m,
   _mm_setcsr(csr);
   return 0;
 }
+
+// A row times a matrix, c [n] = a [k] b [k, n] (b row-major), in the order
+// of the loop that XLA's CPU backend fuses such a dot into inside a
+// program, as LLVM vectorised it (ops/xla_dot.py: fused_order states it):
+// nacc interleaved accumulators of eight lanes, step i of the loop adding
+// products 8 nacc i + 8 x + l into lane l of accumulator x as exact fused
+// multiply-adds (k a multiple of 8 nacc); accumulator 0 starts from (+0,
+// -0, ..., -0), the others from -0.  They fold as ((r1 + r0) + r2) + r3,
+// the eight lanes as ((l0 + l4) + (l2 + l6)) + ((l1 + l5) + (l3 + l7))
+// (the extract, shuffle and add of the horizontal reduction).
+extern "C" int t4_xla_row(const float* a, const float* b, float* c, int k,
+                          int n, int nacc) {
+  if (k < 1 || n < 1 || nacc < 1 || nacc > 4 || k % (8 * nacc) != 0)
+    return 1;
+  const unsigned csr = _mm_getcsr();
+  _mm_setcsr(csr | 0x8040);
+  for (int j = 0; j < n; ++j) {
+    float r[4][8];
+    for (int x = 0; x < nacc; ++x)
+      for (int l = 0; l < 8; ++l) r[x][l] = (x == 0 && l == 0) ? 0.f : -0.f;
+    for (int k0 = 0; k0 < k; k0 += 8 * nacc)
+      for (int x = 0; x < nacc; ++x)
+        for (int l = 0; l < 8; ++l) {
+          const int kk = k0 + 8 * x + l;
+          r[x][l] = std::fma(a[kk], b[static_cast<size_t>(kk) * n + j],
+                             r[x][l]);
+        }
+    float f[8];
+    for (int l = 0; l < 8; ++l) {
+      f[l] = nacc > 1 ? r[1][l] + r[0][l] : r[0][l];
+      for (int x = 2; x < nacc; ++x) f[l] = r[x][l] + f[l];
+    }
+    c[j] = ((f[0] + f[4]) + (f[2] + f[6])) + ((f[1] + f[5]) + (f[3] + f[7]));
+  }
+  _mm_setcsr(csr);
+  return 0;
+}

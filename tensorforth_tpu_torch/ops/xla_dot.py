@@ -43,13 +43,30 @@ torch's: k not a multiple of the chains in the first rule, four chains
 past k 2048, two past 1024, one past 4096; one chain past k 64 or n 512
 in the second; a transposed a past k 128 (past 256, or at m or n below
 128: blocks of about k / 2, not read), or at n % 48 == 1; n = 1 at m or k
-not a multiple of 8; both operands transposed; and a row, m = 1: inside
-a program XLA fuses a row times a matrix with its operands into a loop
-whose reduction LLVM vectorises (8 lanes over the first 48 products of
-64, in an unrolled order, then the rest one by one), which is not the
-standalone dot's order.  That last class is the first the replay does
-not match (ROADMAP C11): t4_40b's D ends in a 256 -> 1 layer, whose dW is
-such a row.
+not a multiple of 8; both operands transposed.
+
+A row times a matrix inside a program (`fused_order`, read from XLA's
+dump, not probed).  What decides it: XLA CPU fuses a dot whose output is
+a vector (a row times a matrix, m = 1, or a matrix times a vector, n =
+1) with the bitcasts that feed it into a loop fusion
+(`bitcast_dot_fusion`, kind kLoop), and every operand of the JAX
+package's linear layers is such a bitcast (a reshape of a 4-d activation
+or cotangent, or the transpose of an [N, 1] one); a standalone `jnp.dot`
+of two parameters is not fused.  The fusion's loop computes an output
+element as a reduction over k, which LLVM vectorises.  Read
+(`XLA_FLAGS=--xla_dump_to`: the fusion's `*.ir-with-opt.ll`, its order
+of adds in `objdump -d` of the `*.obj-file.*.o`) from t4_40b's own
+program, for (1, 256, 256), the dW of D's 256 -> 1 layer: a loop of four
+interleaved 8-lane accumulators of exact fused multiply-adds
+(vfmadd231ps), 32 products a step, folded ((r1 + r0) + r2) + r3, the
+lanes reduced as ((l0 + l4) + (l2 + l6)) + ((l1 + l5) + (l3 + l7)); the
+same loop as in the probed host's dump of a jitted `jnp.dot(x.T,
+dy).T`.  Not replayed: t4_32a's row (1, 64, 3) and D's forward (256,
+256, 1), whose loops the code generator unrolled and reassociated into
+one chain in an order of its own (ROADMAP C11 lists it), read on one
+host only; other shapes of the class.  The loop's order is the ISA's,
+not the caches'; it is replayed only where `host_matches()` holds, as
+the rest.
 
 Where it is used: the linear layer's products on CPU tensors off the
 word mesh (nn/funcs.py: `_linear_mm`; the JAX package's mesh runs are
@@ -91,7 +108,7 @@ def order(m: int, k: int, n: int, a_t: bool = False,
         ok = not (a_t or b_t) and m % 8 == 0 and k % 8 == 0
         return (k, 8) if ok else None
     if m == 1:       # a row: inside a program XLA fuses such a dot into a
-        return None  # loop (the LLVM vectoriser's order), not probed
+        return None  # loop (fused_order), not this rule
     if a_t:                                # one chain, blocks unprobed
         wide = k <= 128 or (k <= 256 and m >= 128 and n >= 128)
         return (k, 1) if wide and n % 48 != 1 else None
@@ -108,6 +125,14 @@ def order(m: int, k: int, n: int, a_t: bool = False,
     if k > (64 if nch == 1 else 2048) or (nch == 1 and n > 512):
         return None
     return k, nch
+
+
+def fused_order(m: int, k: int, n: int):
+    """the interleaved accumulators of a row times a matrix, [1, k] x [k,
+    n] with b row-major, as XLA CPU runs it inside a program
+    (csrc/xla_dot.cpp: t4_xla_row), or None where that loop was not read
+    (the module docstring)"""
+    return 4 if (m, k, n) == (1, 256, 256) else None
 
 
 def _cache_bytes():
@@ -170,10 +195,26 @@ def _lib():
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
     lib = ctypes.CDLL(str(so))
-    fn = lib.t4_xla_dot
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-    fn.restype = ctypes.c_int
-    return fn
+    lib.t4_xla_dot.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+    lib.t4_xla_row.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    lib.t4_xla_dot.restype = lib.t4_xla_row.restype = ctypes.c_int
+    return lib
+
+
+def fused_mm(a, b):
+    """a [1, k] @ b [k, n] (b row-major) of f32 CPU tensors in the order of
+    XLA CPU's fused loop, or None where that was not read"""
+    (m, k), n = a.shape, b.shape[1]
+    nacc = fused_order(m, k, n)
+    lib = _lib() if nacc is not None else None
+    if lib is None:
+        return None
+    a, b = a.contiguous(), b.contiguous()
+    c = torch.empty((1, n), dtype=torch.float32)
+    if lib.t4_xla_row(a.data_ptr(), b.data_ptr(), c.data_ptr(), k, n,
+                      nacc) != 0:
+        return None
+    return c
 
 
 def _transposed(x) -> bool:
@@ -194,12 +235,15 @@ def mm(a, b):
             or a.requires_grad or b.requires_grad or not host_matches()):
         return None
     (m, k), n = a.shape, b.shape[1]
+    if fused_order(m, k, n) is not None and not _transposed(b):
+        return fused_mm(a, b)
     plan = order(m, k, n, _transposed(a), _transposed(b))
-    fn = _lib() if plan is not None else None
-    if fn is None:
+    lib = _lib() if plan is not None else None
+    if lib is None:
         return None
     a, b = a.contiguous(), b.contiguous()
     c = torch.empty((m, n), dtype=torch.float32)
-    if fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, k, n, *plan) != 0:
+    if lib.t4_xla_dot(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, k, n,
+                      *plan) != 0:
         return None
     return c

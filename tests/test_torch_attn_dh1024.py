@@ -117,38 +117,53 @@ def test_cluster_order_matches_the_pallas_kernels(dh, hybrid, causal):
 @pytest.mark.parametrize("dh", DHS)
 @pytest.mark.parametrize("hybrid", [False, True], ids=["f32", "hybrid"])
 def test_plans_take_the_cluster_route_the_source_builds(dh, hybrid):
-    """both classes at dh 640 to 1024: a cluster of dh / 128 CTAs (5 to 8,
-    a portable cluster's most), each with the dh-128 tiles of its class
-    over its 128 columns, the 32 KB exchange slot and four exchange
-    barriers (`full` and one a round of three); each route's shared
-    memory is the source's static_assert, under 227 KB; the grid is
-    cluster x B*h x S / rows CTAs; the C entries take the route"""
+    """both classes at dh 640 to 1024: the backward on a cluster of dh /
+    128 CTAs (5 to 8, a portable cluster's most), each with the dh-128
+    tiles of its class over its 128 columns, the 32 KB exchange slot and
+    four exchange barriers (`full` and one a round of three); the f32
+    class's forward the same; the hybrid forward on the wide route's pair
+    of CTAs (four warpgroups each, tests/test_torch_fwd_wide_bf16.py);
+    each route's shared memory is the source's static_assert, under 227
+    KB; the grid is cluster x B*h x S / rows CTAs; the C entries take the
+    route"""
     cl, parts = dh // 128, 1 if hybrid else 3
     fwd = attn.fwd_plan(16, 2048, dh, hybrid)
     bwd = attn.bwd_plan(16, 2048, dh, hybrid)
-    assert fwd.cluster == bwd.dq.cluster == bwd.dkv.cluster == cl <= 8
+    assert bwd.dq.cluster == bwd.dkv.cluster == cl <= 8
+    assert fwd.blocks == cl
     assert attn.fwd_cluster(dh) == attn.bwd_cluster(dh, hybrid) == cl
-    assert (fwd.bq, fwd.bkv) == attn.FWD_TILES[128] == (128, 64)
-    assert fwd.ctas == cl * 16 * 2048 // 128
     assert bwd.dq.tile == 64 and bwd.dq.ctas == cl * 16 * 2048 // 64
     assert max(fwd.smem, bwd.dkv.smem) <= gemm.SM90_SMEM_LIMIT
-    # the dh-512 route's budgets and one more 8-byte barrier
-    assert fwd.smem == {3: 230448, 1: 132160}[parts] + 8
     assert (bwd.dq.smem, bwd.dkv.smem) == {3: (230456, 230968),
                                            1: (132168, 133192)}[parts]
-    assert (f"Fwd<{dh}, {parts}, {cl}>::SMEM == {fwd.smem}"
-            in _source("flash_fwd.cuh"))
     assert (f"Bwd<{dh}, {parts}, {cl}>::SMEM_DKV == {bwd.dkv.smem}"
             in _source("flash_bwd.cu"))
     src = _source("flash_bwd.cu")
     for kernel in ("DKV", "DQ", "BWD_CL"):
         assert (f"if (dh == {dh} && parts == {parts}) return "
                 f"T4_{kernel}({dh}, {parts}, {cl});") in src
+    assert "CL >= 1 && CL <= 8" in _source("sm90_gemm.cuh")
+    if hybrid:
+        assert (fwd.cluster, fwd.warpgroups, fwd.v_stages) == (2, 4, 1)
+        assert (fwd.bq, fwd.bkv) == attn.WIDE_TILES == (64, 32)
+        assert fwd.ctas == 2 * 16 * 2048 // 64
+        assert fwd.smem == 205872
+        assert f"Wide<{dh}>::SMEM == {fwd.smem}" in _source("flash_fwd.cuh")
+        for kernel in ("WIDE", "WIDE_CL"):
+            assert (f"if (dh == {dh} && parts == 1) return "
+                    f"T4_{kernel}({dh});") in _source("flash_fwd.cu")
+        return
+    assert fwd.cluster == cl
+    assert (fwd.bq, fwd.bkv) == attn.FWD_TILES[128] == (128, 64)
+    assert fwd.ctas == cl * 16 * 2048 // 128
+    # the dh-512 route's budget and one more 8-byte barrier
+    assert fwd.smem == 230448 + 8
+    assert (f"Fwd<{dh}, {parts}, {cl}>::SMEM == {fwd.smem}"
+            in _source("flash_fwd.cuh"))
     for kernel in ("FWD", "FWD_CL"):
         assert (f"if (dh == {dh} && parts == {parts}) return "
                 f"T4_{kernel}({dh}, {parts}, {cl});") in _source(
                     "flash_fwd.cu")
-    assert "CL >= 1 && CL <= 8" in _source("sm90_gemm.cuh")
 
 
 @pytest.mark.parametrize("dh", DHS)

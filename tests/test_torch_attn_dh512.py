@@ -181,30 +181,42 @@ def _source(name):
 @pytest.mark.parametrize("dh", DHS)
 @pytest.mark.parametrize("hybrid", [False, True], ids=["f32", "hybrid"])
 def test_plans_take_the_cluster_route_the_source_builds(dh, hybrid):
-    """both classes at dh 384 and 512: a cluster of dh / 128 CTAs, each
-    with the dh-128 tiles of its class over its 128 columns, the 32 KB
-    exchange slot and three exchange barriers; each route's shared memory
-    is the source's static_assert, under 227 KB; the grid is cluster x
-    B*h x S / rows CTAs"""
+    """both classes at dh 384 and 512: the backward on a cluster of dh /
+    128 CTAs, each with the dh-128 tiles of its class over its 128
+    columns, the 32 KB exchange slot and three exchange barriers; the
+    f32 class's forward the same; the hybrid forward on the wide route
+    (one CTA of dh / 128 warpgroups, tests/test_torch_fwd_wide_bf16.py);
+    each route's shared memory is the source's static_assert, under 227
+    KB; the grid is cluster x B*h x S / rows CTAs"""
     cl, parts = dh // 128, 1 if hybrid else 3
     fwd = attn.fwd_plan(16, 2048, dh, hybrid)
     bwd = attn.bwd_plan(16, 2048, dh, hybrid)
-    assert fwd.cluster == bwd.dq.cluster == bwd.dkv.cluster == cl
+    assert bwd.dq.cluster == bwd.dkv.cluster == cl == fwd.blocks
     assert attn.fwd_cluster(dh) == attn.bwd_cluster(dh, hybrid) == cl
-    assert (fwd.bq, fwd.bkv) == attn.FWD_TILES[128] == (128, 64)
-    assert fwd.ctas == cl * 16 * 2048 // 128
     assert bwd.dq.tile == 64 and bwd.dq.ctas == cl * 16 * 2048 // 64
     assert max(fwd.smem, bwd.dkv.smem) <= gemm.SM90_SMEM_LIMIT
-    assert fwd.smem == {3: 230448, 1: 132160}[parts]
     assert (bwd.dq.smem, bwd.dkv.smem) == {3: (230448, 230960),
                                            1: (132160, 133184)}[parts]
-    assert (f"Fwd<{dh}, {parts}, {cl}>::SMEM == {fwd.smem}"
-            in _source("flash_fwd.cuh"))
     src = _source("flash_bwd.cu")
     assert f"Bwd<{dh}, {parts}, {cl}>::SMEM_DKV == {bwd.dkv.smem}" in src
     for kernel in ("DKV", "DQ"):
         assert (f"if (dh == {dh} && parts == {parts}) return "
                 f"T4_{kernel}({dh}, {parts}, {cl});") in src
+    if hybrid:
+        assert (fwd.cluster, fwd.warpgroups) == (1, cl)
+        assert (fwd.bq, fwd.bkv) == attn.WIDE_TILES == (64, 32)
+        assert fwd.ctas == 16 * 2048 // 64
+        assert fwd.smem == {384: 173096, 512: 230440}[dh]
+        assert f"Wide<{dh}>::SMEM == {fwd.smem}" in _source("flash_fwd.cuh")
+        assert (f"if (dh == {dh} && parts == 1) return T4_WIDE({dh});"
+                in _source("flash_fwd.cu"))
+        return
+    assert fwd.cluster == cl
+    assert (fwd.bq, fwd.bkv) == attn.FWD_TILES[128] == (128, 64)
+    assert fwd.ctas == cl * 16 * 2048 // 128
+    assert fwd.smem == 230448
+    assert (f"Fwd<{dh}, {parts}, {cl}>::SMEM == {fwd.smem}"
+            in _source("flash_fwd.cuh"))
     assert (f"if (dh == {dh} && parts == {parts}) return "
             f"T4_FWD({dh}, {parts}, {cl});") in _source("flash_fwd.cu")
 

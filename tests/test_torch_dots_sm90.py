@@ -151,9 +151,9 @@ def test_probe_plan_is_the_hybrid_forwards_and_fits_an_sm(dh):
     assert (plan.parts, plan.stages, plan.cluster) == (1, 2, 1)
     assert (plan.bq, plan.bkv) == attn.FWD_TILES[dh]
     src = _source("attn_dots.cu")
-    assert "fwd_body<D, 1, true, CL>" in src
-    assert "Fwd<D, 1, CL>::SMEM" in src and "fwd_grid<D, 1, CL>" in src
-    assert f"launch_dots<{dh}, 1>" in src
+    assert "fwd_body<D, 1, true>" in src
+    assert "Fwd<D, 1>::SMEM" in src and "fwd_grid<D, 1>" in src
+    assert f"launch_dots<{dh}>" in src
 
 
 def _c_params(src: str, fn: str):

@@ -1,14 +1,15 @@
 """K8, the dots-only probe (csrc/attn_dots.cu), at head dims 384 to 1024,
 as far as the CPU can hold it.
 
-On the card the probe takes K1's cluster route there: a cluster of dh /
-128 CTAs, each forming the scores over its 128 columns, the partials
-added in cluster_sum's tree of pairs before their rounding to bf16, then
-P V over the CTA's own columns.  Here the plain version in that order
-against a copy of bench.py's probe body in interpret mode
-(tests/test_torch_dots_sm90.py's, at dh 128 and 256); the plain version
-sums per key tile in the cluster's order, bit for bit; the plan is the
-hybrid forward's cluster plan and the source launches it; the ctypes
+On the card the probe takes the hybrid forward's wide route there: a
+warpgroup per 128 columns of dh forms the scores over its columns, the
+partials added in the CTA's shared memory (and by a pair of CTAs past dh
+512) in cluster_sum's order before their rounding to bf16, then P V over
+its own columns, accumulated over every key by the tensor cores.  Here
+the plain version in that order against a copy of bench.py's probe body
+in interpret mode (tests/test_torch_dots_sm90.py's, at dh 128 and 256);
+the plain version's scores in the cluster's order, bit for bit; the plan
+is the hybrid forward's wide plan and the source launches it; the ctypes
 table follows the C entry; the CPU path launches nothing; dh 1152 is
 refused.  Inputs come from numpy seeds; tolerances are stated at each
 test.
@@ -35,8 +36,8 @@ def test_plain_version_matches_the_pallas_probe(dh):
     scores to bf16 from f32 sums taken in another order (here an f32 sum
     per 128 columns, added in the cluster's order), and a score that
     rounds to the neighbouring bf16 value moves by a relative 2^-8; the
-    key-tile sums (64 keys against the probe's 512) add f32 roundings far
-    below that"""
+    sums over the keys (one f32 sum against the probe's) add f32
+    roundings far below that"""
     q, k, v = _bf16_case(30 + dh // 128, (1, 512, dh))
     want = np.asarray(_pallas_probe(
         *(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v))))
@@ -47,45 +48,50 @@ def test_plain_version_matches_the_pallas_probe(dh):
 
 @pytest.mark.parametrize("dh", (384, 1024))
 def test_plain_version_sums_in_the_cluster_order_per_key_tile(dh):
-    """the scores of each 64-key tile as the cluster forms them (each
-    CTA's f32 sum over its 128 columns, added in cluster_sum's order),
-    rounded to bf16, times v, added to o one tile after another: bit for
-    bit; one f32 sum over all of dh is not the same bits"""
+    """the scores as the wide route forms them (each warpgroup's f32 sum
+    over its 128 columns, added in cluster_sum's order, the same bits in
+    any key tile), rounded to bf16, times v, one f32 sum over all the
+    keys (the tensor cores accumulate o over every tile): bit for bit;
+    one f32 sum over all of dh is not the same bits, nor are the 64-key
+    tiles added one after another that the cluster route took"""
     q, k, v = _bf16_case(41, (1, 256, dh))
     qf, kf, vf = q.float(), k.float(), v.float()
     cl = dh // 128
-    want, whole = torch.zeros_like(qf), torch.zeros_like(qf)
+    parts = [torch.einsum("nqd,nkd->nqk", qf[..., c * 128:(c + 1) * 128],
+                          kf[..., c * 128:(c + 1) * 128]) for c in range(cl)]
+    s2 = attn.cluster_sum(parts)
+    want = torch.einsum("nqk,nkd->nqd", s2.to(torch.bfloat16).float(), vf)
+    s1 = torch.einsum("nqd,nkd->nqk", qf, kf)
+    whole = torch.einsum("nqk,nkd->nqd", s1.to(torch.bfloat16).float(), vf)
+    tiles = torch.zeros_like(qf)
     for k0 in range(0, 256, 64):
-        parts = [torch.einsum("nqd,nkd->nqk", qf[..., c * 128:(c + 1) * 128],
-                              kf[:, k0:k0 + 64, c * 128:(c + 1) * 128])
-                 for c in range(cl)]
-        s2 = attn.cluster_sum(parts)
-        want += torch.einsum("nqk,nkd->nqd", s2.to(torch.bfloat16).float(),
-                             vf[:, k0:k0 + 64])
-        s1 = torch.einsum("nqd,nkd->nqk", qf, kf[:, k0:k0 + 64])
-        whole += torch.einsum("nqk,nkd->nqd", s1.to(torch.bfloat16).float(),
+        tiles += torch.einsum("nqk,nkd->nqd",
+                              s2[..., k0:k0 + 64].to(torch.bfloat16).float(),
                               vf[:, k0:k0 + 64])
     got = attn.attn_dots_ref(q, k, v)
     assert torch.equal(got, want)
-    assert not torch.equal(got, whole)
+    assert not torch.equal(got, whole) and not torch.equal(got, tiles)
 
 
 @pytest.mark.parametrize("dh", DHS)
 def test_probe_plan_is_the_hybrid_cluster_plan_the_source_builds(dh):
-    """the probe takes the hybrid forward's cluster plan: dh / 128 CTAs,
-    128 query rows and 64-key tiles of the CTA's 128 columns, two stages,
-    the exchange slot and its barriers, under 227 KB (the source's
-    static_assert); the C entry launches that instance"""
+    """the probe takes the hybrid forward's wide plan: one CTA of dh / 128
+    warpgroups to dh 512, a pair of CTAs of four past it, 64 query rows
+    and 32-key tiles, the warpgroups' slots (and the pair's message),
+    under 227 KB (the source's static_assert); the C entry launches that
+    instance"""
     cl = dh // 128
     plan = attn.fwd_plan(16, 2048, dh, True)
-    assert (plan.parts, plan.stages, plan.cluster) == (1, 2, cl)
-    assert (plan.bq, plan.bkv) == (128, 64)
+    assert (plan.parts, plan.stages, plan.blocks) == (1, 2, cl)
+    assert (plan.cluster, plan.warpgroups) == ((1, cl) if cl <= 4
+                                               else (2, 4))
+    assert (plan.bq, plan.bkv) == (64, 32)
     assert plan.smem <= gemm.SM90_SMEM_LIMIT
-    assert (f"Fwd<{dh}, 1, {cl}>::SMEM == {plan.smem}"
-            in _source("flash_fwd.cuh"))
-    assert f"case {dh}: return launch_dots<{dh}, {cl}>" in _source(
-        "attn_dots.cu")
-    assert "fwd_body<D, 1, true, CL>" in _source("attn_dots.cu")
+    assert f"Wide<{dh}>::SMEM == {plan.smem}" in _source("flash_fwd.cuh")
+    src = _source("attn_dots.cu")
+    assert f"case {dh}: return launch_dots<{dh}>" in src
+    assert "fwd_wide_body<D, true>" in src
+    assert "Wide<D>::SMEM" in src and "wide_grid<D>" in src
     code = re.sub(r"//[^\n]*", "", _source("flash_fwd.cuh"))
     assert "!DOTS" in code and "probe has no cluster route" not in code
 
@@ -101,7 +107,7 @@ def test_ctypes_table_matches_the_c_entry():
         kinds = _c_params(_source("attn_dots.cu"), fn)
         assert [kind[t] for t in table[fn]] == kinds == want
     for dh in DHS:
-        assert (f"case {dh}: return dots_clusters<{dh}, {dh // 128}>(out)"
+        assert (f"case {dh}: return dots_clusters<{dh}>(out)"
                 in _source("attn_dots.cu"))
 
 

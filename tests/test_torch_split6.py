@@ -212,23 +212,42 @@ def _forward_source() -> str:
 @pytest.mark.parametrize("hybrid", [False, True])
 def test_fwd_plan_fits_an_sm_and_matches_the_source(dh, hybrid):
     """the forward's plan stays under 227 KB in both classes, and its tiles
-    are the ones flash_fwd.cu's Fwd is built with; dh 384 to 1024 take a
-    cluster of dh / 128 CTAs, each with the dh-128 tiles over its columns,
-    the exchange slot and its barriers (`full` and one a round of the
-    cluster's sum: two rounds at 3 and 4 CTAs, three at 5 to 8)"""
+    are the ones flash_fwd.cu's Fwd is built with; the f32 class at dh
+    384 to 1024 takes a cluster of dh / 128 CTAs, each with the dh-128
+    tiles over its columns, the exchange slot and its barriers (`full`
+    and one a round of the cluster's sum: two rounds at 3 and 4 CTAs,
+    three at 5 to 8); the hybrid class there the wide route (Wide: a
+    warpgroup per 128 columns, four a CTA, a pair of CTAs past dh 512)"""
     plan = attn.fwd_plan(64, 2048, dh, hybrid)
     assert plan.smem <= gemm.SM90_SMEM_LIMIT == 232448
     assert plan.parts == (1 if hybrid else 3)
     assert plan.bq % 64 == 0 and plan.bq % plan.bkv == 0
-    cluster = dh // 128 if dh > 256 else 1
-    assert plan.cluster == cluster
+    blocks = dh // 128 if dh > 256 else 1
+    assert plan.blocks == blocks
+    src = _forward_source()
+    if hybrid and dh > 256:
+        wgs = min(blocks, 4)
+        cluster = 2 if blocks > 4 else 1
+        assert (plan.cluster, plan.warpgroups) == (cluster, wgs)
+        assert plan.ctas == cluster * 64 * 2048 // plan.bq
+        cols = 128 * wgs
+        tiles = (plan.bq + (plan.stages + plan.v_stages) * plan.bkv) * cols * 2
+        xch, bars = (8192, 2) if cluster == 2 else (0, 0)
+        assert plan.smem == (1024 + tiles + wgs * 8192 + xch
+                             + (1 + plan.stages + plan.v_stages + bars) * 8)
+        assert "NW = NBLK > 4 ? 4 : NBLK" in src
+        assert "BQ = 64, BKV = 32" in src
+        assert "VST = CL == 2 ? 1 : 2" in src
+        assert attn.WIDE_TILES == (64, 32) and attn.WIDE_SLOT == 8192
+        return
+    cluster = blocks
+    assert plan.cluster == cluster and plan.warpgroups == 2
     assert plan.ctas == cluster * 64 * 2048 // plan.bq
     cols = dh // cluster
     tiles = plan.parts * (plan.bq + 2 * plan.stages * plan.bkv) * cols * 2
     xch, bars = ((32768, 3 if cluster <= 4 else 4) if cluster > 1
                  else (0, 0))
     assert plan.smem == 1024 + tiles + xch + (1 + 2 * plan.stages + bars) * 8
-    src = _forward_source()
     assert "DC = D / CL" in src
     assert "BQ = DC == 128 ? 128 : 64" in src
     assert "BKV = DC == 128 ? 64 : 32" in src

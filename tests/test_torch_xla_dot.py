@@ -39,6 +39,19 @@ def _jax_dot(a, b, a_t, b_t):
     return np.asarray(_JIT[key](x, y))
 
 
+def _jax_fused_dot(a, b):
+    """a row a [1, k] times b [k, n] as XLA runs it inside a program: the
+    row reaches the dot as the transpose of an [k, 1, 1, 1] cotangent, b
+    as a reshape of a 4-d activation (the JAX package's dW of a layer of
+    width 1), so XLA fuses the dot into a loop (`bitcast_dot_fusion`)"""
+    k, n = b.shape
+    if "fused" not in _JIT:
+        _JIT["fused"] = jax.jit(lambda x, y: jnp.dot(
+            x.reshape(x.shape[0], -1).T, y.reshape(y.shape[0], -1)))
+    return np.asarray(_JIT["fused"](a.T.reshape(k, 1, 1, 1),
+                                    b.reshape(k, 1, n, 1)))
+
+
 def _torch_operand(x, t):
     """the operand as the port holds it: a transposed view where XLA sees
     a transposed layout"""
@@ -182,7 +195,7 @@ def test_probe_reads_the_tree_the_replay_sums_in():
 
 
 @pytest.mark.parametrize("m,k,n,a_t,b_t", [
-    (1, 256, 256, False, False),   # a row: fused into a loop in programs
+    (1, 128, 256, False, False),   # a row whose fused loop was not read
     (256, 3, 30, False, True),     # k not a multiple of the chains
     (64, 3000, 100, False, False),  # four chains past k 2048
     (2, 64, 64, True, True),       # both transposed
@@ -199,6 +212,40 @@ def test_unprobed_classes_are_left_to_torch(m, k, n, a_t, b_t):
     b = _torch_operand(rs.randn(k, n).astype(np.float32), b_t)
     assert xla_dot.mm(a, b) is None
     assert torch.equal(funcs.class_dot(funcs._mm, a, b), a @ b)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fused_vector_dots_match_the_programs_loop(seed):
+    """t4_40b's dW of D's 256 -> 1 layer, a row (1, 256, 256), inside a
+    program is XLA's fused loop (read from the dumped LLVM IR and its
+    object code): the replay of that loop against the jitted dot that XLA
+    fuses the same way, bit for bit, wherever the host has the ISA the
+    loop was read on (AVX-512: eight lanes of 32 bytes, the same loop on
+    the probed host and on others); torch's own order is not the same
+    bits"""
+    rs = np.random.RandomState(seed + 257)
+    a = rs.randn(1, 256).astype(np.float32)
+    b = rs.randn(256, 256).astype(np.float32)
+    if xla_dot._isa() != "avx512f":
+        assert xla_dot.mm(torch.from_numpy(a), torch.from_numpy(b)) is None
+        return
+    got = xla_dot.fused_mm(torch.from_numpy(a), torch.from_numpy(b))
+    want = _jax_fused_dot(a, b)
+    assert got is not None and np.array_equal(got.numpy(), want)
+    assert not np.array_equal(
+        (torch.from_numpy(a) @ torch.from_numpy(b)).numpy(), want)
+
+
+def test_fused_loop_is_replayed_only_where_it_was_read():
+    """four accumulators at (1, 256, 256); t4_32a's (1, 64, 3) and D's
+    forward (256, 256, 1), whose unrolled loops the code generator
+    reassociated into a chain of its own, and every other shape are not
+    this replay's (the matrix-vector product keeps the standalone
+    gemv's eight lanes)"""
+    assert xla_dot.fused_order(1, 256, 256) == 4
+    for shape in ((1, 64, 3), (256, 256, 1), (1, 128, 256), (2, 256, 256)):
+        assert xla_dot.fused_order(*shape) is None
+    assert xla_dot.order(256, 256, 1) == (256, 8)
 
 
 def test_linear_layers_take_the_replay_on_the_cpu():
