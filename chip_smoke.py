@@ -1473,6 +1473,17 @@ def phase_kernel_wide(seed: int, bh=WIDE_BH, s=WIDE_S, cases=WIDE_CASES):
         row["bwd_two_runs_bit_equal"] = all(
             torch.equal(g, a) for g, a in zip(got, again))
         del again
+        # the exchange of the partial scores, each kernel's registers and
+        # spills, and the gradients' bits (two trees held against each
+        # other: the same SHA-1s where the kernels kept their bits)
+        row["bwd_exchange"] = bwd_exchange(bplan.dq.cluster, hybrid)
+        row["bwd_ptxas"] = {
+            w: dict(ptxas_record("flash_bwd", kern), kernel=kern)
+            for w, kern in ((w, f"flash_bwd_{w}_sm90_kernel<{dh},"
+                                f"{bplan.parts},{bplan.dq.cluster}>")
+                            for w in ("dkv", "dq"))}
+        row["bwd_sha1"] = {nm: sha1_of(g)
+                           for nm, g in zip(("dq", "dk", "dv"), got)}
         want = attn.flash_attention_bwd_ref(*call, dlse=dlse,
                                             cluster=cl if hybrid else 1)
         names = ("dq", "dk", "dv")
@@ -1481,7 +1492,10 @@ def phase_kernel_wide(seed: int, bh=WIDE_BH, s=WIDE_S, cases=WIDE_CASES):
         row["bwd_largest_reference_value"] = {
             nm: w.abs().max().item() for nm, w in zip(names, want)}
         del want
-        bok = row["bwd_two_runs_bit_equal"] and all(
+        spilled = [r["kernel"] for r in row["bwd_ptxas"].values()
+                   if r.get("spill_stores", 1) or r.get("spill_loads", 1)
+                   or r.get("stack_frame", 1)]
+        bok = not spilled and row["bwd_two_runs_bit_equal"] and all(
             bool(torch.isfinite(g).all()) and row["bwd_max_abs_err"][nm] <= (
                 TOL_BWD_HYBRID * row["bwd_largest_reference_value"][nm]
                 if hybrid else TOL_BWD_F32) for nm, g in zip(names, got))
@@ -1594,6 +1608,22 @@ def phase_kernel_wide(seed: int, bh=WIDE_BH, s=WIDE_S, cases=WIDE_CASES):
     return entries
 
 
+def bwd_exchange(cluster: int, hybrid: bool) -> dict:
+    """how a backward route's CTAs add their partial scores: none (one
+    CTA), Xch's one round (a pair), Xrs's reduce-scatter and all-gather
+    at 3 to 8 CTAs, with the most 16-byte stores a thread makes in a
+    round (ops.attn's model of the schedule)"""
+    from tensorforth_tpu_torch.ops import attn
+    if cluster < 3:
+        return {"kind": "xch" if cluster == 2 else "none",
+                "rounds": cluster - 1}
+    stores = max(len(attn.xrs_messages(cluster, r, 0, w, k))
+                 for r in range(cluster) for w in range(attn.XRS_WARPS)
+                 for k in (1, 2))
+    return {"kind": "xrs", "rounds": 2, "slots": attn.xrs_slots(hybrid),
+            "most_stores_a_thread_a_round": stores}
+
+
 def sha1_of(*tensors) -> str:
     """the SHA-1 of the tensors' bytes, one after another"""
     h = hashlib.sha1()
@@ -1701,6 +1731,7 @@ def wide_probes(seed: int, small=WIDE_PROBE_SMALL, timed_dh=WIDE_PROBE_TIMED,
             errs = {nm: (g - w).abs().max().item()
                     for nm, g, w in zip(names, got, want)}
             tops = {nm: w.abs().max().item() for nm, w in zip(names, want)}
+            bits = sha1_of(*got)
             ok = fused_equals_split(got, split, hybrid) and all(
                 bool(torch.isfinite(g).all()) and (
                     errs[nm] <= TOL_BWD_HYBRID * tops[nm] if hybrid
@@ -1724,7 +1755,7 @@ def wide_probes(seed: int, small=WIDE_PROBE_SMALL, timed_dh=WIDE_PROBE_TIMED,
                 "max_abs_err": max(errs.values()),
                 "max_abs_err_by_output": errs,
                 "largest_reference_value": tops,
-                "fused_equals_split": ok,
+                "fused_equals_split": ok, "sha1": bits,
                 "ms": time_ms(lambda: attn.flash_attention_bwd_fused(*call),
                               reps=WIDE_REPS),
                 "kernel_ms": time_ms(lambda: attn._launch_fused(

@@ -14,7 +14,11 @@ backward's split and delta), and prints the SHA-1 of each kernel's output
 bits and the clusters the card runs at once; and, on the same inputs
 cast to bf16, K1's hybrid class alone (causal, q scaled as its wrapper
 scales it) and the dots-only probe K8 alone (not causal, as bench.py's
-probe), each with its SHA-1 and clusters.  A head dim the tree's
+probe), each with its SHA-1 and clusters; K2a and K2b of the hybrid
+class alone on the same casts (causal), with their SHA-1s; and K2a + K2b
+of the f32 class with delta and their split (the wrapper's whole
+backward) beside PyTorch's scaled_dot_product_attention f32 backward
+through a 4-d call on the same inputs.  A head dim the tree's
 kernels do not take (ops.attn.KERNEL_DH) is skipped, so one call to the
 card can hold two trees against each other in turns (parent, change,
 change, parent): copy this script into the parent's tree, so both draw
@@ -101,8 +105,21 @@ def main(argv=None) -> int:
             row[which + "_kernel_ms"] = cs.time_ms(
                 lambda: attn._launch_bwd(which, *prep), reps=args.reps)
             row[which + "_sha1"] = _sha1(attn._launch_bwd(which, *prep))
+        del prep
+        row["bwd_f32_ms"] = cs.time_ms(lambda: attn.flash_attention_bwd(
+            q, k, v, o, lse, do, True, False), reps=args.reps)
+        row["sdpa_bwd_f32_4d_ms"] = cs.time_ms(cs.sdpa_grads(
+            q[None], k[None], v[None], do[None], True), reps=args.reps)
+        # the hybrid class's K2a and K2b alone, on its forward's o and lse
+        oh, lh = attn.flash_attention(q, k, v, causal=True, hybrid=True)
+        prep = attn._prepare_bwd(q, k, v, oh, lh, do, True, True, None)
+        for which in ("dkv", "dq"):
+            row["hybrid_" + which + "_kernel_ms"] = cs.time_ms(
+                lambda: attn._launch_bwd(which, *prep), reps=args.reps)
+            row["hybrid_" + which + "_sha1"] = _sha1(
+                attn._launch_bwd(which, *prep))
         out["cases"].append(row)
-        del prep, q, k, v, do, o, lse
+        del prep, q, k, v, do, o, lse, oh, lh
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
     return 0

@@ -212,6 +212,92 @@ def xch_barriers(cluster: int) -> int:
     return 1 + xch_rounds(cluster) if cluster > 1 else 0
 
 
+# --- the backward's balanced exchange (csrc/sm90_gemm.cuh: Xrs) -------------
+# K2a and K2b at 3 to 8 CTAs add a tile's partial scores in two rounds, a
+# reduce-scatter and an all-gather.  A thread's 32 floats are 8 quads
+# (s2's 4, then dp's 4); quad q belongs to CTA q mod cluster where the
+# cluster divides 8, else quad q of the threads of warp w of a warpgroup
+# to CTA (q + w) mod cluster.  Round 1 sends each quad to its
+# owner's pool: the slot read as warp-planes (a quad for each of a warp's
+# 32 lanes, 512 bytes; 64 of them in 32 KB), warp w's block holding its
+# owned quads' partials by source rank, warpgroup 1's blocks after
+# warpgroup 0's.  Round 2 sends each owner's sums to every peer at the
+# quad's own place (plane q of the thread: 256 threads' quads, 4 KB).
+XRS_QUADS, XRS_WARPS, XRS_POOL = 8, 4, 64
+
+
+def xrs_owner(cluster: int, w: int, q: int) -> int:
+    """the CTA that owns quad q of the threads of warp w of a warpgroup:
+    q mod cluster where the cluster divides the 8 quads, else staggered
+    by warp"""
+    return (q + (0 if XRS_QUADS % cluster == 0 else w)) % cluster
+
+
+def xrs_owns(cluster: int, j: int, w: int, q: int = XRS_QUADS) -> int:
+    """the quads before q (all 8 by default) of warp w's threads that
+    CTA j owns"""
+    return sum(xrs_owner(cluster, w, p) == j for p in range(q))
+
+
+def xrs_span(cluster: int, j: int) -> int:
+    """the warp-planes of a warpgroup's blocks in CTA j's pool"""
+    return sum((cluster - 1) * xrs_owns(cluster, j, w)
+               for w in range(XRS_WARPS))
+
+
+def xrs_wplane(cluster: int, j: int, g: int, w: int, q: int,
+               s: int) -> int:
+    """the warp-plane of CTA j's pool that takes source s's partial of
+    quad q (which j owns) of warp w of warpgroup g"""
+    first = sum((cluster - 1) * xrs_owns(cluster, j, v) for v in range(w))
+    return (g * xrs_span(cluster, j) + first
+            + xrs_owns(cluster, j, w, q) * (cluster - 1)
+            + (s if s < j else s - 1))
+
+
+def xrs_messages(cluster: int, rank: int, g: int, w: int, rnd: int) -> list:
+    """the 16-byte stores of a thread of warp w of warpgroup g of CTA
+    `rank` in round `rnd`, as (target, quad, place): round 1 each quad it
+    does not own to its owner's pool (place: the warp-plane), round 2
+    each quad it owns to every peer (place: the quad's plane)"""
+    out = []
+    for q in range(XRS_QUADS):
+        j = xrs_owner(cluster, w, q)
+        if rnd == 1 and j != rank:
+            out.append((j, q, xrs_wplane(cluster, j, g, w, q, rank)))
+        elif rnd == 2 and j == rank:
+            out += [(r, q, q) for r in range(cluster) if r != rank]
+    return out
+
+
+def xrs_sum(parts):
+    """an owner's sum of a quad's partials (one a rank, rank order):
+    cluster_sum's tree, ((x0 + x1) + (x2 + x3)) + ((x4 + x5) + (x6 + x7)),
+    a block with no rank dropped: the bits every rank of the tree of pairs
+    forms"""
+    cl = len(parts)
+
+    def block(b, h):
+        if h == 1:
+            return parts[b]
+        lo = block(b, h // 2)
+        return lo + block(b + h // 2, h // 2) if b + h // 2 < cl else lo
+
+    return block(0, 8)
+
+
+def xrs_slots(hybrid: bool) -> int:
+    """a CTA's exchange slots: two in the hybrid class (one a round: no
+    sender waits), one in the f32 class (no room for a second)"""
+    return 2 if hybrid else 1
+
+
+def xrs_barriers(slots: int) -> int:
+    """Xrs's barriers: a round's receipt each, and with one slot a round's
+    reads each"""
+    return 4 if slots == 1 else 2
+
+
 
 # a CTA's columns of dh -> (query rows, KV rows)
 FWD_TILES = {128: (128, 64), 256: (64, 32)}
@@ -509,7 +595,8 @@ def flash_attention_bwd_split_ref(q, k, v, o, lse, do, causal: bool = False,
     in f64; s2 and dp rounded to f32 as the accumulators hold them (with
     `cluster` 2 to 8, as the dh-256 to dh-1024 kernels form
     them: each CTA's sum over its 128 columns rounded to f32, the partials
-    added in f32 in cluster_sum's order), p = exp2(s2 -
+    added in f32 in cluster_sum's order, which Xrs's owners keep at 3 to
+    8 CTAs: xrs_sum), p = exp2(s2 -
     lse*log2e) and ds = p (dp - delta) in f32 and split the same way.  What
     it leaves out of the kernels: the tensor cores' truncating sums and
     ex2.approx.  Returns (dq, dk, dv), f64."""
@@ -669,16 +756,20 @@ def bwd_plan(bh: int, s: int, dh: int, hybrid: bool) -> BwdPlan:
     route is picked by dh and the class alone (bwd_cluster): on a cluster
     route the CTAs split dh, each with the dh-128 tiles of the class, an
     exchange slot that receives a peer's partial scores and the slot's
-    barriers (`full` and one a round of the sum: two for a pair, three at
-    3 and 4 CTAs, four at 5 to 8)."""
+    barriers: a pair (dh 256) sums in Xch's one round (`full` and one
+    more barrier); 3 to 8 CTAs sum in Xrs's two balanced rounds, with one
+    slot and four barriers in the f32 class, two slots and two barriers in
+    the hybrid class."""
     parts = 1 if hybrid else 3
     cluster = bwd_cluster(dh, hybrid)
     cols = dh // cluster
     tile, stages = BWD_TILES[cols], BWD_STAGES[parts]
+    slots = xrs_slots(hybrid) if cluster > 2 else 1
+    xbar = (xrs_barriers(slots) if cluster > 2 else xch_barriers(cluster))
     smem = (SM90_ALIGN + 2 * parts * BWD_ROWS * cols * 2
             + 2 * stages * parts * tile * cols * 2
-            + (BWD_EXCHANGE if cluster > 1 else 0)
-            + (1 + 2 * stages + xch_barriers(cluster)) * 8)
+            + (slots * BWD_EXCHANGE if cluster > 1 else 0)
+            + (1 + 2 * stages + xbar) * 8)
     dq = BwdTiles(BWD_ROWS, tile, stages, smem,
                   cluster * bh * (s // BWD_ROWS), cluster)
     return BwdPlan(parts, dq._replace(smem=smem + 2 * stages * tile * 4), dq)

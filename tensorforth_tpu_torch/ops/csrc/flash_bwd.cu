@@ -92,25 +92,33 @@
 // operands, 96 KB, and one stage of both streamed operands in 64-row
 // tiles, 96 KB; hybrid: one part, two stages, 96 KB in all).  Its s2 and
 // dp are then partial sums over its columns.  Per tile the CTAs add them
-// through distributed shared memory (sm90_gemm.cuh: Xch): each thread
-// sends its two partials (32 floats: dp's while s2's products still run)
-// to its twin in the pair's CTA, adds the pair's, and at CL 3 to 8 adds
-// the sums of the blocks beside its own in a second (and, at CL 5 to 8, a
-// third) round, a tree of pairs, so every CTA forms x0 + x1, (x0 + x1) +
-// x2, (x0 + x1) + (x2 + x3), ..., ((x0 + x1) + (x2 + x3)) + ((x4 + x5) +
-// (x6 + x7)) and p and ds are the same bits in all of them.  ONE 32 KB
-// SLOT a CTA receives every round's message in turn: a second slot does
-// not fit beside the f32 tiles, so each round waits for the last one's
-// reads.  The gradient products then run over the CTA's own
-// columns (dk[:, cols] += ds^T Q2[:, cols], dv[:, cols] += p^T dO[:, cols];
-// dq[:, cols] += ds K[:, cols]): every output element keeps one writer.  A
+// through distributed shared memory.  A pair (CL 2, dh 256) uses Xch
+// (sm90_gemm.cuh): each thread sends its two partials (32 floats: dp's
+// while s2's products still run) to its twin in the other CTA and adds
+// the twin's.  At CL 3 to 8 (dh 384 to 1024) Xrs takes two balanced
+// rounds: a reduce-scatter (a thread's 32 floats are 8 quads, each owned
+// by one CTA: quad q by CTA q mod CL at CL 4 and 8, else staggered by warp
+// so that every CTA owns about 8 / CL of them; the owner receives every
+// peer's partial of its quads and adds the CL partials in cluster_sum's
+// order, ((x0 + x1) + (x2 + x3)) + ((x4 + x5) + (x6 + x7)), absent ranks
+// dropped) and an all-gather of the owners' sums, so p and ds are the same
+// bits in every CTA, and the bits the tree of pairs formed.  Every store is a 16-byte st.async.  The f32 class
+// has ONE 32 KB SLOT beside its tiles, so a round's sender waits for the
+// reads of the last round that used its targets' slots; the hybrid class
+// has two, one a round, and no sender waits.  The gradient products then
+// run over the CTA's own columns (dk[:, cols] += ds^T Q2[:, cols],
+// dv[:, cols] += p^T dO[:, cols]; dq[:, cols] += ds K[:, cols]): every
+// output element keeps one writer.  A
 // cluster barrier after the barriers' set-up comes before any remote store
-// or arrival, and the wait for the last reads of its messages after the
-// loop keeps a CTA's shared memory alive until its peers are done with it.
+// or arrival; in a pair, the wait for the last reads of its messages after
+// the loop keeps a CTA's shared memory alive until its peer is done with
+// it (Xrs's readers await every message, and leave the last one
+// unsignalled).
 // Shared memory in the f32 class: 1,024 alignment + 196,608 tiles + 32,768
-// exchange + 512 lse and delta (dK/dV) + 40 barriers (48 at CL 3, 4, 56 at
-// CL 5 to 8: an exchange barrier a round) = 230,952 (230,960, 230,968) of
-// 232,448 bytes.
+// exchange + 512 lse and delta (dK/dV) + 40 barriers (56 at CL 3 to 8:
+// Xrs's two receipts and two reads) = 230,952 (230,968) of 232,448 bytes;
+// in the hybrid class at CL 3 to 8: 1,024 + 98,304 tiles + 65,536 (two
+// slots) + 1,024 lse and delta + 56 barriers = 165,944 bytes.
 
 #include "flash_tile.cuh"
 #include "sm90_gemm.cuh"
@@ -149,13 +157,19 @@ struct Bwd {
   static constexpr int T_BYTES = NP * T_PART;        // a streamed stage
   static constexpr int ROWS_WG = DC == 128 ? 32 : 0; // streamed rows' offset
   static constexpr int COLS_WG = DC == 128 ? 0 : 128;// output columns' offset
-  // a cluster's exchange slot: a peer's partial s2 and dp, 32 floats for
-  // each thread
-  static constexpr int XCH = CL > 1 ? NT * 32 * 4 : 0;
+  // a cluster's exchange: Xch's tree of pairs at CL 2, Xrs's two balanced
+  // rounds at CL 3 to 8, in SLOTS slots of 32 floats for each thread (two
+  // in the hybrid class, which has the room: no sender waits)
+  static constexpr int SLOTS = CL <= 2 ? 1 : NP == 1 ? 2 : 1;
+  static constexpr int XCH = CL > 1 ? SLOTS * NT * 32 * 4 : 0;
   // barriers: the stationary operands', each stage's of each streamed
-  // operand, and a cluster's of the exchange (full, and one a round)
+  // operand, and a cluster's of the exchange (Xch: full, and one a round;
+  // Xrs: a round's receipt each, and with one slot a round's reads each)
   static constexpr int NBAR =
-      1 + 2 * ST + (CL == 1 ? 0 : 1 + Xch<CL, NT, 0>::ROUNDS);
+      1 + 2 * ST +
+      (CL == 1   ? 0
+       : CL == 2 ? 1 + Xch<2, NT>::ROUNDS
+                 : Xrs<CL < 3 ? 3 : CL, NT, 0, SLOTS>::NBAR);
   // both stationary operands, ST stages of both streamed ones, the exchange
   // slots, (dK/dV) the streamed rows' lse and delta of each stage, then the
   // barriers
@@ -170,28 +184,33 @@ static_assert(Bwd<128, 3>::SMEM_DKV <= SMEM_LIMIT &&
                   Bwd<256, 3, 2>::SMEM_DKV <= SMEM_LIMIT,
               "shared memory");
 static_assert(Bwd<256, 3, 2>::SMEM_DKV == 230952, "the cluster's budget");
-// dh 384 and 512, both classes, on clusters of 3 and 4 CTAs: the f32
-// class's budget is the dh-256 route's and one barrier; the hybrid class's
-// CTA holds the dh-128 hybrid tiles and the slot
-static_assert(Bwd<384, 3, 3>::SMEM_DKV == 230960 &&
-                  Bwd<512, 3, 4>::SMEM_DKV == 230960,
-              "the f32 clusters' budget");
-static_assert(Bwd<384, 1, 3>::SMEM_DKV == 133184 &&
-                  Bwd<512, 1, 4>::SMEM_DKV == 133184,
-              "the hybrid clusters' budget");
-// dh 640 to 1024 on clusters of 5 to 8 CTAs: the same tiles, a fourth
-// exchange barrier for the third round
-static_assert(Bwd<640, 3, 5>::SMEM_DKV == 230968 &&
+// dh 384 to 1024, both classes, on clusters of 3 to 8 CTAs (Xrs): the f32
+// class's budget is the dh-256 route's with two more barriers (the rounds'
+// receipts and reads), 230,968 of 232,448 bytes, one slot; the hybrid
+// class's CTA holds the dh-128 hybrid tiles, two slots and two barriers
+static_assert(Bwd<384, 3, 3>::SMEM_DKV == 230968 &&
+                  Bwd<512, 3, 4>::SMEM_DKV == 230968 &&
+                  Bwd<640, 3, 5>::SMEM_DKV == 230968 &&
                   Bwd<768, 3, 6>::SMEM_DKV == 230968 &&
                   Bwd<896, 3, 7>::SMEM_DKV == 230968 &&
                   Bwd<1024, 3, 8>::SMEM_DKV == 230968 &&
-                  Bwd<1024, 3, 8>::SMEM_DKV <= SMEM_LIMIT,
-              "the f32 clusters' budget at CL 5 to 8");
-static_assert(Bwd<640, 1, 5>::SMEM_DKV == 133192 &&
-                  Bwd<768, 1, 6>::SMEM_DKV == 133192 &&
-                  Bwd<896, 1, 7>::SMEM_DKV == 133192 &&
-                  Bwd<1024, 1, 8>::SMEM_DKV == 133192,
-              "the hybrid clusters' budget at CL 5 to 8");
+                  Bwd<1024, 3, 8>::SMEM_DKV <= SMEM_LIMIT &&
+                  Bwd<1024, 3, 8>::SMEM_DQ == 230456,
+              "the f32 clusters' budget");
+static_assert(Bwd<384, 1, 3>::SMEM_DKV == 165944 &&
+                  Bwd<512, 1, 4>::SMEM_DKV == 165944 &&
+                  Bwd<640, 1, 5>::SMEM_DKV == 165944 &&
+                  Bwd<768, 1, 6>::SMEM_DKV == 165944 &&
+                  Bwd<896, 1, 7>::SMEM_DKV == 165944 &&
+                  Bwd<1024, 1, 8>::SMEM_DKV == 165944 &&
+                  Bwd<1024, 1, 8>::SMEM_DQ == 164920,
+              "the hybrid clusters' budget");
+// Xrs's round-1 pools fit the slot: at most 60 of its 64 warp-planes
+static_assert(2 * Xrs<7, NT, 0, 1>::span(0) == 60 &&
+                  2 * Xrs<6, NT, 0, 1>::span(1) == 60 &&
+                  2 * Xrs<5, NT, 0, 1>::span(2) == 56 &&
+                  2 * Xrs<8, NT, 0, 1>::span(0) == 56,
+              "an exchange slot");
 // dh 128 adds warpgroup 1's dk and dv (64 KB) to warpgroup 0's through the
 // tiles' space
 static_assert(Bwd<128, 1>::TILES - ALIGN >= 2 * 64 * 128 * 4, "reduction");
@@ -345,7 +364,7 @@ __device__ __forceinline__ void bwd_body(
                                                    // delta][TILE]
   const uint32_t afull = sRows + (DKV ? 2 * ST * TILE * 4 : 0);
   const uint32_t b0full = afull + 8, b1full = b0full + 8 * ST;
-  const uint32_t xfull = b1full + 8 * ST;   // a cluster's: full, e1, e2
+  const uint32_t xfull = b1full + 8 * ST;   // a cluster's exchange's
 
   // the CTA's rank in its cluster picks its columns, the cluster its rows
   const int rank = CL == 1 ? 0 : static_cast<int>(cluster_ctarank());
@@ -372,8 +391,10 @@ __device__ __forceinline__ void bwd_body(
       mbar_init(b0full + 8 * s, 1);
       mbar_init(b1full + 8 * s, 1);
     }
-    if constexpr (CL > 1) {
+    if constexpr (CL == 2) {
       T4_XCH(CL, NT, xslot, xfull, xc.init())
+    } else if constexpr (CL > 2) {
+      T4_XRS(CL, NT, P::SLOTS, xslot, xfull, xr.init())
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     mbar_expect_tx(afull, 2 * P::R_BYTES);
@@ -446,7 +467,11 @@ __device__ __forceinline__ void bwd_body(
       // ---- a cluster: dp's partial leaves while s2's products run
       wgmma_wait<1>();
       pin(dp);
-      T4_XCH(CL, NT, xslot, xfull, xch_send_dp(xc, dp, it))
+      if constexpr (CL == 2) {
+        T4_XCH(CL, NT, xslot, xfull, xch_send_dp(xc, dp, it))
+      } else {
+        T4_XRS(CL, NT, P::SLOTS, xslot, xfull, xr.send_dp(dp, it))
+      }
     }
     wgmma_wait<0>();
     pin(dp);
@@ -458,8 +483,10 @@ __device__ __forceinline__ void bwd_body(
                             part_rows, next, col0, nullptr, 0);
     }
     // ---- a cluster: s2's partial leaves too, and both are summed
-    if constexpr (CL > 1) {
+    if constexpr (CL == 2) {
       T4_XCH(CL, NT, xslot, xfull, xch_sum_scores(xc, s, dp, it))
+    } else if constexpr (CL > 2) {
+      T4_XRS(CL, NT, P::SLOTS, xslot, xfull, xr.sum(s, dp, it))
     }
 
     // ---- p and ds in place: element 4 jn + 2 i + c is stationary row
@@ -486,6 +513,10 @@ __device__ __forceinline__ void bwd_body(
           s[x] = p;
         }
       }
+    // ---- a cluster of 3 to 8: the sums' places are read
+    if constexpr (CL > 2) {
+      T4_XRS(CL, NT, P::SLOTS, xslot, xfull, xr.read(it, n_it))
+    }
 
     if constexpr (DKV) {
       // ---- dv += p^T dO over its 32 queries
@@ -508,9 +539,10 @@ __device__ __forceinline__ void bwd_body(
                           part_rows, next, col0, lse,
                           sRows + 2 * st * TILE * 4);
   }
-  // ---- a cluster: its peers have read its messages for the last time, so
-  //      no access to this CTA's shared memory is left
-  if constexpr (CL > 1) {
+  // ---- a pair (CL 2): its peer has read its messages for the last time,
+  //      so no access to this CTA's shared memory is left (Xrs leaves none
+  //      after its loop)
+  if constexpr (CL == 2) {
     T4_XCH(CL, NT, xslot, xfull, xc.drain(n_it))
   }
 

@@ -482,6 +482,316 @@ __device__ __forceinline__ void xch_sum_scores(const X& x, float (&s)[16],
     T4_XCH_AT(7, CL, THREADS, SLOT, FULL, stmt)                           \
   }
 
+// ---- the backward's balanced exchange (Xrs) ---------------------------------
+// flash_bwd.cu's K2a and K2b at dh 384 to 1024 (CL 3 to 8) add a tile's
+// partial s2 and dp in two rounds, a reduce-scatter and an all-gather, in
+// place of Xch's tree of pairs (K1 and K3 keep Xch).  A thread's 32 floats
+// are 8 quads (s2's 4, then dp's 4).  Quad q belongs to CTA q mod CL where
+// CL divides 8 (4, 8); otherwise quad q of the threads of warp w of a
+// warpgroup belongs to CTA (q + w) mod CL: each CTA owns 8 / CL of every
+// thread's quads on the whole, the warps staggered so that no CTA owns
+// more than ceil(8 / CL) of a thread's, and every CTA some of each.
+//   round 1: a thread sends each quad it does not own to its owner
+//     (dp's while s2's products run), into the owner's pool: its slot read
+//     as warp-planes (one quad for each lane of a warp), warp w's block
+//     holding its owned quads' CL - 1 partials by source rank.  The owner
+//     adds the CL partials of each quad in cluster_sum's order, ((x0 + x1)
+//     + (x2 + x3)) + ((x4 + x5) + (x6 + x7)), absent ranks dropped: the
+//     bits that every rank of Xch forms.
+//   round 2: the owner sends each summed quad to every peer, at the quad's
+//     own place (plane q of the thread), so every CTA leaves with the 32
+//     sums.
+// Every store is one st.async of 16 bytes and every choice a constant of a
+// copy compiled for each rank (T4_XRS) and, where the owners are
+// staggered, each warp of a warpgroup (one copy for all at CL 4 and 8,
+// which measured faster there); a thread sends 5 to 7 quads in round 1
+// and 6 to 12 in round 2 (at CL 7 the warp that owns two quads sends them
+// to six peers).  Each round's
+// bytes complete a transaction on the receiver's barrier of that round
+// (got1, got2; one phase a tile, every thread expecting its twins' bytes).
+//   SLOTS 2 (the hybrid class, which has the shared memory): round 1 lands
+// in the first slot, round 2 in the second, and no sender ever waits: a
+// thread's round-1 quad of tile it + 1 follows its twin's round-2 quads of
+// tile it, which the twin could only form after reading what this thread
+// sent it in tile it, and this thread sent round 1 of tile it only after
+// reading its round-2 slot of tile it - 1.
+//   SLOTS 1 (the f32 class: 230,968 of 232,448 bytes): both rounds share
+// the slot, so a round-2 sender waits for its targets' round-1 reads (free2)
+// and a round-1 sender for their last round-2 reads (free1, from tile 1
+// on); a reader signals them a warp at a time, lanes 0 .. CL - 2 one
+// arrival each on a peer's barrier, after it has used what it read.  The
+// last tile's round-2 reads are not signalled, and every other message is
+// awaited by its reader, so no CTA touches another's shared memory after
+// its loop: no drain.
+template <int CL, int THREADS, int RK, int SLOTS>
+struct Xrs {
+  static_assert(CL >= 3 && CL <= 8, "a cluster of 3 to 8 CTAs");
+  static_assert(RK >= 0 && RK < CL, "a copy for each rank");
+  static_assert(SLOTS == 1 || SLOTS == 2, "one or two slots");
+  static_assert(THREADS % 128 == 0, "whole warpgroups");
+  static constexpr int NQ = 8;     // a thread's quads: s2's 4, then dp's 4
+  static constexpr int NW = 4;     // the warps of a warpgroup
+  static constexpr uint32_t PLANE = THREADS * 16;   // one quad a thread
+  static constexpr uint32_t WPLANE = 32 * 16;       // one quad a lane
+  static constexpr uint32_t SLOT_BYTES = THREADS * NQ * 16;
+  static constexpr int WARPS = THREADS / 32;
+  static constexpr int NBAR = SLOTS == 1 ? 4 : 2;   // got1, got2, free1, 2
+  // CL divides the 8 quads (4, 8): every warp's quads have the same owners
+  static constexpr bool UNIFORM = NQ % CL == 0;
+  uint32_t slot;   // this thread's place in its own (first) slot
+  uint32_t bar;    // this CTA's barriers: got1, got2 (, free1, free2)
+
+  // ---- the schedule (w: a warp's index in its warpgroup)
+  // the owner of quad q of warp w's threads: staggered by warp unless CL
+  // divides the quads
+  __host__ __device__ static constexpr int owner(int w, int q) {
+    return (q + (UNIFORM ? 0 : w)) % CL;
+  }
+  // the quads of warp w's threads that CTA j owns, and those before q
+  __host__ __device__ static constexpr int owns(int j, int w, int q = NQ) {
+    int n = 0;
+    for (int p = 0; p < q; ++p) n += owner(w, p) == j ? 1 : 0;
+    return n;
+  }
+  // CTA j's round-1 pool, in warp-planes (a quad for each lane of a warp):
+  // warp w's block of its owned quads' CL - 1 partials from warp-plane
+  // first(j, w) on (warpgroup 1's blocks after all of warpgroup 0's)
+  __host__ __device__ static constexpr int first(int j, int w) {
+    int n = 0;
+    for (int v = 0; v < w; ++v) n += (CL - 1) * owns(j, v);
+    return n;
+  }
+  __host__ __device__ static constexpr int span(int j) {
+    return first(j, NW);
+  }
+  // the warp-plane of source s's partial of quad q (owned by j) of warp
+  // w, from the warp's block on
+  __host__ __device__ static constexpr int wplane(int j, int w, int q,
+                                                  int s) {
+    return owns(j, w, q) * (CL - 1) + (s < j ? s : s - 1);
+  }
+  static_assert(WARPS / NW * span(0) <= NQ * THREADS / 32 &&
+                    WARPS / NW * span(CL - 1) <= NQ * THREADS / 32 &&
+                    WARPS / NW * span(CL / 2) <= NQ * THREADS / 32,
+                "a round-1 pool fits its slot");
+  // element i of quad Q (s2's floats 4 Q .. 4 Q + 3, or dp's)
+  template <int Q>
+  __device__ static float at(const float (&s)[16], const float (&dp)[16],
+                             int i) {
+    if constexpr (Q < 4)
+      return s[4 * Q + i];
+    else
+      return dp[4 * Q - 16 + i];
+  }
+  template <int Q>
+  __device__ static void put(float (&s)[16], float (&dp)[16], float4 v) {
+    if constexpr (Q < 4) {
+      s[4 * Q] = v.x, s[4 * Q + 1] = v.y, s[4 * Q + 2] = v.z,
+      s[4 * Q + 3] = v.w;
+    } else {
+      dp[4 * Q - 16] = v.x, dp[4 * Q - 15] = v.y, dp[4 * Q - 14] = v.z,
+      dp[4 * Q - 13] = v.w;
+    }
+  }
+
+  __device__ uint32_t got(int k) const { return bar + 8 * (k - 1); }
+  __device__ uint32_t freed(int k) const { return bar + 8 * (k + 1); }
+  // this thread's place of warp-plane p of its warp's block in CTA j's
+  // pool (the same offset in every CTA; g: its warpgroup, w: its warp in
+  // it, W: the copy's warp, w's owners)
+  template <int W>
+  __device__ uint32_t pool(int j, int p, int g, int w) const {
+    const int block = UNIFORM ? w * (CL - 1) * owns(j, 0) : first(j, W);
+    return slot + static_cast<uint32_t>((g * span(j) + block + p - g * NW -
+                                         w) *
+                                        static_cast<int>(WPLANE));
+  }
+
+  // thread 0, before the cluster barrier that precedes any message
+  __device__ void init() const {
+    mbar_init(got(1), THREADS);
+    mbar_init(got(2), THREADS);
+    if constexpr (SLOTS == 1) {
+      mbar_init(freed(1), WARPS * (CL - 1));
+      mbar_init(freed(2), WARPS * (CL - 1));
+    }
+  }
+  // round 1: quads Q .. Q1 - 1 of warp W's threads to their owners
+  template <int W, int Q, int Q1>
+  __device__ void send1(const float (&s)[16], const float (&dp)[16], int g,
+                        int w) const {
+    if constexpr (Q < Q1) {
+      constexpr int j = owner(W, Q);
+      if constexpr (j != RK)
+        st_async4(cluster_addr(pool<W>(j, wplane(j, W, Q, RK), g, w), j),
+                  at<Q>(s, dp, 0), at<Q>(s, dp, 1), at<Q>(s, dp, 2),
+                  at<Q>(s, dp, 3), cluster_addr(got(1), j));
+      send1<W, Q + 1, Q1>(s, dp, g, w);
+    }
+  }
+  // the owner's sums of its quads from Q on: the CL partials of each, in
+  // cluster_sum's order
+  template <int W, int Q = 0>
+  __device__ void reduce(float (&s)[16], float (&dp)[16], int g,
+                         int w) const {
+    if constexpr (Q < NQ) {
+      if constexpr (owner(W, Q) == RK) {
+        float x[CL][4];
+        gather<W, Q>(x, s, dp, g, w);
+        float4 v;
+        v.x = tree<0, 8>(x, 0);
+        v.y = tree<0, 8>(x, 1);
+        v.z = tree<0, 8>(x, 2);
+        v.w = tree<0, 8>(x, 3);
+        put<Q>(s, dp, v);
+      }
+      reduce<W, Q + 1>(s, dp, g, w);
+    }
+  }
+  template <int W, int Q, int R = 0>
+  __device__ void gather(float (&x)[CL][4], const float (&s)[16],
+                         const float (&dp)[16], int g, int w) const {
+    if constexpr (R < CL) {
+      if constexpr (R == RK) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[R][i] = at<Q>(s, dp, i);
+      } else {
+        const float4 v =
+            ld_shared4(pool<W>(RK, wplane(RK, W, Q, R), g, w));
+        x[R][0] = v.x;
+        x[R][1] = v.y;
+        x[R][2] = v.z;
+        x[R][3] = v.w;
+      }
+      gather<W, Q, R + 1>(x, s, dp, g, w);
+    }
+  }
+  // round 2: each owned quad from Q on to every peer, at its own place
+  template <int W, int Q = 0>
+  __device__ void send2(const float (&s)[16], const float (&dp)[16],
+                        uint32_t off) const {
+    if constexpr (Q < NQ) {
+      if constexpr (owner(W, Q) == RK) {
+#pragma unroll
+        for (int r = 0; r < CL; ++r)
+          if (r != RK)
+            st_async4(cluster_addr(slot + off + Q * PLANE, r),
+                      at<Q>(s, dp, 0), at<Q>(s, dp, 1), at<Q>(s, dp, 2),
+                      at<Q>(s, dp, 3), cluster_addr(got(2), r));
+      }
+      send2<W, Q + 1>(s, dp, off);
+    }
+  }
+  // round 2's sums of the quads it does not own, from Q on
+  template <int W, int Q = 0>
+  __device__ void gather2(float (&s)[16], float (&dp)[16],
+                          uint32_t off) const {
+    if constexpr (Q < NQ) {
+      if constexpr (owner(W, Q) != RK)
+        put<Q>(s, dp, ld_shared4(slot + off + Q * PLANE));
+      gather2<W, Q + 1>(s, dp, off);
+    }
+  }
+
+  // tile it's dp quads leave for their owners (once their slots are
+  // free), while s2's products run
+  template <int W>
+  __device__ void send_dp_w(const float (&dp)[16], int it, int g,
+                            int w) const {
+    if constexpr (SLOTS == 1)
+      if (it > 0) mbar_wait<true>(freed(1), (it - 1) & 1);
+    send1<W, 4, NQ>(dp, dp, g, w);
+  }
+  // then s2's; the owners' sums; the all-gather: s and dp leave with the
+  // sums over all of dh, the same bits in every CTA
+  template <int W>
+  __device__ void sum_w(float (&s)[16], float (&dp)[16], int it, int g,
+                        int w) const {
+    send1<W, 0, 4>(s, dp, g, w);
+    mbar_expect_tx(got(1), (CL - 1) * owns(RK, W) * 16);
+    mbar_wait<true>(got(1), it & 1);
+    reduce<W>(s, dp, g, w);
+    if constexpr (SLOTS == 1) {
+      signal(freed(2));                       // its pool places are read
+      mbar_wait<true>(freed(2), it & 1);      // and so are its targets'
+    }
+    constexpr uint32_t OFF2 = SLOTS == 2 ? SLOT_BYTES : 0;
+    send2<W>(s, dp, OFF2);
+    mbar_expect_tx(got(2), (NQ - owns(RK, W)) * 16);
+    mbar_wait<true>(got(2), it & 1);
+    gather2<W>(s, dp, OFF2);
+  }
+  // a copy for each warp of a warpgroup where its warp picks its quads'
+  // owners, one for all where CL divides the quads
+  __device__ void send_dp(const float (&dp)[16], int it) const {
+    const int w = static_cast<int>(threadIdx.x / 32) % NW;
+    const int g = static_cast<int>(threadIdx.x / 128);
+    if constexpr (UNIFORM) send_dp_w<0>(dp, it, g, w);
+    else if (w == 0) send_dp_w<0>(dp, it, g, w);
+    else if (w == 1) send_dp_w<1>(dp, it, g, w);
+    else if (w == 2) send_dp_w<2>(dp, it, g, w);
+    else send_dp_w<3>(dp, it, g, w);
+  }
+  __device__ void sum(float (&s)[16], float (&dp)[16], int it) const {
+    const int w = static_cast<int>(threadIdx.x / 32) % NW;
+    const int g = static_cast<int>(threadIdx.x / 128);
+    if constexpr (UNIFORM) sum_w<0>(s, dp, it, g, w);
+    else if (w == 0) sum_w<0>(s, dp, it, g, w);
+    else if (w == 1) sum_w<1>(s, dp, it, g, w);
+    else if (w == 2) sum_w<2>(s, dp, it, g, w);
+    else sum_w<3>(s, dp, it, g, w);
+  }
+  // after the caller has used tile it's sums: its round-2 places are read
+  // (one slot: the peers' next round 1 may write; the last tile's go
+  // unsignalled, as nothing follows them)
+  __device__ void read(int it, int n_it) const {
+    if constexpr (SLOTS == 1)
+      if (it + 1 < n_it) signal(freed(1));
+  }
+  // this warp is done with what it read: one arrival on barrier `b` of
+  // each peer, lane i on the i-th
+  __device__ void signal(uint32_t b) const {
+    __syncwarp();
+    const int lane = static_cast<int>(threadIdx.x % 32);
+    if (lane < CL - 1)
+      mbar_arrive_remote(cluster_addr(b, lane < RK ? lane : lane + 1));
+  }
+  // the sum of x[B .. B + H - 1][i] (ranks below CL) as cluster_sum forms it
+  template <int B, int H>
+  __device__ static float tree(const float (&x)[CL][4], int i) {
+    if constexpr (H == 1) {
+      return x[B < CL ? B : 0][i];
+    } else if constexpr (B + H / 2 < CL) {
+      return tree<B, H / 2>(x, i) + tree<B + H / 2, H / 2>(x, i);
+    } else {
+      return tree<B, H / 2>(x, i);
+    }
+  }
+};
+
+// `stmt` with `xr` the CTA's Xrs<CL, THREADS, rank, SLOTS> on (slot, bar):
+// a copy compiled for each rank, picked by the CTA's rank
+#define T4_XRS_AT(R, CL, THREADS, SLOTS, SLOT, BAR, stmt)                 \
+  if constexpr ((R) < (CL)) {                                             \
+    if (t4_rank == (R)) {                                                 \
+      const Xrs<(CL), (THREADS), ((R) < (CL) ? (R) : 0), (SLOTS)> xr{     \
+          SLOT, BAR};                                                     \
+      stmt;                                                               \
+    }                                                                     \
+  }
+#define T4_XRS(CL, THREADS, SLOTS, SLOT, BAR, stmt)                       \
+  {                                                                       \
+    const int t4_rank = static_cast<int>(cluster_ctarank());              \
+    T4_XRS_AT(0, CL, THREADS, SLOTS, SLOT, BAR, stmt)                     \
+    T4_XRS_AT(1, CL, THREADS, SLOTS, SLOT, BAR, stmt)                     \
+    T4_XRS_AT(2, CL, THREADS, SLOTS, SLOT, BAR, stmt)                     \
+    T4_XRS_AT(3, CL, THREADS, SLOTS, SLOT, BAR, stmt)                     \
+    T4_XRS_AT(4, CL, THREADS, SLOTS, SLOT, BAR, stmt)                     \
+    T4_XRS_AT(5, CL, THREADS, SLOTS, SLOT, BAR, stmt)                     \
+    T4_XRS_AT(6, CL, THREADS, SLOTS, SLOT, BAR, stmt)                     \
+    T4_XRS_AT(7, CL, THREADS, SLOTS, SLOT, BAR, stmt)                     \
+  }
+
 // ---- wgmma -----------------------------------------------------------------
 // shared-memory matrix descriptor of a 128-byte-swizzled tile: start
 // address, leading and stride byte offsets (16-byte units), swizzle mode 1

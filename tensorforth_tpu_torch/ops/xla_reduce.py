@@ -313,6 +313,31 @@ def _row_sums(a: np.ndarray) -> np.ndarray:
     return _seq([a])
 
 
+def col_sums_np(a: np.ndarray) -> np.ndarray:
+    """the sums over the first axis of [R, C] (`jnp.sum(x, axis=0)` under
+    `jax.jit`, read from t4_40b's and t4_32a's dumped backward programs:
+    the rewriter's `reduce-window` of 32 rows, padded as `_window` pads,
+    then the `reduce` of the partials fused with the gradient's
+    accumulation; in both each column is summed one row after another
+    from +0, vectorised across columns), with the runtime's DAZ on the
+    inputs and its flush of the result; one row is copied as it is"""
+    a = np.array(a, _F32).reshape(a.shape[0], -1)
+    if a.shape[0] == 1:              # a reduce of one row is a copy
+        return a[0]
+    tiny = np.abs(a) < _F32(_TINY)
+    a[tiny] = np.copysign(_F32(0), a[tiny])
+    while a.shape[0] > _W:
+        r = a.shape[0]
+        k = -(-r // _W)
+        lo = (_W * k - r) // 2
+        p = np.pad(a, ((lo, _W * k - r - lo), (0, 0))).reshape(k, _W, -1)
+        a = _seq([np.ascontiguousarray(p.transpose(0, 2, 1))])
+    out = _seq([np.ascontiguousarray(a.T)])
+    tiny = np.abs(out) < _F32(_TINY)
+    out[tiny] = np.copysign(_F32(0), out[tiny])
+    return out
+
+
 class _RowSum(torch.autograd.Function):
     """the replayed row sums, with a sum's gradient"""
 
@@ -333,6 +358,14 @@ def row_sum(x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cpu":
         return x.sum(dim=-1, keepdim=True)
     return _RowSum.apply(x)
+
+
+def col_sum(x: torch.Tensor) -> torch.Tensor:
+    """x.sum(dim=0) of a 2-D f32 tensor: XLA CPU's order on a CPU tensor
+    (col_sums_np), torch's on the card"""
+    if x.device.type != "cpu":
+        return x.sum(dim=0)
+    return torch.from_numpy(col_sums_np(_host(x)))
 
 
 def _host(v: torch.Tensor) -> np.ndarray:

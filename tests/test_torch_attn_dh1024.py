@@ -119,9 +119,11 @@ def test_cluster_order_matches_the_pallas_kernels(dh, hybrid, causal):
 def test_plans_take_the_cluster_route_the_source_builds(dh, hybrid):
     """both classes at dh 640 to 1024: the backward on a cluster of dh /
     128 CTAs (5 to 8, a portable cluster's most), each with the dh-128
-    tiles of its class over its 128 columns, the 32 KB exchange slot and
-    four exchange barriers (`full` and one a round of three); the f32
-    class's forward the same; the hybrid forward on the wide route's pair
+    tiles of its class over its 128 columns and Xrs's exchange (the f32
+    class one 32 KB slot and four barriers: the two rounds' receipts and
+    reads; the hybrid class two slots and the two receipts); the f32
+    class's forward on the same cluster (Xch: `full` and one barrier a
+    round of three); the hybrid forward on the wide route's pair
     of CTAs (four warpgroups each, tests/test_torch_fwd_wide_bf16.py);
     each route's shared memory is the source's static_assert, under 227
     KB; the grid is cluster x B*h x S / rows CTAs; the C entries take the
@@ -135,7 +137,7 @@ def test_plans_take_the_cluster_route_the_source_builds(dh, hybrid):
     assert bwd.dq.tile == 64 and bwd.dq.ctas == cl * 16 * 2048 // 64
     assert max(fwd.smem, bwd.dkv.smem) <= gemm.SM90_SMEM_LIMIT
     assert (bwd.dq.smem, bwd.dkv.smem) == {3: (230456, 230968),
-                                           1: (132168, 133192)}[parts]
+                                           1: (164920, 165944)}[parts]
     assert (f"Bwd<{dh}, {parts}, {cl}>::SMEM_DKV == {bwd.dkv.smem}"
             in _source("flash_bwd.cu"))
     src = _source("flash_bwd.cu")

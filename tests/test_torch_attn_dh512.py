@@ -183,8 +183,9 @@ def _source(name):
 def test_plans_take_the_cluster_route_the_source_builds(dh, hybrid):
     """both classes at dh 384 and 512: the backward on a cluster of dh /
     128 CTAs, each with the dh-128 tiles of its class over its 128
-    columns, the 32 KB exchange slot and three exchange barriers; the
-    f32 class's forward the same; the hybrid forward on the wide route
+    columns and Xrs's exchange (the f32 class one 32 KB slot and four
+    barriers, the hybrid class two slots and two barriers); the f32
+    class's forward on the same cluster; the hybrid forward on the wide route
     (one CTA of dh / 128 warpgroups, tests/test_torch_fwd_wide_bf16.py);
     each route's shared memory is the source's static_assert, under 227
     KB; the grid is cluster x B*h x S / rows CTAs"""
@@ -195,8 +196,8 @@ def test_plans_take_the_cluster_route_the_source_builds(dh, hybrid):
     assert attn.fwd_cluster(dh) == attn.bwd_cluster(dh, hybrid) == cl
     assert bwd.dq.tile == 64 and bwd.dq.ctas == cl * 16 * 2048 // 64
     assert max(fwd.smem, bwd.dkv.smem) <= gemm.SM90_SMEM_LIMIT
-    assert (bwd.dq.smem, bwd.dkv.smem) == {3: (230448, 230960),
-                                           1: (132160, 133184)}[parts]
+    assert (bwd.dq.smem, bwd.dkv.smem) == {3: (230456, 230968),
+                                           1: (164920, 165944)}[parts]
     src = _source("flash_bwd.cu")
     assert f"Bwd<{dh}, {parts}, {cl}>::SMEM_DKV == {bwd.dkv.smem}" in src
     for kernel in ("DKV", "DQ"):

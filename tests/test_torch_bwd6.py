@@ -163,11 +163,12 @@ def test_split_ref_takes_the_products_of_the_parts():
 def test_bwd_plan_fits_an_sm_and_matches_the_source(dh, hybrid):
     """both kernels' plans stay under 227 KB a CTA and follow flash_bwd.cu's
     Bwd; dh 256 in the f32 class takes a cluster of two CTAs that split
-    dh, each with the dh-128 f32 tiles, the exchange slots and their two
+    dh, each with the dh-128 f32 tiles, the exchange slot and its two
     barriers (1,024 + 196,608 + 32,768 + 512 + 40 = 230,952 bytes for
     dK/dV); dh 384 to 1024, both classes, clusters of dh / 128 CTAs with
-    the dh-128 tiles of the class and an exchange barrier a round of the
-    cluster's sum (two rounds at 3 and 4 CTAs, three at 5 to 8)"""
+    the dh-128 tiles of the class and Xrs's exchange: the f32 class one
+    slot and four barriers (two rounds' receipts and reads), the hybrid
+    class two slots and the two receipts"""
     plan = attn.bwd_plan(64, 2048, dh, hybrid)
     with open(os.path.join(CSRC, "flash_bwd.cu")) as f:
         src = f.read()
@@ -179,7 +180,8 @@ def test_bwd_plan_fits_an_sm_and_matches_the_source(dh, hybrid):
     assert plan.dq.cluster == plan.dkv.cluster == cluster
     assert "ROWS = 64" in src and "TILE = DC == 128 ? 64 : 32" in src
     assert "DC = D / CL" in src and "ST = NP == 1 ? 2 : 1" in src
-    assert "XCH = CL > 1 ? NT * 32 * 4 : 0" in src
+    assert "XCH = CL > 1 ? SLOTS * NT * 32 * 4 : 0" in src
+    assert "SLOTS = CL <= 2 ? 1 : NP == 1 ? 2 : 1" in src
     assert attn.BWD_EXCHANGE == 256 * 32 * 4 == 32768
     assert attn.BWD_TILES == {128: 64, 256: 32}
     assert attn.BWD_STAGES == {3: 1, 1: 2}
@@ -187,14 +189,16 @@ def test_bwd_plan_fits_an_sm_and_matches_the_source(dh, hybrid):
     p, st, tile = plan.parts, plan.dq.stages, plan.dq.tile
     assert tile == (64 if cols == 128 else 32)
     tiles = 2 * p * 64 * cols * 2 + 2 * st * p * tile * cols * 2
-    xch = 32768 if cluster > 1 else 0
-    bars = 1 + 2 * st + {1: 0, 2: 2}.get(cluster, 3 if cluster <= 4 else 4)
+    slots = 2 if hybrid and cluster > 2 else 1
+    xch = slots * 32768 if cluster > 1 else 0
+    bars = 1 + 2 * st + {1: 0, 2: 2}.get(cluster, 4 if slots == 1 else 2)
     assert plan.dq.smem == 1024 + tiles + xch + bars * 8
     assert plan.dkv.smem == plan.dq.smem + 2 * st * tile * 4
     assert plan.dkv._replace(smem=0) == plan.dq._replace(smem=0)
     assert plan.dq.ctas == cluster * 64 * 2048 // 64
-    assert ("NBAR =\n      1 + 2 * ST + (CL == 1 ? 0 : 1 + Xch<CL, NT, 0>::"
-            "ROUNDS)") in src
+    assert ("(CL == 1   ? 0\n       : CL == 2 ? 1 + Xch<2, NT>::ROUNDS\n"
+            "                 : Xrs<CL < 3 ? 3 : CL, NT, 0, SLOTS>::NBAR)"
+            ) in src
     if cluster == 2:
         assert plan.dkv.smem == 230952
         assert "Bwd<256, 3, 2>::SMEM_DKV == 230952" in src

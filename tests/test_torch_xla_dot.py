@@ -18,7 +18,7 @@ import jax.numpy as jnp
 from hypothesis import HealthCheck, given, settings, strategies as st
 
 from tensorforth_tpu_torch.nn import funcs
-from tensorforth_tpu_torch.ops import xla_dot
+from tensorforth_tpu_torch.ops import xla_dot, xla_reduce
 
 from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
@@ -276,6 +276,36 @@ def test_linear_layers_take_the_replay_on_the_cpu():
     ah, bh = funcs._bf16(x), funcs._bf16(w.T)
     assert torch.equal(funcs.class_dot(funcs._linear_mm, x, w.T, "fast"),
                        replay(ah, bh))
+
+
+# the bias gradients' column sums of t4_40b's backward (N 256: D's 512,
+# 256 and 1 features, G's 256, 512, 784) and t4_32a's (N 64: 5, 3, 1, 2),
+# rows padded into windows (100), two rounds of windows (2000), one row
+COL_SUMS = [(256, 512), (256, 256), (256, 1), (256, 784), (64, 5), (64, 3),
+            (64, 1), (64, 2), (100, 7), (2000, 33), (1, 5)]
+
+
+@pytest.mark.parametrize("r,c", COL_SUMS, ids=str)
+def test_bias_column_sums_match_the_programs_reduce(r, c):
+    """jnp.sum(dy, axis=0) under jax.jit, alone and fused with the
+    gradient's accumulation as the backward fuses it (db + the sum: the
+    rewriter's reduce-windows of 32 rows, then the partials, each column
+    one row after another from +0, read from t4_40b's and t4_32a's dumped
+    programs): xla_reduce.col_sum's bits, on values of mixed magnitude
+    (subnormals among them); at t4_40b's widths torch's sum is not the
+    same bits"""
+    rs = np.random.RandomState(r + c)
+    dy = (rs.randn(r, c) * rs.choice([1.0, 1e3, 1e-3, 1e-39],
+                                     size=(r, c))).astype(np.float32)
+    db = rs.randn(c).astype(np.float32)
+    got = xla_reduce.col_sum(torch.from_numpy(dy))
+    assert np.array_equal(got.numpy(),
+                          np.asarray(jax.jit(lambda x: jnp.sum(x, 0))(dy)))
+    fused = jax.jit(lambda b, x: b + jnp.sum(x, axis=0))(db, dy)
+    assert np.array_equal((torch.from_numpy(db) + got).numpy(),
+                          np.asarray(fused))
+    if (r, c) in ((256, 512), (256, 256)):
+        assert not torch.equal(got, torch.from_numpy(dy).sum(dim=0))
 
 
 def test_the_replay_stands_down_off_the_probed_host(monkeypatch):
