@@ -1476,7 +1476,8 @@ def phase_kernel_wide(seed: int, bh=WIDE_BH, s=WIDE_S, cases=WIDE_CASES):
         # the exchange of the partial scores, each kernel's registers and
         # spills, and the gradients' bits (two trees held against each
         # other: the same SHA-1s where the kernels kept their bits)
-        row["bwd_exchange"] = bwd_exchange(bplan.dq.cluster, hybrid)
+        row["bwd_exchange"] = exchange("k2", bplan.dq.cluster, hybrid)
+        row["fwd_exchange"] = exchange("k1", fplan.cluster, hybrid)
         row["bwd_ptxas"] = {
             w: dict(ptxas_record("flash_bwd", kern), kernel=kern)
             for w, kern in ((w, f"flash_bwd_{w}_sm90_kernel<{dh},"
@@ -1608,20 +1609,31 @@ def phase_kernel_wide(seed: int, bh=WIDE_BH, s=WIDE_S, cases=WIDE_CASES):
     return entries
 
 
-def bwd_exchange(cluster: int, hybrid: bool) -> dict:
-    """how a backward route's CTAs add their partial scores: none (one
-    CTA), Xch's one round (a pair), Xrs's reduce-scatter and all-gather
-    at 3 to 8 CTAs, with the most 16-byte stores a thread makes in a
-    round (ops.attn's model of the schedule)"""
+def exchange(kernel: str, cluster: int, hybrid: bool) -> dict:
+    """how a route's CTAs add their partial scores (kernel "k1", "k2" or
+    "k3"): none (one CTA), Xch's one message (a pair), the wide route's
+    warpgroups in the CTA's shared memory (K1's hybrid class), Xrs's
+    reduce-scatter and all-gather at 3 to 8 CTAs, with the most 16-byte
+    stores a thread makes in each round, its slots and (K3) where ds^T's
+    parts live (ops.attn's model of the schedule)"""
     from tensorforth_tpu_torch.ops import attn
+    if kernel == "k1" and hybrid:
+        return {"kind": "wide", "rounds": 1 if cluster == 2 else 0}
     if cluster < 3:
         return {"kind": "xch" if cluster == 2 else "none",
                 "rounds": cluster - 1}
-    stores = max(len(attn.xrs_messages(cluster, r, 0, w, k))
-                 for r in range(cluster) for w in range(attn.XRS_WARPS)
-                 for k in (1, 2))
-    return {"kind": "xrs", "rounds": 2, "slots": attn.xrs_slots(hybrid),
-            "most_stores_a_thread_a_round": stores}
+    by_round = {k: max(len(attn.xrs_messages(cluster, r, 0, w, k))
+                       for r in range(cluster)
+                       for w in range(attn.XRS_WARPS)) for k in (1, 2)}
+    slots = attn.xrs_slots(hybrid)
+    out = {"kind": "xrs", "rounds": 2, "slots": slots,
+           "barriers": attn.exchange_barriers(cluster, slots),
+           "most_stores_a_thread_a_round": max(by_round.values()),
+           "most_stores_a_thread_by_round": by_round}
+    if kernel == "k3":
+        out["ds_home"] = ("its own place after the two slots" if slots == 2
+                          else "the slot, read() after the dq products")
+    return out
 
 
 def sha1_of(*tensors) -> str:
@@ -1745,9 +1757,14 @@ def wide_probes(seed: int, small=WIDE_PROBE_SMALL, timed_dh=WIDE_PROBE_TIMED,
             cast = (lambda x: x.to(torch.bfloat16)) if hybrid else (
                 lambda x: x)
             tag = f"{'hybrid' if hybrid else 'f32'}_dh{dh}"
+            kern = (f"fused_{'hybrid' if hybrid else 'f32'}_sm90_kernel"
+                    f"<{plan.cluster}>")
             ent = {
                 "shape": [bh, s, dh], "causal": True, "bq": bq,
                 "route": bwd_route(parts, plan.cluster),
+                "exchange": exchange("k3", plan.cluster, hybrid),
+                "ptxas": dict(ptxas_record("flash_bwd_fused", kern),
+                              kernel=kern),
                 "grid": {"ctas": plan.ctas, "kv_tiles_per_cta": plan.chunk,
                          "dq_partials": plan.n_slots, "smem": plan.smem,
                          "cluster": plan.cluster},

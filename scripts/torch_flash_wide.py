@@ -1,6 +1,6 @@
 """Time the flash kernels K1, K2a and K2b in the f32 class, and K1 and K8
-in the bf16 class, over head dims 128 to 1024, on the card, in the tree it
-is run from.
+in the bf16 class, over head dims 128 to 1024, and K3 over 384 to 1024 in
+both classes, on the card, in the tree it is run from.
 
 Run from the root of a checkout:
 
@@ -18,7 +18,12 @@ probe), each with its SHA-1 and clusters; K2a and K2b of the hybrid
 class alone on the same casts (causal), with their SHA-1s; and K2a + K2b
 of the f32 class with delta and their split (the wrapper's whole
 backward) beside PyTorch's scaled_dot_product_attention f32 backward
-through a 4-d call on the same inputs.  A head dim the tree's
+through a 4-d call on the same inputs; K1 f32 with its split (the
+wrapper's whole forward) beside SDPA's f32 forward through a 4-d call;
+and at dh 384 to 1024 the fused backward K3 in both classes with its
+split, delta and sums (the wrapper's whole call, causal, on the class's
+own forward's o and lse), with its SHA-1, beside K2a + K2b's whole
+backward in the same class.  A head dim the tree's
 kernels do not take (ops.attn.KERNEL_DH) is skipped, so one call to the
 card can hold two trees against each other in turns (parent, change,
 change, parent): copy this script into the parent's tree, so both draw
@@ -67,6 +72,21 @@ def _bf16_cases(row, q, k, v, reps):
         "cluster", "bq", "bkv", "smem", "ctas") if hasattr(plan, key)}
 
 
+def _fused_case(row, tag, q, k, v, o, lse, do, hybrid, reps):
+    """K3 with its split, delta and sums (causal, chip_smoke's Q block)
+    and K2a + K2b's whole backward in the class, on the class's o and
+    lse, with K3's output bits, into row"""
+    import chip_smoke as cs
+    from tensorforth_tpu_torch.ops import attn
+    bq = attn._fused_bq("chip_smoke", q.shape[1], None)
+    call = (q, k, v, o, lse, do, bq, True, hybrid, None)
+    row[tag + "k3_ms"] = cs.time_ms(
+        lambda: attn.flash_attention_bwd_fused(*call), reps=reps)
+    row[tag + "k3_sha1"] = _sha1(attn.flash_attention_bwd_fused(*call))
+    row[tag + "k2_whole_ms"] = cs.time_ms(lambda: attn.flash_attention_bwd(
+        q, k, v, o, lse, do, True, hybrid), reps=reps)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tag", default="")
@@ -110,6 +130,13 @@ def main(argv=None) -> int:
             q, k, v, o, lse, do, True, False), reps=args.reps)
         row["sdpa_bwd_f32_4d_ms"] = cs.time_ms(cs.sdpa_grads(
             q[None], k[None], v[None], do[None], True), reps=args.reps)
+        row["fwd_f32_ms"] = cs.time_ms(lambda: attn.flash_attention(
+            q, k, v, causal=True), reps=args.reps)
+        row["sdpa_fwd_f32_4d_ms"] = cs.time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q[None], k[None], v[None], is_causal=True), reps=args.reps)
+        if dh > 256:
+            _fused_case(row, "", q, k, v, o, lse, do, False, args.reps)
         # the hybrid class's K2a and K2b alone, on its forward's o and lse
         oh, lh = attn.flash_attention(q, k, v, causal=True, hybrid=True)
         prep = attn._prepare_bwd(q, k, v, oh, lh, do, True, True, None)
@@ -118,6 +145,8 @@ def main(argv=None) -> int:
                 lambda: attn._launch_bwd(which, *prep), reps=args.reps)
             row["hybrid_" + which + "_sha1"] = _sha1(
                 attn._launch_bwd(which, *prep))
+        if dh > 256:
+            _fused_case(row, "hybrid_", q, k, v, oh, lh, do, True, args.reps)
         out["cases"].append(row)
         del prep, q, k, v, do, o, lse, oh, lh
         torch.cuda.empty_cache()

@@ -12,9 +12,10 @@ v split by one launch of the same source, ``_split_qkv``; p in registers),
 in the hybrid class as one product of the wrapper's casts.  At dh 384 to
 1024 the f32 class runs on a cluster of dh / 128 CTAs (3 to 8) that
 splits dh: each holds the dh-128 tiles over its 128 columns, and the CTAs
-add their partial scores through distributed shared memory in a fixed
-tree of pairs (``cluster_sum``), so that each runs the same softmax on
-the same bits.  The hybrid class there takes the wide route: the
+add their partial scores through distributed shared memory, each quad's
+owner in the order of a fixed tree of pairs (``cluster_sum``; the
+exchange's model is ``xrs_*``), so that each runs the same softmax on the
+same bits.  The hybrid class there takes the wide route: the
 warpgroups of one CTA split dh (128 columns each, ``wide_blocks``; a pair
 of CTAs past dh 512), their partial scores added in the CTA's shared
 memory in ``cluster_sum``'s order, so its scores are the cluster route's
@@ -130,7 +131,8 @@ def _einsum(x, y, eq):
 
 def cluster_sum(parts, rank: int = 0):
     """the sum of a cluster's partials (one tensor per CTA, in rank order)
-    as CTA `rank` forms it (csrc/sm90_gemm.cuh: Xch): a tree of pairs.
+    in the order every cluster route keeps (csrc/sm90_gemm.cuh: Xch's
+    pair, Xrs's owners): a tree of pairs, as CTA `rank` would form it.
     Round k (h = 2^(k-1)) adds to the sum over the CTA's block of h ranks
     the sum over the block beside it (ranks (rank ^ h) & ~(h - 1) on, those
     below the cluster's size), as that block formed it; a block with no
@@ -201,21 +203,11 @@ def flash_attention_split_ref(q, k, v, causal: bool = False,
     return o, ((m + torch.log2(l)) * LN2)[..., 0]
 
 
-# --- the forward kernel's tile plan -----------------------------------------
-def xch_rounds(cluster: int) -> int:
-    """the rounds of cluster_sum's tree at `cluster` CTAs (Xch::ROUNDS)"""
-    return (cluster - 1).bit_length()
-
-
-def xch_barriers(cluster: int) -> int:
-    """a cluster route's exchange barriers: `full` and one a round"""
-    return 1 + xch_rounds(cluster) if cluster > 1 else 0
-
-
-# --- the backward's balanced exchange (csrc/sm90_gemm.cuh: Xrs) -------------
-# K2a and K2b at 3 to 8 CTAs add a tile's partial scores in two rounds, a
-# reduce-scatter and an all-gather.  A thread's 32 floats are 8 quads
-# (s2's 4, then dp's 4); quad q belongs to CTA q mod cluster where the
+# --- the clusters' balanced exchange (csrc/sm90_gemm.cuh: Xrs) -------------
+# K1 (the f32 class), K2a, K2b and K3 at 3 to 8 CTAs add a tile's partial
+# scores in two rounds, a reduce-scatter and an all-gather.  A thread's 32
+# floats are 8 quads (s2's 4, then dp's 4; K1's s2's 8); quad q belongs
+# to CTA q mod cluster where the
 # cluster divides 8, else quad q of the threads of warp w of a warpgroup
 # to CTA (q + w) mod cluster.  Round 1 sends each quad to its
 # owner's pool: the slot read as warp-planes (a quad for each of a warp's
@@ -273,8 +265,7 @@ def xrs_messages(cluster: int, rank: int, g: int, w: int, rnd: int) -> list:
 def xrs_sum(parts):
     """an owner's sum of a quad's partials (one a rank, rank order):
     cluster_sum's tree, ((x0 + x1) + (x2 + x3)) + ((x4 + x5) + (x6 + x7)),
-    a block with no rank dropped: the bits every rank of the tree of pairs
-    forms"""
+    a block with no rank dropped: cluster_sum's bits"""
     cl = len(parts)
 
     def block(b, h):
@@ -296,6 +287,12 @@ def xrs_barriers(slots: int) -> int:
     """Xrs's barriers: a round's receipt each, and with one slot a round's
     reads each"""
     return 4 if slots == 1 else 2
+
+
+def exchange_barriers(cluster: int, slots: int = 1) -> int:
+    """a route's exchange barriers: none on one CTA, Xch's `full` and
+    `empty` on a pair (dh 256), Xrs's (xrs_barriers) on 3 to 8 CTAs"""
+    return 0 if cluster == 1 else 2 if cluster == 2 else xrs_barriers(slots)
 
 
 
@@ -363,7 +360,7 @@ def fwd_plan(bh: int, s: int, dh: int, hybrid: bool) -> FwdPlan:
     [bq, dh / cluster] stay for the CTA, K's and V's [bkv, dh / cluster]
     stream in `stages` each, 1024 bytes of alignment slack, an 8-byte
     barrier for Q and for each stage of K and of V; on a cluster route the
-    exchange slot and its barriers (one, and one a round of the sum).  The
+    exchange slot and Xrs's four barriers (one slot).  The
     wide route (fwd_wide): Q [64, 128 w] for w warpgroups (dh / 128 to
     512, four a CTA of the pair past it), two stages of K [32, 128 w] and
     two of V (one in a pair), a slot of partial s2 a warpgroup, and in a
@@ -389,7 +386,7 @@ def fwd_plan(bh: int, s: int, dh: int, hybrid: bool) -> FwdPlan:
     smem = (SM90_ALIGN + parts * bq * cols * 2
             + 2 * stages * parts * bkv * cols * 2
             + (FWD_EXCHANGE if cluster > 1 else 0)
-            + (1 + 2 * stages + xch_barriers(cluster)) * 8)
+            + (1 + 2 * stages + exchange_barriers(cluster)) * 8)
     return FwdPlan(parts, bq, bkv, stages, smem,
                    cluster * bh * -(-s // bq), cluster, 2, stages, blocks)
 
@@ -756,8 +753,8 @@ def bwd_plan(bh: int, s: int, dh: int, hybrid: bool) -> BwdPlan:
     route is picked by dh and the class alone (bwd_cluster): on a cluster
     route the CTAs split dh, each with the dh-128 tiles of the class, an
     exchange slot that receives a peer's partial scores and the slot's
-    barriers: a pair (dh 256) sums in Xch's one round (`full` and one
-    more barrier); 3 to 8 CTAs sum in Xrs's two balanced rounds, with one
+    barriers: a pair (dh 256) sums in Xch's one message (`full` and
+    `empty`); 3 to 8 CTAs sum in Xrs's two balanced rounds, with one
     slot and four barriers in the f32 class, two slots and two barriers in
     the hybrid class."""
     parts = 1 if hybrid else 3
@@ -765,7 +762,7 @@ def bwd_plan(bh: int, s: int, dh: int, hybrid: bool) -> BwdPlan:
     cols = dh // cluster
     tile, stages = BWD_TILES[cols], BWD_STAGES[parts]
     slots = xrs_slots(hybrid) if cluster > 2 else 1
-    xbar = (xrs_barriers(slots) if cluster > 2 else xch_barriers(cluster))
+    xbar = exchange_barriers(cluster, slots)
     smem = (SM90_ALIGN + 2 * parts * BWD_ROWS * cols * 2
             + 2 * stages * parts * tile * cols * 2
             + (slots * BWD_EXCHANGE if cluster > 1 else 0)
@@ -948,7 +945,8 @@ def flash_attention_bwd_fused_parts_ref(q, k, v, o, lse, do, bq=None,
 FUSED_KV_TILE = {(hy, dh): 128 if hy and dh == 128 else 64
                  for hy in (True, False) for dh in KERNEL_DH}
 # a cluster's exchange slot (csrc/flash_bwd_fused.cu: F6::XCH): each of a
-# CTA's 256 threads' partial s2 and dp, 32 f32; ds^T's parts live in it
+# CTA's 256 threads' partial s2 and dp, 32 f32; with one slot ds^T's parts
+# live in it
 FUSED_EXCHANGE = 256 * 32 * 4
 # warpgroup 1's dk and dv [64, 128] f32 pass to warpgroup 0 through K's and
 # V's space in the split body (F6::RED), which is at least their size
@@ -978,14 +976,20 @@ def fused_smem(dh: int, parts: int) -> int:
     hybrid class at dh 384 to 1024): the parts of K and V (at least the
     FUSED_REDUCTION bytes that pass through their space), Q and dO (64 rows
     of the CTA's 128 columns each), of ds^T [64, 64], lse and delta of a Q
-    tile, three barriers; on a cluster ds^T's parts live in the exchange
-    slot, guarded by its barriers (`full` and one a round)."""
+    tile, three barriers; on a cluster the exchange's slots and barriers
+    (exchange_barriers): in the f32 class one slot, in which ds^T's parts
+    live once its last round is read, in the hybrid class at 3 to 8 CTAs
+    two slots (xrs_slots) and ds^T's part beside them."""
     cluster = fused_cluster(dh, parts == 1)
     if parts == 3 or cluster > 1:
         tile = parts * TILE * 128 * 2
+        slots = xrs_slots(parts == 1) if cluster > 2 else 1
+        ds = parts * TILE * TILE * 2
+        exchange = slots * FUSED_EXCHANGE if cluster > 1 else 0
         return (SM90_ALIGN + max(2 * tile, FUSED_REDUCTION) + 2 * tile
-                + (FUSED_EXCHANGE if cluster > 1 else parts * TILE * TILE * 2)
-                + 2 * TILE * 4 + (3 + xch_barriers(cluster)) * 8)
+                + (exchange if slots == 1 and cluster > 1 else exchange + ds)
+                + 2 * TILE * 4
+                + (3 + exchange_barriers(cluster, slots)) * 8)
     bkv, stages = FUSED_KV_TILE[(True, dh)], (3 if dh == 128 else 2)
     return (SM90_ALIGN + 2 * bkv * dh * 2 + 2 * bkv * TILE * 2
             + stages * (2 * TILE * dh * 2 + SM90_ALIGN) + (stages + 1) * 8)

@@ -102,7 +102,7 @@
 // peer's partial of its quads and adds the CL partials in cluster_sum's
 // order, ((x0 + x1) + (x2 + x3)) + ((x4 + x5) + (x6 + x7)), absent ranks
 // dropped) and an all-gather of the owners' sums, so p and ds are the same
-// bits in every CTA, and the bits the tree of pairs formed.  Every store is a 16-byte st.async.  The f32 class
+// bits in every CTA.  Every store is a 16-byte st.async.  The f32 class
 // has ONE 32 KB SLOT beside its tiles, so a round's sender waits for the
 // reads of the last round that used its targets' slots; the hybrid class
 // has two, one a round, and no sender waits.  The gradient products then
@@ -157,18 +157,18 @@ struct Bwd {
   static constexpr int T_BYTES = NP * T_PART;        // a streamed stage
   static constexpr int ROWS_WG = DC == 128 ? 32 : 0; // streamed rows' offset
   static constexpr int COLS_WG = DC == 128 ? 0 : 128;// output columns' offset
-  // a cluster's exchange: Xch's tree of pairs at CL 2, Xrs's two balanced
+  // a cluster's exchange: Xch's pair at CL 2, Xrs's two balanced
   // rounds at CL 3 to 8, in SLOTS slots of 32 floats for each thread (two
   // in the hybrid class, which has the room: no sender waits)
   static constexpr int SLOTS = CL <= 2 ? 1 : NP == 1 ? 2 : 1;
   static constexpr int XCH = CL > 1 ? SLOTS * NT * 32 * 4 : 0;
   // barriers: the stationary operands', each stage's of each streamed
-  // operand, and a cluster's of the exchange (Xch: full, and one a round;
+  // operand, and a cluster's of the exchange (Xch: full and empty;
   // Xrs: a round's receipt each, and with one slot a round's reads each)
   static constexpr int NBAR =
       1 + 2 * ST +
       (CL == 1   ? 0
-       : CL == 2 ? 1 + Xch<2, NT>::ROUNDS
+       : CL == 2 ? Xch<NT>::NBAR
                  : Xrs<CL < 3 ? 3 : CL, NT, 0, SLOTS>::NBAR);
   // both stationary operands, ST stages of both streamed ones, the exchange
   // slots, (dK/dV) the streamed rows' lse and delta of each stage, then the
@@ -392,7 +392,7 @@ __device__ __forceinline__ void bwd_body(
       mbar_init(b1full + 8 * s, 1);
     }
     if constexpr (CL == 2) {
-      T4_XCH(CL, NT, xslot, xfull, xc.init())
+      Xch<NT>{xslot, xfull}.init();
     } else if constexpr (CL > 2) {
       T4_XRS(CL, NT, P::SLOTS, xslot, xfull, xr.init())
     }
@@ -468,7 +468,7 @@ __device__ __forceinline__ void bwd_body(
       wgmma_wait<1>();
       pin(dp);
       if constexpr (CL == 2) {
-        T4_XCH(CL, NT, xslot, xfull, xch_send_dp(xc, dp, it))
+        xch_send_dp(Xch<NT>{xslot, xfull}, dp, it);
       } else {
         T4_XRS(CL, NT, P::SLOTS, xslot, xfull, xr.send_dp(dp, it))
       }
@@ -484,7 +484,7 @@ __device__ __forceinline__ void bwd_body(
     }
     // ---- a cluster: s2's partial leaves too, and both are summed
     if constexpr (CL == 2) {
-      T4_XCH(CL, NT, xslot, xfull, xch_sum_scores(xc, s, dp, it))
+      xch_sum_scores(Xch<NT>{xslot, xfull}, s, dp, it);
     } else if constexpr (CL > 2) {
       T4_XRS(CL, NT, P::SLOTS, xslot, xfull, xr.sum(s, dp, it))
     }
@@ -543,7 +543,7 @@ __device__ __forceinline__ void bwd_body(
   //      so no access to this CTA's shared memory is left (Xrs leaves none
   //      after its loop)
   if constexpr (CL == 2) {
-    T4_XCH(CL, NT, xslot, xfull, xc.drain(n_it))
+    Xch<NT>{xslot, xfull}.drain(n_it);
   }
 
   // ---- 128 columns a CTA: warpgroup 1's sums to warpgroup 0 through the

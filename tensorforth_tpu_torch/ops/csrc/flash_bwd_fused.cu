@@ -113,16 +113,18 @@
 // CTA holds the dh-128 tiles of its class over its 128 columns (the hybrid
 // class one part of each, K's and V's space kept at the 64 KB that
 // warpgroup 1's dk and dv pass through), and the partial s2 and dp are
-// summed through sm90_gemm.cuh's Xch, the tree of pairs of K2a and K2b (two
-// rounds at CL 3 and 4, three at 5 to 8), so p and ds are the same bits in
-// every CTA.  The one 32 KB slot takes each round's message in turn, then
-// ds^T's parts: a CTA writes them once every thread has added the last
-// round's message (the pair's barrier before the stores), and marks that
-// message read (Xch::read, which lets its writer send the next pair's
-// first round) only once its dq products are done.  The f32 class's
-// budget is the dh-256 route's and an exchange barrier a round: 230,960
-// bytes at CL 3 and 4, 230,968 at 5 to 8; the hybrid class's 132,656 and
-// 132,664.  At CL 2 the exchange is Xch's one round, as it was.
+// summed through sm90_gemm.cuh's Xrs, the two balanced rounds of K2a and
+// K2b (a reduce-scatter of each thread's 8 quads to their owners, which
+// add the CL partials in cluster_sum's order, then an all-gather of the
+// sums), so p and ds are the same bits in every CTA.  The f32 class has
+// one 32 KB slot, which takes both rounds in turn, then ds^T's parts: a
+// CTA writes them once every thread has read round 2 (the pair's barrier
+// before the stores), and signals that read (Xrs::read, which lets its
+// peers send the next pair's round 1) only once its dq products, the last
+// readers of ds^T, are done: the dh-256 route's budget with two barriers
+// more, 230,968 bytes.  The hybrid class has the room for two slots (one
+// a round: no sender waits) and ds^T's part in a place of its own:
+// 173,608 bytes.  At CL 2 the exchange is Xch's pair.
 // ops/attn.py:fused_plan picks the route from dh and the class, and counts
 // a cluster of CL SMs a slot.
 
@@ -566,33 +568,45 @@ struct F6 {
   // and V's space, which is at least their size (NP 1: K and V leave room)
   static constexpr int RED = 2 * 64 * 128 * 4;
   static constexpr int KV = 2 * TILE > RED ? 2 * TILE : RED;
-  // a cluster's exchange slot: each thread's twin's partial s2 and dp, 32
-  // floats; ds^T's parts live in it once the last round is read
-  static constexpr int XCH = HT * 32 * 4;
-  static constexpr int DS = CL > 1 ? XCH : NP * DS_PART;   // ds^T's region
-  // the exchange's barriers: full, and one a round
-  static constexpr int XBAR = CL > 1 ? 1 + Xch<CL, HT, 0>::ROUNDS : 0;
-  // K and V, Q, dO, ds^T's region, lse, delta, then kvfull, qfull, ofull
-  // and a cluster's exchange barriers
+  // a cluster's exchange: SLOTS slots of each thread's 32 partial floats
+  // of s2 and dp (two in the hybrid class at CL 3 to 8, which has the
+  // room: no sender waits); with one slot ds^T's parts live in it once
+  // round 2 (CL 2: the pair's message) is read, with two in a place of
+  // their own after them
+  static constexpr int SLOTS = CL > 2 && NP == 1 ? 2 : 1;
+  static constexpr int XCH = CL > 1 ? SLOTS * HT * 32 * 4 : 0;
+  static constexpr int DS = CL > 1 && SLOTS == 1 ? XCH : XCH + NP * DS_PART;
+  static constexpr int DS_AT = SLOTS == 1 ? 0 : XCH;   // ds^T in the region
+  // the exchange's barriers: Xch's full and empty (CL 2), Xrs's receipts
+  // (and with one slot its reads)
+  static constexpr int XBAR =
+      CL == 1 ? 0
+              : CL == 2 ? Xch<HT>::NBAR
+                        : Xrs<CL < 3 ? 3 : CL, HT, 0, SLOTS>::NBAR;
+  // K and V, Q, dO, the slots and ds^T, lse, delta, then kvfull, qfull,
+  // ofull and a cluster's exchange barriers
   static constexpr int SMEM = ALIGN + KV + 2 * TILE + DS + 2 * ROWS +
                               (3 + XBAR) * 8;
 };
 static_assert(F6<1>::SMEM <= SMEM_LIMIT && F6<2>::SMEM <= SMEM_LIMIT,
               "shared memory");
 static_assert(F6<2>::SMEM == 230952, "the cluster's budget");
-// dh 384 to 1024: the dh-256 route's budget and a barrier a round more
-static_assert(F6<3>::SMEM == 230960 && F6<4>::SMEM == 230960 &&
+// dh 384 to 1024 (Xrs): the dh-256 route's budget and two barriers more
+static_assert(F6<3>::SMEM == 230968 && F6<4>::SMEM == 230968 &&
                   F6<5>::SMEM == 230968 && F6<6>::SMEM == 230968 &&
                   F6<7>::SMEM == 230968 && F6<8>::SMEM == 230968 &&
                   F6<8>::SMEM <= SMEM_LIMIT,
               "the f32 clusters' budget at CL 3 to 8");
 // the hybrid class: one part of each tile, K's and V's space kept at the
-// 64 KB that warpgroup 1's dk and dv pass through
-static_assert(F6<3, 1>::SMEM == 132656 && F6<4, 1>::SMEM == 132656 &&
-                  F6<5, 1>::SMEM == 132664 && F6<6, 1>::SMEM == 132664 &&
-                  F6<7, 1>::SMEM == 132664 && F6<8, 1>::SMEM == 132664,
+// 64 KB that warpgroup 1's dk and dv pass through, two slots and ds^T's
+// part beside them
+static_assert(F6<3, 1>::SMEM == 173608 && F6<4, 1>::SMEM == 173608 &&
+                  F6<5, 1>::SMEM == 173608 && F6<6, 1>::SMEM == 173608 &&
+                  F6<7, 1>::SMEM == 173608 && F6<8, 1>::SMEM == 173608,
               "the hybrid clusters' budget at CL 3 to 8");
-static_assert(F6<2>::XCH >= 3 * F6<2>::DS_PART, "ds^T in the slots");
+static_assert(F6<2>::XCH >= 3 * F6<2>::DS_PART &&
+                  F6<8>::XCH >= 3 * F6<8>::DS_PART,
+              "ds^T in the slot");
 
 // one 64-row tile of an operand in its NP parts by TMA (part p's rows
 // start p part_rows down the map, the CTA's 128 columns from col on),
@@ -678,17 +692,6 @@ __device__ __forceinline__ void grad6(float (&acc)[64], uint32_t (&f)[NP][8],
     for (int i = 0; i < 8; ++i) asm volatile("" : "+r"(f[p][i])::"memory");
 }
 
-// every rank of a cluster of CL receives in the exchange's last round, so
-// each may keep its slot for ds^T until its dq products are done
-template <int CL>
-__host__ __device__ constexpr bool all_receive_last() {
-  if constexpr (CL > 1) {
-    for (int r = 0; r < CL; ++r)
-      if (!Xch<CL, HT, 0>::has_at(r, Xch<CL, HT, 0>::ROUNDS)) return false;
-  }
-  return true;
-}
-
 // two warpgroups and no producer warp, as fused_sm90_kernel: thread 0
 // issues the TMA loads.  The KV tile's 64 rows are wgmma's M in both
 // warpgroups; each takes 32 of a Q tile's 64 queries (m64n32 scores) and
@@ -697,7 +700,7 @@ __host__ __device__ constexpr bool all_receive_last() {
 //   dp^T = V dO^T, s2^T = K Q^T     the class's products over the CTA's
 //                                   columns (CL > 1: then the cluster's
 //                                   partials are summed, sm90_gemm.cuh:
-//                                   Xch, in cluster_sum's order)
+//                                   Xch or Xrs, in cluster_sum's order)
 //   p, ds                           in the accumulators, then split into
 //                                   NP bf16 A fragments each (NP 1: rounded)
 //   dv += p^T dO, dk += ds^T q2     the products over its 32 queries
@@ -710,11 +713,11 @@ __host__ __device__ constexpr bool all_receive_last() {
 // during the dk and dq products, Q's once their dk products have, during
 // the dq products and the next pair's dp^T; K and V once warpgroup 0 has
 // taken warpgroup 1's sums out of their space.  CL > 1: launched in
-// clusters of CL CTAs.  ds^T's parts live in the exchange slot: a CTA
-// writes them once every thread has added the last round's message (the
-// pair's barrier before the ds^T stores), and reads that round's message
-// as done (Xch::read, which lets its writer send the next pair's first)
-// only once its dq products, the last readers of ds^T, are done.
+// clusters of CL CTAs.  With one slot ds^T's parts live in it: a CTA
+// writes them once every thread has read the last round (the pair's
+// barrier before the ds^T stores), and signals that read (Xch::read,
+// Xrs::read, which let its peers send the next pair's first round) only
+// once its dq products, the last readers of ds^T, are done.
 template <int CL, int NP>
 __device__ __forceinline__ void fused6_body(
     unsigned char* smem_raw, const CUtensorMap* mq, const CUtensorMap* mk,
@@ -722,17 +725,17 @@ __device__ __forceinline__ void fused6_body(
     const float* delta, float* dqp, float* dkp, float* dvp, const int* items,
     int S, int BH, int bq, int chunk, int causal, float oscale) {
   using P = F6<CL, NP>;
-  static_assert(all_receive_last<CL>(), "the last round");
   constexpr int D = P::D, BKV = P::BKV;
   const uint32_t base = aligned_base(smem_raw);
   float* const fbase =
       reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)));
   const uint32_t sK = base, sV = sK + P::TILE, sQ = sK + P::KV;
-  const uint32_t sO = sQ + P::TILE, sDS = sO + P::TILE;  // CL > 1: the slot
-  const uint32_t sL = sDS + P::DS, sE = sL + P::ROWS;
+  const uint32_t sO = sQ + P::TILE, sX = sO + P::TILE;  // CL > 1: the slots
+  const uint32_t sDS = sX + P::DS_AT;                    // ds^T's parts
+  const uint32_t sL = sX + P::DS, sE = sL + P::ROWS;
   const uint32_t kvfull = sE + P::ROWS, qfull = kvfull + 8,
                  ofull = qfull + 8;
-  const uint32_t xfull = ofull + 8;   // CL > 1: full, e1 (, e2, e3)
+  const uint32_t xfull = ofull + 8;   // CL > 1: the exchange's barriers
   const float* Lq = fbase + (sL - base) / 4;      // the pair's lse, delta
   const float* Eq = fbase + (sE - base) / 4;
 
@@ -747,7 +750,15 @@ __device__ __forceinline__ void fused6_body(
   const int jv = max(j0, min(j1, (kv_vis + BKV - 1) / BKV));
   const int row0 = w.bh * S, part_rows = BH * S;
   // CL > 1: this thread's place in the exchange slot
-  [[maybe_unused]] const uint32_t xslot = sDS + threadIdx.x * 16;
+  [[maybe_unused]] const uint32_t xslot = sX + threadIdx.x * 16;
+  // CL > 2 with one slot: the item's pairs (the last one's round-2 reads
+  // go unsignalled)
+  [[maybe_unused]] int n_pairs = 0;
+  if constexpr (CL > 2 && P::SLOTS == 1)
+    for (int j = j0; j < jv; ++j) {
+      const int q0 = q_first(qb0, j * BKV, causal);
+      n_pairs += q0 < qb1 ? (qb1 - q0 + QT - 1) / QT : 0;
+    }
 
   // the loads' cursor (thread 0's): the next pair whose Q side is to load
   Pairs ld{j0, q_first(qb0, j0 * BKV, causal), qb0, qb1, jv, BKV, causal};
@@ -755,8 +766,10 @@ __device__ __forceinline__ void fused6_body(
     mbar_init(kvfull, 1);
     mbar_init(qfull, 1);
     mbar_init(ofull, 1);
-    if constexpr (CL > 1) {
-      T4_XCH(CL, HT, xslot, xfull, xc.init())
+    if constexpr (CL == 2) {
+      Xch<HT>{xslot, xfull}.init();
+    } else if constexpr (CL > 2) {
+      T4_XRS(CL, HT, P::SLOTS, xslot, xfull, xr.init())
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     if (jv > j0) {
@@ -817,16 +830,22 @@ __device__ __forceinline__ void fused6_body(
         // dp's partial leaves while s2's products run
         wgmma_wait<1>();
         pin(dp);
-        T4_XCH(CL, HT, xslot, xfull, xch_send_dp(xc, dp, it))
+        if constexpr (CL == 2) {
+          xch_send_dp(Xch<HT>{xslot, xfull}, dp, it);
+        } else {
+          T4_XRS(CL, HT, P::SLOTS, xslot, xfull, xr.send_dp(dp, it))
+        }
       }
       wgmma_wait<0>();
       pin(dp);
       pin(s);
-      if constexpr (CL > 1) {
-        // s2's too, and both summed over the cluster: the same bits in
-        // every CTA; the last round's message stays unread (ds^T's parts
-        // go into the slot)
-        T4_XCH(CL, HT, xslot, xfull, xch_sum_scores<false>(xc, s, dp, it))
+      // s2's too, and both summed over the cluster: the same bits in every
+      // CTA; the last round's read is signalled after the dq products
+      // (ds^T's parts go into the slot)
+      if constexpr (CL == 2) {
+        xch_sum_scores<false>(Xch<HT>{xslot, xfull}, s, dp, it);
+      } else if constexpr (CL > 2) {
+        T4_XRS(CL, HT, P::SLOTS, xslot, xfull, xr.sum(s, dp, it))
       }
 
       // p and ds in place; only a tile that crosses the diagonal masks
@@ -860,8 +879,8 @@ __device__ __forceinline__ void fused6_body(
       if (threadIdx.x == 0 && !ld.done())
         load_side<NP>(sO, sE, ofull, mo, delta, part_rows, row0 + ld.q0,
                       col0);
-      // CL > 1: generic stores where the peers' st.async wrote
-      if constexpr (CL > 1) fence_proxy_async();
+      // one slot: generic stores where the peers' st.async wrote
+      if constexpr (CL > 1 && P::SLOTS == 1) fence_proxy_async();
 #pragma unroll
       for (int p = 0; p < NP; ++p)
 #pragma unroll
@@ -906,10 +925,12 @@ __device__ __forceinline__ void fused6_body(
       wgmma_commit();
       wgmma_wait<0>();
       pin(fq);
-      // CL > 1: this thread's reads of ds^T are done, so the last round's
-      // writer may send the next pair's first message into the slot
-      if constexpr (CL > 1) {
-        T4_XCH(CL, HT, xslot, xfull, xc.read(xc.ROUNDS))
+      // CL > 1: this thread's reads of ds^T are done, so its peers may send
+      // the next pair's first round into the slot
+      if constexpr (CL == 2) {
+        Xch<HT>{xslot, xfull}.read();
+      } else if constexpr (CL > 2) {
+        T4_XRS(CL, HT, P::SLOTS, xslot, xfull, xr.read(it, n_pairs))
       }
       const int last = causal ? min(jv - 1, (q0 + QT - 1) / BKV) : jv - 1;
       const float scale = j == last ? oscale : 1.f;
@@ -969,13 +990,12 @@ __device__ __forceinline__ void fused6_body(
       }
     }
   }
-  // CL > 1: the peers' last reads of this CTA's messages are its last
+  // CL 2: the pair's last reads of this CTA's messages are its last
   // accesses to its shared memory (a CTA of an item with no pair exchanges
-  // nothing, nor do its peers, which share the item)
-  if constexpr (CL > 1) {
-    if (it > 0) {
-      T4_XCH(CL, HT, xslot, xfull, xc.drain(it))
-    }
+  // nothing, nor does its peer, which shares the item); Xrs leaves none
+  // after the loop
+  if constexpr (CL == 2) {
+    if (it > 0) Xch<HT>{xslot, xfull}.drain(it);
   }
   zero_unseen<D, 128>(dkp, dvp, dq_slot, part, jv * BKV, min(j1 * BKV, S),
                       qb0, min(qb1, q_first(qb0, j0 * BKV, causal)),

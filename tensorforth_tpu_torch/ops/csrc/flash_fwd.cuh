@@ -48,12 +48,15 @@
 //     warpgroup's 256
 //     columns of o fit its registers.  Each CTA's s2 is a partial sum over
 //     its columns; the cluster adds the partials through distributed
-//     shared memory in a tree of pairs (sm90_gemm.cuh: Xch, one 32 KB slot
-//     a CTA; two rounds at CL 3 and 4, three at CL 5 to 8), so
+//     shared memory in two balanced rounds (sm90_gemm.cuh: Xrs, one 32 KB
+//     slot a CTA and four barriers: each thread's 8 quads of s2 go to
+//     their owners, which add the CL partials in cluster_sum's order, and
+//     the owners' sums come back to every CTA), so
 //     every CTA holds the same bits of s2, runs the same online softmax and
 //     forms the same p, and does P V over its own columns of V and o.  Rank
 //     0 writes lse.  A tile that a warpgroup's rows do not see still takes
-//     part in the sum (as zeros), so every thread's twin sends to it.
+//     part in the sum (as zeros), so every quad's owner hears from every
+//     peer.
 // Registers at dh 128, f32: o 64, the fresh PV accumulator 64, P's three
 // parts 48 (the s2 accumulator, 32, dies as they form).
 // The grid hands out the longest (last) causal query tiles first; a
@@ -84,11 +87,12 @@ struct Fwd {
   static constexpr int Q_PART = NB * QBOX;
   static constexpr int KV_PART = NB * KBOX;
   static constexpr int KV_BYTES = NP * KV_PART;     // a stage of K (or V)
-  // a cluster's exchange slot: a peer's partial s2, BKV / 2 floats for
-  // each thread; its barriers (full, and one a round)
+  // a cluster's exchange slot: BKV / 2 floats of partial s2 for each
+  // thread (Xrs's 8 quads at BKV 64); its barriers (Xrs with one slot:
+  // two rounds' receipts and reads)
   static constexpr int XCH = CL > 1 ? NT * (BKV / 2) * 4 : 0;
   static constexpr int NBAR =
-      1 + 2 * ST + (CL > 1 ? 1 + Xch<CL, NT, 0>::ROUNDS : 0);
+      1 + 2 * ST + (CL > 1 ? Xrs<CL < 3 ? 3 : CL, NT, 0, 1>::NBAR : 0);
   static constexpr int SMEM =
       ALIGN + NP * Q_PART + 2 * ST * KV_BYTES + XCH + NBAR * 8;
   static constexpr int ROWS_WG = DC == 128 ? 64 : 0;   // rows' offset by wg
@@ -100,20 +104,20 @@ static_assert(Fwd<128, 3>::SMEM <= SMEM_LIMIT &&
                   Fwd<128, 1>::SMEM <= SMEM_LIMIT &&
                   Fwd<256, 1>::SMEM <= SMEM_LIMIT,
               "shared memory");
-// K1's f32 class at dh 384 and 512 on clusters of 3 and 4 CTAs: the
-// dh-128 tiles of the class, the slot and three barriers more
-static_assert(Fwd<384, 3, 3>::SMEM == 230448 &&
-                  Fwd<512, 3, 4>::SMEM == 230448 &&
-                  Fwd<512, 3, 4>::SMEM <= SMEM_LIMIT,
-              "the f32 clusters' budget");
-// K1 at dh 640 to 1024 on clusters of 5 to 8 CTAs: a fourth exchange
-// barrier for the third round
-static_assert(Fwd<640, 3, 5>::SMEM == 230456 &&
+// K1's f32 class at dh 384 to 1024 on clusters of 3 to 8 CTAs: the dh-128
+// tiles of the class, the slot and Xrs's four barriers more
+static_assert(Fwd<384, 3, 3>::SMEM == 230456 &&
+                  Fwd<512, 3, 4>::SMEM == 230456 &&
+                  Fwd<640, 3, 5>::SMEM == 230456 &&
                   Fwd<768, 3, 6>::SMEM == 230456 &&
                   Fwd<896, 3, 7>::SMEM == 230456 &&
                   Fwd<1024, 3, 8>::SMEM == 230456 &&
                   Fwd<1024, 3, 8>::SMEM <= SMEM_LIMIT,
-              "the f32 clusters' budget at CL 5 to 8");
+              "the f32 clusters' budget");
+// Xrs's round-1 pool fits K1's slot (its 8 quads of s2: Xrs's own assert)
+static_assert(Fwd<1024, 3, 8>::XCH == Xrs<8, NT, 0, 1>::SLOT_BYTES &&
+                  Fwd<384, 3, 3>::XCH == Xrs<3, NT, 0, 1>::SLOT_BYTES,
+              "an exchange slot");
 
 // s2 (+)= A B^T over 16 of dh, m64nBKV, both K-major from shared memory
 template <int BKV>
@@ -146,8 +150,8 @@ __device__ __forceinline__ void load_parts(uint32_t dst, uint32_t bar,
 
 // the body of a kernel of NT threads over the maps of q, k and v (their
 // parts' rows one after another) into o (and, unless DOTS, lse); smem_raw
-// is the kernel's dynamic shared memory, Fwd<D, NP, CL>::SMEM bytes; CL > 1
-// (K1, and K8 at NP 1): a CTA of a cluster of CL that split dh
+// is the kernel's dynamic shared memory, Fwd<D, NP, CL>::SMEM bytes; CL 3
+// to 8 (K1's f32 class): a CTA of a cluster of CL that split dh
 template <int D, int NP, bool DOTS, int CL = 1>
 __device__ __forceinline__ void fwd_body(unsigned char* smem_raw,
                                          const CUtensorMap* mq,
@@ -157,6 +161,7 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw,
                                          float* __restrict__ lse, int S,
                                          int BH, int causal, float qscale) {
   using P = Fwd<D, NP, CL>;
+  static_assert(CL == 1 || (CL >= 3 && P::BKV == 64), "Xrs's 8 quads");
   constexpr int BQ = P::BQ, BKV = P::BKV, ST = P::ST;
   constexpr int SA = BKV / 2;            // s2 accumulators a thread
   constexpr int NF = BKV / 4;            // P's A-fragment registers a part
@@ -166,8 +171,8 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw,
   const uint32_t sX = sV + ST * P::KV_BYTES;        // a cluster's slot
   const uint32_t qfull = sX + P::XCH;               // then kfull[ST],
   const uint32_t kfull0 = qfull + 8;                // vfull[ST], a
-  const uint32_t vfull0 = kfull0 + 8 * ST;          // cluster's full, e1,
-  const uint32_t xfull = vfull0 + 8 * ST;           // e2 (, e3)
+  const uint32_t vfull0 = kfull0 + 8 * ST;          // cluster's got1, got2,
+  const uint32_t xfull = vfull0 + 8 * ST;           // free1, free2
 
   // the CTA's rank in its cluster picks its columns, the cluster its rows
   const int rank = CL == 1 ? 0 : static_cast<int>(cluster_ctarank());
@@ -190,7 +195,7 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw,
       mbar_init(vfull0 + 8 * s, 1);
     }
     if constexpr (CL > 1) {
-      T4_XCH(CL, NT, xslot, xfull, xc.init())
+      T4_XRS(CL, NT, 1, xslot, xfull, xr.init())
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     load_parts<P::NB, NP>(sQ, qfull, mq, part_rows, row0 + q0, col0,
@@ -264,7 +269,7 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw,
 #pragma unroll
         for (int i = 0; i < SA; ++i) s[i] = 0.f;
       }
-      T4_XCH(CL, NT, xslot, xfull, xc.sum(s, j))
+      T4_XRS(CL, NT, 1, xslot, xfull, xr.sum(s, j, n_kv))
     }
 
     // ---- online softmax; element 4 jn + 2 i + c of s is query row
@@ -361,11 +366,9 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw,
                             row0 + (j + ST) * BKV, col0, P::KV_PART,
                             P::KBOX);
   }
-  // a cluster: its peers have read its messages for the last time, so no
-  // access to this CTA's shared memory is left
-  if constexpr (CL > 1) {
-    T4_XCH(CL, NT, xslot, xfull, xc.drain(n_kv))
-  }
+  // a cluster: Xrs's readers await every message and leave the last
+  // tile's reads unsignalled, so no access to this CTA's shared memory is
+  // left
   if (!rows_in) return;
 
   // ---- flush: the row sum is spread over the 4 lanes of a row (DOTS: o

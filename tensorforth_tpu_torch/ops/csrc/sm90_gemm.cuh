@@ -221,283 +221,113 @@ __device__ __forceinline__ void add_peer(float (&x)[N], uint32_t at) {
   }
 }
 
-// The sum of a cluster's partials on the dh-split routes of flash_fwd.cuh
-// (K1) and flash_bwd.cu (K2a, K2b): CL CTAs (2 to 8) of THREADS threads,
-// each thread holding its CTA's partial sums over the CTA's columns of dh,
-// each leaving with the sum over all of them, THE SAME BITS IN EVERY CTA.
-// The sums are taken as a tree of pairs over the ranks: round k (1, 2, 3;
-// h = 2^(k-1)) adds to a CTA's sum over its block of h ranks the sum over
-// the block of h ranks beside it (ranks (r ^ h) & ~(h - 1) on, those below
-// CL), as that block formed it.  An f32 sum of two terms is the same in
-// either order, so every CTA forms x0 + x1 (CL 2), (x0 + x1) + x2 (CL 3),
-// (x0 + x1) + (x2 + x3) (CL 4), ((x0 + x1) + (x2 + x3)) + x4 (CL 5), ...,
-// ((x0 + x1) + (x2 + x3)) + ((x4 + x5) + (x6 + x7)) (CL 8): one round at
-// CL 2, two at CL 3 and 4, three at CL 5 to 8 (ops/attn.py: cluster_sum
-// is the same order).  A CTA's round-k message comes from its twin r ^ h
-// in the block beside, or, where the twin is past CL, from CTA CL - 1 (so
-// CTA CL - 1 may send one round's message to several CTAs: at CL 3 CTA 2
-// to 0 and 1, at CL 5 CTA 4 to 0, 1, 2 and 3); a CTA whose block beside is
-// empty (CL 3's CTA 2 in round 1, CL 5's CTA 4 in rounds 1 and 2) receives
-// nothing that round.  A message is each thread's floats, stored into its
-// twin's place in the target's slot through distributed shared memory
-// (st.async), the bytes completing a transaction on the target's `full`
-// barrier, so no store waits for an acknowledgement; each thread's own
-// arrival on `full` expects the bytes its twin sends.  A CTA's slot holds
-// one message (THREADS x the message's floats; a round's message follows
-// the one before through it), so the slot's reader, once it has added a
-// message, arrives on a barrier of the writer of the slot's next message
-// (the next round's, or the next tile's first): e(k) guards a CTA's
-// round-k writes, and counts the arrivals of all its targets.  Every wait
-// is a local mbarrier wait that traps as the others do.  At CL 2 this is
-// the dh-256 route's exchange as it was: `full` and e(1) (its `empty`).
-// RK: the CTA's rank where the caller compiled a copy for each (T4_XCH
-// below: every choice of the exchange is then a constant, and K2a, at 255
-// registers, keeps no rank-dependent branch in its loop); -1 (CL 2 only)
-// reads the rank again where it is needed (a special register), so that
-// no register holds it.
-template <int CL, int THREADS, int RK = -1>
+// The sum of a pair's partials on the dh-256 routes of flash_bwd.cu (K2a,
+// K2b) and flash_bwd_fused.cu (K3's f32 class): two CTAs of THREADS
+// threads, each thread holding its CTA's partial sums over the CTA's 128
+// columns of dh, each leaving with x0 + x1, THE SAME BITS IN BOTH (an f32
+// sum of two terms is the same in either order; ops/attn.py: cluster_sum).
+// A message is each thread's floats, stored into its twin's place in the
+// peer's slot through distributed shared memory (st.async), the bytes
+// completing a transaction on the peer's `full` barrier, so no store waits
+// for an acknowledgement; each thread's own arrival on `full` expects the
+// bytes its twin sends.  A CTA's slot holds one message (THREADS x the
+// message's floats), so the slot's reader, once it has added a message,
+// arrives on the writer's `empty` barrier, which guards the writer's next
+// message.  Every wait is a local mbarrier wait that traps as the others
+// do.  The rank is read again where it is needed (a special register), so
+// that no register holds it.  Clusters of 3 to 8 sum in Xrs below.
+template <int THREADS>
 struct Xch {
-  static_assert(CL >= 1 && CL <= 8, "a portable cluster (1: unused)");
-  static_assert(RK >= 0 || CL <= 2, "a copy for each rank above CL 2");
-  static constexpr int ROUNDS = CL <= 1 ? 0 : CL == 2 ? 1 : CL <= 4 ? 2 : 3;
   // the backward's message: 16 floats of s2, then (here) 16 of dp
   static constexpr uint32_t DP_AT = 4 * THREADS * 16;
+  static constexpr int NBAR = 2;   // full, then empty
   uint32_t slot;   // this thread's place in its own slot
-  uint32_t full;   // this CTA's barriers: full, then e(1) .. e(ROUNDS)
+  uint32_t full;   // this CTA's barriers, from full on
 
-  // ---- the schedule, of rank r and round k (1 .. ROUNDS)
-  __host__ __device__ static constexpr int half(int k) {
-    return 1 << (k - 1);
+  __device__ uint32_t empty() const { return full + 8; }
+  // the other CTA of the pair
+  __device__ int pair() const {
+    return static_cast<int>(cluster_ctarank()) ^ 1;
   }
-  // r receives a message in round k: the block beside its own has a CTA
-  __host__ __device__ static constexpr bool has_at(int r, int k) {
-    return CL == 2 || ((r ^ half(k)) & ~(half(k) - 1)) < CL;
-  }
-  // the writer of r's round-k message
-  __host__ __device__ static constexpr int src_at(int r, int k) {
-    return CL == 2 || (r ^ half(k)) < CL ? r ^ half(k) : CL - 1;
-  }
-  // the targets of r's round-k message, a mask of ranks
-  __host__ __device__ static constexpr unsigned dst_at(int r, int k) {
-    if (CL == 2) return 1u << (r ^ 1);
-    const int h = half(k), b = (r ^ h) & ~(h - 1);
-    unsigned m = (r ^ h) < CL ? 1u << (r ^ h) : 0u;
-    if (r == CL - 1)
-      for (int t = b; t < b + h && t < CL; ++t)
-        if ((t ^ h) >= CL) m |= 1u << t;
-    return m;
-  }
-  // the rounds before k in which r receives (round k's place in its tile)
-  __host__ __device__ static constexpr int idx_at(int r, int k) {
-    int n = 0;
-    for (int j = 1; j < k; ++j) n += has_at(r, j) ? 1 : 0;
-    return n;
-  }
-  // r's round after k in which it receives, else its first (the next tile's)
-  __host__ __device__ static constexpr int next_at(int r, int k) {
-    for (int j = k + 1; j <= ROUNDS; ++j)
-      if (has_at(r, j)) return j;
-    for (int j = 1; j <= ROUNDS; ++j)
-      if (has_at(r, j)) return j;
-    return 1;
-  }
-  // round k is the first of a tile in which r's targets receive (then
-  // their slots were last read in the previous tile); every target agrees:
-  // one target, or CTA CL - 1's of a whole block, which all receive from
-  // round 1 on
-  __host__ __device__ static constexpr bool tfirst_at(int r, int k) {
-    const unsigned m = dst_at(r, k);
-    int t = 0;
-    while (t < CL && !(m >> t & 1)) ++t;
-    return next_at(t, 0) == k;
-  }
-  __host__ __device__ static constexpr int bits(unsigned m) {
-    int n = 0;
-    for (int t = 0; t < CL; ++t) n += static_cast<int>(m >> t & 1);
-    return n;
-  }
-
-  __device__ int rank() const {
-    return RK >= 0 ? RK : static_cast<int>(cluster_ctarank());
-  }
-  __device__ uint32_t e(int k) const { return full + 8 * k; }
-  // round 1's peer (the other CTA of the pair), or -1 (no pair)
-  __device__ int pair() const { return has_at(rank(), 1) ? rank() ^ 1 : -1; }
-  __device__ bool has(int k) const { return has_at(rank(), k); }
   // thread 0, before the cluster barrier that precedes any message
   __device__ void init() const {
     mbar_init(full, THREADS);
-#pragma unroll
-    for (int k = 1; k <= ROUNDS; ++k) {
-      const int n = bits(dst_at(rank(), k));
-      mbar_init(e(k), THREADS * (n > 0 ? n : 1));
-    }
+    mbar_init(empty(), THREADS);
   }
-  // before tile it's round-k message: its targets have read their slots'
-  // last message (this tile's earlier round, or the previous tile's last)
-  __device__ void wait_free(int k, int it) const {
-    if (dst_at(rank(), k) == 0) return;
-    if (tfirst_at(rank(), k)) {
-      if (it > 0) mbar_wait<true>(e(k), (it - 1) & 1);
-    } else {
-      mbar_wait<true>(e(k), it & 1);
-    }
+  // before tile it's message: the pair has read the last one
+  __device__ void wait_free(int it) const {
+    if (it > 0) mbar_wait<true>(empty(), (it - 1) & 1);
   }
-  // x into the twin's place of CTA `to`'s slot, `off` bytes on
+  // x into the twin's place of the pair's slot, `off` bytes on
   template <int N>
-  __device__ void send(const float (&x)[N], int to, uint32_t off) const {
-    push<THREADS>(x, cluster_addr(slot + off, to), cluster_addr(full, to));
+  __device__ void send(const float (&x)[N], uint32_t off) const {
+    push<THREADS>(x, cluster_addr(slot + off, pair()),
+                  cluster_addr(full, pair()));
   }
-  // x, then y, into the twin's place of CTA `to`'s slot
-  template <int N>
-  __device__ void send(const float (&x)[N], const float (&y)[N],
-                       int to) const {
-    const uint32_t at = cluster_addr(slot, to), bar = cluster_addr(full, to);
-    push<THREADS>(x, at, bar);
-    push<THREADS>(y, at + N / 4 * THREADS * 16, bar);
-  }
-  // round k's message (x, and y unless null) to its targets, one at a time
-  template <int N>
-  __device__ void send_round(int k, const float (&x)[N],
-                             const float (*y)[N]) const {
-    const unsigned to = dst_at(rank(), k);
-#pragma unroll
-    for (int r = 0; r < CL; ++r)
-      if (to >> r & 1) {
-        if (y != nullptr)
-          send(x, *y, r);
-        else
-          send(x, r, 0);
-      }
-  }
-  // wait for tile it's round-k message, `bytes` from the twin: the phase
-  // of `full` that completes with it (one a message, those of a tile in
-  // round order)
-  __device__ void receive(uint32_t bytes, int it, int k) const {
-    int n = 0;
-#pragma unroll
-    for (int j = 1; j <= ROUNDS; ++j) n += has_at(rank(), j) ? 1 : 0;
+  // wait for tile it's message, `bytes` from the twin
+  __device__ void receive(uint32_t bytes, int it) const {
     mbar_expect_tx(full, bytes);
-    mbar_wait<true>(full, (n * it + idx_at(rank(), k)) & 1);
+    mbar_wait<true>(full, it & 1);
   }
   // the message's floats at `off`, added to x
   template <int N>
   __device__ void add(float (&x)[N], uint32_t off) const {
     add_peer<THREADS>(x, slot + off);
   }
-  // round k's message is read: the slot takes the next one
-  __device__ void read(int k) const {
-    const int nk = next_at(rank(), k);
-    mbar_arrive_remote(cluster_addr(e(nk), src_at(rank(), nk)));
+  // the message is read: the slot takes the next one
+  __device__ void read() const {
+    mbar_arrive_remote(cluster_addr(empty(), pair()));
   }
-  // after the last of n tiles: every reader of this CTA's messages has
-  // arrived for the last time, so no other CTA accesses its shared memory
-  // any more
+  // after the last of n tiles: the pair has read this CTA's messages for
+  // the last time, so it accesses this CTA's shared memory no more
   __device__ void drain(int n) const {
-#pragma unroll
-    for (int k = 1; k <= ROUNDS; ++k)
-      if (dst_at(rank(), k) != 0) mbar_wait<true>(e(k), (n - 1) & 1);
-  }
-  // tile it's sum of an N-float partial x, every round (K1's scores)
-  template <int N>
-  __device__ void sum(float (&x)[N], int it) const {
-#pragma unroll
-    for (int k = 1; k <= ROUNDS; ++k) {
-      wait_free(k, it);
-      send_round<N>(k, x, nullptr);
-      if (has(k)) {
-        receive(N * 4, it, k);
-        add(x, 0);
-        read(k);
-      }
-    }
+    mbar_wait<true>(empty(), (n - 1) & 1);
   }
 };
 
-// The backward kernels' use of Xch (flash_bwd.cu's K2a and K2b,
-// flash_bwd_fused.cu's K3): a tile's partial s2 and dp, 16 floats each a
-// thread, summed over the cluster; each thread's floats at the slot's
-// start (s2) and X::DP_AT bytes on (dp).  Round 1's dp leaves for the pair
-// while s2's products run, once the pair has read its slot's last message.
+// A pair's tile of partial s2 and dp, 16 floats each a thread; each
+// thread's floats at the slot's start (s2) and X::DP_AT bytes on (dp).
+// dp leaves for the pair while s2's products run, once the pair has read
+// its slot's last message
 template <class X>
 __device__ __forceinline__ void xch_send_dp(const X& x, const float (&dp)[16],
                                             int it) {
-  if (x.pair() >= 0) {
-    x.wait_free(1, it);
-    x.send(dp, x.pair(), X::DP_AT);
-  }
+  x.wait_free(it);
+  x.send(dp, X::DP_AT);
 }
 
-// then s2's; this thread's arrival on `full` expects the 128 bytes its twin
-// sends; the pair's sums, and at CL 3 to 8 the other blocks' added in the
-// later rounds (s2 and dp in one message): both sums are over all of dh,
-// the same bits in every CTA.  READ_LAST false leaves the last round's
-// read() to the caller, which keeps the slot for its own use until then
-// (K3 writes ds^T's parts there)
-template <bool READ_LAST = true, class X>
+// then s2's, and the twin's two partials are added: both sums are over all
+// of dh, the same bits in both CTAs.  READ false leaves read() to the
+// caller, which keeps the slot for its own use until then (K3 writes ds^T's
+// parts there)
+template <bool READ = true, class X>
 __device__ __forceinline__ void xch_sum_scores(const X& x, float (&s)[16],
                                                float (&dp)[16], int it) {
-  if (x.pair() >= 0) {
-    x.send(s, x.pair(), 0);
-    x.receive(32 * 4, it, 1);
-    x.add(s, 0);
-    x.add(dp, X::DP_AT);
-    if (READ_LAST || X::ROUNDS > 1) x.read(1);
-  }
-#pragma unroll
-  for (int k = 2; k <= X::ROUNDS; ++k) {
-    x.wait_free(k, it);
-    x.send_round(k, s, &dp);
-    if (x.has(k)) {
-      x.receive(32 * 4, it, k);
-      x.add(s, 0);
-      x.add(dp, X::DP_AT);
-      if (READ_LAST || k < X::ROUNDS) x.read(k);
-    }
-  }
+  x.send(s, 0);
+  x.receive(32 * 4, it);
+  x.add(s, 0);
+  x.add(dp, X::DP_AT);
+  if (READ) x.read();
 }
 
-// `stmt` with `xc` the CTA's Xch<CL, THREADS> on (slot, full): at CL 3 to 8
-// a copy compiled for each rank (Xch's RK), picked by the CTA's rank
-#define T4_XCH_AT(R, CL, THREADS, SLOT, FULL, stmt)                        \
-  if constexpr ((R) < (CL)) {                                             \
-    if (t4_rank == (R)) {                                                 \
-      const Xch<(CL), (THREADS), ((R) < (CL) ? (R) : 0)> xc{SLOT, FULL};  \
-      stmt;                                                               \
-    }                                                                     \
-  }
-#define T4_XCH(CL, THREADS, SLOT, FULL, stmt)                             \
-  if constexpr ((CL) <= 2) {                                              \
-    const Xch<((CL) <= 2 ? (CL) : 2), (THREADS)> xc{SLOT, FULL};          \
-    stmt;                                                                 \
-  } else {                                                                \
-    const int t4_rank = static_cast<int>(cluster_ctarank());              \
-    T4_XCH_AT(0, CL, THREADS, SLOT, FULL, stmt)                           \
-    T4_XCH_AT(1, CL, THREADS, SLOT, FULL, stmt)                           \
-    T4_XCH_AT(2, CL, THREADS, SLOT, FULL, stmt)                           \
-    T4_XCH_AT(3, CL, THREADS, SLOT, FULL, stmt)                           \
-    T4_XCH_AT(4, CL, THREADS, SLOT, FULL, stmt)                           \
-    T4_XCH_AT(5, CL, THREADS, SLOT, FULL, stmt)                           \
-    T4_XCH_AT(6, CL, THREADS, SLOT, FULL, stmt)                           \
-    T4_XCH_AT(7, CL, THREADS, SLOT, FULL, stmt)                           \
-  }
-
-// ---- the backward's balanced exchange (Xrs) ---------------------------------
-// flash_bwd.cu's K2a and K2b at dh 384 to 1024 (CL 3 to 8) add a tile's
-// partial s2 and dp in two rounds, a reduce-scatter and an all-gather, in
-// place of Xch's tree of pairs (K1 and K3 keep Xch).  A thread's 32 floats
-// are 8 quads (s2's 4, then dp's 4).  Quad q belongs to CTA q mod CL where
-// CL divides 8 (4, 8); otherwise quad q of the threads of warp w of a
+// ---- the clusters' balanced exchange (Xrs) ----------------------------------
+// Every route at dh 384 to 1024 on a cluster (CL 3 to 8) adds a tile's
+// partial scores in two rounds, a reduce-scatter and an all-gather:
+// flash_bwd.cu's K2a and K2b and flash_bwd_fused.cu's K3 their s2 and dp,
+// flash_fwd.cuh's K1 (the f32 class) its s2.  A thread's 32 floats are 8
+// quads (s2's 4, then dp's 4; K1: s2's 8).  Quad q belongs to CTA q mod CL
+// where CL divides 8 (4, 8); otherwise quad q of the threads of warp w of a
 // warpgroup belongs to CTA (q + w) mod CL: each CTA owns 8 / CL of every
 // thread's quads on the whole, the warps staggered so that no CTA owns
 // more than ceil(8 / CL) of a thread's, and every CTA some of each.
 //   round 1: a thread sends each quad it does not own to its owner
-//     (dp's while s2's products run), into the owner's pool: its slot read
+//     (K2, K3: dp's while s2's products run; K1's all once its score
+//     products are done), into the owner's pool: its slot read
 //     as warp-planes (one quad for each lane of a warp), warp w's block
 //     holding its owned quads' CL - 1 partials by source rank.  The owner
 //     adds the CL partials of each quad in cluster_sum's order, ((x0 + x1)
 //     + (x2 + x3)) + ((x4 + x5) + (x6 + x7)), absent ranks dropped: the
-//     bits that every rank of Xch forms.
+//     bits of ops/attn.py's cluster_sum, which the plain versions keep.
 //   round 2: the owner sends each summed quad to every peer, at the quad's
 //     own place (plane q of the thread), so every CTA leaves with the 32
 //     sums.
@@ -515,14 +345,16 @@ __device__ __forceinline__ void xch_sum_scores(const X& x, float (&s)[16],
 // tile it, which the twin could only form after reading what this thread
 // sent it in tile it, and this thread sent round 1 of tile it only after
 // reading its round-2 slot of tile it - 1.
-//   SLOTS 1 (the f32 class: 230,968 of 232,448 bytes): both rounds share
-// the slot, so a round-2 sender waits for its targets' round-1 reads (free2)
-// and a round-1 sender for their last round-2 reads (free1, from tile 1
-// on); a reader signals them a warp at a time, lanes 0 .. CL - 2 one
-// arrival each on a peer's barrier, after it has used what it read.  The
-// last tile's round-2 reads are not signalled, and every other message is
-// awaited by its reader, so no CTA touches another's shared memory after
-// its loop: no drain.
+//   SLOTS 1 (the f32 class: K2's 230,968 of 232,448 bytes, K1's 230,456,
+// K3's 230,968): both rounds share the slot, so a round-2 sender waits for
+// its targets' round-1 reads (free2) and a round-1 sender for their last
+// round-2 reads (free1, from tile 1 on); a reader signals them a warp at a
+// time, lanes 0 .. CL - 2 one arrival each on a peer's barrier, after it
+// has used what it read (read(): K3 keeps ds^T's parts in the slot once
+// round 2 is read, so it calls read() after its dq products, the last
+// readers of ds^T).  The last tile's round-2 reads are not signalled, and
+// every other message is awaited by its reader, so no CTA touches
+// another's shared memory after its loop: no drain.
 template <int CL, int THREADS, int RK, int SLOTS>
 struct Xrs {
   static_assert(CL >= 3 && CL <= 8, "a cluster of 3 to 8 CTAs");
@@ -574,18 +406,20 @@ struct Xrs {
                     WARPS / NW * span(CL - 1) <= NQ * THREADS / 32 &&
                     WARPS / NW * span(CL / 2) <= NQ * THREADS / 32,
                 "a round-1 pool fits its slot");
-  // element i of quad Q (s2's floats 4 Q .. 4 Q + 3, or dp's)
-  template <int Q>
-  __device__ static float at(const float (&s)[16], const float (&dp)[16],
+  // element i of quad Q: s2's floats 4 Q .. 4 Q + 3, or dp's (N 16); of
+  // the one array s of 32, which the caller passes as dp too (N 32, K1)
+  template <int Q, int N>
+  __device__ static float at(const float (&s)[N], const float (&dp)[N],
                              int i) {
-    if constexpr (Q < 4)
+    static_assert(N == 16 || N == 32, "s2 and dp's 16, or s2's 32");
+    if constexpr (N == 32 || Q < 4)
       return s[4 * Q + i];
     else
       return dp[4 * Q - 16 + i];
   }
-  template <int Q>
-  __device__ static void put(float (&s)[16], float (&dp)[16], float4 v) {
-    if constexpr (Q < 4) {
+  template <int Q, int N>
+  __device__ static void put(float (&s)[N], float (&dp)[N], float4 v) {
+    if constexpr (N == 32 || Q < 4) {
       s[4 * Q] = v.x, s[4 * Q + 1] = v.y, s[4 * Q + 2] = v.z,
       s[4 * Q + 3] = v.w;
     } else {
@@ -617,8 +451,8 @@ struct Xrs {
     }
   }
   // round 1: quads Q .. Q1 - 1 of warp W's threads to their owners
-  template <int W, int Q, int Q1>
-  __device__ void send1(const float (&s)[16], const float (&dp)[16], int g,
+  template <int W, int Q, int Q1, int N>
+  __device__ void send1(const float (&s)[N], const float (&dp)[N], int g,
                         int w) const {
     if constexpr (Q < Q1) {
       constexpr int j = owner(W, Q);
@@ -631,8 +465,8 @@ struct Xrs {
   }
   // the owner's sums of its quads from Q on: the CL partials of each, in
   // cluster_sum's order
-  template <int W, int Q = 0>
-  __device__ void reduce(float (&s)[16], float (&dp)[16], int g,
+  template <int W, int Q = 0, int N>
+  __device__ void reduce(float (&s)[N], float (&dp)[N], int g,
                          int w) const {
     if constexpr (Q < NQ) {
       if constexpr (owner(W, Q) == RK) {
@@ -648,9 +482,9 @@ struct Xrs {
       reduce<W, Q + 1>(s, dp, g, w);
     }
   }
-  template <int W, int Q, int R = 0>
-  __device__ void gather(float (&x)[CL][4], const float (&s)[16],
-                         const float (&dp)[16], int g, int w) const {
+  template <int W, int Q, int R = 0, int N>
+  __device__ void gather(float (&x)[CL][4], const float (&s)[N],
+                         const float (&dp)[N], int g, int w) const {
     if constexpr (R < CL) {
       if constexpr (R == RK) {
 #pragma unroll
@@ -667,8 +501,8 @@ struct Xrs {
     }
   }
   // round 2: each owned quad from Q on to every peer, at its own place
-  template <int W, int Q = 0>
-  __device__ void send2(const float (&s)[16], const float (&dp)[16],
+  template <int W, int Q = 0, int N>
+  __device__ void send2(const float (&s)[N], const float (&dp)[N],
                         uint32_t off) const {
     if constexpr (Q < NQ) {
       if constexpr (owner(W, Q) == RK) {
@@ -683,8 +517,8 @@ struct Xrs {
     }
   }
   // round 2's sums of the quads it does not own, from Q on
-  template <int W, int Q = 0>
-  __device__ void gather2(float (&s)[16], float (&dp)[16],
+  template <int W, int Q = 0, int N>
+  __device__ void gather2(float (&s)[N], float (&dp)[N],
                           uint32_t off) const {
     if constexpr (Q < NQ) {
       if constexpr (owner(W, Q) != RK)
@@ -702,12 +536,13 @@ struct Xrs {
       if (it > 0) mbar_wait<true>(freed(1), (it - 1) & 1);
     send1<W, 4, NQ>(dp, dp, g, w);
   }
-  // then s2's; the owners' sums; the all-gather: s and dp leave with the
-  // sums over all of dh, the same bits in every CTA
-  template <int W>
-  __device__ void sum_w(float (&s)[16], float (&dp)[16], int it, int g,
+  // then s2's (quads 0 .. Q1 - 1: K1 sends all 8 here); the owners' sums;
+  // the all-gather: s and dp leave with the sums over all of dh, the same
+  // bits in every CTA
+  template <int W, int Q1 = 4, int N>
+  __device__ void sum_w(float (&s)[N], float (&dp)[N], int it, int g,
                         int w) const {
-    send1<W, 0, 4>(s, dp, g, w);
+    send1<W, 0, Q1>(s, dp, g, w);
     mbar_expect_tx(got(1), (CL - 1) * owns(RK, W) * 16);
     mbar_wait<true>(got(1), it & 1);
     reduce<W>(s, dp, g, w);
@@ -740,6 +575,26 @@ struct Xrs {
     else if (w == 1) sum_w<1>(s, dp, it, g, w);
     else if (w == 2) sum_w<2>(s, dp, it, g, w);
     else sum_w<3>(s, dp, it, g, w);
+  }
+  // K1: tile it of n_it, a thread's 32 partial floats of s2, all 8 quads
+  // to their owners once the slots are free, summed, gathered, and the
+  // round-2 places read at once (s holds the sums)
+  template <int W>
+  __device__ void sum_s2_w(float (&s)[32], int it, int n_it, int g,
+                           int w) const {
+    if constexpr (SLOTS == 1)
+      if (it > 0) mbar_wait<true>(freed(1), (it - 1) & 1);
+    sum_w<W, NQ>(s, s, it, g, w);
+    read(it, n_it);
+  }
+  __device__ void sum(float (&s)[32], int it, int n_it) const {
+    const int w = static_cast<int>(threadIdx.x / 32) % NW;
+    const int g = static_cast<int>(threadIdx.x / 128);
+    if constexpr (UNIFORM) sum_s2_w<0>(s, it, n_it, g, w);
+    else if (w == 0) sum_s2_w<0>(s, it, n_it, g, w);
+    else if (w == 1) sum_s2_w<1>(s, it, n_it, g, w);
+    else if (w == 2) sum_s2_w<2>(s, it, n_it, g, w);
+    else sum_s2_w<3>(s, it, n_it, g, w);
   }
   // after the caller has used tile it's sums: its round-2 places are read
   // (one slot: the peers' next round 1 may write; the last tile's go

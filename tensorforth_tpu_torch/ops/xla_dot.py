@@ -38,6 +38,18 @@ blocks.  It was probed on one such host (`PROBED_HOST`: AVX-512, L1d 48
 KiB, L2 1 MiB, L3 32 MiB); on another the replay stands down.  The
 process's CPU affinity (1, 4 or 8 cores) moved no bit.
 
+Small dots read one by one (`READ`), each held bit for bit against a
+jitted `jnp.dot` of its shape and layout on random inputs: t4_32a's (64,
+5, 3) with b transposed and (64, 5, 2), which XLA runs on its runtime's
+dot, read with the pair probe (((p0 + p1) + (p2 + p3)) + p4: the four
+chains of the rule above with the fifth product apart, though k is no
+multiple of four), and (64, 3, 5), which XLA emits as an elemental loop
+(its LLVM IR in the dump): columns 0 to 3 as rounded products summed
+from +0 (a vector multiply, then adds), column 4 as a fused multiply-add
+chain from +0 (the scalar remainder), so each column group is a plan of
+its own (`READ`).  Other shapes with k off the chains' multiples
+are no such rule: probed at m 51 to 256 they give other trees.
+
 Where no class was probed bit for bit, `order` gives None and the dot is
 torch's: k not a multiple of the chains in the first rule, four chains
 past k 2048, two past 1024, one past 4096; one chain past k 64 or n 512
@@ -95,6 +107,13 @@ _SRC = Path(__file__).resolve().parent / "csrc" / "xla_dot.cpp"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "xla_dot"
 # the host the order was probed on: ISA and (L1d, L2, L3) bytes
 PROBED_HOST = ("avx512f", (48 << 10, 1 << 20, 32 << 20))
+# the small dots read one by one: (m, k, n, a_t, b_t) -> the plans of its
+# column groups, (first column, end, kc, nch) each (the module docstring);
+# nch 4 at k 3 is no whole chain: the three products rounded and summed
+# from +0
+READ = {(64, 5, 3, False, True): ((0, 3, 5, 4),),
+        (64, 5, 2, False, False): ((0, 2, 5, 4),),
+        (64, 3, 5, False, False): ((0, 4, 3, 4), (4, 5, 3, 1))}
 
 
 def order(m: int, k: int, n: int, a_t: bool = False,
@@ -237,13 +256,21 @@ def mm(a, b):
     (m, k), n = a.shape, b.shape[1]
     if fused_order(m, k, n) is not None and not _transposed(b):
         return fused_mm(a, b)
-    plan = order(m, k, n, _transposed(a), _transposed(b))
-    lib = _lib() if plan is not None else None
+    a_t, b_t = _transposed(a), _transposed(b)
+    plan = order(m, k, n, a_t, b_t)
+    groups = ((0, n, *plan),) if plan is not None else READ.get(
+        (m, k, n, a_t, b_t))
+    lib = _lib() if groups is not None else None
     if lib is None:
         return None
-    a, b = a.contiguous(), b.contiguous()
+    a = a.contiguous()
     c = torch.empty((m, n), dtype=torch.float32)
-    if lib.t4_xla_dot(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, k, n,
-                      *plan) != 0:
-        return None
+    for j0, j1, kc, nch in groups:
+        bj = b[:, j0:j1].contiguous()
+        cj = c if j1 - j0 == n else torch.empty((m, j1 - j0))
+        if lib.t4_xla_dot(a.data_ptr(), bj.data_ptr(), cj.data_ptr(), m, k,
+                          j1 - j0, kc, nch) != 0:
+            return None
+        if cj is not c:
+            c[:, j0:j1] = cj
     return c

@@ -3,8 +3,8 @@ csrc/flash_bwd.cu) as far as the CPU can hold them.
 
 On the card a cluster of dh / 128 CTAs (5 to 8) splits dh: each forms s2
 (and in the backward dp) over its 128 columns, and the partials, each
-rounded to f32, are added in f32 in a tree of pairs over three rounds,
-((x0 + x1) + (x2 + x3)) + x4 at five CTAs up to ((x0 + x1) + (x2 + x3)) +
+rounded to f32, are added in f32 in the order of a tree of pairs (each
+quad's owner adds them so in Xrs's reduce-scatter), ((x0 + x1) + (x2 + x3)) + x4 at five CTAs up to ((x0 + x1) + (x2 + x3)) +
 ((x4 + x5) + (x6 + x7)) at eight (ops.attn.cluster_sum).  Here that
 order, in both classes, holds the class's tolerance against f64 and
 against the JAX package's Pallas kernels in interpret mode at [1, 512,
@@ -45,12 +45,13 @@ def _tree(parts):
 
 @pytest.mark.parametrize("cl", [5, 6, 7, 8])
 def test_every_rank_forms_the_same_bits(cl):
-    """three rounds: each CTA adds the sums of the blocks beside its own
-    (1, 2, then 4 ranks) to its own, and an f32 sum of two terms
+    """the tree of pairs: each rank adds the sums of the blocks beside its
+    own (1, 2, then 4 ranks) to its own, and an f32 sum of two terms
     commutes, so every rank's sum is the same bits: ((x0 + x1) + (x2 +
-    x3)) + x4 at five CTAs, ... + ((x4 + x5) + x6) at seven.  That is
-    not the left-to-right sum, on some of 2^16 elements: the order is the
-    kernel's, not any order."""
+    x3)) + x4 at five CTAs, ... + ((x4 + x5) + x6) at seven, the order
+    Xrs's owners add in (one slot and four barriers in the f32 class).
+    That is not the left-to-right sum, on some of 2^16 elements: the
+    order is the kernel's, not any order."""
     rs = np.random.RandomState(cl)
     parts = [torch.from_numpy(rs.randn(1 << 16).astype(np.float32))
              for _ in range(cl)]
@@ -61,7 +62,7 @@ def test_every_rank_forms_the_same_bits(cl):
     for p in parts[1:]:
         left = left + p
     assert not torch.equal(sums[0], left)
-    assert attn.xch_rounds(cl) == 3 and attn.xch_barriers(cl) == 4
+    assert attn.exchange_barriers(cl) == attn.xrs_barriers(1) == 4
 
 
 @pytest.mark.parametrize("dh", DHS)
@@ -122,8 +123,8 @@ def test_plans_take_the_cluster_route_the_source_builds(dh, hybrid):
     tiles of its class over its 128 columns and Xrs's exchange (the f32
     class one 32 KB slot and four barriers: the two rounds' receipts and
     reads; the hybrid class two slots and the two receipts); the f32
-    class's forward on the same cluster (Xch: `full` and one barrier a
-    round of three); the hybrid forward on the wide route's pair
+    class's forward on the same cluster (Xrs with one slot: four
+    barriers); the hybrid forward on the wide route's pair
     of CTAs (four warpgroups each, tests/test_torch_fwd_wide_bf16.py);
     each route's shared memory is the source's static_assert, under 227
     KB; the grid is cluster x B*h x S / rows CTAs; the C entries take the
@@ -144,7 +145,7 @@ def test_plans_take_the_cluster_route_the_source_builds(dh, hybrid):
     for kernel in ("DKV", "DQ", "BWD_CL"):
         assert (f"if (dh == {dh} && parts == {parts}) return "
                 f"T4_{kernel}({dh}, {parts}, {cl});") in src
-    assert "CL >= 1 && CL <= 8" in _source("sm90_gemm.cuh")
+    assert "CL >= 3 && CL <= 8" in _source("sm90_gemm.cuh")
     if hybrid:
         assert (fwd.cluster, fwd.warpgroups, fwd.v_stages) == (2, 4, 1)
         assert (fwd.bq, fwd.bkv) == attn.WIDE_TILES == (64, 32)
@@ -158,8 +159,8 @@ def test_plans_take_the_cluster_route_the_source_builds(dh, hybrid):
     assert fwd.cluster == cl
     assert (fwd.bq, fwd.bkv) == attn.FWD_TILES[128] == (128, 64)
     assert fwd.ctas == cl * 16 * 2048 // 128
-    # the dh-512 route's budget and one more 8-byte barrier
-    assert fwd.smem == 230448 + 8
+    # the dh-128 tiles, the 32 KB slot and Xrs's four barriers
+    assert fwd.smem == 230456
     assert (f"Fwd<{dh}, {parts}, {cl}>::SMEM == {fwd.smem}"
             in _source("flash_fwd.cuh"))
     for kernel in ("FWD", "FWD_CL"):

@@ -185,7 +185,8 @@ def test_plans_take_the_cluster_route_the_source_builds(dh, hybrid):
     128 CTAs, each with the dh-128 tiles of its class over its 128
     columns and Xrs's exchange (the f32 class one 32 KB slot and four
     barriers, the hybrid class two slots and two barriers); the f32
-    class's forward on the same cluster; the hybrid forward on the wide route
+    class's forward on the same cluster and Xrs's exchange (one slot and
+    four barriers); the hybrid forward on the wide route
     (one CTA of dh / 128 warpgroups, tests/test_torch_fwd_wide_bf16.py);
     each route's shared memory is the source's static_assert, under 227
     KB; the grid is cluster x B*h x S / rows CTAs"""
@@ -215,7 +216,7 @@ def test_plans_take_the_cluster_route_the_source_builds(dh, hybrid):
     assert fwd.cluster == cl
     assert (fwd.bq, fwd.bkv) == attn.FWD_TILES[128] == (128, 64)
     assert fwd.ctas == cl * 16 * 2048 // 128
-    assert fwd.smem == 230448
+    assert fwd.smem == 230456
     assert (f"Fwd<{dh}, {parts}, {cl}>::SMEM == {fwd.smem}"
             in _source("flash_fwd.cuh"))
     assert (f"if (dh == {dh} && parts == {parts}) return "

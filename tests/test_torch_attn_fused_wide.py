@@ -129,19 +129,20 @@ def test_plan_takes_the_cluster_route_the_source_builds(dh, hybrid):
     """both classes at dh 384 to 1024: a cluster of dh / 128 CTAs, 64-row
     KV tiles, the parts of the class; the shared memory the plan passes is
     the source's static_assert (the f32 class: the dh-256 route's 230,952
-    bytes and a barrier a round more; the hybrid class: one part of each
-    tile, K's and V's space at the 64 KB that warpgroup 1's sums pass
-    through), under 227 KB; the grid counts every CTA; the C entry routes
-    the dh to that instance"""
+    bytes and Xrs's two barriers more, its one slot holding ds^T once
+    read; the hybrid class: one part of each tile, K's and V's space at
+    the 64 KB that warpgroup 1's sums pass through, Xrs's two slots and
+    two barriers, ds^T's part beside them), under 227 KB; the grid counts
+    every CTA; the C entry routes the dh to that instance"""
     cl, parts = dh // 128, 1 if hybrid else 3
     plan = attn.fused_plan(4, 2048, 1024, True, hybrid, dh)
     assert (plan.cluster, plan.kv_tile, plan.parts) == (cl, 64, parts)
     assert attn.fused_cluster(dh, hybrid) == attn.bwd_cluster(dh, hybrid)
     assert plan.ctas == cl * 4 * len(plan.items)
     assert plan.smem == attn.fused_smem(dh, parts) <= gemm.SM90_SMEM_LIMIT
-    want = {3: 230952 + 8 * attn.xch_rounds(cl) - 8,
-            1: 1024 + 65536 + 2 * 16384 + 32768 + 512
-            + 8 * (3 + attn.xch_barriers(cl))}[parts]
+    want = {3: 230952 + 8 * 2,
+            1: 1024 + 65536 + 2 * 16384 + 2 * 32768 + 8192 + 512
+            + 8 * (3 + attn.xrs_barriers(2))}[parts]
     assert plan.smem == want
     src = _source()
     suffix = "" if parts == 3 else ", 1"

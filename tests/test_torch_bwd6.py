@@ -163,8 +163,8 @@ def test_split_ref_takes_the_products_of_the_parts():
 def test_bwd_plan_fits_an_sm_and_matches_the_source(dh, hybrid):
     """both kernels' plans stay under 227 KB a CTA and follow flash_bwd.cu's
     Bwd; dh 256 in the f32 class takes a cluster of two CTAs that split
-    dh, each with the dh-128 f32 tiles, the exchange slot and its two
-    barriers (1,024 + 196,608 + 32,768 + 512 + 40 = 230,952 bytes for
+    dh, each with the dh-128 f32 tiles, the exchange slot and Xch's two
+    barriers, full and empty (1,024 + 196,608 + 32,768 + 512 + 40 = 230,952 bytes for
     dK/dV); dh 384 to 1024, both classes, clusters of dh / 128 CTAs with
     the dh-128 tiles of the class and Xrs's exchange: the f32 class one
     slot and four barriers (two rounds' receipts and reads), the hybrid
@@ -196,7 +196,7 @@ def test_bwd_plan_fits_an_sm_and_matches_the_source(dh, hybrid):
     assert plan.dkv.smem == plan.dq.smem + 2 * st * tile * 4
     assert plan.dkv._replace(smem=0) == plan.dq._replace(smem=0)
     assert plan.dq.ctas == cluster * 64 * 2048 // 64
-    assert ("(CL == 1   ? 0\n       : CL == 2 ? 1 + Xch<2, NT>::ROUNDS\n"
+    assert ("(CL == 1   ? 0\n       : CL == 2 ? Xch<NT>::NBAR\n"
             "                 : Xrs<CL < 3 ? 3 : CL, NT, 0, SLOTS>::NBAR)"
             ) in src
     if cluster == 2:

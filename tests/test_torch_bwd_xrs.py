@@ -1,9 +1,14 @@
-"""The backward's balanced exchange at dh 384 to 1024 (K2a and K2b on
-clusters of dh / 128 CTAs, csrc/sm90_gemm.cuh: Xrs) as far as the CPU can
-hold it.
+"""The clusters' balanced exchange at dh 384 to 1024 (csrc/sm90_gemm.cuh:
+Xrs) as far as the CPU can hold it, for its three users on clusters of dh
+/ 128 CTAs: K2a and K2b (flash_bwd.cu), K1's f32 class (flash_fwd.cuh)
+and K3 in both classes (flash_bwd_fused.cu).
 
-Each CTA of the cluster forms a tile's s2 and dp over its 128 columns of
-dh: 32 partial floats a thread, 8 quads.  Two rounds add them: a
+Each CTA of the cluster forms a tile's s2 and dp (K1: its s2 over 64
+keys) over its 128 columns of dh: 32 partial floats a thread, 8 quads.
+K1 sends all 8 once its score products are done and has one slot; K3
+keeps ds^T's parts in its one slot once round 2 is read (the f32 class)
+and signals that read after its dq products, or has two slots and a
+place of its own for ds^T (the hybrid class).  Two rounds add them: a
 reduce-scatter, in which each quad's owner (quad q of warp w's threads
 belongs to CTA (q + w) mod CL) receives every peer's partial of it in its
 pool and adds the cluster's partials in cluster_sum's order, and an
@@ -12,16 +17,20 @@ all-gather of the owners' sums.  Here the model of that schedule
 simulated pools and planes: every quad has one owner and every CTA some
 of each thread's, a round's stores fit a slot without overlap, no rank
 stores to itself, and every rank leaves with cluster_sum's bits (random
-partials, and crafted ones whose sum shows the tree).  The plans agree
-with the source's static_asserts, and the f32 class's plain version with
+partials, and crafted ones whose sum shows the tree), for each user's
+slots and ds^T's place.  The plans agree with the source's
+static_asserts, and the f32 class's plain version with
 its scores formed through the simulated exchange holds the JAX package's
 Pallas backward in interpret mode at [1, 512, dh].  The kernel's own Xrs,
 cut out of its header and built by g++ for the host, runs a simulated
-cluster of 256 threads a CTA (tests/xrs_sim.cpp).  Inputs come from numpy
+cluster of 256 threads a CTA as each user calls it (tests/xrs_sim.cpp),
+and with K3's free-arrival moved before its ds^T stores it corrupts the
+sums.  Inputs come from numpy
 seeds; the tolerance is tests/test_torch_attn_dh512.py's (2e-4 absolute
 plus relative).
 """
 import os
+import re
 import shutil
 import subprocess
 
@@ -37,6 +46,25 @@ from tests.test_torch_threads import one_torch_thread  # noqa: F401
 CLS = (3, 4, 5, 6, 7, 8)
 NQ, NW = attn.XRS_QUADS, attn.XRS_WARPS
 THREADS = 256                    # a CTA: two warpgroups of four warps
+# the exchange's users: (kernel, hybrid class)
+USERS = (("k2", False), ("k2", True), ("k1", False), ("k3", False),
+         ("k3", True))
+USER_IDS = [f"{k}-{'hybrid' if hy else 'f32'}" for k, hy in USERS]
+DS_BYTES = 3 * 64 * 64 * 2       # K3's ds^T, three bf16 parts [64, 64]
+
+
+def _layout(user, hybrid):
+    """a user's exchange in a CTA's shared memory, bytes from the first
+    slot: (slots, ds^T's region or None); K1's forward has no hybrid
+    class on this route (it takes the wide route there)"""
+    slots = attn.xrs_slots(hybrid)
+    slot = attn.BWD_EXCHANGE
+    assert attn.FWD_EXCHANGE == attn.FUSED_EXCHANGE == slot == 32768
+    if user != "k3":
+        return slots, None
+    parts = 1 if hybrid else 3
+    ds = parts * DS_BYTES // 3
+    return slots, ((0, ds) if slots == 1 else (2 * slot, 2 * slot + ds))
 
 
 @pytest.mark.parametrize("cl", CLS)
@@ -57,14 +85,29 @@ def test_every_quad_has_one_owner_and_every_cta_some(cl):
     assert max(totals) - min(totals) <= NW
 
 
+@pytest.mark.parametrize("user,hybrid", USERS, ids=USER_IDS)
 @pytest.mark.parametrize("cl", CLS)
-def test_a_rounds_stores_fit_the_slot(cl):
+def test_a_rounds_stores_fit_the_slot(cl, user, hybrid):
     """round 1: no rank stores to itself; each owner's pool takes every
     peer's partial of each quad it owns, each at a warp-plane of its own,
     below the slot's 64 (60 at most); round 2: each thread takes the sums
     of the quads it does not own, from their owners, at the quads' own
     planes; a thread stores 5 to 7 quads in round 1 and (CL - 1) times its
-    owned quads in round 2, every store 16 bytes"""
+    owned quads in round 2, every store 16 bytes.  Per user: the slots
+    hold both rounds (one slot: the same bytes in turn; two: round 2 in
+    the second); K3's ds^T (f32: 24 KB) lies in its one slot over the
+    round-1 pool, so the peers' next round 1 must wait for its last
+    reader, or (hybrid) past both slots, where no message lands"""
+    slots, ds = _layout(user, hybrid)
+    slot = attn.BWD_EXCHANGE
+    plane, wplane = THREADS * 16, 32 * 16
+    assert NQ * plane == slot == attn.XRS_POOL * wplane
+    r2 = (slots - 1) * slot            # where round 2's planes start
+    if ds is not None and slots == 1:
+        assert ds == (0, DS_BYTES) and DS_BYTES <= slot
+    elif ds is not None:
+        assert ds[0] >= 2 * slot and ds[1] - ds[0] == DS_BYTES // 3
+    assert attn.exchange_barriers(cl, slots) == (4 if slots == 1 else 2)
     for j in range(cl):
         pool = {}
         for r in range(cl):
@@ -87,6 +130,14 @@ def test_a_rounds_stores_fit_the_slot(cl):
         assert max(pool) < attn.XRS_POOL and len(pool) <= 60
         assert sorted(pool) == list(range(len(pool)))
         assert len(pool) == 2 * attn.xrs_span(cl, j)
+        # the bytes each round writes in CTA j: round 1's pool from the
+        # slot's start, round 2's planes from r2 on
+        one = (0, len(pool) * wplane)
+        two = (r2, r2 + slot)
+        assert one[1] <= slot and two[1] <= slots * slot
+        if ds is not None:
+            assert (ds[0] < one[1]) == (slots == 1)
+            assert (ds[0] < two[1]) == (slots == 1)
 
 
 def _exchange(parts, rank):
@@ -180,14 +231,41 @@ def test_crafted_partials_show_the_tree(cl):
 
 
 @pytest.mark.parametrize("dh", [384, 512, 640, 768, 896, 1024])
-@pytest.mark.parametrize("hybrid", [False, True], ids=["f32", "hybrid"])
-def test_plans_match_the_exchanges_budget(dh, hybrid):
-    """bwd_plan at dh 384 to 1024: the f32 class one 32 KB slot and four
-    exchange barriers (two receipts, two reads), 230,968 bytes for dK/dV;
-    the hybrid class two slots and two barriers, 165,944; dQ 512 (1,024)
-    bytes less (no lse and delta rows); each is the source's
-    static_assert and under the 232,448 bytes a CTA may have"""
+@pytest.mark.parametrize("user,hybrid", USERS, ids=USER_IDS)
+def test_plans_match_the_exchanges_budget(dh, user, hybrid):
+    """K2: bwd_plan at dh 384 to 1024: the f32 class one 32 KB slot and
+    four exchange barriers (two receipts, two reads), 230,968 bytes for
+    dK/dV; the hybrid class two slots and two barriers, 165,944; dQ 512
+    (1,024) bytes less (no lse and delta rows).  K1: fwd_plan's f32 class
+    the dh-128 tiles, one slot and four barriers, 230,456 bytes (its
+    hybrid class the wide route, no Xrs).  K3: fused_smem's f32 class
+    the dh-256 route's 230,952 bytes and two barriers more, 230,968; its
+    hybrid class two slots, ds^T's part and two barriers, 173,608.  Each
+    is the source's static_assert and under the 232,448 bytes a CTA may
+    have"""
     cl, parts = dh // 128, 1 if hybrid else 3
+    if user == "k1":
+        plan = attn.fwd_plan(16, 2048, dh, hybrid)
+        src = _source("flash_fwd.cuh")
+        if hybrid:
+            assert plan.cluster in (1, 2) and "Xrs" not in src[
+                src.index("struct Wide"):]
+            return
+        assert (plan.cluster, plan.smem) == (cl, 230456)
+        assert f"Fwd<{dh}, 3, {cl}>::SMEM == 230456" in src
+        assert "Xrs<CL < 3 ? 3 : CL, NT, 0, 1>::NBAR" in src
+        assert plan.smem <= gemm.SM90_SMEM_LIMIT
+        return
+    if user == "k3":
+        smem = attn.fused_smem(dh, parts)
+        assert smem == (173608 if hybrid else 230968)
+        assert attn.fused_plan(16, 2048, 1024, True, hybrid, dh).smem == smem
+        suffix = ", 1" if hybrid else ""
+        src = _source("flash_bwd_fused.cu")
+        assert f"F6<{cl}{suffix}>::SMEM == {smem}" in src
+        assert "SLOTS = CL > 2 && NP == 1 ? 2 : 1" in src
+        assert smem <= gemm.SM90_SMEM_LIMIT
+        return
     bwd = attn.bwd_plan(16, 2048, dh, hybrid)
     assert bwd.dq.cluster == bwd.dkv.cluster == cl
     assert attn.xrs_slots(hybrid) == (2 if hybrid else 1)
@@ -225,17 +303,22 @@ def test_split_ref_through_the_exchange_holds_pallas(dh, causal,
     assert _ratio(got, want, TOL_BWD) <= 1
 
 
-def test_the_kernels_exchange_on_a_simulated_cluster(tmp_path):
+@pytest.mark.parametrize("mode", ["k2", "k1", "k3", "k3-early"])
+def test_the_kernels_exchange_on_a_simulated_cluster(tmp_path, mode):
     """the source's Xrs itself (sm90_gemm.cuh, from its comment to the
     per-rank macro), built by g++ against host stand-ins for shared
-    memory, mbarriers and st.async (tests/xrs_sim.cpp): at every cluster
-    size 3 to 8, one slot and two, 32 threads a CTA over 4 tiles, every
-    rank's floats come back as the tree's sum, no wait hangs and every
-    piece is aligned"""
+    memory, mbarriers and st.async (tests/xrs_sim.cpp), called as each
+    user calls it: at every cluster size 3 to 8 (K2 and K3 one slot and
+    two, K1 one), 256 threads a CTA over 4 tiles, every rank's floats come
+    back as the tree's sum, K3's ds^T as written, no wait hangs and every
+    piece is aligned; with K3's free-arrival before its ds^T stores
+    (k3-early, rank 0 held until the peers' next round 1 has landed in
+    its slot) ds^T overwrites their partials, and the sums come back
+    wrong at every cluster size"""
     gxx = shutil.which("g++")
     assert gxx is not None, "g++ builds the simulation"
     src = _source("sm90_gemm.cuh")
-    a = src.index("// ---- the backward's balanced exchange (Xrs)")
+    a = src.index("// ---- the clusters' balanced exchange (Xrs)")
     b = src.index("// `stmt` with `xr` the CTA's Xrs")
     (tmp_path / "xrs_body.h").write_text(src[a:b])
     sim = os.path.join(os.path.dirname(__file__), "xrs_sim.cpp")
@@ -243,9 +326,14 @@ def test_the_kernels_exchange_on_a_simulated_cluster(tmp_path):
     subprocess.run([gxx, "-std=c++17", "-O0", "-pthread", "-I",
                     str(tmp_path), "-o", str(exe), sim], check=True,
                    capture_output=True)
-    run = subprocess.run([str(exe)], capture_output=True, text=True,
-                         timeout=120)
+    run = subprocess.run([str(exe), mode], capture_output=True, text=True,
+                         timeout=300)
     lines = run.stdout.splitlines()
     assert run.returncode == 0, run.stdout + run.stderr
-    assert len(lines) == 12 and all(ln.endswith(": 0 mismatches")
-                                    for ln in lines)
+    assert len(lines) == (6 if mode in ("k1", "k3-early") else 12)
+    counts = [tuple(int(x) for x in re.findall(r"(\d+) (?:mismatches|ds)",
+                                              ln)) for ln in lines]
+    if mode == "k3-early":
+        assert all(sums > 0 for sums, _ in counts), lines
+    else:
+        assert all(c == (0, 0) for c in counts), lines

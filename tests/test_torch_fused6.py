@@ -269,8 +269,8 @@ def test_each_routes_shared_memory_fits_and_matches_the_source():
     """every route stays under a block's 227 KB, and the bytes the plan
     passes are the source's: F6 (K, V, Q, dO in three parts of 64 rows of
     the CTA's 128 columns, ds^T's three parts, lse, delta, three
-    barriers), on a cluster with ds^T's parts inside the 32 KB exchange
-    slot and its barriers (`full` and one a round: the cluster's budget,
+    barriers), on a pair with ds^T's parts inside the 32 KB exchange
+    slot and Xch's two barriers (`full` and `empty`: the cluster's budget,
     which the source states), and Hy"""
     with open(SRC) as f:
         src = f.read()
@@ -284,8 +284,9 @@ def test_each_routes_shared_memory_fits_and_matches_the_source():
     assert attn.FUSED_EXCHANGE == 256 * 32 * 4 >= 3 * 64 * 64 * 2
     assert "SMEM = ALIGN + KV + 2 * TILE + DS + 2 * ROWS +" in src
     assert "(3 + XBAR) * 8" in src
-    assert "DS = CL > 1 ? XCH : NP * DS_PART" in src
-    assert "XCH = HT * 32 * 4" in src
+    assert "DS = CL > 1 && SLOTS == 1 ? XCH : XCH + NP * DS_PART" in src
+    assert "XCH = CL > 1 ? SLOTS * HT * 32 * 4 : 0" in src
+    assert "CL == 2 ? Xch<HT>::NBAR" in src
     assert 'static_assert(F6<2>::SMEM == 230952, "the cluster\'s budget")' \
         in src
     assert "PART = 2 * BOX" in src and "TILE = NP * PART" in src
@@ -320,13 +321,16 @@ def test_no_fma_body_is_left_at_dh128():
     body = code[start:code.index("struct Fused", start)]
     assert "score6<NP>" in body and "grad6<NP>" in body
     assert "wgmma_64<1, 1>" in body
-    for step in ("cluster_sync()", "xch_send_dp(xc, dp, it)",
-                 "xch_sum_scores<false>(xc, s, dp, it)",
-                 "xc.read(xc.ROUNDS)", "xc.drain(it)"):
+    for step in ("cluster_sync()", "xch_send_dp(Xch<HT>{xslot, xfull}",
+                 "xch_sum_scores<false>(Xch<HT>{xslot, xfull}",
+                 "Xch<HT>{xslot, xfull}.read()",
+                 "Xch<HT>{xslot, xfull}.drain(it)", "xr.send_dp(dp, it)",
+                 "xr.sum(s, dp, it)", "xr.read(it, n_pairs)"):
         assert step in body
     # the last round's read follows the dq products, the last readers of
-    # ds^T in the slot
-    assert body.index("wgmma_64<1, 1>") < body.index("xc.read(xc.ROUNDS)")
+    # ds^T in the slot (Xch's pair, and Xrs's one slot)
+    for read in ("Xch<HT>{xslot, xfull}.read()", "xr.read(it, n_pairs)"):
+        assert body.index("wgmma_64<1, 1>") < body.index(read)
 
 
 def _meta(*shape, dtype=torch.bfloat16):

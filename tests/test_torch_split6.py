@@ -214,9 +214,9 @@ def test_fwd_plan_fits_an_sm_and_matches_the_source(dh, hybrid):
     """the forward's plan stays under 227 KB in both classes, and its tiles
     are the ones flash_fwd.cu's Fwd is built with; the f32 class at dh
     384 to 1024 takes a cluster of dh / 128 CTAs, each with the dh-128
-    tiles over its columns, the exchange slot and its barriers (`full`
-    and one a round of the cluster's sum: two rounds at 3 and 4 CTAs,
-    three at 5 to 8); the hybrid class there the wide route (Wide: a
+    tiles over its columns, the exchange slot and Xrs's four barriers
+    (with one slot: the two rounds' receipts and reads); the hybrid class
+    there the wide route (Wide: a
     warpgroup per 128 columns, four a CTA, a pair of CTAs past dh 512)"""
     plan = attn.fwd_plan(64, 2048, dh, hybrid)
     assert plan.smem <= gemm.SM90_SMEM_LIMIT == 232448
@@ -245,8 +245,7 @@ def test_fwd_plan_fits_an_sm_and_matches_the_source(dh, hybrid):
     assert plan.ctas == cluster * 64 * 2048 // plan.bq
     cols = dh // cluster
     tiles = plan.parts * (plan.bq + 2 * plan.stages * plan.bkv) * cols * 2
-    xch, bars = ((32768, 3 if cluster <= 4 else 4) if cluster > 1
-                 else (0, 0))
+    xch, bars = (32768, 4) if cluster > 1 else (0, 0)
     assert plan.smem == 1024 + tiles + xch + (1 + 2 * plan.stages + bars) * 8
     assert "DC = D / CL" in src
     assert "BQ = DC == 128 ? 128 : 64" in src

@@ -194,6 +194,74 @@ def test_probe_reads_the_tree_the_replay_sums_in():
     assert replay[0, 16] == 19 and replay[16, 17] == 2  # the tail apart
 
 
+def _forced_where_read(monkeypatch):
+    """the small dots of READ were read on an AVX-512 host (their order is
+    the ISA's kernels', not the caches' blocks): held with the replay
+    forced on wherever the host has that ISA; False elsewhere"""
+    if xla_dot._isa() != "avx512f":
+        return False
+    monkeypatch.setattr(xla_dot, "host_matches", lambda: True)
+    return True
+
+
+@pytest.mark.parametrize("m,k,n,a_t,b_t", sorted(xla_dot.READ), ids=str)
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_small_dots_read_one_by_one_match_xla(m, k, n, a_t, b_t, seed,
+                                              monkeypatch):
+    """t4_32a's forward (64, 5, 3) with b transposed and (64, 5, 2) (the
+    runtime's dot: four chains, the fifth product apart) and its backward
+    dx (64, 3, 5) (an elemental loop: columns 0 to 3 rounded products
+    summed from +0, column 4 a fused multiply-add chain from +0), bit for
+    bit against the jitted dot on randn; no other plan gives those bits
+    (torch's product, one chain, the plain rounded sum)"""
+    if not _forced_where_read(monkeypatch):
+        assert xla_dot.mm(torch.ones(m, k), torch.ones(k, n)) is None
+        return
+    rs = np.random.RandomState(seed + 31)
+    a = rs.randn(m, k).astype(np.float32)
+    b = rs.randn(k, n).astype(np.float32)
+    assert xla_dot.order(m, k, n, a_t, b_t) is None
+    got = xla_dot.mm(_torch_operand(a, a_t), _torch_operand(b, b_t))
+    want = _jax_dot(a, b, a_t, b_t)
+    assert got is not None and np.array_equal(got.numpy(), want)
+    lib = xla_dot._lib()
+    others = []
+    for kc, nch in ((k, 1), (k, 8)):
+        c = torch.empty((m, n))
+        bc = torch.from_numpy(np.ascontiguousarray(b))
+        lib.t4_xla_dot(torch.from_numpy(a).data_ptr(), bc.data_ptr(),
+                       c.data_ptr(), m, k, n, kc, nch)
+        others.append(c.numpy())
+    others.append((torch.from_numpy(a) @ torch.from_numpy(b)).numpy())
+    assert not any(np.array_equal(o, want) for o in others)
+
+
+@pytest.mark.parametrize("m,k,n,a_t,b_t,want", [
+    # four chains of one product each, folded, the fifth apart
+    (64, 5, 3, False, True, {(0, 1): 2, (2, 3): 2, (0, 2): 4, (1, 3): 4,
+                             (0, 4): 5, (3, 4): 5}),
+    (64, 5, 2, False, False, {(0, 1): 2, (2, 3): 2, (0, 2): 4, (1, 3): 4,
+                              (0, 4): 5, (3, 4): 5}),
+    # the dW products of those layers: one chain (the transposed-a class)
+    (3, 64, 5, True, False, {(0, 1): 2, (0, 8): 9, (20, 21): 22,
+                             (0, 63): 64}),
+    (5, 64, 2, True, False, {(0, 1): 2, (0, 8): 9, (20, 21): 22,
+                             (0, 63): 64}),
+])
+def test_pair_probe_reads_the_runtime_dots_trees(m, k, n, a_t, b_t, want,
+                                                monkeypatch):
+    """the pair probe (+2^40 and -2^40 at two products, ones
+    elsewhere) on standalone jitted dots of t4_32a's runtime classes: the
+    trees it prints, which the replay sums in"""
+    probe = _lca_sizes(lambda a, b: _jax_dot(a, b, a_t, b_t), m, k, n)
+    assert {key: probe[key] for key in want} == want
+    if _forced_where_read(monkeypatch):
+        replay = _lca_sizes(lambda a, b: xla_dot.mm(
+            _torch_operand(a, a_t), _torch_operand(b, b_t)).numpy(),
+            m, k, n)
+        assert replay == probe
+
+
 @pytest.mark.parametrize("m,k,n,a_t,b_t", [
     (1, 128, 256, False, False),   # a row whose fused loop was not read
     (256, 3, 30, False, True),     # k not a multiple of the chains
